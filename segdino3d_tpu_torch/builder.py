@@ -1,0 +1,114 @@
+"""Config-driven model assembly, on the config schema of the JAX package.
+
+Counterpart of ``segdino3d_tpu/builder.py:build_model`` for the
+Res16UNet34C + ScanNetQueryDecoder eval path.  Layout knobs of the JAX
+package (``block_edges``, ``stem_gather``) are accepted and ignored: the
+port runs the gather layout, whose parameters are the same.  Decoder
+options the port does not implement raise instead of being ignored.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+
+from segdino3d_tpu_torch.device import resolve_device
+from segdino3d_tpu_torch.models.architecture.segdino3d import SegDINO3D
+from segdino3d_tpu_torch.models.backbone.res16unet import Res16UNet34C
+from segdino3d_tpu_torch.models.backbone.wrapper import SparseBackboneWrapper
+from segdino3d_tpu_torch.models.decoder.query_decoder import \
+    ScanNetQueryDecoder
+from segdino3d_tpu_torch.models.layers import MaskedBatchNorm
+
+
+@dataclass(frozen=True)
+class Capacities:
+    """Static shape capacities the model is built for.  The JAX package's
+    other capacities size its on-device plan engine, which the port (host
+    plans only) does not have."""
+    num_superpoints: int = 2048
+
+
+# decoder options with the one value the port implements
+_DECODER_FIXED = dict(
+    iter_pred=True, attn_mask=True, fix_attention=True,
+    objectness_flag=False, add_dinox_query_ca=True,
+    add_dinox_query_ca_mask=True, add_positional_embedding=True,
+    pos_type="sine", add_box_size_pred=True, box_modulate_ca=True,
+    normalize_box_prediction=True, num_instance_queries=0,
+    num_semantic_queries=0, num_semantic_linears=1, activation_fn="gelu",
+    compute_dtype="float32")
+_DECODER_ARGS = ("num_layers", "num_instance_classes", "num_semantic_classes",
+                 "in_channels", "d_model", "num_heads", "hidden_dim",
+                 "mask_attention_threshold", "dinox_query_ca_mask_threshold",
+                 "temperature")
+# training-only options, without effect on the eval forward
+_DECODER_IGNORED = ("type", "dropout", "use_activation_checkpoint",
+                    "gauss_scale")
+
+
+def build_decoder(cfg: Dict, dinox_dim: int) -> ScanNetQueryDecoder:
+    kwargs = {}
+    for key, value in cfg.items():
+        if key in _DECODER_FIXED:
+            if value != _DECODER_FIXED[key]:
+                raise NotImplementedError(
+                    f"decoder option {key}={value!r} is not ported")
+        elif key in _DECODER_ARGS:
+            kwargs[key] = value
+        elif key not in _DECODER_IGNORED:
+            raise KeyError(f"unknown decoder option {key}")
+    return ScanNetQueryDecoder(dinox_dim=dinox_dim, **kwargs)
+
+
+def build_model(model_cfg: Dict, caps: Capacities, device=None
+                ) -> Tuple[SegDINO3D, Dict]:
+    """(SegDINO3D in eval mode on ``device``, test_cfg).  The device is the
+    card unless the caller names one."""
+    device = resolve_device(device)
+    cfg = dict(model_cfg)
+    if cfg.get("type", "SegDINO3D") not in ("Baseline3D", "SegDINO3D"):
+        raise KeyError(f"unknown architecture {cfg['type']}")
+    bcfg = dict(cfg["pointcloud_backbone_cfg"])
+    if bcfg.get("type") != "Res16UNet34C":
+        raise NotImplementedError(f"backbone {bcfg.get('type')} is not ported")
+    in_channels = bcfg.get("in_channels", 259)
+    voxel_size = bcfg.get("voxel_size", 0.02)
+    unet = Res16UNet34C(in_channels=in_channels,
+                        out_channels=bcfg.get("out_channels", 96),
+                        config=bcfg.get("config"))
+    backbone = SparseBackboneWrapper(
+        unet, voxel_size=voxel_size, s_cap=caps.num_superpoints,
+        mode_fuse_2d_feat=bcfg.get("mode_fuse_2d_feat", "early_fusion"),
+        compute_dtype=bcfg.get("compute_dtype", "float32"))
+    # DINO-X query features share the per-point 2D feature width
+    decoder = build_decoder(dict(cfg["decoder_cfg"]), dinox_dim=in_channels - 3)
+    model = SegDINO3D(backbone, decoder, voxel_size=voxel_size)
+    return model.to(device).eval(), dict(cfg.get("test_cfg", {}))
+
+
+@torch.no_grad()
+def random_init_(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded random weights that stay finite through the full-width U-Net:
+    every kernel is N(0, 1/fan_in) (raw N(0, 1) convs overflow over ~40
+    convs), biases 0, batch-norm running statistics near (0, 1) with a
+    positive variance."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen) * std
+
+    for p in model.parameters():
+        if p.dim() == 3:        # conv kernel (k^3, Cin, Cout)
+            p.copy_(normal(p.shape, (p.shape[0] * p.shape[1]) ** -0.5))
+        elif p.dim() == 2:      # nn.Linear (out, in)
+            p.copy_(normal(p.shape, p.shape[1] ** -0.5))
+    for m in model.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.running_mean.copy_(normal(m.running_mean.shape, 0.1))
+            m.running_var.copy_(0.5 + normal(m.running_var.shape, 1.0).abs())
+        if isinstance(m, nn.Linear) and m.bias is not None:
+            m.bias.zero_()
+    return model
