@@ -9,9 +9,11 @@ Phases, in order; any failure exits non-zero before the result line:
    hand-written kernels (``csrc/*.cu``, one ``nvcc`` each, in parallel) and
    the C++ host-plan library;
 2. hold every kernel against its plain PyTorch version at the main path's
-   shapes, in fp32 and bf16, and time the kernel, the plain version and a
-   PyTorch yardstick with CUDA events;
-3. run the main path at full width: ScanNet200 eval of the flagship
+   shapes, and time the kernel, the plain version and a PyTorch yardstick
+   with CUDA events: the forward kernels K1-K3 in fp32 and bf16; the
+   backward kernels K4 (weight gradients) and K5 (pooling gradient), and
+   K1/K2 in their backward roles, in fp32 at the training shapes;
+3. run the eval path at full width: ScanNet200 eval of the flagship
    SegDINO3D (Res16UNet34C + 6-layer DINO-X query decoder) with seeded
    random weights on a seeded synthetic 120,000-point scene with 1,536
    superpoints: collate -> host plan -> backbone -> decoder ->
@@ -19,7 +21,15 @@ Phases, in order; any failure exits non-zero before the result line:
    each kernel's launches in one forward, and peak memory, checks that
    every output is finite, and holds the card's forward against the CPU's
    plain path on a small scene;
-4. print one ``kernels`` JSON line, then the result line.
+4. run the training path at full width: the flagship recipe's step (host
+   plan -> backbone -> query subsampling -> decoder -> SparseMatcher
+   criterion -> backward -> clip -> AdamW/PolyLR -> EMA) for a few batch-1
+   steps, then one ``accum_steps=4`` step over four seeded scenes (the
+   JAX package's recipe for the reference's batch 4).  It prints s/step,
+   ms per stage, peak memory and each kernel's launches in one step,
+   checks that every loss and the gradient norm are finite, and holds the
+   card's step against the CPU's plain path on a small scene;
+5. print one ``kernels`` JSON line, then the result line.
 
 It needs one card, imports no JAX, and takes its kernels from the
 checkout: run from anywhere else it fails.
@@ -48,6 +58,14 @@ SCENE = dict(n_points=120000, n_instances=24, n_superpoints=1536,
 LEVEL_CAP_RATIOS = (1.0, 0.4, 0.15, 0.06, 0.025)
 TIMED_ITERS = 5
 DEVICE = "cuda"
+# training: the flagship recipe (configs/prototypes/SegDINO3D_ScanNet200.py,
+# configs/schedules/adamw_polylr_3d.py)
+TRAIN_SEEDS = (0, 1, 2, 3)
+TRAIN_STEPS = 3            # measured batch-1 steps, after one warm-up step
+OPTIMIZER = dict(lr=1e-4, weight_decay=0.05)
+SCHEDULER = dict(total_iters=300 * 129, power=0.9)
+CLIP_MAX_NORM, EMA_DECAY = 10.0, 0.9997
+WGRAD_TOL = 1e-4           # K4: |kernel - plain| <= 1e-4 * max |plain|
 
 
 def model_cfg():
@@ -74,6 +92,28 @@ def model_cfg():
                       npoint_thr=100, obj_normalization=True,
                       sp_score_thr=0.4, nms=True,
                       matrix_nms_kernel="linear", stuff_classes=[0, 1]))
+
+
+def train_cfg():
+    """The flagship training config: the eval config plus query
+    subsampling and the criterion of ``configs/models/base_3d.py``."""
+    costs = [dict(type="QueryClassificationCost", weight=0.5),
+             dict(type="MaskBCECost", weight=1.0),
+             dict(type="MaskDiceCost", weight=1.0),
+             dict(type="CenterL1Cost", weight=0.5),
+             dict(type="SizeL1Cost", weight=0.5)]
+    return dict(
+        model_cfg(), query_thr=0.5, mode_3d_center="median",
+        criterion_cfg=dict(
+            type="ScanNetUnifiedCriterion", num_semantic_classes=200,
+            sem_criterion=dict(type="ScanNetSemanticCriterion",
+                               ignore_index=200, loss_weight=0.5),
+            inst_criterion=dict(
+                type="InstanceCriterion",
+                matcher=dict(type="SparseMatcher", topk=1, costs=costs),
+                loss_weight=[0.5, 1.0, 1.0, 0.5, 0.5, 0.5], num_classes=198,
+                non_object_weight=0.1, fix_dice_loss_weight=True,
+                iter_matcher=True, fix_mean_loss=True)))
 
 
 def time_ms(fn, reps=10):
@@ -237,22 +277,143 @@ def kernel_cases(batch, s_cap, gen):
     return cases
 
 
+def wgrad_library(a, ia, b, ib, mirror):
+    """Yardstick for K4: gather each offset's rows, then one batched
+    library GEMM."""
+    table = ia if ia is not None else ib
+    n_off, rows = table.shape
+
+    def side(x, idx):
+        if idx is None:
+            return x[:rows].expand(n_off, -1, -1)
+        xp = torch.cat([x, x.new_zeros(1, x.shape[1])])
+        return xp[torch.where(idx < 0, x.shape[0], idx).long()]
+
+    dw = torch.matmul(side(a, ia).transpose(1, 2), side(b, ib))
+    return dw.flip(0) if mirror else dw
+
+
+def backward_cases(batch, s_cap, gen):
+    """The backward kernels at the training path's shapes, fp32: K4 for
+    the stem, a level-0 k3 conv, a down and an up conv; K5 for the
+    pooling; K1 and K2 in their backward roles."""
+    from segdino3d_tpu_torch.models.backbone.wrapper import \
+        superpoint_segment_ids
+    from segdino3d_tpu_torch.ops import scatter as SS
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    plan = batch.plan
+    lv = plan.levels
+    v0, v1 = lv[0].valid.shape[0], lv[1].valid.shape[0]
+    f32 = torch.float32
+    cases = []
+
+    def live_pairs(ia, ib):
+        live = torch.ones_like((ia if ia is not None else ib), dtype=torch.bool)
+        for t in (ia, ib):
+            if t is not None:
+                live &= t >= 0
+        return int(live.sum())
+
+    def wgrad_case(name, a, ia, b, ib, mirror=False):
+        table = ia if ia is not None else ib
+        n_off, rows = table.shape
+        cin, cout = a.shape[1], b.shape[1]
+        cases.append(("gather_wgrad", name, {f32: (
+            lambda: SC.gather_wgrad(a, ia, b, ib, mirror),
+            lambda: SC.gather_wgrad_plain(a, ia, b, ib, n_off, rows, mirror),
+            lambda: wgrad_library(a, ia, b, ib, mirror),
+            2.0 * live_pairs(ia, ib) * cin * cout,
+            nbytes(a, ia, b, ib) + n_off * cin * cout * 4, "fp32",
+            WGRAD_TOL)}))
+
+    wgrad_case("stem dW k5 259->32 L0 (dY gathered, mirrored)",
+               _randn(gen, (v0, 259), f32), None, _randn(gen, (v0, 32), f32),
+               plan.stem_nbr, mirror=True)
+    wgrad_case("subm dW k3 96->96 L0", _randn(gen, (v0, 96), f32), lv[0].nbr,
+               _randn(gen, (v0, 96), f32), None)
+    wgrad_case("down dW 32->32 L0->L1", _randn(gen, (v0, 32), f32),
+               lv[0].child, _randn(gen, (v1, 32), f32), None)
+    wgrad_case("up dW 96->96 L1->L0", _randn(gen, (v1, 96), f32), None,
+               _randn(gen, (v0, 96), f32), lv[0].child)
+
+    # K1 and K2 in the backward's roles
+    def conv_role(name, x, nbr, w, valid, hits):
+        cases.append(("gather_gemm_conv", name, {f32: (
+            lambda: SC.gather_conv(x, nbr, w, valid),
+            lambda: SC.gather_conv_plain(x, nbr, w, valid),
+            lambda: conv_library(x, nbr, w),
+            2.0 * hits * w.shape[1] * w.shape[2],
+            nbytes(x, nbr, w, valid) + nbr.shape[1] * w.shape[2] * 4,
+            "fp32")}))
+
+    w = _randn(gen, (27, 96, 96), f32, (27 * 96) ** -0.5)
+    conv_role("subm dX k3 96->96 L0 (flipped, transposed W)",
+              _randn(gen, (v0, 96), f32), lv[0].nbr,
+              w.flip(0).transpose(1, 2).contiguous(), lv[0].valid,
+              int((lv[0].nbr >= 0).sum()))
+    every = torch.ones(v1, dtype=torch.bool, device=DEVICE)
+    conv_role("up dX 96->96 L0->L1 over the child table",
+              _randn(gen, (v0, 96), f32), lv[0].child,
+              _randn(gen, (8, 96, 96), f32, 96 ** -0.5), every,
+              int((lv[0].child >= 0).sum()))
+    dy = _randn(gen, (v1, 32), f32)
+    wt = _randn(gen, (8, 32, 32), f32, 32 ** -0.5)
+    fine = lv[0]
+    live = int((fine.valid & (fine.parent >= 0)).sum())
+    cases.append(("up_conv", "down dX 32->32 L1->L0 (transposed W)", {f32: (
+        lambda: SC.up_conv_rows(dy, fine.parent, fine.kpos, fine.up_order,
+                                wt, fine.valid),
+        lambda: SC.up_conv_plain(dy, fine.parent, fine.kpos, wt, fine.valid),
+        lambda: up_library(dy, fine.parent, fine.kpos, wt),
+        2.0 * live * 32 * 32,
+        nbytes(dy, fine.parent, fine.kpos, fine.up_order, wt, fine.valid)
+        + v0 * 32 * 4, "fp32")}))
+
+    # K5: the pooling's gradient into the U-Net output
+    inverse = plan.inverse
+    pvalid = batch.point_valid.reshape(-1)
+    seg = superpoint_segment_ids(batch.superpoint_ids, s_cap)
+    vox_csr = SS.segment_csr(inverse, v0, pvalid)
+    g = _randn(gen, (s_cap, 96), f32)
+    keep = pvalid & (inverse >= 0)
+    vidx, sidx = inverse[keep].long(), seg[keep].long()
+    n_members = int(keep.sum())
+    cases.append(("segment_grad", "pool backward (1,536,96)->(V0,96)", {f32: (
+        lambda: SS.segment_grad(g, seg, s_cap, inverse, pvalid, vox_csr),
+        lambda: SS.segment_grad_plain(g, seg, s_cap, inverse, pvalid, v0),
+        lambda: g.new_zeros(v0, 96).index_add_(0, vidx, g[sidx]),
+        float(n_members * 96),
+        nbytes(g, seg, *vox_csr) + v0 * 96 * 4, "fp32")}))
+    return cases
+
+
 def check_kernels(cases):
     """Compare, then time; returns per-kernel rows (headline = first case
-    of each kernel, fp32) and the max error over each kernel's cases."""
+    of each kernel, fp32) and the max error over each kernel's cases.  A
+    case's ``per`` maps a dtype to (kernel_fn, plain_fn, library_fn, ops,
+    bytes, peak) and optionally a 7th entry, a tolerance relative to
+    ``max |plain|`` (for long fp32 reductions)."""
     rows = {}
     for kernel, name, per in cases:
-        for dt, (kfn, pfn, lfn, ops, byts, peak) in per.items():
+        for dt, (kfn, pfn, lfn, ops, byts, peak, *rel) in per.items():
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            tol = TOL[dt]
-            ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+            if rel:
+                atol = rel[0] * float(want.float().abs().max())
+                ok = err <= atol
+                tol_text = f"atol={rel[0]:g} x max|plain| = {atol:.3e}"
+            else:
+                tol = TOL[dt]
+                ok = torch.allclose(got.float(), want.float(), rtol=tol,
+                                    atol=tol)
+                tol_text = f"rtol=atol={tol:g}"
             k_ms, p_ms, l_ms = time_ms(kfn), time_ms(pfn, 3), time_ms(lfn, 3)
             b_ms, b_by = bound(ops, byts, peak)
             dts = str(dt).replace("torch.", "")
             print(f"kernel {kernel} [{name}] {dts}: max_abs_err={err:.3e} "
-                  f"(rtol=atol={tol:g}) {'ok' if ok else 'MISMATCH'}; "
+                  f"({tol_text}) {'ok' if ok else 'MISMATCH'}; "
                   f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
                   f"library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
                   flush=True)
@@ -286,7 +447,8 @@ def counters():
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
     return {"gather_gemm_conv": SC.gather_conv, "up_conv": SC.up_conv_rows,
-            "segment_mean_gather": SS.segment_mean_gather}
+            "segment_mean_gather": SS.segment_mean_gather,
+            "gather_wgrad": SC.gather_wgrad, "segment_grad": SS.segment_grad}
 
 
 def run_main_path(model, test_cfg, records, spec):
@@ -394,6 +556,165 @@ def check_small_reference(model):
             raise SystemExit(f"card forward disagrees with the CPU on {k}")
 
 
+# --------------------------------------------------------------------------
+# phase 4: the training path
+# --------------------------------------------------------------------------
+
+def numpy_queries(num_superpoints, s_cap, seed):
+    """A query selection made with numpy, so the card and the CPU train on
+    the same queries: valid superpoints in a seeded random order, the
+    first floor((0.5 + 0.5 u) * n_valid) valid (``query_thr`` 0.5)."""
+    rng = np.random.RandomState(seed)
+    n = np.asarray(num_superpoints)
+    valid = np.arange(s_cap)[None, :] < n[:, None]
+    noise = np.where(valid, rng.rand(len(n), s_cap), 2.0)
+    order = np.argsort(noise, axis=-1, kind="stable").astype(np.int32)
+    n_sel = np.floor((0.5 + 0.5 * rng.rand(len(n))) * n).astype(np.int32)
+    return (torch.from_numpy(order),
+            torch.from_numpy(np.arange(s_cap)[None, :] < n_sel[:, None]))
+
+
+def make_train_step(model, accum_steps, ema=True):
+    from segdino3d_tpu_torch.builder import build_criterion
+    from segdino3d_tpu_torch.parallel.train_step import TrainStep
+    from segdino3d_tpu_torch.train.ema import EMA
+    from segdino3d_tpu_torch.train.optim import build_optimizer
+
+    opt = build_optimizer(model.named_parameters(), OPTIMIZER, SCHEDULER,
+                          clip_max_norm=CLIP_MAX_NORM)
+    return TrainStep(model, build_criterion(train_cfg()), opt,
+                     EMA(model.named_parameters(), EMA_DECAY) if ema
+                     else None, accum_steps=accum_steps)
+
+
+def check_metrics(metrics, what):
+    vals = {k: float(v) for k, v in metrics.items()}
+    bad = [k for k, v in vals.items() if not np.isfinite(v)]
+    if bad:
+        raise SystemExit(f"{what}: non-finite {bad}: {vals}")
+    return vals
+
+
+def run_training(model, records, spec):
+    """A warm-up and TRAIN_STEPS measured batch-1 steps, then one
+    accum_steps=4 step over four scenes.  Returns (launches in one batch-1
+    step, per-step stage seconds, the accumulated step's stage seconds and
+    launches, peak bytes, metrics)."""
+    from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
+    from segdino3d_tpu_torch.parallel.train_step import StageClock, TrainStep
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    step1 = make_train_step(model, 1)
+    # the accumulated step continues the run: one optimizer and EMA
+    step4 = TrainStep(model, step1.criterion, step1.optimizer, step1.ema,
+                      accum_steps=4)
+
+    def plan(rec):
+        t0 = time.perf_counter()
+        b = attach_host_plan(collate([rec], spec, DEVICE), [rec], spec,
+                             voxel_size=0.02, level_cap_ratios=LEVEL_CAP_RATIOS)
+        torch.cuda.synchronize()
+        return b, time.perf_counter() - t0
+
+    b, _ = plan(records[0])
+    check_metrics(step1([b], generator=gen), "warm-up step")
+    torch.cuda.reset_peak_memory_stats()
+    steps, launches, metrics = [], None, []
+    for i in range(TRAIN_STEPS):
+        b, t_plan = plan(records[i % len(records)])
+        clock = StageClock(torch.cuda.synchronize)
+        for fn in counters().values():
+            fn.launches = 0
+        m = step1([b], generator=gen, clock=clock)
+        if launches is None:
+            launches = {k: fn.launches for k, fn in counters().items()}
+        metrics.append(check_metrics(m, f"batch-1 step {i}"))
+        steps.append(dict(plan=t_plan, **clock.seconds))
+    mbs, t_plan = [], 0.0
+    for rec in records:
+        b, t = plan(rec)
+        mbs.append(b)
+        t_plan += t
+    clock = StageClock(torch.cuda.synchronize)
+    for fn in counters().values():
+        fn.launches = 0
+    m4 = step4(mbs, generator=gen, clock=clock)
+    launches4 = {k: fn.launches for k, fn in counters().items()}
+    metrics.append(check_metrics(m4, "accum_steps=4 step"))
+    accum = dict(plan=t_plan, **clock.seconds)
+    return (launches, steps, accum, launches4,
+            torch.cuda.max_memory_allocated(), metrics)
+
+
+def check_small_train(model):
+    """One train step of the card (kernels) against the CPU's plain path,
+    same weights and queries, on a small sparse scene (500 points per m^2,
+    so every U-Net level keeps enough voxels for well-conditioned batch
+    norms): the losses and the gradient norm (rtol 1e-4), and each leaf's
+    clipped gradient norm (rtol 1e-3, atol 1e-3 x the largest)."""
+    from segdino3d_tpu_torch.data.collate import PadSpec, attach_host_plan, \
+        collate
+    from segdino3d_tpu_torch.data.synthetic import synthetic_scene
+
+    rec = [synthetic_scene(1, n_points=4000, n_instances=6, n_superpoints=128,
+                           n_classes=180, feat_dim_2d=256,
+                           point_density=500.0)]
+    spec = PadSpec(4096, SCENE["n_superpoints"], 16, 16, 200)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        # sparse levels keep most voxels: every level gets the full cap
+        batch = attach_host_plan(collate(rec, spec, dev), rec, spec,
+                                 voxel_size=0.02, level_cap_ratios=(1.0,) * 5)
+        q = numpy_queries(batch.num_superpoints.cpu().numpy(),
+                          SCENE["n_superpoints"], seed=5)
+        metrics = make_train_step(m, 1, ema=False)(
+            [batch], queries=[tuple(t.to(dev) for t in q)])
+        out[dev] = (check_metrics(metrics, f"small step on {dev}"),
+                    {n: float(p.grad.norm()) for n, p in m.named_parameters()})
+    (mc, gc), (mp, gp) = out[DEVICE], out["cpu"]
+    for k in mp:
+        ok = np.isclose(mc[k], mp[k], rtol=1e-4, atol=0)
+        print(f"small-scene train step {k}: card {mc[k]:.6f} cpu {mp[k]:.6f} "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            raise SystemExit(f"card train step disagrees with the CPU on {k}")
+    scale = max(gp.values())
+    worst = max(gp, key=lambda n: abs(gc[n] - gp[n]) / (1e-3 * scale
+                                                        + 1e-3 * gp[n]))
+    bad = [n for n in gp
+           if not np.isclose(gc[n], gp[n], rtol=1e-3, atol=1e-3 * scale)]
+    print(f"small-scene train step: {len(gp)} gradient leaves, worst {worst} "
+          f"card {gc[worst]:.6g} cpu {gp[worst]:.6g} (rtol 1e-3, atol "
+          f"{1e-3 * scale:.3g}) {'ok' if not bad else 'MISMATCH'}",
+          flush=True)
+    if bad:
+        raise SystemExit(f"card gradients disagree with the CPU on {bad[:5]}")
+
+
+def report_training(launches, steps, accum, launches4, peak):
+    expected = {"gather_gemm_conv": 101, "up_conv": 8,
+                "segment_mean_gather": 2, "gather_wgrad": 55,
+                "segment_grad": 1}
+    print(f"launches in one batch-1 train step: {launches} (expected "
+          f"{expected})", flush=True)
+    print(f"launches in one accum_steps=4 step: {launches4}", flush=True)
+    for k in expected:
+        if launches[k] <= 0 or launches4[k] <= 0:
+            raise SystemExit(f"{k}: not launched in the train step")
+    keys = ("plan", "forward", "criterion", "backward", "optimizer")
+    mean = {k: 1e3 * float(np.mean([st[k] for st in steps])) for k in keys}
+    total = [sum(st[k] for k in keys) for st in steps]
+    print(f"train batch 1: {float(np.mean(total)):.4f} s/step over "
+          f"{TRAIN_STEPS} steps (fp32; stages timed with a device sync at "
+          f"each boundary); ms per stage "
+          + ", ".join(f"{k} {v:.2f}" for k, v in mean.items()), flush=True)
+    print(f"train accum_steps=4 (4 scenes x batch 1): "
+          f"{sum(accum[k] for k in keys):.4f} s/step; ms per stage "
+          + ", ".join(f"{k} {1e3 * accum[k]:.2f}" for k in keys), flush=True)
+    print(f"train peak device memory: {peak / 2 ** 30:.3f} GiB", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -438,7 +759,8 @@ def main() -> int:
 
     # phase 2: kernels against their plain versions
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    rows = check_kernels(kernel_cases(batch, SCENE["n_superpoints"], gen))
+    rows = check_kernels(kernel_cases(batch, SCENE["n_superpoints"], gen)
+                         + backward_cases(batch, SCENE["n_superpoints"], gen))
 
     # phase 3: the main path at full width
     caps = Capacities(num_superpoints=SCENE["n_superpoints"])
@@ -467,7 +789,24 @@ def main() -> int:
     check_outputs(bb, out, res, SCENE["n_superpoints"])
     check_small_reference(model)
 
-    # phase 4: the kernels line, then the result line
+    # phase 4: the training path at full width
+    from segdino3d_tpu_torch.data.synthetic import synthetic_scene
+    tmodel, _ = build_model(train_cfg(), caps, train=True)
+    random_init_(tmodel, seed=0)
+    check_small_train(tmodel)
+    train_records = []
+    for seed in TRAIN_SEEDS:
+        rec = synthetic_scene(seed, **SCENE)
+        rec["points_2dfeats"] = rec["points_2dfeats"].astype(np.float16)
+        train_records.append(rec)
+    tspec = PadSpec(SCENE["n_points"], SCENE["n_superpoints"], 64, 128, 200)
+    (train_launches, steps, accum, launches4, train_peak,
+     metrics) = run_training(tmodel, train_records, tspec)
+    report_training(train_launches, steps, accum, launches4, train_peak)
+    print(f"train metrics (finite): first {metrics[0]}, accum_steps=4 "
+          f"{metrics[-1]}", flush=True)
+
+    # phase 5: the kernels line, then the result line
     meta = {
         "gather_gemm_conv": ("segdino3d_tpu_torch/csrc/gather_gemm_conv.cu",
                              "segdino3d_tpu/ops/sparse_conv.py:232"),
@@ -476,13 +815,22 @@ def main() -> int:
         "segment_mean_gather": (
             "segdino3d_tpu_torch/csrc/segment_mean_gather.cu",
             "segdino3d_tpu/ops/scatter.py:27"),
+        "gather_wgrad": ("segdino3d_tpu_torch/csrc/gather_wgrad.cu",
+                         "segdino3d_tpu/ops/sparse_conv.py:305"),
+        "segment_grad": ("segdino3d_tpu_torch/csrc/segment_grad.cu",
+                         "segdino3d_tpu/ops/voxelize.py:115"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         h = rows[name]["headline"]
+        # the eval path's count for the forward kernels, the train step's
+        # for the backward ones; both are printed above
+        main_launches = launches[name] if launches[name] > 0 \
+            else train_launches[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=rows[name]["max_abs_err"],
+            launches=main_launches, launches_train_step=train_launches[name],
+            max_abs_err=rows[name]["max_abs_err"],
             ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
             bound_by=h["bound_by"], library_ms=h["library_ms"],
             shape=h["case"]))

@@ -1,10 +1,11 @@
 """Config-driven model assembly, on the config schema of the JAX package.
 
 Counterpart of ``segdino3d_tpu/builder.py:build_model`` for the
-Res16UNet34C + ScanNetQueryDecoder eval path.  Layout knobs of the JAX
-package (``block_edges``, ``stem_gather``) are accepted and ignored: the
-port runs the gather layout, whose parameters are the same.  Decoder
-options the port does not implement raise instead of being ignored.
+Res16UNet34C + ScanNetQueryDecoder model, with its criterion
+(``build_criterion``).  Layout knobs of the JAX package (``block_edges``,
+``block_edges_train``, ``stem_gather``) are accepted and ignored: the port
+runs the gather layout, whose parameters are the same, in training too.
+Options the port does not implement raise instead of being ignored.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from segdino3d_tpu_torch.device import resolve_device
 from segdino3d_tpu_torch.models.architecture.segdino3d import SegDINO3D
 from segdino3d_tpu_torch.models.backbone.res16unet import Res16UNet34C
 from segdino3d_tpu_torch.models.backbone.wrapper import SparseBackboneWrapper
+from segdino3d_tpu_torch.models.criterion.losses import \
+    ScanNetUnifiedCriterion
 from segdino3d_tpu_torch.models.decoder.query_decoder import \
     ScanNetQueryDecoder
 from segdino3d_tpu_torch.models.layers import MaskedBatchNorm
@@ -63,14 +66,20 @@ def build_decoder(cfg: Dict, dinox_dim: int) -> ScanNetQueryDecoder:
     return ScanNetQueryDecoder(dinox_dim=dinox_dim, **kwargs)
 
 
-def build_model(model_cfg: Dict, caps: Capacities, device=None
-                ) -> Tuple[SegDINO3D, Dict]:
-    """(SegDINO3D in eval mode on ``device``, test_cfg).  The device is the
-    card unless the caller names one."""
+def build_model(model_cfg: Dict, caps: Capacities, device=None,
+                train: bool = False) -> Tuple[SegDINO3D, Dict]:
+    """(SegDINO3D on ``device``, test_cfg); in training mode with
+    ``train``, else in eval mode.  The device is the card unless the
+    caller names one."""
     device = resolve_device(device)
     cfg = dict(model_cfg)
     if cfg.get("type", "SegDINO3D") not in ("Baseline3D", "SegDINO3D"):
         raise KeyError(f"unknown architecture {cfg['type']}")
+    if cfg.get("query_num", -1) > 0:
+        raise NotImplementedError("top-k query selection (query_num > 0) "
+                                  "is not ported")
+    if train and cfg["decoder_cfg"].get("dropout", 0.0):
+        raise NotImplementedError("decoder dropout in training is not ported")
     bcfg = dict(cfg["pointcloud_backbone_cfg"])
     if bcfg.get("type") != "Res16UNet34C":
         raise NotImplementedError(f"backbone {bcfg.get('type')} is not ported")
@@ -85,8 +94,20 @@ def build_model(model_cfg: Dict, caps: Capacities, device=None
         compute_dtype=bcfg.get("compute_dtype", "float32"))
     # DINO-X query features share the per-point 2D feature width
     decoder = build_decoder(dict(cfg["decoder_cfg"]), dinox_dim=in_channels - 3)
-    model = SegDINO3D(backbone, decoder, voxel_size=voxel_size)
-    return model.to(device).eval(), dict(cfg.get("test_cfg", {}))
+    model = SegDINO3D(backbone, decoder, voxel_size=voxel_size,
+                      query_thr=cfg.get("query_thr", 0.5),
+                      mode_3d_center=cfg.get("mode_3d_center", "median"))
+    return model.to(device).train(train), dict(cfg.get("test_cfg", {}))
+
+
+def build_criterion(model_cfg: Dict) -> ScanNetUnifiedCriterion:
+    """The criterion of ``model_cfg["criterion_cfg"]``."""
+    ccfg = dict(model_cfg["criterion_cfg"])
+    if ccfg.pop("type", "ScanNetUnifiedCriterion") != \
+            "ScanNetUnifiedCriterion":
+        raise NotImplementedError(f"criterion {model_cfg['criterion_cfg']} "
+                                  "is not ported")
+    return ScanNetUnifiedCriterion(**ccfg)
 
 
 @torch.no_grad()

@@ -1,4 +1,5 @@
-"""Weight carrier: the JAX package's ``variables`` -> the port's state dict.
+"""Weight carrier between the JAX package's ``variables`` and the port's
+state dict, both ways.
 
 ``variables`` is ``{"params": ..., "batch_stats": ...}`` as nested dicts of
 numpy arrays (``jax.device_get`` of a flax tree).  The port's module names
@@ -15,6 +16,10 @@ mirror the flax names, so one rule maps every leaf:
 
 ``load_jax_variables`` raises unless every leaf lands on exactly one key of
 the model and every key of the model gets one leaf of the same shape.
+``state_dict_to_jax`` is the inverse map (a trained port model's
+``params`` and ``batch_stats`` as the JAX package's nested dicts).  A
+gradient tree of the JAX package maps through ``jax_to_state_dict``
+(``{"params": grads}``) onto the names of the port's ``.grad``s.
 """
 from __future__ import annotations
 
@@ -68,6 +73,38 @@ def jax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                 raise KeyError(f"two JAX leaves map to {key}")
             out[key] = torch.from_numpy(np.array(leaf, copy=True))
     return out
+
+
+def state_dict_to_jax(state_dict: Mapping[str, torch.Tensor]
+                      ) -> Dict[str, Dict]:
+    """The inverse of ``jax_to_state_dict``: {"params", "batch_stats"} as
+    nested dicts of numpy arrays."""
+    stats = {v: k for k, v in _STATS.items()}
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        *mods, name = key.split(".")
+        leaf = value.detach().cpu().numpy()
+        if name in stats:
+            collection, name = "batch_stats", stats[name]
+        else:
+            collection = "params"
+            if name == "weight" and leaf.ndim == 2:
+                name, leaf = "kernel", leaf.T
+            elif name == "weight":
+                name = "scale"
+        path = []
+        for seg in mods:
+            if seg.isdigit():
+                path[-1] = f"{path[-1]}_{seg}"
+            else:
+                path.append(seg)
+        node = out[collection]
+        for seg in path:
+            node = node.setdefault(seg, {})
+        if name in node:
+            raise KeyError(f"two port keys map to {'/'.join(path + [name])}")
+        node[name] = np.ascontiguousarray(leaf)
+    return {k: v for k, v in out.items() if v}
 
 
 def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:

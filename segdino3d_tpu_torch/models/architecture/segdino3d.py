@@ -1,13 +1,15 @@
-"""SegDINO3D architecture, eval branch: backbone -> queries -> decoder.
+"""SegDINO3D architecture: backbone -> queries -> decoder.
 
 Counterpart of ``segdino3d_tpu/models/architecture/segdino3d.py``: the scene
-range (and GT instance centers/sizes) from elastic-or-raw coordinates, and
-the eval forward in which every superpoint is a query.  Training-time query
-subsampling and the top-k query selection are not ported.
+range (and GT instance centers/sizes) from elastic-or-raw coordinates, the
+eval forward in which every superpoint is a query, and the training forward
+(``module.train()``), which subsamples the queries at random with
+``query_thr`` and gathers the GT targets to the selection.  The top-k query
+selection (``query_num > 0``) is not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -65,17 +67,94 @@ def compute_scene_range_and_boxes(batch: SceneBatch, voxel_size: float,
     return rng, centers, sizes
 
 
+def select_queries_random(sp_valid: torch.Tensor, query_thr: float,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Random-permutation prefix selection: (query_sp_idx (B, S) int32,
+    query_valid (B, S)).  The queries are a random permutation of the
+    valid superpoints (invalid ones last), of which the first
+    ``floor((thr + (1 - thr) u) * n_valid)`` are valid.  ``generator``
+    draws the noise on its own device (the JAX package's ``jax.random``
+    draws differ: tests hand both sides one selection)."""
+    b, s = sp_valid.shape
+    gdev = generator.device if generator is not None else sp_valid.device
+    noise = torch.rand((b, s), generator=generator, device=gdev).to(
+        sp_valid.device)
+    noise = torch.where(sp_valid, noise, 2.0)
+    order = torch.argsort(noise, dim=-1, stable=True).to(torch.int32)
+    u = torch.rand((b,), generator=generator, device=gdev).to(sp_valid.device)
+    frac = query_thr + (1 - query_thr) * u
+    n_sel = torch.floor(frac * sp_valid.sum(-1)).to(torch.int32)
+    qvalid = torch.arange(s, device=sp_valid.device)[None, :] < n_sel[:, None]
+    return order, qvalid
+
+
+def _gather_sp(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather along the superpoint axis with (B, Q) indices."""
+    idx = idx.long()
+    if arr.dim() == 3:
+        return torch.gather(arr, 1, idx[..., None].expand(-1, -1,
+                                                           arr.shape[-1]))
+    return torch.gather(arr, 1, idx)
+
+
 class SegDINO3D(nn.Module):
     def __init__(self, backbone: nn.Module, decoder: nn.Module,
-                 voxel_size: float = 0.02):
+                 voxel_size: float = 0.02, query_thr: float = 0.5,
+                 mode_3d_center: str = "median"):
         super().__init__()
         self.backbone = backbone
         self.decoder = decoder
         self.voxel_size = voxel_size
+        self.query_thr = query_thr
+        self.mode_3d_center = mode_3d_center
 
-    def forward(self, batch: SceneBatch) -> Dict[str, Any]:
-        """Eval forward: every valid superpoint is a query."""
-        return self.decode(batch, self.backbone(batch))
+    def forward(self, batch: SceneBatch,
+                queries: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        """Eval mode: the decoder outputs, every valid superpoint a query.
+
+        Training mode: ``(outputs, gt)``.  The queries are
+        ``select_queries_random`` drawn from ``generator``, unless
+        ``queries`` gives the selection ``(q_idx, q_valid)``; ``gt`` holds
+        the targets gathered to it, as the criterion reads them."""
+        if not self.training:
+            return self.decode(batch, self.backbone(batch))
+        rng, centers, sizes = compute_scene_range_and_boxes(
+            batch, self.voxel_size, self.mode_3d_center)
+        bb = self.backbone(batch)
+        b, s = bb.sp_valid.shape
+        if queries is not None:
+            q_idx, q_valid = queries
+        elif self.query_thr < 1:
+            q_idx, q_valid = select_queries_random(bb.sp_valid,
+                                                   self.query_thr, generator)
+        else:
+            q_idx = torch.arange(s, dtype=torch.int32,
+                                 device=rng.device).expand(b, s)
+            q_valid = bb.sp_valid
+        outputs = self.decoder(
+            sp_feats=bb.sp_feats, sp_valid=bb.sp_valid, sp_pos=bb.sp_pos,
+            sp_pos_wo_elastic=bb.sp_pos_wo_elastic,
+            queries_feat=_gather_sp(bb.sp_feats, q_idx), query_valid=q_valid,
+            queries_pos=_gather_sp(bb.sp_pos, q_idx),
+            dinox_queries=batch.query2d_feats,
+            dinox_query_pos=batch.query2d_pos,
+            dinox_valid=batch.query2d_valid, scene_range=rng)
+        sem_sp = torch.argmax(batch.sp_sem_masks.to(torch.uint8), dim=1)
+        gt = dict(
+            labels=batch.inst_labels, gt_valid=batch.inst_valid,
+            sp_masks=batch.sp_inst_masks,
+            query_masks=torch.gather(
+                batch.sp_inst_masks, 2,
+                q_idx.long()[:, None, :].expand(
+                    -1, batch.sp_inst_masks.shape[1], -1)),
+            centers=centers, sizes=sizes, query_valid=q_valid,
+            sp_valid=bb.sp_valid, query_sem_targets=_gather_sp(sem_sp, q_idx))
+        outputs.update(scene_range=rng, sp_valid=bb.sp_valid,
+                       query_sp_idx=q_idx,
+                       sp_pos_wo_elastic=bb.sp_pos_wo_elastic)
+        return outputs, gt
 
     def decode(self, batch: SceneBatch, bb: BackboneOutput) -> Dict[str, Any]:
         """The decoder half of ``forward`` on the backbone's output."""

@@ -4,8 +4,11 @@ Counterpart of ``segdino3d_tpu/models/backbone/res16unet.py`` over
 ``GatherCtx`` levels: a k5 stem, 4 stride-2 down stages with BasicBlock
 stacks LAYERS=(2,3,4,6,2,2,2,2), 4 transposed up stages with skip
 concatenation, PLANES=(32,64,128,256,256,128,96,96), 96-channel output.
-Every convolution runs through ``ops.sparse_conv`` (kernels K1 and K2).
-Module and parameter names mirror the flax tree (``convert.py``).
+Every convolution runs through ``ops.sparse_conv`` (kernels K1 and K2
+forward, K1, K2 and K4 backward).  ``module.train()`` puts every batch
+norm in training mode; ``config["bn_momentum"]`` (default 0.02, as in the
+JAX package) sets their momentum.  Module and parameter names mirror the
+flax tree (``convert.py``).
 """
 from __future__ import annotations
 
@@ -52,15 +55,16 @@ class UpConv(nn.Module):
 class BasicBlock(nn.Module):
     """Minkowski BasicBlock with an optional 1x1 residual projection."""
 
-    def __init__(self, cin: int, planes: int):
+    def __init__(self, cin: int, planes: int, bn_momentum: float):
         super().__init__()
         self.conv1 = SubMConv(cin, planes)
-        self.norm1 = MaskedBatchNorm(planes)
+        self.norm1 = MaskedBatchNorm(planes, momentum=bn_momentum)
         self.conv2 = SubMConv(planes, planes)
-        self.norm2 = MaskedBatchNorm(planes)
+        self.norm2 = MaskedBatchNorm(planes, momentum=bn_momentum)
         if cin != planes:
             self.downsample_conv = nn.Linear(cin, planes, bias=False)
-            self.downsample_norm = MaskedBatchNorm(planes)
+            self.downsample_norm = MaskedBatchNorm(planes,
+                                                   momentum=bn_momentum)
 
     def forward(self, x, level: Level):
         out = F.relu(self.norm1(self.conv1(x, level.nbr, level.valid),
@@ -85,38 +89,43 @@ class Res16UNet34C(nn.Module):
         P, L, D = self.PLANES, self.LAYERS, self.INIT_DIM
         if out_channels != P[7]:
             raise ValueError(f"Res16UNet34C outputs {P[7]} channels")
-        k = (config or {}).get("conv1_kernel_size", 5)
+        config = config or {}
+        k = config.get("conv1_kernel_size", 5)
+        self.bn_momentum = config.get("bn_momentum", 0.02)
         self.conv0p1s1 = SubMConv(in_channels, D, kernel_volume=k ** 3)
-        self.bn0 = MaskedBatchNorm(D)
+        self.bn0 = self._bn(D)
         self.conv1p1s2 = DownConv(D, D)
-        self.bn1 = MaskedBatchNorm(D)
+        self.bn1 = self._bn(D)
         self.block1 = self._blocks(D, P[0], L[0])
         self.conv2p2s2 = DownConv(P[0], P[0])
-        self.bn2 = MaskedBatchNorm(P[0])
+        self.bn2 = self._bn(P[0])
         self.block2 = self._blocks(P[0], P[1], L[1])
         self.conv3p4s2 = DownConv(P[1], P[1])
-        self.bn3 = MaskedBatchNorm(P[1])
+        self.bn3 = self._bn(P[1])
         self.block3 = self._blocks(P[1], P[2], L[2])
         self.conv4p8s2 = DownConv(P[2], P[2])
-        self.bn4 = MaskedBatchNorm(P[2])
+        self.bn4 = self._bn(P[2])
         self.block4 = self._blocks(P[2], P[3], L[3])
         self.convtr4p16s2 = UpConv(P[3], P[4])
-        self.bntr4 = MaskedBatchNorm(P[4])
+        self.bntr4 = self._bn(P[4])
         self.block5 = self._blocks(P[4] + P[2], P[4], L[4])
         self.convtr5p8s2 = UpConv(P[4], P[5])
-        self.bntr5 = MaskedBatchNorm(P[5])
+        self.bntr5 = self._bn(P[5])
         self.block6 = self._blocks(P[5] + P[1], P[5], L[5])
         self.convtr6p4s2 = UpConv(P[5], P[6])
-        self.bntr6 = MaskedBatchNorm(P[6])
+        self.bntr6 = self._bn(P[6])
         self.block7 = self._blocks(P[6] + P[0], P[6], L[6])
         self.convtr7p2s2 = UpConv(P[6], P[7])
-        self.bntr7 = MaskedBatchNorm(P[7])
+        self.bntr7 = self._bn(P[7])
         self.block8 = self._blocks(P[7] + D, P[7], L[7])
 
-    @staticmethod
-    def _blocks(cin: int, planes: int, n: int) -> nn.ModuleList:
-        return nn.ModuleList(BasicBlock(cin if i == 0 else planes, planes)
-                             for i in range(n))
+    def _bn(self, channels: int) -> MaskedBatchNorm:
+        return MaskedBatchNorm(channels, momentum=self.bn_momentum)
+
+    def _blocks(self, cin: int, planes: int, n: int) -> nn.ModuleList:
+        return nn.ModuleList(
+            BasicBlock(cin if i == 0 else planes, planes, self.bn_momentum)
+            for i in range(n))
 
     @staticmethod
     def _run(blocks: nn.ModuleList, x, level: Level):

@@ -8,7 +8,11 @@ Counterpart of the host-plan branch of
 3. run the sparse U-Net;
 4. unpool voxel -> point and pool point -> superpoint in one fused K3
    launch, together with the superpoint centroids of the quantized point
-   coordinates with and without elastic augmentation.
+   coordinates with and without elastic augmentation.  Its gradient (K5)
+   walks the voxel CSR that step 2 builds.
+
+Nothing here runs under ``no_grad``: in training mode the gradient flows
+from the superpoint features back to every U-Net parameter.
 
 The per-scene multiple-of-16 min shift of the conv grid lives where the
 plan is built (``data.collate.attach_host_plan``); superpoint positions use
@@ -67,9 +71,10 @@ class SparseBackboneWrapper(nn.Module):
         plan = batch.plan
         valid0 = plan.levels[0].valid
         v0 = valid0.shape[0]
-        inverse = plan.inverse
-        vox_feats = scatter.segment_mean(
-            feats, torch.where(inverse >= 0, inverse, v0), v0, pvalid)
+        inverse = plan.inverse          # -1: the point has no voxel
+        vox_csr = scatter.segment_csr(inverse, v0, pvalid)
+        vox_feats = scatter.segment_mean(feats, inverse, v0, pvalid,
+                                         csr=vox_csr)
         vox_feats = torch.where(valid0[:, None], vox_feats, 0.0)
         vox_out = self.unet(vox_feats, plan)
 
@@ -78,7 +83,8 @@ class SparseBackboneWrapper(nn.Module):
         q_wo = torch.floor(pts[:, :3] / self.voxel_size).float() \
             * self.voxel_size
         sp_feats, sp_pos, sp_pos_wo = scatter.pool_gathered(
-            vox_out, inverse, [q_with, q_wo], seg, b * s_cap, pvalid)
+            vox_out, inverse, [q_with, q_wo], seg, b * s_cap, pvalid,
+            vox_csr=vox_csr)
 
         sp_valid = (torch.arange(s_cap, device=pts.device)[None, :]
                     < batch.num_superpoints[:, None])

@@ -25,10 +25,11 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "segdino3d_tpu_torch")
-KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather")
+KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
+           "gather_wgrad", "segment_grad")
 _HEADERS = {"gather_gemm_conv": ("conv_tile.cuh",),
             "up_conv": ("conv_tile.cuh",),
-            "segment_mean_gather": ()}
+            "segment_mean_gather": (), "gather_wgrad": (), "segment_grad": ()}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,6 +46,11 @@ _SIGNATURES = {
     # partial, out, S, cg, cd, g_dtype, d_dtype, stream
     "segment_mean_gather": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _I, _P],
+    # a, ia, b, ib, partial, out, rows, cin, cout, n_off, splits, mirror,
+    # dtype, stream
+    "gather_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # offsets, members, seg, g, out, rows, S, cols, out_dtype, stream
+    "segment_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

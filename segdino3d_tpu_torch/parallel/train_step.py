@@ -1,0 +1,107 @@
+"""One training step: forward, criterion, backward, clip, AdamW/PolyLR, EMA.
+
+Counterpart of ``segdino3d_tpu/parallel/train_step.py:make_train_step``
+on one device (no mesh).  With ``accum_steps = k`` the step takes k
+microbatches in turn, as the JAX package scans them (its recipe for the
+reference's batch 4 on one chip): the batch-norm running statistics are
+updated by each microbatch in order, the gradients are summed over the
+microbatches and scaled by 1/k once, and the losses are averaged.  The
+metrics are each loss, ``total_loss`` and ``grad_norm`` (the global norm of
+the averaged gradients, before clipping), as 0-d tensors on the device.
+After a step the parameters' ``.grad`` hold the clipped gradients.
+
+``StageClock`` times the stages of a step for measurement: it synchronises
+the device at every stage boundary, so it is off unless a caller passes
+one.
+"""
+from __future__ import annotations
+
+import time
+from collections import defaultdict
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from segdino3d_tpu_torch.gtypes import SceneBatch
+from segdino3d_tpu_torch.train.ema import EMA
+from segdino3d_tpu_torch.train.optim import AdamW, global_norm
+
+
+class StageClock:
+    """Wall time per stage, the device synchronised at each mark."""
+
+    def __init__(self, sync: Callable[[], None]):
+        self.sync = sync
+        self.seconds: Dict[str, float] = defaultdict(float)
+        self._t = 0.0
+
+    def start(self) -> None:
+        self.sync()
+        self._t = time.perf_counter()
+
+    def mark(self, stage: str) -> None:
+        self.sync()
+        now = time.perf_counter()
+        self.seconds[stage] += now - self._t
+        self._t = now
+
+
+class TrainStep:
+    def __init__(self, model: nn.Module, criterion, optimizer: AdamW,
+                 ema: Optional[EMA] = None, accum_steps: int = 1):
+        self.model = model
+        self.criterion = criterion
+        self.optimizer = optimizer
+        self.ema = ema
+        self.accum_steps = accum_steps
+
+    def __call__(self, microbatches: Sequence[SceneBatch],
+                 queries: Optional[Sequence[Tuple[torch.Tensor,
+                                                  torch.Tensor]]] = None,
+                 generator: Optional[torch.Generator] = None,
+                 clock: Optional[StageClock] = None
+                 ) -> Dict[str, torch.Tensor]:
+        """One step over ``accum_steps`` microbatches (each a
+        ``SceneBatch`` with its host plan).  ``queries`` gives each
+        microbatch's query selection; otherwise they are drawn from
+        ``generator``."""
+        if len(microbatches) != self.accum_steps:
+            raise ValueError(f"accum_steps={self.accum_steps} but "
+                             f"{len(microbatches)} microbatches")
+        self.model.train()
+        self.optimizer.zero_grad()
+        if clock is not None:
+            clock.start()
+        loss_sums: Dict[str, torch.Tensor] = {}
+        total_sum = 0.0
+        for i, mb in enumerate(microbatches):
+            outputs, gt = self.model(mb, None if queries is None
+                                     else queries[i], generator)
+            if clock is not None:
+                clock.mark("forward")
+            losses = self.criterion(outputs, gt)
+            total = sum(losses.values())
+            if clock is not None:
+                clock.mark("criterion")
+            total.backward()
+            if clock is not None:
+                clock.mark("backward")
+            for k, v in losses.items():
+                loss_sums[k] = loss_sums.get(k, 0.0) + v.detach()
+            total_sum = total_sum + total.detach()
+        grads = [p.grad for p in self.optimizer.params if p.grad is not None]
+        with torch.no_grad():
+            if self.accum_steps > 1:
+                torch._foreach_mul_(grads, 1.0 / self.accum_steps)
+            grad_norm = global_norm(grads)
+        self.optimizer.step(grad_norm)
+        if self.ema is not None:
+            self.ema.update()
+        if clock is not None:
+            clock.mark("optimizer")
+        inv = 1.0 / self.accum_steps
+        metrics = {k: v * inv for k, v in loss_sums.items()}
+        metrics["total_loss"] = total_sum * inv
+        metrics["grad_norm"] = grad_norm
+        return metrics

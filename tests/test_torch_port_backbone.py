@@ -21,6 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from test_backbone_frozen_numerics import (FIXTURE, _positivize_running_var,  # noqa: E402
                                            _ScaledRNG)
+from test_torch_port_jaxlib import load_jax_sparseplan  # noqa: E402
 from test_torch_roundtrip import build_res16_torch_sd  # noqa: E402
 
 from segdino3d_tpu.models.backbone.res16unet import \
@@ -51,6 +52,7 @@ def bridged():
     coords = np.random.RandomState(7).randint(0, 16, (300, 3)).astype(
         np.float32)
     bidx, valid = np.zeros(300, np.int32), np.ones(300, bool)
+    load_jax_sparseplan()
     jplan, _ = host_plan_to_device(jax_build_host_plan(
         coords, bidx, valid, CAPS, stem_compact=False), device=False)
     tplan = TH.host_plan_to_device(

@@ -2,9 +2,10 @@
 
 * ``convert.load_jax_variables`` uses every leaf of the flagship SegDINO3D
   variables exactly once and raises on an extra or a missing leaf;
-* no file of the port (nor ``chip_smoke.py``) imports ``jax``, ``flax`` or
-  ``segdino3d_tpu``: by its source, and by importing it in a subprocess
-  where those modules cannot load;
+  ``state_dict_to_jax`` carries them back unchanged;
+* no file of the port (nor ``chip_smoke.py``) imports ``jax``, ``flax``,
+  ``optax`` or ``segdino3d_tpu``: by its source, and by importing it in a
+  subprocess where those modules cannot load;
 * the entry point raises on a host with no CUDA device unless the caller
   asks for the CPU.
 """
@@ -27,7 +28,8 @@ from segdino3d_tpu.data.collate import PadSpec, collate  # noqa: E402
 from segdino3d_tpu.data.synthetic import synthetic_scene  # noqa: E402
 from segdino3d_tpu_torch.builder import Capacities, build_model  # noqa: E402
 from segdino3d_tpu_torch.convert import (jax_to_state_dict,  # noqa: E402
-                                         load_jax_variables)
+                                         load_jax_variables,
+                                         state_dict_to_jax)
 from segdino3d_tpu_torch.device import resolve_device  # noqa: E402
 
 PORT_DIR = os.path.join(ROOT, "segdino3d_tpu_torch")
@@ -77,6 +79,17 @@ def test_carrier_uses_every_flagship_leaf_once(flagship_variables):
         == (125, 259, 32)
 
 
+def test_carrier_round_trips_to_the_jax_tree(flagship_variables):
+    """params and batch_stats go back to the JAX layout leaf for leaf."""
+    model = load_jax_variables(_port_model(), flagship_variables)
+    back = state_dict_to_jax(model.state_dict())
+    want = jax.tree_util.tree_flatten_with_path(flagship_variables)[0]
+    got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert len(got) == len(want)
+    for path, leaf in want:
+        np.testing.assert_array_equal(got[path], leaf, err_msg=str(path))
+
+
 @pytest.mark.parametrize("fault", ["extra_leaf", "missing_leaf",
                                    "wrong_shape"])
 def test_carrier_raises_on_mismatch(flagship_variables, fault):
@@ -101,7 +114,7 @@ def _port_sources():
 
 
 def test_port_sources_import_no_jax():
-    banned = ("jax", "flax", "segdino3d_tpu")
+    banned = ("jax", "flax", "optax", "segdino3d_tpu")
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -122,7 +135,7 @@ def test_port_imports_with_jax_unavailable():
         os.path.relpath(p, ROOT)[:-3].replace(os.sep, ".").removesuffix(
             ".__init__") for p in _port_sources())
     code = ("import sys\n"
-            "for m in ('jax', 'flax', 'segdino3d_tpu'):\n"
+            "for m in ('jax', 'flax', 'optax', 'segdino3d_tpu'):\n"
             "    sys.modules[m] = None\n"
             f"sys.path.insert(0, {ROOT!r})\n"
             f"for m in {modules!r}:\n"

@@ -6,6 +6,9 @@ products summed in another order).  The kernels themselves are held
 against these plain versions on the card by
 ``tests/test_torch_port_kernels.py`` and ``chip_smoke.py``.
 """
+import os
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +29,9 @@ from segdino3d_tpu_torch.ops import pos_embed as TP
 from segdino3d_tpu_torch.ops import scatter as TS
 from segdino3d_tpu_torch.ops import sparse_conv as TSC
 from segdino3d_tpu_torch.ops.voxelize import devoxelize
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_jaxlib import load_jax_sparseplan  # noqa: E402
 
 OPS_TOL = dict(rtol=1e-5, atol=1e-5)
 CONV_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -52,6 +58,7 @@ def plans():
     coords = rng.uniform(0, 12, (600, 3)).astype(np.float32)
     bidx = np.zeros(600, np.int32)
     valid = np.ones(600, bool)
+    load_jax_sparseplan()
     jplan, _ = host_plan_to_device(jax_build_host_plan(
         coords, bidx, valid, CAPS, stem_compact=False), device=False)
     tplan = TH.host_plan_to_device(

@@ -3,13 +3,26 @@
 Every array must be equal exactly; the port's extra tables (the down conv's
 child table and the up conv's row order) must invert the parent links.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 
 from segdino3d_tpu.ops.host_plan import build_host_plan as jax_build_host_plan
 from segdino3d_tpu_torch.ops import host_plan as TH
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_port_jaxlib import load_jax_sparseplan  # noqa: E402
+
 CAPS = [2048, 1024, 512, 256, 128]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_library():
+    """Load the JAX library once another test worker has finished writing
+    it (``test_torch_port_jaxlib.py``)."""
+    load_jax_sparseplan()
 
 
 def _points(seed):
