@@ -12,7 +12,9 @@ Phases, in order; any failure exits non-zero before the result line:
    shapes, and time the kernel, the plain version and a PyTorch yardstick
    with CUDA events: the forward kernels K1-K3 in fp32 and bf16; the
    backward kernels K4 (weight gradients) and K5 (pooling gradient), and
-   K1/K2 in their backward roles, in fp32 at the training shapes;
+   K1/K2 in their backward roles, in fp32 at the training shapes; the plan
+   engine's kernels K6 (coordinate hash), K8 (voxel compaction) and K7
+   (neighbour tables), whose integer outputs must be equal;
 3. run the eval path at full width: ScanNet200 eval of the flagship
    SegDINO3D (Res16UNet34C + 6-layer DINO-X query decoder) with seeded
    random weights on a seeded synthetic 120,000-point scene with 1,536
@@ -20,7 +22,13 @@ Phases, in order; any failure exits non-zero before the result line:
    predict_instance -> AP evaluator.  It prints scenes/s, ms per stage,
    each kernel's launches in one forward, and peak memory, checks that
    every output is finite, and holds the card's forward against the CPU's
-   plain path on a small scene;
+   plain path on a small scene, on a host plan and on a device plan;
+3b. run the same eval path on a plan built on the card (the batch carries
+   no host plan; K6-K8 in the backbone), at the host plan's capacities:
+   every table must equal the host plan's on its valid rows and the
+   outputs must match the host-plan forward's within 1e-5.  It prints the
+   device plan's ms beside the host plan's, scenes/s and each kernel's
+   launches in one forward;
 4. run the training path at full width: the flagship recipe's step (host
    plan -> backbone -> query subsampling -> decoder -> SparseMatcher
    criterion -> backward -> clip -> AdamW/PolyLR -> EMA) for a few batch-1
@@ -29,6 +37,9 @@ Phases, in order; any failure exits non-zero before the result line:
    ms per stage, peak memory and each kernel's launches in one step,
    checks that every loss and the gradient norm are finite, and holds the
    card's step against the CPU's plain path on a small scene;
+4b. run the batch-1 training step on device plans (built inside the
+   forward) for a few steps: s/step, the plan stage, launches, finite
+   losses and gradient norm;
 5. print one ``kernels`` JSON line, then the result line.
 
 It needs one card, imports no JAX, and takes its kernels from the
@@ -388,12 +399,105 @@ def backward_cases(batch, s_cap, gen):
     return cases
 
 
+def flat_compaction(c):
+    """K8's outputs as one int32 vector, to compare."""
+    parts = [c.inverse, c.coords_T.reshape(-1), c.valid.to(torch.int32),
+             c.num_voxels.reshape(1)]
+    return torch.cat(parts + ([c.kpos] if c.kpos is not None else []))
+
+
+def plan_engine_cases(batch, level_caps):
+    """K6, K8 and K7 at the main path's shapes: the headline scene's point
+    keys (insert + lookup), the level-0 compaction and the downsample to
+    level 1, the stem's k5 and level 0's k3 neighbour tables.  Bytes count
+    each input once and each output once; no arithmetic to speak of."""
+    from segdino3d_tpu_torch.models.backbone.wrapper import min_shift
+    from segdino3d_tpu_torch.ops import hashing as TQ
+    from segdino3d_tpu_torch.ops import keys as TK
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+    from segdino3d_tpu_torch.ops import voxelize as TV
+
+    f32, exact = torch.float32, 0.0
+    valid = batch.point_valid.reshape(-1)
+    pts = batch.points.reshape(-1, 6)
+    bidx, shifted = min_shift(pts[:, :3] / torch.full((), 0.02, device=DEVICE),
+                              batch.point_valid)
+    cols, key = TV.point_keys(bidx, shifted, valid)
+    n, v0 = key.shape[0], level_caps[0]
+    cases = []
+
+    def hash_case(name, key, cap):
+        t = TQ.table_size(cap)
+        cases.append(("coord_hash", f"{name}: insert + lookup, "
+                      f"{key.shape[0]} keys, {t} slots", {f32: (
+                          lambda: TQ.lookup_hash(TQ.build_hash(key, cap), key),
+                          lambda: TQ.lookup_hash_plain(
+                              TQ.build_hash_plain(key, cap), key),
+                          lambda: torch.unique(key, sorted=True,
+                                               return_inverse=True)[1],
+                          0.0, nbytes(key) + key.shape[0] * 4, "fp32",
+                          exact)}))
+
+    def compact_case(name, key, coords_T, cap, shift):
+        hcap = min(cap, key.shape[0])
+        hk, hp = TQ.build_hash(key, hcap), TQ.build_hash_plain(key, hcap)
+        wk, wp = TQ.lookup_hash(hk, key), TQ.lookup_hash_plain(hp, key)
+        rows = torch.arange(key.shape[0], device=DEVICE, dtype=torch.int32)
+        m = key.shape[0]
+        # the remapped hash (each key's voxel id), and the input hash kept
+        before = hk.vals.clone()
+        ck = TV.voxel_compact(wk, coords_T, cap, shift, hk)
+        cp = TV.voxel_compact_plain(wp, coords_T, cap, shift, hp)
+        if not (torch.equal(TQ.lookup_hash(ck.hash, key),
+                            TQ.lookup_hash_plain(cp.hash, key))
+                and torch.equal(hk.vals, before)):
+            raise SystemExit(f"voxel_compact [{name}]: the remapped hash "
+                             "differs from the plain version's")
+        cases.append(("voxel_compact", name, {f32: (
+            lambda: flat_compaction(TV.voxel_compact(wk, coords_T, cap, shift,
+                                                     hk, shift == 1)),
+            lambda: flat_compaction(TV.voxel_compact_plain(
+                wp, coords_T, cap, shift, hp, shift == 1)),
+            lambda: torch.cumsum((wk == rows).to(torch.int32), 0),
+            0.0, nbytes(wk, coords_T) + 2 * nbytes(hk.vals)
+            + m * 4 * (1 + shift) + cap * 17 + 4, "fp32", exact)}))
+
+    def nbr_case(name, lv, k):
+        v = lv.coords_T.shape[1]
+        live = torch.arange(v, device=DEVICE) < lv.num_voxels
+        sorted_keys = torch.sort(TK.pack_columns_u32(*lv.coords_T,
+                                                     live)).values
+        offs = torch.from_numpy(SC.kernel_offsets(k)).to(DEVICE)
+        q = [lv.coords_T[d][None] + offs[:, d - 1][:, None] for d in (1, 2, 3)]
+        qk = TK.pack_columns_u32(lv.coords_T[0][None].expand_as(q[0]), *q,
+                                 live[None].expand_as(q[0])).reshape(-1)
+        cases.append(("neighbor_table", name, {f32: (
+            lambda: SC.neighbor_table(lv, k),
+            lambda: SC.neighbor_table_plain(lv.coords_T, lv.num_voxels, k),
+            lambda: torch.searchsorted(sorted_keys, qk),
+            0.0, nbytes(lv.coords_T, lv.hash.keys, lv.hash.vals)
+            + k ** 3 * v * 4, "fp32", exact)}))
+
+    hash_case("level 0", key, min(v0, n))
+    compact_case(f"voxelize {n} points -> V0 cap {v0}", key, cols, v0, 0)
+    grid = TV.voxelize(bidx, shifted, valid, v0)
+    b, x, y, z = grid.coords_T
+    key1 = TK.pack_columns_u32(b, x >> 1, y >> 1, z >> 1, grid.valid)
+    compact_case(f"downsample L0 -> L1 cap {level_caps[1]} (parent, kpos)",
+                 key1, grid.coords_T, level_caps[1], 1)
+    pyramid = SC.build_conv_plan(grid, 5, level_caps)
+    nbr_case("stem k5, level 0", pyramid[0], 5)
+    nbr_case("k3, level 0", pyramid[0], 3)
+    return cases
+
+
 def check_kernels(cases):
     """Compare, then time; returns per-kernel rows (headline = first case
     of each kernel, fp32) and the max error over each kernel's cases.  A
     case's ``per`` maps a dtype to (kernel_fn, plain_fn, library_fn, ops,
     bytes, peak) and optionally a 7th entry, a tolerance relative to
-    ``max |plain|`` (for long fp32 reductions)."""
+    ``max |plain|`` (for long fp32 reductions; 0 for integer outputs,
+    which must be equal)."""
     rows = {}
     for kernel, name, per in cases:
         for dt, (kfn, pfn, lfn, ops, byts, peak, *rel) in per.items():
@@ -403,7 +507,8 @@ def check_kernels(cases):
             if rel:
                 atol = rel[0] * float(want.float().abs().max())
                 ok = err <= atol
-                tol_text = f"atol={rel[0]:g} x max|plain| = {atol:.3e}"
+                tol_text = "equal" if rel[0] == 0 else \
+                    f"atol={rel[0]:g} x max|plain| = {atol:.3e}"
             else:
                 tol = TOL[dt]
                 ok = torch.allclose(got.float(), want.float(), rtol=tol,
@@ -443,15 +548,37 @@ def make_records():
 
 
 def counters():
+    """{kernel: its wrappers}; a kernel's launches are its wrappers' sum."""
+    from segdino3d_tpu_torch.ops import hashing as TQ
     from segdino3d_tpu_torch.ops import scatter as SS
     from segdino3d_tpu_torch.ops import sparse_conv as SC
+    from segdino3d_tpu_torch.ops import voxelize as TV
 
-    return {"gather_gemm_conv": SC.gather_conv, "up_conv": SC.up_conv_rows,
-            "segment_mean_gather": SS.segment_mean_gather,
-            "gather_wgrad": SC.gather_wgrad, "segment_grad": SS.segment_grad}
+    return {"gather_gemm_conv": (SC.gather_conv,),
+            "up_conv": (SC.up_conv_rows,),
+            "segment_mean_gather": (SS.segment_mean_gather,),
+            "gather_wgrad": (SC.gather_wgrad,),
+            "segment_grad": (SS.segment_grad,),
+            "coord_hash": (TQ.build_hash, TQ.lookup_hash),
+            "neighbor_table": (SC.neighbor_table,),
+            "voxel_compact": (TV.voxel_compact,)}
 
 
-def run_main_path(model, test_cfg, records, spec):
+def reset_counts():
+    for fns in counters().values():
+        for fn in fns:
+            fn.launches = 0
+
+
+def read_counts():
+    return {k: sum(fn.launches for fn in fns)
+            for k, fns in counters().items()}
+
+
+def run_main_path(model, test_cfg, records, spec, device_plan=False):
+    """The eval path; with ``device_plan`` the batch carries no host plan
+    and the backbone builds it on the card ("plan" is then the collate
+    alone, and the backbone stage holds the device plan)."""
     from segdino3d_tpu_torch.data.collate import (attach_host_plan, collate,
                                                   eval_annotation)
     from segdino3d_tpu_torch.evaluation.evaluate import (host_prediction,
@@ -466,9 +593,10 @@ def run_main_path(model, test_cfg, records, spec):
     def once():
         t = {}
         t0 = time.perf_counter()
-        batch = attach_host_plan(collate(records, spec, DEVICE), records,
-                                 spec, voxel_size=0.02,
-                                 level_cap_ratios=LEVEL_CAP_RATIOS)
+        batch = collate(records, spec, DEVICE)
+        if not device_plan:
+            batch = attach_host_plan(batch, records, spec, voxel_size=0.02,
+                                     level_cap_ratios=LEVEL_CAP_RATIOS)
         torch.cuda.synchronize()
         t["plan"] = time.perf_counter() - t0
         with torch.no_grad():
@@ -494,10 +622,9 @@ def run_main_path(model, test_cfg, records, spec):
         return t, batch, bb, out, res, metrics
 
     once()                                   # warm-up
-    for fn in counters().values():
-        fn.launches = 0
+    reset_counts()
     t, batch, bb, out, res, metrics = once()
-    launches = {k: fn.launches for k, fn in counters().items()}
+    launches = read_counts()
 
     torch.cuda.reset_peak_memory_stats()
     times = [once()[0] for _ in range(TIMED_ITERS)]
@@ -526,8 +653,10 @@ def check_outputs(bb, out, res, s_cap):
 
 def check_small_reference(model):
     """The card's forward (kernels) against the CPU's plain path, same
-    weights, on a small scene.  Compared before any attention threshold:
-    the superpoint features and the first head's class and mask logits."""
+    weights, on a small scene, on a host plan and on a device plan (K6-K8
+    on the card; the device plan's capacity is the scene's point count).
+    Compared before any attention threshold: the superpoint features and
+    the first head's class and mask logits."""
     from segdino3d_tpu_torch.data.collate import PadSpec, attach_host_plan, \
         collate
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
@@ -536,24 +665,156 @@ def check_small_reference(model):
                            n_classes=180, feat_dim_2d=256)]
     spec = PadSpec(4096, SCENE["n_superpoints"], 16, 16, 200)
     cpu_model = copy.deepcopy(model).cpu()
-    outs = {}
-    for dev, m in ((DEVICE, model), ("cpu", cpu_model)):
-        batch = attach_host_plan(collate(rec, spec, dev), rec, spec,
-                                 voxel_size=0.02)
-        with torch.no_grad():
-            bb = m.backbone(batch)
-            o = m.decode(batch, bb)
-        outs[dev] = dict(sp_feats=bb.sp_feats,
-                         cls0=o["aux_outputs"][0]["cls_preds"],
-                         mask0=o["aux_outputs"][0]["masks"])
-    for k in outs["cpu"]:
-        a, b = outs[DEVICE][k].cpu(), outs["cpu"][k]
+    cpu_model.backbone.voxel_cap = None
+    card_cap, model.backbone.voxel_cap = model.backbone.voxel_cap, None
+    try:
+        for plan in ("host", "device"):
+            outs = {}
+            for dev, m in ((DEVICE, model), ("cpu", cpu_model)):
+                batch = collate(rec, spec, dev)
+                if plan == "host":
+                    batch = attach_host_plan(batch, rec, spec,
+                                             voxel_size=0.02)
+                with torch.no_grad():
+                    bb = m.backbone(batch)
+                    o = m.decode(batch, bb)
+                outs[dev] = dict(sp_feats=bb.sp_feats,
+                                 cls0=o["aux_outputs"][0]["cls_preds"],
+                                 mask0=o["aux_outputs"][0]["masks"])
+            for k in outs["cpu"]:
+                a, b = outs[DEVICE][k].cpu(), outs["cpu"][k]
+                err = float((a - b).abs().max())
+                ok = torch.allclose(a, b, rtol=1e-3, atol=1e-3)
+                print(f"small-scene reference, {plan} plan, {k}: "
+                      f"max_abs_err={err:.3e} (rtol=atol=1e-3) "
+                      f"{'ok' if ok else 'MISMATCH'}", flush=True)
+                if not ok:
+                    raise SystemExit(f"card forward disagrees with the CPU "
+                                     f"on {k} ({plan} plan)")
+    finally:
+        model.backbone.voxel_cap = card_cap
+
+
+# --------------------------------------------------------------------------
+# phase 3b: the eval path on a plan built on the card
+# --------------------------------------------------------------------------
+
+PLAN_FIELDS = ("nbr", "parent", "kpos", "child", "up_order")
+
+
+def compare_plans(dev, host):
+    """Every table of the device plan against the host plan's, on valid
+    rows (the neighbour ids themselves are compared whole); returns the
+    number of tables whose full arrays are equal too."""
+    def same(a, b, what):
+        if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+            raise SystemExit(f"device plan differs from the host plan: {what}")
+
+    same(dev.inverse, host.inverse, "inverse")
+    same(dev.stem_nbr[:, host.levels[0].valid],
+         host.stem_nbr[:, host.levels[0].valid], "stem_nbr")
+    whole = int(torch.equal(dev.stem_nbr, host.stem_nbr))
+    for li, (d, h) in enumerate(zip(dev.levels, host.levels)):
+        same(d.valid, h.valid, f"level {li} valid")
+        for k in PLAN_FIELDS:
+            a, b = getattr(d, k), getattr(h, k)
+            if b is None:
+                if a is not None:
+                    raise SystemExit(f"level {li} {k}: not in the host plan")
+                continue
+            if k in ("parent", "kpos"):
+                a, b = a[h.valid], b[h.valid]
+            elif k == "nbr":
+                a, b = a[:, h.valid], b[:, h.valid]
+            elif k == "child":
+                cv = host.levels[li + 1].valid
+                a, b = a[:, cv], b[:, cv]
+            elif k == "up_order":
+                n = int(h.valid.sum())
+                a, b = a[:n], b[:n]
+            same(a, b, f"level {li} {k}")
+            whole += int(torch.equal(getattr(d, k), getattr(h, k)))
+    return whole
+
+
+def run_device_plan_path(model, test_cfg, records, spec, host_batch, host_bb,
+                         host_out):
+    """Phase 3b: tables, the plan's time beside the host plan's, then the
+    eval path on device plans."""
+    from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
+
+    bare = collate(records, spec, DEVICE)
+    coords = bare.points.reshape(-1, 6)[:, :3] / torch.full(
+        (), 0.02, device=DEVICE)
+    plan, overflow = model.backbone.device_plan(coords, bare.point_valid)
+    torch.cuda.synchronize()
+    if bool(overflow):
+        raise SystemExit("device plan overflowed at the host plan's caps")
+    whole = compare_plans(plan, host_batch.plan)
+    n_tables = 2 + sum(getattr(lv, k) is not None for lv in plan.levels
+                       for k in PLAN_FIELDS)
+    print(f"device plan equals the host plan on every valid row (inverse, "
+          f"stem_nbr, each level's valid/nbr/parent/kpos/child/up_order; "
+          f"{whole} of {n_tables - 1} tables equal whole)", flush=True)
+
+    def device():
+        model.backbone.device_plan(coords, bare.point_valid)
+
+    def host():
+        attach_host_plan(bare, records, spec, voxel_size=0.02,
+                         level_cap_ratios=LEVEL_CAP_RATIOS)
+
+    plan_ms = {}
+    for fn in (device, host):
+        fn()
+        torch.cuda.synchronize()
+    for _ in range(TIMED_ITERS):
+        for name, fn in (("device", device), ("host", host)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            plan_ms.setdefault(name, []).append(
+                1e3 * (time.perf_counter() - t0))
+    dev_ms = time_ms(device, reps=TIMED_ITERS)
+    print(f"plan alone, mean of {TIMED_ITERS} (host clock, synchronised): "
+          f"device {float(np.mean(plan_ms['device'])):.3f} ms "
+          f"(CUDA events {dev_ms:.3f} ms), host (C++ plan + copies) "
+          f"{float(np.mean(plan_ms['host'])):.3f} ms", flush=True)
+
+    launches, times, peak, batch, bb, out, res, metrics = run_main_path(
+        model, test_cfg, records, spec, device_plan=True)
+    if batch.plan is not None:
+        raise SystemExit("the device-plan run got a host plan")
+    expected = {"gather_gemm_conv": 51, "up_conv": 4, "segment_mean_gather": 2,
+                "coord_hash": 10, "voxel_compact": 5, "neighbor_table": 6}
+    print(f"launches in one forward on a device plan: {launches} (expected "
+          f"{expected})", flush=True)
+    for k, n in expected.items():
+        if launches[k] < n or (k != "gather_gemm_conv" and launches[k] != n):
+            raise SystemExit(f"{k}: {launches[k]} launches on the device "
+                             f"plan path, expected {n}")
+    pairs = {"sp_feats": (bb.sp_feats, host_bb.sp_feats)}
+    pairs.update({k: (out[k], host_out[k]) for k in
+                  ("cls_preds", "masks", "sem_preds", "centers", "sizes")})
+    for k, (a, b) in pairs.items():
         err = float((a - b).abs().max())
-        ok = torch.allclose(a, b, rtol=1e-3, atol=1e-3)
-        print(f"small-scene reference {k}: max_abs_err={err:.3e} "
-              f"(rtol=atol=1e-3) {'ok' if ok else 'MISMATCH'}", flush=True)
+        ok = torch.allclose(a, b, rtol=1e-5, atol=1e-5)
+        print(f"device-plan forward vs host-plan forward {k}: "
+              f"max_abs_err={err:.3e} (rtol=atol=1e-5) "
+              f"{'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
-            raise SystemExit(f"card forward disagrees with the CPU on {k}")
+            raise SystemExit(f"device-plan forward disagrees on {k}")
+    check_outputs(bb, out, res, SCENE["n_superpoints"])
+    stages = {k: 1e3 * float(np.mean([t[k] for t in times]))
+              for k in times[0]}
+    total = [sum(t.values()) for t in times]
+    print(f"main path on device plans: {1.0 / float(np.mean(total)):.3f} "
+          f"scenes/s over {TIMED_ITERS} iterations (batch 1, fp32); ms per "
+          f"stage " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f" (plan = collate only; the backbone builds the plan); total "
+          f"{1e3 * float(np.mean(total)):.2f} ms; peak "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -623,11 +884,10 @@ def run_training(model, records, spec):
     for i in range(TRAIN_STEPS):
         b, t_plan = plan(records[i % len(records)])
         clock = StageClock(torch.cuda.synchronize)
-        for fn in counters().values():
-            fn.launches = 0
+        reset_counts()
         m = step1([b], generator=gen, clock=clock)
         if launches is None:
-            launches = {k: fn.launches for k, fn in counters().items()}
+            launches = read_counts()
         metrics.append(check_metrics(m, f"batch-1 step {i}"))
         steps.append(dict(plan=t_plan, **clock.seconds))
     mbs, t_plan = [], 0.0
@@ -636,10 +896,9 @@ def run_training(model, records, spec):
         mbs.append(b)
         t_plan += t
     clock = StageClock(torch.cuda.synchronize)
-    for fn in counters().values():
-        fn.launches = 0
+    reset_counts()
     m4 = step4(mbs, generator=gen, clock=clock)
-    launches4 = {k: fn.launches for k, fn in counters().items()}
+    launches4 = read_counts()
     metrics.append(check_metrics(m4, "accum_steps=4 step"))
     accum = dict(plan=t_plan, **clock.seconds)
     return (launches, steps, accum, launches4,
@@ -690,6 +949,60 @@ def check_small_train(model):
           flush=True)
     if bad:
         raise SystemExit(f"card gradients disagree with the CPU on {bad[:5]}")
+
+
+def run_training_device(model, records, spec):
+    """Phase 4b: TRAIN_STEPS batch-1 steps on batches without a host plan
+    (the backbone builds each plan in the forward), after a warm-up.  The
+    plan is also built alone before each step and timed, to report it."""
+    from segdino3d_tpu_torch.data.collate import collate
+    from segdino3d_tpu_torch.parallel.train_step import StageClock
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    step = make_train_step(model, 1)
+
+    def bare(rec):
+        t0 = time.perf_counter()
+        b = collate([rec], spec, DEVICE)
+        torch.cuda.synchronize()
+        return b, time.perf_counter() - t0
+
+    check_metrics(step([bare(records[0])[0]], generator=gen),
+                  "device-plan warm-up step")
+    steps, launches, metrics = [], None, []
+    for i in range(TRAIN_STEPS):
+        b, t_collate = bare(records[i % len(records)])
+        coords = b.points.reshape(-1, 6)[:, :3] / torch.full(
+            (), 0.02, device=DEVICE)
+        t0 = time.perf_counter()
+        _, overflow = model.backbone.device_plan(coords, b.point_valid)
+        torch.cuda.synchronize()
+        t_plan = time.perf_counter() - t0
+        if bool(overflow):
+            raise SystemExit(f"device plan overflowed on training scene {i}")
+        clock = StageClock(torch.cuda.synchronize)
+        reset_counts()
+        m = step([b], generator=gen, clock=clock)
+        if launches is None:
+            launches = read_counts()
+        metrics.append(check_metrics(m, f"device-plan step {i}"))
+        steps.append(dict(collate=t_collate, plan_alone=t_plan,
+                          **clock.seconds))
+    keys = ("collate", "forward", "criterion", "backward", "optimizer")
+    mean = {k: 1e3 * float(np.mean([st[k] for st in steps]))
+            for k in keys + ("plan_alone",)}
+    total = [sum(st[k] for k in keys) for st in steps]
+    print(f"launches in one batch-1 train step on a device plan: {launches}",
+          flush=True)
+    for k in counters():
+        if launches[k] <= 0:
+            raise SystemExit(f"{k}: not launched in the device-plan step")
+    print(f"train batch 1 on device plans: {float(np.mean(total)):.4f} s/step "
+          f"over {TRAIN_STEPS} steps (fp32; the forward builds the plan); "
+          f"ms per stage " + ", ".join(f"{k} {mean[k]:.2f}" for k in keys)
+          + f"; device plan alone {mean['plan_alone']:.2f} ms", flush=True)
+    print(f"device-plan train metrics (finite): {metrics[-1]}", flush=True)
+    return launches
 
 
 def report_training(launches, steps, accum, launches4, peak):
@@ -758,12 +1071,17 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # phase 2: kernels against their plain versions
+    level_caps = [lv.valid.shape[0] for lv in plan.levels]
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows = check_kernels(kernel_cases(batch, SCENE["n_superpoints"], gen)
-                         + backward_cases(batch, SCENE["n_superpoints"], gen))
+                         + backward_cases(batch, SCENE["n_superpoints"], gen)
+                         + plan_engine_cases(batch, level_caps))
 
-    # phase 3: the main path at full width
-    caps = Capacities(num_superpoints=SCENE["n_superpoints"])
+    # phase 3: the main path at full width; a batch without a host plan
+    # (phase 3b) gets a device plan at the host plan's capacities
+    caps = Capacities(num_superpoints=SCENE["n_superpoints"],
+                      num_voxels=level_caps[0],
+                      level_cap_ratios=LEVEL_CAP_RATIOS)
     model, test_cfg = build_model(model_cfg(), caps)
     random_init_(model, seed=0)
     launches, times, peak, batch, bb, out, res, metrics = run_main_path(
@@ -789,6 +1107,10 @@ def main() -> int:
     check_outputs(bb, out, res, SCENE["n_superpoints"])
     check_small_reference(model)
 
+    # phase 3b: the main path on device plans
+    dev_launches = run_device_plan_path(model, test_cfg, records, spec, batch,
+                                        bb, out)
+
     # phase 4: the training path at full width
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
     tmodel, _ = build_model(train_cfg(), caps, train=True)
@@ -806,6 +1128,18 @@ def main() -> int:
     print(f"train metrics (finite): first {metrics[0]}, accum_steps=4 "
           f"{metrics[-1]}", flush=True)
 
+    # phase 4b: batch-1 training on device plans, at a capacity that holds
+    # every training scene (the host plan's bucket of each)
+    from segdino3d_tpu_torch.data.collate import _plan_coords
+    tmodel.backbone.voxel_cap = max(
+        host_plan.voxel_bucket(host_plan.probe_voxel_count(
+            c.reshape(-1, 3), bidx, valid.reshape(-1)))
+        for c, valid, bidx in (_plan_coords([r], tspec.num_points, 0.02)
+                               for r in train_records[:TRAIN_STEPS]))
+    print(f"device-plan training: voxel cap {tmodel.backbone.voxel_cap}, "
+          f"level cap ratios {LEVEL_CAP_RATIOS}", flush=True)
+    train_dev_launches = run_training_device(tmodel, train_records, tspec)
+
     # phase 5: the kernels line, then the result line
     meta = {
         "gather_gemm_conv": ("segdino3d_tpu_torch/csrc/gather_gemm_conv.cu",
@@ -819,14 +1153,26 @@ def main() -> int:
                          "segdino3d_tpu/ops/sparse_conv.py:305"),
         "segment_grad": ("segdino3d_tpu_torch/csrc/segment_grad.cu",
                          "segdino3d_tpu/ops/voxelize.py:115"),
+        "coord_hash": ("segdino3d_tpu_torch/csrc/coord_hash.cu",
+                       "segdino3d_tpu/ops/hashing.py:56"),
+        "neighbor_table": ("segdino3d_tpu_torch/csrc/neighbor_table.cu",
+                           "segdino3d_tpu/ops/sparse_conv.py:64"),
+        "voxel_compact": ("segdino3d_tpu_torch/csrc/voxel_compact.cu",
+                          "segdino3d_tpu/ops/voxelize.py:47"),
     }
+    plan_kernels = ("coord_hash", "neighbor_table", "voxel_compact")
     kernels = []
     for name, (source, replaces) in meta.items():
         h = rows[name]["headline"]
         # the eval path's count for the forward kernels, the train step's
-        # for the backward ones; both are printed above
-        main_launches = launches[name] if launches[name] > 0 \
-            else train_launches[name]
+        # for the backward ones, the device-plan eval path's and step's for
+        # the plan engine's; all are printed above
+        if name in plan_kernels:
+            main_launches = dev_launches[name]
+            train_launches[name] = train_dev_launches[name]
+        else:
+            main_launches = launches[name] if launches[name] > 0 \
+                else train_launches[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=main_launches, launches_train_step=train_launches[name],

@@ -5,12 +5,15 @@ Res16UNet34C + ScanNetQueryDecoder model, with its criterion
 (``build_criterion``).  Layout knobs of the JAX package (``block_edges``,
 ``block_edges_train``, ``stem_gather``) are accepted and ignored: the port
 runs the gather layout, whose parameters are the same, in training too.
-Options the port does not implement raise instead of being ignored.
+A batch with a host plan (``data.collate.attach_host_plan``) runs on it; a
+batch without one gets its plan built on the device by the backbone, at
+the capacities of ``Capacities``.  Options the port does not implement
+raise instead of being ignored.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -28,10 +31,14 @@ from segdino3d_tpu_torch.models.layers import MaskedBatchNorm
 
 @dataclass(frozen=True)
 class Capacities:
-    """Static shape capacities the model is built for.  The JAX package's
-    other capacities size its on-device plan engine, which the port (host
-    plans only) does not have."""
+    """Static shape capacities the model is built for.  ``num_voxels`` and
+    ``level_cap_ratios`` size the device plan of a batch without a host
+    plan: its level-0 voxels (``None``: the batch's point count) and each
+    level's share of them, by default the JAX wrapper's ratios.  (The JAX
+    ``Capacities`` field of this name sizes host plans instead.)"""
     num_superpoints: int = 2048
+    num_voxels: Optional[int] = 131072
+    level_cap_ratios: Tuple[float, ...] = (1.0, 0.7, 0.35, 0.12, 0.05)
 
 
 # decoder options with the one value the port implements
@@ -89,9 +96,11 @@ def build_model(model_cfg: Dict, caps: Capacities, device=None,
                         out_channels=bcfg.get("out_channels", 96),
                         config=bcfg.get("config"))
     backbone = SparseBackboneWrapper(
-        unet, voxel_size=voxel_size, s_cap=caps.num_superpoints,
+        unet, caps.level_cap_ratios, voxel_size=voxel_size,
+        s_cap=caps.num_superpoints,
         mode_fuse_2d_feat=bcfg.get("mode_fuse_2d_feat", "early_fusion"),
-        compute_dtype=bcfg.get("compute_dtype", "float32"))
+        compute_dtype=bcfg.get("compute_dtype", "float32"),
+        voxel_cap=caps.num_voxels)
     # DINO-X query features share the per-point 2D feature width
     decoder = build_decoder(dict(cfg["decoder_cfg"]), dinox_dim=in_channels - 3)
     model = SegDINO3D(backbone, decoder, voxel_size=voxel_size,

@@ -39,7 +39,8 @@ class SceneBatch:
     sp_inst_masks: Optional[torch.Tensor] = None    # (B, I, S) bool
     sp_sem_masks: Optional[torch.Tensor] = None     # (B, C_sem+1, S) bool
     scene_idx: Optional[torch.Tensor] = None        # (B,) int32
-    # host-built sparse-conv plan (ops.host_plan)
+    # host-built sparse-conv plan (ops.host_plan); None: the backbone
+    # builds the plan on the device
     plan: Optional[UNetPlan] = None
 
     @property
@@ -63,3 +64,4 @@ class BackboneOutput:
     sp_pos: torch.Tensor              # (B, S, 3) centroids (with elastic)
     sp_pos_wo_elastic: torch.Tensor   # (B, S, 3) centroids (raw coords)
     sp_valid: torch.Tensor            # (B, S) bool
+    overflow: Optional[torch.Tensor] = None  # () bool: a voxel/level cap hit

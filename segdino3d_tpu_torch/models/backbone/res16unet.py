@@ -9,10 +9,13 @@ forward, K1, K2 and K4 backward).  ``module.train()`` puts every batch
 norm in training mode; ``config["bn_momentum"]`` (default 0.02, as in the
 JAX package) sets their momentum.  Module and parameter names mirror the
 flax tree (``convert.py``).
+
+``build_unet_plan`` builds the plan on the device of a voxel grid (the
+on-device plan engine, kernels K6-K8), in the layout of a host plan.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +24,35 @@ from torch import nn
 from segdino3d_tpu_torch.models.layers import MaskedBatchNorm, linear
 from segdino3d_tpu_torch.ops import sparse_conv as SC
 from segdino3d_tpu_torch.ops.host_plan import Level, UNetPlan
+from segdino3d_tpu_torch.ops.voxelize import VoxelGrid
+
+
+def build_unet_plan(grid: VoxelGrid, num_levels: int = 5,
+                    stem_kernel: int = 5,
+                    level_caps: Optional[Sequence[int]] = None
+                    ) -> Tuple[UNetPlan, torch.Tensor]:
+    """(plan, overflow) on the grid's device: each level's 27-neighbour
+    table and parent links, the k^3 stem table, and the port's child table
+    and up-conv row order (``ops.host_plan``).  Every shape is a static
+    capacity and nothing waits for the device; ``overflow`` (a 0-d bool
+    tensor) is set when any level outgrew its capacity."""
+    pyramid = SC.build_conv_plan(grid, num_levels, level_caps)
+    levels = []
+    overflow = grid.overflow
+    for li, lv in enumerate(pyramid):
+        child = order = None
+        if lv.parent is not None:
+            child = SC.child_table(lv.parent, lv.kpos,
+                                   pyramid[li + 1].coords_T.shape[1])
+            order = SC.up_order(lv.kpos, lv.valid)
+        levels.append(Level(valid=lv.valid, nbr=SC.neighbor_table(lv, 3),
+                            parent=lv.parent, kpos=lv.kpos, child=child,
+                            up_order=order))
+        overflow = overflow | lv.overflow
+    stem = (SC.neighbor_table(pyramid[0], stem_kernel) if stem_kernel != 3
+            else levels[0].nbr)
+    return UNetPlan(levels=levels, stem_nbr=stem,
+                    inverse=grid.inverse_mapping), overflow
 
 
 class SubMConv(nn.Module):
@@ -90,9 +122,10 @@ class Res16UNet34C(nn.Module):
         if out_channels != P[7]:
             raise ValueError(f"Res16UNet34C outputs {P[7]} channels")
         config = config or {}
-        k = config.get("conv1_kernel_size", 5)
+        self.stem_kernel = config.get("conv1_kernel_size", 5)
         self.bn_momentum = config.get("bn_momentum", 0.02)
-        self.conv0p1s1 = SubMConv(in_channels, D, kernel_volume=k ** 3)
+        self.conv0p1s1 = SubMConv(in_channels, D,
+                                  kernel_volume=self.stem_kernel ** 3)
         self.bn0 = self._bn(D)
         self.conv1p1s2 = DownConv(D, D)
         self.bn1 = self._bn(D)

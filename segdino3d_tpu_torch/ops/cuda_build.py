@@ -26,10 +26,15 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "segdino3d_tpu_torch")
 KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
-           "gather_wgrad", "segment_grad")
+           "gather_wgrad", "segment_grad", "coord_hash", "neighbor_table",
+           "voxel_compact")
 _HEADERS = {"gather_gemm_conv": ("conv_tile.cuh",),
             "up_conv": ("conv_tile.cuh",),
-            "segment_mean_gather": (), "gather_wgrad": (), "segment_grad": ()}
+            "segment_mean_gather": (), "gather_wgrad": (), "segment_grad": (),
+            "coord_hash": ("coord_hash.cuh",),
+            "neighbor_table": ("coord_hash.cuh",), "voxel_compact": ()}
+# a library's C functions, where they are not the one named after it
+_ENTRY_POINTS = {"coord_hash": ("coord_hash_insert", "coord_hash_lookup")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -51,6 +56,16 @@ _SIGNATURES = {
     "gather_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # offsets, members, seg, g, out, rows, S, cols, out_dtype, stream
     "segment_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # keys, n, tkeys, tvals, t_size, overflow, stream
+    "coord_hash_insert": [_P, _I, _P, _P, _I, _P, _P],
+    # queries, n, tkeys, tvals, t_size, out, stream
+    "coord_hash_lookup": [_P, _I, _P, _P, _I, _P, _P],
+    # coords, num, v, k, tkeys, tvals, t_size, out, stream
+    "neighbor_table": [_P, _P, _I, _I, _P, _P, _I, _P, _P],
+    # winner, coords, n, shift, cap, counts, vid, num, inverse, kpos,
+    # out_coords, valid, tvals, tvals_out, t_size, stream
+    "voxel_compact": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _P],
 }
 
 
@@ -113,9 +128,10 @@ def library(name: str) -> ctypes.CDLL:
         if not os.path.isfile(path):
             build_all([name])
         lib = ctypes.CDLL(path)
-        fn = getattr(lib, name)
-        fn.argtypes = _SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        for entry in _ENTRY_POINTS.get(name, (name,)):
+            fn = getattr(lib, entry)
+            fn.argtypes = _SIGNATURES[entry]
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return lib
 

@@ -25,16 +25,24 @@ its ``launches`` attribute; for a CPU tensor it runs the plain PyTorch
 version beside it (``*_plain``), which the CPU tests hold against the JAX
 package and ``chip_smoke.py`` holds the kernel against on the card.
 Kernel offsets follow the canonical ``itertools.product`` order.
+
+The coordinate pyramid of the on-device plan engine lives here too, as in
+the JAX module: ``downsample`` (K6 + K8 over the 2x-coarsened keys),
+``build_conv_plan`` and ``neighbor_table`` (K7, ``csrc/neighbor_table.cu``),
+with the port's ``child_table`` and ``up_order`` in torch.
 """
 from __future__ import annotations
 
 import itertools
-from typing import Optional
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from segdino3d_tpu_torch.ops import cuda_build
+from segdino3d_tpu_torch.ops import keys as K
+from segdino3d_tpu_torch.ops.hashing import CoordHash, build_hash, lookup_hash
+from segdino3d_tpu_torch.ops.voxelize import VoxelGrid, voxel_compact
 
 
 def kernel_offsets(kernel_size: int) -> np.ndarray:
@@ -332,3 +340,119 @@ def up_conv(feats, fine, weights):
     """Transposed conv k=2 s=2 restoring the fine coordinate set."""
     return _UpConv.apply(feats, fine.parent, fine.kpos, fine.up_order,
                          weights, fine.valid, fine.child)
+
+
+# ---------------------------------------------------------------------------
+# The coordinate pyramid of the on-device plan engine
+# ---------------------------------------------------------------------------
+
+
+class PlanLevel(NamedTuple):
+    """One stride level of the pyramid (``sparse_conv.Level`` in JAX)."""
+    coords_T: torch.Tensor      # (4, V) int32 in units of this level's stride
+    valid: torch.Tensor         # (V,) bool
+    hash: CoordHash             # key -> voxel id at this level
+    num_voxels: torch.Tensor    # () int32, may exceed V (overflow)
+    overflow: torch.Tensor      # () bool
+    # links to the next-coarser level (None at the deepest level)
+    parent: Optional[torch.Tensor] = None   # (V,) int32, -1 none/dropped
+    kpos: Optional[torch.Tensor] = None     # (V,) int32 in [0, 8)
+
+
+def downsample(level: PlanLevel, v_cap: int):
+    """unique(coords // 2) in first-occurrence order -> (coarser level,
+    parent, kpos).  A coarse id at or past ``v_cap`` gives ``parent = -1``
+    and sets the coarse level's overflow."""
+    b, x, y, z = level.coords_T
+    key = K.pack_columns_u32(b, x >> 1, y >> 1, z >> 1, level.valid)
+    n = key.shape[0]
+    h = build_hash(key, capacity=min(v_cap, n))
+    comp = voxel_compact(lookup_hash(h, key), level.coords_T, v_cap, 1, h,
+                         with_kpos=True)
+    coarse = PlanLevel(coords_T=comp.coords_T, valid=comp.valid,
+                       hash=comp.hash, num_voxels=comp.num_voxels,
+                       overflow=h.overflow | (comp.num_voxels > v_cap))
+    return coarse, comp.inverse, comp.kpos
+
+
+def build_conv_plan(grid: VoxelGrid, num_levels: int,
+                    level_caps: Optional[Sequence[int]] = None
+                    ) -> List[PlanLevel]:
+    """The stride-1..2^(L-1) pyramid from the level-0 voxels."""
+    v0 = grid.coords_T.shape[1]
+    caps = list(level_caps) if level_caps is not None else [v0] * num_levels
+    levels = [PlanLevel(coords_T=grid.coords_T, valid=grid.valid,
+                        hash=grid.hash, num_voxels=grid.num_voxels,
+                        overflow=grid.overflow)]
+    for li in range(1, num_levels):
+        coarse, parent, kpos = downsample(levels[-1], caps[li])
+        levels[-1] = levels[-1]._replace(parent=parent, kpos=kpos)
+        levels.append(coarse)
+    return levels
+
+
+def neighbor_table_plain(coords_T: torch.Tensor, num_voxels: torch.Tensor,
+                         kernel_size: int) -> torch.Tensor:
+    """Plain version of K7, with no hash: ``searchsorted`` of each
+    neighbour's key over the level's sorted voxel keys."""
+    v, dev = coords_T.shape[1], coords_T.device
+    live = torch.arange(v, device=dev) < num_voxels
+    own = K.pack_columns_u32(*coords_T, live)
+    sorted_keys, order = torch.sort(own)
+    offs = torch.from_numpy(kernel_offsets(kernel_size)).to(dev)
+    q = [coords_T[d][None, :] + offs[:, d - 1][:, None] for d in (1, 2, 3)]
+    qk = K.pack_columns_u32(coords_T[0][None, :].expand_as(q[0]), *q,
+                            live[None, :].expand_as(q[0]))
+    pos = torch.searchsorted(sorted_keys, qk.reshape(-1)).clamp(max=v - 1)
+    hit = (sorted_keys[pos] == qk.reshape(-1)) & (qk.reshape(-1) != K.SENTINEL)
+    return torch.where(hit, order[pos], -1).to(torch.int32).view(-1, v)
+
+
+def neighbor_table(level: PlanLevel, kernel_size: int) -> torch.Tensor:
+    """(k^3, V) int32: the voxel at ``coords + offset`` (offset-major,
+    canonical order), -1 where absent, for rows past the count and for
+    neighbours dropped by an overflow."""
+    if kernel_size % 2 != 1:
+        raise ValueError("neighbor tables are for odd, centered kernels")
+    coords_T = level.coords_T
+    if coords_T.device.type == "cpu":
+        return neighbor_table_plain(coords_T, level.num_voxels, kernel_size)
+    h = level.hash
+    _require_cuda("neighbor_table", coords_T, h.keys, h.vals)
+    if h.keys.dtype != torch.int32:
+        raise TypeError("neighbor_table: the level's hash must be K6's table")
+    v = coords_T.shape[1]
+    num = level.num_voxels.reshape(1)
+    out = torch.empty(kernel_size ** 3, v, dtype=torch.int32,
+                      device=coords_T.device)
+    lib = cuda_build.library("neighbor_table")
+    cuda_build.check(lib.neighbor_table(
+        coords_T.data_ptr(), num.data_ptr(), v, kernel_size, h.keys.data_ptr(),
+        h.vals.data_ptr(), h.keys.shape[0], out.data_ptr(),
+        cuda_build.stream_ptr(coords_T)), "neighbor_table")
+    neighbor_table.launches += 1
+    return out
+
+
+neighbor_table.launches = 0
+
+
+def child_table(parent: torch.Tensor, kpos: torch.Tensor, coarse_cap: int
+                ) -> torch.Tensor:
+    """(8, coarse_cap) int32 with ``child[kpos[i], parent[i]] = i`` for the
+    fine rows that have a parent, else -1 (``host_plan.child_table``)."""
+    dev = parent.device
+    flat = torch.full((8 * coarse_cap + 1,), -1, dtype=torch.int32,
+                      device=dev)
+    slot = torch.where(parent >= 0, kpos.long() * coarse_cap + parent.long(),
+                       8 * coarse_cap)
+    flat.scatter_(0, slot, torch.arange(parent.shape[0], dtype=torch.int32,
+                                        device=dev))
+    return flat[:-1].view(8, coarse_cap)
+
+
+def up_order(kpos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Fine rows stably sorted by kpos, invalid rows last
+    (``host_plan.up_order``)."""
+    key = torch.where(valid, kpos, 8)
+    return torch.sort(key, stable=True).indices.to(torch.int32)

@@ -1,6 +1,6 @@
 """Device-time breakdown of the port's main path on one CUDA card.
 
-    python -m segdino3d_tpu_torch.tools.profile_eval [--out PATH]
+    python -m segdino3d_tpu_torch.tools.profile_eval [--device-plan] [--out PATH]
 
 Runs ``chip_smoke.py``'s main path (flagship SegDINO3D, seeded random
 weights, the seeded 120,000-point synthetic scene, fp32, batch 1): one
@@ -9,11 +9,14 @@ post-processing under ``torch.profiler``.  Prints the device time summed by
 kernel name (top 25), the device busy time against the wall time of the
 profiled window (the device's idle share), and the kernel launch count.
 The host plan and the AP protocol stay outside the window: they run no
-device work.
+device work.  With ``--device-plan`` the batch carries no host plan and
+the backbone builds it on the card inside the window (kernels K6-K8), at
+the host plan's capacities.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -30,6 +33,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the full key_averages table here")
+    ap.add_argument("--device-plan", action="store_true",
+                    help="build the plan on the card inside the window")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device", file=sys.stderr)
@@ -44,12 +49,17 @@ def main() -> int:
     records = C.make_records()
     spec = PadSpec(C.SCENE["n_points"], C.SCENE["n_superpoints"], 64, 128,
                    200)
-    model, test_cfg = build_model(
-        C.model_cfg(), Capacities(num_superpoints=C.SCENE["n_superpoints"]))
-    random_init_(model, seed=0)
     batch = attach_host_plan(collate(records, spec, "cuda"), records, spec,
                              voxel_size=0.02,
                              level_cap_ratios=C.LEVEL_CAP_RATIOS)
+    model, test_cfg = build_model(
+        C.model_cfg(), Capacities(
+            num_superpoints=C.SCENE["n_superpoints"],
+            num_voxels=batch.plan.levels[0].valid.shape[0],
+            level_cap_ratios=C.LEVEL_CAP_RATIOS))
+    random_init_(model, seed=0)
+    if args.device_plan:
+        batch = dataclasses.replace(batch, plan=None)
 
     def device_part():
         with torch.no_grad():

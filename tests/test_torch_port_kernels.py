@@ -12,15 +12,20 @@ imports jax):
 Tolerances: fp32 ``rtol = atol = 1e-4`` (the same fp32 products summed in
 another order); bf16 ``1e-2`` (both sides sum in fp32 and round once to
 bf16, so they may differ by one bf16 ulp).  The weight gradient (K4) sums
-hundreds of rows: its tolerance is ``1e-4`` of ``max |plain|``.
+hundreds of rows: its tolerance is ``1e-4`` of ``max |plain|``.  The plan
+engine's kernels (K6-K8) give integers, which must be equal.
 """
 import numpy as np
 import pytest
 import torch
 
+from segdino3d_tpu_torch.models.backbone.res16unet import build_unet_plan
+from segdino3d_tpu_torch.ops import hashing as TQ
 from segdino3d_tpu_torch.ops import host_plan as TH
 from segdino3d_tpu_torch.ops import scatter as TS
 from segdino3d_tpu_torch.ops import sparse_conv as TSC
+from segdino3d_tpu_torch.ops import voxelize as TV
+from segdino3d_tpu_torch.ops.keys import SENTINEL
 
 CAPS = [512, 256, 128, 64, 32]
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
@@ -190,3 +195,135 @@ def _plan_on(device):
     plan = TH.build_host_plan(coords, np.zeros(600, np.int32),
                               np.ones(600, bool), CAPS)
     return TH.host_plan_to_device(plan, device)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [4096, 700])
+def test_coord_hash_matches_plain(card, capacity):
+    """K6 against its plain version: up to 8 rows per key, keys that collide
+    in the table (capacity 700: ~600 distinct keys in 2,048 slots), misses
+    and sentinel queries."""
+    rng = np.random.RandomState(4)
+    distinct = rng.choice(1 << 20, 600, replace=False).astype(np.int64)
+    keys = np.repeat(distinct, rng.randint(1, 9, 600))
+    rng.shuffle(keys)
+    keys[rng.rand(len(keys)) < 0.05] = SENTINEL
+    queries = np.concatenate([keys, rng.randint(0, 1 << 20, 500),
+                              [SENTINEL]])
+    key_t, q_t = (torch.from_numpy(a).to(card) for a in (keys, queries))
+    h = TQ.build_hash(key_t, capacity)
+    want_h = TQ.build_hash_plain(key_t, capacity)
+    got = TQ.lookup_hash(h, q_t)
+    want = TQ.lookup_hash_plain(want_h, q_t)
+    torch.cuda.synchronize()
+    assert h.keys.shape == (TQ.table_size(capacity),)
+    assert bool(h.overflow) == bool(want_h.overflow) is False
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_coord_hash_overflow_flag(card):
+    """A full table flags the keys it cannot place (plain: more distinct
+    keys than slots)."""
+    key = torch.arange(40, dtype=torch.int64, device=card) * 977
+    assert bool(TQ.build_hash(key, 8).overflow)
+    assert bool(TQ.build_hash_plain(key, 8).overflow)
+
+
+def _border_points(rng, n=3000):
+    """Points of two scenes with voxels at every field limit (x = 1023,
+    y = 1023, z = 511 and 0), 1-8 points per voxel, and a few past them."""
+    base = rng.randint(0, 40, (n // 4, 3)).astype(np.float32)
+    base[:40, 0] = 1023
+    base[40:80, 1] = 1023
+    base[80:120, 2] = 511
+    base[120:160] = 0
+    base[160:170, 2] = 515                      # past z: dropped
+    pts = np.repeat(base, 4, 0) + rng.uniform(0, 0.99, (len(base) * 4, 3))
+    bidx = (np.arange(len(pts)) >= len(pts) // 2).astype(np.int32)
+    return pts.astype(np.float32), bidx, rng.rand(len(pts)) > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v_cap", [2048, 500])
+def test_voxelize_and_pyramid_match_plain(card, v_cap):
+    """K6 + K8 (voxelize, downsample) and K7 (neighbour tables, k3 and k5)
+    on the card against the plain versions on the CPU; v_cap 500 is
+    smaller than the scene's ~700 voxels (ids past it dropped)."""
+    pts, bidx, valid = _border_points(np.random.RandomState(5))
+    caps = [v_cap, 1024, 1024, 512, 256]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        args = [torch.from_numpy(a).to(dev) for a in (bidx, pts, valid)]
+        grid = TV.voxelize(*args, num_voxels_static=v_cap)
+        plan, overflow = build_unet_plan(grid, 5, 5, caps)
+        # the grid's hash maps each point's key to its voxel id
+        ids = TQ.lookup_hash(grid.hash, TV.point_keys(*args)[1])
+        out[dev.type] = (grid, plan, overflow, ids)
+    torch.cuda.synchronize()
+    (gg, gp, go, gi), (wg, wp, wo, wi) = out["cuda"], out["cpu"]
+    assert bool(go) == bool(wo) is True          # points past z = 511
+    assert int(gg.num_voxels) == int(wg.num_voxels)
+    torch.testing.assert_close(gi.cpu(), wi, rtol=0, atol=0)
+    for a, b in ((gg.inverse_mapping, wg.inverse_mapping),
+                 (gg.coords_T, wg.coords_T), (gg.valid, wg.valid),
+                 (gp.stem_nbr, wp.stem_nbr)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
+    for a, b in zip(gp.levels, wp.levels, strict=True):
+        for k in ("valid", "nbr", "parent", "kpos", "child", "up_order"):
+            x, y = getattr(a, k), getattr(b, k)
+            if y is None:
+                assert x is None
+            else:
+                torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0,
+                                           msg=k)
+
+
+@pytest.mark.cuda
+def test_voxel_compact_leaves_its_hash(card):
+    """K8 returns the remapped hash as a new table: two calls on one hash
+    give the same voxel ids, and the hash still holds rows."""
+    pts, bidx, valid = _border_points(np.random.RandomState(7))
+    cols, key = TV.point_keys(*(torch.from_numpy(a).to(card)
+                                for a in (bidx, pts, valid)))
+    h = TQ.build_hash(key, key.shape[0])
+    rows_before = h.vals.clone()
+    winner = TQ.lookup_hash(h, key)
+    first, second = (TV.voxel_compact(winner, cols, 4096, 0, h)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h.vals, rows_before, rtol=0, atol=0)
+    for c in (first, second):
+        torch.testing.assert_close(TQ.lookup_hash(c.hash, key), c.inverse,
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_device_plan_matches_host_plan_on_card(card):
+    rng = np.random.RandomState(6)
+    coords = rng.uniform(0, 30, (5000, 3)).astype(np.float32)
+    bidx = (np.arange(5000) >= 3000).astype(np.int32)
+    valid = rng.rand(5000) > 0.05
+    caps = [8192] * 5
+    host = TH.host_plan_to_device(TH.build_host_plan(coords, bidx, valid,
+                                                     caps), card)
+    grid = TV.voxelize(torch.from_numpy(bidx).to(card),
+                       torch.from_numpy(coords).to(card),
+                       torch.from_numpy(valid).to(card), caps[0])
+    dev, overflow = build_unet_plan(grid, 5, 5, caps)
+    torch.cuda.synchronize()
+    assert not bool(overflow)
+    torch.testing.assert_close(dev.inverse, host.inverse, rtol=0, atol=0)
+    torch.testing.assert_close(dev.stem_nbr, host.stem_nbr, rtol=0, atol=0)
+    for a, b in zip(dev.levels, host.levels, strict=True):
+        for k in ("valid", "nbr", "parent", "kpos", "child", "up_order"):
+            x, y = getattr(a, k), getattr(b, k)
+            if y is not None:
+                torch.testing.assert_close(x, y, rtol=0, atol=0, msg=k)

@@ -266,17 +266,22 @@ def regen():
 # the port's side
 # --------------------------------------------------------------------------
 
-def port_step(variables, recs=None):
-    """The port's step on the two microbatches, from ``variables``."""
-    model, _ = build_model(PORT_CFG, Capacities(num_superpoints=S_CAP),
-                           device="cpu", train=True)
+def port_step(variables, recs=None, device_plan=False):
+    """The port's step on the two microbatches, from ``variables``; with
+    ``device_plan`` the microbatches carry no host plan and the backbone
+    builds theirs on the device, at the host plan's capacities."""
+    caps = Capacities(num_superpoints=S_CAP, num_voxels=VOXEL_CAP)
+    model, _ = build_model(PORT_CFG, caps, device="cpu", train=True)
     load_jax_variables(model, variables)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     spec = TC.PadSpec(N_POINTS, S_CAP, I_CAP, K2D, N_SEM)
     recs = recs or records()
-    mbs = [TC.attach_host_plan(TC.collate([r], spec, "cpu"), [r], spec,
-                               voxel_size=0.02, voxel_cap=VOXEL_CAP)
-           for r in recs]
+    mbs = [TC.collate([r], spec, "cpu") for r in recs]
+    if not device_plan:
+        mbs = [TC.attach_host_plan(mb, [r], spec, voxel_size=0.02,
+                                   voxel_cap=VOXEL_CAP,
+                                   level_cap_ratios=caps.level_cap_ratios)
+               for mb, r in zip(mbs, recs)]
     queries = [tuple(torch.from_numpy(a) for a in
                      numpy_selection(mb.num_superpoints.numpy()))
                for mb in mbs]
