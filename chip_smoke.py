@@ -14,7 +14,12 @@ Phases, in order; any failure exits non-zero before the result line:
    backward kernels K4 (weight gradients) and K5 (pooling gradient), and
    K1/K2 in their backward roles, in fp32 at the training shapes; the plan
    engine's kernels K6 (coordinate hash), K8 (voxel compaction) and K7
-   (neighbour tables), whose integer outputs must be equal;
+   (neighbour tables), whose integer outputs must be equal; the block-dense
+   layout's kernels on the flagship config's block tables: K9 (slot
+   gather, both ways, equal), K10 (block conv: k3 96->96 at level 0, k3
+   384->256 at level 3, the dense k5 stem 259->32, fp32 and bf16, and its
+   dX role) and K11 (its weight gradient: level 0 k3 and the stem), each
+   with its bound from the cells this scene occupies;
 3. run the eval path at full width: ScanNet200 eval of the flagship
    SegDINO3D (Res16UNet34C + 6-layer DINO-X query decoder) with seeded
    random weights on a seeded synthetic 120,000-point scene with 1,536
@@ -40,6 +45,16 @@ Phases, in order; any failure exits non-zero before the result line:
 4b. run the batch-1 training step on device plans (built inside the
    forward) for a few steps: s/step, the plan stage, launches, finite
    losses and gradient norm;
+3c. run the eval path on the flagship config's eval layout, the hybrid one
+   (a gather k5 stem, block-dense convs everywhere else: kernels K9 and
+   K10): blocks and fill per level, scenes/s, ms per stage, launches in one
+   forward, peak memory; the backbone output within 3e-3 x max|.| of the
+   gather layout's on the same scene and weights, and the card against the
+   CPU's plain path on a small hybrid scene;
+4c. run batch-1 training steps on the config's training layout
+   (block-dense everywhere, the k5 stem too: K9, K10 forward and as dX,
+   K11): s/step, ms per stage, launches per step, peak memory, finite
+   losses and gradient norm, and the card against the CPU on a small scene;
 5. print one ``kernels`` JSON line, then the result line.
 
 It needs one card, imports no JAX, and takes its kernels from the
@@ -76,18 +91,20 @@ TRAIN_STEPS = 3            # measured batch-1 steps, after one warm-up step
 OPTIMIZER = dict(lr=1e-4, weight_decay=0.05)
 SCHEDULER = dict(total_iters=300 * 129, power=0.9)
 CLIP_MAX_NORM, EMA_DECAY = 10.0, 0.9997
-WGRAD_TOL = 1e-4           # K4: |kernel - plain| <= 1e-4 * max |plain|
+WGRAD_TOL = 1e-4           # K4, K11: |kernel - plain| <= 1e-4 * max |plain|
 
 
 def model_cfg():
     """The flagship SegDINO3D eval config (ScanNet200, DINO-X early
-    fusion), as ``configs/models/base_3d.py`` sets it."""
+    fusion), as ``configs/models/base_3d.py`` sets it, with its conv
+    layouts (``builder.host_plan_args``)."""
     return dict(
         type="SegDINO3D",
         pointcloud_backbone_cfg=dict(
             type="Res16UNet34C", in_channels=259, out_channels=96,
             voxel_size=0.02, mode_fuse_2d_feat="early_fusion",
-            compute_dtype="float32",
+            compute_dtype="float32", block_edges=(4, 4, 4, 4, 4),
+            stem_gather=True, block_edges_train=(4, 4, 4, 4, 4),
             config=dict(conv1_kernel_size=5, bn_momentum=0.02)),
         decoder_cfg=dict(
             type="ScanNetQueryDecoder", num_layers=6,
@@ -125,6 +142,21 @@ def train_cfg():
                 loss_weight=[0.5, 1.0, 1.0, 0.5, 0.5, 0.5], num_classes=198,
                 non_object_weight=0.1, fix_dice_loss_weight=True,
                 iter_matcher=True, fix_mean_loss=True)))
+
+
+def plan_layout(name):
+    """``attach_host_plan`` arguments of a conv layout: "gather" (phases
+    3-4b), or the flagship config's eval layout "hybrid" or training layout
+    "block-dense" (``builder.host_plan_args``)."""
+    from segdino3d_tpu_torch.builder import host_plan_args
+
+    if name == "hybrid":
+        return host_plan_args(model_cfg())
+    if name == "block-dense":
+        return host_plan_args(train_cfg(), train=True)
+    if name != "gather":
+        raise ValueError(f"unknown layout {name}")
+    return dict(voxel_size=0.02)
 
 
 def time_ms(fn, reps=10):
@@ -495,12 +527,15 @@ def check_kernels(cases):
     """Compare, then time; returns per-kernel rows (headline = first case
     of each kernel, fp32) and the max error over each kernel's cases.  A
     case's ``per`` maps a dtype to (kernel_fn, plain_fn, library_fn, ops,
-    bytes, peak) and optionally a 7th entry, a tolerance relative to
-    ``max |plain|`` (for long fp32 reductions; 0 for integer outputs,
-    which must be equal)."""
+    bytes, peak) and optionally a tolerance relative to ``max |plain|``
+    (a float: for long fp32 reductions; 0 for integer outputs, which must
+    be equal) and a dict of further yardsticks {name: fn}, timed and
+    printed beside it."""
     rows = {}
     for kernel, name, per in cases:
-        for dt, (kfn, pfn, lfn, ops, byts, peak, *rel) in per.items():
+        for dt, (kfn, pfn, lfn, ops, byts, peak, *opt) in per.items():
+            rel = [o for o in opt if isinstance(o, float)]
+            extra = next((o for o in opt if isinstance(o, dict)), {})
             got, want = kfn(), pfn()
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
@@ -514,14 +549,17 @@ def check_kernels(cases):
                 ok = torch.allclose(got.float(), want.float(), rtol=tol,
                                     atol=tol)
                 tol_text = f"rtol=atol={tol:g}"
+            del got, want
             k_ms, p_ms, l_ms = time_ms(kfn), time_ms(pfn, 3), time_ms(lfn, 3)
+            extra_text = "".join(f", {k} {time_ms(fn, 3):.4f} ms"
+                                 for k, fn in extra.items())
             b_ms, b_by = bound(ops, byts, peak)
             dts = str(dt).replace("torch.", "")
             print(f"kernel {kernel} [{name}] {dts}: max_abs_err={err:.3e} "
                   f"({tol_text}) {'ok' if ok else 'MISMATCH'}; "
                   f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"library {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
-                  flush=True)
+                  f"library {l_ms:.4f} ms{extra_text}, bound {b_ms:.4f} ms "
+                  f"({b_by})", flush=True)
             if not ok:
                 raise SystemExit(f"{kernel} [{name}] {dts} disagrees with "
                                  f"its plain version")
@@ -532,6 +570,143 @@ def check_kernels(cases):
                     case=name, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                     bound_ms=b_ms, bound_by=b_by))
     return rows
+
+
+def to_ncdhw(x5):
+    """(B, D, H, W, C) -> (B, C, D, H, W), contiguous."""
+    return x5.permute(0, 4, 1, 2, 3).contiguous()
+
+
+def dense_cases(plan, gen):
+    """K9, K10 and K11 on the block tables of the flagship eval plan (the
+    hybrid layout; the training plan's are the same tables), at the main
+    path's shapes.  Bytes count each input once and each output once; the
+    conv's operations count the pairs (output cell, offset) whose source
+    cell is occupied, over the occupied output cells (over every cell in
+    the dX role, which has no output mask), as this scene needs them.  The
+    case name carries the occupied share of the occupied blocks' cells and
+    the bound of the dense work the kernel does."""
+    import torch.nn.functional as F
+
+    from segdino3d_tpu_torch.ops import block_dense as BD
+
+    f32, exact = torch.float32, 0.0
+    cases = []
+    t0, t3 = plan.blocks[0], plan.blocks[3]
+
+    def fill(t):
+        return block_fill(t)[2]   # the occupied blocks' occupied share
+
+    def pairs(t, k, masked):
+        """(pairs the conv needs, every (cell, offset) pair)"""
+        occ = BD.occupancy(t)
+        ones = torch.ones(k ** 3, 1, 1, device=DEVICE)
+        hits = BD.dense_subm_conv_plain(occ.float()[:, None], t.block_nbr,
+                                        ones, None, t.edge)[:, 0]
+        return (float(hits[occ].sum() if masked else hits.sum()),
+                float(occ.shape[0] * k ** 3))
+
+    def gather_case(x, idx):
+        n_ref = int((idx >= 0).sum())
+        xp = torch.cat([x, x.new_zeros(1, x.shape[1])])
+        il = torch.where(idx < 0, x.shape[0], idx).long()
+        return (lambda: BD.slot_gather(x, idx),
+                lambda: BD.slot_gather_plain(x, idx),
+                lambda: torch.index_select(xp, 0, il), 0.0,
+                n_ref * x.shape[1] * x.element_size() + nbytes(idx)
+                + idx.shape[0] * x.shape[1] * x.element_size(), "fp32",
+                exact)
+
+    v0 = plan.levels[0].valid.shape[0]
+    for direction in ("enter", "exit"):
+        per = {}
+        for dt in (torch.float32, torch.bfloat16):
+            if direction == "enter":
+                x = torch.where(plan.levels[0].valid[:, None],
+                                _randn(gen, (v0, 96), dt), 0.0)
+                per[dt] = gather_case(x, t0.slot_vox)
+            else:
+                x = torch.where(BD.occupancy(t0)[:, None],
+                                _randn(gen, (t0.slot_vox.shape[0], 96), dt),
+                                0.0)
+                per[dt] = gather_case(x, t0.vox_slot)
+        what = ("voxels (V0,96) -> dense rows (B0*64,96), through slot_vox"
+                if direction == "enter" else
+                "dense rows (B0*64,96) -> voxels (V0,96), through vox_slot")
+        cases.append(("slot_gather", f"{what}, fill {fill(t0):.1%}", per))
+
+    def conv_case(name, t, cin, cout, k, dtypes, dx=False):
+        occ = BD.occupancy(t)
+        need, dense = pairs(t, k, masked=not dx)
+        per = {}
+        for dt in dtypes:
+            x = torch.where(occ[:, None],
+                            _randn(gen, (occ.shape[0], cin), dt), 0.0)
+            w = _randn(gen, (k ** 3, cin, cout), dt, (k ** 3 * cin) ** -0.5)
+            mask = None if dx else occ
+            h = (k - 1) // 2
+            b, e = t.num_blocks, t.edge
+            wc = w.reshape(k, k, k, cin, cout).permute(4, 3, 0, 1, 2
+                                                       ).contiguous()
+            padded = to_ncdhw(BD.halo_pad_plain(x.reshape(b, e, e, e, cin),
+                                                t.block_nbr, h))
+
+            def lib(x=x, wc=wc, b=b, e=e, h=h):
+                p = to_ncdhw(BD.halo_pad_plain(x.reshape(b, e, e, e, cin),
+                                               t.block_nbr, h))
+                return F.conv3d(p, wc)
+
+            per[dt] = (lambda x=x, w=w, mask=mask: BD.block_conv(
+                           x, t.block_nbr, w, mask, e),
+                       lambda x=x, w=w, mask=mask: BD.dense_subm_conv_plain(
+                           x, t.block_nbr, w, mask, e),
+                       lib, 2.0 * need * cin * cout,
+                       nbytes(x, t.block_nbr, w, mask)
+                       + occ.shape[0] * cout * x.element_size(),
+                       CONV_PEAK[dt],
+                       {"library without the halo assembly (conv3d alone)":
+                        lambda p=padded, wc=wc: F.conv3d(p, wc)})
+        dense_ms = bound(2.0 * dense * cin * cout, 0.0, "fp32")[0]
+        cases.append(("block_conv", f"{name}, fill {fill(t):.1%}, "
+                      f"dense-work bound {dense_ms:.4f} ms (fp32)", per))
+
+    both = (torch.float32, torch.bfloat16)
+    conv_case("k3 96->96 L0", t0, 96, 96, 3, both)
+    conv_case("k3 384->256 L3", t3, 384, 256, 3, both)
+    conv_case("dense stem k5 259->32 L0", t0, 259, 32, 5, both)
+    conv_case("dX k3 96->96 L0 (flipped, transposed W, no mask)", t0, 96,
+              96, 3, (f32,), dx=True)
+
+    def wgrad_case(name, t, cin, cout, k):
+        occ = BD.occupancy(t)
+        need, dense = pairs(t, k, masked=True)
+        x = torch.where(occ[:, None], _randn(gen, (occ.shape[0], cin), f32),
+                        0.0)
+        dy = torch.where(occ[:, None],
+                         _randn(gen, (occ.shape[0], cout), f32), 0.0)
+        b, e, h = t.num_blocks, t.edge, (k - 1) // 2
+
+        def lib():
+            p = to_ncdhw(BD.halo_pad_plain(x.reshape(b, e, e, e, cin),
+                                           t.block_nbr, h))
+            return torch.nn.grad.conv3d_weight(
+                p, (cout, cin, k, k, k), to_ncdhw(dy.reshape(b, e, e, e,
+                                                             cout)))
+
+        dense_ms = bound(2.0 * dense * cin * cout, 0.0, "fp32")[0]
+        cases.append(("block_wgrad", f"{name}, fill {fill(t):.1%}, "
+                      f"dense-work bound {dense_ms:.4f} ms (fp32)", {f32: (
+                          lambda: BD.block_wgrad(x, dy, t.block_nbr, occ, e,
+                                                 k),
+                          lambda: BD.block_wgrad_plain(x, dy, t.block_nbr,
+                                                       occ, e, k),
+                          lib, 2.0 * need * cin * cout,
+                          nbytes(x, dy, t.block_nbr, occ)
+                          + k ** 3 * cin * cout * 4, "fp32", WGRAD_TOL)}))
+
+    wgrad_case("dW k3 96->96 L0", t0, 96, 96, 3)
+    wgrad_case("stem dW k5 259->32 L0", t0, 259, 32, 5)
+    return cases
 
 
 # --------------------------------------------------------------------------
@@ -549,6 +724,7 @@ def make_records():
 
 def counters():
     """{kernel: its wrappers}; a kernel's launches are its wrappers' sum."""
+    from segdino3d_tpu_torch.ops import block_dense as BD
     from segdino3d_tpu_torch.ops import hashing as TQ
     from segdino3d_tpu_torch.ops import scatter as SS
     from segdino3d_tpu_torch.ops import sparse_conv as SC
@@ -561,7 +737,16 @@ def counters():
             "segment_grad": (SS.segment_grad,),
             "coord_hash": (TQ.build_hash, TQ.lookup_hash),
             "neighbor_table": (SC.neighbor_table,),
-            "voxel_compact": (TV.voxel_compact,)}
+            "voxel_compact": (TV.voxel_compact,),
+            "slot_gather": (BD.slot_gather,),
+            "block_conv": (BD.block_conv,),
+            "block_wgrad": (BD.block_wgrad,)}
+
+
+# the kernels of the gather layout's training step on device plans
+GATHER_STEP_KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
+                       "gather_wgrad", "segment_grad", "coord_hash",
+                       "neighbor_table", "voxel_compact")
 
 
 def reset_counts():
@@ -575,10 +760,12 @@ def read_counts():
             for k, fns in counters().items()}
 
 
-def run_main_path(model, test_cfg, records, spec, device_plan=False):
-    """The eval path; with ``device_plan`` the batch carries no host plan
-    and the backbone builds it on the card ("plan" is then the collate
-    alone, and the backbone stage holds the device plan)."""
+def run_main_path(model, test_cfg, records, spec, device_plan=False,
+                  layout="gather"):
+    """The eval path on host plans of ``layout`` (``plan_layout``); with
+    ``device_plan`` the batch carries no host plan and the backbone builds
+    it on the card ("plan" is then the collate alone, and the backbone
+    stage holds the device plan)."""
     from segdino3d_tpu_torch.data.collate import (attach_host_plan, collate,
                                                   eval_annotation)
     from segdino3d_tpu_torch.evaluation.evaluate import (host_prediction,
@@ -589,14 +776,16 @@ def run_main_path(model, test_cfg, records, spec, device_plan=False):
 
     evaluator = InstanceSeg3DEvaluator(SCANNET200_RAW_IDS,
                                        SCANNET200_CLASS_NAMES)
+    plan_args = plan_layout(layout)
 
     def once():
         t = {}
         t0 = time.perf_counter()
         batch = collate(records, spec, DEVICE)
         if not device_plan:
-            batch = attach_host_plan(batch, records, spec, voxel_size=0.02,
-                                     level_cap_ratios=LEVEL_CAP_RATIOS)
+            batch = attach_host_plan(batch, records, spec,
+                                     level_cap_ratios=LEVEL_CAP_RATIOS,
+                                     **plan_args)
         torch.cuda.synchronize()
         t["plan"] = time.perf_counter() - t0
         with torch.no_grad():
@@ -651,12 +840,13 @@ def check_outputs(bb, out, res, s_cap):
           f"{inst.valid.shape[0]}", flush=True)
 
 
-def check_small_reference(model):
+def check_small_reference(model, plans=("host", "device")):
     """The card's forward (kernels) against the CPU's plain path, same
     weights, on a small scene, on a host plan and on a device plan (K6-K8
-    on the card; the device plan's capacity is the scene's point count).
-    Compared before any attention threshold: the superpoint features and
-    the first head's class and mask logits."""
+    on the card; the device plan's capacity is the scene's point count),
+    at rtol = atol = 1e-3, and on a hybrid host plan ("hybrid", K9 and
+    K10) at 1e-4.  Compared before any attention threshold: the superpoint
+    features and the first head's class and mask logits."""
     from segdino3d_tpu_torch.data.collate import PadSpec, attach_host_plan, \
         collate
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
@@ -668,13 +858,14 @@ def check_small_reference(model):
     cpu_model.backbone.voxel_cap = None
     card_cap, model.backbone.voxel_cap = model.backbone.voxel_cap, None
     try:
-        for plan in ("host", "device"):
+        for plan in plans:
             outs = {}
+            tol = 1e-4 if plan == "hybrid" else 1e-3
             for dev, m in ((DEVICE, model), ("cpu", cpu_model)):
                 batch = collate(rec, spec, dev)
-                if plan == "host":
-                    batch = attach_host_plan(batch, rec, spec,
-                                             voxel_size=0.02)
+                if plan != "device":
+                    batch = attach_host_plan(batch, rec, spec, **plan_layout(
+                        "gather" if plan == "host" else plan))
                 with torch.no_grad():
                     bb = m.backbone(batch)
                     o = m.decode(batch, bb)
@@ -684,9 +875,9 @@ def check_small_reference(model):
             for k in outs["cpu"]:
                 a, b = outs[DEVICE][k].cpu(), outs["cpu"][k]
                 err = float((a - b).abs().max())
-                ok = torch.allclose(a, b, rtol=1e-3, atol=1e-3)
+                ok = torch.allclose(a, b, rtol=tol, atol=tol)
                 print(f"small-scene reference, {plan} plan, {k}: "
-                      f"max_abs_err={err:.3e} (rtol=atol=1e-3) "
+                      f"max_abs_err={err:.3e} (rtol=atol={tol:g}) "
                       f"{'ok' if ok else 'MISMATCH'}", flush=True)
                 if not ok:
                     raise SystemExit(f"card forward disagrees with the CPU "
@@ -856,11 +1047,12 @@ def check_metrics(metrics, what):
     return vals
 
 
-def run_training(model, records, spec):
-    """A warm-up and TRAIN_STEPS measured batch-1 steps, then one
-    accum_steps=4 step over four scenes.  Returns (launches in one batch-1
-    step, per-step stage seconds, the accumulated step's stage seconds and
-    launches, peak bytes, metrics)."""
+def run_training(model, records, spec, layout="gather", accum=True):
+    """A warm-up and TRAIN_STEPS measured batch-1 steps on host plans of
+    ``layout`` (``plan_layout``), then (with ``accum``) one accum_steps=4
+    step over four scenes.  Returns (launches in one batch-1 step, per-step stage seconds,
+    the accumulated step's stage seconds and launches or None, peak bytes,
+    metrics)."""
     from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
     from segdino3d_tpu_torch.parallel.train_step import StageClock, TrainStep
 
@@ -869,11 +1061,12 @@ def run_training(model, records, spec):
     # the accumulated step continues the run: one optimizer and EMA
     step4 = TrainStep(model, step1.criterion, step1.optimizer, step1.ema,
                       accum_steps=4)
+    plan_args = plan_layout(layout)
 
     def plan(rec):
         t0 = time.perf_counter()
         b = attach_host_plan(collate([rec], spec, DEVICE), [rec], spec,
-                             voxel_size=0.02, level_cap_ratios=LEVEL_CAP_RATIOS)
+                             level_cap_ratios=LEVEL_CAP_RATIOS, **plan_args)
         torch.cuda.synchronize()
         return b, time.perf_counter() - t0
 
@@ -890,6 +1083,9 @@ def run_training(model, records, spec):
             launches = read_counts()
         metrics.append(check_metrics(m, f"batch-1 step {i}"))
         steps.append(dict(plan=t_plan, **clock.seconds))
+    if not accum:
+        return (launches, steps, None, None,
+                torch.cuda.max_memory_allocated(), metrics)
     mbs, t_plan = [], 0.0
     for rec in records:
         b, t = plan(rec)
@@ -905,12 +1101,13 @@ def run_training(model, records, spec):
             torch.cuda.max_memory_allocated(), metrics)
 
 
-def check_small_train(model):
+def check_small_train(model, layout="gather"):
     """One train step of the card (kernels) against the CPU's plain path,
     same weights and queries, on a small sparse scene (500 points per m^2,
     so every U-Net level keeps enough voxels for well-conditioned batch
-    norms): the losses and the gradient norm (rtol 1e-4), and each leaf's
-    clipped gradient norm (rtol 1e-3, atol 1e-3 x the largest)."""
+    norms), on host plans of ``layout``: the losses and the gradient
+    norm (rtol 1e-4), and each leaf's clipped gradient norm (rtol 1e-3,
+    atol 1e-3 x the largest)."""
     from segdino3d_tpu_torch.data.collate import PadSpec, attach_host_plan, \
         collate
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
@@ -924,7 +1121,8 @@ def check_small_train(model):
         m = copy.deepcopy(model).to(dev)
         # sparse levels keep most voxels: every level gets the full cap
         batch = attach_host_plan(collate(rec, spec, dev), rec, spec,
-                                 voxel_size=0.02, level_cap_ratios=(1.0,) * 5)
+                                 level_cap_ratios=(1.0,) * 5,
+                                 **plan_layout(layout))
         q = numpy_queries(batch.num_superpoints.cpu().numpy(),
                           SCENE["n_superpoints"], seed=5)
         metrics = make_train_step(m, 1, ema=False)(
@@ -934,7 +1132,8 @@ def check_small_train(model):
     (mc, gc), (mp, gp) = out[DEVICE], out["cpu"]
     for k in mp:
         ok = np.isclose(mc[k], mp[k], rtol=1e-4, atol=0)
-        print(f"small-scene train step {k}: card {mc[k]:.6f} cpu {mp[k]:.6f} "
+        print(f"small-scene train step ({layout}) {k}: card "
+              f"{mc[k]:.6f} cpu {mp[k]:.6f} "
               f"{'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
             raise SystemExit(f"card train step disagrees with the CPU on {k}")
@@ -943,7 +1142,8 @@ def check_small_train(model):
                                                         + 1e-3 * gp[n]))
     bad = [n for n in gp
            if not np.isclose(gc[n], gp[n], rtol=1e-3, atol=1e-3 * scale)]
-    print(f"small-scene train step: {len(gp)} gradient leaves, worst {worst} "
+    print(f"small-scene train step ({layout}): {len(gp)} "
+          f"gradient leaves, worst {worst} "
           f"card {gc[worst]:.6g} cpu {gp[worst]:.6g} (rtol 1e-3, atol "
           f"{1e-3 * scale:.3g}) {'ok' if not bad else 'MISMATCH'}",
           flush=True)
@@ -994,7 +1194,7 @@ def run_training_device(model, records, spec):
     total = [sum(st[k] for k in keys) for st in steps]
     print(f"launches in one batch-1 train step on a device plan: {launches}",
           flush=True)
-    for k in counters():
+    for k in GATHER_STEP_KERNELS:
         if launches[k] <= 0:
             raise SystemExit(f"{k}: not launched in the device-plan step")
     print(f"train batch 1 on device plans: {float(np.mean(total)):.4f} s/step "
@@ -1026,6 +1226,98 @@ def report_training(launches, steps, accum, launches4, peak):
           f"{sum(accum[k] for k in keys):.4f} s/step; ms per stage "
           + ", ".join(f"{k} {1e3 * accum[k]:.2f}" for k in keys), flush=True)
     print(f"train peak device memory: {peak / 2 ** 30:.3f} GiB", flush=True)
+
+
+# --------------------------------------------------------------------------
+# phases 3c and 4c: the flagship config's block-dense layouts
+# --------------------------------------------------------------------------
+
+def block_fill(t):
+    """(voxels, occupied blocks, their cells' occupied share) of a level."""
+    from segdino3d_tpu_torch.ops import block_dense as BD
+
+    occ = BD.occupancy(t).view(t.num_blocks, -1)
+    n_vox, blocks = int(occ.sum()), int(occ.any(1).sum())
+    return n_vox, blocks, n_vox / max(occ.shape[1] * blocks, 1)
+
+
+def describe_blocks(plan):
+    """Voxels, blocks, block cap and fill of each block-dense level."""
+    parts = []
+    for li, t in enumerate(plan.blocks):
+        if t is None:
+            parts.append(f"L{li} gather")
+            continue
+        n_vox, blocks, fill = block_fill(t)
+        parts.append(f"L{li} {n_vox} voxels in {blocks} blocks (cap "
+                     f"{t.num_blocks}), fill {fill:.1%}")
+    return "; ".join(parts)
+
+
+def run_hybrid_eval(model, test_cfg, records, spec, gather_bb):
+    """Phase 3c: the eval path on the config's eval layout (hybrid)."""
+    launches, times, peak, batch, bb, out, res, metrics = run_main_path(
+        model, test_cfg, records, spec, layout="hybrid")
+    plan = batch.plan
+    if plan.blocks is None or plan.stem_nbr is None:
+        raise SystemExit("the hybrid plan has no block tables or no stem "
+                         "table")
+    print(f"hybrid plan {plan_layout('hybrid')}: {describe_blocks(plan)}",
+          flush=True)
+    expected = {"gather_gemm_conv": 5, "up_conv": 4, "segment_mean_gather": 2,
+                "block_conv": 46, "slot_gather": 18}
+    print(f"launches in one hybrid forward: {launches} (expected "
+          f"{expected})", flush=True)
+    for k, n in expected.items():
+        if launches[k] != n:
+            raise SystemExit(f"{k}: {launches[k]} launches in the hybrid "
+                             f"forward, expected {n}")
+    stages = {k: 1e3 * float(np.mean([t[k] for t in times]))
+              for k in times[0]}
+    total = [sum(t.values()) for t in times]
+    print(f"hybrid main path: {1.0 / float(np.mean(total)):.3f} scenes/s "
+          f"over {TIMED_ITERS} iterations (batch 1, fp32); ms per stage "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f"; total {1e3 * float(np.mean(total)):.2f} ms; peak "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    a, b = bb.sp_feats, gather_bb.sp_feats
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    ok = err <= 3e-3 * scale
+    print(f"hybrid backbone vs gather backbone sp_feats: max_abs_err="
+          f"{err:.3e} (<= 3e-3 x max|gather| = {3e-3 * scale:.3e}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise SystemExit("the hybrid backbone disagrees with the gather "
+                         "backbone")
+    check_outputs(bb, out, res, SCENE["n_superpoints"])
+    check_small_reference(model, plans=("hybrid",))
+    return launches
+
+
+def run_dense_training(model, records, spec):
+    """Phase 4c: batch-1 steps on the config's training layout."""
+    check_small_train(model, "block-dense")
+    launches, steps, _, _, peak, metrics = run_training(
+        model, records, spec, layout="block-dense", accum=False)
+    expected = {"block_conv": 93, "block_wgrad": 47, "slot_gather": 35,
+                "gather_gemm_conv": 8, "up_conv": 8, "gather_wgrad": 8,
+                "segment_mean_gather": 2, "segment_grad": 1}
+    print(f"launches in one block-dense train step: {launches} (expected "
+          f"{expected}: K10 47 forward + 46 dX)", flush=True)
+    for k, n in expected.items():
+        if launches[k] != n:
+            raise SystemExit(f"{k}: {launches[k]} launches in the "
+                             f"block-dense train step, expected {n}")
+    keys = ("plan", "forward", "criterion", "backward", "optimizer")
+    mean = {k: 1e3 * float(np.mean([st[k] for st in steps])) for k in keys}
+    total = [sum(st[k] for k in keys) for st in steps]
+    print(f"block-dense train batch 1 {plan_layout('block-dense')}: "
+          f"{float(np.mean(total)):.4f} "
+          f"s/step over {TRAIN_STEPS} steps (fp32); ms per stage "
+          + ", ".join(f"{k} {v:.2f}" for k, v in mean.items())
+          + f"; peak {peak / 2 ** 30:.3f} GiB", flush=True)
+    print(f"block-dense train metrics (finite): {metrics[-1]}", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -1073,9 +1365,14 @@ def main() -> int:
     # phase 2: kernels against their plain versions
     level_caps = [lv.valid.shape[0] for lv in plan.levels]
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    hybrid = attach_host_plan(collate(records, spec, DEVICE), records, spec,
+                              level_cap_ratios=LEVEL_CAP_RATIOS,
+                              **plan_layout("hybrid"))
     rows = check_kernels(kernel_cases(batch, SCENE["n_superpoints"], gen)
                          + backward_cases(batch, SCENE["n_superpoints"], gen)
-                         + plan_engine_cases(batch, level_caps))
+                         + plan_engine_cases(batch, level_caps)
+                         + dense_cases(hybrid.plan, gen))
+    del hybrid
 
     # phase 3: the main path at full width; a batch without a host plan
     # (phase 3b) gets a device plan at the host plan's capacities
@@ -1111,6 +1408,9 @@ def main() -> int:
     dev_launches = run_device_plan_path(model, test_cfg, records, spec, batch,
                                         bb, out)
 
+    # phase 3c: the main path on the config's eval layout (hybrid)
+    hybrid_launches = run_hybrid_eval(model, test_cfg, records, spec, bb)
+
     # phase 4: the training path at full width
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
     tmodel, _ = build_model(train_cfg(), caps, train=True)
@@ -1140,6 +1440,11 @@ def main() -> int:
           f"level cap ratios {LEVEL_CAP_RATIOS}", flush=True)
     train_dev_launches = run_training_device(tmodel, train_records, tspec)
 
+    # phase 4c: batch-1 training on the config's training layout
+    dmodel, _ = build_model(train_cfg(), caps, train=True)
+    random_init_(dmodel, seed=0)
+    dense_train_launches = run_dense_training(dmodel, train_records, tspec)
+
     # phase 5: the kernels line, then the result line
     meta = {
         "gather_gemm_conv": ("segdino3d_tpu_torch/csrc/gather_gemm_conv.cu",
@@ -1159,17 +1464,29 @@ def main() -> int:
                            "segdino3d_tpu/ops/sparse_conv.py:64"),
         "voxel_compact": ("segdino3d_tpu_torch/csrc/voxel_compact.cu",
                           "segdino3d_tpu/ops/voxelize.py:47"),
+        "slot_gather": ("segdino3d_tpu_torch/csrc/slot_gather.cu",
+                        "segdino3d_tpu/ops/block_dense.py:80"),
+        "block_conv": ("segdino3d_tpu_torch/csrc/block_conv.cu",
+                       "segdino3d_tpu/ops/block_dense.py:257"),
+        "block_wgrad": ("segdino3d_tpu_torch/csrc/block_wgrad.cu",
+                        "segdino3d_tpu/ops/block_dense.py:414"),
     }
     plan_kernels = ("coord_hash", "neighbor_table", "voxel_compact")
+    dense_kernels = ("slot_gather", "block_conv", "block_wgrad")
     kernels = []
     for name, (source, replaces) in meta.items():
         h = rows[name]["headline"]
         # the eval path's count for the forward kernels, the train step's
         # for the backward ones, the device-plan eval path's and step's for
-        # the plan engine's; all are printed above
+        # the plan engine's, the hybrid eval path's and the block-dense
+        # step's for the block-dense ones; all are printed above
         if name in plan_kernels:
             main_launches = dev_launches[name]
             train_launches[name] = train_dev_launches[name]
+        elif name in dense_kernels:
+            main_launches = hybrid_launches[name] or \
+                dense_train_launches[name]
+            train_launches[name] = dense_train_launches[name]
         else:
             main_launches = launches[name] if launches[name] > 0 \
                 else train_launches[name]

@@ -2,13 +2,17 @@
 
 Counterpart of ``segdino3d_tpu/builder.py:build_model`` for the
 Res16UNet34C + ScanNetQueryDecoder model, with its criterion
-(``build_criterion``).  Layout knobs of the JAX package (``block_edges``,
-``block_edges_train``, ``stem_gather``) are accepted and ignored: the port
-runs the gather layout, whose parameters are the same, in training too.
-A batch with a host plan (``data.collate.attach_host_plan``) runs on it; a
-batch without one gets its plan built on the device by the backbone, at
-the capacities of ``Capacities``.  Options the port does not implement
-raise instead of being ignored.
+(``build_criterion``).  The conv layout is a property of the plan, and the
+backbone config's layout settings are honoured through the host plan:
+``host_plan_args`` turns ``block_edges`` and ``stem_gather`` (eval) or
+``block_edges_train`` (training, falling back to ``block_edges``) into the
+arguments of ``data.collate.attach_host_plan``, as ``train_3d.py`` does.
+The flagship config's eval plan is the hybrid layout (a gather k5 stem,
+block-dense convs everywhere else), its training plan block-dense with a
+dense stem.  A batch with a host plan runs on it; a batch without one gets
+a gather-layout plan built on the device by the backbone, at the
+capacities of ``Capacities``.  Options the port does not implement raise
+instead of being ignored.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from segdino3d_tpu_torch.models.criterion.losses import \
 from segdino3d_tpu_torch.models.decoder.query_decoder import \
     ScanNetQueryDecoder
 from segdino3d_tpu_torch.models.layers import MaskedBatchNorm
+from segdino3d_tpu_torch.ops.block_dense import EDGES
 
 
 @dataclass(frozen=True)
@@ -107,6 +112,29 @@ def build_model(model_cfg: Dict, caps: Capacities, device=None,
                       query_thr=cfg.get("query_thr", 0.5),
                       mode_3d_center=cfg.get("mode_3d_center", "median"))
     return model.to(device).train(train), dict(cfg.get("test_cfg", {}))
+
+
+def host_plan_args(model_cfg: Dict, train: bool = False) -> Dict:
+    """The host-plan arguments (``data.collate.attach_host_plan``) that
+    the backbone config names: voxel size, stem kernel and layout; for
+    training ``block_edges_train``, else ``block_edges`` and
+    ``stem_gather`` (``train_3d.py``'s eval and training plans)."""
+    bcfg = model_cfg["pointcloud_backbone_cfg"]
+    edges = bcfg.get("block_edges")
+    if train:
+        edges = bcfg.get("block_edges_train", edges)
+    if edges is not None:
+        edges = tuple(int(e) for e in edges)
+        if any(e and e not in EDGES for e in edges):
+            raise NotImplementedError(f"block edges {edges}: the block conv "
+                                      f"takes {EDGES}")
+    args = dict(voxel_size=bcfg.get("voxel_size", 0.02),
+                stem_kernel=(bcfg.get("config") or {}).get(
+                    "conv1_kernel_size", 5),
+                block_edges=edges)
+    if not train:
+        args["stem_gather"] = bool(bcfg.get("stem_gather", False))
+    return args
 
 
 def build_criterion(model_cfg: Dict) -> ScanNetUnifiedCriterion:

@@ -1,8 +1,9 @@
 """Padded-batch assembly: numpy records -> ``SceneBatch`` tensors.
 
 Counterpart of ``segdino3d_tpu/data/collate.py`` (``PadSpec``, ``collate``,
-``_plan_coords``, the gather layout of ``attach_host_plan`` and
-``eval_annotation``).  Scenes are padded to static capacities.
+``_plan_coords``, ``attach_host_plan`` in the gather, block-dense and
+hybrid layouts, and ``eval_annotation``).  Scenes are padded to static
+capacities.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import numpy as np
 import torch
 
 from segdino3d_tpu_torch.gtypes import SceneBatch
-from segdino3d_tpu_torch.ops.host_plan import (build_host_plan,
+from segdino3d_tpu_torch.ops.host_plan import (L0_BUDGET_BYTES,
+                                               build_host_plan,
                                                host_plan_to_device,
                                                probe_voxel_count,
                                                voxel_bucket)
@@ -150,14 +152,23 @@ def attach_host_plan(batch: SceneBatch, records: List[Dict], spec: PadSpec,
                      *, voxel_size: float, voxel_cap: Optional[int] = None,
                      level_cap_ratios=(1.0, 0.7, 0.35, 0.12, 0.05),
                      level_caps: Optional[Sequence[int]] = None,
-                     num_levels: int = 5, stem_kernel: int = 5
+                     num_levels: int = 5, stem_kernel: int = 5,
+                     block_edges: Optional[Sequence[int]] = None,
+                     block_caps: Optional[Sequence[int]] = None,
+                     stem_gather: bool = False, auto_l0_layout: bool = True
                      ) -> SceneBatch:
-    """Build the gather-layout sparse-conv plan on the host (C++) and attach
-    it on the batch's device.
+    """Build the sparse-conv plan on the host (C++) and attach it on the
+    batch's device.
 
     ``voxel_cap=None`` probes the batch's unique-voxel count and picks a
     geometric bucket; ``level_caps`` (measured per-level voxel caps)
-    overrides the ``level_cap_ratios`` derivation."""
+    overrides the ``level_cap_ratios`` derivation.  ``block_edges[l]`` > 0
+    runs level ``l`` block-dense (block counts bucketed unless
+    ``block_caps`` pins them) and ``stem_gather`` keeps a gather stem over
+    a block-dense level 0 (``builder.host_plan_args`` reads these from a
+    model config).  ``auto_l0_layout`` lets level 0 fall back to the gather
+    layout when its dense convs would outgrow the JAX package's budget
+    (``ops.host_plan.l0_dense_fits``, ``L0_BUDGET_BYTES``)."""
     coords, valid, bidx = _plan_coords(records, spec.num_points, voxel_size)
     if level_caps is not None:
         caps = [max(256, -(-int(c) // 256) * 256)
@@ -173,7 +184,10 @@ def attach_host_plan(batch: SceneBatch, records: List[Dict], spec: PadSpec,
         caps[0] = voxel_cap
     plan = build_host_plan(coords.reshape(-1, 3), bidx, valid.reshape(-1),
                            caps, num_levels=num_levels,
-                           stem_kernel=stem_kernel)
+                           stem_kernel=stem_kernel, block_edges=block_edges,
+                           block_caps=block_caps, stem_gather=stem_gather,
+                           l0_budget_bytes=(L0_BUDGET_BYTES if auto_l0_layout
+                                            else None))
     if plan.overflow:
         raise ValueError("host plan capacity overflow — raise voxel caps")
     return dataclasses.replace(

@@ -1,14 +1,17 @@
-"""Res16UNet34C sparse U-Net backbone, gather layout.
+"""Res16UNet34C sparse U-Net backbone.
 
-Counterpart of ``segdino3d_tpu/models/backbone/res16unet.py`` over
-``GatherCtx`` levels: a k5 stem, 4 stride-2 down stages with BasicBlock
-stacks LAYERS=(2,3,4,6,2,2,2,2), 4 transposed up stages with skip
-concatenation, PLANES=(32,64,128,256,256,128,96,96), 96-channel output.
-Every convolution runs through ``ops.sparse_conv`` (kernels K1 and K2
-forward, K1, K2 and K4 backward).  ``module.train()`` puts every batch
-norm in training mode; ``config["bn_momentum"]`` (default 0.02, as in the
-JAX package) sets their momentum.  Module and parameter names mirror the
-flax tree (``convert.py``).
+Counterpart of ``segdino3d_tpu/models/backbone/res16unet.py``: a k5 stem,
+4 stride-2 down stages with BasicBlock stacks LAYERS=(2,3,4,6,2,2,2,2), 4
+transposed up stages with skip concatenation,
+PLANES=(32,64,128,256,256,128,96,96), 96-channel output.  Each level runs
+in the layout its plan gives it (``make_level_ctxs``, ``ops.conv_ctx``):
+block-dense where the plan carries block tables (``ops.block_dense``,
+kernels K9-K11), else the gather layout (``ops.sparse_conv``, kernels K1,
+K2 and K4).  The stride-2 down and up convs always run on voxel rows.
+``module.train()`` puts every batch norm in training mode;
+``config["bn_momentum"]`` (default 0.02, as in the JAX package) sets their
+momentum.  Module and parameter names mirror the flax tree (``convert.py``)
+and are the same in both layouts.
 
 ``build_unet_plan`` builds the plan on the device of a voxel grid (the
 on-device plan engine, kernels K6-K8), in the layout of a host plan.
@@ -23,6 +26,7 @@ from torch import nn
 
 from segdino3d_tpu_torch.models.layers import MaskedBatchNorm, linear
 from segdino3d_tpu_torch.ops import sparse_conv as SC
+from segdino3d_tpu_torch.ops.conv_ctx import DenseCtx, GatherCtx
 from segdino3d_tpu_torch.ops.host_plan import Level, UNetPlan
 from segdino3d_tpu_torch.ops.voxelize import VoxelGrid
 
@@ -55,15 +59,29 @@ def build_unet_plan(grid: VoxelGrid, num_levels: int = 5,
                     inverse=grid.inverse_mapping), overflow
 
 
+def make_level_ctxs(plan: UNetPlan):
+    """(one conv context per level, the stem's): block-dense where the plan
+    carries block tables, else the gather layout.  A block-dense level 0
+    whose plan also carries ``stem_nbr`` (built with ``stem_gather``) runs
+    the stem in the gather layout: the hybrid layout."""
+    blocks = plan.blocks or [None] * len(plan.levels)
+    ctxs = [DenseCtx(t) if t is not None else GatherCtx(lv.nbr, lv.valid)
+            for t, lv in zip(blocks, plan.levels)]
+    if blocks[0] is not None and plan.stem_nbr is None:
+        return ctxs, ctxs[0]
+    return ctxs, GatherCtx(plan.stem_nbr, plan.levels[0].valid)
+
+
 class SubMConv(nn.Module):
-    """Submanifold conv; ``kernel`` (k^3, Cin, Cout), canonical order."""
+    """Submanifold conv; ``kernel`` (k^3, Cin, Cout), canonical order, run
+    by the level's context."""
 
     def __init__(self, cin: int, cout: int, kernel_volume: int = 27):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(kernel_volume, cin, cout))
 
-    def forward(self, feats, nbr, valid):
-        return SC.subm_conv(feats, nbr, self.kernel.to(feats.dtype), valid)
+    def forward(self, feats, ctx):
+        return ctx.subm(feats, self.kernel.to(feats.dtype))
 
 
 class DownConv(nn.Module):
@@ -98,15 +116,14 @@ class BasicBlock(nn.Module):
             self.downsample_norm = MaskedBatchNorm(planes,
                                                    momentum=bn_momentum)
 
-    def forward(self, x, level: Level):
-        out = F.relu(self.norm1(self.conv1(x, level.nbr, level.valid),
-                                level.valid))
-        out = self.norm2(self.conv2(out, level.nbr, level.valid), level.valid)
+    def forward(self, x, ctx):
+        out = F.relu(self.norm1(self.conv1(x, ctx), ctx.valid))
+        out = self.norm2(self.conv2(out, ctx), ctx.valid)
         residual = x
         if hasattr(self, "downsample_conv"):
             # in x's dtype: a bf16 input stays bf16 end to end
             residual = self.downsample_norm(
-                linear(x, self.downsample_conv), level.valid)
+                linear(x, self.downsample_conv), ctx.valid)
         return F.relu(out + residual)
 
 
@@ -161,35 +178,51 @@ class Res16UNet34C(nn.Module):
             for i in range(n))
 
     @staticmethod
-    def _run(blocks: nn.ModuleList, x, level: Level):
+    def _run(blocks: nn.ModuleList, x, ctx):
         for block in blocks:
-            x = block(x, level)
+            x = block(x, ctx)
         return x
 
     def forward(self, feats: torch.Tensor, plan: UNetPlan) -> torch.Tensor:
         """feats: (V0, in_channels) level-0 voxel features."""
         lv = plan.levels
-        out = self.conv0p1s1(feats, plan.stem_nbr, lv[0].valid)
-        out_p1 = F.relu(self.bn0(out, lv[0].valid))
+        ctxs, stem_ctx = make_level_ctxs(plan)
+        out = self.conv0p1s1(stem_ctx.enter(feats), stem_ctx)
+        out_p1 = F.relu(self.bn0(out, stem_ctx.valid))
+        if stem_ctx is not ctxs[0]:
+            # the stem's output into level 0's layout (identity when both
+            # are gather)
+            out_p1 = ctxs[0].enter(stem_ctx.exit(out_p1))
 
-        out = F.relu(self.bn1(self.conv1p1s2(out_p1, lv[0], lv[1]),
-                              lv[1].valid))
-        out_b1p2 = self._run(self.block1, out, lv[1])
-        out = F.relu(self.bn2(self.conv2p2s2(out_b1p2, lv[1], lv[2]),
-                              lv[2].valid))
-        out_b2p4 = self._run(self.block2, out, lv[2])
-        out = F.relu(self.bn3(self.conv3p4s2(out_b2p4, lv[2], lv[3]),
-                              lv[3].valid))
-        out_b3p8 = self._run(self.block3, out, lv[3])
-        out = F.relu(self.bn4(self.conv4p8s2(out_b3p8, lv[3], lv[4]),
-                              lv[4].valid))
-        out = self._run(self.block4, out, lv[4])
+        def down(conv, bn, x, li):
+            """conv li -> li + 1 on voxel rows, then level li + 1's layout"""
+            x = conv(ctxs[li].exit(x), lv[li], lv[li + 1])
+            return F.relu(bn(ctxs[li + 1].enter(x), ctxs[li + 1].valid))
 
-        out = F.relu(self.bntr4(self.convtr4p16s2(out, lv[3]), lv[3].valid))
-        out = self._run(self.block5, torch.cat([out, out_b3p8], -1), lv[3])
-        out = F.relu(self.bntr5(self.convtr5p8s2(out, lv[2]), lv[2].valid))
-        out = self._run(self.block6, torch.cat([out, out_b2p4], -1), lv[2])
-        out = F.relu(self.bntr6(self.convtr6p4s2(out, lv[1]), lv[1].valid))
-        out = self._run(self.block7, torch.cat([out, out_b1p2], -1), lv[1])
-        out = F.relu(self.bntr7(self.convtr7p2s2(out, lv[0]), lv[0].valid))
-        return self._run(self.block8, torch.cat([out, out_p1], -1), lv[0])
+        def up(conv, bn, x, li, skip):
+            """transposed conv li + 1 -> li on voxel rows, then the skip"""
+            x = conv(ctxs[li + 1].exit(x), lv[li])
+            x = F.relu(bn(ctxs[li].enter(x), ctxs[li].valid))
+            return torch.cat([x, skip], -1)
+
+        out_b1p2 = self._run(self.block1,
+                             down(self.conv1p1s2, self.bn1, out_p1, 0),
+                             ctxs[1])
+        out_b2p4 = self._run(self.block2,
+                             down(self.conv2p2s2, self.bn2, out_b1p2, 1),
+                             ctxs[2])
+        out_b3p8 = self._run(self.block3,
+                             down(self.conv3p4s2, self.bn3, out_b2p4, 2),
+                             ctxs[3])
+        out = self._run(self.block4,
+                        down(self.conv4p8s2, self.bn4, out_b3p8, 3), ctxs[4])
+
+        out = self._run(self.block5, up(self.convtr4p16s2, self.bntr4, out,
+                                        3, out_b3p8), ctxs[3])
+        out = self._run(self.block6, up(self.convtr5p8s2, self.bntr5, out,
+                                        2, out_b2p4), ctxs[2])
+        out = self._run(self.block7, up(self.convtr6p4s2, self.bntr6, out,
+                                        1, out_b1p2), ctxs[1])
+        out = self._run(self.block8, up(self.convtr7p2s2, self.bntr7, out,
+                                        0, out_p1), ctxs[0])
+        return ctxs[0].exit(out)

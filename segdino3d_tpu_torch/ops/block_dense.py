@@ -1,0 +1,355 @@
+"""Block-dense submanifold convolution: voxels packed into dense blocks.
+
+Counterpart of ``segdino3d_tpu/ops/block_dense.py``.  The host plan
+(``ops.host_plan``, C++ ``block_assign``) packs each level's voxels into
+aligned ``edge``^3 blocks (x-major cells: ``lx*edge^2 + ly*edge + lz``) and
+gives each block its 26 shell neighbours.  A level's features then live as
+flat dense rows ``(B*edge^3, C)``:
+
+1. ``scatter_to_dense`` moves voxel rows to dense rows once per stage;
+2. each submanifold conv pads every block with the cells of its 26 shell
+   neighbours, runs a VALID dense 3D convolution and zeroes the
+   unoccupied cells (``dense_subm_conv``);
+3. ``gather_from_dense`` moves the rows back to voxels.
+
+Three hand-written CUDA kernels carry it:
+
+* ``slot_gather`` (K9, ``csrc/slot_gather.cu``): ``out[j] = x[idx[j]]``, 0
+  where ``idx[j] < 0``.  ``scatter_to_dense`` is the gather through the
+  plan's inverse table ``slot_vox`` (every dense row written once, equal to
+  the scatter because ``vox_slot`` is injective on valid voxels) and
+  ``gather_from_dense`` the gather through ``vox_slot``; each one's
+  gradient is the other;
+* ``block_conv`` (K10, ``csrc/block_conv.cu``): the halo-padded dense conv,
+  the halo assembled in shared memory from each block and its neighbours'
+  cores and never written to device memory;
+* ``block_wgrad`` (K11, ``csrc/block_wgrad.cu``): its weight gradient.
+
+``dense_subm_conv`` is a ``torch.autograd.Function`` whose backward runs
+K10 for dX (the mirror identity of ``_chunked_conv_bwd``: the same conv of
+the occupancy-masked cotangent with offset-flipped, channel-transposed
+weights, no output mask) and K11 for dW.  The JAX module chunks wide convs
+and halves wide inputs to bound a TPU buffer; both are exact, and the
+port, which never materialises the halo, does neither.
+
+Each wrapper launches its kernel for a CUDA tensor and counts the launch in
+its ``launches`` attribute; for a CPU tensor it runs the plain PyTorch
+version beside it (``*_plain``), which the CPU tests hold against the JAX
+package and ``chip_smoke.py`` holds the kernel against on the card.
+"""
+from __future__ import annotations
+
+import itertools
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from segdino3d_tpu_torch.ops import cuda_build
+from segdino3d_tpu_torch.ops.sparse_conv import (_gather_rows, _require_cuda,
+                                                 _transposed, as_sum_type)
+
+# rows of the (26, B) shell-neighbour table: itertools.product(-1, 0, 1)^3
+# order with the centre skipped; face directions land at these rows
+FACE_XM, FACE_YM, FACE_ZM, FACE_ZP, FACE_YP, FACE_XP = 4, 10, 12, 13, 15, 21
+# block edges and kernel sizes the kernels take
+EDGES = (4, 8)
+KERNEL_SIZES = (3, 5)
+
+
+def _shell_dirs():
+    return [d for d in itertools.product((-1, 0, 1), repeat=3)
+            if d != (0, 0, 0)]
+
+
+@dataclass
+class BlockTables:
+    """One level's block-dense layout (``ops.host_plan.host_plan_to_device``)."""
+    vox_slot: torch.Tensor    # (V,) int32 block*edge^3 + cell, -1 invalid
+    block_nbr: torch.Tensor   # (26, B) int32 shell neighbours, -1 absent
+    slot_vox: torch.Tensor    # (B*edge^3,) int32 dense row -> voxel, -1 empty
+    edge: int
+
+    @property
+    def num_blocks(self) -> int:
+        return self.block_nbr.shape[1]
+
+
+def occupancy(tables: BlockTables) -> torch.Tensor:
+    """(B*edge^3,) bool occupied cells.  ``block_assign`` gives every voxel
+    past the level's count ``vox_slot = -1``, so ``slot_vox`` names valid
+    voxels only."""
+    return tables.slot_vox >= 0
+
+
+def kernel_size(n_off: int) -> int:
+    k = round(n_off ** (1.0 / 3.0))
+    if k ** 3 != n_off:
+        raise ValueError(f"{n_off} offsets are not a cube")
+    return k
+
+
+# ---------------------------------------------------------------------------
+# K9: slot gather
+# ---------------------------------------------------------------------------
+
+def slot_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9."""
+    return _gather_rows(x, idx)
+
+
+def slot_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``out[j] = x[idx[j]]``, a zero row where ``idx[j] < 0``.
+
+    x (R, C) of any dtype, rows contiguous; idx (N,) int32 with entries in
+    [-1, R).  Returns (N, C) in x's dtype."""
+    if x.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"slot_gather: x {tuple(x.shape)}, idx "
+                         f"{tuple(idx.shape)}")
+    if x.device.type == "cpu":
+        return slot_gather_plain(x, idx)
+    _require_cuda("slot_gather", x, idx)
+    if idx.dtype != torch.int32:
+        raise TypeError("slot_gather: idx must be int32")
+    out = torch.empty(idx.shape[0], x.shape[1], dtype=x.dtype,
+                      device=x.device)
+    lib = cuda_build.library("slot_gather")
+    cuda_build.check(lib.slot_gather(
+        x.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.shape[0],
+        x.shape[1] * x.element_size(), cuda_build.stream_ptr(x)),
+        "slot_gather")
+    slot_gather.launches += 1
+    return out
+
+
+slot_gather.launches = 0
+
+
+class _SlotGather(torch.autograd.Function):
+    """``out = x[idx]`` where ``idx`` is injective on its non-negative
+    entries and ``inv_idx`` is its inverse; the transpose of an injective
+    gather is the inverse gather (``_bijection_take`` in JAX)."""
+
+    @staticmethod
+    def forward(ctx, x, idx, inv_idx):
+        ctx.save_for_backward(inv_idx)
+        return slot_gather(x, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (inv_idx,) = ctx.saved_tensors
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = slot_gather(g.contiguous(), inv_idx)
+        return dx, None, None
+
+
+def scatter_to_dense(feats: torch.Tensor, tables: BlockTables) -> torch.Tensor:
+    """(V, C) voxel rows -> (B*edge^3, C) flat dense rows, 0 at empty cells."""
+    return _SlotGather.apply(feats, tables.slot_vox, tables.vox_slot)
+
+
+def gather_from_dense(dense: torch.Tensor, tables: BlockTables
+                      ) -> torch.Tensor:
+    """(B*edge^3, C) flat dense rows -> (V, C) voxel rows, 0 past the
+    level's count."""
+    return _SlotGather.apply(dense, tables.vox_slot, tables.slot_vox)
+
+
+# ---------------------------------------------------------------------------
+# K10: the halo-padded block conv
+# ---------------------------------------------------------------------------
+
+def halo_pad_plain(blocks: torch.Tensor, block_nbr: torch.Tensor,
+                   halo: int) -> torch.Tensor:
+    """(B, E, E, E, C) -> (B, E+2h, E+2h, E+2h, C): every shell direction
+    takes its slab from the neighbour's core (``_halo_pad_impl`` in JAX),
+    zeros where the neighbour is absent."""
+    h = halo
+    b, e, c = blocks.shape[0], blocks.shape[1], blocks.shape[-1]
+    sl = {-1: slice(e - h, e), 0: slice(0, e), 1: slice(0, h)}
+    parts = {(0, 0, 0): blocks}
+    for di, d in enumerate(_shell_dirs()):
+        slab = blocks[:, sl[d[0]], sl[d[1]], sl[d[2]], :].reshape(b, -1)
+        ext = (h if d[0] else e, h if d[1] else e, h if d[2] else e)
+        parts[d] = _gather_rows(slab, block_nbr[di]).reshape(b, *ext, c)
+    xs = []
+    for dx in (-1, 0, 1):
+        ys = []
+        for dy in (-1, 0, 1):
+            ys.append(torch.cat([parts[(dx, dy, dz)] for dz in (-1, 0, 1)],
+                                dim=3))
+        xs.append(torch.cat(ys, dim=2))
+    return torch.cat(xs, dim=1)
+
+
+def dense_subm_conv_plain(feats: torch.Tensor, block_nbr: torch.Tensor,
+                          weights: torch.Tensor, occ: Optional[torch.Tensor],
+                          edge: int) -> torch.Tensor:
+    """Plain version of K10: ``halo_pad_plain``, then one fp32 product of
+    the shifted window per offset, in ascending offset order."""
+    n_off, cin, cout = weights.shape
+    k = kernel_size(n_off)
+    b = block_nbr.shape[1]
+    x = as_sum_type(feats).reshape(b, edge, edge, edge, cin)
+    padded = halo_pad_plain(x, block_nbr, (k - 1) // 2)
+    wf = as_sum_type(weights)
+    acc = x.new_zeros(b * edge ** 3, cout)
+    for o, (i, j, m) in enumerate(itertools.product(range(k), repeat=3)):
+        window = padded[:, i:i + edge, j:j + edge, m:m + edge, :]
+        acc += window.reshape(-1, cin) @ wf[o]
+    if occ is not None:
+        acc = torch.where(occ[:, None], acc, 0.0)
+    return acc.to(feats.dtype)
+
+
+def _check_layout(name, feats, block_nbr, n_off, edge, cin):
+    b = block_nbr.shape[1]
+    if block_nbr.shape[0] != 26 or tuple(feats.shape) != (b * edge ** 3, cin):
+        raise ValueError(f"{name}: feats {tuple(feats.shape)}, block_nbr "
+                         f"{tuple(block_nbr.shape)}, edge {edge}, Cin {cin}")
+    if edge not in EDGES or kernel_size(n_off) not in KERNEL_SIZES:
+        raise ValueError(f"{name}: edge {edge} / k {kernel_size(n_off)} not "
+                         f"in {EDGES} / {KERNEL_SIZES}")
+
+
+def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
+               weights: torch.Tensor, occ: Optional[torch.Tensor],
+               edge: int) -> torch.Tensor:
+    """Submanifold conv of flat dense rows with each block halo-padded from
+    its shell neighbours: ``out[c] = sum_o halo[c + o] @ weights[o]``,
+    zero at unoccupied cells when ``occ`` is given.
+
+    feats (B*edge^3, Cin); block_nbr (26, B) int32; weights (k^3, Cin, Cout)
+    in feats' dtype, canonical offset order; occ (B*edge^3,) bool or None.
+    Returns (B*edge^3, Cout) in feats' dtype, summed in fp32."""
+    n_off, cin, cout = weights.shape
+    _check_layout("block_conv", feats, block_nbr, n_off, edge, cin)
+    if feats.device.type == "cpu":
+        return dense_subm_conv_plain(feats, block_nbr, weights, occ, edge)
+    _require_cuda("block_conv", feats, block_nbr, weights,
+                  *([] if occ is None else [occ]))
+    if weights.dtype != feats.dtype or block_nbr.dtype != torch.int32 or (
+            occ is not None and occ.dtype != torch.bool):
+        raise TypeError("block_conv: weights must match feats' dtype, "
+                        "block_nbr must be int32 and occ bool")
+    b = block_nbr.shape[1]
+    out = torch.empty(b * edge ** 3, cout, dtype=feats.dtype,
+                      device=feats.device)
+    lib = cuda_build.library("block_conv")
+    cuda_build.check(lib.block_conv(
+        feats.data_ptr(), block_nbr.data_ptr(), weights.data_ptr(),
+        None if occ is None else occ.data_ptr(), out.data_ptr(), b, edge,
+        kernel_size(n_off), cin, cout, cuda_build.dtype_code(feats.dtype),
+        cuda_build.stream_ptr(feats)), "block_conv")
+    block_conv.launches += 1
+    return out
+
+
+block_conv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: the block conv's weight gradient
+# ---------------------------------------------------------------------------
+
+# the weight gradient's split scratch: at most this many bytes, and splits
+# of at least this many blocks
+WGRAD_SCRATCH_BYTES = 64 << 20
+WGRAD_BLOCKS_PER_SPLIT = 64
+
+
+def block_wgrad_plain(feats: torch.Tensor, dy: torch.Tensor,
+                      block_nbr: torch.Tensor, occ: torch.Tensor, edge: int,
+                      k: int) -> torch.Tensor:
+    """Plain version of K11: one fp32 product per offset of the shifted
+    halo window and the occupancy-masked ``dy``."""
+    cin, cout = feats.shape[1], dy.shape[1]
+    b = block_nbr.shape[1]
+    x = as_sum_type(feats).reshape(b, edge, edge, edge, cin)
+    padded = halo_pad_plain(x, block_nbr, (k - 1) // 2)
+    dym = torch.where(occ[:, None], as_sum_type(dy), 0.0)
+    dw = x.new_zeros(k ** 3, cin, cout)
+    for o, (i, j, m) in enumerate(itertools.product(range(k), repeat=3)):
+        window = padded[:, i:i + edge, j:j + edge, m:m + edge, :]
+        dw[o] = window.reshape(-1, cin).T @ dym
+    return dw
+
+
+def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
+                block_nbr: torch.Tensor, occ: torch.Tensor, edge: int,
+                k: int) -> torch.Tensor:
+    """``dW[o] = sum over occupied cells c of halo[c + o]^T @ dy[c]`` as
+    (k^3, Cin, Cout) fp32.
+
+    feats (B*edge^3, Cin) and dy (B*edge^3, Cout) share one dtype;
+    block_nbr (26, B) int32; occ (B*edge^3,) bool."""
+    cin, cout = feats.shape[1], dy.shape[1]
+    _check_layout("block_wgrad", feats, block_nbr, k ** 3, edge, cin)
+    if tuple(dy.shape) != (feats.shape[0], cout) or \
+            tuple(occ.shape) != (feats.shape[0],):
+        raise ValueError(f"block_wgrad: dy {tuple(dy.shape)}, occ "
+                         f"{tuple(occ.shape)}")
+    if feats.device.type == "cpu":
+        return block_wgrad_plain(feats, dy, block_nbr, occ, edge, k)
+    _require_cuda("block_wgrad", feats, dy, block_nbr, occ)
+    if dy.dtype != feats.dtype or block_nbr.dtype != torch.int32 or \
+            occ.dtype != torch.bool:
+        raise TypeError("block_wgrad: feats and dy must share a dtype, "
+                        "block_nbr must be int32 and occ bool")
+    b = block_nbr.shape[1]
+    per_split = k ** 3 * cin * cout * 4
+    splits = max(1, min(-(-b // WGRAD_BLOCKS_PER_SPLIT),
+                        WGRAD_SCRATCH_BYTES // max(per_split, 1)))
+    out = torch.empty(k ** 3, cin, cout, dtype=torch.float32,
+                      device=feats.device)
+    partial = out if splits == 1 else torch.empty(
+        splits, k ** 3, cin, cout, dtype=torch.float32, device=feats.device)
+    lib = cuda_build.library("block_wgrad")
+    cuda_build.check(lib.block_wgrad(
+        feats.data_ptr(), dy.data_ptr(), block_nbr.data_ptr(),
+        occ.data_ptr(), partial.data_ptr(), out.data_ptr(), b, edge, k, cin,
+        cout, splits, cuda_build.dtype_code(feats.dtype),
+        cuda_build.stream_ptr(feats)), "block_wgrad")
+    block_wgrad.launches += 1
+    return out
+
+
+block_wgrad.launches = 0
+
+
+class _DenseSubmConv(torch.autograd.Function):
+    """Backward of ``_chunked_conv_bwd`` (JAX): the block-halo adjacency is
+    involutive (``nbr_d[i] = j <=> nbr_{-d}[j] = i``), so dX is the same
+    conv (K10) of the masked cotangent with offset-flipped, transposed
+    weights and no output mask, and dW is K11."""
+
+    @staticmethod
+    def forward(ctx, feats, occ, block_nbr, weights, edge):
+        ctx.save_for_backward(feats, occ, block_nbr, weights)
+        ctx.edge = edge
+        return block_conv(feats, block_nbr, weights, occ, edge)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, occ, block_nbr, weights = ctx.saved_tensors
+        dy = torch.where(occ[:, None], dout, 0.0).to(feats.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = block_conv(dy, block_nbr, _transposed(weights.flip(0)), None,
+                            ctx.edge)
+        if ctx.needs_input_grad[3]:
+            dw = block_wgrad(feats, dy, block_nbr, occ, ctx.edge,
+                             kernel_size(weights.shape[0])
+                             ).to(weights.dtype)
+        return dx, None, None, dw, None
+
+
+def dense_subm_conv(dense_flat: torch.Tensor, occ: torch.Tensor,
+                    tables: BlockTables, weights: torch.Tensor
+                    ) -> torch.Tensor:
+    """Submanifold conv on flat dense rows (B*edge^3, Cin) with weights
+    (k^3, Cin, Cout) in canonical offset order; (B*edge^3, Cout), zero at
+    unoccupied cells."""
+    return _DenseSubmConv.apply(dense_flat, occ, tables.block_nbr, weights,
+                                tables.edge)

@@ -27,12 +27,14 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "segdino3d_tpu_torch")
 KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
            "gather_wgrad", "segment_grad", "coord_hash", "neighbor_table",
-           "voxel_compact")
+           "voxel_compact", "slot_gather", "block_conv", "block_wgrad")
 _HEADERS = {"gather_gemm_conv": ("conv_tile.cuh",),
             "up_conv": ("conv_tile.cuh",),
             "segment_mean_gather": (), "gather_wgrad": (), "segment_grad": (),
             "coord_hash": ("coord_hash.cuh",),
-            "neighbor_table": ("coord_hash.cuh",), "voxel_compact": ()}
+            "neighbor_table": ("coord_hash.cuh",), "voxel_compact": (),
+            "slot_gather": (), "block_conv": ("block_tile.cuh",),
+            "block_wgrad": ("block_tile.cuh",)}
 # a library's C functions, where they are not the one named after it
 _ENTRY_POINTS = {"coord_hash": ("coord_hash_insert", "coord_hash_lookup")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -66,6 +68,13 @@ _SIGNATURES = {
     # out_coords, valid, tvals, tvals_out, t_size, stream
     "voxel_compact": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                       _I, _P],
+    # x, idx, out, n, row_bytes, stream
+    "slot_gather": [_P, _P, _P, _I, _I, _P],
+    # x, block_nbr, w, occ, out, n_blocks, edge, k, cin, cout, dtype, stream
+    "block_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, dy, block_nbr, occ, partial, out, n_blocks, edge, k, cin, cout,
+    # splits, dtype, stream
+    "block_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,10 +1,11 @@
 """ctypes binding to the C++ sparse-conv plan builder (``native/sparseplan``).
 
-Counterpart of the gather-layout branch of
-``segdino3d_tpu/ops/host_plan.py:build_host_plan``: voxel dedup, the
-(27, V) neighbour tables of every pyramid level, the k^3 stem table and the
-stride-2 parent links, as numpy arrays.  For the port's kernels it adds, per
-level with a coarser one:
+Counterpart of ``segdino3d_tpu/ops/host_plan.py:build_host_plan``: voxel
+dedup, the (27, V) neighbour tables of the gather-layout levels, the
+block-dense tables of the others (``block_assign``: each voxel's dense slot
+and each block's 26 shell neighbours, ``ops.block_dense``), the k^3 stem
+table and the stride-2 parent links, as numpy arrays.  For the port's
+kernels it adds, per level with a coarser one:
 
 * ``child`` (8, V_coarse): ``child[kpos, parent] = fine``, -1 where absent.
   A fine voxel's (parent, kpos) pair is unique, so the down conv becomes a
@@ -30,6 +31,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from segdino3d_tpu_torch.ops.block_dense import BlockTables
 from segdino3d_tpu_torch.ops.cuda_build import BUILD_DIR
 from segdino3d_tpu_torch.ops.sparse_conv import kernel_offsets
 
@@ -84,6 +86,9 @@ def _load():
     lib.downsample.restype = ctypes.c_int64
     lib.downsample.argtypes = [i32p, ctypes.c_int64, ctypes.c_int64,
                                i32p, i32p, i32p, ctypes.c_int64]
+    lib.block_assign.restype = ctypes.c_int64
+    lib.block_assign.argtypes = [i32p, ctypes.c_int64, ctypes.c_int64,
+                                 ctypes.c_int32, i32p, i32p, ctypes.c_int64]
     _lib = lib
     return lib
 
@@ -147,19 +152,48 @@ def voxel_bucket(n: int) -> int:
     return m
 
 
+def block_bucket(n: int) -> int:
+    """Smallest rung of a fixed ~1.25x geometric ladder >= n (block
+    capacities)."""
+    m = 16
+    while m < n:
+        m = ((max(m + 16, int(m * 1.25)) + 15) // 16) * 16
+    return m
+
+
+# the JAX package's level-0 layout budget (its SEGDINO_CONV_CHUNK_MB
+# default): the widest level-0 dense conv's halo-padded bf16 buffer
+L0_BUDGET_BYTES = 1 << 30
+
+
+def l0_dense_fits(n_blocks: int, edge: int, budget: int, channels: int = 48,
+                  itemsize: int = 2, halo: int = 1) -> bool:
+    """Whether level 0 stays block-dense: the JAX package's layout
+    crossover (``host_plan.l0_dense_fits``), its halo-padded buffer
+    ``n_blocks * (edge + 2 halo)^3 * channels * itemsize`` within
+    ``budget``."""
+    return n_blocks * (edge + 2 * halo) ** 3 * channels * itemsize <= budget
+
+
 class HostLevel(NamedTuple):
     num_voxels: int
-    subm_nbr: np.ndarray                 # (27, V) int32
+    subm_nbr: Optional[np.ndarray]       # (27, V) int32; None if block-dense
     parent_idx: Optional[np.ndarray]     # (V,) into the coarser level
     parent_kpos: Optional[np.ndarray]    # (V,) slot in the 2x2x2 block
     child: Optional[np.ndarray] = None   # (8, V_coarse) fine index or -1
     up_order: Optional[np.ndarray] = None  # (V,) rows grouped by kpos
+    # block-dense layout (``ops.block_dense``); None on gather levels
+    num_blocks: int = 0
+    vox_slot: Optional[np.ndarray] = None    # (V,) int32
+    block_nbr: Optional[np.ndarray] = None   # (26, B_cap) int32
+    block_edge: int = 0
 
 
 class HostPlan(NamedTuple):
     inverse_mapping: np.ndarray     # (N,) point -> voxel id (-1 invalid)
     levels: List[HostLevel]
-    stem_nbr: np.ndarray            # (k^3, V0)
+    # (k^3, V0); None when the stem runs block-dense
+    stem_nbr: Optional[np.ndarray]
     overflow: bool
 
 
@@ -180,11 +214,46 @@ def up_order(kpos: np.ndarray, num_fine: int) -> np.ndarray:
     return np.argsort(key, kind="stable").astype(np.int32)
 
 
+def _block_tables(lib, coords, v_cap, count, edge, cap):
+    """(n_blocks, vox_slot, block_nbr) of ``block_assign``; with no fixed
+    ``cap`` the loose bound B <= V, the table trimmed to ``block_bucket``
+    after."""
+    b_cap = int(cap) if cap else v_cap
+    vox_slot = np.empty(v_cap, np.int32)
+    block_nbr = np.empty((26, b_cap), np.int32)
+    n_blocks = int(lib.block_assign(_i32p(coords), v_cap, count, edge,
+                                    _i32p(vox_slot), _i32p(block_nbr),
+                                    b_cap))
+    if not cap:
+        bucket = block_bucket(n_blocks)
+        block_nbr = np.ascontiguousarray(np.pad(
+            block_nbr[:, :n_blocks], ((0, 0), (0, bucket - n_blocks)),
+            constant_values=-1))
+    return n_blocks, vox_slot, block_nbr
+
+
 def build_host_plan(coords_f: np.ndarray, batch_idx: np.ndarray,
                     valid: np.ndarray, level_caps: Sequence[int],
-                    num_levels: int = 5, stem_kernel: int = 5) -> HostPlan:
-    """coords_f: (N, 3) float voxel-unit coordinates (min-shifted >= 0)."""
+                    num_levels: int = 5, stem_kernel: int = 5,
+                    block_edges: Optional[Sequence[int]] = None,
+                    block_caps: Optional[Sequence[int]] = None,
+                    stem_gather: bool = False, stem_compact: bool = False,
+                    l0_budget_bytes: Optional[int] = None) -> HostPlan:
+    """coords_f: (N, 3) float voxel-unit coordinates (min-shifted >= 0).
+
+    ``block_edges[l]`` > 0 gives level ``l`` block-dense tables with
+    ``block_caps[l]`` block slots (bucketed when not given); such a level
+    has no (27, V) table.  ``stem_gather`` keeps the stem's gather table
+    over a block-dense level 0 (the hybrid layout).  With
+    ``l0_budget_bytes``, level 0 falls back to the gather layout when its
+    dense convs would outgrow the budget (``l0_dense_fits``, keyed on the
+    pinned cap when one is given).  The degree-compacted stem
+    (``stem_compact``) is not ported yet."""
+    if stem_compact:
+        raise NotImplementedError("the compacted stem (stem_compact) is not "
+                                  "ported")
     lib = _load()
+    block_edges = list(block_edges or [0] * num_levels)
     n = coords_f.shape[0]
     coords4 = _coords4(coords_f, batch_idx)
     valid_u8 = np.ascontiguousarray(valid.astype(np.uint8))
@@ -203,7 +272,23 @@ def build_host_plan(coords_f: np.ndarray, batch_idx: np.ndarray,
     level_coords, level_cnt = vox, cnt
     for li in range(num_levels):
         v_cap = level_coords.shape[0]
-        nbr = _neighbor_table(lib, level_coords, level_cnt, k3)
+        edge = block_edges[li] if li < len(block_edges) else 0
+        n_blocks, vox_slot, block_nbr = 0, None, None
+        if edge:
+            cap = block_caps[li] if block_caps is not None else 0
+            n_blocks, vox_slot, block_nbr = _block_tables(
+                lib, level_coords, v_cap, level_cnt, edge, cap)
+            if (li == 0 and l0_budget_bytes is not None
+                    and not l0_dense_fits(int(cap) if cap else n_blocks,
+                                          edge, l0_budget_bytes)):
+                # level 0's dense convs would outgrow the budget
+                edge = block_edges[0] = 0
+                n_blocks, vox_slot, block_nbr = 0, None, None
+            else:
+                overflow = overflow or n_blocks > block_nbr.shape[1]
+                n_blocks = min(n_blocks, block_nbr.shape[1])
+        nbr = None if edge else _neighbor_table(lib, level_coords,
+                                                level_cnt, k3)
         parent = kpos = child = rows_by_kpos = None
         if li < num_levels - 1:
             c_cap = int(level_caps[li + 1])
@@ -220,14 +305,17 @@ def build_host_plan(coords_f: np.ndarray, batch_idx: np.ndarray,
             rows_by_kpos = up_order(kpos, level_cnt)
         levels.append(HostLevel(num_voxels=level_cnt, subm_nbr=nbr,
                                 parent_idx=parent, parent_kpos=kpos,
-                                child=child, up_order=rows_by_kpos))
+                                child=child, up_order=rows_by_kpos,
+                                num_blocks=n_blocks, vox_slot=vox_slot,
+                                block_nbr=block_nbr, block_edge=edge))
         if li < num_levels - 1:
             level_coords, level_cnt = coarse, ccnt
 
-    if stem_kernel != 3:
-        stem = _neighbor_table(lib, vox, cnt, kernel_offsets(stem_kernel))
-    else:
-        stem = levels[0].subm_nbr
+    stem = None
+    if not block_edges[0] or stem_gather:
+        stem = levels[0].subm_nbr if stem_kernel == 3 else None
+        if stem is None:
+            stem = _neighbor_table(lib, vox, cnt, kernel_offsets(stem_kernel))
     return HostPlan(inverse_mapping=inverse, levels=levels, stem_nbr=stem,
                     overflow=overflow)
 
@@ -236,7 +324,7 @@ def build_host_plan(coords_f: np.ndarray, batch_idx: np.ndarray,
 class Level:
     """One pyramid level on the device."""
     valid: torch.Tensor                      # (V,) bool
-    nbr: torch.Tensor                        # (27, V) int32
+    nbr: Optional[torch.Tensor]              # (27, V) int32; None if dense
     parent: Optional[torch.Tensor] = None    # (V,) int32 into the coarser level
     kpos: Optional[torch.Tensor] = None      # (V,) int32
     child: Optional[torch.Tensor] = None     # (8, V_coarse) int32
@@ -245,10 +333,22 @@ class Level:
 
 @dataclass
 class UNetPlan:
-    """Index tables for one U-Net forward (gather layout)."""
+    """Index tables for one U-Net forward.  A level with ``blocks[l]`` runs
+    block-dense, the others the gather layout; ``stem_nbr`` is None when
+    the stem runs block-dense too."""
     levels: List[Level]
-    stem_nbr: torch.Tensor                   # (k^3, V0) int32
+    stem_nbr: Optional[torch.Tensor]         # (k^3, V0) int32
     inverse: torch.Tensor                    # (N,) int32 point -> voxel, -1
+    blocks: Optional[List[Optional[BlockTables]]] = None
+
+
+def _invert_slots(vox_slot: np.ndarray, n_dense: int) -> np.ndarray:
+    """Dense slot -> voxel id, -1 at empty cells: the inverse of
+    ``vox_slot``, which is injective on its valid entries."""
+    inv = np.full(n_dense, -1, np.int32)
+    m = vox_slot >= 0
+    inv[vox_slot[m]] = np.nonzero(m)[0].astype(np.int32)
+    return inv
 
 
 def host_plan_to_device(plan: HostPlan, device) -> UNetPlan:
@@ -256,11 +356,21 @@ def host_plan_to_device(plan: HostPlan, device) -> UNetPlan:
         return None if a is None else torch.from_numpy(
             np.ascontiguousarray(a)).to(device)
 
-    levels = [Level(valid=torch.arange(hl.subm_nbr.shape[1], device=device)
-                    < hl.num_voxels,
-                    nbr=t(hl.subm_nbr), parent=t(hl.parent_idx),
-                    kpos=t(hl.parent_kpos), child=t(hl.child),
-                    up_order=t(hl.up_order))
-              for hl in plan.levels]
+    levels, blocks = [], []
+    for hl in plan.levels:
+        v = (hl.subm_nbr.shape[1] if hl.subm_nbr is not None
+             else hl.vox_slot.shape[0])
+        levels.append(Level(valid=torch.arange(v, device=device)
+                            < hl.num_voxels,
+                            nbr=t(hl.subm_nbr), parent=t(hl.parent_idx),
+                            kpos=t(hl.parent_kpos), child=t(hl.child),
+                            up_order=t(hl.up_order)))
+        blocks.append(None if hl.vox_slot is None else BlockTables(
+            vox_slot=t(hl.vox_slot), block_nbr=t(hl.block_nbr),
+            slot_vox=t(_invert_slots(hl.vox_slot, hl.block_nbr.shape[1]
+                                    * hl.block_edge ** 3)),
+            edge=hl.block_edge))
     return UNetPlan(levels=levels, stem_nbr=t(plan.stem_nbr),
-                    inverse=t(plan.inverse_mapping))
+                    inverse=t(plan.inverse_mapping),
+                    blocks=blocks if any(b is not None for b in blocks)
+                    else None)

@@ -1,6 +1,7 @@
 """Device-time breakdown of the port's main path on one CUDA card.
 
-    python -m segdino3d_tpu_torch.tools.profile_eval [--device-plan] [--out PATH]
+    python -m segdino3d_tpu_torch.tools.profile_eval [--device-plan]
+        [--layout gather|hybrid|block-dense] [--out PATH]
 
 Runs ``chip_smoke.py``'s main path (flagship SegDINO3D, seeded random
 weights, the seeded 120,000-point synthetic scene, fp32, batch 1): one
@@ -11,7 +12,10 @@ profiled window (the device's idle share), and the kernel launch count.
 The host plan and the AP protocol stay outside the window: they run no
 device work.  With ``--device-plan`` the batch carries no host plan and
 the backbone builds it on the card inside the window (kernels K6-K8), at
-the host plan's capacities.
+the host plan's capacities.  ``--layout`` picks the host plan's conv layout
+(``chip_smoke.plan_layout``): the gather layout (default), the flagship
+config's eval layout ``hybrid`` or ``block-dense``; device plans are
+gather plans.
 """
 from __future__ import annotations
 
@@ -35,7 +39,12 @@ def main() -> int:
                     help="also write the full key_averages table here")
     ap.add_argument("--device-plan", action="store_true",
                     help="build the plan on the card inside the window")
+    ap.add_argument("--layout", default="gather",
+                    choices=("gather", "hybrid", "block-dense"),
+                    help="the host plan's conv layout")
     args = ap.parse_args()
+    if args.device_plan and args.layout != "gather":
+        ap.error("device plans run the gather layout")
     if not torch.cuda.is_available():
         print("profile_eval: no CUDA device", file=sys.stderr)
         return 2
@@ -50,8 +59,8 @@ def main() -> int:
     spec = PadSpec(C.SCENE["n_points"], C.SCENE["n_superpoints"], 64, 128,
                    200)
     batch = attach_host_plan(collate(records, spec, "cuda"), records, spec,
-                             voxel_size=0.02,
-                             level_cap_ratios=C.LEVEL_CAP_RATIOS)
+                             level_cap_ratios=C.LEVEL_CAP_RATIOS,
+                             **C.plan_layout(args.layout))
     model, test_cfg = build_model(
         C.model_cfg(), Capacities(
             num_superpoints=C.SCENE["n_superpoints"],
@@ -82,6 +91,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
+    print(f"layout: {'device plan' if args.device_plan else args.layout}")
     print(table)
     print(f"profiled window: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle share "

@@ -1,6 +1,7 @@
 """Device-time breakdown of the port's training step on one CUDA card.
 
-    python -m segdino3d_tpu_torch.tools.profile_train [--out PATH]
+    python -m segdino3d_tpu_torch.tools.profile_train
+        [--layout gather|hybrid|block-dense] [--out PATH]
 
 Runs ``chip_smoke.py``'s training path (flagship SegDINO3D and criterion,
 seeded random weights, the seeded 120,000-point synthetic scene, fp32,
@@ -9,7 +10,9 @@ criterion + backward + optimizer under ``torch.profiler``.  Prints the
 device time summed by kernel name (top 30), the device busy time against
 the wall time of the profiled window (the device's idle share), and the
 kernel launch count.  The host plan stays outside the window: it runs no
-device work.
+device work.  ``--layout`` picks its conv layout (``chip_smoke.plan_layout``):
+the gather layout (default) or the flagship config's training layout
+``block-dense`` (the k5 stem too), or ``hybrid``.
 """
 from __future__ import annotations
 
@@ -30,6 +33,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write the full key_averages table here")
+    ap.add_argument("--layout", default="gather",
+                    choices=("gather", "hybrid", "block-dense"),
+                    help="the host plan's conv layout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -52,8 +58,8 @@ def main() -> int:
     step = C.make_train_step(model, 1)
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = attach_host_plan(collate(records, spec, "cuda"), records, spec,
-                             voxel_size=0.02,
-                             level_cap_ratios=C.LEVEL_CAP_RATIOS)
+                             level_cap_ratios=C.LEVEL_CAP_RATIOS,
+                             **C.plan_layout(args.layout))
 
     def device_part():
         step([batch], generator=gen)
@@ -73,6 +79,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
+    print(f"layout: {args.layout}")
     print(avgs.table(sort_by="self_device_time_total", row_limit=30))
     print(f"profiled window: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle share "

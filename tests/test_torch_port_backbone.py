@@ -47,16 +47,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def bridged():
+def bridged_models():
+    """(points, features, JAX model, its bridged variables, the port's
+    model under the same weights)."""
     coords = np.random.RandomState(7).randint(0, 16, (300, 3)).astype(
         np.float32)
     bidx, valid = np.zeros(300, np.int32), np.ones(300, bool)
     load_jax_sparseplan()
     jplan, _ = host_plan_to_device(jax_build_host_plan(
         coords, bidx, valid, CAPS, stem_compact=False), device=False)
-    tplan = TH.host_plan_to_device(
-        TH.build_host_plan(coords, bidx, valid, CAPS), "cpu")
     feats = np.random.RandomState(11).randn(V_CAP, IN_CH).astype(np.float32)
 
     jmodel = JaxRes16(in_channels=IN_CH, out_channels=96)
@@ -90,15 +89,33 @@ def bridged():
     assert unmapped == []
     variables = {"params": params["backbone"]["unet"],
                  "batch_stats": stats["backbone"]["unet"]}
-    jout = jax.jit(lambda v, f, p: jmodel.apply(v, f, p, False))(
-        variables, jnp.asarray(feats), jplan)
-
     tmodel = load_jax_variables(Res16UNet34C(in_channels=IN_CH).eval(),
                                 jax.device_get(variables))
+    return dict(points=(coords, bidx, valid), feats=feats, jmodel=jmodel,
+                variables=variables, tmodel=tmodel)
+
+
+def layout_outputs(models, **layout):
+    """(port output, JAX output) on plans of ``layout``
+    (``build_host_plan`` arguments), both masked to valid voxels."""
+    coords, bidx, valid = models["points"]
+    jmodel, feats = models["jmodel"], models["feats"]
+    jplan, _ = host_plan_to_device(jax_build_host_plan(
+        coords, bidx, valid, CAPS, stem_compact=False, **layout),
+        device=False)
+    tplan = TH.host_plan_to_device(
+        TH.build_host_plan(coords, bidx, valid, CAPS, **layout), "cpu")
+    jout = jax.jit(lambda v, f, p: jmodel.apply(v, f, p, False))(
+        models["variables"], jnp.asarray(feats), jplan)
     with torch.no_grad():
-        tout = tmodel(torch.from_numpy(feats), tplan)
+        tout = models["tmodel"](torch.from_numpy(feats), tplan)
     mask = tplan.levels[0].valid[:, None].numpy().astype(np.float32)
     return tout.numpy() * mask, np.asarray(jout) * mask
+
+
+@pytest.fixture(scope="module")
+def bridged():
+    return layout_outputs(bridged_models())
 
 
 def test_res16_matches_frozen_fixture(bridged):

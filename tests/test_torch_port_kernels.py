@@ -12,14 +12,16 @@ imports jax):
 Tolerances: fp32 ``rtol = atol = 1e-4`` (the same fp32 products summed in
 another order); bf16 ``1e-2`` (both sides sum in fp32 and round once to
 bf16, so they may differ by one bf16 ulp).  The weight gradient (K4) sums
-hundreds of rows: its tolerance is ``1e-4`` of ``max |plain|``.  The plan
-engine's kernels (K6-K8) give integers, which must be equal.
+hundreds of rows: its tolerance is ``1e-4`` of ``max |plain|``, as is the
+block conv's weight gradient (K11).  The plan engine's kernels (K6-K8) and
+the slot gather (K9) move values without arithmetic: they must be equal.
 """
 import numpy as np
 import pytest
 import torch
 
 from segdino3d_tpu_torch.models.backbone.res16unet import build_unet_plan
+from segdino3d_tpu_torch.ops import block_dense as TBD
 from segdino3d_tpu_torch.ops import hashing as TQ
 from segdino3d_tpu_torch.ops import host_plan as TH
 from segdino3d_tpu_torch.ops import scatter as TS
@@ -327,3 +329,98 @@ def test_device_plan_matches_host_plan_on_card(card):
             x, y = getattr(a, k), getattr(b, k)
             if y is not None:
                 torch.testing.assert_close(x, y, rtol=0, atol=0, msg=k)
+
+
+def _block_plan_on(device, edges):
+    rng = np.random.RandomState(8)
+    coords = rng.uniform(0, 14, (700, 3)).astype(np.float32)
+    plan = TH.build_host_plan(coords, np.zeros(700, np.int32),
+                              np.ones(700, bool), CAPS, block_edges=edges)
+    return TH.host_plan_to_device(plan, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [96, 259, 13])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slot_gather_matches_plain(card, channels, dtype):
+    """K9 both ways through a level's tables: voxel rows -> dense rows
+    (slot_vox) and back (vox_slot); rows of 16-byte multiples and not."""
+    t = _block_plan_on(card, [4] * 5).blocks[0]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(CAPS[0], channels, generator=gen, device="cuda").to(
+        getattr(torch, dtype))
+    dense = TBD.slot_gather(x, t.slot_vox)
+    back = TBD.slot_gather(dense, t.vox_slot)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dense, TBD.slot_gather_plain(x, t.slot_vox),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(back, TBD.slot_gather_plain(dense, t.vox_slot),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge,k", [(4, 3), (4, 5), (8, 3), (8, 5)])
+@pytest.mark.parametrize("cout", [40, 96, 128])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_conv_matches_plain(card, edge, k, cout, masked, dtype):
+    """K10 with and without the output mask; Cin 35 is no multiple of the
+    kernel's 16-channel slices and Cout 40 none of its column tiles."""
+    dt = getattr(torch, dtype)
+    t = _block_plan_on(card, [edge] * 5).blocks[0]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randn(t.slot_vox.shape[0], 35, generator=gen, device="cuda")
+    x = torch.where(TBD.occupancy(t)[:, None], x, 0.0).to(dt)
+    w = (torch.randn(k ** 3, 35, cout, generator=gen, device="cuda")
+         * (k ** 3 * 35) ** -0.5).to(dt)
+    occ = TBD.occupancy(t) if masked else None
+    got = TBD.block_conv(x, t.block_nbr, w, occ, edge)
+    want = TBD.dense_subm_conv_plain(x, t.block_nbr, w, occ, edge)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge,k", [(4, 3), (4, 5), (8, 3)])
+@pytest.mark.parametrize("cin,cout", [(35, 24), (96, 72)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_wgrad_matches_plain(card, edge, k, cin, cout, dtype):
+    dt = getattr(torch, dtype)
+    t = _block_plan_on(card, [edge] * 5).blocks[0]
+    occ = TBD.occupancy(t)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = t.slot_vox.shape[0]
+    x = torch.randn(rows, cin, generator=gen, device="cuda").to(dt)
+    dy = torch.randn(rows, cout, generator=gen, device="cuda").to(dt)
+    got = TBD.block_wgrad(x, dy, t.block_nbr, occ, edge, k)
+    want = TBD.block_wgrad_plain(x, dy, t.block_nbr, occ, edge, k)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got, want, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 5])
+def test_dense_backward_on_card_matches_cpu(card, k):
+    """The block-dense Functions on the card (K9-K11) and on the CPU (plain
+    versions): enter, conv, exit; input and weight gradients."""
+    gen = torch.Generator().manual_seed(12)
+    x0 = torch.randn(CAPS[0], 24, generator=gen)
+    w0 = torch.randn(k ** 3, 24, 40, generator=gen) * 24 ** -0.5
+    grads = []
+    for dev in ("cuda", "cpu"):
+        t = _block_plan_on(dev, [4] * 5).blocks[0]
+        x = x0.to(dev).requires_grad_()
+        w = w0.to(dev).requires_grad_()
+        dense = TBD.scatter_to_dense(x, t)
+        out = TBD.gather_from_dense(
+            TBD.dense_subm_conv(dense, TBD.occupancy(t), t, w), t)
+        out.backward(torch.ones_like(out)
+                     * torch.linspace(-1, 1, 40, device=dev))
+        grads.append([x.grad.cpu(), w.grad.cpu()])
+    torch.cuda.synchronize()
+    for got, want in zip(*grads, strict=True):
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)

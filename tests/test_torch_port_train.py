@@ -266,10 +266,11 @@ def regen():
 # the port's side
 # --------------------------------------------------------------------------
 
-def port_step(variables, recs=None, device_plan=False):
+def port_step(variables, recs=None, device_plan=False, layout=None):
     """The port's step on the two microbatches, from ``variables``; with
     ``device_plan`` the microbatches carry no host plan and the backbone
-    builds theirs on the device, at the host plan's capacities."""
+    builds theirs on the device, at the host plan's capacities.  ``layout``
+    adds host-plan arguments (``attach_host_plan``)."""
     caps = Capacities(num_superpoints=S_CAP, num_voxels=VOXEL_CAP)
     model, _ = build_model(PORT_CFG, caps, device="cpu", train=True)
     load_jax_variables(model, variables)
@@ -280,7 +281,8 @@ def port_step(variables, recs=None, device_plan=False):
     if not device_plan:
         mbs = [TC.attach_host_plan(mb, [r], spec, voxel_size=0.02,
                                    voxel_cap=VOXEL_CAP,
-                                   level_cap_ratios=caps.level_cap_ratios)
+                                   level_cap_ratios=caps.level_cap_ratios,
+                                   **(layout or {}))
                for mb, r in zip(mbs, recs)]
     queries = [tuple(torch.from_numpy(a) for a in
                      numpy_selection(mb.num_superpoints.numpy()))
@@ -301,7 +303,7 @@ def port_step(variables, recs=None, device_plan=False):
     step = TrainStep(model, crit, opt, ema, accum_steps=2)
     metrics = step(mbs, queries)
     return dict(model=model, before=before, metrics=metrics,
-                matches=matches, ema=ema)
+                matches=matches, ema=ema, batches=mbs)
 
 
 def check_against(port, ref):
@@ -383,6 +385,23 @@ def frozen():
 
 def test_train_step_matches_frozen_jax_step(frozen):
     check_against(port_step(initial_variables()), frozen)
+
+
+def test_train_step_on_block_dense_plans_matches_frozen_jax_step(frozen):
+    """The flagship training layout (``block_edges_train``: every level
+    block-dense, the k5 stem too) computes the same step, held to the same
+    frozen JAX step at the same tolerances."""
+    from segdino3d_tpu_torch.builder import host_plan_args
+
+    cfg = dict(PORT_CFG, pointcloud_backbone_cfg=dict(
+        PORT_CFG["pointcloud_backbone_cfg"], block_edges_train=(4,) * 5))
+    layout = host_plan_args(cfg, train=True)
+    port = port_step(initial_variables(),
+                     layout=dict(block_edges=layout["block_edges"]))
+    for mb in port["batches"]:
+        assert all(t is not None for t in mb.plan.blocks)
+        assert mb.plan.stem_nbr is None
+    check_against(port, frozen)
 
 
 def test_random_query_selection():
