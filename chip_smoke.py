@@ -19,7 +19,9 @@ Phases, in order; any failure exits non-zero before the result line:
    gather, both ways, equal), K10 (block conv: k3 96->96 at level 0, k3
    384->256 at level 3, the dense k5 stem 259->32, fp32 and bf16, and its
    dX role) and K11 (its weight gradient: level 0 k3 and the stem), each
-   with its bound from the cells this scene occupies;
+   with its bound from the cells this scene occupies; K12 (the compacted
+   stem's slot sum) on the scene's compacted tables with 32 and 8 slots
+   per voxel, fp32 and bf16, the stem's wide matmul timed beside it;
 3. run the eval path at full width: ScanNet200 eval of the flagship
    SegDINO3D (Res16UNet34C + 6-layer DINO-X query decoder) with seeded
    random weights on a seeded synthetic 120,000-point scene with 1,536
@@ -55,6 +57,15 @@ Phases, in order; any failure exits non-zero before the result line:
    (block-dense everywhere, the k5 stem too: K9, K10 forward and as dX,
    K11): s/step, ms per stage, launches per step, peak memory, finite
    losses and gradient norm, and the card against the CPU on a small scene;
+3d. run the eval entry point on three headline-size scenes written to a
+   temp dir (``write_scannet_layout``): the port's ScanNet200 reader,
+   ``EvalLoader`` (batch 1, default buckets, capacity prescan, prefetch 1)
+   on the config's hybrid host plans and ``evaluate`` (bit-packed result
+   transfer), once with the gather stem (K1) and once with the compacted
+   stem (K12): launches per forward, scenes/s, ms per stage, peak memory;
+   the compacted run's superpoint features within 3e-3 x max|.| of the
+   gather run's, and the card against the CPU on a small compacted-stem
+   scene at 1e-4;
 5. print one ``kernels`` JSON line, then the result line.
 
 It needs one card, imports no JAX, and takes its kernels from the
@@ -144,14 +155,25 @@ def train_cfg():
                 iter_matcher=True, fix_mean_loss=True)))
 
 
+def compact_cfg():
+    """The flagship eval config with the degree-compacted stem turned on
+    (its default D = 32 slots)."""
+    cfg = model_cfg()
+    cfg["pointcloud_backbone_cfg"]["stem_compact"] = True
+    return cfg
+
+
 def plan_layout(name):
     """``attach_host_plan`` arguments of a conv layout: "gather" (phases
-    3-4b), or the flagship config's eval layout "hybrid" or training layout
+    3-4b), or the flagship config's eval layout "hybrid", the same with the
+    compacted stem "compact" (phase 3d) or its training layout
     "block-dense" (``builder.host_plan_args``)."""
     from segdino3d_tpu_torch.builder import host_plan_args
 
     if name == "hybrid":
         return host_plan_args(model_cfg())
+    if name == "compact":
+        return host_plan_args(compact_cfg())
     if name == "block-dense":
         return host_plan_args(train_cfg(), train=True)
     if name != "gather":
@@ -709,6 +731,68 @@ def dense_cases(plan, gen):
     return cases
 
 
+def stem_library(y2, slots, ov_src, ov_dst, valid):
+    """Yardstick for K12: ``index_select`` of every slot row, a sum over
+    the slots, ``index_add_`` of the overflow rows, the mask."""
+    d, v = slots.shape
+    rows = y2.index_select(0, slots.clamp(min=0).reshape(-1).long())
+    acc = torch.where((slots >= 0).reshape(-1, 1), rows.float(), 0.0)
+    acc = acc.view(d, v, -1).sum(0)
+    ov = acc.new_zeros(v + 1, acc.shape[1]).index_add_(
+        0, ov_dst.long(), torch.where(
+            (ov_src >= 0)[:, None],
+            y2.index_select(0, ov_src.clamp(min=0).long()).float(), 0.0))
+    return torch.where(valid[:, None], acc + ov[:v], 0.0).to(y2.dtype)
+
+
+def stem_compact_cases(records, spec, gen):
+    """K12 on the headline scene's compacted-stem tables at the level-0 cap
+    of the main path, with D = 32 (the default) and D = 8 (most pairs in
+    the overflow), fp32 and bf16, over a (V0 * 125, 32) product table.
+    Bytes: the occupied slot rows and overflow rows, the slot table, the
+    overflow pairs, the mask and the output; operations: one add per
+    gathered element.  The wide product alone (the stem's matmul,
+    259 -> 125 x 32, ``torch.matmul``, TF32 off) is timed beside it."""
+    from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    cases = []
+    for d in (32, 8):
+        plan = attach_host_plan(
+            collate(records, spec, DEVICE), records, spec,
+            level_cap_ratios=LEVEL_CAP_RATIOS, voxel_size=0.02,
+            stem_compact=True, stem_compact_slots=d).plan
+        slots, ov_src, ov_dst = plan.stem_compact
+        valid = plan.levels[0].valid
+        v = valid.shape[0]
+        n_rows = int((slots >= 0).sum()) + int((ov_src >= 0).sum())
+        per, mm = {}, {}
+        for dt in (torch.float32, torch.bfloat16):
+            y2 = _randn(gen, (v * 125, 32), dt)
+            x = _randn(gen, (v, 259), dt)
+            w = _randn(gen, (259, 125 * 32), dt, 259 ** -0.5)
+            mm[CONV_PEAK[dt]] = bound(2.0 * v * 259 * 125 * 32,
+                                      nbytes(x, w, y2), CONV_PEAK[dt])
+            per[dt] = (
+                lambda y2=y2: SC.stem_slot_sum(y2, slots, ov_src, ov_dst,
+                                               valid),
+                lambda y2=y2: SC.stem_slot_sum_plain(y2, slots, ov_src,
+                                                     ov_dst, valid),
+                lambda y2=y2: stem_library(y2, slots, ov_src, ov_dst, valid),
+                float(n_rows * 32),
+                n_rows * 32 * y2.element_size()
+                + nbytes(slots, ov_src, ov_dst, valid)
+                + v * 32 * y2.element_size(), "fp32",
+                {"wide matmul 259->4000": lambda x=x, w=w: x @ w})
+        print(f"compacted stem D={d}: {int((slots >= 0).sum())} slot pairs, "
+              f"{int((ov_src >= 0).sum())} overflow pairs of "
+              f"{ov_src.shape[0]}, V0 cap {v}; the wide matmul's bound "
+              + ", ".join(f"{k} {t:.4f} ms ({by})" for k, (t, by)
+                          in mm.items()), flush=True)
+        cases.append(("stem_slot_sum", f"D={d} slot sum ({v}*125, 32)", per))
+    return cases
+
+
 # --------------------------------------------------------------------------
 # phase 3: the main path
 # --------------------------------------------------------------------------
@@ -740,7 +824,8 @@ def counters():
             "voxel_compact": (TV.voxel_compact,),
             "slot_gather": (BD.slot_gather,),
             "block_conv": (BD.block_conv,),
-            "block_wgrad": (BD.block_wgrad,)}
+            "block_wgrad": (BD.block_wgrad,),
+            "stem_slot_sum": (SC.stem_slot_sum,)}
 
 
 # the kernels of the gather layout's training step on device plans
@@ -804,8 +889,8 @@ def run_main_path(model, test_cfg, records, spec, device_plan=False,
         t0 = time.perf_counter()
         evaluator.reset()
         for record, r in zip(records, res):
-            evaluator.process(eval_annotation(record), host_prediction(record,
-                                                                       *r))
+            evaluator.process(eval_annotation(record), host_prediction(
+                record, *r, plan_overflow=out["plan_overflow"]))
         metrics = evaluator.evaluate()
         t["ap_eval"] = time.perf_counter() - t0
         return t, batch, bb, out, res, metrics
@@ -845,8 +930,9 @@ def check_small_reference(model, plans=("host", "device")):
     weights, on a small scene, on a host plan and on a device plan (K6-K8
     on the card; the device plan's capacity is the scene's point count),
     at rtol = atol = 1e-3, and on a hybrid host plan ("hybrid", K9 and
-    K10) at 1e-4.  Compared before any attention threshold: the superpoint
-    features and the first head's class and mask logits."""
+    K10) or one with the compacted stem ("compact", K12) at 1e-4.
+    Compared before any attention threshold: the superpoint features and
+    the first head's class and mask logits."""
     from segdino3d_tpu_torch.data.collate import PadSpec, attach_host_plan, \
         collate
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
@@ -860,7 +946,7 @@ def check_small_reference(model, plans=("host", "device")):
     try:
         for plan in plans:
             outs = {}
-            tol = 1e-4 if plan == "hybrid" else 1e-3
+            tol = 1e-4 if plan in ("hybrid", "compact") else 1e-3
             for dev, m in ((DEVICE, model), ("cpu", cpu_model)):
                 batch = collate(rec, spec, dev)
                 if plan != "device":
@@ -1039,8 +1125,10 @@ def make_train_step(model, accum_steps, ema=True):
                      else None, accum_steps=accum_steps)
 
 
-def check_metrics(metrics, what):
-    vals = {k: float(v) for k, v in metrics.items()}
+def check_metrics(step, metrics, what):
+    """The step's metrics on the host (``TrainStep.host_metrics``: one copy,
+    raising on a device plan's overflow), all finite."""
+    vals = step.host_metrics(metrics)
     bad = [k for k, v in vals.items() if not np.isfinite(v)]
     if bad:
         raise SystemExit(f"{what}: non-finite {bad}: {vals}")
@@ -1071,7 +1159,7 @@ def run_training(model, records, spec, layout="gather", accum=True):
         return b, time.perf_counter() - t0
 
     b, _ = plan(records[0])
-    check_metrics(step1([b], generator=gen), "warm-up step")
+    check_metrics(step1, step1([b], generator=gen), "warm-up step")
     torch.cuda.reset_peak_memory_stats()
     steps, launches, metrics = [], None, []
     for i in range(TRAIN_STEPS):
@@ -1081,7 +1169,7 @@ def run_training(model, records, spec, layout="gather", accum=True):
         m = step1([b], generator=gen, clock=clock)
         if launches is None:
             launches = read_counts()
-        metrics.append(check_metrics(m, f"batch-1 step {i}"))
+        metrics.append(check_metrics(step1, m, f"batch-1 step {i}"))
         steps.append(dict(plan=t_plan, **clock.seconds))
     if not accum:
         return (launches, steps, None, None,
@@ -1095,7 +1183,7 @@ def run_training(model, records, spec, layout="gather", accum=True):
     reset_counts()
     m4 = step4(mbs, generator=gen, clock=clock)
     launches4 = read_counts()
-    metrics.append(check_metrics(m4, "accum_steps=4 step"))
+    metrics.append(check_metrics(step4, m4, "accum_steps=4 step"))
     accum = dict(plan=t_plan, **clock.seconds)
     return (launches, steps, accum, launches4,
             torch.cuda.max_memory_allocated(), metrics)
@@ -1125,9 +1213,9 @@ def check_small_train(model, layout="gather"):
                                  **plan_layout(layout))
         q = numpy_queries(batch.num_superpoints.cpu().numpy(),
                           SCENE["n_superpoints"], seed=5)
-        metrics = make_train_step(m, 1, ema=False)(
-            [batch], queries=[tuple(t.to(dev) for t in q)])
-        out[dev] = (check_metrics(metrics, f"small step on {dev}"),
+        step = make_train_step(m, 1, ema=False)
+        metrics = step([batch], queries=[tuple(t.to(dev) for t in q)])
+        out[dev] = (check_metrics(step, metrics, f"small step on {dev}"),
                     {n: float(p.grad.norm()) for n, p in m.named_parameters()})
     (mc, gc), (mp, gp) = out[DEVICE], out["cpu"]
     for k in mp:
@@ -1167,7 +1255,7 @@ def run_training_device(model, records, spec):
         torch.cuda.synchronize()
         return b, time.perf_counter() - t0
 
-    check_metrics(step([bare(records[0])[0]], generator=gen),
+    check_metrics(step, step([bare(records[0])[0]], generator=gen),
                   "device-plan warm-up step")
     steps, launches, metrics = [], None, []
     for i in range(TRAIN_STEPS):
@@ -1185,7 +1273,7 @@ def run_training_device(model, records, spec):
         m = step([b], generator=gen, clock=clock)
         if launches is None:
             launches = read_counts()
-        metrics.append(check_metrics(m, f"device-plan step {i}"))
+        metrics.append(check_metrics(step, m, f"device-plan step {i}"))
         steps.append(dict(collate=t_collate, plan_alone=t_plan,
                           **clock.seconds))
     keys = ("collate", "forward", "criterion", "backward", "optimizer")
@@ -1294,6 +1382,144 @@ def run_hybrid_eval(model, test_cfg, records, spec, gather_bb):
     return launches
 
 
+DISK_SEEDS = (0, 1, 2)
+
+
+class StageTimer:
+    """Device-synchronised wall time of a module's forwards (a pre and a
+    post hook), and the tensors ``keep`` takes from its outputs."""
+
+    def __init__(self, module, keep=None):
+        self.seconds, self.kept, self._t = 0.0, [], 0.0
+        self.keep = keep
+        self.hooks = [module.register_forward_pre_hook(self._pre),
+                      module.register_forward_hook(self._post)]
+
+    def _pre(self, *_):
+        torch.cuda.synchronize()
+        self._t = time.perf_counter()
+
+    def _post(self, _module, _inputs, out):
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - self._t
+        if self.keep is not None:
+            self.kept.append(self.keep(out).clone())
+
+    def remove(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def run_disk_eval(model, test_cfg, root, layout):
+    """One pass of the eval entry point over the scenes under ``root``:
+    the port's ScanNet200 reader, ``EvalLoader`` (batch 1, the default
+    buckets, the capacity prescan, one batch of prefetch) on host plans of
+    ``layout``, and ``evaluate`` (packed result transfer).  Returns
+    (launches, stage ms, scenes/s, peak bytes, metrics, sp_feats per
+    scene)."""
+    from segdino3d_tpu_torch.data.bucketing import BucketPolicy
+    from segdino3d_tpu_torch.data.loader import EvalLoader
+    from segdino3d_tpu_torch.data.scannet_constants import (
+        SCANNET200_CLASS_NAMES, SCANNET200_RAW_IDS)
+    from segdino3d_tpu_torch.data.scannet_dataset import \
+        ScanNet200InstanceSeg3D
+    from segdino3d_tpu_torch.evaluation.evaluate import evaluate
+    from segdino3d_tpu_torch.evaluation.evaluator import InstanceSeg3DEvaluator
+
+    # the synthetic labels are class ids already
+    reader = ScanNet200InstanceSeg3D(
+        scene_set="val", root_scenes=root, adjust_class_ids=False,
+        root_points_2dfeats=os.path.join(root, "features_2d"),
+        feats_2d_dtype="float16")
+    loader = EvalLoader(reader, batch_size=1,
+                        bucket_policy=BucketPolicy.default(),
+                        host_plan_cfg=plan_layout(layout), prefetch=1,
+                        prescan_caps=True, device=DEVICE)
+    waited = []
+
+    def timed(it):
+        it = iter(it)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            waited.append(time.perf_counter() - t0)
+            yield item
+
+    backbone = StageTimer(model.backbone, keep=lambda bb: bb.sp_feats)
+    decoder = StageTimer(model.decoder)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        metrics = evaluate(model, timed(loader), InstanceSeg3DEvaluator(
+            SCANNET200_RAW_IDS, SCANNET200_CLASS_NAMES), test_cfg)
+        total = time.perf_counter() - t0
+    finally:
+        backbone.remove()
+        decoder.remove()
+    launches = read_counts()
+    n = len(DISK_SEEDS)
+    stages = {"loader wait (read, plan, copy)": sum(waited),
+              "backbone": backbone.seconds, "decoder": decoder.seconds}
+    stages["postprocess + result copy + AP"] = total - sum(stages.values())
+    ms = {k: 1e3 * v / n for k, v in stages.items()}
+    return (launches, ms, n / total, torch.cuda.max_memory_allocated(),
+            metrics, backbone.kept)
+
+
+def run_disk_phase(model, test_cfg):
+    """Phase 3d: the eval entry point on scenes read from disk, with the
+    config's gather stem and with the compacted stem (K12)."""
+    import tempfile
+
+    from segdino3d_tpu_torch.data.synthetic import write_scannet_layout
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_scannet_layout(root, DISK_SEEDS, **SCENE)
+        print(f"wrote {len(DISK_SEEDS)} scenes ({SCENE['n_points']} points, "
+              f"{SCENE['n_superpoints']} superpoints) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        runs = {layout: run_disk_eval(model, test_cfg, root, layout)
+                for layout in ("hybrid", "compact")}
+    expected = {"hybrid": {"gather_gemm_conv": 5, "stem_slot_sum": 0},
+                "compact": {"gather_gemm_conv": 4, "stem_slot_sum": 1}}
+    n = len(DISK_SEEDS)
+    for layout, (launches, ms, rate, peak, metrics, _) in runs.items():
+        per = {k: v / n for k, v in launches.items() if v}
+        print(f"eval entry point, {layout} stem: launches per forward {per} "
+              f"(expected {expected[layout]}: the stem is K1 or K12)",
+              flush=True)
+        for k, want in expected[layout].items():
+            if launches[k] != want * n:
+                raise SystemExit(f"{k}: {launches[k]} launches over {n} "
+                                 f"forwards of the {layout} run, expected "
+                                 f"{want} each")
+        print(f"eval entry point, {layout} stem: {rate:.3f} scenes/s over "
+              f"{n} scenes read from disk (batch 1, fp32, prefetch 1); ms "
+              f"per scene " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                        ms.items())
+              + f"; peak {peak / 2 ** 30:.3f} GiB; all_ap_25="
+              f"{metrics['all_ap_25']:.4f}", flush=True)
+    for i, (a, b) in enumerate(zip(runs["compact"][5], runs["hybrid"][5])):
+        if not bool(torch.isfinite(a).all()):
+            raise SystemExit(f"compacted stem: non-finite sp_feats, scene {i}")
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        ok = err <= 3e-3 * scale
+        print(f"scene {i}: compacted-stem sp_feats vs gather stem: "
+              f"max_abs_err={err:.3e} (<= 3e-3 x max|gather| = "
+              f"{3e-3 * scale:.3e}) {'ok' if ok else 'MISMATCH'}", flush=True)
+        if not ok:
+            raise SystemExit("the compacted stem disagrees with the gather "
+                             "stem")
+    check_small_reference(model, plans=("compact",))
+    return runs["compact"][0]
+
+
 def run_dense_training(model, records, spec):
     """Phase 4c: batch-1 steps on the config's training layout."""
     check_small_train(model, "block-dense")
@@ -1371,7 +1597,8 @@ def main() -> int:
     rows = check_kernels(kernel_cases(batch, SCENE["n_superpoints"], gen)
                          + backward_cases(batch, SCENE["n_superpoints"], gen)
                          + plan_engine_cases(batch, level_caps)
-                         + dense_cases(hybrid.plan, gen))
+                         + dense_cases(hybrid.plan, gen)
+                         + stem_compact_cases(records, spec, gen))
     del hybrid
 
     # phase 3: the main path at full width; a batch without a host plan
@@ -1410,6 +1637,10 @@ def main() -> int:
 
     # phase 3c: the main path on the config's eval layout (hybrid)
     hybrid_launches = run_hybrid_eval(model, test_cfg, records, spec, bb)
+
+    # phase 3d: the eval entry point on scenes read from disk, the gather
+    # stem and the compacted stem
+    disk_launches = run_disk_phase(model, test_cfg)
 
     # phase 4: the training path at full width
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
@@ -1470,6 +1701,8 @@ def main() -> int:
                        "segdino3d_tpu/ops/block_dense.py:257"),
         "block_wgrad": ("segdino3d_tpu_torch/csrc/block_wgrad.cu",
                         "segdino3d_tpu/ops/block_dense.py:414"),
+        "stem_slot_sum": ("segdino3d_tpu_torch/csrc/stem_slot_sum.cu",
+                          "segdino3d_tpu/ops/sparse_conv.py:369"),
     }
     plan_kernels = ("coord_hash", "neighbor_table", "voxel_compact")
     dense_kernels = ("slot_gather", "block_conv", "block_wgrad")
@@ -1480,7 +1713,10 @@ def main() -> int:
         # for the backward ones, the device-plan eval path's and step's for
         # the plan engine's, the hybrid eval path's and the block-dense
         # step's for the block-dense ones; all are printed above
-        if name in plan_kernels:
+        if name == "stem_slot_sum":
+            # phase 3d's compacted run (3 forwards); no training path
+            main_launches = disk_launches[name]
+        elif name in plan_kernels:
             main_launches = dev_launches[name]
             train_launches[name] = train_dev_launches[name]
         elif name in dense_kernels:

@@ -117,8 +117,9 @@ def build_model(model_cfg: Dict, caps: Capacities, device=None,
 def host_plan_args(model_cfg: Dict, train: bool = False) -> Dict:
     """The host-plan arguments (``data.collate.attach_host_plan``) that
     the backbone config names: voxel size, stem kernel and layout; for
-    training ``block_edges_train``, else ``block_edges`` and
-    ``stem_gather`` (``train_3d.py``'s eval and training plans)."""
+    training ``block_edges_train``, else ``block_edges``, ``stem_gather``
+    and, where the config names them, ``stem_compact`` and
+    ``stem_compact_slots`` (``train_3d.py``'s eval and training plans)."""
     bcfg = model_cfg["pointcloud_backbone_cfg"]
     edges = bcfg.get("block_edges")
     if train:
@@ -134,6 +135,10 @@ def host_plan_args(model_cfg: Dict, train: bool = False) -> Dict:
                 block_edges=edges)
     if not train:
         args["stem_gather"] = bool(bcfg.get("stem_gather", False))
+        # the compacted stem is eval only; off unless the config names it
+        for key in ("stem_compact", "stem_compact_slots"):
+            if key in bcfg:
+                args[key] = bcfg[key]
     return args
 
 

@@ -155,8 +155,10 @@ def attach_host_plan(batch: SceneBatch, records: List[Dict], spec: PadSpec,
                      num_levels: int = 5, stem_kernel: int = 5,
                      block_edges: Optional[Sequence[int]] = None,
                      block_caps: Optional[Sequence[int]] = None,
-                     stem_gather: bool = False, auto_l0_layout: bool = True
-                     ) -> SceneBatch:
+                     stem_gather: bool = False, stem_compact: bool = False,
+                     stem_compact_slots: Optional[int] = None,
+                     stem_ov_cap: Optional[int] = None,
+                     auto_l0_layout: bool = True) -> SceneBatch:
     """Build the sparse-conv plan on the host (C++) and attach it on the
     batch's device.
 
@@ -166,8 +168,11 @@ def attach_host_plan(batch: SceneBatch, records: List[Dict], spec: PadSpec,
     runs level ``l`` block-dense (block counts bucketed unless
     ``block_caps`` pins them) and ``stem_gather`` keeps a gather stem over
     a block-dense level 0 (``builder.host_plan_args`` reads these from a
-    model config).  ``auto_l0_layout`` lets level 0 fall back to the gather
-    layout when its dense convs would outgrow the JAX package's budget
+    model config).  ``stem_compact`` replaces a gather k5 stem by the
+    degree-compacted one (eval only; ``stem_compact_slots`` slots per
+    voxel, ``stem_ov_cap`` overflow pairs, ``ops.host_plan``).
+    ``auto_l0_layout`` lets level 0 fall back to the gather layout when its
+    dense convs would outgrow the JAX package's budget
     (``ops.host_plan.l0_dense_fits``, ``L0_BUDGET_BYTES``)."""
     coords, valid, bidx = _plan_coords(records, spec.num_points, voxel_size)
     if level_caps is not None:
@@ -186,12 +191,29 @@ def attach_host_plan(batch: SceneBatch, records: List[Dict], spec: PadSpec,
                            caps, num_levels=num_levels,
                            stem_kernel=stem_kernel, block_edges=block_edges,
                            block_caps=block_caps, stem_gather=stem_gather,
+                           stem_compact=stem_compact,
+                           stem_compact_slots=stem_compact_slots,
+                           stem_ov_cap=stem_ov_cap,
                            l0_budget_bytes=(L0_BUDGET_BYTES if auto_l0_layout
                                             else None))
     if plan.overflow:
         raise ValueError("host plan capacity overflow — raise voxel caps")
     return dataclasses.replace(
         batch, plan=host_plan_to_device(plan, batch.points.device))
+
+
+def to_device(tree, device):
+    """``tree`` (a ``SceneBatch``, a plan, or any nest of dataclasses,
+    lists and tuples) with every tensor moved to ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: to_device(getattr(tree, f.name), device)
+            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(x, device) for x in tree)
+    return tree
 
 
 def eval_annotation(record: Dict, bg_class_id: int = 200

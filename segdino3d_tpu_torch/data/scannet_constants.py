@@ -1,7 +1,7 @@
 """Public ScanNet / ScanNet200 dataset constants.
 
-A copy of the constants of ``segdino3d_tpu/data/scannet_constants.py``
-(the label lookup tables are not needed by the port).
+A copy of ``segdino3d_tpu/data/scannet_constants.py``: the constants and
+the raw-id label lookup tables of the readers (``data.scannet_dataset``).
 
 These are dataset-defined values (raw-id mappings, category names, benchmark
 splits) from the public ScanNet200 benchmark, used identically by the
@@ -10,6 +10,8 @@ reference (``configs/datasets/instance_segmentation_3d/scannet200.py:38-94``,
 ``evaluation/utils_instance_seg_3d_eval.py:248-279``).
 """
 from __future__ import annotations
+
+import numpy as np
 
 # Raw ScanNet category ids of the 200 benchmark classes, in class-id order.
 SCANNET200_RAW_IDS = [
@@ -124,3 +126,20 @@ TAIL_CATS_SCANNET_200 = [
     'case of water bottles', 'coat rack', 'folded chair', 'fire alarm',
     'power strip', 'calendar', 'poster', 'luggage',
 ]
+
+
+def scannet200_seg_label_lut(max_raw_id: int = 1357) -> np.ndarray:
+    """raw id -> class id (0..199), 200 for everything else (the
+    reference's ``scannet200_seg_label_mapping.npy``)."""
+    lut = np.full(max_raw_id + 1, 200, np.int64)
+    for cls_id, raw in enumerate(SCANNET200_RAW_IDS):
+        lut[raw] = cls_id
+    return lut
+
+
+def scannet20_seg_label_lut(max_raw_id: int = 40) -> np.ndarray:
+    """NYU40 raw id -> class id (0..19), 20 for everything else."""
+    lut = np.full(max_raw_id + 1, 20, np.int64)
+    for cls_id, raw in enumerate(SCANNET20_RAW_IDS):
+        lut[raw] = cls_id
+    return lut

@@ -1,24 +1,19 @@
 """Synthetic indoor-scene generator.
 
-A copy of ``segdino3d_tpu/data/synthetic.py:synthetic_scene``: the same
-seed gives the same record, so the port and the JAX package can be fed one
-scene.  Records carry the schema of the ScanNet readers.
+A copy of ``segdino3d_tpu/data/synthetic.py:synthetic_scene`` and
+``write_scannet_layout``: the same seed gives the same record, so the port
+and the JAX package can be fed one scene.  Records carry the schema of the
+ScanNet readers, and ``write_scannet_layout`` writes scenes in the on-disk
+layout that ``data.scannet_dataset`` reads.
 """
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import numpy as np
 
-
-def pool_to_superpoints(onehot: np.ndarray, sp_ids: np.ndarray,
-                        num_sp: int) -> np.ndarray:
-    """scatter-mean of one-hot rows over superpoints, then > 0.5."""
-    sums = np.zeros((num_sp, onehot.shape[1]), np.float32)
-    np.add.at(sums, sp_ids, onehot.astype(np.float32))
-    counts = np.bincount(sp_ids, minlength=num_sp).astype(np.float32)
-    means = sums / np.maximum(counts, 1.0)[:, None]
-    return means > 0.5
+from segdino3d_tpu_torch.data.scannet_dataset import pool_to_superpoints
 
 
 def _grid_surface(rng, m, origin, u_axis, v_axis, n_axis, u_len, v_len,
@@ -225,3 +220,37 @@ def synthetic_scene(seed: int = 0,
         semantic_masks=sem,
         inst_merged=inst_merged,
     )
+
+
+def write_scannet_layout(root: str, seeds, n_classes: int = 18, **kw):
+    """Write the scenes of ``seeds`` (``synthetic_scene`` with ``kw``) in
+    the reference's .bin/.pth layout under ``root``, every scene in each of
+    the train, val and test lists; returns the scene ids."""
+    import torch
+
+    feat_root = os.path.join(root, "features_2d")
+    for sub in ("meta_data", "points", "instance_mask", "semantic_mask",
+                "super_points", "features_2d"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    ids = []
+    for seed in seeds:
+        rec = synthetic_scene(seed, n_classes=n_classes, **kw)
+        sid = rec["scene_id"]
+        ids.append(sid)
+        for sub, key, dtype in (("points", "points", np.float32),
+                                ("instance_mask", "point_inst_ids", np.int64),
+                                ("semantic_mask", "semantic_masks", np.int64),
+                                ("super_points", "superpoint_ids", np.int64)):
+            rec[key].astype(dtype).tofile(os.path.join(root, sub,
+                                                       f"{sid}.bin"))
+        torch.save([torch.tensor(rec["points_2dfeats"])],
+                   os.path.join(feat_root, f"{sid}.pth"))
+        torch.save(torch.tensor(rec["query2d_feats"]),
+                   os.path.join(feat_root, f"{sid}_query_feats.pth"))
+        torch.save(torch.tensor(rec["query2d_pos"]),
+                   os.path.join(feat_root, f"{sid}_query_3dctr.pth"))
+    for split in ("train", "val", "test"):
+        with open(os.path.join(root, "meta_data", f"scannetv2_{split}.txt"),
+                  "w") as f:
+            f.write("\n".join(ids))
+    return ids

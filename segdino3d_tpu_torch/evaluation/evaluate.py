@@ -3,11 +3,18 @@
 Counterpart of ``segdino3d_tpu/evaluation/evaluate.py``: a no-grad
 forward, post-processing on the model's device (top-k, matrix-NMS,
 unpooling, thresholds; one instance run serves both the instance and the
-panoptic thresholds), GT annotation assembly and the ScanNet AP protocol.
+panoptic thresholds; the instance masks bit-packed, ``ops.bitpack``), the
+copy of the packed rows to the host, which unpacks the valid ones, GT
+annotation assembly and the ScanNet AP protocol.
+
+A forward on a plan built on the device reports whether the plan
+outgrew its capacities (``BackboneOutput.overflow``); the driver reads
+that flag at the result copy, which waits on the device anyway, and
+raises, as a host plan does when it overflows.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -16,11 +23,14 @@ from segdino3d_tpu_torch.evaluation.evaluator import InstanceSeg3DEvaluator
 from segdino3d_tpu_torch.gtypes import SceneBatch
 from segdino3d_tpu_torch.models.architecture.postprocess import (
     InstancePred, predict_instance, predict_panoptic, predict_semantic)
+from segdino3d_tpu_torch.models.backbone.wrapper import DEVICE_PLAN_OVERFLOW
+from segdino3d_tpu_torch.ops.bitpack import pack_bits, unpack_bits_np
 
 
 def postprocess(out, batch: SceneBatch, test_cfg: Dict,
                 filter_outofbox: bool = True, n_stuff: int = 2) -> List[Tuple]:
-    """Per scene (inst, sem, pan_sem, pan_map) from the model's outputs."""
+    """Per scene (inst, sem, pan_sem, pan_map) from the model's outputs;
+    ``inst.point_masks`` bit-packed, (top-k, ceil(P / 8)) uint8."""
     thr_i = test_cfg.get("inst_score_thr", 0.0)
     thr_p = test_cfg.get("pan_score_thr", 0.5)
 
@@ -41,29 +51,42 @@ def postprocess(out, batch: SceneBatch, test_cfg: Dict,
         pan_sem, pan_map = predict_panoptic(
             out["sem_preds"][b], at_threshold(base, thr_p),
             batch.superpoint_ids[b], n_stuff, test_cfg.get("npoint_thr", 100))
-        results.append((at_threshold(base, thr_i), sem, pan_sem, pan_map))
+        inst = at_threshold(base, thr_i)
+        results.append((inst._replace(point_masks=pack_bits(
+            inst.point_masks)), sem, pan_sem, pan_map))
     return results
 
 
 def make_predict_fn(model, test_cfg: Dict, filter_outofbox: bool = True,
-                    n_stuff: int = 2) -> Callable[[SceneBatch], List[Tuple]]:
-    """predict(batch) -> per scene (inst, sem, pan_sem, pan_map)."""
+                    n_stuff: int = 2
+                    ) -> Callable[[SceneBatch], Tuple[List[Tuple],
+                                                      torch.Tensor]]:
+    """predict(batch) -> (per scene (inst, sem, pan_sem, pan_map), the
+    plan's overflow flag, a 0-d bool tensor)."""
 
     @torch.no_grad()
     def predict(batch: SceneBatch):
-        return postprocess(model(batch), batch, test_cfg, filter_outofbox,
-                           n_stuff)
+        out = model(batch)
+        return (postprocess(out, batch, test_cfg, filter_outofbox, n_stuff),
+                out["plan_overflow"])
 
     return predict
 
 
 def host_prediction(record: Dict, inst: InstancePred, sem, pan_sem,
-                    pan_map) -> Dict:
-    """One scene's prediction as the evaluator's numpy dict."""
+                    pan_map, plan_overflow: Optional[torch.Tensor] = None
+                    ) -> Dict:
+    """One scene's prediction as the evaluator's numpy dict: the packed
+    masks copied whole, the valid rows unpacked.  Raises where
+    ``plan_overflow`` is set: it is read after the first copy, when the
+    device is done."""
     n_pts = record["points"].shape[0]
     valid = inst.valid.cpu().numpy()
+    if plan_overflow is not None and bool(plan_overflow):
+        raise ValueError(DEVICE_PLAN_OVERFLOW)
     return dict(
-        pts_instance_masks=inst.point_masks.cpu().numpy()[valid, :n_pts],
+        pts_instance_masks=unpack_bits_np(
+            inst.point_masks.cpu().numpy()[valid], n_pts),
         instance_labels=inst.labels.cpu().numpy()[valid],
         instance_scores=inst.scores.cpu().numpy()[valid],
         pts_semantic_mask=sem.cpu().numpy()[:n_pts],
@@ -74,12 +97,15 @@ def host_prediction(record: Dict, inst: InstancePred, sem, pan_sem,
 def evaluate(model, eval_loader: Iterable, evaluator: InstanceSeg3DEvaluator,
              test_cfg: Dict, filter_outofbox: bool = True,
              bg_class_id: int = 200) -> Dict:
-    """``eval_loader`` yields (records, batch) pairs; returns the metric
-    dict of ``evaluator``."""
+    """``eval_loader`` (a ``data.loader.EvalLoader``, or any iterable of
+    (records, batch) pairs with the batch on the model's device); returns
+    the metric dict of ``evaluator``."""
     predict = make_predict_fn(model, test_cfg, filter_outofbox)
     evaluator.reset()
     for records, batch in eval_loader:
-        for record, result in zip(records, predict(batch)):
+        results, overflow = predict(batch)
+        for record, result in zip(records, results):
             evaluator.process(eval_annotation(record, bg_class_id),
-                              host_prediction(record, *result))
+                              host_prediction(record, *result,
+                                              plan_overflow=overflow))
     return evaluator.evaluate()

@@ -5,7 +5,10 @@ range (and GT instance centers/sizes) from elastic-or-raw coordinates, the
 eval forward in which every superpoint is a query, and the training forward
 (``module.train()``), which subsamples the queries at random with
 ``query_thr`` and gathers the GT targets to the selection.  The top-k query
-selection (``query_num > 0``) is not ported.
+selection (``query_num > 0``) is not ported.  Both forwards carry the
+backbone's plan overflow flag as ``outputs["plan_overflow"]`` (a 0-d bool
+tensor, set when a plan built on the device outgrew its capacities), which
+the eval driver and the training step read.
 """
 from __future__ import annotations
 
@@ -153,7 +156,8 @@ class SegDINO3D(nn.Module):
             sp_valid=bb.sp_valid, query_sem_targets=_gather_sp(sem_sp, q_idx))
         outputs.update(scene_range=rng, sp_valid=bb.sp_valid,
                        query_sp_idx=q_idx,
-                       sp_pos_wo_elastic=bb.sp_pos_wo_elastic)
+                       sp_pos_wo_elastic=bb.sp_pos_wo_elastic,
+                       plan_overflow=bb.overflow)
         return outputs, gt
 
     def decode(self, batch: SceneBatch, bb: BackboneOutput) -> Dict[str, Any]:
@@ -172,4 +176,5 @@ class SegDINO3D(nn.Module):
         outputs["query_sp_idx"] = torch.arange(
             s, dtype=torch.int32, device=rng.device).expand(b, s)
         outputs["sp_pos_wo_elastic"] = bb.sp_pos_wo_elastic
+        outputs["plan_overflow"] = bb.overflow
         return outputs

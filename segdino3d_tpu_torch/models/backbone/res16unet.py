@@ -7,7 +7,8 @@ PLANES=(32,64,128,256,256,128,96,96), 96-channel output.  Each level runs
 in the layout its plan gives it (``make_level_ctxs``, ``ops.conv_ctx``):
 block-dense where the plan carries block tables (``ops.block_dense``,
 kernels K9-K11), else the gather layout (``ops.sparse_conv``, kernels K1,
-K2 and K4).  The stride-2 down and up convs always run on voxel rows.
+K2 and K4); a plan with compacted stem tables runs the stem as one wide
+matmul and K12 (eval only).  The stride-2 down and up convs always run on voxel rows.
 ``module.train()`` puts every batch norm in training mode;
 ``config["bn_momentum"]`` (default 0.02, as in the JAX package) sets their
 momentum.  Module and parameter names mirror the flax tree (``convert.py``)
@@ -26,7 +27,8 @@ from torch import nn
 
 from segdino3d_tpu_torch.models.layers import MaskedBatchNorm, linear
 from segdino3d_tpu_torch.ops import sparse_conv as SC
-from segdino3d_tpu_torch.ops.conv_ctx import DenseCtx, GatherCtx
+from segdino3d_tpu_torch.ops.conv_ctx import (CompactStemCtx, DenseCtx,
+                                              GatherCtx)
 from segdino3d_tpu_torch.ops.host_plan import Level, UNetPlan
 from segdino3d_tpu_torch.ops.voxelize import VoxelGrid
 
@@ -63,10 +65,14 @@ def make_level_ctxs(plan: UNetPlan):
     """(one conv context per level, the stem's): block-dense where the plan
     carries block tables, else the gather layout.  A block-dense level 0
     whose plan also carries ``stem_nbr`` (built with ``stem_gather``) runs
-    the stem in the gather layout: the hybrid layout."""
+    the stem in the gather layout: the hybrid layout.  A plan with
+    ``stem_compact`` tables runs the degree-compacted stem, whatever level
+    0's layout."""
     blocks = plan.blocks or [None] * len(plan.levels)
     ctxs = [DenseCtx(t) if t is not None else GatherCtx(lv.nbr, lv.valid)
             for t, lv in zip(blocks, plan.levels)]
+    if plan.stem_compact is not None:
+        return ctxs, CompactStemCtx(*plan.stem_compact, plan.levels[0].valid)
     if blocks[0] is not None and plan.stem_nbr is None:
         return ctxs, ctxs[0]
     return ctxs, GatherCtx(plan.stem_nbr, plan.levels[0].valid)

@@ -36,6 +36,10 @@ from segdino3d_tpu_torch.ops import scatter
 from segdino3d_tpu_torch.ops.host_plan import UNetPlan
 from segdino3d_tpu_torch.ops.voxelize import voxelize
 
+# raised by the eval driver and the training step when ``overflow`` is set
+DEVICE_PLAN_OVERFLOW = ("device plan capacity overflow — raise "
+                        "Capacities.num_voxels or level_cap_ratios")
+
 
 def superpoint_segment_ids(superpoint_ids: torch.Tensor, s_cap: int
                            ) -> torch.Tensor:

@@ -13,7 +13,8 @@ for both:
 * ``valid``: the row-validity mask in the context's layout (batch norms
   and output masks).
 
-The JAX package's ``CompactStemCtx`` is not ported yet.
+``CompactStemCtx`` runs only the k5 stem, on the degree-compacted tables
+(inference only: ``SC.stem_compact_conv``, K12).
 """
 from __future__ import annotations
 
@@ -32,6 +33,28 @@ class GatherCtx:
 
     def subm(self, feats, w):
         return SC.subm_conv(feats, self.nbr, w, self.valid)
+
+    def enter(self, x):
+        return x
+
+    def exit(self, x):
+        return x
+
+
+class CompactStemCtx:
+    """The degree-compacted stem (``SC.stem_compact_conv``): one wide
+    matmul, then K12 sums each voxel's slot and overflow rows."""
+
+    def __init__(self, slots: torch.Tensor, ov_src: torch.Tensor,
+                 ov_dst: torch.Tensor, valid: torch.Tensor):
+        self.slots = slots
+        self.ov_src = ov_src
+        self.ov_dst = ov_dst
+        self.valid = valid
+
+    def subm(self, feats, w):
+        return SC.stem_compact_conv(feats, w, self.slots, self.ov_src,
+                                    self.ov_dst, self.valid)
 
     def enter(self, x):
         return x

@@ -27,14 +27,15 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "segdino3d_tpu_torch")
 KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
            "gather_wgrad", "segment_grad", "coord_hash", "neighbor_table",
-           "voxel_compact", "slot_gather", "block_conv", "block_wgrad")
+           "voxel_compact", "slot_gather", "block_conv", "block_wgrad",
+           "stem_slot_sum")
 _HEADERS = {"gather_gemm_conv": ("conv_tile.cuh",),
             "up_conv": ("conv_tile.cuh",),
             "segment_mean_gather": (), "gather_wgrad": (), "segment_grad": (),
             "coord_hash": ("coord_hash.cuh",),
             "neighbor_table": ("coord_hash.cuh",), "voxel_compact": (),
             "slot_gather": (), "block_conv": ("block_tile.cuh",),
-            "block_wgrad": ("block_tile.cuh",)}
+            "block_wgrad": ("block_tile.cuh",), "stem_slot_sum": ()}
 # a library's C functions, where they are not the one named after it
 _ENTRY_POINTS = {"coord_hash": ("coord_hash_insert", "coord_hash_lookup")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -75,6 +76,8 @@ _SIGNATURES = {
     # x, dy, block_nbr, occ, partial, out, n_blocks, edge, k, cin, cout,
     # splits, dtype, stream
     "block_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # y2, slots, ov_src, ov_dst, valid, out, v, d, p, cout, dtype, stream
+    "stem_slot_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -4,7 +4,10 @@ Counterpart of ``segdino3d_tpu/ops/host_plan.py:build_host_plan``: voxel
 dedup, the (27, V) neighbour tables of the gather-layout levels, the
 block-dense tables of the others (``block_assign``: each voxel's dense slot
 and each block's 26 shell neighbours, ``ops.block_dense``), the k^3 stem
-table and the stride-2 parent links, as numpy arrays.  For the port's
+table or the degree-compacted stem's slot and overflow tables
+(``stem_compact``), and the stride-2 parent links, as numpy arrays, and
+the count-only probe of the eval loader's capacity prescan
+(``probe_plan_counts``).  For the port's
 kernels it adds, per level with a coarser one:
 
 * ``child`` (8, V_coarse): ``child[kpos, parent] = fine``, -1 where absent.
@@ -26,7 +29,7 @@ import os
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +92,15 @@ def _load():
     lib.block_assign.restype = ctypes.c_int64
     lib.block_assign.argtypes = [i32p, ctypes.c_int64, ctypes.c_int64,
                                  ctypes.c_int32, i32p, i32p, ctypes.c_int64]
+    lib.stem_compact.restype = ctypes.c_int64
+    lib.stem_compact.argtypes = [i32p, ctypes.c_int64, ctypes.c_int64,
+                                 i32p, ctypes.c_int32, ctypes.c_int32,
+                                 i32p, i32p, i32p, ctypes.c_int64]
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.probe_plan_counts.restype = None
+    lib.probe_plan_counts.argtypes = [i32p, u8p, ctypes.c_int64, i32p,
+                                      ctypes.c_int32, i64p, i64p, i32p,
+                                      ctypes.c_int32, ctypes.c_int32, i64p]
     _lib = lib
     return lib
 
@@ -144,6 +156,35 @@ def probe_voxel_count(coords_f: np.ndarray, batch_idx: np.ndarray,
                                _i32p(inverse), _i32p(vox), n))
 
 
+def probe_plan_counts(coords_f: np.ndarray, batch_idx: np.ndarray,
+                      valid: np.ndarray, block_edges: Sequence[int],
+                      num_levels: int = 5, stem_kernel: int = 0,
+                      stem_slots: int = 0):
+    """(voxels per level, blocks per level, stem overflow pairs), counted
+    without building a table: the eval loader's capacity prescan.  With
+    ``stem_kernel`` > 0 the third value counts the level-0 stem pairs past
+    ``stem_slots`` per voxel (the compacted stem's overflow), else 0."""
+    lib = _load()
+    n = coords_f.shape[0]
+    coords4 = _coords4(coords_f, batch_idx)
+    valid_u8 = np.ascontiguousarray(valid.astype(np.uint8))
+    edges = np.zeros(num_levels, np.int32)
+    for i, e in enumerate(list(block_edges or [])[:num_levels]):
+        edges[i] = int(e)
+    voxels = np.zeros(num_levels, np.int64)
+    blocks = np.zeros(num_levels, np.int64)
+    stem_ov = np.zeros(1, np.int64)
+    offs = (np.ascontiguousarray(kernel_offsets(stem_kernel))
+            if stem_kernel else np.zeros((1, 3), np.int32))
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    lib.probe_plan_counts(
+        _i32p(coords4), _u8p(valid_u8), n, _i32p(edges), num_levels,
+        voxels.ctypes.data_as(i64p), blocks.ctypes.data_as(i64p),
+        _i32p(offs), offs.shape[0] if stem_kernel else 0, int(stem_slots),
+        stem_ov.ctypes.data_as(i64p))
+    return voxels, blocks, int(stem_ov[0])
+
+
 def voxel_bucket(n: int) -> int:
     """Smallest rung of a ~1.3x geometric ladder >= n (voxel capacities)."""
     m = 2048
@@ -159,6 +200,28 @@ def block_bucket(n: int) -> int:
     while m < n:
         m = ((max(m + 16, int(m * 1.25)) + 15) // 16) * 16
     return m
+
+
+def stem_degree_bucket(d: int) -> int:
+    """Slot-count ladder of the compacted stem's table."""
+    for rung in (8, 12, 16, 24, 32, 48, 64, 96, 128):
+        if d <= rung:
+            return rung
+    return d
+
+
+def overflow_bucket(n: int) -> int:
+    """~1.5x ladder of the compacted stem's overflow-pair capacity."""
+    m = 4096
+    while m < n:
+        m = ((max(m + 4096, int(m * 1.5)) + 4095) // 4096) * 4096
+    return m
+
+
+def stem_slots_default(stem_compact_slots: Optional[int] = None) -> int:
+    """The compacted stem's slot count D: ``stem_compact_slots`` on the
+    ladder, 32 when it is not given."""
+    return stem_degree_bucket(int(stem_compact_slots or 32))
 
 
 # the JAX package's level-0 layout budget (its SEGDINO_CONV_CHUNK_MB
@@ -192,9 +255,16 @@ class HostLevel(NamedTuple):
 class HostPlan(NamedTuple):
     inverse_mapping: np.ndarray     # (N,) point -> voxel id (-1 invalid)
     levels: List[HostLevel]
-    # (k^3, V0); None when the stem runs block-dense
+    # (k^3, V0); None when the stem runs block-dense or compacted
     stem_nbr: Optional[np.ndarray]
     overflow: bool
+    # the degree-compacted stem (``ops.sparse_conv.stem_compact_conv``):
+    # each voxel's first D (neighbour, offset) pairs as flat rows
+    # ``nbr * k^3 + o`` of the wide product, -1 empty, and the pairs past
+    # D, voxel-major and by offset within a voxel; padding -1 / V0
+    stem_slots: Optional[np.ndarray] = None     # (D, V0) int32
+    stem_ov_src: Optional[np.ndarray] = None    # (P,) int32 flat row
+    stem_ov_dst: Optional[np.ndarray] = None    # (P,) int32 voxel id
 
 
 def child_table(parent: np.ndarray, kpos: np.ndarray, num_fine: int,
@@ -238,6 +308,8 @@ def build_host_plan(coords_f: np.ndarray, batch_idx: np.ndarray,
                     block_edges: Optional[Sequence[int]] = None,
                     block_caps: Optional[Sequence[int]] = None,
                     stem_gather: bool = False, stem_compact: bool = False,
+                    stem_compact_slots: Optional[int] = None,
+                    stem_ov_cap: Optional[int] = None,
                     l0_budget_bytes: Optional[int] = None) -> HostPlan:
     """coords_f: (N, 3) float voxel-unit coordinates (min-shifted >= 0).
 
@@ -247,11 +319,12 @@ def build_host_plan(coords_f: np.ndarray, batch_idx: np.ndarray,
     over a block-dense level 0 (the hybrid layout).  With
     ``l0_budget_bytes``, level 0 falls back to the gather layout when its
     dense convs would outgrow the budget (``l0_dense_fits``, keyed on the
-    pinned cap when one is given).  The degree-compacted stem
-    (``stem_compact``) is not ported yet."""
-    if stem_compact:
-        raise NotImplementedError("the compacted stem (stem_compact) is not "
-                                  "ported")
+    pinned cap when one is given).  ``stem_compact`` replaces a k5
+    gather stem (the gather layout's, or the hybrid one's) by the
+    degree-compacted tables, ``stem_slots_default(stem_compact_slots)``
+    slots per voxel; their overflow capacity is ``stem_ov_cap`` (the eval
+    loader's prescan pins it per rung) or 3x the voxel cap, and a plan
+    whose pairs outgrow it is rebuilt once at their bucket."""
     lib = _load()
     block_edges = list(block_edges or [0] * num_levels)
     n = coords_f.shape[0]
@@ -311,13 +384,40 @@ def build_host_plan(coords_f: np.ndarray, batch_idx: np.ndarray,
         if li < num_levels - 1:
             level_coords, level_cnt = coarse, ccnt
 
-    stem = None
-    if not block_edges[0] or stem_gather:
+    stem = slots = ov_src = ov_dst = None
+    stem_runs_gather = not block_edges[0] or stem_gather
+    if stem_compact and stem_runs_gather and stem_kernel != 3:
+        slots, ov_src, ov_dst = _stem_compact_tables(
+            lib, vox, cnt, stem_kernel, stem_slots_default(stem_compact_slots),
+            int(stem_ov_cap) if stem_ov_cap
+            else overflow_bucket(max(4096, 3 * v0_cap)))
+    elif stem_runs_gather:
         stem = levels[0].subm_nbr if stem_kernel == 3 else None
         if stem is None:
             stem = _neighbor_table(lib, vox, cnt, kernel_offsets(stem_kernel))
     return HostPlan(inverse_mapping=inverse, levels=levels, stem_nbr=stem,
-                    overflow=overflow)
+                    overflow=overflow, stem_slots=slots, stem_ov_src=ov_src,
+                    stem_ov_dst=ov_dst)
+
+
+def _stem_compact_tables(lib, vox, count, stem_kernel, d_cap, p_cap):
+    """(slots, ov_src, ov_dst) of ``stem_compact`` at overflow capacity
+    ``p_cap``, rebuilt once at the pairs' bucket when they outgrow it (the
+    library returns the full pair count and writes only ``p_cap``)."""
+    v0_cap = vox.shape[0]
+    k = np.ascontiguousarray(kernel_offsets(stem_kernel))
+    slots = np.empty((d_cap, v0_cap), np.int32)
+    for _ in range(2):
+        ov_src = np.full(p_cap, -1, np.int32)
+        ov_dst = np.full(p_cap, v0_cap, np.int32)   # the dump row
+        n_ov = int(lib.stem_compact(_i32p(vox), v0_cap, count, _i32p(k),
+                                    k.shape[0], d_cap, _i32p(slots),
+                                    _i32p(ov_src), _i32p(ov_dst), p_cap))
+        if n_ov <= p_cap:
+            return slots, ov_src, ov_dst
+        p_cap = overflow_bucket(n_ov)
+    raise ValueError(f"compacted stem: {n_ov} overflow pairs past the "
+                     f"rebuilt capacity {p_cap}")
 
 
 @dataclass
@@ -335,11 +435,14 @@ class Level:
 class UNetPlan:
     """Index tables for one U-Net forward.  A level with ``blocks[l]`` runs
     block-dense, the others the gather layout; ``stem_nbr`` is None when
-    the stem runs block-dense too."""
+    the stem runs block-dense too, or compacted: ``stem_compact`` holds
+    (slots, ov_src, ov_dst), ``HostPlan``'s tables."""
     levels: List[Level]
     stem_nbr: Optional[torch.Tensor]         # (k^3, V0) int32
     inverse: torch.Tensor                    # (N,) int32 point -> voxel, -1
     blocks: Optional[List[Optional[BlockTables]]] = None
+    stem_compact: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                 torch.Tensor]] = None
 
 
 def _invert_slots(vox_slot: np.ndarray, n_dense: int) -> np.ndarray:
@@ -373,4 +476,7 @@ def host_plan_to_device(plan: HostPlan, device) -> UNetPlan:
     return UNetPlan(levels=levels, stem_nbr=t(plan.stem_nbr),
                     inverse=t(plan.inverse_mapping),
                     blocks=blocks if any(b is not None for b in blocks)
-                    else None)
+                    else None,
+                    stem_compact=None if plan.stem_slots is None else (
+                        t(plan.stem_slots), t(plan.stem_ov_src),
+                        t(plan.stem_ov_dst)))

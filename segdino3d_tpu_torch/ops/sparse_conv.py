@@ -1,8 +1,8 @@
 """Sparse 3D convolutions over host-built index tables (gather layout).
 
 Counterpart of ``segdino3d_tpu/ops/sparse_conv.py``.  Every convolution of
-the Res16UNet34C, forward and backward, is one of three hand-written CUDA
-kernels:
+the Res16UNet34C in the gather layout, forward and backward, runs in
+hand-written CUDA kernels:
 
 * ``gather_conv`` (K1, ``csrc/gather_gemm_conv.cu``):
   ``out[i] = sum_o x[nbr[o, i]] @ W[o]`` for any offset count.  It runs the
@@ -12,7 +12,10 @@ kernels:
 * ``up_conv_rows`` (K2, ``csrc/up_conv.cu``):
   ``fine[i] = x[parent[i]] @ W[kpos[i]]``;
 * ``gather_wgrad`` (K4, ``csrc/gather_wgrad.cu``): the weight gradients,
-  ``dW[o] = sum_r A[ia[o, r]]^T @ B[ib[o, r]]``.
+  ``dW[o] = sum_r A[ia[o, r]]^T @ B[ib[o, r]]``;
+* ``stem_slot_sum`` (K12, ``csrc/stem_slot_sum.cu``): the slot sum of the
+  degree-compacted k5 stem, ``stem_compact_conv`` (inference only), after
+  one wide ``torch.matmul``.
 
 ``subm_conv``, ``down_conv`` and ``up_conv`` are ``torch.autograd.Function``s
 whose backward reuses K1 and K2 for the input gradients (the submanifold
@@ -340,6 +343,111 @@ def up_conv(feats, fine, weights):
     """Transposed conv k=2 s=2 restoring the fine coordinate set."""
     return _UpConv.apply(feats, fine.parent, fine.kpos, fine.up_order,
                          weights, fine.valid, fine.child)
+
+
+# ---------------------------------------------------------------------------
+# The degree-compacted k5 stem (inference only)
+# ---------------------------------------------------------------------------
+
+
+def stem_slot_sum_plain(y2: torch.Tensor, slots: torch.Tensor,
+                        ov_src: torch.Tensor, ov_dst: torch.Tensor,
+                        valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of K12: slot-by-slot gathers summed in fp32, then
+    ``index_add_`` of the overflow rows into a dump-row-padded table, then
+    the mask."""
+    def rows(idx):
+        r = as_sum_type(y2[idx.clamp(min=0).long()])
+        return torch.where((idx >= 0)[:, None], r, 0.0)
+
+    v, cout = slots.shape[1], y2.shape[1]
+    acc = as_sum_type(y2.new_zeros(v, cout))
+    for d in range(slots.shape[0]):
+        acc += rows(slots[d])
+    ov = acc.new_zeros(v + 1, cout).index_add_(0, ov_dst.long(), rows(ov_src))
+    return torch.where(valid[:, None], acc + ov[:v], 0.0).to(y2.dtype)
+
+
+def stem_slot_sum(y2: torch.Tensor, slots: torch.Tensor,
+                  ov_src: torch.Tensor, ov_dst: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """``out[i] = sum_d y2[slots[d, i]] + sum_{ov_dst[p] = i} y2[ov_src[p]]``
+    over entries >= 0, 0 on invalid rows.
+
+    y2 (R, Cout) fp32 or bf16, Cout <= 128; slots (D, V) int32; ov_src,
+    ov_dst (P,) int32, ``ov_dst`` ascending (the plan's voxel-major order)
+    with V at padding; valid (V,) bool.  Returns (V, Cout) in y2's dtype,
+    summed in fp32."""
+    v, cout = slots.shape[1], y2.shape[1]
+    if ov_src.shape != ov_dst.shape or valid.shape[0] != v:
+        raise ValueError(f"stem_slot_sum: slots {tuple(slots.shape)}, "
+                         f"ov_src {tuple(ov_src.shape)}, ov_dst "
+                         f"{tuple(ov_dst.shape)}, valid {tuple(valid.shape)}")
+    if y2.device.type == "cpu":
+        return stem_slot_sum_plain(y2, slots, ov_src, ov_dst, valid)
+    _require_cuda("stem_slot_sum", y2, slots, ov_src, ov_dst, valid)
+    if any(t.dtype != torch.int32 for t in (slots, ov_src, ov_dst)) \
+            or valid.dtype != torch.bool:
+        raise TypeError("stem_slot_sum: index tables must be int32 and "
+                        "valid bool")
+    if cout > 128:
+        raise ValueError(f"stem_slot_sum: Cout {cout} > 128")
+    out = torch.empty(v, cout, dtype=y2.dtype, device=y2.device)
+    lib = cuda_build.library("stem_slot_sum")
+    cuda_build.check(lib.stem_slot_sum(
+        y2.data_ptr(), slots.data_ptr(), ov_src.data_ptr(), ov_dst.data_ptr(),
+        valid.data_ptr(), out.data_ptr(), v, slots.shape[0], ov_src.shape[0],
+        cout, cuda_build.dtype_code(y2.dtype), cuda_build.stream_ptr(y2)),
+        "stem_slot_sum")
+    stem_slot_sum.launches += 1
+    return out
+
+
+stem_slot_sum.launches = 0
+
+
+def _wide_product(feats: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``feats @ W_flat`` read as (V * k^3, Cout): row ``j * k^3 + o`` is
+    voxel j's features times offset o's weights."""
+    n_off, cin, cout = weights.shape
+    w_flat = weights.permute(1, 0, 2).reshape(cin, n_off * cout)
+    return (feats @ w_flat).view(feats.shape[0] * n_off, cout)
+
+
+def stem_compact_conv_plain(feats, weights, slots, ov_src, ov_dst, valid):
+    """Plain version of ``stem_compact_conv``: the wide product in fp32,
+    rounded to feats' dtype as the JAX op's is, then the slot sum."""
+    y2 = _wide_product(as_sum_type(feats), as_sum_type(weights))
+    return stem_slot_sum_plain(y2.to(feats.dtype), slots, ov_src, ov_dst,
+                               valid)
+
+
+def stem_compact_conv(feats: torch.Tensor, weights: torch.Tensor,
+                      slots: torch.Tensor, ov_src: torch.Tensor,
+                      ov_dst: torch.Tensor, valid: torch.Tensor
+                      ) -> torch.Tensor:
+    """Degree-compacted submanifold conv, the k5 stem
+    (``segdino3d_tpu/ops/sparse_conv.py:stem_compact_conv``): one wide
+    product ``y = feats @ W_flat`` in feats' dtype, (V, Cin) @ (Cin,
+    k^3 * Cout), then K12 sums each voxel's occupied (neighbour, offset)
+    rows of ``y``: its D slots and its overflow pairs (``ops.host_plan``).
+
+    Inference only, as in JAX: it has no backward and raises when asked
+    for one.  weights (k^3, Cin, Cout) canonical order; slots (D, V0);
+    ov_src, ov_dst (P,); valid (V0,) bool."""
+    if torch.is_grad_enabled() and (feats.requires_grad
+                                    or weights.requires_grad):
+        raise RuntimeError("stem_compact_conv is inference only: the "
+                           "compacted stem has no backward (train on the "
+                           "gather or dense stem)")
+    if feats.shape[1] != weights.shape[1]:
+        raise ValueError(f"stem_compact_conv: feats {tuple(feats.shape)}, "
+                         f"weights {tuple(weights.shape)}")
+    if feats.device.type == "cpu":
+        return stem_compact_conv_plain(feats, weights, slots, ov_src, ov_dst,
+                                       valid)
+    return stem_slot_sum(_wide_product(feats, weights.to(feats.dtype)),
+                         slots, ov_src, ov_dst, valid)
 
 
 # ---------------------------------------------------------------------------

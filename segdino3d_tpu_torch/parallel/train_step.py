@@ -9,6 +9,9 @@ microbatches and scaled by 1/k once, and the losses are averaged.  The
 metrics are each loss, ``total_loss`` and ``grad_norm`` (the global norm of
 the averaged gradients, before clipping), as 0-d tensors on the device.
 After a step the parameters' ``.grad`` hold the clipped gradients.
+``host_metrics`` reads them in one copy, together with whether a plan
+built on the device outgrew its capacities in the step, and raises if one
+did: a step never waits on the device for that flag alone.
 
 ``StageClock`` times the stages of a step for measurement: it synchronises
 the device at every stage boundary, so it is off unless a caller passes
@@ -24,6 +27,7 @@ import torch
 from torch import nn
 
 from segdino3d_tpu_torch.gtypes import SceneBatch
+from segdino3d_tpu_torch.models.backbone.wrapper import DEVICE_PLAN_OVERFLOW
 from segdino3d_tpu_torch.train.ema import EMA
 from segdino3d_tpu_torch.train.optim import AdamW, global_norm
 
@@ -55,6 +59,7 @@ class TrainStep:
         self.optimizer = optimizer
         self.ema = ema
         self.accum_steps = accum_steps
+        self.plan_overflow: Optional[torch.Tensor] = None
 
     def __call__(self, microbatches: Sequence[SceneBatch],
                  queries: Optional[Sequence[Tuple[torch.Tensor,
@@ -75,9 +80,12 @@ class TrainStep:
             clock.start()
         loss_sums: Dict[str, torch.Tensor] = {}
         total_sum = 0.0
+        overflow = None
         for i, mb in enumerate(microbatches):
             outputs, gt = self.model(mb, None if queries is None
                                      else queries[i], generator)
+            flag = outputs["plan_overflow"]
+            overflow = flag if overflow is None else overflow | flag
             if clock is not None:
                 clock.mark("forward")
             losses = self.criterion(outputs, gt)
@@ -104,4 +112,18 @@ class TrainStep:
         metrics = {k: v * inv for k, v in loss_sums.items()}
         metrics["total_loss"] = total_sum * inv
         metrics["grad_norm"] = grad_norm
+        self.plan_overflow = overflow
         return metrics
+
+    def host_metrics(self, metrics: Dict[str, torch.Tensor]
+                     ) -> Dict[str, float]:
+        """The last step's ``metrics`` as floats, in one device -> host
+        copy that also reads the step's plan overflow flag; raises if a
+        plan built on the device overflowed (a host plan raises when it is
+        built)."""
+        keys = list(metrics)
+        vals = torch.stack([metrics[k].float() for k in keys]
+                           + [self.plan_overflow.float()]).tolist()
+        if vals[-1]:
+            raise ValueError(DEVICE_PLAN_OVERFLOW)
+        return dict(zip(keys, vals[:-1]))

@@ -119,12 +119,6 @@ def test_buckets_and_layout_crossover_match_jax():
             JH.l0_dense_fits(b, 4, budget=budget)
 
 
-def test_stem_compact_is_not_ported():
-    coords, bidx, valid = _points(1)
-    with pytest.raises(NotImplementedError, match="stem_compact"):
-        TH.build_host_plan(coords, bidx, valid, CAPS, stem_compact=True)
-
-
 def test_host_plan_args_follow_the_config():
     cfg = dict(pointcloud_backbone_cfg=dict(
         block_edges=(4,) * 5, stem_gather=True, block_edges_train=(8,) * 5,

@@ -424,3 +424,45 @@ def test_dense_backward_on_card_matches_cpu(card, k):
     for got, want in zip(*grads, strict=True):
         scale = float(want.abs().max())
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+
+
+def _compact_plan_on(device, slots):
+    rng = np.random.RandomState(13)
+    coords = rng.uniform(0, 12, (1500, 3)).astype(np.float32)
+    plan = TH.build_host_plan(coords, np.zeros(1500, np.int32),
+                              np.ones(1500, bool), CAPS, stem_compact=True,
+                              stem_compact_slots=slots)
+    return TH.host_plan_to_device(plan, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [32, 40, 128])
+@pytest.mark.parametrize("slots", [8, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stem_slot_sum_matches_plain(card, dtype, slots, cout):
+    """K12 against its plain version on a compacted-stem plan (D = 8 puts
+    most pairs in the overflow, D = 32 few), then the whole compacted stem
+    on the card against the CPU's plain version and the gather stem."""
+    dt = getattr(torch, dtype)
+    plan = _compact_plan_on("cuda", slots)
+    slots_t, ov_src, ov_dst = plan.stem_compact
+    assert int((ov_src >= 0).sum()) > 0
+    valid = plan.levels[0].valid
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    y2 = torch.randn(CAPS[0] * 125, cout, generator=gen, device="cuda").to(dt)
+    got = TSC.stem_slot_sum(y2, slots_t, ov_src, ov_dst, valid)
+    want = TSC.stem_slot_sum_plain(y2, slots_t, ov_src, ov_dst, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+    x = torch.randn(CAPS[0], 19, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(125, 19, cout, generator=gen, device="cuda")
+         * 0.1).to(dt)
+    with torch.no_grad():
+        card_out = TSC.stem_compact_conv(x, w, slots_t, ov_src, ov_dst, valid)
+        cpu_out = TSC.stem_compact_conv(
+            x.cpu(), w.cpu(), *(t.cpu() for t in plan.stem_compact),
+            valid.cpu())
+    torch.testing.assert_close(card_out.float().cpu(), cpu_out.float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
