@@ -16,10 +16,16 @@ Phases, in order; any failure exits non-zero before the result line:
    engine's kernels K6 (coordinate hash), K8 (voxel compaction) and K7
    (neighbour tables), whose integer outputs must be equal; the block-dense
    layout's kernels on the flagship config's block tables: K9 (slot
-   gather, both ways, equal), K10 (block conv: k3 96->96 at level 0, k3
-   384->256 at level 3, the dense k5 stem 259->32, fp32 and bf16, and its
-   dX role) and K11 (its weight gradient: level 0 k3 and the stem), each
-   with its bound from the cells this scene occupies; K12 (the compacted
+   gather, both ways, equal), K10 (block conv at the occupied rows: k3
+   96->96 at level 0, k3 384->256 at level 3, the dense k5 stem 259->32,
+   fp32 and bf16, and its dX role under the occupancy's k-dilation, held
+   to the unmasked plain version on every cell; with the bound of the
+   pairs whose source is occupied, of its rows' work and of the dense
+   work, and the operations one call puts on the card), the dilation
+   kernel beside it (equal) and K11 (its weight gradient: level 0 k3 and
+   the stem), each with its bound from the cells this scene occupies; K8
+   is timed as the wrapper call alone, its launches per call counted by
+   ``torch.profiler`` (at most two); K12 (the compacted
    stem's slot sum) on the scene's compacted tables with 32 and 8 slots
    per voxel, fp32 and bf16, the stem's wide matmul timed beside it;
 3. run the eval path at full width: ScanNet200 eval of the flagship
@@ -49,14 +55,15 @@ Phases, in order; any failure exits non-zero before the result line:
    losses and gradient norm;
 3c. run the eval path on the flagship config's eval layout, the hybrid one
    (a gather k5 stem, block-dense convs everywhere else: kernels K9 and
-   K10): blocks and fill per level, scenes/s, ms per stage, launches in one
-   forward, peak memory; the backbone output within 3e-3 x max|.| of the
-   gather layout's on the same scene and weights, and the card against the
-   CPU's plain path on a small hybrid scene;
+   K10 at the occupied rows): blocks and fill per level, scenes/s, ms per
+   stage, launches in one forward, peak memory; the backbone output within
+   3e-3 x max|.| of the gather layout's on the same scene and weights, and
+   the card against the CPU's plain path on a small hybrid scene;
 4c. run batch-1 training steps on the config's training layout
-   (block-dense everywhere, the k5 stem too: K9, K10 forward and as dX,
-   K11): s/step, ms per stage, launches per step, peak memory, finite
-   losses and gradient norm, and the card against the CPU on a small scene;
+   (block-dense everywhere, the k5 stem too: K9, K10 forward and as dX
+   under the dilation, the dilation, K11): s/step, ms per stage, launches
+   per step, peak memory, finite losses and gradient norm, and the card
+   against the CPU on a small scene;
 3d. run the eval entry point on three headline-size scenes written to a
    temp dir (``write_scannet_layout``): the port's ScanNet200 reader,
    ``EvalLoader`` (batch 1, default buckets, capacity prescan, prefetch 1)
@@ -460,6 +467,24 @@ def flat_compaction(c):
     return torch.cat(parts + ([c.kpos] if c.kpos is not None else []))
 
 
+def device_ops(fn):
+    """(names of the kernels, copies and memsets that one call of ``fn``
+    puts on the card, their summed device time in us), by
+    ``torch.profiler`` after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = [e.name.replace("(anonymous namespace)::", "").split("(")[0]
+             for e in events]
+    return names, sum(e.time_range.elapsed_us() for e in events)
+
+
 def plan_engine_cases(batch, level_caps):
     """K6, K8 and K7 at the main path's shapes: the headline scene's point
     keys (insert + lookup), the level-0 compaction and the downsample to
@@ -507,9 +532,20 @@ def plan_engine_cases(batch, level_caps):
                 and torch.equal(hk.vals, before)):
             raise SystemExit(f"voxel_compact [{name}]: the remapped hash "
                              "differs from the plain version's")
-        cases.append(("voxel_compact", name, {f32: (
-            lambda: flat_compaction(TV.voxel_compact(wk, coords_T, cap, shift,
-                                                     hk, shift == 1)),
+        ops, us = device_ops(lambda: TV.voxel_compact(wk, coords_T, cap,
+                                                      shift, hk, shift == 1))
+        print(f"voxel_compact [{name}]: one call puts {len(ops)} operations "
+              f"on the card, {us:.1f} us of device time: {ops}", flush=True)
+        if len(ops) > 2:
+            raise SystemExit(f"voxel_compact [{name}]: {len(ops)} launches "
+                             "in one call, at most 2 expected")
+        cases.append(("voxel_compact", f"{name}; library: torch.cumsum of "
+                      "the winner flags, the prefix sum alone, a part of "
+                      "K8's work", {f32: (
+            (lambda: TV.voxel_compact(wk, coords_T, cap, shift, hk,
+                                      shift == 1),
+             lambda: flat_compaction(TV.voxel_compact(
+                 wk, coords_T, cap, shift, hk, shift == 1))),
             lambda: flat_compaction(TV.voxel_compact_plain(
                 wp, coords_T, cap, shift, hp, shift == 1)),
             lambda: torch.cumsum((wk == rows).to(torch.int32), 0),
@@ -552,13 +588,16 @@ def check_kernels(cases):
     bytes, peak) and optionally a tolerance relative to ``max |plain|``
     (a float: for long fp32 reductions; 0 for integer outputs, which must
     be equal) and a dict of further yardsticks {name: fn}, timed and
-    printed beside it."""
+    printed beside it.  ``kernel_fn`` may be a pair (timed, compared): the
+    wrapper call alone, and the same call with what turns its outputs into
+    one tensor to compare."""
     rows = {}
     for kernel, name, per in cases:
         for dt, (kfn, pfn, lfn, ops, byts, peak, *opt) in per.items():
             rel = [o for o in opt if isinstance(o, float)]
             extra = next((o for o in opt if isinstance(o, dict)), {})
-            got, want = kfn(), pfn()
+            kfn, cfn = kfn if isinstance(kfn, tuple) else (kfn, kfn)
+            got, want = cfn(), pfn()
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             if rel:
@@ -572,7 +611,7 @@ def check_kernels(cases):
                                     atol=tol)
                 tol_text = f"rtol=atol={tol:g}"
             del got, want
-            k_ms, p_ms, l_ms = time_ms(kfn), time_ms(pfn, 3), time_ms(lfn, 3)
+            k_ms, p_ms, l_ms = time_ms(kfn), time_ms(pfn, 3), time_ms(lfn)
             extra_text = "".join(f", {k} {time_ms(fn, 3):.4f} ms"
                                  for k, fn in extra.items())
             b_ms, b_by = bound(ops, byts, peak)
@@ -658,14 +697,21 @@ def dense_cases(plan, gen):
         cases.append(("slot_gather", f"{what}, fill {fill(t0):.1%}", per))
 
     def conv_case(name, t, cin, cout, k, dtypes, dx=False):
+        """The forward under the occupancy mask, or (``dx``) the input
+        gradient's role: flipped, transposed weights on an input that is
+        zero outside the occupancy, under the occupancy's k-dilation as
+        the backward runs it, held to the plain version without a mask on
+        every cell."""
         occ = BD.occupancy(t)
+        mask = BD.occupancy_dilation(occ, t.block_nbr, t.edge, k) if dx \
+            else occ
         need, dense = pairs(t, k, masked=not dx)
+        rows = int(mask.sum())
         per = {}
         for dt in dtypes:
             x = torch.where(occ[:, None],
                             _randn(gen, (occ.shape[0], cin), dt), 0.0)
             w = _randn(gen, (k ** 3, cin, cout), dt, (k ** 3 * cin) ** -0.5)
-            mask = None if dx else occ
             h = (k - 1) // 2
             b, e = t.num_blocks, t.edge
             wc = w.reshape(k, k, k, cin, cout).permute(4, 3, 0, 1, 2
@@ -678,26 +724,51 @@ def dense_cases(plan, gen):
                                                t.block_nbr, h))
                 return F.conv3d(p, wc)
 
-            per[dt] = (lambda x=x, w=w, mask=mask: BD.block_conv(
+            per[dt] = (lambda x=x, w=w: BD.block_conv(
                            x, t.block_nbr, w, mask, e),
-                       lambda x=x, w=w, mask=mask: BD.dense_subm_conv_plain(
-                           x, t.block_nbr, w, mask, e),
+                       lambda x=x, w=w: BD.dense_subm_conv_plain(
+                           x, t.block_nbr, w, None if dx else occ, e),
                        lib, 2.0 * need * cin * cout,
                        nbytes(x, t.block_nbr, w, mask)
                        + occ.shape[0] * cout * x.element_size(),
                        CONV_PEAK[dt],
                        {"library without the halo assembly (conv3d alone)":
                         lambda p=padded, wc=wc: F.conv3d(p, wc)})
+        ops, us = device_ops(per[dtypes[0]][0])
+        print(f"block_conv [{name}]: one call puts {len(ops)} operations on "
+              f"the card, {us:.1f} us of device time: {ops}", flush=True)
         dense_ms = bound(2.0 * dense * cin * cout, 0.0, "fp32")[0]
-        cases.append(("block_conv", f"{name}, fill {fill(t):.1%}, "
+        rows_ms = bound(2.0 * rows * k ** 3 * cin * cout, 0.0, "fp32")[0]
+        what = (f"dilation {rows} rows = {rows / occ.shape[0]:.1%} of the "
+                f"cells, {rows / int(occ.sum()):.2f}x the occupied"
+                if dx else f"{rows} occupied rows")
+        cases.append(("block_conv", f"{name}, fill {fill(t):.1%}, {what}; "
+                      f"bound of its rows' work {rows_ms:.4f} ms, "
                       f"dense-work bound {dense_ms:.4f} ms (fp32)", per))
+
+    def dilate_case(t, k):
+        occ = BD.occupancy(t)
+        b, e, h = t.num_blocks, t.edge, (k - 1) // 2
+        padded = BD.halo_pad_plain(occ.float().reshape(b, e, e, e, 1),
+                                   t.block_nbr, h)[..., 0][:, None]
+        cases.append(("block_dilate", f"k{k} dilation of the L0 occupancy, "
+                      f"{occ.shape[0]} cells; library: max_pool3d of the "
+                      "halo-padded occupancy", {f32: (
+                          lambda: BD.occupancy_dilation(occ, t.block_nbr, e,
+                                                        k),
+                          lambda: BD.occupancy_dilation_plain(
+                              occ, t.block_nbr, e, k),
+                          lambda: F.max_pool3d(padded, k, stride=1), 0.0,
+                          nbytes(occ, t.block_nbr) + occ.shape[0], "fp32",
+                          exact)}))
 
     both = (torch.float32, torch.bfloat16)
     conv_case("k3 96->96 L0", t0, 96, 96, 3, both)
     conv_case("k3 384->256 L3", t3, 384, 256, 3, both)
     conv_case("dense stem k5 259->32 L0", t0, 259, 32, 5, both)
-    conv_case("dX k3 96->96 L0 (flipped, transposed W, no mask)", t0, 96,
-              96, 3, (f32,), dx=True)
+    conv_case("dX k3 96->96 L0 (flipped, transposed W, under the "
+              "dilation)", t0, 96, 96, 3, (f32,), dx=True)
+    dilate_case(t0, 3)
 
     def wgrad_case(name, t, cin, cout, k):
         occ = BD.occupancy(t)
@@ -824,6 +895,7 @@ def counters():
             "voxel_compact": (TV.voxel_compact,),
             "slot_gather": (BD.slot_gather,),
             "block_conv": (BD.block_conv,),
+            "block_dilate": (BD.occupancy_dilation,),
             "block_wgrad": (BD.block_wgrad,),
             "stem_slot_sum": (SC.stem_slot_sum,)}
 
@@ -1525,11 +1597,13 @@ def run_dense_training(model, records, spec):
     check_small_train(model, "block-dense")
     launches, steps, _, _, peak, metrics = run_training(
         model, records, spec, layout="block-dense", accum=False)
-    expected = {"block_conv": 93, "block_wgrad": 47, "slot_gather": 35,
-                "gather_gemm_conv": 8, "up_conv": 8, "gather_wgrad": 8,
-                "segment_mean_gather": 2, "segment_grad": 1}
+    expected = {"block_conv": 93, "block_dilate": 5, "block_wgrad": 47,
+                "slot_gather": 35, "gather_gemm_conv": 8, "up_conv": 8,
+                "gather_wgrad": 8, "segment_mean_gather": 2,
+                "segment_grad": 1}
     print(f"launches in one block-dense train step: {launches} (expected "
-          f"{expected}: K10 47 forward + 46 dX)", flush=True)
+          f"{expected}: K10 47 forward + 46 dX, one k3 dilation per level)",
+          flush=True)
     for k, n in expected.items():
         if launches[k] != n:
             raise SystemExit(f"{k}: {launches[k]} launches in the "
@@ -1699,13 +1773,18 @@ def main() -> int:
                         "segdino3d_tpu/ops/block_dense.py:80"),
         "block_conv": ("segdino3d_tpu_torch/csrc/block_conv.cu",
                        "segdino3d_tpu/ops/block_dense.py:257"),
+        # the dX role's output mask (the dilation outside which the JAX
+        # op's unmasked input gradient is zero)
+        "block_dilate": ("segdino3d_tpu_torch/csrc/block_conv.cu",
+                         "segdino3d_tpu/ops/block_dense.py:396"),
         "block_wgrad": ("segdino3d_tpu_torch/csrc/block_wgrad.cu",
                         "segdino3d_tpu/ops/block_dense.py:414"),
         "stem_slot_sum": ("segdino3d_tpu_torch/csrc/stem_slot_sum.cu",
                           "segdino3d_tpu/ops/sparse_conv.py:369"),
     }
     plan_kernels = ("coord_hash", "neighbor_table", "voxel_compact")
-    dense_kernels = ("slot_gather", "block_conv", "block_wgrad")
+    dense_kernels = ("slot_gather", "block_conv", "block_dilate",
+                     "block_wgrad")
     kernels = []
     for name, (source, replaces) in meta.items():
         h = rows[name]["headline"]

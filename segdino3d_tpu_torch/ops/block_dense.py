@@ -20,17 +20,23 @@ Three hand-written CUDA kernels carry it:
   the scatter because ``vox_slot`` is injective on valid voxels) and
   ``gather_from_dense`` the gather through ``vox_slot``; each one's
   gradient is the other;
-* ``block_conv`` (K10, ``csrc/block_conv.cu``): the halo-padded dense conv,
-  the halo assembled in shared memory from each block and its neighbours'
-  cores and never written to device memory;
+* ``block_conv`` (K10, ``csrc/block_conv.cu``): the halo-padded dense conv
+  at the rows of its output mask only (a row list built on the card, 64-row
+  tiles across blocks, each row's sources read through the halo addressing;
+  the halo is never written to device memory), the other rows zero;
 * ``block_wgrad`` (K11, ``csrc/block_wgrad.cu``): its weight gradient.
 
 ``dense_subm_conv`` is a ``torch.autograd.Function`` whose backward runs
 K10 for dX (the mirror identity of ``_chunked_conv_bwd``: the same conv of
 the occupancy-masked cotangent with offset-flipped, channel-transposed
-weights, no output mask) and K11 for dW.  The JAX module chunks wide convs
-and halves wide inputs to bound a TPU buffer; both are exact, and the
-port, which never materialises the halo, does neither.
+weights) and K11 for dW.  The JAX op's dX is not masked: it is non-zero at
+unoccupied cells next to occupied ones.  It is zero outside the k-dilation
+of the occupancy (the cells whose k^3 window holds an occupied cell), so
+the backward gives K10 that dilation as its output mask (``dilation``,
+built on the card once per level and kernel size by ``block_dilate``, a
+kernel beside K10), which is exact on every cell.  The JAX module chunks
+wide convs and halves wide inputs to bound a TPU buffer; both are exact,
+and the port, which never materialises the halo, does neither.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 its ``launches`` attribute; for a CPU tensor it runs the plain PyTorch
@@ -40,8 +46,8 @@ package and ``chip_smoke.py`` holds the kernel against on the card.
 from __future__ import annotations
 
 import itertools
-from dataclasses import dataclass
-from typing import Optional
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -69,6 +75,9 @@ class BlockTables:
     block_nbr: torch.Tensor   # (26, B) int32 shell neighbours, -1 absent
     slot_vox: torch.Tensor    # (B*edge^3,) int32 dense row -> voxel, -1 empty
     edge: int
+    # k -> (occupancy, its k-dilation), filled by ``dilation``
+    dilations: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def num_blocks(self) -> int:
@@ -213,6 +222,99 @@ def _check_layout(name, feats, block_nbr, n_off, edge, cin):
                          f"in {EDGES} / {KERNEL_SIZES}")
 
 
+# K10's row list: rows per thread block of its count and list passes
+LIST_ROWS = 4096
+
+
+def row_workspace(n_rows: int, device) -> torch.Tensor:
+    """K10's int32 scratch: the row list (``n_rows``), its count, the conv's
+    tile ticket and the list passes' per-block counts."""
+    return torch.empty(n_rows + 2 + -(-n_rows // LIST_ROWS),
+                       dtype=torch.int32, device=device)
+
+
+def occupied_rows_plain(mask: torch.Tensor) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Plain version of K10's row list: the rows of ``mask`` (R,) bool in
+    ascending order, which is block-major, in a list of capacity R with -1
+    past the count; and the count, () int32."""
+    idx = torch.nonzero(mask).flatten().to(torch.int32)
+    rows = torch.full((mask.shape[0],), -1, dtype=torch.int32,
+                      device=mask.device)
+    rows[:idx.shape[0]] = idx
+    return rows, torch.tensor(idx.shape[0], dtype=torch.int32,
+                              device=mask.device)
+
+
+def occupied_rows(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The list K10 builds inside each masked call (``block_rows``), here
+    on its own: see ``occupied_rows_plain``.  The count stays on the card."""
+    if mask.dim() != 1 or mask.dtype != torch.bool:
+        raise TypeError("occupied_rows: mask must be (R,) bool")
+    if mask.device.type == "cpu":
+        return occupied_rows_plain(mask)
+    _require_cuda("occupied_rows", mask)
+    n = mask.shape[0]
+    ws = row_workspace(n, mask.device)
+    lib = cuda_build.library("block_conv")
+    cuda_build.check(lib.block_rows(mask.data_ptr(), ws.data_ptr(), n,
+                                    cuda_build.stream_ptr(mask)),
+                     "block_rows")
+    occupied_rows.launches += 1
+    count = ws[n]
+    rows = torch.where(torch.arange(n, device=mask.device) < count, ws[:n],
+                       -1)
+    return rows, count
+
+
+occupied_rows.launches = 0
+
+
+def occupancy_dilation_plain(mask: torch.Tensor, block_nbr: torch.Tensor,
+                             edge: int, k: int) -> torch.Tensor:
+    """Plain version of ``block_dilate``: the rows whose k^3 window of the
+    halo-padded block holds a row of ``mask`` (B*edge^3,) bool."""
+    b = block_nbr.shape[1]
+    m = mask.reshape(b, edge, edge, edge, 1).to(torch.float32)
+    padded = halo_pad_plain(m, block_nbr, (k - 1) // 2)[..., 0]
+    pooled = torch.nn.functional.max_pool3d(padded[:, None], k, stride=1)
+    return (pooled[:, 0] > 0).reshape(-1)
+
+
+def occupancy_dilation(mask: torch.Tensor, block_nbr: torch.Tensor,
+                       edge: int, k: int) -> torch.Tensor:
+    """(B*edge^3,) bool: the k-dilation of ``mask`` through the block
+    halo (a row is in it when some row of its k^3 window is in ``mask``)."""
+    b = block_nbr.shape[1]
+    if tuple(mask.shape) != (b * edge ** 3,) or mask.dtype != torch.bool \
+            or edge not in EDGES or k not in KERNEL_SIZES:
+        raise ValueError(f"occupancy_dilation: mask {tuple(mask.shape)} "
+                         f"{mask.dtype}, {b} blocks, edge {edge}, k {k}")
+    if mask.device.type == "cpu":
+        return occupancy_dilation_plain(mask, block_nbr, edge, k)
+    _require_cuda("occupancy_dilation", mask, block_nbr)
+    out = torch.empty_like(mask)
+    lib = cuda_build.library("block_conv")
+    cuda_build.check(lib.block_dilate(
+        mask.data_ptr(), block_nbr.data_ptr(), out.data_ptr(), b, edge, k,
+        cuda_build.stream_ptr(mask)), "block_dilate")
+    occupancy_dilation.launches += 1
+    return out
+
+
+occupancy_dilation.launches = 0
+
+
+def dilation(tables: BlockTables, occ: torch.Tensor, k: int) -> torch.Tensor:
+    """The k-dilation of ``occ`` on ``tables``, kept on the tables: built
+    once per level and kernel size for all the level's convs."""
+    hit = tables.dilations.get(k)
+    if hit is None or hit[0] is not occ:
+        hit = (occ, occupancy_dilation(occ, tables.block_nbr, tables.edge, k))
+        tables.dilations[k] = hit
+    return hit[1]
+
+
 def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
                weights: torch.Tensor, occ: Optional[torch.Tensor],
                edge: int) -> torch.Tensor:
@@ -222,7 +324,8 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
 
     feats (B*edge^3, Cin); block_nbr (26, B) int32; weights (k^3, Cin, Cout)
     in feats' dtype, canonical offset order; occ (B*edge^3,) bool or None.
-    Returns (B*edge^3, Cout) in feats' dtype, summed in fp32."""
+    Returns (B*edge^3, Cout) in feats' dtype, summed in fp32.  On the card
+    only the rows of ``occ`` are computed (every row without it)."""
     n_off, cin, cout = weights.shape
     _check_layout("block_conv", feats, block_nbr, n_off, edge, cin)
     if feats.device.type == "cpu":
@@ -234,14 +337,17 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
         raise TypeError("block_conv: weights must match feats' dtype, "
                         "block_nbr must be int32 and occ bool")
     b = block_nbr.shape[1]
-    out = torch.empty(b * edge ** 3, cout, dtype=feats.dtype,
-                      device=feats.device)
+    n_rows = b * edge ** 3
+    out = (torch.empty if occ is None else torch.zeros)(
+        n_rows, cout, dtype=feats.dtype, device=feats.device)
+    ws = row_workspace(n_rows, feats.device)
     lib = cuda_build.library("block_conv")
     cuda_build.check(lib.block_conv(
         feats.data_ptr(), block_nbr.data_ptr(), weights.data_ptr(),
-        None if occ is None else occ.data_ptr(), out.data_ptr(), b, edge,
-        kernel_size(n_off), cin, cout, cuda_build.dtype_code(feats.dtype),
-        cuda_build.stream_ptr(feats)), "block_conv")
+        None if occ is None else occ.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), b, edge, kernel_size(n_off), cin, cout,
+        cuda_build.dtype_code(feats.dtype), cuda_build.stream_ptr(feats)),
+        "block_conv")
     block_conv.launches += 1
     return out
 
@@ -322,27 +428,28 @@ class _DenseSubmConv(torch.autograd.Function):
     """Backward of ``_chunked_conv_bwd`` (JAX): the block-halo adjacency is
     involutive (``nbr_d[i] = j <=> nbr_{-d}[j] = i``), so dX is the same
     conv (K10) of the masked cotangent with offset-flipped, transposed
-    weights and no output mask, and dW is K11."""
+    weights, computed on the k-dilation of the occupancy (zero outside it,
+    as the unmasked conv is there), and dW is K11."""
 
     @staticmethod
-    def forward(ctx, feats, occ, block_nbr, weights, edge):
-        ctx.save_for_backward(feats, occ, block_nbr, weights)
-        ctx.edge = edge
-        return block_conv(feats, block_nbr, weights, occ, edge)
+    def forward(ctx, feats, occ, tables, weights):
+        ctx.save_for_backward(feats, occ, weights)
+        ctx.tables = tables
+        return block_conv(feats, tables.block_nbr, weights, occ, tables.edge)
 
     @staticmethod
     def backward(ctx, dout):
-        feats, occ, block_nbr, weights = ctx.saved_tensors
+        feats, occ, weights = ctx.saved_tensors
+        t, k = ctx.tables, kernel_size(weights.shape[0])
         dy = torch.where(occ[:, None], dout, 0.0).to(feats.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = block_conv(dy, block_nbr, _transposed(weights.flip(0)), None,
-                            ctx.edge)
+            dx = block_conv(dy, t.block_nbr, _transposed(weights.flip(0)),
+                            dilation(t, occ, k), t.edge)
         if ctx.needs_input_grad[3]:
-            dw = block_wgrad(feats, dy, block_nbr, occ, ctx.edge,
-                             kernel_size(weights.shape[0])
+            dw = block_wgrad(feats, dy, t.block_nbr, occ, t.edge, k
                              ).to(weights.dtype)
-        return dx, None, None, dw, None
+        return dx, None, None, dw
 
 
 def dense_subm_conv(dense_flat: torch.Tensor, occ: torch.Tensor,
@@ -351,5 +458,4 @@ def dense_subm_conv(dense_flat: torch.Tensor, occ: torch.Tensor,
     """Submanifold conv on flat dense rows (B*edge^3, Cin) with weights
     (k^3, Cin, Cout) in canonical offset order; (B*edge^3, Cout), zero at
     unoccupied cells."""
-    return _DenseSubmConv.apply(dense_flat, occ, tables.block_nbr, weights,
-                                tables.edge)
+    return _DenseSubmConv.apply(dense_flat, occ, tables, weights)

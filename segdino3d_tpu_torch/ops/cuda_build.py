@@ -37,7 +37,8 @@ _HEADERS = {"gather_gemm_conv": ("conv_tile.cuh",),
             "slot_gather": (), "block_conv": ("block_tile.cuh",),
             "block_wgrad": ("block_tile.cuh",), "stem_slot_sum": ()}
 # a library's C functions, where they are not the one named after it
-_ENTRY_POINTS = {"coord_hash": ("coord_hash_insert", "coord_hash_lookup")}
+_ENTRY_POINTS = {"coord_hash": ("coord_hash_insert", "coord_hash_lookup"),
+                 "block_conv": ("block_conv", "block_rows", "block_dilate")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -65,14 +66,18 @@ _SIGNATURES = {
     "coord_hash_lookup": [_P, _I, _P, _P, _I, _P, _P],
     # coords, num, v, k, tkeys, tvals, t_size, out, stream
     "neighbor_table": [_P, _P, _I, _I, _P, _P, _I, _P, _P],
-    # winner, coords, n, shift, cap, counts, vid, num, inverse, kpos,
-    # out_coords, valid, tvals, tvals_out, t_size, stream
-    "voxel_compact": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _P],
+    # winner, coords, n, shift, cap, ws, inverse, kpos, out_coords, valid,
+    # tvals, tvals_out, t_size, stream
+    "voxel_compact": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # x, idx, out, n, row_bytes, stream
     "slot_gather": [_P, _P, _P, _I, _I, _P],
-    # x, block_nbr, w, occ, out, n_blocks, edge, k, cin, cout, dtype, stream
-    "block_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, block_nbr, w, mask, ws, out, n_blocks, edge, k, cin, cout, dtype,
+    # stream
+    "block_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # mask, ws, n_rows, stream
+    "block_rows": [_P, _P, _I, _P],
+    # mask, block_nbr, out, n_blocks, edge, k, stream
+    "block_dilate": [_P, _P, _P, _I, _I, _I, _P],
     # x, dy, block_nbr, occ, partial, out, n_blocks, edge, k, cin, cout,
     # splits, dtype, stream
     "block_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -162,5 +167,12 @@ def check(err: int, name: str) -> None:
                            f"cudaError_t {err}")
 
 
+# the current stream's handle as an int, without building a Stream object
+# (a few microseconds of each launch's host time); absent on CPU builds
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(tensor) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(tensor.get_device())
     return torch.cuda.current_stream(tensor.device).cuda_stream

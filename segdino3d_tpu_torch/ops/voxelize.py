@@ -26,7 +26,14 @@ from segdino3d_tpu_torch.ops import keys as K
 from segdino3d_tpu_torch.ops.hashing import (CoordHash, build_hash,
                                              lookup_hash)
 
-ROWS_PER_BLOCK = 1024   # K8's rows per block in its count and scan passes
+ROWS_PER_BLOCK = 1024   # K8's rows per thread block in its flags pass
+
+
+def compact_scratch(n: int) -> int:
+    """Ints of K8's scratch for n rows: the count, then per 32-row word its
+    winner bits and the winners before it in its block, then per block its
+    count."""
+    return 1 + 2 * -(-n // 32) + -(-n // ROWS_PER_BLOCK)
 
 
 class Compaction(NamedTuple):
@@ -76,35 +83,35 @@ def voxel_compact(winner: torch.Tensor, coords_T: torch.Tensor, cap: int,
     ids; ``h`` itself is left as it was."""
     n = winner.shape[0]
     if winner.dtype != torch.int32 or coords_T.dtype != torch.int32 \
-            or tuple(coords_T.shape) != (4, n):
+            or coords_T.shape != (4, n):
         raise TypeError("voxel_compact: winner (N,) and coords_T (4, N) must "
                         "be int32")
-    if winner.device.type == "cpu":
+    if winner.is_cpu:
         return voxel_compact_plain(winner, coords_T, cap, shift, h, with_kpos)
-    for t in (winner, coords_T, h.vals):
-        if t.device != winner.device or not t.is_contiguous():
-            raise ValueError("voxel_compact: tensors must be contiguous and "
-                             "on one CUDA device")
-    dev = winner.device
-
-    def empty(*shape, dtype=torch.int32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    counts = empty(max(1, -(-n // ROWS_PER_BLOCK)))
-    vid, num, inverse = empty(n), empty(1), empty(n)
-    kpos = empty(n) if with_kpos else None
-    out, valid = empty(4, cap), empty(cap, dtype=torch.bool)
-    vals = torch.empty_like(h.vals)
-    lib = cuda_build.library("voxel_compact")
-    cuda_build.check(lib.voxel_compact(
-        winner.data_ptr(), coords_T.data_ptr(), n, shift, cap,
-        counts.data_ptr(), vid.data_ptr(), num.data_ptr(), inverse.data_ptr(),
-        None if kpos is None else kpos.data_ptr(), out.data_ptr(),
-        valid.data_ptr(), h.vals.data_ptr(), vals.data_ptr(), h.vals.shape[0],
-        cuda_build.stream_ptr(winner)), "voxel_compact")
+    dev = winner.get_device()
+    if not (coords_T.get_device() == h.vals.get_device() == dev
+            and winner.is_contiguous() and coords_T.is_contiguous()
+            and h.vals.is_contiguous()):
+        raise ValueError("voxel_compact: tensors must be contiguous and on "
+                         "one CUDA device")
+    # one int32 allocation for the outputs and the scratch (the wrapper's
+    # host time is most of a call's)
+    t_size = h.vals.shape[0]
+    sizes = (n, 4 * cap, t_size, compact_scratch(n)) + ((n,) if with_kpos
+                                                        else ())
+    parts = torch.empty(sum(sizes), dtype=torch.int32,
+                        device=winner.device).split(sizes)
+    inverse, out, vals, ws = parts[:4]
+    kpos = parts[4] if with_kpos else None
+    valid = torch.empty(cap, dtype=torch.bool, device=winner.device)
+    cuda_build.check(cuda_build.library("voxel_compact").voxel_compact(
+        winner.data_ptr(), coords_T.data_ptr(), n, shift, cap, ws.data_ptr(),
+        inverse.data_ptr(), None if kpos is None else kpos.data_ptr(),
+        out.data_ptr(), valid.data_ptr(), h.vals.data_ptr(), vals.data_ptr(),
+        t_size, cuda_build.stream_ptr(winner)), "voxel_compact")
     voxel_compact.launches += 1
-    return Compaction(inverse=inverse, coords_T=out, valid=valid,
-                      num_voxels=num[0], kpos=kpos, hash=h._replace(vals=vals))
+    return Compaction(inverse, out.view(4, cap), valid, ws[0], kpos,
+                      CoordHash(h.keys, vals, h.overflow))
 
 
 voxel_compact.launches = 0

@@ -24,6 +24,7 @@ from segdino3d_tpu_torch.models.backbone.res16unet import build_unet_plan
 from segdino3d_tpu_torch.ops import block_dense as TBD
 from segdino3d_tpu_torch.ops import hashing as TQ
 from segdino3d_tpu_torch.ops import host_plan as TH
+from segdino3d_tpu_torch.ops import keys as TK
 from segdino3d_tpu_torch.ops import scatter as TS
 from segdino3d_tpu_torch.ops import sparse_conv as TSC
 from segdino3d_tpu_torch.ops import voxelize as TV
@@ -466,3 +467,125 @@ def test_stem_slot_sum_matches_plain(card, dtype, slots, cout):
             valid.cpu())
     torch.testing.assert_close(card_out.float().cpu(), cpu_out.float(),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _grid_tables(device):
+    """BlockTables of 11 edge-4 blocks on a 3 x 2 x 2 grid of block
+    positions, the sixth left out (its neighbours see -1)."""
+    edge = 4
+    dirs = TBD._shell_dirs()
+    live = [p for i, p in enumerate(np.ndindex(3, 2, 2)) if i != 5]
+    index = {p: i for i, p in enumerate(live)}
+    nbr = np.full((26, len(live)), -1, np.int32)
+    for i, p in enumerate(live):
+        for d, (dx, dy, dz) in enumerate(dirs):
+            nbr[d, i] = index.get((p[0] + dx, p[1] + dy, p[2] + dz), -1)
+    rows = len(live) * edge ** 3
+    return TBD.BlockTables(
+        vox_slot=torch.zeros(0, dtype=torch.int32, device=device),
+        block_nbr=torch.from_numpy(nbr).to(device),
+        slot_vox=torch.full((rows,), -1, dtype=torch.int32, device=device),
+        edge=edge)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full_block", "one_cell", "full_level"])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_conv_occupied_rows_match_plain(card, case, k, dtype):
+    """K10's row list and tiles at the edges of the mask: a fully occupied
+    block beside sparse ones, a block with one occupied cell, and a level
+    whose every cell is occupied (the row list at its capacity).  Equal to
+    the plain version on every cell, zero outside the mask."""
+    dt = getattr(torch, dtype)
+    t = _grid_tables(card)
+    e3, n = t.edge ** 3, t.slot_vox.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    occ = torch.rand(n, generator=gen, device="cuda") < 0.2
+    if case == "full_block":
+        occ[:e3] = True
+    elif case == "one_cell":
+        occ[e3:2 * e3] = False
+        occ[e3 + 21] = True
+    else:
+        occ[:] = True
+    rows, count = TBD.occupied_rows(occ)
+    want_rows, want_count = TBD.occupied_rows_plain(occ)
+    torch.testing.assert_close(rows, want_rows, rtol=0, atol=0)
+    assert int(count) == int(want_count) == int(occ.sum())
+    x = torch.where(occ[:, None], torch.randn(n, 35, generator=gen,
+                                              device="cuda"), 0.0).to(dt)
+    w = (torch.randn(k ** 3, 35, 40, generator=gen, device="cuda")
+         * (k ** 3 * 35) ** -0.5).to(dt)
+    got = TBD.block_conv(x, t.block_nbr, w, occ, t.edge)
+    want = TBD.dense_subm_conv_plain(x, t.block_nbr, w, occ, t.edge)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not got[~occ].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge,k", [(4, 3), (4, 5), (8, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_conv_dx_role_under_the_dilation(card, edge, k, dtype):
+    """The input gradient's role as the backward runs it: flipped,
+    transposed weights on a cotangent that is zero outside the occupancy,
+    computed on the occupancy's k-dilation only.  The dilation is not the
+    whole grid; the result equals the unmasked plain version on every cell
+    and is zero outside the dilation."""
+    dt = getattr(torch, dtype)
+    t = _block_plan_on(card, [edge] * 5).blocks[0]
+    occ = TBD.occupancy(t)
+    dil = TBD.occupancy_dilation(occ, t.block_nbr, edge, k)
+    torch.testing.assert_close(
+        dil, TBD.occupancy_dilation_plain(occ, t.block_nbr, edge, k),
+        rtol=0, atol=0)
+    assert bool((dil & ~occ).any()) and not bool(dil.all())
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    dy = torch.where(occ[:, None], torch.randn(occ.shape[0], 40,
+                                               generator=gen, device="cuda"),
+                     0.0).to(dt)
+    w = (torch.randn(k ** 3, 35, 40, generator=gen, device="cuda")
+         * (k ** 3 * 40) ** -0.5).to(dt)
+    wt = TSC._transposed(w.flip(0))   # (k^3, 40, 35)
+    got = TBD.block_conv(dy, t.block_nbr, wt, dil, edge)
+    want = TBD.dense_subm_conv_plain(dy, t.block_nbr, wt, None, edge)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not got[~dil].any() and not want[~dil].any()
+
+
+def _compaction_equal(got, want):
+    for a, b in ((got.inverse, want.inverse), (got.coords_T, want.coords_T),
+                 (got.valid, want.valid), (got.hash.vals, want.hash.vals),
+                 (got.num_voxels, want.num_voxels)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (got.kpos is None) == (want.kpos is None)
+    if want.kpos is not None:
+        torch.testing.assert_close(got.kpos, want.kpos, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,cap", [(3001, 4096), (300000, 65536),
+                                   (300000, 2000)])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_voxel_compact_matches_plain(card, n, cap, shift):
+    """K8 on the same winners and hash as its plain version: n no multiple
+    of its 1,024-row blocks; 293 blocks, more than the card's SMs; and a
+    count past the capacity (ids dropped).  Every output equal."""
+    rng = np.random.RandomState(17)
+    cols = np.stack([rng.randint(0, 2, n), rng.randint(0, 90, n),
+                     rng.randint(0, 90, n), rng.randint(0, 40, n)])
+    cols_t = torch.from_numpy(cols.astype(np.int32)).to(card).contiguous()
+    valid = torch.from_numpy(rng.rand(n) > 0.05).to(card)
+    key = TK.pack_columns_u32(*cols_t, valid)
+    h = TQ.build_hash(key, n)
+    winner = TQ.lookup_hash(h, key)
+    got = TV.voxel_compact(winner, cols_t, cap, shift, h, shift == 1)
+    want = TV.voxel_compact_plain(winner, cols_t, cap, shift, h, shift == 1)
+    torch.cuda.synchronize()
+    if cap == 2000:
+        assert int(want.num_voxels) > cap
+    _compaction_equal(got, want)
