@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero before the result line:
    pairs whose source is occupied, of its rows' work and of the dense
    work, and the operations one call puts on the card), the dilation
    kernel beside it (equal) and K11 (its weight gradient: level 0 k3 and
-   the stem), each with its bound from the cells this scene occupies; K8
+   the stem, over the level's cached occupied-row list), each with its
+   bound from the cells this scene occupies (K11: of the pairs whose source
+   is occupied, and of all pairs whose source block exists) and the row
+   list's build timed beside it; K4 with the live pairs its compacted
+   per-offset lists hold and their build timed beside it; K8
    is timed as the wrapper call alone, its launches per call counted by
    ``torch.profiler`` (at most two); K12 (the compacted
    stem's slot sum) on the scene's compacted tables with 32 and 8 slots
@@ -47,7 +51,9 @@ Phases, in order; any failure exits non-zero before the result line:
    criterion -> backward -> clip -> AdamW/PolyLR -> EMA) for a few batch-1
    steps, then one ``accum_steps=4`` step over four seeded scenes (the
    JAX package's recipe for the reference's batch 4).  It prints s/step,
-   ms per stage, peak memory and each kernel's launches in one step,
+   ms per stage, peak memory, each kernel's launches in one step (K4's
+   pair lists: one per index table and scene), K4's and K11's device time
+   in one more, profiled, batch-1 step,
    checks that every loss and the gradient norm are finite, and holds the
    card's step against the CPU's plain path on a small scene;
 4b. run the batch-1 training step on device plans (built inside the
@@ -61,8 +67,9 @@ Phases, in order; any failure exits non-zero before the result line:
    the card against the CPU's plain path on a small hybrid scene;
 4c. run batch-1 training steps on the config's training layout
    (block-dense everywhere, the k5 stem too: K9, K10 forward and as dX
-   under the dilation, the dilation, K11): s/step, ms per stage, launches
-   per step, peak memory, finite losses and gradient norm, and the card
+   under the dilation, the dilation, K11 and its row lists): s/step, ms
+   per stage, launches per step, K4's and K11's device time in a profiled
+   step, peak memory, finite losses and gradient norm, and the card
    against the CPU on a small scene;
 3d. run the eval entry point on three headline-size scenes written to a
    temp dir (``write_scannet_layout``): the port's ScanNet200 reader,
@@ -81,6 +88,7 @@ checkout: run from anywhere else it fails.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import os
 import subprocess
@@ -391,13 +399,22 @@ def backward_cases(batch, s_cap, gen):
         table = ia if ia is not None else ib
         n_off, rows = table.shape
         cin, cout = a.shape[1], b.shape[1]
-        cases.append(("gather_wgrad", name, {f32: (
+        live = live_pairs(ia, ib)
+        pairs = SC.gather_pairs(ia, ib)
+        torch.cuda.synchronize()
+        if int(pairs.counts.sum()) != live:
+            raise SystemExit(f"gather_pairs [{name}]: {int(pairs.counts.sum())}"
+                             f" listed pairs, {live} live")
+        cases.append(("gather_wgrad", f"{name}; the compacted lists hold "
+                      f"{live} live pairs of {n_off * rows}", {f32: (
             lambda: SC.gather_wgrad(a, ia, b, ib, mirror),
             lambda: SC.gather_wgrad_plain(a, ia, b, ib, n_off, rows, mirror),
             lambda: wgrad_library(a, ia, b, ib, mirror),
-            2.0 * live_pairs(ia, ib) * cin * cout,
+            2.0 * live * cin * cout,
             nbytes(a, ia, b, ib) + n_off * cin * cout * 4, "fp32",
-            WGRAD_TOL)}))
+            WGRAD_TOL,
+            {"pair list build (gather_pairs, once per table and step)":
+             lambda: SC.gather_pairs(ia, ib)})}))
 
     wgrad_case("stem dW k5 259->32 L0 (dY gathered, mirrored)",
                _randn(gen, (v0, 259), f32), None, _randn(gen, (v0, 32), f32),
@@ -770,9 +787,20 @@ def dense_cases(plan, gen):
               "dilation)", t0, 96, 96, 3, (f32,), dx=True)
     dilate_case(t0, 3)
 
+    def all_pairs(t, k):
+        """(occupied cell, offset) pairs whose source block exists: the
+        pairs K11's contract reduces"""
+        r = torch.nonzero(BD.occupancy(t)).flatten()
+        h = (k - 1) // 2
+        return float(sum(int((BD.halo_rows_plain(r, t.block_nbr, t.edge,
+                                                 s) >= 0).sum())
+                         for s in itertools.product(range(-h, h + 1),
+                                                    repeat=3)))
+
     def wgrad_case(name, t, cin, cout, k):
         occ = BD.occupancy(t)
         need, dense = pairs(t, k, masked=True)
+        every = all_pairs(t, k)
         x = torch.where(occ[:, None], _randn(gen, (occ.shape[0], cin), f32),
                         0.0)
         dy = torch.where(occ[:, None],
@@ -787,15 +815,22 @@ def dense_cases(plan, gen):
                                                              cout)))
 
         dense_ms = bound(2.0 * dense * cin * cout, 0.0, "fp32")[0]
+        all_ms = bound(2.0 * every * cin * cout, 0.0, "fp32")[0]
+        live_ms = bound(2.0 * need * cin * cout, 0.0, "fp32")[0]
         cases.append(("block_wgrad", f"{name}, fill {fill(t):.1%}, "
-                      f"dense-work bound {dense_ms:.4f} ms (fp32)", {f32: (
+                      f"{int(every)} pairs with a source block (all-pairs "
+                      f"bound {all_ms:.4f} ms), {int(need)} with an occupied "
+                      f"source (live-pair bound {live_ms:.4f} ms), dense-work "
+                      f"bound {dense_ms:.4f} ms (fp32)", {f32: (
                           lambda: BD.block_wgrad(x, dy, t.block_nbr, occ, e,
-                                                 k),
+                                                 k, BD.row_list(t, occ)),
                           lambda: BD.block_wgrad_plain(x, dy, t.block_nbr,
                                                        occ, e, k),
                           lib, 2.0 * need * cin * cout,
                           nbytes(x, dy, t.block_nbr, occ)
-                          + k ** 3 * cin * cout * 4, "fp32", WGRAD_TOL)}))
+                          + k ** 3 * cin * cout * 4, "fp32", WGRAD_TOL,
+                          {"row list build (block_rows, once per level and "
+                           "step)": lambda: BD.occupied_rows(occ)})}))
 
     wgrad_case("dW k3 96->96 L0", t0, 96, 96, 3)
     wgrad_case("stem dW k5 259->32 L0", t0, 259, 32, 5)
@@ -897,7 +932,48 @@ def counters():
             "block_conv": (BD.block_conv,),
             "block_dilate": (BD.occupancy_dilation,),
             "block_wgrad": (BD.block_wgrad,),
-            "stem_slot_sum": (SC.stem_slot_sum,)}
+            "stem_slot_sum": (SC.stem_slot_sum,),
+            # the weight gradients' lists, built once per table (K4) or
+            # level (K11) and step; they launch in K4's and K10's libraries
+            "gather_pairs": (SC.gather_pairs,),
+            "block_rows": (BD.occupied_rows,)}
+
+
+# K4's pair lists in a gather-layout step: the stem's table, each level's
+# k3 table and each child table, shared by the down and the up conv
+GATHER_PAIR_LISTS = 10
+
+
+def wgrad_step_ms(run):
+    """Device ms of K4 (its tiles and split sums; its pair lists apart) and
+    of K11 (the same; its row lists are K10's row-list kernels and are not
+    told apart from K10's own), and of all device work, in one call of
+    ``run`` (one training step), by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return wgrad_ms(prof.events())
+
+
+def wgrad_ms(events):
+    """{K4, K4 pair lists, K11, device}: summed device ms of ``events``."""
+    ms = dict.fromkeys(("K4", "K4 pair lists", "K11", "device"), 0.0)
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n, t = e.name, e.time_range.elapsed_us() / 1e3
+        ms["device"] += t
+        if "gather_wgrad_kernel" in n or ("sum_splits" in n and
+                                          "ListPairs" in n):
+            ms["K4"] += t
+        elif "count_pairs_kernel" in n or "list_pairs_kernel" in n:
+            ms["K4 pair lists"] += t
+        elif "block_wgrad_kernel" in n or ("sum_splits" in n and
+                                           "HaloPairs" in n):
+            ms["K11"] += t
+    return ms
 
 
 # the kernels of the gather layout's training step on device plans
@@ -1243,6 +1319,13 @@ def run_training(model, records, spec, layout="gather", accum=True):
             launches = read_counts()
         metrics.append(check_metrics(step1, m, f"batch-1 step {i}"))
         steps.append(dict(plan=t_plan, **clock.seconds))
+    # a fresh plan, so that the step builds its pair and row lists
+    b, _ = plan(records[0])
+    ms = wgrad_step_ms(lambda: step1([b], generator=gen))
+    print(f"weight gradients in one batch-1 {layout} step (torch.profiler, "
+          f"device ms): K4 {ms['K4']:.4f} (+ pair lists "
+          f"{ms['K4 pair lists']:.4f}), K11 {ms['K11']:.4f}, of "
+          f"{ms['device']:.4f} ms of device work", flush=True)
     if not accum:
         return (launches, steps, None, None,
                 torch.cuda.max_memory_allocated(), metrics)
@@ -1370,11 +1453,19 @@ def report_training(launches, steps, accum, launches4, peak):
                 "segment_mean_gather": 2, "gather_wgrad": 55,
                 "segment_grad": 1}
     print(f"launches in one batch-1 train step: {launches} (expected "
-          f"{expected})", flush=True)
+          f"{expected}; gather_pairs {GATHER_PAIR_LISTS}: one pair list per "
+          f"index table, the stem's, five levels' and four child tables)",
+          flush=True)
     print(f"launches in one accum_steps=4 step: {launches4}", flush=True)
     for k in expected:
         if launches[k] <= 0 or launches4[k] <= 0:
             raise SystemExit(f"{k}: not launched in the train step")
+    if launches["gather_pairs"] != GATHER_PAIR_LISTS or \
+            launches4["gather_pairs"] != 4 * GATHER_PAIR_LISTS:
+        raise SystemExit(f"gather_pairs: {launches['gather_pairs']} / "
+                         f"{launches4['gather_pairs']} pair lists in the "
+                         f"batch-1 / accumulated step, expected "
+                         f"{GATHER_PAIR_LISTS} per scene")
     keys = ("plan", "forward", "criterion", "backward", "optimizer")
     mean = {k: 1e3 * float(np.mean([st[k] for st in steps])) for k in keys}
     total = [sum(st[k] for k in keys) for st in steps]
@@ -1600,9 +1691,10 @@ def run_dense_training(model, records, spec):
     expected = {"block_conv": 93, "block_dilate": 5, "block_wgrad": 47,
                 "slot_gather": 35, "gather_gemm_conv": 8, "up_conv": 8,
                 "gather_wgrad": 8, "segment_mean_gather": 2,
-                "segment_grad": 1}
+                "segment_grad": 1, "block_rows": 5, "gather_pairs": 4}
     print(f"launches in one block-dense train step: {launches} (expected "
-          f"{expected}: K10 47 forward + 46 dX, one k3 dilation per level)",
+          f"{expected}: K10 47 forward + 46 dX, one k3 dilation and one "
+          f"K11 row list per level, one K4 pair list per child table)",
           flush=True)
     for k, n in expected.items():
         if launches[k] != n:

@@ -13,185 +13,226 @@
 // dW[o] = sum_j X[j]^T dY[nbr[n_off-1-o, j]] and the wide input is read
 // without a gather (the JAX package's reason at sparse_conv.py:318-320).
 //
-// What bounds it: operations.  2 * live_pairs * Cin * Cout fp32 FMAs over
-// inputs of a few MB that stay in the 50 MB L2.  This first version uses
-// fp32 FMAs (67 TFLOP/s), not tensor cores.
+// What bounds it: operations, 2 * live_pairs * Cin * Cout fp32 FMAs over
+// inputs of a few MB that stay in the 50 MB L2; a live pair is a row r
+// where both sides hold a row at offset o.
 //
-// Design: a GEMM of M = Cin by N = Cout whose reduction axis is the table's
-// rows.  One block owns a BM x BN tile of one offset's dW and one split of
-// the rows; it walks its rows in chunks of BK, skips a chunk in which no row
-// has a live (A, B) pair (the K1 tile skip, here per chunk and offset),
-// gathers the chunk's A and B rows into shared memory as fp32 and
-// accumulates TM x TN sums per thread in registers.  Determinism without
-// atomics: each split writes its partial dW to a scratch the wrapper
-// allocates (splits x n_off x Cin x Cout fp32, bounded by the wrapper), and
-// a second pass adds the splits in ascending order.  With one split the
-// first pass writes dW directly.
+// Design: a dead pair adds a zero row, so only live pairs are reduced.
+// gather_pairs lists, per offset, the rows r where ia[o, r] and ib[o, r]
+// (an absent table being the identity) are both >= 0, in ascending r: a
+// count pass and a list pass (per-block counts, then each block's offset
+// by a sum over the blocks before it), the counts left on the card.  The
+// wrapper builds the list once per table and step (a cache keyed on the
+// table).  The reduction is the shared weight-gradient tile core
+// (wgrad_tile.cuh) over those lists; its ticket is the word after the
+// counts, zeroed by the list pass.
 //
 // Contract: A (rows_a, Cin) and B (rows_b, Cout) share one dtype (fp32 or
 // bf16), rows contiguous; ia, ib (n_off, R) int32 with -1 for "no row", or
-// null for the identity (then A, resp. B, has at least R rows); partial
-// (splits, n_off, Cin, Cout) fp32, or out itself when splits == 1; out
-// (n_off, Cin, Cout) fp32.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// null for the identity (then A, resp. B, has at least R rows); ws the
+// pair list (gather_pairs: n_off x R rows, n_off counts, the ticket, then
+// the per-block counts); partial (splits, n_off, Cin, Cout) fp32, or out
+// itself when splits == 1; out (n_off, Cin, Cout) fp32.
+#include "wgrad_tile.cuh"
 
 namespace {
 
-constexpr int TM = 4;   // Cin rows of dW per thread
-constexpr int TN = 4;   // Cout columns of dW per thread
-constexpr int BK = 16;  // table rows per shared-memory chunk
+// ---------------------------------------------------------------------------
+// the pair list
+// ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr int kListThreads = 256;
+constexpr int kListRows = kListThreads * 16;   // rows per thread block, 16 a thread
 
-template <typename T, int BM, int BN>
-__global__ void __launch_bounds__((BM / TM) * (BN / TN))
-wgrad_partial_kernel(const T* __restrict__ a, const int32_t* __restrict__ ia,
-                     const T* __restrict__ b, const int32_t* __restrict__ ib,
-                     float* __restrict__ partial, int rows, int cin, int cout,
-                     int n_off, int rows_per_split, int mirror) {
-  constexpr int kThreads = (BM / TM) * (BN / TN);
-  constexpr int kColGroups = BN / TN;
-  __shared__ __align__(16) float As[BK][BM + 4];  // As[k][m] = A[row k][m0 + m]
-  __shared__ __align__(16) float Bs[BK][BN];      // Bs[k][n] = B[row k][n0 + n]
-  __shared__ int sa[BK], sb[BK];
-
-  const int n_col_tiles = (cout + BN - 1) / BN;
-  const int m0 = (blockIdx.x / n_col_tiles) * BM;
-  const int n0 = (blockIdx.x % n_col_tiles) * BN;
-  const int split = blockIdx.y;
-  const int o = blockIdx.z;
-  const int r_begin = split * rows_per_split;
-  const int r_end = min(rows, r_begin + rows_per_split);
-  const int tid = threadIdx.x;
-  const int tx = tid % kColGroups;
-  const int ty = tid / kColGroups;
-  const int32_t* __restrict__ ia_o = ia ? ia + (int64_t)o * rows : nullptr;
-  const int32_t* __restrict__ ib_o = ib ? ib + (int64_t)o * rows : nullptr;
-
-  float acc[TM][TN];
+// bit i set when row r0 + i has a live pair at offset o
+__device__ __forceinline__ unsigned live_flags(const int32_t* __restrict__ ia,
+                                               const int32_t* __restrict__ ib, int o,
+                                               int64_t r0, int rows) {
+  const int32_t* a = ia ? ia + (int64_t)o * rows : nullptr;
+  const int32_t* b = ib ? ib + (int64_t)o * rows : nullptr;
+  unsigned m = 0;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += BK) {
-    int hit = 0;
-    if (tid < BK) {
-      const int r = r0 + tid;
-      int ra = -1, rb = -1;
-      if (r < r_end) {
-        ra = ia_o ? ia_o[r] : r;
-        rb = ib_o ? ib_o[r] : r;
-      }
-      hit = ra >= 0 && rb >= 0;
-      sa[tid] = hit ? ra : -1;
-      sb[tid] = hit ? rb : -1;
-    }
-    // the barrier also publishes sa / sb to the whole block
-    if (!__syncthreads_or(hit)) continue;
-    for (int e = tid; e < BK * BM; e += kThreads) {
-      const int k = e / BM, m = e % BM;
-      const int s = sa[k];
-      As[k][m] = (s >= 0 && m0 + m < cin) ? to_f(a[(int64_t)s * cin + m0 + m]) : 0.f;
-    }
-    for (int e = tid; e < BK * BN; e += kThreads) {
-      const int k = e / BN, n = e % BN;
-      const int s = sb[k];
-      Bs[k][n] = (s >= 0 && n0 + n < cout) ? to_f(b[(int64_t)s * cout + n0 + n]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 av4 = *reinterpret_cast<const float4*>(&As[k][ty * TM]);
-      const float4 bv4 = *reinterpret_cast<const float4*>(&Bs[k][tx * TN]);
-      const float av[TM] = {av4.x, av4.y, av4.z, av4.w};
-      const float bv[TN] = {bv4.x, bv4.y, bv4.z, bv4.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int i = 0; i < 16; ++i) {
+    const int64_t r = r0 + i;
+    const bool live = r < rows && (a == nullptr || a[r] >= 0) && (b == nullptr || b[r] >= 0);
+    m |= (live ? 1u : 0u) << i;
   }
+  return m;
+}
 
-  const int slot = mirror ? n_off - 1 - o : o;
-  float* __restrict__ dst =
-      partial + ((int64_t)split * n_off + slot) * (int64_t)cin * cout;
+// exclusive prefix of v over the thread block, in thread order; *total is
+// the block's sum
+__device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
-    if (m >= cin) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n < cout) dst[(int64_t)m * cout + n] = acc[i][j];
-    }
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+    if (lane >= d) incl += u;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  int before = 0, sum = 0;
+  for (int i = 0; i < kListThreads / 32; ++i) {
+    before += i < warp ? warp_sums[i] : 0;
+    sum += warp_sums[i];
+  }
+  __syncthreads();
+  *total = sum;
+  return before + incl - v;
+}
+
+// grid (blocks, n_off): counts[o * blocks + blockIdx.x]
+__global__ void __launch_bounds__(kListThreads)
+count_pairs_kernel(const int32_t* __restrict__ ia, const int32_t* __restrict__ ib,
+                   int rows, int32_t* __restrict__ counts) {
+  __shared__ int warp_sums[kListThreads / 32];
+  const int o = blockIdx.y;
+  const int64_t r0 = (int64_t)blockIdx.x * kListRows + threadIdx.x * 16;
+  int total;
+  block_exclusive_scan(__popc(live_flags(ia, ib, o, r0, rows)), warp_sums, &total);
+  if (threadIdx.x == 0) counts[(int64_t)o * gridDim.x + blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(kListThreads)
+list_pairs_kernel(const int32_t* __restrict__ ia, const int32_t* __restrict__ ib,
+                  int rows, const int32_t* __restrict__ counts, int32_t* __restrict__ list,
+                  int32_t* __restrict__ n_pairs, int32_t* __restrict__ ticket) {
+  __shared__ int warp_sums[kListThreads / 32];
+  const int o = blockIdx.y;
+  const int32_t* oc = counts + (int64_t)o * gridDim.x;
+  int part = 0;
+  for (int i = threadIdx.x; i < (int)blockIdx.x; i += kListThreads) part += oc[i];
+  int prefix;
+  block_exclusive_scan(part, warp_sums, &prefix);
+  const int64_t r0 = (int64_t)blockIdx.x * kListRows + threadIdx.x * 16;
+  unsigned m = live_flags(ia, ib, o, r0, rows);
+  int total;
+  int pos = prefix + block_exclusive_scan(__popc(m), warp_sums, &total);
+  int32_t* ol = list + (int64_t)o * rows;
+  while (m) {
+    ol[pos++] = (int32_t)(r0 + __ffs(m) - 1);
+    m &= m - 1;
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
+    n_pairs[o] = prefix + total;
+    if (o == 0) *ticket = 0;
   }
 }
 
-// out[e] = sum over splits s, in ascending order, of partial[s][e]
-__global__ void __launch_bounds__(256)
-sum_splits_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                  int64_t n, int splits) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float acc = 0.f;
-  for (int s = 0; s < splits; ++s) acc += partial[(int64_t)s * n + e];
-  out[e] = acc;
+// ---------------------------------------------------------------------------
+// the reduction
+// ---------------------------------------------------------------------------
+
+struct ListPairs {
+  const int32_t* list;  // (n_off, R) live rows per offset, ascending
+  const int32_t* n;     // (n_off,) how many
+  const int32_t* ia;    // (n_off, R) or null
+  const int32_t* ib;
+  int cap;              // R, the table's rows
+
+  __device__ __forceinline__ int count(int o) const { return n[o]; }
+  __device__ __forceinline__ int key(int o, int p) const {
+    return list[(int64_t)o * cap + p];
+  }
+  __device__ __forceinline__ int2 fetch(int o, int r) const {
+    const int64_t e = (int64_t)o * cap + r;
+    return make_int2(ia ? ia[e] : r, ib ? ib[e] : r);
+  }
+  __device__ __forceinline__ void finish(int, int, int2 f, int& ra, int& rb) const {
+    ra = f.x;
+    rb = f.y;
+  }
+};
+
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(wgt::Tile<T, BM, BN>::kBlock,
+                                  wgt::Tile<T, BM, BN>::kMinBlocks)
+gather_wgrad_kernel(const T* __restrict__ a, const T* __restrict__ b, ListPairs pairs,
+                    int32_t* __restrict__ ticket, float* __restrict__ partial, int cin,
+                    int cout, int n_off, int splits, int mirror) {
+  wgt::run_tiles<T, BM, BN>(a, b, pairs, ticket, partial, cin, cout, n_off, splits,
+                            mirror);
 }
 
 template <typename T, int BM, int BN>
-cudaError_t launch_tiles(const void* a, const void* ia, const void* b,
-                         const void* ib, float* partial, int rows, int cin,
-                         int cout, int n_off, int splits, int mirror,
-                         cudaStream_t stream) {
-  const int rows_per_split = ((rows + splits - 1) / splits + BK - 1) / BK * BK;
-  const dim3 grid(((cin + BM - 1) / BM) * ((cout + BN - 1) / BN), splits, n_off);
-  wgrad_partial_kernel<T, BM, BN><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const int32_t*>(ia),
-      static_cast<const T*>(b), static_cast<const int32_t*>(ib), partial, rows,
-      cin, cout, n_off, rows_per_split, mirror);
-  return cudaGetLastError();
+cudaError_t launch(const void* a, const void* b, const ListPairs& pairs, int32_t* ticket,
+                   float* partial, float* out, int cin, int cout, int n_off, int splits,
+                   int mirror, cudaStream_t s) {
+  const T* at = static_cast<const T*>(a);
+  const T* bt = static_cast<const T*>(b);
+  return wgt::launch_tiles<T, BM, BN>(gather_wgrad_kernel<T, BM, BN>, pairs, partial, out,
+                                      cin, cout, n_off, splits, mirror, s, at, bt, pairs,
+                                      ticket, partial, cin, cout, n_off, splits, mirror);
 }
 
+// the tile by width, as K11 picks it (block_wgrad.cu)
 template <typename T>
-cudaError_t launch(const void* a, const void* ia, const void* b, const void* ib,
-                   float* partial, float* out, int rows, int cin, int cout,
-                   int n_off, int splits, int mirror, cudaStream_t stream) {
-  // BN = 32 serves Cout <= 32 (the stem and level 1) with 128 threads
-  cudaError_t err = cout <= 32
-      ? launch_tiles<T, 64, 32>(a, ia, b, ib, partial, rows, cin, cout, n_off,
-                                splits, mirror, stream)
-      : launch_tiles<T, 64, 64>(a, ia, b, ib, partial, rows, cin, cout, n_off,
-                                splits, mirror, stream);
-  if (err != cudaSuccess || splits == 1) return err;
-  const int64_t n = (int64_t)n_off * cin * cout;
-  sum_splits_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(partial, out, n,
-                                                                   splits);
-  return cudaGetLastError();
+cudaError_t launch_width(const void* a, const void* b, const ListPairs& pairs,
+                         int32_t* ticket, float* partial, float* out, int cin, int cout,
+                         int n_off, int splits, int mirror, cudaStream_t s) {
+  if (cout <= 32)
+    return cin <= 64 ? launch<T, 64, 32>(a, b, pairs, ticket, partial, out, cin, cout,
+                                         n_off, splits, mirror, s)
+                     : launch<T, 288, 32>(a, b, pairs, ticket, partial, out, cin, cout,
+                                          n_off, splits, mirror, s);
+  if (cout <= 64)
+    return launch<T, 64, 64>(a, b, pairs, ticket, partial, out, cin, cout, n_off, splits,
+                             mirror, s);
+  if (cout <= 96)
+    return cin <= 96 ? launch<T, 96, 96>(a, b, pairs, ticket, partial, out, cin, cout,
+                                         n_off, splits, mirror, s)
+                     : launch<T, 128, 96>(a, b, pairs, ticket, partial, out, cin, cout,
+                                          n_off, splits, mirror, s);
+  return launch<T, 128, 128>(a, b, pairs, ticket, partial, out, cin, cout, n_off, splits,
+                             mirror, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  `partial` must be `out` when splits is
-// 1.  Returns the first failed launch's cudaError_t, or 0.
-extern "C" int gather_wgrad(const void* a, const void* ia, const void* b,
-                            const void* ib, void* partial, void* out, int rows,
-                            int cin, int cout, int n_off, int splits, int mirror,
-                            int dtype, void* stream) {
+// The per-offset live-pair list into ws (n_off * rows + n_off + 1 +
+// n_off * ceil(rows / 4096) int32): rows, counts, ticket, per-block counts.
+// Returns the launches' cudaError_t.
+extern "C" int gather_pairs(const void* ia, const void* ib, void* ws, int rows, int n_off,
+                            void* stream) {
+  if (n_off == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int32_t* w = static_cast<int32_t*>(ws);
+  const int blocks = rows > 0 ? (rows + kListRows - 1) / kListRows : 1;
+  int32_t* n_pairs = w + (int64_t)n_off * rows;
+  int32_t* counts = n_pairs + n_off + 1;
+  const dim3 grid(blocks, n_off);
+  const int32_t* a = static_cast<const int32_t*>(ia);
+  const int32_t* b = static_cast<const int32_t*>(ib);
+  count_pairs_kernel<<<grid, kListThreads, 0, s>>>(a, b, rows, counts);
+  list_pairs_kernel<<<grid, kListThreads, 0, s>>>(a, b, rows, counts, w, n_pairs,
+                                                  n_pairs + n_off);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ws: gather_pairs' list for these tables.  dtype: 0 = float32, 1 =
+// bfloat16.  `partial` must be `out` when splits is 1.  Returns the first
+// failed launch's cudaError_t, or 0.
+extern "C" int gather_wgrad(const void* a, const void* ia, const void* b, const void* ib,
+                            void* ws, void* partial, void* out, int rows, int cin,
+                            int cout, int n_off, int splits, int mirror, int dtype,
+                            void* stream) {
   if (n_off == 0 || cin == 0 || cout == 0) return 0;
+  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
-  if (rows == 0) return static_cast<int>(
-      cudaMemsetAsync(o, 0, sizeof(float) * (size_t)n_off * cin * cout, s));
+  if (rows == 0)
+    return static_cast<int>(
+        cudaMemsetAsync(o, 0, sizeof(float) * (size_t)n_off * cin * cout, s));
+  int32_t* w = static_cast<int32_t*>(ws);
+  int32_t* n_pairs = w + (int64_t)n_off * rows;
+  const ListPairs pairs{w, n_pairs, static_cast<const int32_t*>(ia),
+                        static_cast<const int32_t*>(ib), rows};
   cudaError_t err = dtype == 1
-      ? launch<__nv_bfloat16>(a, ia, b, ib, p, o, rows, cin, cout, n_off, splits,
-                              mirror, s)
-      : launch<float>(a, ia, b, ib, p, o, rows, cin, cout, n_off, splits, mirror,
-                      s);
+      ? launch_width<__nv_bfloat16>(a, b, pairs, n_pairs + n_off, p, o, cin, cout, n_off,
+                                    splits, mirror, s)
+      : launch_width<float>(a, b, pairs, n_pairs + n_off, p, o, cin, cout, n_off, splits,
+                            mirror, s);
   return static_cast<int>(err);
 }

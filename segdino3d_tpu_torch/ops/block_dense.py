@@ -24,7 +24,9 @@ Three hand-written CUDA kernels carry it:
   at the rows of its output mask only (a row list built on the card, 64-row
   tiles across blocks, each row's sources read through the halo addressing;
   the halo is never written to device memory), the other rows zero;
-* ``block_wgrad`` (K11, ``csrc/block_wgrad.cu``): its weight gradient.
+* ``block_wgrad`` (K11, ``csrc/block_wgrad.cu``): its weight gradient,
+  reduced over the level's occupied-row list (``row_list``: K10's
+  ``block_rows``, built once per level and step and kept on the tables).
 
 ``dense_subm_conv`` is a ``torch.autograd.Function`` whose backward runs
 K10 for dX (the mirror identity of ``_chunked_conv_bwd``: the same conv of
@@ -47,13 +49,14 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from segdino3d_tpu_torch.ops import cuda_build
 from segdino3d_tpu_torch.ops.sparse_conv import (_gather_rows, _require_cuda,
-                                                 _transposed, as_sum_type)
+                                                 _transposed, as_sum_type,
+                                                 wgrad_splits)
 
 # rows of the (26, B) shell-neighbour table: itertools.product(-1, 0, 1)^3
 # order with the centre skipped; face directions land at these rows
@@ -78,6 +81,9 @@ class BlockTables:
     # k -> (occupancy, its k-dilation), filled by ``dilation``
     dilations: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = field(
         default_factory=dict, repr=False, compare=False)
+    # (occupancy, its occupied-row list), filled by ``row_list``
+    rows: Optional[Tuple[torch.Tensor, "RowList"]] = field(
+        default=None, repr=False, compare=False)
 
     @property
     def num_blocks(self) -> int:
@@ -246,13 +252,20 @@ def occupied_rows_plain(mask: torch.Tensor) -> Tuple[torch.Tensor,
                               device=mask.device)
 
 
-def occupied_rows(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The list K10 builds inside each masked call (``block_rows``), here
-    on its own: see ``occupied_rows_plain``.  The count stays on the card."""
+class RowList(NamedTuple):
+    """An occupied-row list: the rows of a mask, ascending."""
+    rows: torch.Tensor              # (R,) int32; past the count: -1 (plain
+    #                                 version) or unspecified (kernel)
+    count: torch.Tensor             # () int32
+    ws: Optional[torch.Tensor]      # block_rows' workspace (rows, count,
+    #                                 a tile ticket), None on the CPU
+
+
+def _row_list(mask: torch.Tensor) -> RowList:
     if mask.dim() != 1 or mask.dtype != torch.bool:
         raise TypeError("occupied_rows: mask must be (R,) bool")
     if mask.device.type == "cpu":
-        return occupied_rows_plain(mask)
+        return RowList(*occupied_rows_plain(mask), None)
     _require_cuda("occupied_rows", mask)
     n = mask.shape[0]
     ws = row_workspace(n, mask.device)
@@ -261,13 +274,32 @@ def occupied_rows(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                                     cuda_build.stream_ptr(mask)),
                      "block_rows")
     occupied_rows.launches += 1
-    count = ws[n]
-    rows = torch.where(torch.arange(n, device=mask.device) < count, ws[:n],
-                       -1)
-    return rows, count
+    return RowList(ws[:n], ws[n], ws)
+
+
+def occupied_rows(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The list K10 builds inside each masked call (``block_rows``), here
+    on its own: see ``occupied_rows_plain``.  The count stays on the card."""
+    rows, count, ws = _row_list(mask)
+    if ws is None:
+        return rows, count
+    n = mask.shape[0]
+    return torch.where(torch.arange(n, device=mask.device) < count, rows,
+                       -1), count
 
 
 occupied_rows.launches = 0
+
+
+def row_list(tables: BlockTables, occ: torch.Tensor) -> RowList:
+    """The occupied-row list of ``occ`` on ``tables``, kept on the tables:
+    built once per level (``block_rows``) for all the level's weight
+    gradients (K11)."""
+    hit = tables.rows
+    if hit is None or hit[0] is not occ:
+        hit = (occ, _row_list(occ))
+        tables.rows = hit
+    return hit[1]
 
 
 def occupancy_dilation_plain(mask: torch.Tensor, block_nbr: torch.Tensor,
@@ -359,12 +391,6 @@ block_conv.launches = 0
 # K11: the block conv's weight gradient
 # ---------------------------------------------------------------------------
 
-# the weight gradient's split scratch: at most this many bytes, and splits
-# of at least this many blocks
-WGRAD_SCRATCH_BYTES = 64 << 20
-WGRAD_BLOCKS_PER_SPLIT = 64
-
-
 def block_wgrad_plain(feats: torch.Tensor, dy: torch.Tensor,
                       block_nbr: torch.Tensor, occ: torch.Tensor, edge: int,
                       k: int) -> torch.Tensor:
@@ -382,14 +408,53 @@ def block_wgrad_plain(feats: torch.Tensor, dy: torch.Tensor,
     return dw
 
 
+def halo_rows_plain(rows: torch.Tensor, block_nbr: torch.Tensor, edge: int,
+                    shift) -> torch.Tensor:
+    """The dense row of each row's cell shifted by ``shift`` (3 ints in
+    [-edge, edge]), read through the block halo (``bdt::halo_row``): in the
+    row's block or one of its 26 shell neighbours, -1 where that block is
+    absent."""
+    rows = rows.long()
+    e3 = edge ** 3
+    blk, cell = rows // e3, rows % e3
+    q = [cell // (edge * edge) + shift[0], (cell // edge) % edge + shift[1],
+         cell % edge + shift[2]]
+    d = [(qi >= edge).long() - (qi < 0).long() for qi in q]
+    centre = (d[0] == 0) & (d[1] == 0) & (d[2] == 0)
+    di = (d[0] + 1) * 9 + (d[1] + 1) * 3 + (d[2] + 1)
+    di = torch.where(di > 13, di - 1, di).clamp(max=25)
+    src = torch.where(centre, blk, block_nbr.long()[di, blk])
+    lx, ly, lz = (qi - dd * edge for qi, dd in zip(q, d))
+    out = ((src * edge + lx) * edge + ly) * edge + lz
+    return torch.where(src >= 0, out, -1).to(torch.int32)
+
+
+def block_wgrad_rows_plain(feats: torch.Tensor, dy: torch.Tensor,
+                           block_nbr: torch.Tensor, rows: RowList, edge: int,
+                           k: int) -> torch.Tensor:
+    """K11's reduction as the kernel runs it: per offset, the listed rows'
+    ``dy`` against their halo-shifted ``feats`` rows (a zero row where the
+    source block is absent), one fp32 product."""
+    xf, dyf = as_sum_type(feats), as_sum_type(dy)
+    r = rows.rows[:int(rows.count)]
+    h = (k - 1) // 2
+    dw = xf.new_zeros(k ** 3, feats.shape[1], dy.shape[1])
+    for o, s in enumerate(itertools.product(range(-h, h + 1), repeat=3)):
+        src = halo_rows_plain(r, block_nbr, edge, s)
+        dw[o] = _gather_rows(xf, src).T @ dyf[r.long()]
+    return dw
+
+
 def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
                 block_nbr: torch.Tensor, occ: torch.Tensor, edge: int,
-                k: int) -> torch.Tensor:
+                k: int, rows: Optional[RowList] = None) -> torch.Tensor:
     """``dW[o] = sum over occupied cells c of halo[c + o]^T @ dy[c]`` as
     (k^3, Cin, Cout) fp32.
 
     feats (B*edge^3, Cin) and dy (B*edge^3, Cout) share one dtype;
-    block_nbr (26, B) int32; occ (B*edge^3,) bool."""
+    block_nbr (26, B) int32; occ (B*edge^3,) bool; rows its occupied-row
+    list (``row_list``), built here when not given.  The kernel reduces
+    the listed rows only."""
     cin, cout = feats.shape[1], dy.shape[1]
     _check_layout("block_wgrad", feats, block_nbr, k ** 3, edge, cin)
     if tuple(dy.shape) != (feats.shape[0], cout) or \
@@ -403,10 +468,13 @@ def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
             occ.dtype != torch.bool:
         raise TypeError("block_wgrad: feats and dy must share a dtype, "
                         "block_nbr must be int32 and occ bool")
+    if rows is None:
+        rows = _row_list(occ)
+    elif rows.ws is None or rows.rows.shape[0] != occ.shape[0]:
+        raise ValueError("block_wgrad: rows must be the card's row list of "
+                         "occ")
     b = block_nbr.shape[1]
-    per_split = k ** 3 * cin * cout * 4
-    splits = max(1, min(-(-b // WGRAD_BLOCKS_PER_SPLIT),
-                        WGRAD_SCRATCH_BYTES // max(per_split, 1)))
+    splits = wgrad_splits(occ.shape[0], k ** 3, cin, cout)
     out = torch.empty(k ** 3, cin, cout, dtype=torch.float32,
                       device=feats.device)
     partial = out if splits == 1 else torch.empty(
@@ -414,8 +482,8 @@ def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
     lib = cuda_build.library("block_wgrad")
     cuda_build.check(lib.block_wgrad(
         feats.data_ptr(), dy.data_ptr(), block_nbr.data_ptr(),
-        occ.data_ptr(), partial.data_ptr(), out.data_ptr(), b, edge, k, cin,
-        cout, splits, cuda_build.dtype_code(feats.dtype),
+        rows.ws.data_ptr(), partial.data_ptr(), out.data_ptr(), b, edge, k,
+        cin, cout, splits, cuda_build.dtype_code(feats.dtype),
         cuda_build.stream_ptr(feats)), "block_wgrad")
     block_wgrad.launches += 1
     return out
@@ -447,8 +515,9 @@ class _DenseSubmConv(torch.autograd.Function):
             dx = block_conv(dy, t.block_nbr, _transposed(weights.flip(0)),
                             dilation(t, occ, k), t.edge)
         if ctx.needs_input_grad[3]:
-            dw = block_wgrad(feats, dy, t.block_nbr, occ, t.edge, k
-                             ).to(weights.dtype)
+            rows = row_list(t, occ) if feats.is_cuda else None
+            dw = block_wgrad(feats, dy, t.block_nbr, occ, t.edge, k,
+                             rows).to(weights.dtype)
         return dx, None, None, dw
 
 

@@ -31,13 +31,16 @@ KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
            "stem_slot_sum")
 _HEADERS = {"gather_gemm_conv": ("conv_tile.cuh",),
             "up_conv": ("conv_tile.cuh",),
-            "segment_mean_gather": (), "gather_wgrad": (), "segment_grad": (),
+            "segment_mean_gather": (), "gather_wgrad": ("wgrad_tile.cuh",),
+            "segment_grad": (),
             "coord_hash": ("coord_hash.cuh",),
             "neighbor_table": ("coord_hash.cuh",), "voxel_compact": (),
             "slot_gather": (), "block_conv": ("block_tile.cuh",),
-            "block_wgrad": ("block_tile.cuh",), "stem_slot_sum": ()}
+            "block_wgrad": ("block_tile.cuh", "wgrad_tile.cuh"),
+            "stem_slot_sum": ()}
 # a library's C functions, where they are not the one named after it
 _ENTRY_POINTS = {"coord_hash": ("coord_hash_insert", "coord_hash_lookup"),
+                 "gather_wgrad": ("gather_wgrad", "gather_pairs"),
                  "block_conv": ("block_conv", "block_rows", "block_dilate")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -55,9 +58,12 @@ _SIGNATURES = {
     # partial, out, S, cg, cd, g_dtype, d_dtype, stream
     "segment_mean_gather": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _I, _P],
-    # a, ia, b, ib, partial, out, rows, cin, cout, n_off, splits, mirror,
-    # dtype, stream
-    "gather_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, ia, b, ib, ws, partial, out, rows, cin, cout, n_off, splits,
+    # mirror, dtype, stream
+    "gather_wgrad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _P],
+    # ia, ib, ws, rows, n_off, stream
+    "gather_pairs": [_P, _P, _P, _I, _I, _P],
     # offsets, members, seg, g, out, rows, S, cols, out_dtype, stream
     "segment_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # keys, n, tkeys, tvals, t_size, overflow, stream
@@ -78,7 +84,7 @@ _SIGNATURES = {
     "block_rows": [_P, _P, _I, _P],
     # mask, block_nbr, out, n_blocks, edge, k, stream
     "block_dilate": [_P, _P, _P, _I, _I, _I, _P],
-    # x, dy, block_nbr, occ, partial, out, n_blocks, edge, k, cin, cout,
+    # x, dy, block_nbr, ws, partial, out, n_blocks, edge, k, cin, cout,
     # splits, dtype, stream
     "block_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # y2, slots, ov_src, ov_dst, valid, out, v, d, p, cout, dtype, stream

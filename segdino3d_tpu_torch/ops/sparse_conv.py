@@ -12,7 +12,9 @@ hand-written CUDA kernels:
 * ``up_conv_rows`` (K2, ``csrc/up_conv.cu``):
   ``fine[i] = x[parent[i]] @ W[kpos[i]]``;
 * ``gather_wgrad`` (K4, ``csrc/gather_wgrad.cu``): the weight gradients,
-  ``dW[o] = sum_r A[ia[o, r]]^T @ B[ib[o, r]]``;
+  ``dW[o] = sum_r A[ia[o, r]]^T @ B[ib[o, r]]``, reduced over each
+  offset's live pairs only: ``gather_pairs`` (two launches in the same
+  library) lists them once per index table and step (``cached_pairs``);
 * ``stem_slot_sum`` (K12, ``csrc/stem_slot_sum.cu``): the slot sum of the
   degree-compacted k5 stem, ``stem_compact_conv`` (inference only), after
   one wide ``torch.matmul``.
@@ -36,8 +38,10 @@ with the port's ``child_table`` and ``up_order`` in torch.
 """
 from __future__ import annotations
 
+import functools
 import itertools
-from typing import List, NamedTuple, Optional, Sequence
+import weakref
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -170,10 +174,106 @@ def up_conv_rows(feats: torch.Tensor, parent: torch.Tensor,
 up_conv_rows.launches = 0
 
 
-# the weight gradient's split scratch: at most this many bytes, and splits
-# of at least this many table rows
-WGRAD_SCRATCH_BYTES = 64 << 20
-WGRAD_ROWS_PER_SPLIT = 2048
+# the weight gradient's split scratch holds at most this many bytes; a
+# split reduces at least this many pairs (wgrad_tile.cuh: kMinPairs).  The
+# k5 stem's 4.1 MB splits fit 62 of its 75 1,024-pair splits, short enough
+# work items to balance the SMs
+WGRAD_SCRATCH_BYTES = 256 << 20
+WGRAD_MIN_PAIRS = 1024
+
+
+def wgrad_splits(capacity: int, n_off: int, cin: int, cout: int) -> int:
+    """The split scratch's capacity, in splits, for lists of ``capacity``
+    pairs per offset: the kernels use as many as an offset's count needs."""
+    per_split = n_off * cin * cout * 4
+    return max(1, min(-(-capacity // WGRAD_MIN_PAIRS),
+                      WGRAD_SCRATCH_BYTES // max(per_split, 1)))
+
+
+class PairList(NamedTuple):
+    """K4's compacted pairs: per offset o, the rows r at which every given
+    index table holds a row (``ia[o, r] >= 0`` and ``ib[o, r] >= 0``), in
+    ascending order."""
+    rows: torch.Tensor              # (n_off, R) int32; past the count: -1
+    #                                 (plain version) or unspecified (kernel)
+    counts: torch.Tensor            # (n_off,) int32
+    ws: Optional[torch.Tensor]      # the kernel's workspace (rows, counts,
+    #                                 its ticket), None on the CPU
+
+
+# K4's pair list: rows per thread block of its count and list passes
+PAIR_LIST_ROWS = 4096
+
+
+def gather_pairs_plain(ia: Optional[torch.Tensor],
+                       ib: Optional[torch.Tensor]) -> PairList:
+    """Plain version of K4's pair list (``gather_pairs``)."""
+    live = functools.reduce(torch.logical_and,
+                            [t >= 0 for t in (ia, ib) if t is not None])
+    counts = live.sum(1, dtype=torch.int32)
+    # a stable sort of the dead flags puts each offset's live rows first,
+    # in ascending order
+    order = torch.sort((~live).to(torch.int8), dim=1, stable=True).indices
+    past = torch.arange(live.shape[1], device=live.device)[None, :] \
+        >= counts[:, None]
+    return PairList(torch.where(past, -1, order).to(torch.int32), counts,
+                    None)
+
+
+def gather_pairs(ia: Optional[torch.Tensor], ib: Optional[torch.Tensor]
+                 ) -> PairList:
+    """Per offset, the rows where every given (n_off, R) index table holds
+    a row, ascending; on the card two launches, the counts left there."""
+    table = ia if ia is not None else ib
+    if table is None:
+        raise ValueError("gather_pairs needs ia or ib")
+    for t in (ia, ib):
+        if t is not None and (t.dim() != 2 or t.shape != table.shape):
+            raise ValueError(f"gather_pairs: index tables "
+                             f"{tuple(t.shape)} and {tuple(table.shape)}")
+    if table.device.type == "cpu":
+        return gather_pairs_plain(ia, ib)
+    present = [t for t in (ia, ib) if t is not None]
+    _require_cuda("gather_pairs", *present)
+    if any(t.dtype != torch.int32 for t in present):
+        raise TypeError("gather_pairs: index tables must be int32")
+    n_off, rows = table.shape
+    ws = torch.empty(n_off * rows + n_off + 1
+                     + n_off * max(1, -(-rows // PAIR_LIST_ROWS)),
+                     dtype=torch.int32, device=table.device)
+    lib = cuda_build.library("gather_wgrad")
+    cuda_build.check(lib.gather_pairs(
+        None if ia is None else ia.data_ptr(),
+        None if ib is None else ib.data_ptr(), ws.data_ptr(), rows, n_off,
+        cuda_build.stream_ptr(table)), "gather_pairs")
+    gather_pairs.launches += 1
+    return PairList(ws[:n_off * rows].view(n_off, rows),
+                    ws[n_off * rows:n_off * rows + n_off], ws)
+
+
+gather_pairs.launches = 0
+
+# (id of each given table, ascending) -> (weak references, PairList): the
+# pair list of a set of tables, built once per table set while the tables
+# live (a plan's tables are built once and never written in place)
+_PAIR_LISTS: Dict[Tuple[int, ...], Tuple[tuple, PairList]] = {}
+
+
+def cached_pairs(ia: Optional[torch.Tensor], ib: Optional[torch.Tensor]
+                 ) -> PairList:
+    """``gather_pairs`` of these tables, once: the live rows depend on the
+    set of tables only, so the down conv's role (ia = child) and the up
+    conv's (ib = child) share one list."""
+    tables = sorted((t for t in (ia, ib) if t is not None), key=id)
+    key = tuple(id(t) for t in tables)
+    hit = _PAIR_LISTS.get(key)
+    if hit is not None and all(r() is t for r, t in zip(hit[0], tables)):
+        return hit[1]
+    pairs = gather_pairs(ia, ib)
+    refs = tuple(weakref.ref(t, lambda _, key=key: _PAIR_LISTS.pop(key, None))
+                 for t in tables)
+    _PAIR_LISTS[key] = (refs, pairs)
+    return pairs
 
 
 def gather_wgrad_plain(a: torch.Tensor, ia: Optional[torch.Tensor],
@@ -190,6 +290,23 @@ def gather_wgrad_plain(a: torch.Tensor, ia: Optional[torch.Tensor],
     return dw
 
 
+def gather_wgrad_pairs_plain(a: torch.Tensor, ia: Optional[torch.Tensor],
+                             b: torch.Tensor, ib: Optional[torch.Tensor],
+                             pairs: PairList, mirror: bool = False
+                             ) -> torch.Tensor:
+    """K4's reduction as the kernel runs it, over the compacted pairs: one
+    fp32 product per offset of its listed rows only."""
+    af, bf = as_sum_type(a), as_sum_type(b)
+    n_off = pairs.rows.shape[0]
+    dw = af.new_zeros(n_off, a.shape[1], b.shape[1])
+    for o in range(n_off):
+        r = pairs.rows[o, :int(pairs.counts[o])].long()
+        ga = af[r if ia is None else ia[o, r].long()]
+        gb = bf[r if ib is None else ib[o, r].long()]
+        dw[n_off - 1 - o if mirror else o] = ga.T @ gb
+    return dw
+
+
 def gather_wgrad(a: torch.Tensor, ia: Optional[torch.Tensor], b: torch.Tensor,
                  ib: Optional[torch.Tensor], mirror: bool = False
                  ) -> torch.Tensor:
@@ -198,7 +315,8 @@ def gather_wgrad(a: torch.Tensor, ia: Optional[torch.Tensor], b: torch.Tensor,
 
     a (rows_a, Cin) and b (rows_b, Cout) share one dtype; ia, ib (n_off, R)
     int32 index tables, -1 = no row, at least one of them given; an absent
-    table is the identity over the first R rows."""
+    table is the identity over the first R rows.  On the card the kernel
+    reduces the tables' live pairs only (``cached_pairs``)."""
     table = ia if ia is not None else ib
     if table is None:
         raise ValueError("gather_wgrad needs ia or ib")
@@ -219,19 +337,18 @@ def gather_wgrad(a: torch.Tensor, ia: Optional[torch.Tensor], b: torch.Tensor,
         raise ValueError("gather_wgrad: an identity side has fewer rows "
                          "than the table")
     cin, cout = a.shape[1], b.shape[1]
-    per_split = n_off * cin * cout * 4
-    splits = max(1, min(-(-rows // WGRAD_ROWS_PER_SPLIT),
-                        WGRAD_SCRATCH_BYTES // max(per_split, 1)))
+    pairs = cached_pairs(ia, ib)
+    splits = wgrad_splits(rows, n_off, cin, cout)
     out = torch.empty(n_off, cin, cout, dtype=torch.float32, device=a.device)
     partial = out if splits == 1 else torch.empty(
         splits, n_off, cin, cout, dtype=torch.float32, device=a.device)
     lib = cuda_build.library("gather_wgrad")
     cuda_build.check(lib.gather_wgrad(
         a.data_ptr(), None if ia is None else ia.data_ptr(), b.data_ptr(),
-        None if ib is None else ib.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), rows, cin, cout, n_off, splits, int(mirror),
-        cuda_build.dtype_code(a.dtype), cuda_build.stream_ptr(a)),
-        "gather_wgrad")
+        None if ib is None else ib.data_ptr(), pairs.ws.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), rows, cin, cout, n_off, splits,
+        int(mirror), cuda_build.dtype_code(a.dtype),
+        cuda_build.stream_ptr(a)), "gather_wgrad")
     gather_wgrad.launches += 1
     return out
 

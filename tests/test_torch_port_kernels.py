@@ -589,3 +589,123 @@ def test_voxel_compact_matches_plain(card, n, cap, shift):
     if cap == 2000:
         assert int(want.num_voxels) > cap
     _compaction_equal(got, want)
+
+
+def _run_table(rng, n_off, rows, src_rows, live_share=0.5):
+    """(n_off, rows) int32 index table whose live entries come in runs
+    (mean length ~50), so that split boundaries cut runs of pairs."""
+    flips = rng.rand(n_off, rows) < 1.0 / 50
+    live = (np.cumsum(flips, axis=1) % 2 == 0) & \
+        (rng.rand(n_off, 1) < 2 * live_share)
+    return np.where(live, rng.randint(0, src_rows, (n_off, rows)),
+                    -1).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["runs", "two_splits", "dead_offset",
+                                  "all_live", "stem_259"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wgrad_pair_list_kernel_matches_plain(card, monkeypatch, case, dtype):
+    """K4 over its compacted pair list: runs of live rows cut by split
+    boundaries (several splits, or a scratch of two splits so that each
+    split holds thousands of pairs), an offset with no live pair, a table
+    with every pair live (the list at its capacity), and the stem's
+    259 -> 32 at k5, mirrored.  The list equals its plain version, dW its
+    plain version over the full table, and two calls are bit-equal."""
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(18)
+    rows, n_off, cin, cout, mirror = 6000, 27, 40, 72, False
+    if case == "stem_259":
+        n_off, cin, cout, mirror = 125, 259, 32, True
+    if case == "two_splits":
+        per_split = n_off * cin * cout * 4
+        monkeypatch.setattr(TSC, "WGRAD_SCRATCH_BYTES", 2 * per_split)
+    table = _run_table(rng, n_off, rows, rows)
+    if case == "dead_offset":
+        table[[0, 13]] = -1
+    if case == "all_live":
+        table = rng.randint(0, rows, (n_off, rows)).astype(np.int32)
+    ib = torch.from_numpy(table).to(card)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    a = torch.randn(rows, cin, generator=gen, device="cuda").to(dt)
+    b = torch.randn(rows, cout, generator=gen, device="cuda").to(dt)
+    pairs = TSC.gather_pairs(None, ib)
+    want_pairs = TSC.gather_pairs_plain(None, ib)
+    torch.testing.assert_close(pairs.counts, want_pairs.counts, rtol=0,
+                               atol=0)
+    live = torch.arange(rows, device="cuda")[None, :] < pairs.counts[:, None]
+    torch.testing.assert_close(torch.where(live, pairs.rows, -1),
+                               want_pairs.rows, rtol=0, atol=0)
+    got = TSC.gather_wgrad(a, None, b, ib, mirror=mirror)
+    again = TSC.gather_wgrad(a, None, b, ib, mirror=mirror)
+    want = TSC.gather_wgrad_plain(a, None, b, ib, n_off, rows, mirror)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    if case == "dead_offset":
+        assert not got[n_off - 1 if mirror else 0].any()
+    scale = float(want.abs().max())
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got, want, rtol=0, atol=tol * scale)
+
+
+def _box_tables(device, shape, skip=None):
+    """BlockTables of edge-4 blocks at every position of a ``shape`` grid
+    but ``skip`` (its neighbours see -1)."""
+    edge = 4
+    dirs = TBD._shell_dirs()
+    live = [p for i, p in enumerate(np.ndindex(*shape)) if i != skip]
+    index = {p: i for i, p in enumerate(live)}
+    nbr = np.full((26, len(live)), -1, np.int32)
+    for i, p in enumerate(live):
+        for d, (dx, dy, dz) in enumerate(dirs):
+            nbr[d, i] = index.get((p[0] + dx, p[1] + dy, p[2] + dz), -1)
+    rows = len(live) * edge ** 3
+    return TBD.BlockTables(
+        vox_slot=torch.zeros(0, dtype=torch.int32, device=device),
+        block_nbr=torch.from_numpy(nbr).to(device),
+        slot_vox=torch.full((rows,), -1, dtype=torch.int32, device=device),
+        edge=edge)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full_block", "one_cell", "full_level",
+                                  "splits", "stem_259"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_wgrad_row_list_matches_plain(card, case, dtype):
+    """K11 over the level's cached occupied-row list: a fully occupied
+    block beside sparse ones, a block with one occupied cell, a level whose
+    every cell is occupied (the list at its capacity), a grid of 216 blocks
+    whose thousands of rows run over several splits, and the dense stem's
+    259 -> 32 at k5.  The list equals ``occupied_rows_plain``, dW the plain
+    version, and two calls are bit-equal."""
+    dt = getattr(torch, dtype)
+    t = _box_tables(card, (6, 6, 6) if case == "splits" else (3, 2, 2),
+                    skip=5)
+    e3, n = t.edge ** 3, t.slot_vox.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    occ = torch.rand(n, generator=gen, device="cuda") < 0.3
+    if case == "full_block":
+        occ[:e3] = True
+    elif case == "one_cell":
+        occ[e3:2 * e3] = False
+        occ[e3 + 21] = True
+    elif case == "full_level":
+        occ[:] = True
+    k, cin, cout = (5, 259, 32) if case == "stem_259" else (3, 35, 72)
+    rows = TBD.row_list(t, occ)
+    assert TBD.row_list(t, occ) is rows
+    want_rows, want_count = TBD.occupied_rows_plain(occ)
+    assert int(rows.count) == int(want_count)
+    torch.testing.assert_close(rows.rows[:int(want_count)],
+                               want_rows[:int(want_count)], rtol=0, atol=0)
+    x = torch.randn(n, cin, generator=gen, device="cuda").to(dt)
+    dy = torch.where(occ[:, None], torch.randn(n, cout, generator=gen,
+                                               device="cuda"), 0.0).to(dt)
+    got = TBD.block_wgrad(x, dy, t.block_nbr, occ, t.edge, k, rows)
+    again = TBD.block_wgrad(x, dy, t.block_nbr, occ, t.edge, k, rows)
+    want = TBD.block_wgrad_plain(x, dy, t.block_nbr, occ, t.edge, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    scale = float(want.abs().max())
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got, want, rtol=0, atol=tol * scale)
