@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero before the result line:
    the C++ host-plan library;
 2. hold every kernel against its plain PyTorch version at the main path's
    shapes, and time the kernel, the plain version and a PyTorch yardstick
-   with CUDA events: the forward kernels K1-K3 in fp32 and bf16; the
+   with CUDA events: the forward kernels K1-K3 in fp32 and bf16 (K1 at
+   the k5 stem, a k3 conv of every level and two down convs, two calls
+   bit-equal); the
    backward kernels K4 (weight gradients) and K5 (pooling gradient), and
    K1/K2 in their backward roles, in fp32 at the training shapes; the plan
    engine's kernels K6 (coordinate hash), K8 (voxel compaction) and K7
@@ -37,7 +39,8 @@ Phases, in order; any failure exits non-zero before the result line:
    random weights on a seeded synthetic 120,000-point scene with 1,536
    superpoints: collate -> host plan -> backbone -> decoder ->
    predict_instance -> AP evaluator.  It prints scenes/s, ms per stage,
-   each kernel's launches in one forward, and peak memory, checks that
+   each kernel's launches in one forward (K1's pair lists: one per index
+   table), and peak memory, checks that
    every output is finite, and holds the card's forward against the CPU's
    plain path on a small scene, on a host plan and on a device plan;
 3b. run the same eval path on a plan built on the card (the batch carries
@@ -52,8 +55,8 @@ Phases, in order; any failure exits non-zero before the result line:
    steps, then one ``accum_steps=4`` step over four seeded scenes (the
    JAX package's recipe for the reference's batch 4).  It prints s/step,
    ms per stage, peak memory, each kernel's launches in one step (K4's
-   pair lists: one per index table and scene), K4's and K11's device time
-   in one more, profiled, batch-1 step,
+   pair lists, shared with K1: one per index table and scene), K1's, K4's
+   and K11's device time in one more, profiled, batch-1 step,
    checks that every loss and the gradient norm are finite, and holds the
    card's step against the CPU's plain path on a small scene;
 4b. run the batch-1 training step on device plans (built inside the
@@ -289,8 +292,9 @@ def kernel_cases(batch, s_cap, gen):
     v0 = lv[0].valid.shape[0]
     conv_case("stem k5 259->32 L0", v0, plan.stem_nbr, lv[0].valid, 259, 32)
     conv_case("subm k3 96->96 L0", v0, lv[0].nbr, lv[0].valid, 96, 96)
-    conv_case("subm k3 256->256 L4", lv[4].valid.shape[0], lv[4].nbr,
-              lv[4].valid, 256, 256)
+    for li, c in ((1, 96), (2, 64), (3, 128), (4, 256)):
+        conv_case(f"subm k3 {c}->{c} L{li}", lv[li].valid.shape[0],
+                  lv[li].nbr, lv[li].valid, c, c)
     conv_case("down 32->32 L0->L1", v0, lv[0].child, lv[1].valid, 32, 32)
     conv_case("down 128->128 L3->L4", lv[3].valid.shape[0], lv[3].child,
               lv[4].valid, 128, 128)
@@ -607,7 +611,8 @@ def check_kernels(cases):
     be equal) and a dict of further yardsticks {name: fn}, timed and
     printed beside it.  ``kernel_fn`` may be a pair (timed, compared): the
     wrapper call alone, and the same call with what turns its outputs into
-    one tensor to compare."""
+    one tensor to compare.  K1's outputs must also be bit-equal between
+    two calls (its sums have a fixed order)."""
     rows = {}
     for kernel, name, per in cases:
         for dt, (kfn, pfn, lfn, ops, byts, peak, *opt) in per.items():
@@ -615,6 +620,8 @@ def check_kernels(cases):
             extra = next((o for o in opt if isinstance(o, dict)), {})
             kfn, cfn = kfn if isinstance(kfn, tuple) else (kfn, kfn)
             got, want = cfn(), pfn()
+            if kernel == "gather_gemm_conv" and not torch.equal(got, cfn()):
+                raise SystemExit(f"{kernel} [{name}] {dt}: two calls differ")
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
             if rel:
@@ -933,39 +940,45 @@ def counters():
             "block_dilate": (BD.occupancy_dilation,),
             "block_wgrad": (BD.block_wgrad,),
             "stem_slot_sum": (SC.stem_slot_sum,),
-            # the weight gradients' lists, built once per table (K4) or
-            # level (K11) and step; they launch in K4's and K10's libraries
+            # the pair lists (K1 and K4) and row lists (K11), built once per
+            # table or level and forward or step; they launch in K4's and
+            # K10's libraries
             "gather_pairs": (SC.gather_pairs,),
             "block_rows": (BD.occupied_rows,)}
 
 
-# K4's pair lists in a gather-layout step: the stem's table, each level's
-# k3 table and each child table, shared by the down and the up conv
+# the pair lists of K1 and K4 in a gather-layout forward or step: the
+# stem's table, each level's k3 table and each child table (one list for
+# K1's down conv and up conv dX and K4's dW of both)
 GATHER_PAIR_LISTS = 10
 
 
-def wgrad_step_ms(run):
-    """Device ms of K4 (its tiles and split sums; its pair lists apart) and
-    of K11 (the same; its row lists are K10's row-list kernels and are not
-    told apart from K10's own), and of all device work, in one call of
-    ``run`` (one training step), by ``torch.profiler``."""
+def step_kernel_ms(run):
+    """Device ms of K1 (its products and sums; the pair lists it shares with
+    K4 apart), K4 (its tiles and split sums; its pair lists apart) and K11
+    (the same; its row lists are K10's row-list kernels and are not told
+    apart from K10's own), and of all device work, in one call of ``run``
+    (one training step), by ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    return wgrad_ms(prof.events())
+    return kernel_ms(prof.events())
 
 
-def wgrad_ms(events):
-    """{K4, K4 pair lists, K11, device}: summed device ms of ``events``."""
-    ms = dict.fromkeys(("K4", "K4 pair lists", "K11", "device"), 0.0)
+def kernel_ms(events):
+    """{K1, K4, K4 pair lists, K11, device}: summed device ms of
+    ``events``."""
+    ms = dict.fromkeys(("K1", "K4", "K4 pair lists", "K11", "device"), 0.0)
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         n, t = e.name, e.time_range.elapsed_us() / 1e3
         ms["device"] += t
-        if "gather_wgrad_kernel" in n or ("sum_splits" in n and
+        if "conv_products_kernel" in n or "conv_pair_sum_kernel" in n:
+            ms["K1"] += t
+        elif "gather_wgrad_kernel" in n or ("sum_splits" in n and
                                           "ListPairs" in n):
             ms["K4"] += t
         elif "count_pairs_kernel" in n or "list_pairs_kernel" in n:
@@ -1321,11 +1334,11 @@ def run_training(model, records, spec, layout="gather", accum=True):
         steps.append(dict(plan=t_plan, **clock.seconds))
     # a fresh plan, so that the step builds its pair and row lists
     b, _ = plan(records[0])
-    ms = wgrad_step_ms(lambda: step1([b], generator=gen))
-    print(f"weight gradients in one batch-1 {layout} step (torch.profiler, "
-          f"device ms): K4 {ms['K4']:.4f} (+ pair lists "
-          f"{ms['K4 pair lists']:.4f}), K11 {ms['K11']:.4f}, of "
-          f"{ms['device']:.4f} ms of device work", flush=True)
+    ms = step_kernel_ms(lambda: step1([b], generator=gen))
+    print(f"K1 and the weight gradients in one batch-1 {layout} step "
+          f"(torch.profiler, device ms): K1 {ms['K1']:.4f}, K4 {ms['K4']:.4f} "
+          f"(+ pair lists {ms['K4 pair lists']:.4f}), K11 {ms['K11']:.4f}, "
+          f"of {ms['device']:.4f} ms of device work", flush=True)
     if not accum:
         return (launches, steps, None, None,
                 torch.cuda.max_memory_allocated(), metrics)
@@ -1694,7 +1707,8 @@ def run_dense_training(model, records, spec):
                 "segment_grad": 1, "block_rows": 5, "gather_pairs": 4}
     print(f"launches in one block-dense train step: {launches} (expected "
           f"{expected}: K10 47 forward + 46 dX, one k3 dilation and one "
-          f"K11 row list per level, one K4 pair list per child table)",
+          f"K11 row list per level, one pair list, K1's and K4's, per child "
+          f"table)",
           flush=True)
     for k, n in expected.items():
         if launches[k] != n:
@@ -1777,12 +1791,18 @@ def main() -> int:
     launches, times, peak, batch, bb, out, res, metrics = run_main_path(
         model, test_cfg, records, spec)
     print(f"launches in one forward: {launches} (expected gather_gemm_conv "
-          f"51, up_conv 4, segment_mean_gather 2)", flush=True)
+          f"51, up_conv 4, segment_mean_gather 2, gather_pairs "
+          f"{GATHER_PAIR_LISTS}: K1's pair lists, one per index table)",
+          flush=True)
     expected = {"gather_gemm_conv": 51, "up_conv": 4,
                 "segment_mean_gather": 2}
     for k, n in expected.items():
         if launches[k] < n or (k == "up_conv" and launches[k] != n):
             raise SystemExit(f"{k}: {launches[k]} launches, expected {n}")
+    if launches["gather_pairs"] != GATHER_PAIR_LISTS:
+        raise SystemExit(f"gather_pairs: {launches['gather_pairs']} pair "
+                         f"lists in one forward, expected "
+                         f"{GATHER_PAIR_LISTS}")
     stages = {k: 1e3 * float(np.mean([t[k] for t in times]))
               for k in times[0]}
     total = [sum(t.values()) for t in times]

@@ -29,7 +29,7 @@ KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
            "gather_wgrad", "segment_grad", "coord_hash", "neighbor_table",
            "voxel_compact", "slot_gather", "block_conv", "block_wgrad",
            "stem_slot_sum")
-_HEADERS = {"gather_gemm_conv": ("conv_tile.cuh",),
+_HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh"),
             "up_conv": ("conv_tile.cuh",),
             "segment_mean_gather": (), "gather_wgrad": ("wgrad_tile.cuh",),
             "segment_grad": (),
@@ -39,7 +39,9 @@ _HEADERS = {"gather_gemm_conv": ("conv_tile.cuh",),
             "block_wgrad": ("block_tile.cuh", "wgrad_tile.cuh"),
             "stem_slot_sum": ()}
 # a library's C functions, where they are not the one named after it
-_ENTRY_POINTS = {"coord_hash": ("coord_hash_insert", "coord_hash_lookup"),
+_ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
+                                      "gather_conv_pair_stride"),
+                 "coord_hash": ("coord_hash_insert", "coord_hash_lookup"),
                  "gather_wgrad": ("gather_wgrad", "gather_pairs"),
                  "block_conv": ("block_conv", "block_rows", "block_dilate")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -50,8 +52,12 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, nbr, w, valid, out, v, cin, cout, n_off, dtype, stream
-    "gather_gemm_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, nbr, w, valid, pairs, pos, partial, out, v, cin, cout, n_off,
+    # dtype, stream
+    "gather_gemm_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _P],
+    # cout
+    "gather_conv_pair_stride": [_I],
     # x, parent, kpos, order, w, valid, out, v, cin, cout, dtype, stream
     "up_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # offsets, members, chunk_offsets, max_chunks, chunk, g, gidx, d,

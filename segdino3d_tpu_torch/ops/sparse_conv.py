@@ -8,7 +8,8 @@ hand-written CUDA kernels:
   ``out[i] = sum_o x[nbr[o, i]] @ W[o]`` for any offset count.  It runs the
   submanifold convs (27 offsets), the k5 stem (125 offsets) and the stride-2
   down convs, whose (8, V_coarse) child table ``child[kpos, parent] = fine``
-  (``ops.host_plan``) turns the TPU version's scatter into a gather;
+  (``ops.host_plan``) turns the TPU version's scatter into a gather.  It
+  multiplies each offset's live pairs only, from K4's pair list below;
 * ``up_conv_rows`` (K2, ``csrc/up_conv.cu``):
   ``fine[i] = x[parent[i]] @ W[kpos[i]]``;
 * ``gather_wgrad`` (K4, ``csrc/gather_wgrad.cu``): the weight gradients,
@@ -101,11 +102,16 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
 
     feats (V_in, Cin); nbr (n_off, V) int32, -1 = absent; weights
     (n_off, Cin, Cout) in feats' dtype; valid (V,) bool.  Returns (V, Cout)
-    in feats' dtype, summed in fp32."""
+    in feats' dtype, summed in fp32.  On the card the kernel multiplies
+    each offset's live pairs (``cached_pairs``, the weight gradient's
+    list) into an (n_off * V, Cout rounded up to its column tile) fp32
+    scratch, then adds each row's products in ascending offset order."""
     n_off, cin, cout = weights.shape
-    if nbr.shape[0] != n_off or feats.shape[1] != cin:
+    if nbr.shape[0] != n_off or feats.shape[1] != cin \
+            or tuple(valid.shape) != (nbr.shape[1],):
         raise ValueError(f"gather_conv: nbr {tuple(nbr.shape)}, feats "
-                         f"{tuple(feats.shape)}, weights {tuple(weights.shape)}")
+                         f"{tuple(feats.shape)}, weights {tuple(weights.shape)}"
+                         f", valid {tuple(valid.shape)}")
     if feats.device.type == "cpu":
         return gather_conv_plain(feats, nbr, weights, valid)
     _require_cuda("gather_conv", feats, nbr, weights, valid)
@@ -113,12 +119,19 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
             or valid.dtype != torch.bool:
         raise TypeError("gather_conv: weights must match feats' dtype, nbr "
                         "must be int32 and valid bool")
-    v = nbr.shape[1]
-    out = torch.empty(v, cout, dtype=feats.dtype, device=feats.device)
+    v, dev = nbr.shape[1], feats.device
+    out = torch.empty(v, cout, dtype=feats.dtype, device=dev)
+    if out.numel() == 0:
+        return out
     lib = cuda_build.library("gather_gemm_conv")
+    pairs = cached_pairs(None, nbr)
+    pos = torch.empty(n_off, v, dtype=torch.int32, device=dev)
+    partial = torch.empty(n_off * v, lib.gather_conv_pair_stride(cout),
+                          dtype=torch.float32, device=dev)
     cuda_build.check(lib.gather_gemm_conv(
         feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
-        valid.data_ptr(), out.data_ptr(), v, cin, cout, n_off,
+        valid.data_ptr(), pairs.ws.data_ptr(), pos.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), v, cin, cout, n_off,
         cuda_build.dtype_code(feats.dtype), cuda_build.stream_ptr(feats)),
         "gather_gemm_conv")
     gather_conv.launches += 1

@@ -7,8 +7,9 @@ Runs ``chip_smoke.py``'s main path (flagship SegDINO3D, seeded random
 weights, the seeded 120,000-point synthetic scene, fp32, batch 1): one
 warm-up iteration, then one iteration of backbone + decoder +
 post-processing under ``torch.profiler``.  Prints the device time summed by
-kernel name (top 25), the device busy time against the wall time of the
-profiled window (the device's idle share), and the kernel launch count.
+kernel name (top 25), K1's device time (``chip_smoke.kernel_ms``), the
+device busy time against the wall time of the profiled window (the
+device's idle share), and the kernel launch count.
 The host plan and the AP protocol stay outside the window: they run no
 device work.  With ``--device-plan`` the batch carries no host plan and
 the backbone builds it on the card inside the window (kernels K6-K8), at
@@ -93,6 +94,7 @@ def main() -> int:
         check=True).stdout.strip())
     print(f"layout: {'device plan' if args.device_plan else args.layout}")
     print(table)
+    print(f"K1 {C.kernel_ms(events)['K1']:.2f} ms of device time")
     print(f"profiled window: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle share "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%, {len(events)} device "

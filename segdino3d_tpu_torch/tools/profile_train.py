@@ -7,10 +7,10 @@ Runs ``chip_smoke.py``'s training path (flagship SegDINO3D and criterion,
 seeded random weights, the seeded 120,000-point synthetic scene, fp32,
 batch 1, AdamW + clip + EMA): one warm-up step, then one step of forward +
 criterion + backward + optimizer under ``torch.profiler``.  Prints the
-device time summed by kernel name (top 30), the weight gradients' device
-time (K4, its pair lists apart, and K11; ``chip_smoke.wgrad_ms``), the
-device busy time against
-the wall time of the profiled window (the device's idle share), and the
+device time summed by kernel name (top 30), the device time of K1 and of
+the weight gradients (K4, its pair lists apart, and K11;
+``chip_smoke.kernel_ms``), the device busy time against the wall time of
+the profiled window (the device's idle share), and the
 kernel launch count.  The host plan stays outside the window: it runs no
 device work.  ``--layout`` picks its conv layout (``chip_smoke.plan_layout``):
 the gather layout (default) or the flagship config's training layout
@@ -83,9 +83,10 @@ def main() -> int:
         check=True).stdout.strip())
     print(f"layout: {args.layout}")
     print(avgs.table(sort_by="self_device_time_total", row_limit=30))
-    wg = C.wgrad_ms(events)
-    print(f"weight gradients: K4 {wg['K4']:.2f} ms (+ pair lists "
-          f"{wg['K4 pair lists']:.2f}), K11 {wg['K11']:.2f} ms of device time")
+    km = C.kernel_ms(events)
+    print(f"K1 {km['K1']:.2f} ms; weight gradients: K4 {km['K4']:.2f} ms (+ "
+          f"pair lists {km['K4 pair lists']:.2f}), K11 {km['K11']:.2f} ms of "
+          f"device time")
     print(f"profiled window: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle share "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%, {len(events)} device "

@@ -709,3 +709,106 @@ def test_block_wgrad_row_list_matches_plain(card, case, dtype):
     scale = float(want.abs().max())
     tol = 1e-4 if dtype == "float32" else 1e-2
     torch.testing.assert_close(got, want, rtol=0, atol=tol * scale)
+
+
+def _conv_case(rng, case):
+    """(nbr (n_off, V), valid (V,), input rows, Cin, Cout) of a K1 case on
+    random tables: rows with holes in ``valid``, a few live entries per
+    row unless the case says otherwise."""
+    n_off, v, src_rows, cin, cout, share = 27, 700, 700, 40, 72, 0.4
+    if case == "stem_all_live":
+        n_off, cin, cout, share = 125, 259, 32, 1.0
+    elif case == "small_level":
+        v = src_rows = 290
+        cin, cout = 256, 256
+    elif case == "wide_bn64":
+        v = src_rows = 40000
+        cin, cout = 128, 128
+    elif case == "wide_bn96":
+        v = src_rows = 40000
+        cin = cout = 96
+    elif case == "empty_table":
+        v = 0
+    elif case == "all_live":
+        share = 1.0
+    live = rng.rand(n_off, v) < share
+    nbr = np.where(live, rng.randint(0, src_rows, (n_off, v)), -1)
+    valid = rng.rand(v) < 0.9
+    if case == "one_live_row":
+        nbr[:] = -1
+        nbr[[3, 13, 20], 70] = [5, 70, 600]
+        valid[:] = True
+    elif case == "dead_offset":
+        nbr[[0, 13]] = -1
+    elif case == "no_valid_row":
+        valid[:] = False
+    return (nbr.astype(np.int32), valid, src_rows, cin, cout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_live_row", "dead_offset", "all_live",
+                                  "stem_all_live", "empty_table",
+                                  "no_valid_row", "small_level",
+                                  "wide_bn64", "wide_bn96"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_conv_tiles_match_plain(card, case, dtype):
+    """K1 on tables that reach each part of its schedule: offsets with one
+    live pair, offsets with none, every pair live (64-pair items whose
+    source rows repeat; the stem's 259 -> 32, Cin breaking 16-byte
+    copies), an empty table, a mask with no row (pairs computed, rows
+    zero), a 290-row level 256 -> 256 (a few hundred items, four column
+    tiles each), and levels of 40,000 rows (64- and 96-column tiles).
+    Equal to the plain version at the tolerance, zero outside the mask,
+    and two calls bit-equal."""
+    dt = getattr(torch, dtype)
+    nbr, valid, src_rows, cin, cout = _conv_case(np.random.RandomState(21),
+                                                 case)
+    nbr = torch.from_numpy(nbr).to(card)
+    valid = torch.from_numpy(valid).to(card)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = torch.randn(src_rows, cin, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(nbr.shape[0], cin, cout, generator=gen, device="cuda")
+         * (nbr.shape[0] * cin) ** -0.5).to(dt)
+    got = TSC.gather_conv(x, nbr, w, valid)
+    again = TSC.gather_conv(x, nbr, w, valid)
+    want = TSC.gather_conv_plain(x, nbr, w, valid)
+    torch.cuda.synchronize()
+    assert got.shape == (nbr.shape[1], cout)
+    assert torch.equal(got, again)
+    assert not got[~valid].float().any()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["stem", "k3", "k3_dx", "down", "up_dx"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_conv_roles_match_plain(levels, role, dtype):
+    """K1 in every role of the main path on a small plan's tables: the k5
+    stem 259 -> 32, a k3 conv and its dX (flipped, transposed weights), a
+    down conv over the child table and an up conv's dX over it (every
+    coarse row valid).  Equal to the plain version, and two calls
+    bit-equal."""
+    dt = getattr(torch, dtype)
+    lv = levels.levels
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    every = torch.ones(CAPS[1], dtype=torch.bool, device="cuda")
+    nbr, valid, rows, cin, cout = {
+        "stem": (levels.stem_nbr, lv[0].valid, CAPS[0], 259, 32),
+        "k3": (lv[2].nbr, lv[2].valid, CAPS[2], 64, 128),
+        "k3_dx": (lv[2].nbr, lv[2].valid, CAPS[2], 128, 64),
+        "down": (lv[0].child, lv[1].valid, CAPS[0], 32, 64),
+        "up_dx": (lv[0].child, every, CAPS[0], 96, 96),
+    }[role]
+    x = torch.randn(rows, cin, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(nbr.shape[0], cin, cout, generator=gen, device="cuda")
+         * (nbr.shape[0] * cin) ** -0.5).to(dt)
+    if role == "k3_dx":   # the forward's (27, 64, 128) weights, mirrored
+        w = w.reshape(-1, cout, cin).flip(0).transpose(1, 2).contiguous()
+    got = TSC.gather_conv(x, nbr, w, valid)
+    again = TSC.gather_conv(x, nbr, w, valid)
+    want = TSC.gather_conv_plain(x, nbr, w, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
