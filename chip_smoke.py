@@ -10,13 +10,18 @@ Phases, in order; any failure exits non-zero before the result line:
    the C++ host-plan library;
 2. hold every kernel against its plain PyTorch version at the main path's
    shapes, and time the kernel, the plain version and a PyTorch yardstick
-   with CUDA events: the forward kernels K1-K3 in fp32 and bf16 (K1 at
-   the k5 stem, a k3 conv of every level and two down convs, two calls
-   bit-equal); the
+   with CUDA events: the forward kernels K1-K3 in fp32 and bf16, two calls
+   of each bit-equal (K1 at the k5 stem, a k3 conv of every level and two
+   down convs; K2 at the four up convs; K3 as the voxel mean from its two
+   column sources, with fp32 and with fp16 2D features, and as the
+   superpoint pool, each CSR build timed beside it; the CSR's own two
+   kernels, equal to their plain version); the
    backward kernels K4 (weight gradients) and K5 (pooling gradient), and
    K1/K2 in their backward roles, in fp32 at the training shapes; the plan
    engine's kernels K6 (coordinate hash), K8 (voxel compaction) and K7
-   (neighbour tables), whose integer outputs must be equal; the block-dense
+   (neighbour tables), whose integer outputs must be equal (with the
+   profiled device time of a call beside its host-bound CUDA-event time,
+   as for the dilation below); the block-dense
    layout's kernels on the flagship config's block tables: K9 (slot
    gather, both ways, equal), K10 (block conv at the occupied rows: k3
    96->96 at level 0, k3 384->256 at level 3, the dense k5 stem 259->32,
@@ -40,8 +45,10 @@ Phases, in order; any failure exits non-zero before the result line:
    superpoints: collate -> host plan -> backbone -> decoder ->
    predict_instance -> AP evaluator.  It prints scenes/s, ms per stage,
    each kernel's launches in one forward (K1's pair lists: one per index
-   table), and peak memory, checks that
-   every output is finite, and holds the card's forward against the CPU's
+   table), peak memory, and K1's, K2's and K3's device time in one more,
+   profiled forward; checks that the forward builds no (N, 259)
+   concatenation of the point features, that every output is finite, and
+   holds the card's forward against the CPU's
    plain path on a small scene, on a host plan and on a device plan;
 3b. run the same eval path on a plan built on the card (the batch carries
    no host plan; K6-K8 in the backbone), at the host plan's capacities:
@@ -305,40 +312,88 @@ def kernel_cases(batch, s_cap, gen):
         for dt in (torch.float32, torch.bfloat16):
             x = _randn(gen, (coarse.valid.shape[0], cin), dt)
             w = _randn(gen, (8, cin, cout), dt, cin ** -0.5)
-            args = (fine.parent, fine.kpos, fine.up_order)
-            per[dt] = (lambda x=x, w=w: SC.up_conv_rows(x, *args, w,
-                                                        fine.valid),
+            per[dt] = (lambda x=x, w=w: SC.up_conv_rows(
+                           x, fine.child, fine.parent, fine.kpos, w,
+                           fine.valid),
                        lambda x=x, w=w: SC.up_conv_plain(
                            x, fine.parent, fine.kpos, w, fine.valid),
                        lambda x=x, w=w: up_library(x, fine.parent, fine.kpos,
                                                    w),
                        2.0 * live * cin * cout,
-                       nbytes(x, *args, w, fine.valid)
+                       nbytes(x, fine.parent, fine.kpos, w, fine.valid)
                        + fine.valid.shape[0] * cout * x.element_size(),
                        CONV_PEAK[dt])
         cases.append(("up_conv", name, per))
 
+    # the decoder's four up convs, the forward's order reversed
     up_case("up 96->96 L1->L0", lv[1], lv[0], 96, 96)
+    up_case("up 128->96 L2->L1", lv[2], lv[1], 128, 96)
+    up_case("up 256->128 L3->L2", lv[3], lv[2], 256, 128)
     up_case("up 256->256 L4->L3", lv[4], lv[3], 256, 256)
 
+    # K3 as the forward calls it: the voxel mean from two column sources
+    # (the points' colour columns and the 2D features, each read in place
+    # and rounded to the compute dtype), over the forward's voxel CSR
     inverse = plan.inverse
     pvalid = inverse >= 0
     seg_vox = torch.where(inverse >= 0, inverse, v0).contiguous()
+    vox_csr = SS.segment_csr(seg_vox, v0, pvalid)
     n_members = int(pvalid.sum())
-    per = {}
-    for dt in (torch.float32, torch.bfloat16):
-        d = _randn(gen, (n_points, 259), dt)
-        per[dt] = (lambda d=d: SS.segment_mean_gather(seg_vox, v0, pvalid,
-                                                      d=d),
-                   lambda d=d: SS.segment_mean_gather_plain(seg_vox, v0,
-                                                            pvalid, d=d),
-                   lambda d=d: segment_library(seg_vox, v0, pvalid, d.float()),
-                   float(n_members * 259),
-                   nbytes(seg_vox, pvalid, d) + v0 * 259 * 4, "fp32")
-    cases.append(("segment_mean_gather", "voxel mean (N,259)->V0", per))
+    pts = _randn(gen, (n_points, 6), torch.float32)
+    for fdt in (torch.float32, torch.float16):
+        f2d = _randn(gen, (n_points, 256), fdt)
+        srcs = [pts[:, 3:], f2d]
+        per = {}
+        for dt in (torch.float32, torch.bfloat16):
+            per[dt] = (lambda dt=dt, srcs=srcs: SS.segment_mean_gather(
+                           seg_vox, v0, pvalid, d=srcs, csr=vox_csr,
+                           round_to=dt),
+                       lambda dt=dt, srcs=srcs: SS.segment_mean_gather_plain(
+                           seg_vox, v0, pvalid, d=srcs, round_to=dt),
+                       lambda dt=dt, f2d=f2d: segment_library(
+                           seg_vox, v0, pvalid, torch.cat(
+                               [pts[:, 3:], f2d.float()], 1).to(dt).float()),
+                       float(n_members * 259),
+                       nbytes(seg_vox, pvalid, f2d) + n_points * 3 * 4
+                       + v0 * 259 * 4, "fp32",
+                       {"CSR build (segment_csr)": lambda: SS.segment_csr(
+                           seg_vox, v0, pvalid),
+                        "as the forward calls it (CSR, K3, cast)":
+                        lambda dt=dt, srcs=srcs: SS.segment_mean_columns(
+                            srcs, seg_vox, v0, dt, pvalid,
+                            SS.segment_csr(seg_vox, v0, pvalid))})
+        fname = str(fdt).replace("torch.", "")
+        cases.append(("segment_mean_gather", f"voxel mean, rgb (N,6)[:,3:6] "
+                      f"+ 2D (N,256) {fname} -> V0", per))
 
+    # the CSR both run on: its two kernels around torch.sort, equal to the
+    # plain version; library: the int64 sort and searchsorted it replaced
+    def flat_csr(c):
+        return torch.cat([c.offsets, c.members, c.sorted_ids.long(),
+                          c.counters.long()])
+
+    def sort_library(seg, num_segments, valid):
+        keep = valid & (seg >= 0) & (seg < num_segments)
+        ids = torch.sort(torch.where(keep, seg.long(), num_segments),
+                         stable=True)
+        return torch.searchsorted(ids.values, torch.arange(
+            num_segments + 1, device=seg.device)), ids.indices
+
+    cases.append(("segment_csr", f"CSR of the voxels, {n_points} ids -> "
+                  f"{v0} segments", {torch.float32: (
+                      (lambda: SS.segment_csr(seg_vox, v0, pvalid),
+                       lambda: flat_csr(SS.segment_csr(seg_vox, v0, pvalid))),
+                      lambda: flat_csr(SS.segment_csr_plain(seg_vox, v0,
+                                                            pvalid)),
+                      lambda: sort_library(seg_vox, v0, pvalid),
+                      0.0, nbytes(seg_vox, pvalid) + n_points * 12
+                      + (v0 + 1) * 8 + v0 * 4, "fp32", 0.0)}))
+
+    # the fused devoxelize + superpoint pool: the (V0, 96) U-Net output
+    # gathered through the inverse map, and the two (N, 3) centroid sets
     seg_sp = superpoint_segment_ids(batch.superpoint_ids, s_cap)
-    q = _randn(gen, (n_points, 6), torch.float32)
+    sp_csr = SS.segment_csr(seg_sp, s_cap, pvalid)
+    q = [_randn(gen, (n_points, 3), torch.float32) for _ in range(2)]
     per = {}
     for dt in (torch.float32, torch.bfloat16):
         g = _randn(gen, (v0, 96), dt)
@@ -346,18 +401,21 @@ def kernel_cases(batch, s_cap, gen):
         def lib(g=g):
             gp = torch.cat([g.float(), g.new_zeros(1, 96).float()])
             rows = torch.cat([gp[torch.where(inverse < 0, v0, inverse).long()],
-                              q], 1)
+                              *q], 1)
             return segment_library(seg_sp, s_cap, pvalid, rows)
 
         per[dt] = (lambda g=g: SS.segment_mean_gather(
-                       seg_sp, s_cap, pvalid, g=g, gather_idx=inverse, d=q),
+                       seg_sp, s_cap, pvalid, g=g, gather_idx=inverse, d=q,
+                       csr=sp_csr),
                    lambda g=g: SS.segment_mean_gather_plain(
                        seg_sp, s_cap, pvalid, g=g, gather_idx=inverse, d=q),
                    lib, float(n_members * 102),
-                   nbytes(seg_sp, pvalid, g, inverse, q) + s_cap * 102 * 4,
-                   "fp32")
+                   nbytes(seg_sp, pvalid, g, inverse, *q) + s_cap * 102 * 4,
+                   "fp32",
+                   {"CSR build (segment_csr)": lambda: SS.segment_csr(
+                       seg_sp, s_cap, pvalid)})
     cases.append(("segment_mean_gather",
-                  "superpoint pool (V0,96)+(N,6)->1536", per))
+                  "superpoint pool (V0,96)+2x(N,3)->1536", per))
     return cases
 
 
@@ -455,12 +513,12 @@ def backward_cases(batch, s_cap, gen):
     fine = lv[0]
     live = int((fine.valid & (fine.parent >= 0)).sum())
     cases.append(("up_conv", "down dX 32->32 L1->L0 (transposed W)", {f32: (
-        lambda: SC.up_conv_rows(dy, fine.parent, fine.kpos, fine.up_order,
-                                wt, fine.valid),
+        lambda: SC.up_conv_rows(dy, fine.child, fine.parent, fine.kpos, wt,
+                                fine.valid),
         lambda: SC.up_conv_plain(dy, fine.parent, fine.kpos, wt, fine.valid),
         lambda: up_library(dy, fine.parent, fine.kpos, wt),
         2.0 * live * 32 * 32,
-        nbytes(dy, fine.parent, fine.kpos, fine.up_order, wt, fine.valid)
+        nbytes(dy, fine.parent, fine.kpos, wt, fine.valid)
         + v0 * 32 * 4, "fp32")}))
 
     # K5: the pooling's gradient into the U-Net output
@@ -602,17 +660,25 @@ def plan_engine_cases(batch, level_caps):
     return cases
 
 
+# kernels whose sums have one fixed order: two calls must be bit-equal
+BIT_EQUAL = ("gather_gemm_conv", "up_conv", "segment_mean_gather")
+# kernels whose CUDA-event time is mostly the wrapper's host dispatch:
+# their profiled device time is printed beside it
+HOST_BOUND = ("coord_hash", "neighbor_table", "voxel_compact",
+              "block_dilate", "segment_csr")
+
+
 def check_kernels(cases):
     """Compare, then time; returns per-kernel rows (headline = first case
     of each kernel, fp32) and the max error over each kernel's cases.  A
     case's ``per`` maps a dtype to (kernel_fn, plain_fn, library_fn, ops,
     bytes, peak) and optionally a tolerance relative to ``max |plain|``
     (a float: for long fp32 reductions; 0 for integer outputs, which must
-    be equal) and a dict of further yardsticks {name: fn}, timed and
-    printed beside it.  ``kernel_fn`` may be a pair (timed, compared): the
+    be equal) and a dict of further yardsticks {name: fn}, timed (CUDA
+    events and profiled device time) and printed beside it.  ``kernel_fn`` may be a pair (timed, compared): the
     wrapper call alone, and the same call with what turns its outputs into
-    one tensor to compare.  K1's outputs must also be bit-equal between
-    two calls (its sums have a fixed order)."""
+    one tensor to compare.  The outputs of K1, K2 and K3 must also be
+    bit-equal between two calls (their sums have a fixed order)."""
     rows = {}
     for kernel, name, per in cases:
         for dt, (kfn, pfn, lfn, ops, byts, peak, *opt) in per.items():
@@ -620,7 +686,7 @@ def check_kernels(cases):
             extra = next((o for o in opt if isinstance(o, dict)), {})
             kfn, cfn = kfn if isinstance(kfn, tuple) else (kfn, kfn)
             got, want = cfn(), pfn()
-            if kernel == "gather_gemm_conv" and not torch.equal(got, cfn()):
+            if kernel in BIT_EQUAL and not torch.equal(got, cfn()):
                 raise SystemExit(f"{kernel} [{name}] {dt}: two calls differ")
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
@@ -636,8 +702,13 @@ def check_kernels(cases):
                 tol_text = f"rtol=atol={tol:g}"
             del got, want
             k_ms, p_ms, l_ms = time_ms(kfn), time_ms(pfn, 3), time_ms(lfn)
-            extra_text = "".join(f", {k} {time_ms(fn, 3):.4f} ms"
-                                 for k, fn in extra.items())
+            extra_text = "".join(
+                f", {k} {time_ms(fn, 3):.4f} ms (profiled device time "
+                f"{device_ops(fn)[1] / 1e3:.4f} ms)" for k, fn in extra.items())
+            if kernel in HOST_BOUND:
+                launched, us = device_ops(kfn)
+                extra_text += (f", profiled device time {us / 1e3:.4f} ms "
+                               f"in {len(launched)} launches")
             b_ms, b_by = bound(ops, byts, peak)
             dts = str(dt).replace("torch.", "")
             print(f"kernel {kernel} [{name}] {dts}: max_abs_err={err:.3e} "
@@ -930,6 +1001,9 @@ def counters():
     return {"gather_gemm_conv": (SC.gather_conv,),
             "up_conv": (SC.up_conv_rows,),
             "segment_mean_gather": (SS.segment_mean_gather,),
+            # the CSR of K3's segments (two launches around torch.sort),
+            # one per segment set and forward
+            "segment_csr": (SS.segment_csr,),
             "gather_wgrad": (SC.gather_wgrad,),
             "segment_grad": (SS.segment_grad,),
             "coord_hash": (TQ.build_hash, TQ.lookup_hash),
@@ -968,9 +1042,10 @@ def step_kernel_ms(run):
 
 
 def kernel_ms(events):
-    """{K1, K4, K4 pair lists, K11, device}: summed device ms of
+    """{K1, K2, K3, K4, K4 pair lists, K11, device}: summed device ms of
     ``events``."""
-    ms = dict.fromkeys(("K1", "K4", "K4 pair lists", "K11", "device"), 0.0)
+    ms = dict.fromkeys(("K1", "K2", "K3", "K4", "K4 pair lists", "K11",
+                        "device"), 0.0)
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -978,6 +1053,10 @@ def kernel_ms(events):
         ms["device"] += t
         if "conv_products_kernel" in n or "conv_pair_sum_kernel" in n:
             ms["K1"] += t
+        elif "up_conv_kernel" in n:
+            ms["K2"] += t
+        elif "segment_mean_kernel" in n:
+            ms["K3"] += t
         elif "gather_wgrad_kernel" in n or ("sum_splits" in n and
                                           "ListPairs" in n):
             ms["K4"] += t
@@ -987,6 +1066,45 @@ def kernel_ms(events):
                                            "HaloPairs" in n):
             ms["K11"] += t
     return ms
+
+
+def concat_shapes(run):
+    """The output shapes of every ``aten::cat`` that ``run()`` dispatches
+    (the profiler records no shapes of a tensor list)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Cats(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket is torch.ops.aten.cat:
+                self.shapes.append(tuple(out.shape))
+            return out
+
+    with Cats() as mode:
+        run()
+    return mode.shapes
+
+
+def forward_device_ms(model, batch):
+    """({K1, K2, K3, device} ms of one eval forward, backbone and decoder,
+    by ``torch.profiler``; the (N, 259) concatenations of one more, the
+    early-fused point features the forward no longer builds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def forward():
+        with torch.no_grad():
+            model.decode(batch, model.backbone(batch))
+        torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        forward()
+    n = batch.points.shape[0] * batch.points.shape[1]
+    return kernel_ms(prof.events()), [
+        sh for sh in concat_shapes(forward) if sh == (n, 259)]
 
 
 # the kernels of the gather layout's training step on device plans
@@ -1335,8 +1453,9 @@ def run_training(model, records, spec, layout="gather", accum=True):
     # a fresh plan, so that the step builds its pair and row lists
     b, _ = plan(records[0])
     ms = step_kernel_ms(lambda: step1([b], generator=gen))
-    print(f"K1 and the weight gradients in one batch-1 {layout} step "
-          f"(torch.profiler, device ms): K1 {ms['K1']:.4f}, K4 {ms['K4']:.4f} "
+    print(f"K1-K3 and the weight gradients in one batch-1 {layout} step "
+          f"(torch.profiler, device ms): K1 {ms['K1']:.4f}, K2 "
+          f"{ms['K2']:.4f}, K3 {ms['K3']:.4f}, K4 {ms['K4']:.4f} "
           f"(+ pair lists {ms['K4 pair lists']:.4f}), K11 {ms['K11']:.4f}, "
           f"of {ms['device']:.4f} ms of device work", flush=True)
     if not accum:
@@ -1791,11 +1910,11 @@ def main() -> int:
     launches, times, peak, batch, bb, out, res, metrics = run_main_path(
         model, test_cfg, records, spec)
     print(f"launches in one forward: {launches} (expected gather_gemm_conv "
-          f"51, up_conv 4, segment_mean_gather 2, gather_pairs "
+          f"51, up_conv 4, segment_mean_gather 2, segment_csr 2, gather_pairs "
           f"{GATHER_PAIR_LISTS}: K1's pair lists, one per index table)",
           flush=True)
     expected = {"gather_gemm_conv": 51, "up_conv": 4,
-                "segment_mean_gather": 2}
+                "segment_mean_gather": 2, "segment_csr": 2}
     for k, n in expected.items():
         if launches[k] < n or (k == "up_conv" and launches[k] != n):
             raise SystemExit(f"{k}: {launches[k]} launches, expected {n}")
@@ -1815,6 +1934,14 @@ def main() -> int:
           f"all_ap_50={metrics['all_ap_50']:.4f} "
           f"all_ap_25={metrics['all_ap_25']:.4f}", flush=True)
     check_outputs(bb, out, res, SCENE["n_superpoints"])
+    fwd_ms, cats = forward_device_ms(model, batch)
+    print(f"one gather forward (torch.profiler, device ms): K1 "
+          f"{fwd_ms['K1']:.4f}, K2 {fwd_ms['K2']:.4f}, K3 {fwd_ms['K3']:.4f} "
+          f"of {fwd_ms['device']:.4f}; (N, 259) concatenations: {len(cats)}",
+          flush=True)
+    if cats:
+        raise SystemExit("the forward concatenated the (N, 259) point "
+                         "features on the card")
     check_small_reference(model)
 
     # phase 3b: the main path on device plans
@@ -1871,6 +1998,9 @@ def main() -> int:
         "segment_mean_gather": (
             "segdino3d_tpu_torch/csrc/segment_mean_gather.cu",
             "segdino3d_tpu/ops/scatter.py:27"),
+        # the segments' CSR (the JAX op scatters without one)
+        "segment_csr": ("segdino3d_tpu_torch/csrc/segment_mean_gather.cu",
+                        "segdino3d_tpu/ops/scatter.py:40"),
         "gather_wgrad": ("segdino3d_tpu_torch/csrc/gather_wgrad.cu",
                          "segdino3d_tpu/ops/sparse_conv.py:305"),
         "segment_grad": ("segdino3d_tpu_torch/csrc/segment_grad.cu",

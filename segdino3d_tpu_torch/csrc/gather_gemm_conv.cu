@@ -50,34 +50,12 @@ using gtt::BM;
 using gtt::Elt;
 using gtt::kThreads;
 
-// Column tiles: BN = Cout up to 96 (rounded up to 32, 64 or 96), else 64;
-// the pair-major rows hold Cout rounded up to them.
-__host__ __device__ __forceinline__ int pair_bn(int cout) {
-  return cout <= 32 ? 32 : cout <= 64 || cout > 96 ? 64 : 96;
-}
+using gtt::pair_bn;
+
+// The pair-major rows hold Cout rounded up to the column tile.
 __host__ __device__ __forceinline__ int pair_stride(int cout) {
   const int bn = pair_bn(cout);
   return (cout + bn - 1) / bn * bn;
-}
-
-// Pair j of offset o is pair first[o] + j of the table; its 64-pair
-// groups start at group[o].  first[] and group[] (n_off + 1 each) are
-// exclusive prefixes of the counts.
-__device__ __forceinline__ void pair_prefixes(const int32_t* __restrict__ counts, int n_off,
-                                              int* __restrict__ first, int* __restrict__ group) {
-  if (threadIdx.x == 0) {
-    int p = 0, g = 0;
-    for (int o = 0; o < n_off; ++o) {
-      first[o] = p;
-      group[o] = g;
-      const int c = counts[o];
-      p += c;
-      g += (c + BM - 1) / BM;
-    }
-    first[n_off] = p;
-    group[n_off] = g;
-  }
-  __syncthreads();
 }
 
 template <typename T, int BN>
@@ -96,12 +74,12 @@ conv_products_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
   __shared__ int s_item;
 
   const int tid = threadIdx.x;
-  pair_prefixes(counts, n_off, s_first, s_group);
+  gtt::pair_prefixes(counts, n_off, s_first, s_group);
   const int n_col = (cout + BN - 1) / BN, ld = n_col * BN;
-  const int n_items = s_group[n_off] * n_col;
   const bool vec_a = cin % Elt<T>::kVec == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const bool vec_b = cout % Elt<T>::kVec == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
   gtt::Part<T, BN> part;
+  const int n_items = s_group[n_off] * n_col;
 
   for (;;) {
     if (tid == 0) s_item = atomicAdd(ticket, 1);
@@ -112,16 +90,8 @@ conv_products_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
       if (tid == 0 && item == n_items + (int)gridDim.x - 1) *ticket = 0;
       break;
     }
-    // item = (64-pair group, column tile); the group's offset o has
-    // group[o] <= grp < group[o + 1]
-    const int grp = item / n_col, ct = item % n_col;
-    int lo = 0, hi = n_off;
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) / 2;
-      if (s_group[mid] <= grp) lo = mid; else hi = mid;
-    }
-    const int o = lo, j0 = (grp - s_group[o]) * BM;
-    const int live = min(BM, s_first[o + 1] - s_first[o] - j0);
+    const gtt::Item it = gtt::decode_item(item, s_first, s_group, n_off, n_col);
+    const int o = it.o, j0 = it.j0, live = it.live, ct = it.ct;
     if (tid < live) {
       const int r = list[(int64_t)o * v + j0 + tid];
       if (ct == 0) pos[(int64_t)o * v + r] = s_first[o] + j0 + tid;
@@ -131,27 +101,6 @@ conv_products_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
     gtt::products<T, BN>(part, stage, x, w, s_src, live, o, ct * BN, cin, cout, vec_a, vec_b);
     part.store(partial + (int64_t)(s_first[o] + j0) * ld + ct * BN, ld, live);
   }
-}
-
-// out[c .. c + 3] = q, columns past Cout dropped
-__device__ __forceinline__ void store4(float* __restrict__ o, int c, int cout,
-                                       const float4& q) {
-  if (cout % 4 == 0 && c + 3 < cout) {
-    *reinterpret_cast<float4*>(o + c) = q;
-    return;
-  }
-  const float e[4] = {q.x, q.y, q.z, q.w};
-  for (int j = 0; j < 4 && c + j < cout; ++j) o[c + j] = e[j];
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* __restrict__ o, int c, int cout,
-                                       const float4& q) {
-  if (cout % 4 == 0 && c + 3 < cout) {
-    *reinterpret_cast<__nv_bfloat162*>(o + c) = __floats2bfloat162_rn(q.x, q.y);
-    *reinterpret_cast<__nv_bfloat162*>(o + c + 2) = __floats2bfloat162_rn(q.z, q.w);
-    return;
-  }
-  const float e[4] = {q.x, q.y, q.z, q.w};
-  for (int j = 0; j < 4 && c + j < cout; ++j) o[c + j] = __float2bfloat16(e[j]);
 }
 
 // out[r][c .. c + 7] = sum over the offsets o ascending with nbr[o][r] >= 0
@@ -195,8 +144,8 @@ conv_pair_sum_kernel(const int32_t* __restrict__ nbr, const int32_t* __restrict_
     }
   }
   T* const row = out + r * cout;
-  if (c < cout) store4(row, c, cout, make_float4(acc[0], acc[1], acc[2], acc[3]));
-  if (c + 4 < cout) store4(row, c + 4, cout, make_float4(acc[4], acc[5], acc[6], acc[7]));
+  if (c < cout) gtt::store4(row, c, cout, make_float4(acc[0], acc[1], acc[2], acc[3]));
+  if (c + 4 < cout) gtt::store4(row, c + 4, cout, make_float4(acc[4], acc[5], acc[6], acc[7]));
 }
 
 template <typename T, int BN>

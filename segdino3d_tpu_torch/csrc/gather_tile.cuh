@@ -1,7 +1,12 @@
-// The tile core of K1 (gather_gemm_conv.cu): the products of one work
-// item, up to BM = 64 live pairs (row r, offset o) of one offset, each
-// x[nbr[o][r]] @ W[o][:, n0 .. n0 + BN), summed over Cin, held in
-// registers until the caller stores them.
+// The tile core of K1 (gather_gemm_conv.cu) and K2 (up_conv.cu): the
+// products of one work item, up to BM = 64 live pairs (row r, offset o) of
+// one offset, each x[src] @ W[o][:, n0 .. n0 + BN), summed over Cin, held
+// in registers until the caller stores them (K1 into its pair-major
+// buffer, K2 straight into the output rows).
+//
+// Work items: an offset's pairs (K4's per-offset list, gather_wgrad.cu)
+// in groups of 64, times the column tiles; persistent blocks take them by
+// an atomic ticket that the block taking the last ticket resets.
 //
 // An item's Cin runs in 32-channel slices through a two-buffer cp.async
 // pipeline: a stage copies its source rows (padded to a multiple of 16
@@ -35,6 +40,77 @@ struct Smem {
   static constexpr int kStage = BM * AST + BK * BST;             // elements
   static_assert(sizeof(T) * kStage % 16 == 0, "16-byte aligned stages");
 };
+
+// Column tiles: BN = Cout up to 96 (rounded up to 32, 64 or 96), else 64.
+__host__ __device__ __forceinline__ int pair_bn(int cout) {
+  return cout <= 32 ? 32 : cout <= 64 || cout > 96 ? 64 : 96;
+}
+
+// Pair j of offset o is pair first[o] + j of the table; its 64-pair
+// groups start at group[o].  first[] and group[] (n_off + 1 each, shared
+// memory) are exclusive prefixes of the counts.
+__device__ __forceinline__ void pair_prefixes(const int32_t* __restrict__ counts, int n_off,
+                                              int* __restrict__ first, int* __restrict__ group) {
+  if (threadIdx.x == 0) {
+    int p = 0, g = 0;
+    for (int o = 0; o < n_off; ++o) {
+      first[o] = p;
+      group[o] = g;
+      const int c = counts[o];
+      p += c;
+      g += (c + BM - 1) / BM;
+    }
+    first[n_off] = p;
+    group[n_off] = g;
+  }
+  __syncthreads();
+}
+
+// One work item: pairs j0 .. j0 + live - 1 of offset o, column tile ct.
+struct Item {
+  int o, j0, live, ct;
+};
+
+// Item `item` = (64-pair group, column tile); the group's offset o has
+// group[o] <= grp < group[o + 1].  (The ticket loop stays in each kernel:
+// taking items through a helper that held the shared slot by pointer
+// cost K1 12% at level 0, and with __restrict__ on it nvcc moved the
+// slot's read above the barrier.)
+__device__ __forceinline__ Item decode_item(int item, const int* first, const int* group,
+                                            int n_off, int n_col) {
+  const int grp = item / n_col;
+  int lo = 0, hi = n_off;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (group[mid] <= grp) lo = mid; else hi = mid;
+  }
+  Item it;
+  it.o = lo;
+  it.ct = item % n_col;
+  it.j0 = (grp - group[lo]) * BM;
+  it.live = min(BM, first[lo + 1] - first[lo] - it.j0);
+  return it;
+}
+
+// out[c .. c + 3] of one row = q, columns past Cout dropped
+__device__ __forceinline__ void store4(float* __restrict__ o, int c, int cout, const float4& q) {
+  if (cout % 4 == 0 && c + 3 < cout) {
+    *reinterpret_cast<float4*>(o + c) = q;
+    return;
+  }
+  const float e[4] = {q.x, q.y, q.z, q.w};
+  for (int j = 0; j < 4 && c + j < cout; ++j) o[c + j] = e[j];
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* __restrict__ o, int c, int cout,
+                                       const float4& q) {
+  if (cout % 4 == 0 && c + 3 < cout) {
+    *reinterpret_cast<__nv_bfloat162*>(o + c) = __floats2bfloat162_rn(q.x, q.y);
+    *reinterpret_cast<__nv_bfloat162*>(o + c + 2) = __floats2bfloat162_rn(q.z, q.w);
+    return;
+  }
+  const float e[4] = {q.x, q.y, q.z, q.w};
+  for (int j = 0; j < 4 && c + j < cout; ++j) o[c + j] = __float2bfloat16(e[j]);
+}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -152,6 +228,26 @@ template <int BN> struct Part<float, BN> {
             make_float4(v[i][4 * j4], v[i][4 * j4 + 1], v[i][4 * j4 + 2], v[i][4 * j4 + 3]);
     }
   }
+  // out[row[e]][n0 + col] = v for the entries e below `live` whose row is
+  // >= 0 (out is (rows, Cout); columns past Cout dropped)
+  __device__ __forceinline__ void store_rows(float* __restrict__ out, const int* __restrict__ row,
+                                             int live, int n0, int cout) const {
+    const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int e = ty + 16 * i;
+      const int r = e < live ? row[e] : -1;
+      if (r < 0) continue;
+      float* const o = out + (int64_t)r * cout + n0;
+#pragma unroll
+      for (int j4 = 0; j4 < TN / 4; ++j4) {
+        const int c = j4 * 32 + tx * 4;
+        if (n0 + c < cout)
+          store4(o, c, cout - n0,
+                 make_float4(v[i][4 * j4], v[i][4 * j4 + 1], v[i][4 * j4 + 2], v[i][4 * j4 + 3]));
+      }
+    }
+  }
 };
 
 // bf16 partial sums: warp w owns entries 16 w .. 16 w + 15 and every
@@ -196,6 +292,30 @@ template <int BN> struct Part<__nv_bfloat16, BN> {
       for (int t = 0; t < BN / 8; ++t)
         *reinterpret_cast<float2*>(dst + (int64_t)e * ld + t * 8 + 2 * (lane % 4)) =
             make_float2(v[t][2 * hh], v[t][2 * hh + 1]);
+    }
+  }
+  // out[row[e]][n0 + col] = v rounded to bf16, as the fp32 store_rows
+  __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ out,
+                                             const int* __restrict__ row, int live, int n0,
+                                             int cout) const {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int e = 16 * warp + lane / 4 + 8 * hh;
+      const int r = e < live ? row[e] : -1;
+      if (r < 0) continue;
+      __nv_bfloat16* const o = out + (int64_t)r * cout;
+#pragma unroll
+      for (int t = 0; t < BN / 8; ++t) {
+        const int c = n0 + t * 8 + 2 * (lane % 4);
+        if (cout % 2 == 0 && c + 1 < cout) {
+          *reinterpret_cast<__nv_bfloat162*>(o + c) =
+              __floats2bfloat162_rn(v[t][2 * hh], v[t][2 * hh + 1]);
+        } else {
+          if (c < cout) o[c] = __float2bfloat16(v[t][2 * hh]);
+          if (c + 1 < cout) o[c + 1] = __float2bfloat16(v[t][2 * hh + 1]);
+        }
+      }
     }
   }
 };

@@ -3,12 +3,14 @@
 Counterpart of ``segdino3d_tpu/models/backbone/wrapper.py:
 SparseBackboneWrapper``:
 
-1. early-fuse per-point DINO-X features with rgb;
+1. early-fuse per-point DINO-X features with rgb (as the voxel mean's two
+   column sources, each read in its own dtype: no (N, 259) tensor);
 2. take the batch's host plan or, when the batch has none, build the plan
    on the device of its tensors (``device_plan``: the per-scene min shift
    of the conv grid, rounded down to a multiple of 16, then ``voxelize``
    and ``build_unet_plan``, kernels K6-K8);
-3. average point features into the plan's level-0 voxels (kernel K3);
+3. average point features into the plan's level-0 voxels (kernel K3),
+   each element rounded to the compute dtype first;
 4. run the sparse U-Net;
 5. unpool voxel -> point and pool point -> superpoint in one fused K3
    launch, together with the superpoint centroids of the quantized point
@@ -114,12 +116,12 @@ class SparseBackboneWrapper(nn.Module):
         coords_vox = raw_vox if batch.elastic_coords is None \
             else batch.elastic_coords.reshape(n, 3)   # voxel units
 
-        feats = pts[:, 3:]
+        # the early-fused point features [rgb | 2D features], as column
+        # sources of the voxel mean: never concatenated on the card
+        feats = [pts[:, 3:]]
         if (self.mode_fuse_2d_feat == "early_fusion"
                 and batch.points_2dfeats is not None):
-            feats = torch.cat(
-                [feats, batch.points_2dfeats.reshape(n, -1).float()], dim=-1)
-        feats = feats.to(self.compute_dtype).contiguous()
+            feats.append(batch.points_2dfeats.reshape(n, -1))
 
         if batch.plan is not None:
             plan = batch.plan
@@ -130,8 +132,8 @@ class SparseBackboneWrapper(nn.Module):
         v0 = valid0.shape[0]
         inverse = plan.inverse          # -1: the point has no voxel
         vox_csr = scatter.segment_csr(inverse, v0, pvalid)
-        vox_feats = scatter.segment_mean(feats, inverse, v0, pvalid,
-                                         csr=vox_csr)
+        vox_feats = scatter.segment_mean_columns(
+            feats, inverse, v0, self.compute_dtype, pvalid, csr=vox_csr)
         vox_feats = torch.where(valid0[:, None], vox_feats, 0.0)
         vox_out = self.unet(vox_feats, plan)
 

@@ -30,7 +30,7 @@ KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
            "voxel_compact", "slot_gather", "block_conv", "block_wgrad",
            "stem_slot_sum")
 _HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh"),
-            "up_conv": ("conv_tile.cuh",),
+            "up_conv": ("gather_tile.cuh", "wgrad_tile.cuh"),
             "segment_mean_gather": (), "gather_wgrad": ("wgrad_tile.cuh",),
             "segment_grad": (),
             "coord_hash": ("coord_hash.cuh",),
@@ -43,6 +43,9 @@ _ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
                                       "gather_conv_pair_stride"),
                  "coord_hash": ("coord_hash_insert", "coord_hash_lookup"),
                  "gather_wgrad": ("gather_wgrad", "gather_pairs"),
+                 "segment_mean_gather": ("segment_mean_gather",
+                                         "segment_csr_keys",
+                                         "segment_csr_offsets"),
                  "block_conv": ("block_conv", "block_rows", "block_dilate")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -58,12 +61,17 @@ _SIGNATURES = {
                          _P],
     # cout
     "gather_conv_pair_stride": [_I],
-    # x, parent, kpos, order, w, valid, out, v, cin, cout, dtype, stream
-    "up_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # offsets, members, chunk_offsets, max_chunks, chunk, g, gidx, d,
-    # partial, out, S, cg, cd, g_dtype, d_dtype, stream
-    "segment_mean_gather": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _I, _I, _P],
+    # x, child, w, pairs, parent, valid, out, v_coarse, v_fine, cin, cout,
+    # dtype, stream
+    "up_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # offsets, members, sorted, counters, partial, gidx, n_src, ptrs,
+    # strides, cols, flags, out, S, n, stream
+    "segment_mean_gather": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                            _I, _I, _P],
+    # seg, seg64, valid, n, S, keys, stream
+    "segment_csr_keys": [_P, _I, _P, _I, _I, _P, _P],
+    # sorted, n, S, offsets, counters, stream
+    "segment_csr_offsets": [_P, _I, _I, _P, _P, _P],
     # a, ia, b, ib, ws, partial, out, rows, cin, cout, n_off, splits,
     # mirror, dtype, stream
     "gather_wgrad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

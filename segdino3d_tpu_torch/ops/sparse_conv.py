@@ -11,7 +11,8 @@ hand-written CUDA kernels:
   (``ops.host_plan``) turns the TPU version's scatter into a gather.  It
   multiplies each offset's live pairs only, from K4's pair list below;
 * ``up_conv_rows`` (K2, ``csrc/up_conv.cu``):
-  ``fine[i] = x[parent[i]] @ W[kpos[i]]``;
+  ``fine[i] = x[parent[i]] @ W[kpos[i]]``, on K1's tile core over the
+  child table's pair list, each product stored in its fine row;
 * ``gather_wgrad`` (K4, ``csrc/gather_wgrad.cu``): the weight gradients,
   ``dW[o] = sum_r A[ia[o, r]]^T @ B[ib[o, r]]``, reduced over each
   offset's live pairs only: ``gather_pairs`` (two launches in the same
@@ -154,32 +155,45 @@ def up_conv_plain(feats: torch.Tensor, parent: torch.Tensor,
     return out.to(feats.dtype)
 
 
-def up_conv_rows(feats: torch.Tensor, parent: torch.Tensor,
-                 kpos: torch.Tensor, order: torch.Tensor,
+def up_conv_rows(feats: torch.Tensor, child: torch.Tensor,
+                 parent: torch.Tensor, kpos: torch.Tensor,
                  weights: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """``fine[i] = feats[parent[i]] @ weights[kpos[i]]``, 0 where invalid.
+    """``fine[i] = feats[parent[i]] @ weights[kpos[i]]``, 0 where invalid
+    or without a parent.
 
-    ``order`` is a permutation of the fine rows grouped by ``kpos``
-    (``ops.host_plan``); the kernel walks rows in that order."""
+    feats (V_coarse, Cin); child (8, V_coarse) int32, the fine level's
+    child table, which holds each fine row with ``valid & (parent >= 0)``
+    once; parent, kpos (V_fine,) int32; weights (8, Cin, Cout) in feats'
+    dtype; valid (V_fine,) bool.  On the card the kernel multiplies the
+    child table's cached pair list (``cached_pairs(None, child)``, shared
+    with K1's down conv and K4) and stores each product in its fine row."""
     cin, cout = weights.shape[1:]
-    if weights.shape[0] != 8 or feats.shape[1] != cin:
-        raise ValueError(f"up_conv: feats {tuple(feats.shape)}, weights "
-                         f"{tuple(weights.shape)}")
+    if weights.shape[0] != 8 or feats.shape[1] != cin \
+            or tuple(child.shape) != (8, feats.shape[0]) \
+            or parent.shape != valid.shape:
+        raise ValueError(f"up_conv: feats {tuple(feats.shape)}, child "
+                         f"{tuple(child.shape)}, weights "
+                         f"{tuple(weights.shape)}, parent "
+                         f"{tuple(parent.shape)}, valid {tuple(valid.shape)}")
     if feats.device.type == "cpu":
         return up_conv_plain(feats, parent, kpos, weights, valid)
-    _require_cuda("up_conv", feats, parent, kpos, order, weights, valid)
+    _require_cuda("up_conv", feats, child, parent, weights, valid)
     if weights.dtype != feats.dtype or valid.dtype != torch.bool or any(
-            t.dtype != torch.int32 for t in (parent, kpos, order)):
+            t.dtype != torch.int32 for t in (child, parent)):
         raise TypeError("up_conv: weights must match feats' dtype, index "
                         "tables must be int32 and valid bool")
     v = parent.shape[0]
     out = torch.empty(v, cout, dtype=feats.dtype, device=feats.device)
+    if out.numel() == 0:
+        return out
+    pairs = cached_pairs(None, child)
     lib = cuda_build.library("up_conv")
     cuda_build.check(lib.up_conv(
-        feats.data_ptr(), parent.data_ptr(), kpos.data_ptr(),
-        order.data_ptr(), weights.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), v, cin, cout, cuda_build.dtype_code(feats.dtype),
-        cuda_build.stream_ptr(feats)), "up_conv")
+        feats.data_ptr(), child.data_ptr(), weights.data_ptr(),
+        pairs.ws.data_ptr(), parent.data_ptr(), valid.data_ptr(),
+        out.data_ptr(), child.shape[1], v, cin, cout,
+        cuda_build.dtype_code(feats.dtype), cuda_build.stream_ptr(feats)),
+        "up_conv")
     up_conv_rows.launches += 1
     return out
 
@@ -411,24 +425,24 @@ class _DownConv(torch.autograd.Function):
     table (K4)."""
 
     @staticmethod
-    def forward(ctx, feats, child, weights, coarse_valid, parent, kpos, order,
+    def forward(ctx, feats, child, weights, coarse_valid, parent, kpos,
                 fine_valid):
         ctx.save_for_backward(feats, child, weights, coarse_valid, parent,
-                              kpos, order, fine_valid)
+                              kpos, fine_valid)
         return gather_conv(feats, child, weights, coarse_valid)
 
     @staticmethod
     def backward(ctx, dout):
-        (feats, child, weights, coarse_valid, parent, kpos, order,
+        (feats, child, weights, coarse_valid, parent, kpos,
          fine_valid) = ctx.saved_tensors
         dy = _masked(dout, coarse_valid, feats.dtype)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = up_conv_rows(dy, parent, kpos, order, _transposed(weights),
+            dx = up_conv_rows(dy, child, parent, kpos, _transposed(weights),
                               fine_valid)
         if ctx.needs_input_grad[2]:
             dw = gather_wgrad(feats, child, dy, None).to(weights.dtype)
-        return dx, None, dw, None, None, None, None, None
+        return dx, None, dw, None, None, None, None
 
 
 class _UpConv(torch.autograd.Function):
@@ -438,9 +452,9 @@ class _UpConv(torch.autograd.Function):
     fine rows, so dF needs no mask."""
 
     @staticmethod
-    def forward(ctx, feats, parent, kpos, order, weights, valid, child):
+    def forward(ctx, feats, child, parent, kpos, weights, valid):
         ctx.save_for_backward(feats, weights, child)
-        return up_conv_rows(feats, parent, kpos, order, weights, valid)
+        return up_conv_rows(feats, child, parent, kpos, weights, valid)
 
     @staticmethod
     def backward(ctx, dfine):
@@ -453,7 +467,7 @@ class _UpConv(torch.autograd.Function):
             dx = gather_conv(df, child, _transposed(weights), every)
         if ctx.needs_input_grad[4]:
             dw = gather_wgrad(feats, None, df, child).to(weights.dtype)
-        return dx, None, None, None, dw, None, None
+        return dx, None, None, None, dw, None
 
 
 def subm_conv(feats, nbr, weights, valid):
@@ -466,13 +480,13 @@ def down_conv(feats, fine, coarse, weights):
 
     ``fine.child`` is the (8, V_coarse) child table of the fine level."""
     return _DownConv.apply(feats, fine.child, weights, coarse.valid,
-                           fine.parent, fine.kpos, fine.up_order, fine.valid)
+                           fine.parent, fine.kpos, fine.valid)
 
 
 def up_conv(feats, fine, weights):
     """Transposed conv k=2 s=2 restoring the fine coordinate set."""
-    return _UpConv.apply(feats, fine.parent, fine.kpos, fine.up_order,
-                         weights, fine.valid, fine.child)
+    return _UpConv.apply(feats, fine.child, fine.parent, fine.kpos, weights,
+                         fine.valid)
 
 
 # ---------------------------------------------------------------------------
@@ -691,6 +705,7 @@ def child_table(parent: torch.Tensor, kpos: torch.Tensor, coarse_cap: int
 
 def up_order(kpos: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Fine rows stably sorted by kpos, invalid rows last
-    (``host_plan.up_order``)."""
+    (``host_plan.up_order``).  A plan field that no kernel reads: K2
+    walks the child table's pair list."""
     key = torch.where(valid, kpos, 8)
     return torch.sort(key, stable=True).indices.to(torch.int32)

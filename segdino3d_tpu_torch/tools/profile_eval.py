@@ -7,7 +7,10 @@ Runs ``chip_smoke.py``'s main path (flagship SegDINO3D, seeded random
 weights, the seeded 120,000-point synthetic scene, fp32, batch 1): one
 warm-up iteration, then one iteration of backbone + decoder +
 post-processing under ``torch.profiler``.  Prints the device time summed by
-kernel name (top 25), K1's device time (``chip_smoke.kernel_ms``), the
+kernel name (top 25), K1's, K2's and K3's device time
+(``chip_smoke.kernel_ms``), the (N, 259) concatenations of the point
+features in one more forward (``chip_smoke.concat_shapes``; none: the
+voxel mean reads its two sources), the
 device busy time against the wall time of the profiled window (the
 device's idle share), and the kernel launch count.
 The host plan and the AP protocol stay outside the window: they run no
@@ -94,7 +97,12 @@ def main() -> int:
         check=True).stdout.strip())
     print(f"layout: {'device plan' if args.device_plan else args.layout}")
     print(table)
-    print(f"K1 {C.kernel_ms(events)['K1']:.2f} ms of device time")
+    # one more forward, its concatenations recorded (that slows the host)
+    cats = [sh for sh in C.concat_shapes(device_part)
+            if sh == (C.SCENE["n_points"], 259)]
+    km = C.kernel_ms(events)
+    print(f"K1 {km['K1']:.2f}, K2 {km['K2']:.4f}, K3 {km['K3']:.4f} ms of "
+          f"device time; (N, 259) concatenations: {len(cats)}")
     print(f"profiled window: wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), idle share "
           f"{100 * (1 - busy_ms / wall_ms):.1f}%, {len(events)} device "

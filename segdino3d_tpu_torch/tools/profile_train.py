@@ -84,7 +84,8 @@ def main() -> int:
     print(f"layout: {args.layout}")
     print(avgs.table(sort_by="self_device_time_total", row_limit=30))
     km = C.kernel_ms(events)
-    print(f"K1 {km['K1']:.2f} ms; weight gradients: K4 {km['K4']:.2f} ms (+ "
+    print(f"K1 {km['K1']:.2f}, K2 {km['K2']:.4f}, K3 {km['K3']:.4f} ms; "
+          f"weight gradients: K4 {km['K4']:.2f} ms (+ "
           f"pair lists {km['K4 pair lists']:.2f}), K11 {km['K11']:.2f} ms of "
           f"device time")
     print(f"profiled window: wall {wall_ms:.2f} ms, device busy "

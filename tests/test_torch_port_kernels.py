@@ -44,10 +44,21 @@ def levels():
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["gather_gemm_conv_k3", "gather_gemm_conv_k5",
                                     "gather_gemm_conv_down", "up_conv",
-                                    "segment_mean_gather"])
+                                    "up_conv_96", "up_conv_256",
+                                    "up_conv_down_dx", "segment_mean_gather",
+                                    "segment_mean_sources",
+                                    "segment_mean_fp16_sources"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_kernel_matches_plain(levels, kernel, dtype):
+    """Each forward kernel against its plain version; K2 and K3 also give
+    bit-equal results in two calls.  K2 at Cout 70, 96 and 256 and as the
+    down conv's dX (transposed W); K3 fused with a gather, and from two
+    column sources (a column slice of (N, 6) points and (N, 256) 2D
+    features in fp32 or fp16, each element rounded to the compute dtype)
+    over segments of up to ~1,500 rows (many chunks), empty segments and
+    invalid rows."""
     dt = getattr(torch, dtype)
+    again = None
     lv = levels.levels
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -65,10 +76,36 @@ def test_kernel_matches_plain(levels, kernel, dtype):
         w = randn(nbr.shape[0], cin, cout, scale=(nbr.shape[0] * cin) ** -0.5)
         got = TSC.gather_conv(x, nbr, w, valid)
         want = TSC.gather_conv_plain(x, nbr, w, valid)
-    elif kernel == "up_conv":
-        x, w = randn(CAPS[1], 24), randn(8, 24, 70, scale=0.2)
-        got = TSC.up_conv(x, lv[0], w)
-        want = TSC.up_conv_plain(x, lv[0].parent, lv[0].kpos, w, lv[0].valid)
+    elif kernel.startswith("up_conv"):
+        cin, cout, fine = {"up_conv": (24, 70, 0), "up_conv_96": (96, 96, 0),
+                           "up_conv_256": (256, 256, 1),
+                           "up_conv_down_dx": (32, 48, 0)}[kernel]
+        f = lv[fine]
+        x = randn(CAPS[fine + 1], cin)
+        w = randn(8, cin, cout, scale=cin ** -0.5)
+        if kernel == "up_conv_down_dx":     # as _DownConv.backward calls it
+            w = randn(8, cout, cin, scale=cin ** -0.5).transpose(1, 2) \
+                .contiguous()
+        got = TSC.up_conv(x, f, w)
+        again = TSC.up_conv_rows(x, f.child, f.parent, f.kpos, w, f.valid)
+        want = TSC.up_conv_plain(x, f.parent, f.kpos, w, f.valid)
+    elif kernel != "segment_mean_gather":
+        n, s = 3000, 40
+        pts = torch.randn(n, 6, generator=gen, device="cuda")
+        f2d = torch.randn(n, 256, generator=gen, device="cuda")
+        if kernel == "segment_mean_fp16_sources":
+            f2d = f2d.half()
+        seg = torch.randint(0, s + 3, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        seg[torch.rand(n, generator=gen, device="cuda") < 0.5] = 3
+        seg[seg == 9] = -1                  # segment 9 stays empty
+        valid = torch.rand(n, generator=gen, device="cuda") > 0.1
+        srcs = [pts[:, 3:], f2d]
+        got = TS.segment_mean_gather(seg, s, valid, d=srcs, round_to=dt)
+        again = TS.segment_mean_gather(seg, s, valid, d=srcs, round_to=dt)
+        want = TS.segment_mean_gather_plain(seg, s, valid, d=srcs,
+                                            round_to=dt)
+        assert not got[9].any()
     else:
         g, d = randn(CAPS[0], 13), randn(700, 5)
         idx = torch.randint(-1, CAPS[0], (700,), generator=gen,
@@ -77,9 +114,13 @@ def test_kernel_matches_plain(levels, kernel, dtype):
                             dtype=torch.int32)
         valid = torch.rand(700, generator=gen, device="cuda") > 0.1
         got = TS.segment_mean_gather(seg, 40, valid, g=g, gather_idx=idx, d=d)
+        again = TS.segment_mean_gather(seg, 40, valid, g=g, gather_idx=idx,
+                                       d=d)
         want = TS.segment_mean_gather_plain(seg, 40, valid, g=g,
                                             gather_idx=idx, d=d)
     torch.cuda.synchronize()
+    if again is not None:
+        assert torch.equal(got, again)
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
@@ -116,6 +157,34 @@ def test_wgrad_kernel_matches_plain(levels, form, dtype):
     scale = float(want.abs().max())
     tol = 1e-4 if dtype == "float32" else 1e-2
     torch.testing.assert_close(got, want, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ids", ["int32", "int64", "int32_no_valid"])
+def test_segment_csr_matches_cpu(card, ids):
+    """K3's CSR on the card (its two launches around torch.sort) equals the
+    CPU's: ids outside [0, S) and invalid rows dropped, members ascending
+    in a segment, counters zero, and zero again after K3 has used them on
+    segments of many chunks."""
+    gen = torch.Generator().manual_seed(5)
+    n, s = 5000, 60
+    seg = torch.randint(-2, s + 3, (n,), generator=gen)
+    seg[torch.rand(n, generator=gen) < 0.4] = 11      # ~63 chunks
+    seg = seg.to(getattr(torch, ids.split("_")[0]))
+    valid = None if ids.endswith("no_valid") else \
+        torch.rand(n, generator=gen) > 0.1
+    want = TS.segment_csr(seg, s, valid)
+    got = TS.segment_csr(seg.to(card), s,
+                         None if valid is None else valid.to(card))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    d = torch.randn(n, 7, generator=gen)
+    mean = TS.segment_mean_gather(seg.to(card), s, None if valid is None
+                                  else valid.to(card), d=d.to(card), csr=got)
+    torch.cuda.synchronize()
+    assert not got.counters.any()
+    torch.testing.assert_close(mean.cpu(), TS.segment_mean_gather_plain(
+        seg, s, valid, d=d), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
