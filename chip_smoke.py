@@ -19,17 +19,22 @@ Phases, in order; any failure exits non-zero before the result line:
    backward kernels K4 (weight gradients) and K5 (pooling gradient), and
    K1/K2 in their backward roles, in fp32 at the training shapes; the plan
    engine's kernels K6 (coordinate hash), K8 (voxel compaction) and K7
-   (neighbour tables), whose integer outputs must be equal (with the
-   profiled device time of a call beside its host-bound CUDA-event time,
-   as for the dilation below); the block-dense
+   (neighbour tables: every table of the headline plan in one launch and
+   at most one memset, and one table alone), whose integer outputs must be
+   equal (with the profiled device time of a call and of an empty launch
+   beside its host-bound CUDA-event time, as for the dilation below); the
+   block-dense
    layout's kernels on the flagship config's block tables: K9 (slot
    gather, both ways, equal), K10 (block conv at the occupied rows: k3
    96->96 at level 0, k3 384->256 at level 3, the dense k5 stem 259->32,
-   fp32 and bf16, and its dX role under the occupancy's k-dilation, held
-   to the unmasked plain version on every cell; with the bound of the
-   pairs whose source is occupied, of its rows' work and of the dense
-   work, and the operations one call puts on the card), the dilation
-   kernel beside it (equal) and K11 (its weight gradient: level 0 k3 and
+   fp32 and bf16, each on the level's cached row list, and its dX role
+   under the occupancy's k-dilation on the dilation's cached list, two
+   calls in a row bit-equal to each other and to a call that builds its
+   own list, held to the unmasked plain version on every cell; with the
+   bound of the pairs whose source is occupied, of its rows' work and of
+   the dense work, and the operations one call puts on the card), the
+   dilation kernel beside it (the mask and its row list equal to the plain
+   dilation's occupied rows) and K11 (its weight gradient: level 0 k3 and
    the stem, over the level's cached occupied-row list), each with its
    bound from the cells this scene occupies (K11: of the pairs whose source
    is occupied, and of all pairs whose source block exists) and the row
@@ -78,8 +83,9 @@ Phases, in order; any failure exits non-zero before the result line:
 4c. run batch-1 training steps on the config's training layout
    (block-dense everywhere, the k5 stem too: K9, K10 forward and as dX
    under the dilation, the dilation, K11 and its row lists): s/step, ms
-   per stage, launches per step, K4's and K11's device time in a profiled
-   step, peak memory, finite losses and gradient norm, and the card
+   per stage, launches per step, K4's and K11's device time and K10's
+   row-list launches in a profiled step (no conv may build its own list),
+   peak memory, finite losses and gradient norm, and the card
    against the CPU on a small scene;
 3d. run the eval entry point on three headline-size scenes written to a
    temp dir (``write_scannet_layout``): the port's ScanNet200 reader,
@@ -379,20 +385,29 @@ def kernel_cases(batch, s_cap, gen):
         return torch.searchsorted(ids.values, torch.arange(
             num_segments + 1, device=seg.device)), ids.indices
 
-    cases.append(("segment_csr", f"CSR of the voxels, {n_points} ids -> "
-                  f"{v0} segments", {torch.float32: (
-                      (lambda: SS.segment_csr(seg_vox, v0, pvalid),
-                       lambda: flat_csr(SS.segment_csr(seg_vox, v0, pvalid))),
-                      lambda: flat_csr(SS.segment_csr_plain(seg_vox, v0,
-                                                            pvalid)),
-                      lambda: sort_library(seg_vox, v0, pvalid),
-                      0.0, nbytes(seg_vox, pvalid) + n_points * 12
-                      + (v0 + 1) * 8 + v0 * 4, "fp32", 0.0)}))
+    def csr_case(what, seg, num_segments):
+        """Bytes: the ids and the mask read once, the CSR's arrays
+        (offsets, members, sorted ids, counters) written once."""
+        c = SS.segment_csr(seg, num_segments, pvalid)
+        cases.append(("segment_csr", f"CSR of the {what}, {n_points} ids -> "
+                      f"{num_segments} segments", {torch.float32: (
+                          (lambda: SS.segment_csr(seg, num_segments, pvalid),
+                           lambda: flat_csr(SS.segment_csr(
+                               seg, num_segments, pvalid))),
+                          lambda: flat_csr(SS.segment_csr_plain(
+                              seg, num_segments, pvalid)),
+                          lambda: sort_library(seg, num_segments, pvalid),
+                          0.0, nbytes(seg, pvalid, c.offsets, c.members,
+                                      c.sorted_ids, c.counters),
+                          "fp32", 0.0)}))
+
+    csr_case("voxels", seg_vox, v0)
 
     # the fused devoxelize + superpoint pool: the (V0, 96) U-Net output
     # gathered through the inverse map, and the two (N, 3) centroid sets
     seg_sp = superpoint_segment_ids(batch.superpoint_ids, s_cap)
     sp_csr = SS.segment_csr(seg_sp, s_cap, pvalid)
+    csr_case("superpoints", seg_sp, s_cap)
     q = [_randn(gen, (n_points, 3), torch.float32) for _ in range(2)]
     per = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -631,21 +646,73 @@ def plan_engine_cases(batch, level_caps):
             0.0, nbytes(wk, coords_T) + 2 * nbytes(hk.vals)
             + m * 4 * (1 + shift) + cap * 17 + 4, "fp32", exact)}))
 
-    def nbr_case(name, lv, k):
+    def queries(lv, k):
+        """(the level's sorted own keys, its k^3 x V query keys)"""
         v = lv.coords_T.shape[1]
         live = torch.arange(v, device=DEVICE) < lv.num_voxels
         sorted_keys = torch.sort(TK.pack_columns_u32(*lv.coords_T,
                                                      live)).values
         offs = torch.from_numpy(SC.kernel_offsets(k)).to(DEVICE)
         q = [lv.coords_T[d][None] + offs[:, d - 1][:, None] for d in (1, 2, 3)]
-        qk = TK.pack_columns_u32(lv.coords_T[0][None].expand_as(q[0]), *q,
-                                 live[None].expand_as(q[0])).reshape(-1)
-        cases.append(("neighbor_table", name, {f32: (
+        return sorted_keys, TK.pack_columns_u32(
+            lv.coords_T[0][None].expand_as(q[0]), *q,
+            live[None].expand_as(q[0])).reshape(-1)
+
+    def searchsorted_library(tables):
+        """One ``torch.searchsorted`` over every table's queries: each
+        level's keys lifted by its place in ``tables`` (33 bits up), so
+        one sorted sequence holds them all."""
+        keys, qs = [], []
+        for li, (lv, k) in enumerate(tables):
+            sk, qk = queries(lv, k)
+            keys.append(sk + (li << 33))
+            qs.append(qk + (li << 33))
+        sorted_all, q_all = torch.cat(keys), torch.cat(qs)
+        return lambda: torch.searchsorted(sorted_all, q_all)
+
+    def table_bytes(tables):
+        lvs = {id(lv): lv for lv, _ in tables}.values()
+        return sum(nbytes(lv.coords_T, lv.hash.keys, lv.hash.vals) + 4
+                   for lv in lvs) + sum(k ** 3 * lv.coords_T.shape[1] * 4
+                                        for lv, k in tables)
+
+    def flat(tables):
+        return torch.cat([t.reshape(-1) for t in tables])
+
+    def plan_case(pyramid):
+        """Every table of the plan, one launch (and one memset)."""
+        tables = [(pyramid[0], 5)] + [(lv, 3) for lv in pyramid]
+
+        def built():
+            k3, stem = SC.neighbor_tables(pyramid, 5)
+            return flat([stem] + k3)
+
+        ops, us = device_ops(lambda: SC.neighbor_tables(pyramid, 5))
+        print(f"neighbor_tables [the headline plan]: one call puts "
+              f"{len(ops)} operations on the card, {us:.1f} us of device "
+              f"time: {ops}", flush=True)
+        if len(ops) > 2:
+            raise SystemExit(f"neighbor_tables: {len(ops)} launches in one "
+                             "call, at most 2 expected (a memset, K7)")
+        cases.append(("neighbor_table", "every table of the plan in one "
+                      "launch: stem k5 (level 0's k3 table from its probes) "
+                      f"+ k3 of {len(pyramid)} levels, caps "
+                      f"{[lv.coords_T.shape[1] for lv in pyramid]}; library: "
+                      "one searchsorted of every query", {f32: (
+                          (lambda: SC.neighbor_tables(pyramid, 5), built),
+                          lambda: flat([SC.neighbor_table_plain(
+                              lv.coords_T, lv.num_voxels, k)
+                              for lv, k in tables]),
+                          searchsorted_library(tables), 0.0,
+                          table_bytes(tables), "fp32", exact)}))
+
+    def nbr_case(name, lv, k):
+        """One table, one launch (as ``neighbor_table`` builds it)."""
+        cases.append(("neighbor_table", f"{name}, one table", {f32: (
             lambda: SC.neighbor_table(lv, k),
             lambda: SC.neighbor_table_plain(lv.coords_T, lv.num_voxels, k),
-            lambda: torch.searchsorted(sorted_keys, qk),
-            0.0, nbytes(lv.coords_T, lv.hash.keys, lv.hash.vals)
-            + k ** 3 * v * 4, "fp32", exact)}))
+            searchsorted_library([(lv, k)]), 0.0, table_bytes([(lv, k)]),
+            "fp32", exact)}))
 
     hash_case("level 0", key, min(v0, n))
     compact_case(f"voxelize {n} points -> V0 cap {v0}", key, cols, v0, 0)
@@ -655,6 +722,7 @@ def plan_engine_cases(batch, level_caps):
     compact_case(f"downsample L0 -> L1 cap {level_caps[1]} (parent, kpos)",
                  key1, grid.coords_T, level_caps[1], 1)
     pyramid = SC.build_conv_plan(grid, 5, level_caps)
+    plan_case(pyramid)
     nbr_case("stem k5, level 0", pyramid[0], 5)
     nbr_case("k3, level 0", pyramid[0], 3)
     return cases
@@ -668,6 +736,22 @@ HOST_BOUND = ("coord_hash", "neighbor_table", "voxel_compact",
               "block_dilate", "segment_csr")
 
 
+def launch_floor():
+    """(CUDA-event ms, profiled device ms) of one launch of an empty kernel
+    through the same ctypes path as the kernels: the floor under a kernel
+    of a few microseconds."""
+    from segdino3d_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.library("neighbor_table")
+    anchor = torch.empty(1, device=DEVICE)
+
+    def empty():
+        cuda_build.check(lib.empty_launch(cuda_build.stream_ptr(anchor)),
+                         "empty_launch")
+
+    return time_ms(empty), device_ops(empty)[1] / 1e3
+
+
 def check_kernels(cases):
     """Compare, then time; returns per-kernel rows (headline = first case
     of each kernel, fp32) and the max error over each kernel's cases.  A
@@ -679,7 +763,7 @@ def check_kernels(cases):
     wrapper call alone, and the same call with what turns its outputs into
     one tensor to compare.  The outputs of K1, K2 and K3 must also be
     bit-equal between two calls (their sums have a fixed order)."""
-    rows = {}
+    rows, floor = {}, None
     for kernel, name, per in cases:
         for dt, (kfn, pfn, lfn, ops, byts, peak, *opt) in per.items():
             rel = [o for o in opt if isinstance(o, float)]
@@ -707,8 +791,12 @@ def check_kernels(cases):
                 f"{device_ops(fn)[1] / 1e3:.4f} ms)" for k, fn in extra.items())
             if kernel in HOST_BOUND:
                 launched, us = device_ops(kfn)
+                if floor is None:
+                    floor = launch_floor()
                 extra_text += (f", profiled device time {us / 1e3:.4f} ms "
-                               f"in {len(launched)} launches")
+                               f"in {len(launched)} launches; an empty "
+                               f"launch {floor[0]:.4f} ms (device "
+                               f"{floor[1]:.4f} ms)")
             b_ms, b_by = bound(ops, byts, peak)
             dts = str(dt).replace("torch.", "")
             print(f"kernel {kernel} [{name}] {dts}: max_abs_err={err:.3e} "
@@ -798,8 +886,10 @@ def dense_cases(plan, gen):
         the backward runs it, held to the plain version without a mask on
         every cell."""
         occ = BD.occupancy(t)
-        mask = BD.occupancy_dilation(occ, t.block_nbr, t.edge, k) if dx \
-            else occ
+        # the level's cached list of the mask, as the autograd Function
+        # passes it: the dilation's (dX) or the occupancy's
+        mask, rlist = BD.dilated_rows(occ, t.block_nbr, t.edge, k) if dx \
+            else (occ, BD.row_list(t, occ))
         need, dense = pairs(t, k, masked=not dx)
         rows = int(mask.sum())
         per = {}
@@ -819,8 +909,22 @@ def dense_cases(plan, gen):
                                                t.block_nbr, h))
                 return F.conv3d(p, wc)
 
+            if dx:
+                twice = [BD.block_conv(x, t.block_nbr, w, mask, e, rlist)
+                         for _ in range(2)]
+                per_call = BD.block_conv(x, t.block_nbr, w, mask, e)
+                if not (torch.equal(*twice) and torch.equal(twice[0],
+                                                            per_call)):
+                    raise SystemExit(f"block_conv [{name}] {dt}: two calls "
+                                     "on one cached dilation list differ "
+                                     "from each other or from the per-call "
+                                     "list")
+                print(f"block_conv [{name}] {dt}: two calls on one cached "
+                      "dilation list bit-equal to each other and to the "
+                      "per-call list's", flush=True)
+                del twice, per_call
             per[dt] = (lambda x=x, w=w: BD.block_conv(
-                           x, t.block_nbr, w, mask, e),
+                           x, t.block_nbr, w, mask, e, rlist),
                        lambda x=x, w=w: BD.dense_subm_conv_plain(
                            x, t.block_nbr, w, None if dx else occ, e),
                        lib, 2.0 * need * cin * cout,
@@ -842,20 +946,36 @@ def dense_cases(plan, gen):
                       f"dense-work bound {dense_ms:.4f} ms (fp32)", per))
 
     def dilate_case(t, k):
+        """The dilation and its row list (one pass and the list pass),
+        held to the plain dilation and its occupied rows."""
         occ = BD.occupancy(t)
         b, e, h = t.num_blocks, t.edge, (k - 1) // 2
+        n = occ.shape[0]
         padded = BD.halo_pad_plain(occ.float().reshape(b, e, e, e, 1),
                                    t.block_nbr, h)[..., 0][:, None]
-        cases.append(("block_dilate", f"k{k} dilation of the L0 occupancy, "
-                      f"{occ.shape[0]} cells; library: max_pool3d of the "
-                      "halo-padded occupancy", {f32: (
-                          lambda: BD.occupancy_dilation(occ, t.block_nbr, e,
-                                                        k),
-                          lambda: BD.occupancy_dilation_plain(
-                              occ, t.block_nbr, e, k),
-                          lambda: F.max_pool3d(padded, k, stride=1), 0.0,
-                          nbytes(occ, t.block_nbr) + occ.shape[0], "fp32",
-                          exact)}))
+
+        def flat(mask, rows):
+            listed = torch.where(torch.arange(n, device=DEVICE)
+                                 < rows.count, rows.rows, -1)
+            return torch.cat([mask.to(torch.int32), listed,
+                              rows.count.reshape(1).to(torch.int32)])
+
+        n_listed = int(BD.occupancy_dilation_plain(occ, t.block_nbr, e,
+                                                   k).sum())
+
+        def plain():
+            m = BD.occupancy_dilation_plain(occ, t.block_nbr, e, k)
+            return flat(m, BD.RowList(*BD.occupied_rows_plain(m), None))
+
+        cases.append(("block_dilate", f"k{k} dilation of the L0 occupancy "
+                      f"and its row list, {n} cells; library: max_pool3d of "
+                      "the halo-padded occupancy", {f32: (
+                          (lambda: BD.dilated_rows(occ, t.block_nbr, e, k),
+                           lambda: flat(*BD.dilated_rows(occ, t.block_nbr,
+                                                         e, k))),
+                          plain, lambda: F.max_pool3d(padded, k, stride=1),
+                          0.0, nbytes(occ, t.block_nbr) + n + 4 * n_listed
+                          + 4, "fp32", exact)}))
 
     both = (torch.float32, torch.bfloat16)
     conv_case("k3 96->96 L0", t0, 96, 96, 3, both)
@@ -1007,11 +1127,11 @@ def counters():
             "gather_wgrad": (SC.gather_wgrad,),
             "segment_grad": (SS.segment_grad,),
             "coord_hash": (TQ.build_hash, TQ.lookup_hash),
-            "neighbor_table": (SC.neighbor_table,),
+            "neighbor_table": (SC.neighbor_table, SC.neighbor_tables),
             "voxel_compact": (TV.voxel_compact,),
             "slot_gather": (BD.slot_gather,),
             "block_conv": (BD.block_conv,),
-            "block_dilate": (BD.occupancy_dilation,),
+            "block_dilate": (BD.dilated_rows,),
             "block_wgrad": (BD.block_wgrad,),
             "stem_slot_sum": (SC.stem_slot_sum,),
             # the pair lists (K1 and K4) and row lists (K11), built once per
@@ -1043,14 +1163,19 @@ def step_kernel_ms(run):
 
 def kernel_ms(events):
     """{K1, K2, K3, K4, K4 pair lists, K11, device}: summed device ms of
-    ``events``."""
+    ``events``; and the count of K10's row-list launches."""
     ms = dict.fromkeys(("K1", "K2", "K3", "K4", "K4 pair lists", "K11",
                         "device"), 0.0)
+    ms["row-list launches"] = 0
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         n, t = e.name, e.time_range.elapsed_us() / 1e3
         ms["device"] += t
+        # K10's row lists: the count and list passes and the dilation
+        ms["row-list launches"] += any(
+            f in n for f in ("count_rows_kernel", "list_rows_kernel",
+                             "dilate_kernel"))
         if "conv_products_kernel" in n or "conv_pair_sum_kernel" in n:
             ms["K1"] += t
         elif "up_conv_kernel" in n:
@@ -1342,7 +1467,7 @@ def run_device_plan_path(model, test_cfg, records, spec, host_batch, host_bb,
     if batch.plan is not None:
         raise SystemExit("the device-plan run got a host plan")
     expected = {"gather_gemm_conv": 51, "up_conv": 4, "segment_mean_gather": 2,
-                "coord_hash": 10, "voxel_compact": 5, "neighbor_table": 6}
+                "coord_hash": 10, "voxel_compact": 5, "neighbor_table": 1}
     print(f"launches in one forward on a device plan: {launches} (expected "
           f"{expected})", flush=True)
     for k, n in expected.items():
@@ -1451,13 +1576,22 @@ def run_training(model, records, spec, layout="gather", accum=True):
         metrics.append(check_metrics(step1, m, f"batch-1 step {i}"))
         steps.append(dict(plan=t_plan, **clock.seconds))
     # a fresh plan, so that the step builds its pair and row lists
+    from segdino3d_tpu_torch.ops import block_dense as BD
+
     b, _ = plan(records[0])
+    BD.block_conv.own_lists = 0
     ms = step_kernel_ms(lambda: step1([b], generator=gen))
     print(f"K1-K3 and the weight gradients in one batch-1 {layout} step "
           f"(torch.profiler, device ms): K1 {ms['K1']:.4f}, K2 "
           f"{ms['K2']:.4f}, K3 {ms['K3']:.4f}, K4 {ms['K4']:.4f} "
           f"(+ pair lists {ms['K4 pair lists']:.4f}), K11 {ms['K11']:.4f}, "
-          f"of {ms['device']:.4f} ms of device work", flush=True)
+          f"of {ms['device']:.4f} ms of device work; K10's row-list "
+          f"launches {ms['row-list launches']} (two per level's occupancy "
+          f"and dilation list, none inside a conv)", flush=True)
+    if BD.block_conv.own_lists:
+        raise SystemExit(f"{BD.block_conv.own_lists} K10 calls built their "
+                         "own row list in a step: every conv should take its "
+                         "level's cached list")
     if not accum:
         return (launches, steps, None, None,
                 torch.cuda.max_memory_allocated(), metrics)
@@ -1647,8 +1781,10 @@ def run_hybrid_eval(model, test_cfg, records, spec, gather_bb):
                          "table")
     print(f"hybrid plan {plan_layout('hybrid')}: {describe_blocks(plan)}",
           flush=True)
+    # one occupancy row list per block-dense level, which its convs share
     expected = {"gather_gemm_conv": 5, "up_conv": 4, "segment_mean_gather": 2,
-                "block_conv": 46, "slot_gather": 18}
+                "block_conv": 46, "slot_gather": 18,
+                "block_rows": sum(t is not None for t in plan.blocks)}
     print(f"launches in one hybrid forward: {launches} (expected "
           f"{expected})", flush=True)
     for k, n in expected.items():
@@ -1825,9 +1961,10 @@ def run_dense_training(model, records, spec):
                 "gather_wgrad": 8, "segment_mean_gather": 2,
                 "segment_grad": 1, "block_rows": 5, "gather_pairs": 4}
     print(f"launches in one block-dense train step: {launches} (expected "
-          f"{expected}: K10 47 forward + 46 dX, one k3 dilation and one "
-          f"K11 row list per level, one pair list, K1's and K4's, per child "
-          f"table)",
+          f"{expected}: K10 47 forward + 46 dX, per level one k3 dilation "
+          f"with its list (the dX convs') and one occupancy row list (the "
+          f"forward convs' and K11's), one pair list, K1's and K4's, per "
+          f"child table)",
           flush=True)
     for k, n in expected.items():
         if launches[k] != n:

@@ -18,14 +18,20 @@
 // What bounds it: operations, 2 * rows * k^3 * Cin * Cout over inputs of
 // tens of MB.  Blocks are ~22% full at level 0, so computing the masked
 // rows only is most of the gain; then the products.  Design:
-//   1. the row list (block_rows): two small launches compact the mask's
-//      rows, in row order, which is block-major, into a list whose count
-//      stays on the card (no host sync); its capacity is the level's dense
-//      row count.  Without a mask the list names every row.  The second
-//      launch also resets the conv's tile ticket;
+//   1. the row list: two small launches compact the mask's rows, in row
+//      order, which is block-major, into a list whose count stays on the
+//      card (no host sync); its capacity is the level's dense row count.
+//      Without a mask the list names every row.  The wrappers build a
+//      level's lists once and pass them to every conv of the level
+//      (block_conv_rows): the occupancy's (block_rows) for the forward
+//      and for K11, and the k-dilation's (block_dilate, which writes the
+//      mask and the list pass's per-block counts in one pass) for the dX
+//      role.  block_conv builds a list inside the call for a caller with
+//      none;
 //   2. the conv: thread blocks resident on every SM take 64-row tiles of
 //      the list by an atomic ticket, so a tile spans the masked cells of
-//      several blocks.  A tile's source-row table (k^3 x 64, through
+//      several blocks.  The block that takes the last ticket resets it to
+//      0, so a list serves any number of convs in turn (and K11).  A tile's source-row table (k^3 x 64, through
 //      bdt::halo_row) is built once in shared memory with the offsets at
 //      which some row has a source, and serves every column tile (when a
 //      level has too few tiles to fill the card, each column tile is a work
@@ -52,7 +58,18 @@
 // (n_blocks * edge^3, Cout) share one dtype (fp32 or bf16), rows
 // contiguous; block_nbr (26, n_blocks) int32; mask (n_blocks * edge^3,)
 // bytes or null; ws int32 scratch of n_rows + 2 + ceil(n_rows / 4096)
-// (block_dense.py:row_workspace); edge in {4, 8}, k in {3, 5}.
+// (block_dense.py:row_workspace): the list, its count, the tile ticket
+// (0 between calls), the list pass's per-block counts; edge in {4, 8}, k
+// in {3, 5}.
+//
+// block_dilate, the dX role's output mask, replaces no JAX op: JAX's dX
+// (_chunked_conv_bwd, :396) is unmasked.  What bounds it: the mask's bytes,
+// read once, written once (0.4 us at level 0), far below one launch.  It
+// once ran a thread per row over up to 27 dependent (block_nbr, mask)
+// load pairs, with divergent early exits; now a thread block stages 64
+// bricks (8 at edge 8) as bit rows with three aligned word loads per
+// padded z-row and dilates them separably with shifts and ORs (see
+// dilate_kernel).
 #include "block_tile.cuh"
 
 namespace {
@@ -155,24 +172,104 @@ cudaError_t launch_rows(const void* mask, int32_t* ws, int n_rows, cudaStream_t 
 }
 
 // ---------------------------------------------------------------------------
-// the k-dilation of a mask: rows whose k^3 window holds a masked cell
+// the k-dilation of a mask, with its row list's per-block counts
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(256)
+// One thread block per list block of kListRows rows: 64 bricks of edge 4 or
+// 8 of edge 8.  Each brick's 26 shell neighbours are read once; each
+// z-row of the halo-padded brick (E + K - 1 cells along z at fixed padded
+// x, y) is read as up to three aligned E-byte words of the mask (its own
+// block's and its two z-neighbours') into a bit row in shared memory, and
+// the dilation runs as three 1-D ORs of width K over bits (z, then y, then
+// x).  Each output z-row is one E-byte store; the block's count of dilated
+// rows goes to counts[blockIdx.x], where list_rows_kernel reads it.
+template <int E>
+struct ZWord;
+template <> struct ZWord<4> { using T = uint32_t; };
+template <> struct ZWord<8> { using T = uint64_t; };
+
+template <int E, int K>
+__global__ void __launch_bounds__(kListThreads)
 dilate_kernel(const uint8_t* __restrict__ mask, const int32_t* __restrict__ nbr,
-              uint8_t* __restrict__ out, int n_blocks, int edge, int k) {
-  const int e3 = edge * edge * edge;
-  const int64_t row = (int64_t)blockIdx.x * 256 + threadIdx.x;
-  if (row >= (int64_t)n_blocks * e3) return;
-  const int b = (int)(row / e3), c = (int)(row % e3), h = (k - 1) / 2;
-  const int cx = c / (edge * edge), cy = (c / edge) % edge, cz = c % edge;
-  uint8_t hit = 0;
-  for (int o = 0; o < k * k * k && !hit; ++o) {
-    const int s = bdt::halo_row(nbr, n_blocks, b, edge, cx + o / (k * k) - h,
-                                cy + (o / k) % k - h, cz + o % k - h);
-    hit = s >= 0 && mask[s] != 0;
+              uint8_t* __restrict__ out, int32_t* __restrict__ counts, int n_blocks) {
+  using W = typename ZWord<E>::T;
+  constexpr int H = (K - 1) / 2, P = E + K - 1, E3 = E * E * E;
+  constexpr int BPB = kListRows / E3;   // bricks per thread block
+  constexpr uint32_t kRow = (1u << E) - 1u;
+  __shared__ int s_src[BPB][27];        // the brick and its shell, d = 13 itself
+  __shared__ uint16_t s_z[BPB][P][P];   // bit z: dilated along z, at padded (x, y)
+  __shared__ uint16_t s_y[BPB][P][E];   // then along y
+  __shared__ int warp_sums[kListThreads / 32];
+  const int tid = threadIdx.x, b0 = blockIdx.x * BPB;
+  const int nb = min(BPB, n_blocks - b0);
+  for (int e = tid; e < nb * 27; e += kListThreads) {
+    const int bb = e / 27, d = e % 27;
+    s_src[bb][d] = d == 13 ? b0 + bb : nbr[(int64_t)(d - (d > 13)) * n_blocks + b0 + bb];
   }
-  out[row] = hit;
+  __syncthreads();
+  for (int e = tid; e < nb * P * P; e += kListThreads) {
+    const int bb = e / (P * P), qx = (e / P) % P - H, qy = e % P - H;
+    const int dx = qx < 0 ? -1 : (qx >= E ? 1 : 0), dy = qy < 0 ? -1 : (qy >= E ? 1 : 0);
+    const int lx = qx - dx * E, ly = qy - dy * E;
+    const int* const src = &s_src[bb][(dx + 1) * 9 + (dy + 1) * 3];  // dz = -1, 0, 1
+    W w[3];
+#pragma unroll
+    for (int dz = 0; dz < 3; ++dz)
+      w[dz] = src[dz] < 0 ? W(0)
+                          : *reinterpret_cast<const W*>(
+                                mask + (((int64_t)src[dz] * E + lx) * E + ly) * E);
+    uint32_t cells[3];  // bit c: cell z = c of that block's z-row is set
+#pragma unroll
+    for (int dz = 0; dz < 3; ++dz) {
+      cells[dz] = 0;
+#pragma unroll
+      for (int c = 0; c < E; ++c)
+        cells[dz] |= ((w[dz] >> (8 * c)) & 0xFF) != 0 ? 1u << c : 0u;
+    }
+    // bit p: padded z = p, i.e. core z = p - H
+    const uint32_t row = (cells[0] >> (E - H)) | (cells[1] << H) |
+                         ((cells[2] & ((1u << H) - 1u)) << (H + E));
+    uint32_t d = 0;
+#pragma unroll
+    for (int t = 0; t < K; ++t) d |= row >> t;
+    s_z[bb][qx + H][qy + H] = static_cast<uint16_t>(d & kRow);
+  }
+  __syncthreads();
+  for (int e = tid; e < nb * P * E; e += kListThreads) {
+    const int bb = e / (P * E), px = (e / E) % P, y = e % E;
+    uint32_t d = 0;
+#pragma unroll
+    for (int t = 0; t < K; ++t) d |= s_z[bb][px][y + t];
+    s_y[bb][px][y] = static_cast<uint16_t>(d);
+  }
+  __syncthreads();
+  int count = 0;
+  for (int e = tid; e < nb * E * E; e += kListThreads) {
+    const int bb = e / (E * E), x = (e / E) % E, y = e % E;
+    uint32_t d = 0;
+#pragma unroll
+    for (int t = 0; t < K; ++t) d |= s_y[bb][x + t][y];
+    W o = 0;
+#pragma unroll
+    for (int c = 0; c < E; ++c) o |= W((d >> c) & 1u) << (8 * c);
+    *reinterpret_cast<W*>(out + (int64_t)(b0 + bb) * E3 + (x * E + y) * E) = o;
+    count += __popc(d);
+  }
+  int total;
+  block_exclusive_scan(count, warp_sums, &total);
+  if (tid == 0) counts[blockIdx.x] = total;
+}
+
+template <int E, int K>
+cudaError_t launch_dilate(const uint8_t* mask, const int32_t* nbr, uint8_t* out,
+                          int32_t* ws, int n_blocks, cudaStream_t s) {
+  const int n_rows = n_blocks * E * E * E;
+  const int blocks = (n_rows + kListRows - 1) / kListRows;
+  int32_t* counts = ws + n_rows + 2;
+  dilate_kernel<E, K><<<blocks, kListThreads, 0, s>>>(mask, nbr, out, counts, n_blocks);
+  list_rows_kernel<<<blocks, kListThreads, 0, s>>>(out, n_rows, counts, ws, ws + n_rows,
+                                                   ws + n_rows + 1);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -485,7 +582,11 @@ block_conv_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
     if (tid == 0) s_item = atomicAdd(ticket, 1);
     __syncthreads();  // also: the last item's reads of shared memory are done
     const int item = s_item;
-    if (item >= n_items) break;
+    if (item >= n_items) {
+      // the last ticket taken: every block is done with the counter
+      if (tid == 0 && item == n_items + (int)gridDim.x - 1) *ticket = 0;
+      break;
+    }
     const int m0 = item / col_split * BM;
     if (tid < BM) s_row[tid] = m0 + tid < n_list ? list[m0 + tid] : -1;
     for (int o = tid; o < n_off; o += kThreads) s_hit[o] = 0;
@@ -610,17 +711,37 @@ extern "C" int block_rows(const void* mask, void* ws, int n_rows, void* stream) 
                                       static_cast<cudaStream_t>(stream)));
 }
 
-// out[r] = 1 where row r's k^3 window (through block_nbr) holds a masked row.
-extern "C" int block_dilate(const void* mask, const void* block_nbr, void* out,
+// out[r] = 1 where row r's k^3 window (through block_nbr) holds a masked
+// row, and in ws (block_rows' layout) the list of out's rows, as
+// block_rows gives it.  mask and out 8-byte aligned.  Returns the launches'
+// cudaError_t.
+extern "C" int block_dilate(const void* mask, const void* block_nbr, void* out, void* ws,
                             int n_blocks, int edge, int k, void* stream) {
-  const int64_t n_rows = (int64_t)n_blocks * edge * edge * edge;
-  if (n_rows == 0) return 0;
-  dilate_kernel<<<(unsigned)((n_rows + 255) / 256), 256, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(block_nbr),
-      static_cast<uint8_t*>(out), n_blocks, edge, k);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int32_t* wsi = static_cast<int32_t*>(ws);
+  if (n_blocks == 0) return static_cast<int>(launch_rows(out, wsi, 0, s));
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const int32_t* nbr = static_cast<const int32_t*>(block_nbr);
+  uint8_t* o = static_cast<uint8_t*>(out);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (edge == 4 && k == 3) err = launch_dilate<4, 3>(m, nbr, o, wsi, n_blocks, s);
+  if (edge == 4 && k == 5) err = launch_dilate<4, 5>(m, nbr, o, wsi, n_blocks, s);
+  if (edge == 8 && k == 3) err = launch_dilate<8, 3>(m, nbr, o, wsi, n_blocks, s);
+  if (edge == 8 && k == 5) err = launch_dilate<8, 5>(m, nbr, o, wsi, n_blocks, s);
+  return static_cast<int>(err);
 }
+
+namespace {
+
+cudaError_t conv(const void* x, const void* nbr, const void* w, int32_t* ws, void* out,
+                 int n_blocks, int edge, int k, int cin, int cout, int dtype,
+                 cudaStream_t s) {
+  return dtype == 1
+      ? launch_bn<__nv_bfloat16>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s)
+      : launch_bn<float>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s);
+}
+
+}  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; mask may be null (every row).  Rows
 // outside the mask are left as they are: the caller zeroes out first.
@@ -634,8 +755,18 @@ extern "C" int block_conv(const void* x, const void* block_nbr, const void* w,
   int32_t* wsi = static_cast<int32_t*>(ws);
   cudaError_t err = launch_rows(mask, wsi, n_blocks * edge * edge * edge, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = dtype == 1
-      ? launch_bn<__nv_bfloat16>(x, block_nbr, w, wsi, out, n_blocks, edge, k, cin, cout, s)
-      : launch_bn<float>(x, block_nbr, w, wsi, out, n_blocks, edge, k, cin, cout, s);
-  return static_cast<int>(err);
+  return static_cast<int>(conv(x, block_nbr, w, wsi, out, n_blocks, edge, k, cin, cout,
+                               dtype, s));
+}
+
+// The same over a row list built before (block_rows or block_dilate into
+// ws, its ticket 0, as every conv leaves it): no list passes.
+extern "C" int block_conv_rows(const void* x, const void* block_nbr, const void* w,
+                               void* ws, void* out, int n_blocks, int edge, int k, int cin,
+                               int cout, int dtype, void* stream) {
+  if (n_blocks == 0 || cout == 0) return 0;
+  if ((edge != 4 && edge != 8) || (k != 3 && k != 5)) return cudaErrorInvalidValue;
+  return static_cast<int>(conv(x, block_nbr, w, static_cast<int32_t*>(ws), out, n_blocks,
+                               edge, k, cin, cout, dtype,
+                               static_cast<cudaStream_t>(stream)));
 }

@@ -43,6 +43,7 @@ def build_unet_plan(grid: VoxelGrid, num_levels: int = 5,
     capacity and nothing waits for the device; ``overflow`` (a 0-d bool
     tensor) is set when any level outgrew its capacity."""
     pyramid = SC.build_conv_plan(grid, num_levels, level_caps)
+    nbrs, stem = SC.neighbor_tables(pyramid, stem_kernel)
     levels = []
     overflow = grid.overflow
     for li, lv in enumerate(pyramid):
@@ -51,12 +52,9 @@ def build_unet_plan(grid: VoxelGrid, num_levels: int = 5,
             child = SC.child_table(lv.parent, lv.kpos,
                                    pyramid[li + 1].coords_T.shape[1])
             order = SC.up_order(lv.kpos, lv.valid)
-        levels.append(Level(valid=lv.valid, nbr=SC.neighbor_table(lv, 3),
-                            parent=lv.parent, kpos=lv.kpos, child=child,
-                            up_order=order))
+        levels.append(Level(valid=lv.valid, nbr=nbrs[li], parent=lv.parent,
+                            kpos=lv.kpos, child=child, up_order=order))
         overflow = overflow | lv.overflow
-    stem = (SC.neighbor_table(pyramid[0], stem_kernel) if stem_kernel != 3
-            else levels[0].nbr)
     return UNetPlan(levels=levels, stem_nbr=stem,
                     inverse=grid.inverse_mapping), overflow
 

@@ -26,7 +26,8 @@ Three hand-written CUDA kernels carry it:
   the halo is never written to device memory), the other rows zero;
 * ``block_wgrad`` (K11, ``csrc/block_wgrad.cu``): its weight gradient,
   reduced over the level's occupied-row list (``row_list``: K10's
-  ``block_rows``, built once per level and step and kept on the tables).
+  ``block_rows``, built once per level and step and kept on the tables,
+  which every K10 forward conv of the level also takes).
 
 ``dense_subm_conv`` is a ``torch.autograd.Function`` whose backward runs
 K10 for dX (the mirror identity of ``_chunked_conv_bwd``: the same conv of
@@ -34,9 +35,10 @@ the occupancy-masked cotangent with offset-flipped, channel-transposed
 weights) and K11 for dW.  The JAX op's dX is not masked: it is non-zero at
 unoccupied cells next to occupied ones.  It is zero outside the k-dilation
 of the occupancy (the cells whose k^3 window holds an occupied cell), so
-the backward gives K10 that dilation as its output mask (``dilation``,
-built on the card once per level and kernel size by ``block_dilate``, a
-kernel beside K10), which is exact on every cell.  The JAX module chunks
+the backward gives K10 that dilation as its output mask, which is exact on
+every cell, with the dilation's row list (``dilation``: built on the card
+once per level and kernel size by ``block_dilate``, a kernel beside K10,
+and its list pass).  The JAX module chunks
 wide convs and halves wide inputs to bound a TPU buffer; both are exact,
 and the port, which never materialises the halo, does neither.
 
@@ -78,9 +80,10 @@ class BlockTables:
     block_nbr: torch.Tensor   # (26, B) int32 shell neighbours, -1 absent
     slot_vox: torch.Tensor    # (B*edge^3,) int32 dense row -> voxel, -1 empty
     edge: int
-    # k -> (occupancy, its k-dilation), filled by ``dilation``
-    dilations: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = field(
-        default_factory=dict, repr=False, compare=False)
+    # k -> (occupancy, its k-dilation, the dilation's row list), filled by
+    # ``dilation``
+    dilations: Dict[int, Tuple[torch.Tensor, torch.Tensor, "RowList"]] = \
+        field(default_factory=dict, repr=False, compare=False)
     # (occupancy, its occupied-row list), filled by ``row_list``
     rows: Optional[Tuple[torch.Tensor, "RowList"]] = field(
         default=None, repr=False, compare=False)
@@ -278,8 +281,8 @@ def _row_list(mask: torch.Tensor) -> RowList:
 
 
 def occupied_rows(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The list K10 builds inside each masked call (``block_rows``), here
-    on its own: see ``occupied_rows_plain``.  The count stays on the card."""
+    """K10's row list of ``mask`` (``block_rows``) as a -1-padded list:
+    see ``occupied_rows_plain``.  The count stays on the card."""
     rows, count, ws = _row_list(mask)
     if ws is None:
         return rows, count
@@ -293,8 +296,8 @@ occupied_rows.launches = 0
 
 def row_list(tables: BlockTables, occ: torch.Tensor) -> RowList:
     """The occupied-row list of ``occ`` on ``tables``, kept on the tables:
-    built once per level (``block_rows``) for all the level's weight
-    gradients (K11)."""
+    built once per level (``block_rows``) for all the level's forward
+    convs (K10) and weight gradients (K11)."""
     hit = tables.rows
     if hit is None or hit[0] is not occ:
         hit = (occ, _row_list(occ))
@@ -313,51 +316,63 @@ def occupancy_dilation_plain(mask: torch.Tensor, block_nbr: torch.Tensor,
     return (pooled[:, 0] > 0).reshape(-1)
 
 
-def occupancy_dilation(mask: torch.Tensor, block_nbr: torch.Tensor,
-                       edge: int, k: int) -> torch.Tensor:
-    """(B*edge^3,) bool: the k-dilation of ``mask`` through the block
-    halo (a row is in it when some row of its k^3 window is in ``mask``)."""
+def dilated_rows(mask: torch.Tensor, block_nbr: torch.Tensor, edge: int,
+                 k: int) -> Tuple[torch.Tensor, RowList]:
+    """((B*edge^3,) bool, its row list): the k-dilation of ``mask`` through
+    the block halo (a row is in it when some row of its k^3 window is in
+    ``mask``).  On the card ``block_dilate`` writes the mask and the list
+    pass's counts in one pass, then the list pass runs (two launches,
+    counted as one call)."""
     b = block_nbr.shape[1]
     if tuple(mask.shape) != (b * edge ** 3,) or mask.dtype != torch.bool \
             or edge not in EDGES or k not in KERNEL_SIZES:
-        raise ValueError(f"occupancy_dilation: mask {tuple(mask.shape)} "
+        raise ValueError(f"dilated_rows: mask {tuple(mask.shape)} "
                          f"{mask.dtype}, {b} blocks, edge {edge}, k {k}")
     if mask.device.type == "cpu":
-        return occupancy_dilation_plain(mask, block_nbr, edge, k)
-    _require_cuda("occupancy_dilation", mask, block_nbr)
+        out = occupancy_dilation_plain(mask, block_nbr, edge, k)
+        return out, RowList(*occupied_rows_plain(out), None)
+    _require_cuda("dilated_rows", mask, block_nbr)
+    if mask.data_ptr() % 8:
+        raise ValueError("dilated_rows: mask must be 8-byte aligned")
+    n = mask.shape[0]
     out = torch.empty_like(mask)
+    ws = row_workspace(n, mask.device)
     lib = cuda_build.library("block_conv")
     cuda_build.check(lib.block_dilate(
-        mask.data_ptr(), block_nbr.data_ptr(), out.data_ptr(), b, edge, k,
-        cuda_build.stream_ptr(mask)), "block_dilate")
-    occupancy_dilation.launches += 1
-    return out
+        mask.data_ptr(), block_nbr.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        b, edge, k, cuda_build.stream_ptr(mask)), "block_dilate")
+    dilated_rows.launches += 1
+    return out, RowList(ws[:n], ws[n], ws)
 
 
-occupancy_dilation.launches = 0
+dilated_rows.launches = 0
 
 
-def dilation(tables: BlockTables, occ: torch.Tensor, k: int) -> torch.Tensor:
-    """The k-dilation of ``occ`` on ``tables``, kept on the tables: built
-    once per level and kernel size for all the level's convs."""
+def dilation(tables: BlockTables, occ: torch.Tensor, k: int
+             ) -> Tuple[torch.Tensor, RowList]:
+    """The k-dilation of ``occ`` on ``tables`` and its row list, kept on
+    the tables: built once per level and kernel size for all the level's
+    dX convs."""
     hit = tables.dilations.get(k)
     if hit is None or hit[0] is not occ:
-        hit = (occ, occupancy_dilation(occ, tables.block_nbr, tables.edge, k))
+        hit = (occ, *dilated_rows(occ, tables.block_nbr, tables.edge, k))
         tables.dilations[k] = hit
-    return hit[1]
+    return hit[1], hit[2]
 
 
 def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
                weights: torch.Tensor, occ: Optional[torch.Tensor],
-               edge: int) -> torch.Tensor:
+               edge: int, rows: Optional[RowList] = None) -> torch.Tensor:
     """Submanifold conv of flat dense rows with each block halo-padded from
     its shell neighbours: ``out[c] = sum_o halo[c + o] @ weights[o]``,
     zero at unoccupied cells when ``occ`` is given.
 
     feats (B*edge^3, Cin); block_nbr (26, B) int32; weights (k^3, Cin, Cout)
-    in feats' dtype, canonical offset order; occ (B*edge^3,) bool or None.
-    Returns (B*edge^3, Cout) in feats' dtype, summed in fp32.  On the card
-    only the rows of ``occ`` are computed (every row without it)."""
+    in feats' dtype, canonical offset order; occ (B*edge^3,) bool or None;
+    rows the card's row list of ``occ`` (``row_list``, ``dilation``), built
+    inside the call when not given.  Returns (B*edge^3, Cout) in feats'
+    dtype, summed in fp32.  On the card only the rows of ``occ`` are
+    computed (every row without it)."""
     n_off, cin, cout = weights.shape
     _check_layout("block_conv", feats, block_nbr, n_off, edge, cin)
     if feats.device.type == "cpu":
@@ -370,21 +385,33 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
                         "block_nbr must be int32 and occ bool")
     b = block_nbr.shape[1]
     n_rows = b * edge ** 3
+    if rows is not None and (occ is None or rows.ws is None
+                             or rows.rows.shape[0] != n_rows):
+        raise ValueError("block_conv: rows must be the card's row list of "
+                         "occ")
     out = (torch.empty if occ is None else torch.zeros)(
         n_rows, cout, dtype=feats.dtype, device=feats.device)
-    ws = row_workspace(n_rows, feats.device)
     lib = cuda_build.library("block_conv")
-    cuda_build.check(lib.block_conv(
-        feats.data_ptr(), block_nbr.data_ptr(), weights.data_ptr(),
-        None if occ is None else occ.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), b, edge, kernel_size(n_off), cin, cout,
-        cuda_build.dtype_code(feats.dtype), cuda_build.stream_ptr(feats)),
-        "block_conv")
+    args = (b, edge, kernel_size(n_off), cin, cout,
+            cuda_build.dtype_code(feats.dtype), cuda_build.stream_ptr(feats))
+    if rows is None:
+        ws = row_workspace(n_rows, feats.device)
+        block_conv.own_lists += 1
+        err = lib.block_conv(
+            feats.data_ptr(), block_nbr.data_ptr(), weights.data_ptr(),
+            None if occ is None else occ.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), *args)
+    else:
+        err = lib.block_conv_rows(
+            feats.data_ptr(), block_nbr.data_ptr(), weights.data_ptr(),
+            rows.ws.data_ptr(), out.data_ptr(), *args)
+    cuda_build.check(err, "block_conv")
     block_conv.launches += 1
     return out
 
 
 block_conv.launches = 0
+block_conv.own_lists = 0     # calls that built their row list themselves
 
 
 # ---------------------------------------------------------------------------
@@ -503,7 +530,9 @@ class _DenseSubmConv(torch.autograd.Function):
     def forward(ctx, feats, occ, tables, weights):
         ctx.save_for_backward(feats, occ, weights)
         ctx.tables = tables
-        return block_conv(feats, tables.block_nbr, weights, occ, tables.edge)
+        rows = row_list(tables, occ) if feats.is_cuda else None
+        return block_conv(feats, tables.block_nbr, weights, occ, tables.edge,
+                          rows)
 
     @staticmethod
     def backward(ctx, dout):
@@ -512,8 +541,9 @@ class _DenseSubmConv(torch.autograd.Function):
         dy = torch.where(occ[:, None], dout, 0.0).to(feats.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
+            mask, rows = dilation(t, occ, k)
             dx = block_conv(dy, t.block_nbr, _transposed(weights.flip(0)),
-                            dilation(t, occ, k), t.edge)
+                            mask, t.edge, rows if dy.is_cuda else None)
         if ctx.needs_input_grad[3]:
             rows = row_list(t, occ) if feats.is_cuda else None
             dw = block_wgrad(feats, dy, t.block_nbr, occ, t.edge, k,

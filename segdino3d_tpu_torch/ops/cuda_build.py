@@ -46,7 +46,9 @@ _ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
                  "segment_mean_gather": ("segment_mean_gather",
                                          "segment_csr_keys",
                                          "segment_csr_offsets"),
-                 "block_conv": ("block_conv", "block_rows", "block_dilate")}
+                 "neighbor_table": ("neighbor_tables", "empty_launch"),
+                 "block_conv": ("block_conv", "block_conv_rows", "block_rows",
+                                "block_dilate")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -84,8 +86,10 @@ _SIGNATURES = {
     "coord_hash_insert": [_P, _I, _P, _P, _I, _P, _P],
     # queries, n, tkeys, tvals, t_size, out, stream
     "coord_hash_lookup": [_P, _I, _P, _P, _I, _P, _P],
-    # coords, num, v, k, tkeys, tvals, t_size, out, stream
-    "neighbor_table": [_P, _P, _I, _I, _P, _P, _I, _P, _P],
+    # desc, n_tables, sub_of, fill, fill_bytes, stream
+    "neighbor_tables": [_P, _I, _P, _P, ctypes.c_longlong, _P],
+    # stream
+    "empty_launch": [_P],
     # winner, coords, n, shift, cap, ws, inverse, kpos, out_coords, valid,
     # tvals, tvals_out, t_size, stream
     "voxel_compact": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
@@ -94,10 +98,12 @@ _SIGNATURES = {
     # x, block_nbr, w, mask, ws, out, n_blocks, edge, k, cin, cout, dtype,
     # stream
     "block_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, block_nbr, w, ws, out, n_blocks, edge, k, cin, cout, dtype, stream
+    "block_conv_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # mask, ws, n_rows, stream
     "block_rows": [_P, _P, _I, _P],
-    # mask, block_nbr, out, n_blocks, edge, k, stream
-    "block_dilate": [_P, _P, _P, _I, _I, _I, _P],
+    # mask, block_nbr, out, ws, n_blocks, edge, k, stream
+    "block_dilate": [_P, _P, _P, _P, _I, _I, _I, _P],
     # x, dy, block_nbr, ws, partial, out, n_blocks, edge, k, cin, cout,
     # splits, dtype, stream
     "block_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -35,11 +35,13 @@ Kernel offsets follow the canonical ``itertools.product`` order.
 
 The coordinate pyramid of the on-device plan engine lives here too, as in
 the JAX module: ``downsample`` (K6 + K8 over the 2x-coarsened keys),
-``build_conv_plan`` and ``neighbor_table`` (K7, ``csrc/neighbor_table.cu``),
-with the port's ``child_table`` and ``up_order`` in torch.
+``build_conv_plan`` and ``neighbor_tables`` (K7, ``csrc/neighbor_table.cu``:
+every table of a plan in one launch; ``neighbor_table`` for one), with the
+port's ``child_table`` and ``up_order`` in torch.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import itertools
 import weakref
@@ -660,6 +662,80 @@ def neighbor_table_plain(coords_T: torch.Tensor, num_voxels: torch.Tensor,
     return torch.where(hit, order[pos], -1).to(torch.int32).view(-1, v)
 
 
+@functools.lru_cache(maxsize=None)
+def subset_offsets(kernel_size: int, sub_size: int) -> np.ndarray:
+    """(k^3,) int32, read-only: each offset's index among the
+    ``sub_size``^3 offsets (``kernel_offsets`` order), -1 where it is not
+    one of them."""
+    index = {tuple(o): i for i, o in enumerate(kernel_offsets(sub_size))}
+    out = np.array([index.get(tuple(o), -1)
+                    for o in kernel_offsets(kernel_size)], np.int32)
+    out.flags.writeable = False
+    return out
+
+
+# K7's tables of one launch share a buffer, each starting on 256 bytes
+_TABLE_ALIGN = 64
+
+
+def _mirror_fill(tables) -> Tuple[int, int]:
+    """(start, end) addresses of the range K7's C entry sets to -1 for
+    ``tables``, (out, sub) views in buffer order: from the first table's
+    mirrored half to the end of the last view."""
+    first = tables[0][0]
+    start = first.data_ptr() + (first.shape[0] // 2 + 1) * first.shape[1] * 4
+    end = max(t.data_ptr() + t.numel() * 4 for pair in tables for t in pair
+              if t is not None)
+    return start, end
+
+
+@functools.lru_cache(maxsize=None)
+def _subset_map(kernel_size: int):
+    """``subset_offsets(k, 3)`` as the C array K7's entry reads."""
+    m = subset_offsets(kernel_size, 3)
+    return (ctypes.c_int32 * len(m))(*m.tolist())
+
+
+def _build_tables(jobs) -> None:
+    """One launch of K7 over ``jobs``: (level, k, out, sub) with ``out`` a
+    (k^3, V) view and ``sub`` None or a (27, V) view whose cells come from
+    ``out``'s probes, all views of one buffer (``_table_buffer``) in the
+    jobs' order.  The buffer from the first table's mirrored half to its
+    end, which holds every mirrored half, is set to -1 first (one
+    memset)."""
+    first = jobs[0][2]
+    fill, end = _mirror_fill([(out, sub) for _, _, out, sub in jobs])
+    desc, sub_map = [], None
+    for lv, k, out, sub in jobs:
+        h = lv.hash
+        _require_cuda("neighbor_table", lv.coords_T, lv.num_voxels, h.keys,
+                      h.vals)
+        if h.keys.dtype != torch.int32:
+            raise TypeError("neighbor_table: the level's hash must be K6's "
+                            "table")
+        desc += (lv.coords_T.data_ptr(), lv.num_voxels.data_ptr(),
+                 h.keys.data_ptr(), h.vals.data_ptr(), out.data_ptr(),
+                 0 if sub is None else sub.data_ptr(),
+                 lv.coords_T.shape[1], k, h.keys.shape[0])
+        if sub is not None:
+            sub_map = _subset_map(k)
+    lib = cuda_build.library("neighbor_table")
+    cuda_build.check(lib.neighbor_tables(
+        (ctypes.c_int64 * len(desc))(*desc), len(jobs), sub_map, fill,
+        max(end - fill, 0), cuda_build.stream_ptr(first)), "neighbor_table")
+
+
+def _table_buffer(shapes, device):
+    """Views of one int32 buffer, one per (n_off, V) shape, in order."""
+    sizes = [-(-n * v // _TABLE_ALIGN) * _TABLE_ALIGN for n, v in shapes]
+    buf = torch.empty(sum(sizes), dtype=torch.int32, device=device)
+    views, at = [], 0
+    for (n, v), size in zip(shapes, sizes):
+        views.append(buf.as_strided((n, v), (v, 1), at))
+        at += size
+    return views
+
+
 def neighbor_table(level: PlanLevel, kernel_size: int) -> torch.Tensor:
     """(k^3, V) int32: the voxel at ``coords + offset`` (offset-major,
     canonical order), -1 where absent, for rows past the count and for
@@ -669,24 +745,45 @@ def neighbor_table(level: PlanLevel, kernel_size: int) -> torch.Tensor:
     coords_T = level.coords_T
     if coords_T.device.type == "cpu":
         return neighbor_table_plain(coords_T, level.num_voxels, kernel_size)
-    h = level.hash
-    _require_cuda("neighbor_table", coords_T, h.keys, h.vals)
-    if h.keys.dtype != torch.int32:
-        raise TypeError("neighbor_table: the level's hash must be K6's table")
-    v = coords_T.shape[1]
-    num = level.num_voxels.reshape(1)
-    out = torch.empty(kernel_size ** 3, v, dtype=torch.int32,
-                      device=coords_T.device)
-    lib = cuda_build.library("neighbor_table")
-    cuda_build.check(lib.neighbor_table(
-        coords_T.data_ptr(), num.data_ptr(), v, kernel_size, h.keys.data_ptr(),
-        h.vals.data_ptr(), h.keys.shape[0], out.data_ptr(),
-        cuda_build.stream_ptr(coords_T)), "neighbor_table")
+    (out,) = _table_buffer([(kernel_size ** 3, coords_T.shape[1])],
+                           coords_T.device)
+    _build_tables([(level, kernel_size, out, None)])
     neighbor_table.launches += 1
     return out
 
 
 neighbor_table.launches = 0
+
+
+def neighbor_tables(pyramid: Sequence[PlanLevel], stem_kernel: int
+                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """(each level's (27, V_l) table, the stem's (k^3, V_0) table): every
+    table of a plan.  On the card one launch of K7 builds them all (and one
+    memset clears their mirrored halves); a k5 stem's probes also give
+    level 0's k3 table, and a k3 stem is level 0's table."""
+    if stem_kernel % 2 != 1 or stem_kernel < 3:
+        raise ValueError("the stem's kernel must be odd and at least 3")
+    if pyramid[0].coords_T.device.type == "cpu":
+        k3 = [neighbor_table_plain(lv.coords_T, lv.num_voxels, 3)
+              for lv in pyramid]
+        stem = k3[0] if stem_kernel == 3 else neighbor_table_plain(
+            pyramid[0].coords_T, pyramid[0].num_voxels, stem_kernel)
+        return k3, stem
+    shapes = [(27, lv.coords_T.shape[1]) for lv in pyramid]
+    own_stem = stem_kernel != 3
+    if own_stem:
+        shapes.insert(0, (stem_kernel ** 3, pyramid[0].coords_T.shape[1]))
+    views = _table_buffer(shapes, pyramid[0].coords_T.device)
+    k3 = views[1:] if own_stem else views
+    jobs = [(lv, 3, t, None) for lv, t in zip(pyramid, k3)]
+    if own_stem:
+        jobs[0] = (pyramid[0], stem_kernel, views[0], k3[0])
+    _build_tables(jobs)
+    neighbor_tables.launches += 1
+    return list(k3), views[0]
+
+
+neighbor_tables.launches = 0
 
 
 def child_table(parent: torch.Tensor, kpos: torch.Tensor, coarse_cap: int

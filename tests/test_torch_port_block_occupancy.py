@@ -109,7 +109,7 @@ def test_dilation_matches_its_definition_and_jax(edge, k):
                 lx, ly, lz = q - np.array(d) * edge
                 hit |= bool(occ[((src * edge + lx) * edge + ly) * edge + lz])
         assert hit == bool(got[row]), (edge, k, row)
-    assert torch.equal(TBD.occupancy_dilation(occ, t.block_nbr, edge, k),
+    assert torch.equal(TBD.dilated_rows(occ, t.block_nbr, edge, k)[0],
                        got)                       # the CPU branch
 
 
@@ -134,20 +134,20 @@ def test_dx_role_is_zero_outside_the_dilation(edge, k):
 
 
 def test_backward_builds_one_dilation_per_level_and_size(monkeypatch):
-    """``dense_subm_conv``'s backward takes the dilation from its tables:
-    built once for a level's convs of one kernel size, and equal to the
-    plain dilation."""
+    """``dense_subm_conv``'s backward takes the dilation and its row list
+    from its tables: built once for a level's convs of one kernel size, and
+    equal to the plain dilation and its occupied rows."""
     t, _, _ = _level(4)
     t.dilations.clear()
     occ = TBD.occupancy(t)
     calls = []
-    real = TBD.occupancy_dilation
+    real = TBD.dilated_rows
 
     def counted(*args):
         calls.append(args[-1])
         return real(*args)
 
-    monkeypatch.setattr(TBD, "occupancy_dilation", counted)
+    monkeypatch.setattr(TBD, "dilated_rows", counted)
     rng = np.random.RandomState(22)
     x = torch.from_numpy(rng.randn(occ.shape[0], 4).astype(np.float32))
     x = torch.where(occ[:, None], x, 0.0).requires_grad_()
@@ -158,8 +158,10 @@ def test_backward_builds_one_dilation_per_level_and_size(monkeypatch):
         y = TBD.dense_subm_conv(y, occ, t, w)
     y.sum().backward()
     assert calls == [3]
-    np.testing.assert_array_equal(
-        t.dilations[3][1].numpy(),
-        TBD.occupancy_dilation_plain(occ, t.block_nbr, 4, 3).numpy())
+    want = TBD.occupancy_dilation_plain(occ, t.block_nbr, 4, 3)
+    np.testing.assert_array_equal(t.dilations[3][1].numpy(), want.numpy())
+    rows, count = TBD.occupied_rows_plain(want)
+    assert torch.equal(t.dilations[3][2].rows, rows)
+    assert int(t.dilations[3][2].count) == int(count)
     assert x.grad is not None and w3[0].grad is not None
     t.dilations.clear()

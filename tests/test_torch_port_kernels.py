@@ -606,7 +606,7 @@ def test_block_conv_dx_role_under_the_dilation(card, edge, k, dtype):
     dt = getattr(torch, dtype)
     t = _block_plan_on(card, [edge] * 5).blocks[0]
     occ = TBD.occupancy(t)
-    dil = TBD.occupancy_dilation(occ, t.block_nbr, edge, k)
+    dil = TBD.dilated_rows(occ, t.block_nbr, edge, k)[0]
     torch.testing.assert_close(
         dil, TBD.occupancy_dilation_plain(occ, t.block_nbr, edge, k),
         rtol=0, atol=0)
@@ -881,3 +881,109 @@ def test_gather_conv_roles_match_plain(levels, role, dtype):
     assert torch.equal(got, again)
     tol = TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v_cap", [2048, 500])
+@pytest.mark.parametrize("stem_kernel", [3, 5])
+def test_neighbor_tables_match_plain(card, v_cap, stem_kernel):
+    """K7's one launch over a whole pyramid (half the offsets probed, the
+    rest mirrored, level 0's k3 table from a k5 stem's probes) against
+    ``neighbor_table_plain`` one table at a time, on the border scene, with
+    ids past the cap dropped at v_cap 500; and K7 for one table."""
+    pts, bidx, valid = _border_points(np.random.RandomState(5))
+    caps = [v_cap, 1024, 1024, 512, 256]
+    pyramids = {}
+    for dev in (card, torch.device("cpu")):
+        args = [torch.from_numpy(a).to(dev) for a in (bidx, pts, valid)]
+        grid = TV.voxelize(*args, num_voxels_static=v_cap)
+        pyramids[dev.type] = TSC.build_conv_plan(grid, 5, caps)
+    before = TSC.neighbor_tables.launches
+    k3, stem = TSC.neighbor_tables(pyramids["cuda"], stem_kernel)
+    again = TSC.neighbor_tables(pyramids["cuda"], stem_kernel)[1]
+    one = TSC.neighbor_table(pyramids["cuda"][1], 5)
+    torch.cuda.synchronize()
+    assert TSC.neighbor_tables.launches == before + 2
+    plain = pyramids["cpu"]
+    for lv, t in zip(plain, k3, strict=True):
+        torch.testing.assert_close(t.cpu(), TSC.neighbor_table_plain(
+            lv.coords_T, lv.num_voxels, 3), rtol=0, atol=0)
+    want = TSC.neighbor_table_plain(plain[0].coords_T, plain[0].num_voxels,
+                                    stem_kernel)
+    torch.testing.assert_close(stem.cpu(), want, rtol=0, atol=0)
+    torch.testing.assert_close(again.cpu(), want, rtol=0, atol=0)
+    torch.testing.assert_close(one.cpu(), TSC.neighbor_table_plain(
+        plain[1].coords_T, plain[1].num_voxels, 5), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,edge,k", [
+    ("plan", 4, 3), ("plan", 4, 5), ("plan", 8, 3), ("plan", 8, 5),
+    ("full_level", 4, 3), ("full_level", 4, 5)])
+def test_dilated_rows_match_plain(card, case, edge, k):
+    """``block_dilate`` in one pass (the mask and the list pass's counts),
+    then the list pass: the mask equals the plain dilation and the list
+    its occupied rows, on a plan's level 0 and on a grid of edge-4 blocks
+    whose every cell is occupied (the list at its capacity)."""
+    if case == "full_level":
+        t = _grid_tables(card)
+        occ = torch.ones(t.slot_vox.shape[0], dtype=torch.bool, device=card)
+    else:
+        t = _block_plan_on(card, [edge] * 5).blocks[0]
+        occ = TBD.occupancy(t)
+    mask, rows = TBD.dilated_rows(occ, t.block_nbr, t.edge, k)
+    torch.cuda.synchronize()
+    want = TBD.occupancy_dilation_plain(occ.cpu(), t.block_nbr.cpu(), t.edge,
+                                        k)
+    torch.testing.assert_close(mask.cpu(), want, rtol=0, atol=0)
+    want_rows, count = TBD.occupied_rows_plain(want)
+    n = int(count)
+    assert int(rows.count) == n
+    torch.testing.assert_close(rows.rows[:n].cpu(), want_rows[:n], rtol=0,
+                               atol=0)
+    assert int(rows.ws[occ.shape[0] + 1]) == 0       # the ticket
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_conv_on_cached_lists(card, dtype):
+    """K10 on a level's cached lists, as the autograd Function runs it:
+    two dX calls in a row on one dilation list, bit-equal to each other
+    and to the per-call path (which builds its own list); forward calls on
+    the occupancy list before and after K11 reduces over the same list.
+    Every call leaves the list's ticket at 0, so no later call skips a
+    tile."""
+    dt = getattr(torch, dtype)
+    t = _block_plan_on(card, [4] * 5).blocks[0]
+    occ = TBD.occupancy(t)
+    n = occ.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    dy = torch.where(occ[:, None], torch.randn(n, 40, generator=gen,
+                                               device="cuda"), 0.0).to(dt)
+    w = (torch.randn(27, 35, 40, generator=gen, device="cuda")
+         * (27 * 40) ** -0.5).to(dt)
+    wt = TSC._transposed(w.flip(0))
+    mask, rows = TBD.dilation(t, occ, 3)
+    assert TBD.dilation(t, occ, 3)[1] is rows
+    first = TBD.block_conv(dy, t.block_nbr, wt, mask, t.edge, rows)
+    second = TBD.block_conv(dy, t.block_nbr, wt, mask, t.edge, rows)
+    per_call = TBD.block_conv(dy, t.block_nbr, wt, mask, t.edge)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, per_call)
+    assert int(rows.ws[n + 1]) == 0
+    tol = TOL[dtype]
+    torch.testing.assert_close(
+        first.float(), TBD.dense_subm_conv_plain(dy, t.block_nbr, wt, None,
+                                                 t.edge).float(),
+        rtol=tol, atol=tol)
+    x = torch.where(occ[:, None], torch.randn(n, 35, generator=gen,
+                                              device="cuda"), 0.0).to(dt)
+    occ_rows = TBD.row_list(t, occ)
+    fwd = TBD.block_conv(x, t.block_nbr, w, occ, t.edge, occ_rows)
+    TBD.block_wgrad(x, dy, t.block_nbr, occ, t.edge, 3, occ_rows)
+    fwd2 = TBD.block_conv(x, t.block_nbr, w, occ, t.edge, occ_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd, fwd2) and int(occ_rows.ws[n + 1]) == 0
+    assert torch.equal(fwd, TBD.block_conv(x, t.block_nbr, w, occ, t.edge))
+    t.dilations.clear()
+    t.rows = None
