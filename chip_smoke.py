@@ -16,9 +16,12 @@ Phases, in order; any failure exits non-zero before the result line:
    column sources, with fp32 and with fp16 2D features, and as the
    superpoint pool, each CSR build timed beside it; the CSR's own two
    kernels, equal to their plain version); the
-   backward kernels K4 (weight gradients) and K5 (pooling gradient), and
-   K1/K2 in their backward roles, in fp32 at the training shapes; the plan
-   engine's kernels K6 (coordinate hash), K8 (voxel compaction) and K7
+   backward kernels K4 (weight gradients) and K5 (pooling gradient, as
+   the pool's backward runs it: one operation, the count division inside,
+   two calls bit-equal), and K1/K2 in their backward roles, in fp32 at the training shapes; the
+   plan engine's kernels K6 (coordinate hash: build and lookup of the same
+   keys in one launch at each level's hash, L0-L4), K8 (voxel compaction)
+   and K7
    (neighbour tables: every table of the headline plan in one launch and
    at most one memset, and one table alone), whose integer outputs must be
    equal (with the profiled device time of a call and of an empty launch
@@ -536,21 +539,42 @@ def backward_cases(batch, s_cap, gen):
         nbytes(dy, fine.parent, fine.kpos, wt, fine.valid)
         + v0 * 32 * 4, "fp32")}))
 
-    # K5: the pooling's gradient into the U-Net output
+    # K5: the pooling's gradient into the U-Net output, as the pool's
+    # backward runs it: the voxel columns of the (1,536, 102) gradient read
+    # in place, each divided by its superpoint's count inside the kernel
     inverse = plan.inverse
     pvalid = batch.point_valid.reshape(-1)
     seg = superpoint_segment_ids(batch.superpoint_ids, s_cap)
     vox_csr = SS.segment_csr(inverse, v0, pvalid)
-    g = _randn(gen, (s_cap, 96), f32)
-    keep = pvalid & (inverse >= 0)
+    sp_off = SS.segment_csr(seg, s_cap, pvalid).offsets
+    dmeans = _randn(gen, (s_cap, 102), f32)
+    g = dmeans[:, :96]
+    keep = pvalid & (inverse >= 0) & (seg >= 0) & (seg < s_cap)
     vidx, sidx = inverse[keep].long(), seg[keep].long()
+    quot = g / SS.segment_counts(sp_off)[:, None]
     n_members = int(keep.sum())
-    cases.append(("segment_grad", "pool backward (1,536,96)->(V0,96)", {f32: (
-        lambda: SS.segment_grad(g, seg, s_cap, inverse, pvalid, vox_csr),
-        lambda: SS.segment_grad_plain(g, seg, s_cap, inverse, pvalid, v0),
-        lambda: g.new_zeros(v0, 96).index_add_(0, vidx, g[sidx]),
-        float(n_members * 96),
-        nbytes(g, seg, *vox_csr) + v0 * 96 * 4, "fp32")}))
+
+    def pool_backward():
+        return SS.segment_grad(g, seg, s_cap, sp_off, inverse, pvalid,
+                               vox_csr)
+
+    ops, us = device_ops(pool_backward)
+    print(f"segment_grad [the pool's backward]: one call puts {len(ops)} "
+          f"operations on the card, {us:.1f} us of device time: {ops}",
+          flush=True)
+    if len(ops) != 1:
+        raise SystemExit(f"segment_grad: the pool's backward made {len(ops)} "
+                         "operations, 1 expected")
+    cases.append(("segment_grad", "pool backward (1,536,96 of 102)->(V0,96), "
+                  "the count division inside; library: index_add_ of the "
+                  "quotients", {f32: (
+        pool_backward,
+        lambda: SS.segment_grad_plain(g, seg, s_cap, sp_off, inverse, pvalid,
+                                      v0),
+        lambda: g.new_zeros(v0, 96).index_add_(0, vidx, quot[sidx]),
+        float(n_members * 96 * 2),
+        nbytes(g, seg, vox_csr.offsets, vox_csr.members, sp_off)
+        + v0 * 96 * 4, "fp32")}))
     return cases
 
 
@@ -599,22 +623,32 @@ def plan_engine_cases(batch, level_caps):
     n, v0 = key.shape[0], level_caps[0]
     cases = []
 
+    def flat_build(h, winner, key, lookup):
+        """The winners, a lookup of the same keys in the table, the flag."""
+        return torch.cat([winner, lookup(h, key),
+                          h.overflow.to(torch.int32).reshape(1)])
+
     def hash_case(name, key, cap):
+        """K6's build and lookup of the same keys, one launch.  Bytes: the
+        keys read, the winners and the table written."""
         t = TQ.table_size(cap)
-        cases.append(("coord_hash", f"{name}: insert + lookup, "
+        cases.append(("coord_hash", f"{name}: build + lookup in one launch, "
                       f"{key.shape[0]} keys, {t} slots", {f32: (
-                          lambda: TQ.lookup_hash(TQ.build_hash(key, cap), key),
-                          lambda: TQ.lookup_hash_plain(
-                              TQ.build_hash_plain(key, cap), key),
+                          (lambda: TQ.build_and_lookup(key, cap),
+                           lambda: flat_build(*TQ.build_and_lookup(key, cap),
+                                              key, TQ.lookup_hash)),
+                          lambda: flat_build(
+                              *TQ.build_and_lookup_plain(key, cap), key,
+                              TQ.lookup_hash_plain),
                           lambda: torch.unique(key, sorted=True,
                                                return_inverse=True)[1],
-                          0.0, nbytes(key) + key.shape[0] * 4, "fp32",
-                          exact)}))
+                          0.0, nbytes(key) + key.shape[0] * 4 + t * 8,
+                          "fp32", exact)}))
 
     def compact_case(name, key, coords_T, cap, shift):
         hcap = min(cap, key.shape[0])
-        hk, hp = TQ.build_hash(key, hcap), TQ.build_hash_plain(key, hcap)
-        wk, wp = TQ.lookup_hash(hk, key), TQ.lookup_hash_plain(hp, key)
+        hk, wk = TQ.build_and_lookup(key, hcap)
+        hp, wp = TQ.build_and_lookup_plain(key, hcap)
         rows = torch.arange(key.shape[0], device=DEVICE, dtype=torch.int32)
         m = key.shape[0]
         # the remapped hash (each key's voxel id), and the input hash kept
@@ -623,6 +657,7 @@ def plan_engine_cases(batch, level_caps):
         cp = TV.voxel_compact_plain(wp, coords_T, cap, shift, hp)
         if not (torch.equal(TQ.lookup_hash(ck.hash, key),
                             TQ.lookup_hash_plain(cp.hash, key))
+                and torch.equal(ck.hash.keys, hk.keys)
                 and torch.equal(hk.vals, before)):
             raise SystemExit(f"voxel_compact [{name}]: the remapped hash "
                              "differs from the plain version's")
@@ -714,7 +749,7 @@ def plan_engine_cases(batch, level_caps):
             searchsorted_library([(lv, k)]), 0.0, table_bytes([(lv, k)]),
             "fp32", exact)}))
 
-    hash_case("level 0", key, min(v0, n))
+    hash_case("level 0, the points", key, min(v0, n))
     compact_case(f"voxelize {n} points -> V0 cap {v0}", key, cols, v0, 0)
     grid = TV.voxelize(bidx, shifted, valid, v0)
     b, x, y, z = grid.coords_T
@@ -722,6 +757,12 @@ def plan_engine_cases(batch, level_caps):
     compact_case(f"downsample L0 -> L1 cap {level_caps[1]} (parent, kpos)",
                  key1, grid.coords_T, level_caps[1], 1)
     pyramid = SC.build_conv_plan(grid, 5, level_caps)
+    for li in range(1, len(pyramid)):   # each downsample's hash
+        b, x, y, z = pyramid[li - 1].coords_T
+        hash_case(f"level {li}, level {li - 1}'s voxels",
+                  TK.pack_columns_u32(b, x >> 1, y >> 1, z >> 1,
+                                      pyramid[li - 1].valid),
+                  min(level_caps[li], level_caps[li - 1]))
     plan_case(pyramid)
     nbr_case("stem k5, level 0", pyramid[0], 5)
     nbr_case("k3, level 0", pyramid[0], 3)
@@ -729,11 +770,12 @@ def plan_engine_cases(batch, level_caps):
 
 
 # kernels whose sums have one fixed order: two calls must be bit-equal
-BIT_EQUAL = ("gather_gemm_conv", "up_conv", "segment_mean_gather")
-# kernels whose CUDA-event time is mostly the wrapper's host dispatch:
-# their profiled device time is printed beside it
+BIT_EQUAL = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
+             "segment_grad")
+# kernels whose CUDA-event time is mostly the wrapper's host dispatch (and
+# K5): their profiled device time and operations are printed beside it
 HOST_BOUND = ("coord_hash", "neighbor_table", "voxel_compact",
-              "block_dilate", "segment_csr")
+              "block_dilate", "segment_csr", "segment_grad")
 
 
 def launch_floor():
@@ -1126,7 +1168,7 @@ def counters():
             "segment_csr": (SS.segment_csr,),
             "gather_wgrad": (SC.gather_wgrad,),
             "segment_grad": (SS.segment_grad,),
-            "coord_hash": (TQ.build_hash, TQ.lookup_hash),
+            "coord_hash": (TQ.build_and_lookup, TQ.lookup_hash),
             "neighbor_table": (SC.neighbor_table, SC.neighbor_tables),
             "voxel_compact": (TV.voxel_compact,),
             "slot_gather": (BD.slot_gather,),
@@ -1466,8 +1508,10 @@ def run_device_plan_path(model, test_cfg, records, spec, host_batch, host_bb,
         model, test_cfg, records, spec, device_plan=True)
     if batch.plan is not None:
         raise SystemExit("the device-plan run got a host plan")
+    # coord_hash: one build-and-lookup launch a level (voxelize and four
+    # downsamples)
     expected = {"gather_gemm_conv": 51, "up_conv": 4, "segment_mean_gather": 2,
-                "coord_hash": 10, "voxel_compact": 5, "neighbor_table": 1}
+                "coord_hash": 5, "voxel_compact": 5, "neighbor_table": 1}
     print(f"launches in one forward on a device plan: {launches} (expected "
           f"{expected})", flush=True)
     for k, n in expected.items():

@@ -41,7 +41,7 @@ _HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh"),
 # a library's C functions, where they are not the one named after it
 _ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
                                       "gather_conv_pair_stride"),
-                 "coord_hash": ("coord_hash_insert", "coord_hash_lookup"),
+                 "coord_hash": ("coord_hash_build", "coord_hash_lookup"),
                  "gather_wgrad": ("gather_wgrad", "gather_pairs"),
                  "segment_mean_gather": ("segment_mean_gather",
                                          "segment_csr_keys",
@@ -80,10 +80,12 @@ _SIGNATURES = {
                      _P],
     # ia, ib, ws, rows, n_off, stream
     "gather_pairs": [_P, _P, _P, _I, _I, _P],
-    # offsets, members, seg, g, out, rows, S, cols, out_dtype, stream
-    "segment_grad": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # keys, n, tkeys, tvals, t_size, overflow, stream
-    "coord_hash_insert": [_P, _I, _P, _P, _I, _P, _P],
+    # offsets, members, seg, g, ld, sp_offsets, out, rows, S, cols,
+    # out_dtype, stream
+    "segment_grad": [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I,
+                     _I, _P],
+    # keys, n, tkeys, tvals, t_size, overflow, winner, stream
+    "coord_hash_build": [_P, _I, _P, _P, _I, _P, _P, _P],
     # queries, n, tkeys, tvals, t_size, out, stream
     "coord_hash_lookup": [_P, _I, _P, _P, _I, _P, _P],
     # desc, n_tables, sub_of, fill, fill_bytes, stream

@@ -11,18 +11,22 @@ key's later duplicate rows pending, so it raises its flag on any voxel of
 more than four points; its lookups are right all the same.)
 
 A ``CoordHash`` built from a CUDA tensor is K6's open-addressing table:
-``keys`` (T,) int32 holding uint32 keys (all ones where empty), ``vals``
-(T,) int32, with T = next_pow2(2 * capacity) as in JAX.  Built from a CPU
-tensor it is the plain version's: ``keys`` the sorted distinct keys (int64),
-``vals`` their smallest rows.  ``lookup_hash`` takes either, on its device.
-``ops.voxelize.voxel_compact`` later returns a copy whose ``vals`` are
-voxel ids instead of rows.
+``keys`` (T,) int32 holding uint32 keys (all ones where empty) and ``vals``
+(T,) int32, T = next_pow2(2 * capacity) (as in JAX).  Built from a CPU
+tensor it is the plain version's: ``keys`` the sorted distinct keys
+(int64), ``vals`` their smallest rows.  ``lookup_hash`` takes either, on
+its device.  ``ops.voxelize.voxel_compact`` later returns a copy whose
+``vals`` are voxel ids instead of rows (the same ``keys``).
+
+Both callers insert a set of keys and then look up the same keys, to find
+each row's winner (the smallest row of its key): ``build_and_lookup`` does
+both, on the card in one launch.
 
 Each wrapper counts its kernel launches in ``launches``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -70,26 +74,41 @@ def lookup_hash_plain(h: CoordHash, query: torch.Tensor) -> torch.Tensor:
     return torch.where(hit, h.vals[pos], -1).to(torch.int32)
 
 
-def build_hash(key: torch.Tensor, capacity: int) -> CoordHash:
-    """Insert rows 0..N-1 of ``key`` (N,) int64 (``SENTINEL`` = no row)."""
-    _check_keys("build_hash", key)
+def build_and_lookup_plain(key: torch.Tensor, capacity: int
+                           ) -> Tuple[CoordHash, torch.Tensor]:
+    """Plain version of K6's build with the lookup of its own keys."""
+    h = build_hash_plain(key, capacity)
+    return h, lookup_hash_plain(h, key)
+
+
+def build_and_lookup(key: torch.Tensor, capacity: int
+                     ) -> Tuple[CoordHash, torch.Tensor]:
+    """Insert rows 0..N-1 of ``key`` (N,) int64 (``SENTINEL`` = no row);
+    returns the table and (N,) int32 each row's winner, the smallest row
+    that carries its key (-1 for a sentinel or a key that found no slot),
+    which equals ``lookup_hash(table, key)``."""
+    _check_keys("build_and_lookup", key)
     if key.device.type == "cpu":
-        return build_hash_plain(key, capacity)
+        return build_and_lookup_plain(key, capacity)
     t_size = table_size(capacity)
-    dev = key.device
+    n, dev = key.shape[0], key.device
+    # the keys on their own: a level's plan keeps them (K8's remapped table
+    # shares them); the values and the winners are freed after K8; the
+    # overflow flag is a bool the kernel writes in place
     tkeys = torch.empty(t_size, dtype=torch.int32, device=dev)
-    tvals = torch.empty(t_size, dtype=torch.int32, device=dev)
-    flag = torch.empty(1, dtype=torch.int32, device=dev)
+    tvals, winner = torch.empty(t_size + n, dtype=torch.int32,
+                                device=dev).split((t_size, n))
+    flag = torch.empty((), dtype=torch.bool, device=dev)
     lib = cuda_build.library("coord_hash")
-    cuda_build.check(lib.coord_hash_insert(
-        key.data_ptr(), key.shape[0], tkeys.data_ptr(), tvals.data_ptr(),
-        t_size, flag.data_ptr(), cuda_build.stream_ptr(key)),
-        "coord_hash_insert")
-    build_hash.launches += 1
-    return CoordHash(keys=tkeys, vals=tvals, overflow=flag[0] != 0)
+    cuda_build.check(lib.coord_hash_build(
+        key.data_ptr(), n, tkeys.data_ptr(), tvals.data_ptr(), t_size,
+        flag.data_ptr(), winner.data_ptr(), cuda_build.stream_ptr(key)),
+        "coord_hash_build")
+    build_and_lookup.launches += 1
+    return CoordHash(keys=tkeys, vals=tvals, overflow=flag), winner
 
 
-build_hash.launches = 0
+build_and_lookup.launches = 0
 
 
 def lookup_hash(h: CoordHash, query: torch.Tensor) -> torch.Tensor:
@@ -99,7 +118,7 @@ def lookup_hash(h: CoordHash, query: torch.Tensor) -> torch.Tensor:
         return lookup_hash_plain(h, query)
     if h.keys.device != query.device or h.keys.dtype != torch.int32:
         raise TypeError("lookup_hash: a CUDA query needs a table built by "
-                        "build_hash on its device")
+                        "build_and_lookup on its device")
     out = torch.empty(query.shape[0], dtype=torch.int32, device=query.device)
     lib = cuda_build.library("coord_hash")
     cuda_build.check(lib.coord_hash_lookup(

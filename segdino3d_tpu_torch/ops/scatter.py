@@ -278,44 +278,66 @@ def segment_mean_stack(xs: Sequence[torch.Tensor], seg_ids: torch.Tensor,
     return _split(segment_mean_gather(seg_ids, num_segments, valid, d=d), xs)
 
 
+def segment_counts(offsets: torch.Tensor, dtype=torch.float32
+                   ) -> torch.Tensor:
+    """(S,) each segment's row count from its CSR offsets, at least 1."""
+    return (offsets[1:] - offsets[:-1]).clamp(min=1).to(dtype)
+
+
 def segment_grad_plain(g: torch.Tensor, seg_ids: torch.Tensor,
-                       num_segments: int, inverse: torch.Tensor,
-                       valid: torch.Tensor, num_rows: int) -> torch.Tensor:
-    """Plain version of K5: (num_rows, C) fp32,
-    ``out[v] = sum_{p: inverse[p] = v, valid, seg kept} g[seg[p]]``."""
+                       num_segments: int, sp_offsets: torch.Tensor,
+                       inverse: torch.Tensor, valid: torch.Tensor,
+                       num_rows: int) -> torch.Tensor:
+    """Plain version of K5: (num_rows, C) in g's sum type,
+    ``out[v] = sum_{p: inverse[p] = v, valid, seg kept} g[seg[p]] / n``
+    with n the count of segment seg[p] from its CSR ``sp_offsets``."""
     seg = seg_ids.long()
     keep = valid & (inverse >= 0) & (seg >= 0) & (seg < num_segments)
     gf = as_sum_type(g)
+    gf = gf / segment_counts(sp_offsets, gf.dtype)[:, None]
     return gf.new_zeros(num_rows, g.shape[1]).index_add_(
         0, inverse[keep].long(), gf[seg[keep]])
 
 
 def segment_grad(g: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
-                 inverse: torch.Tensor, valid: torch.Tensor,
-                 vox_csr: SegmentCSR, out_dtype=torch.float32
-                 ) -> torch.Tensor:
+                 sp_offsets: torch.Tensor, inverse: torch.Tensor,
+                 valid: torch.Tensor, vox_csr: SegmentCSR,
+                 out_dtype=torch.float32) -> torch.Tensor:
     """Transpose of the fused pooling's gather: (V, C) in ``out_dtype``,
-    ``out[v] = sum of g[seg[p]]`` over the valid points p of voxel v whose
-    segment is kept, summed in fp32 in ascending point order.
+    ``out[v] = sum of g[seg[p]] / n`` over the valid points p of voxel v
+    whose segment is kept, each quotient in fp32, summed in fp32 in
+    ascending point order; n is the count of segment seg[p] (at least 1)
+    from the segments' CSR offsets ``sp_offsets`` (S + 1,) int64.
     ``vox_csr = segment_csr(inverse, V, valid)``, the voxel CSR of the
-    forward's voxel mean, gives V and each voxel's points."""
+    forward's voxel mean, gives V and each voxel's points.  On the card
+    ``g`` (S, C) is read where it lies (any row stride, unit column
+    stride, fp32), so a column slice of the pool's gradient costs no
+    copy: one launch."""
     num_rows = vox_csr[0].shape[0] - 1
     if g.device.type == "cpu":
-        return segment_grad_plain(g, seg_ids, num_segments, inverse, valid,
-                                  num_rows).to(out_dtype)
+        return segment_grad_plain(g, seg_ids, num_segments, sp_offsets,
+                                  inverse, valid, num_rows).to(out_dtype)
     offsets, members = vox_csr[0], vox_csr[1]
-    seg = seg_ids.to(torch.int32).contiguous()
-    gf = g.float().contiguous()
-    for t in (offsets, members, seg, gf):
-        if t.device.type != "cuda" or not t.is_contiguous():
+    seg = seg_ids if seg_ids.dtype == torch.int32 else \
+        seg_ids.to(torch.int32)
+    gf = g if g.dtype == torch.float32 else g.float()
+    if gf.dim() != 2 or gf.stride(1) != 1:
+        gf = gf.contiguous()
+    for t in (offsets, members, seg, gf, sp_offsets):
+        if t.device.type != "cuda" or (t.dim() == 1 and not t.is_contiguous()):
             raise ValueError("segment_grad: tensors must be contiguous and "
                              "on one CUDA device")
     if members.shape[0] > seg.shape[0] or offsets.dtype != torch.int64:
         raise ValueError("segment_grad: vox_csr does not index these points")
+    if gf.shape[0] < num_segments or sp_offsets.dtype != torch.int64 \
+            or sp_offsets.shape != (num_segments + 1,):
+        raise ValueError("segment_grad: g or sp_offsets does not hold the "
+                         f"{num_segments} segments")
     out = torch.empty(num_rows, g.shape[1], dtype=out_dtype, device=g.device)
     lib = cuda_build.library("segment_grad")
     cuda_build.check(lib.segment_grad(
         offsets.data_ptr(), members.data_ptr(), seg.data_ptr(), gf.data_ptr(),
+        gf.stride(0), sp_offsets.data_ptr(),
         out.data_ptr(), num_rows, num_segments, g.shape[1],
         cuda_build.dtype_code(out_dtype), cuda_build.stream_ptr(g)),
         "segment_grad")
@@ -328,7 +350,7 @@ segment_grad.launches = 0
 
 class _PoolGathered(torch.autograd.Function):
     """Segment means of ``[vox[inverse[p]] | d_0[p] | ...]`` (K3); the
-    gradient reaches ``vox`` only (K5)."""
+    gradient reaches ``vox`` only (K5, the whole backward in one launch)."""
 
     @staticmethod
     def forward(ctx, vox, inverse, d, seg_ids, num_segments, valid,
@@ -348,11 +370,9 @@ class _PoolGathered(torch.autograd.Function):
         cg, dtype = ctx.vox_cols_dtype
         dvox = None
         if ctx.needs_input_grad[0]:
-            g = as_sum_type(dmeans[:, :cg])
-            cnt = (offsets[1:] - offsets[:-1]).clamp(min=1).to(g.dtype)
-            dvox = segment_grad(g / cnt[:, None], seg_ids, ctx.num_segments,
-                                inverse, valid, (vox_offsets, vox_members),
-                                dtype)
+            dvox = segment_grad(dmeans[:, :cg], seg_ids, ctx.num_segments,
+                                offsets, inverse, valid,
+                                (vox_offsets, vox_members), dtype)
         return dvox, None, None, None, None, None, None, None
 
 

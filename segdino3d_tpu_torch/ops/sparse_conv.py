@@ -52,7 +52,7 @@ import torch
 
 from segdino3d_tpu_torch.ops import cuda_build
 from segdino3d_tpu_torch.ops import keys as K
-from segdino3d_tpu_torch.ops.hashing import CoordHash, build_hash, lookup_hash
+from segdino3d_tpu_torch.ops.hashing import CoordHash, build_and_lookup
 from segdino3d_tpu_torch.ops.voxelize import VoxelGrid, voxel_compact
 
 
@@ -620,9 +620,8 @@ def downsample(level: PlanLevel, v_cap: int):
     b, x, y, z = level.coords_T
     key = K.pack_columns_u32(b, x >> 1, y >> 1, z >> 1, level.valid)
     n = key.shape[0]
-    h = build_hash(key, capacity=min(v_cap, n))
-    comp = voxel_compact(lookup_hash(h, key), level.coords_T, v_cap, 1, h,
-                         with_kpos=True)
+    h, winner = build_and_lookup(key, capacity=min(v_cap, n))
+    comp = voxel_compact(winner, level.coords_T, v_cap, 1, h, with_kpos=True)
     coarse = PlanLevel(coords_T=comp.coords_T, valid=comp.valid,
                        hash=comp.hash, num_voxels=comp.num_voxels,
                        overflow=h.overflow | (comp.num_voxels > v_cap))

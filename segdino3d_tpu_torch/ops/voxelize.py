@@ -23,8 +23,7 @@ import torch
 
 from segdino3d_tpu_torch.ops import cuda_build
 from segdino3d_tpu_torch.ops import keys as K
-from segdino3d_tpu_torch.ops.hashing import (CoordHash, build_hash,
-                                             lookup_hash)
+from segdino3d_tpu_torch.ops.hashing import CoordHash, build_and_lookup
 
 ROWS_PER_BLOCK = 1024   # K8's rows per thread block in its flags pass
 
@@ -149,8 +148,8 @@ def voxelize(batch_idx: torch.Tensor, coords_f: torch.Tensor,
     n = coords_f.shape[0]
     v_cap = num_voxels_static or n
     cols, key = point_keys(batch_idx, coords_f, valid)
-    h = build_hash(key, capacity=min(v_cap, n))
-    comp = voxel_compact(lookup_hash(h, key), cols, v_cap, 0, h)
+    h, winner = build_and_lookup(key, capacity=min(v_cap, n))
+    comp = voxel_compact(winner, cols, v_cap, 0, h)
     out_of_range = (valid & (key == K.SENTINEL)).any()
     return VoxelGrid(
         coords_T=comp.coords_T, valid=comp.valid, hash=comp.hash,

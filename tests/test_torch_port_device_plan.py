@@ -145,7 +145,7 @@ def test_lookup_hash_matches_jax(max_dup):
     h = jax_build_hash(jnp.asarray(keys), jnp.arange(n, dtype=jnp.int32),
                        jnp.asarray(valid), capacity=n)
     want = np.asarray(jax_lookup_hash(h, jnp.asarray(queries)))
-    th = TQ.build_hash(torch.from_numpy(keys.astype(np.int64)), n)
+    th = TQ.build_and_lookup(torch.from_numpy(keys.astype(np.int64)), n)[0]
     got = TQ.lookup_hash(th, torch.from_numpy(queries.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy(), want)
     assert not bool(th.overflow)

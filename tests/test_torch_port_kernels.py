@@ -197,9 +197,10 @@ def test_segment_grad_kernel_matches_plain(levels):
                         dtype=torch.int32)
     valid = torch.rand(n, generator=gen, device="cuda") > 0.1
     g = torch.randn(s, 24, generator=gen, device="cuda")
-    got = TS.segment_grad(g, seg, s, inverse, valid,
+    ones = torch.arange(s + 1, dtype=torch.int64, device="cuda")  # counts 1
+    got = TS.segment_grad(g, seg, s, ones, inverse, valid,
                           TS.segment_csr(inverse, v, valid))
-    want = TS.segment_grad_plain(g, seg, s, inverse, valid, v)
+    want = TS.segment_grad_plain(g, seg, s, ones, inverse, valid, v)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
@@ -290,7 +291,7 @@ def test_coord_hash_matches_plain(card, capacity):
     queries = np.concatenate([keys, rng.randint(0, 1 << 20, 500),
                               [SENTINEL]])
     key_t, q_t = (torch.from_numpy(a).to(card) for a in (keys, queries))
-    h = TQ.build_hash(key_t, capacity)
+    h = TQ.build_and_lookup(key_t, capacity)[0]
     want_h = TQ.build_hash_plain(key_t, capacity)
     got = TQ.lookup_hash(h, q_t)
     want = TQ.lookup_hash_plain(want_h, q_t)
@@ -305,7 +306,7 @@ def test_coord_hash_overflow_flag(card):
     """A full table flags the keys it cannot place (plain: more distinct
     keys than slots)."""
     key = torch.arange(40, dtype=torch.int64, device=card) * 977
-    assert bool(TQ.build_hash(key, 8).overflow)
+    assert bool(TQ.build_and_lookup(key, 8)[0].overflow)
     assert bool(TQ.build_hash_plain(key, 8).overflow)
 
 
@@ -365,7 +366,7 @@ def test_voxel_compact_leaves_its_hash(card):
     pts, bidx, valid = _border_points(np.random.RandomState(7))
     cols, key = TV.point_keys(*(torch.from_numpy(a).to(card)
                                 for a in (bidx, pts, valid)))
-    h = TQ.build_hash(key, key.shape[0])
+    h = TQ.build_and_lookup(key, key.shape[0])[0]
     rows_before = h.vals.clone()
     winner = TQ.lookup_hash(h, key)
     first, second = (TV.voxel_compact(winner, cols, 4096, 0, h)
@@ -650,7 +651,7 @@ def test_voxel_compact_matches_plain(card, n, cap, shift):
     cols_t = torch.from_numpy(cols.astype(np.int32)).to(card).contiguous()
     valid = torch.from_numpy(rng.rand(n) > 0.05).to(card)
     key = TK.pack_columns_u32(*cols_t, valid)
-    h = TQ.build_hash(key, n)
+    h = TQ.build_and_lookup(key, n)[0]
     winner = TQ.lookup_hash(h, key)
     got = TV.voxel_compact(winner, cols_t, cap, shift, h, shift == 1)
     want = TV.voxel_compact_plain(winner, cols_t, cap, shift, h, shift == 1)
@@ -987,3 +988,153 @@ def test_block_conv_on_cached_lists(card, dtype):
     assert torch.equal(fwd, TBD.block_conv(x, t.block_nbr, w, occ, t.edge))
     t.dilations.clear()
     t.rows = None
+
+
+# the main path's hash sizes: (keys, capacity) of level 0's points and of
+# each downsample's voxels, tables of 2^18, 2^17, 2^15, 2^14 and 2^13 slots
+HASH_LEVELS = [(120000, 120000), (92160, 36864), (36864, 13824),
+               (13824, 5530), (5530, 2304)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,capacity", HASH_LEVELS)
+def test_build_and_lookup_matches_plain(card, n, capacity):
+    """K6's one launch at each level's table size: the winners, a lookup of
+    the same keys and of misses in the table it built, the overflow
+    flag."""
+    rng = np.random.RandomState(n)
+    distinct = rng.choice(1 << 28, capacity, replace=False).astype(np.int64)
+    keys = distinct[rng.randint(0, capacity, n)]
+    keys[rng.rand(n) < 0.03] = SENTINEL
+    misses = rng.randint(1 << 28, 1 << 29, 1000)
+    key_t = torch.from_numpy(keys).to(card)
+    q_t = torch.from_numpy(np.concatenate([keys, misses])).to(card)
+    before = TQ.build_and_lookup.launches
+    h, winner = TQ.build_and_lookup(key_t, capacity)
+    want_h, want = TQ.build_and_lookup_plain(key_t, capacity)
+    got_q = TQ.lookup_hash(h, q_t)
+    torch.cuda.synchronize()
+    assert TQ.build_and_lookup.launches == before + 1
+    assert h.keys.shape == (TQ.table_size(capacity),)
+    assert bool(h.overflow) == bool(want_h.overflow) is False
+    torch.testing.assert_close(winner, want, rtol=0, atol=0)
+    torch.testing.assert_close(got_q, TQ.lookup_hash_plain(want_h, q_t),
+                               rtol=0, atol=0)
+    again = TQ.build_and_lookup(key_t, capacity)[1]
+    assert torch.equal(again, winner)
+
+
+@pytest.mark.cuda
+def test_build_and_lookup_full_table(card):
+    """More distinct keys than slots: the flag rises, every slot is taken,
+    a placed key maps to its smallest row and the rest to -1."""
+    key = torch.arange(40, dtype=torch.int64, device=card).repeat(2) * 977
+    h, winner = TQ.build_and_lookup(key, 8)
+    want = TQ.lookup_hash_plain(TQ.build_hash_plain(key, 8), key)
+    torch.cuda.synchronize()
+    assert bool(h.overflow)
+    placed = winner >= 0
+    assert int((h.keys != -1).sum()) == 16
+    assert torch.equal(winner[placed], want[placed])
+    assert int(torch.unique(key[placed]).numel()) == 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 1])
+def test_voxel_compact_remapped_slots_match_plain(card, shift):
+    """K8's remapped table after the one-launch build: the input's keys,
+    each value the voxel id the plain version gives; the input table
+    unchanged; K7's tables on the remapped tables equal the plain
+    version's."""
+    pts, bidx, valid = _border_points(np.random.RandomState(11))
+    args = [torch.from_numpy(a).to(card) for a in (bidx, pts, valid)]
+    cols, key = TV.point_keys(*args)
+    if shift == 1:
+        grid = TV.voxelize(*args, num_voxels_static=2048)
+        cols = grid.coords_T
+        b, x, y, z = cols
+        key = TK.pack_columns_u32(b, x >> 1, y >> 1, z >> 1, grid.valid)
+    h, winner = TQ.build_and_lookup(key, key.shape[0])
+    keys_before, vals_before = h.keys.clone(), h.vals.clone()
+    got = TV.voxel_compact(winner, cols, 1024, shift, h, shift == 1)
+    want = TV.voxel_compact_plain(winner, cols, 1024, shift, h, shift == 1)
+    torch.cuda.synchronize()
+    assert got.hash.keys is h.keys
+    assert got.hash.vals.data_ptr() != h.vals.data_ptr()
+    _compaction_equal(got, want)
+    torch.testing.assert_close(got.hash.keys, h.keys, rtol=0, atol=0)
+    torch.testing.assert_close(h.keys, keys_before, rtol=0, atol=0)
+    torch.testing.assert_close(h.vals, vals_before, rtol=0, atol=0)
+    lv = TSC.PlanLevel(coords_T=got.coords_T, valid=got.valid,
+                       hash=got.hash, num_voxels=got.num_voxels,
+                       overflow=got.hash.overflow)
+    for k in (3, 5):
+        torch.testing.assert_close(
+            TSC.neighbor_table(lv, k).cpu(),
+            TSC.neighbor_table_plain(got.coords_T.cpu(),
+                                     got.num_voxels.cpu(), k),
+            rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_backward_is_one_launch(card, dtype):
+    """The pool's backward on the card (K5 with the count division inside,
+    reading the voxel columns of the (S, 102) gradient in place) against
+    the same Function on the CPU; one K5 launch a backward, two backwards
+    bit-equal."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(12)
+    n, v, s = 6000, 1200, 90
+    inverse = torch.randint(-1, v, (n,), generator=gen, dtype=torch.int32)
+    inverse[:300] = 5                               # a voxel of 300 points
+    seg = torch.randint(0, s, (n,), generator=gen, dtype=torch.int32)
+    valid = torch.rand(n, generator=gen) > 0.1
+    q = [torch.randn(n, 3, generator=gen) for _ in range(2)]
+    vox = torch.randn(v, 96, generator=gen).to(dt)
+    dy = torch.randn(s, 96, generator=gen)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        runs = []
+        for _ in range(2 if dev == "cuda" else 1):
+            x = vox.to(dev).requires_grad_()
+            out = TS.pool_gathered(x, inverse.to(dev), [a.to(dev) for a in q],
+                                   seg.to(dev), s, valid.to(dev))
+            before = TS.segment_grad.launches
+            out[0].float().backward(dy.to(dev))
+            if dev == "cuda":
+                assert TS.segment_grad.launches == before + 1
+            runs.append(x.grad)
+        grads[dev] = runs
+    torch.cuda.synchronize()
+    first, second = grads["cuda"]
+    assert first.dtype == dt and torch.equal(first, second)
+    tol = TOL[dtype]
+    torch.testing.assert_close(first.float().cpu(), grads["cpu"][0].float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [96, 24, 13, 600])
+def test_segment_grad_division_matches_plain(levels, cols):
+    """K5 with the superpoint counts, g a column slice of a wider gradient
+    (row strides of 16, 8 and 4 bytes' alignment), column counts that do
+    and do not divide by 4, and more columns than one pass of 32 lanes."""
+    gen = torch.Generator(device="cuda").manual_seed(cols)
+    n, v, s = 2000, CAPS[0], 40
+    inverse = torch.randint(-1, v, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    seg = torch.randint(-2, s + 2, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.1
+    vox = TS.segment_csr(inverse, v, valid)
+    sp = TS.segment_csr(seg, s, valid).offsets
+    for extra in (0, 2, 3):
+        g = torch.randn(s, cols + extra, generator=gen,
+                        device="cuda")[:, :cols]
+        got = TS.segment_grad(g, seg, s, sp, inverse, valid, vox)
+        want = TS.segment_grad_plain(g, seg, s, sp, inverse, valid, v)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got, TS.segment_grad(g, seg, s, sp, inverse,
+                                                valid, vox))
