@@ -46,7 +46,13 @@ Phases, in order; any failure exits non-zero before the result line:
    is timed as the wrapper call alone, its launches per call counted by
    ``torch.profiler`` (at most two); K12 (the compacted
    stem's slot sum) on the scene's compacted tables with 32 and 8 slots
-   per voxel, fp32 and bf16, the stem's wide matmul timed beside it;
+   per voxel, fp32 and bf16, the stem's wide matmul timed beside it; and
+   the ScanNet v2 path's new shapes on phase 5's host plan: K1 at the k3
+   stem 262->32, level 4's 160->160, a tail block's 192->96 and the
+   128->160 down conv, K2 at the 160->128 and 64->32 up convs (fp32 and
+   bf16), K3 as the voxel mean from three column sources (rgb, centred
+   xyz, 2D features fp32 / fp16) and as the pool of the 32-channel output,
+   K4 at the stem's 27x262x32 and level 4's 27x160x160 dW, K5 at C = 32;
 3. run the eval path at full width: ScanNet200 eval of the flagship
    SegDINO3D (Res16UNet34C + 6-layer DINO-X query decoder) with seeded
    random weights on a seeded synthetic 120,000-point scene with 1,536
@@ -99,7 +105,25 @@ Phases, in order; any failure exits non-zero before the result line:
    the compacted run's superpoint features within 3e-3 x max|.| of the
    gather run's, and the card against the CPU on a small compacted-stem
    scene at 1e-4;
-5. print one ``kernels`` JSON line, then the result line.
+5. run the ScanNet v2 model (``configs/prototypes/SegDINO3D_ScanNetv2.py``:
+   SpConvUNet planes 32-160 with a k3 stem over rgb + centred xyz + DINO-X
+   = 262 channels, the 6-layer decoder on its 32 channels, 18 / 20
+   classes) at full width with seeded random weights on seeded scenes of
+   phase 3's size: 5a eval at batch 1 on host plans (a k3 stem, the exact
+   min shift): collate -> host plan -> backbone -> decoder ->
+   predict_instance -> the ScanNet v2 AP evaluator; scenes/s, ms per
+   stage, launches in one forward (K1 41, K2 4, K3 2, 9 pair lists),
+   peak memory, K1-K3 device time of a profiled forward, which must hold
+   no (N, 262) concatenation; finite outputs; the card against the CPU's
+   plain path on a small scene, on a host and on a device plan; 5b the
+   same eval on device plans: tables equal to the host plan's on valid
+   rows, outputs within 1e-5 of the host-plan forward's; 5c batch-1
+   training steps on host plans (AdamW/PolyLR, clip 10, no EMA, as the
+   config says): s/step, ms per stage, launches, peak memory, K1's and
+   K4's device time in a profiled step, finite losses and gradient norm,
+   and the card against the CPU on a small scene;
+6. print one ``kernels`` JSON line (each kernel's ScanNet v2 cases and
+   launches in it too), then the result line.
 
 It needs one card, imports no JAX, and takes its kernels from the
 checkout: run from anywhere else it fails.
@@ -189,6 +213,54 @@ def train_cfg():
                 iter_matcher=True, fix_mean_loss=True)))
 
 
+def v2_model_cfg():
+    """The ScanNet v2 model (``configs/prototypes/SegDINO3D_ScanNetv2.py``
+    as the config loader reads its ``model``, ``_base_`` merged): the
+    SpConvUNet backbone (k3 stem over rgb + centred xyz + DINO-X = 262
+    channels, planes 32-160), the 6-layer DINO-X query decoder on its 32
+    channels, 18 instance and 20 semantic classes, and the criterion
+    (``tests/test_torch_port_spconv.py`` holds this copy to the file)."""
+    costs = [dict(type="QueryClassificationCost", weight=0.5),
+             dict(type="MaskBCECost", weight=1.0),
+             dict(type="MaskDiceCost", weight=1.0),
+             dict(type="CenterL1Cost", weight=0.5),
+             dict(type="SizeL1Cost", weight=0.5)]
+    return dict(
+        type="SegDINO3D", num_classes=18, query_thr=0.5,
+        mode_3d_center="median", add_positional_embedding=True,
+        filter_outofbox_points_eval=True,
+        pointcloud_backbone_cfg=dict(
+            type="SpConvUNet", num_planes=[32, 64, 96, 128, 160],
+            block_reps=2, in_channels=262, voxel_size=0.02,
+            mode_fuse_2d_feat="early_fusion", add_positional_embedding=True),
+        decoder_cfg=dict(
+            type="ScanNetQueryDecoder", num_layers=6,
+            num_instance_queries=0, num_semantic_queries=0,
+            num_instance_classes=18, num_semantic_classes=20,
+            num_semantic_linears=1, in_channels=32, d_model=256,
+            num_heads=8, hidden_dim=1024, dropout=0.0, activation_fn="gelu",
+            iter_pred=True, attn_mask=True, fix_attention=True,
+            objectness_flag=False, add_dinox_query_ca=True,
+            add_dinox_query_ca_mask=True, dinox_query_ca_mask_threshold=0.2,
+            add_positional_embedding=True, pos_type="sine", temperature=20,
+            add_box_size_pred=True, box_modulate_ca=True,
+            normalize_box_prediction=True),
+        criterion_cfg=dict(
+            type="ScanNetUnifiedCriterion", num_semantic_classes=20,
+            sem_criterion=dict(type="ScanNetSemanticCriterion",
+                               ignore_index=20, loss_weight=0.5),
+            inst_criterion=dict(
+                type="InstanceCriterion",
+                matcher=dict(type="SparseMatcher", topk=1, costs=costs),
+                loss_weight=[0.5, 1.0, 1.0, 0.5, 0.5, 0.5], num_classes=18,
+                non_object_weight=0.1, fix_dice_loss_weight=True,
+                iter_matcher=True, fix_mean_loss=True)),
+        test_cfg=dict(topk_insts=600, inst_score_thr=0.0, pan_score_thr=0.5,
+                      npoint_thr=100, obj_normalization=True,
+                      sp_score_thr=0.4, nms=True,
+                      matrix_nms_kernel="linear", stuff_classes=[0, 1]))
+
+
 def compact_cfg():
     """The flagship eval config with the degree-compacted stem turned on
     (its default D = 32 slots)."""
@@ -201,7 +273,8 @@ def plan_layout(name):
     """``attach_host_plan`` arguments of a conv layout: "gather" (phases
     3-4b), or the flagship config's eval layout "hybrid", the same with the
     compacted stem "compact" (phase 3d) or its training layout
-    "block-dense" (``builder.host_plan_args``)."""
+    "block-dense", or the ScanNet v2 model's "v2" (phase 5: gather, a k3
+    stem, the exact min shift) (``builder.host_plan_args``)."""
     from segdino3d_tpu_torch.builder import host_plan_args
 
     if name == "hybrid":
@@ -210,6 +283,8 @@ def plan_layout(name):
         return host_plan_args(compact_cfg())
     if name == "block-dense":
         return host_plan_args(train_cfg(), train=True)
+    if name == "v2":
+        return host_plan_args(v2_model_cfg())
     if name != "gather":
         raise ValueError(f"unknown layout {name}")
     return dict(voxel_size=0.02)
@@ -277,81 +352,81 @@ def segment_library(seg, num_segments, valid, rows):
         0, idx, rows[keep], "mean", include_self=False)
 
 
-def kernel_cases(batch, s_cap, gen):
-    """(kernel, case name, {dtype: (kernel_fn, plain_fn, library_fn,
-    ops, bytes, peak)}) at the main path's shapes."""
-    from segdino3d_tpu_torch.models.backbone.wrapper import \
-        superpoint_segment_ids
-    from segdino3d_tpu_torch.ops import scatter as SS
+def wgrad_library(a, ia, b, ib, mirror):
+    """Yardstick for K4: gather each offset's rows, then one batched
+    library GEMM."""
+    table = ia if ia is not None else ib
+    n_off, rows = table.shape
+
+    def side(x, idx):
+        if idx is None:
+            return x[:rows].expand(n_off, -1, -1)
+        xp = torch.cat([x, x.new_zeros(1, x.shape[1])])
+        return xp[torch.where(idx < 0, x.shape[0], idx).long()]
+
+    dw = torch.matmul(side(a, ia).transpose(1, 2), side(b, ib))
+    return dw.flip(0) if mirror else dw
+
+
+def conv_case(cases, gen, name, vin, nbr, valid, cin, cout):
+    """K1 in its forward role, fp32 and bf16."""
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
-    plan = batch.plan
-    n_points = batch.points.shape[1]
-    lv = plan.levels
-    cases = []
+    per = {}
+    hits = int((nbr >= 0).sum())
+    for dt in (torch.float32, torch.bfloat16):
+        x = _randn(gen, (vin, cin), dt)
+        w = _randn(gen, (nbr.shape[0], cin, cout), dt,
+                   (nbr.shape[0] * cin) ** -0.5)
+        per[dt] = (lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid),
+                   lambda x=x, w=w: SC.gather_conv_plain(x, nbr, w, valid),
+                   lambda x=x, w=w: conv_library(x, nbr, w),
+                   2.0 * hits * cin * cout,
+                   nbytes(x, nbr, w, valid)
+                   + nbr.shape[1] * cout * x.element_size(), CONV_PEAK[dt])
+    cases.append(("gather_gemm_conv", name, per))
 
-    def conv_case(name, vin, nbr, valid, cin, cout):
-        per = {}
-        hits = int((nbr >= 0).sum())
-        for dt in (torch.float32, torch.bfloat16):
-            x = _randn(gen, (vin, cin), dt)
-            w = _randn(gen, (nbr.shape[0], cin, cout), dt,
-                       (nbr.shape[0] * cin) ** -0.5)
-            per[dt] = (lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid),
-                       lambda x=x, w=w: SC.gather_conv_plain(x, nbr, w, valid),
-                       lambda x=x, w=w: conv_library(x, nbr, w),
-                       2.0 * hits * cin * cout,
-                       nbytes(x, nbr, w, valid)
-                       + nbr.shape[1] * cout * x.element_size(), CONV_PEAK[dt])
-        cases.append(("gather_gemm_conv", name, per))
 
-    v0 = lv[0].valid.shape[0]
-    conv_case("stem k5 259->32 L0", v0, plan.stem_nbr, lv[0].valid, 259, 32)
-    conv_case("subm k3 96->96 L0", v0, lv[0].nbr, lv[0].valid, 96, 96)
-    for li, c in ((1, 96), (2, 64), (3, 128), (4, 256)):
-        conv_case(f"subm k3 {c}->{c} L{li}", lv[li].valid.shape[0],
-                  lv[li].nbr, lv[li].valid, c, c)
-    conv_case("down 32->32 L0->L1", v0, lv[0].child, lv[1].valid, 32, 32)
-    conv_case("down 128->128 L3->L4", lv[3].valid.shape[0], lv[3].child,
-              lv[4].valid, 128, 128)
+def up_case(cases, gen, name, coarse, fine, cin, cout):
+    """K2 as an up conv, fp32 and bf16."""
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
 
-    def up_case(name, coarse, fine, cin, cout):
-        per = {}
-        live = int((fine.valid & (fine.parent >= 0)).sum())
-        for dt in (torch.float32, torch.bfloat16):
-            x = _randn(gen, (coarse.valid.shape[0], cin), dt)
-            w = _randn(gen, (8, cin, cout), dt, cin ** -0.5)
-            per[dt] = (lambda x=x, w=w: SC.up_conv_rows(
-                           x, fine.child, fine.parent, fine.kpos, w,
-                           fine.valid),
-                       lambda x=x, w=w: SC.up_conv_plain(
-                           x, fine.parent, fine.kpos, w, fine.valid),
-                       lambda x=x, w=w: up_library(x, fine.parent, fine.kpos,
-                                                   w),
-                       2.0 * live * cin * cout,
-                       nbytes(x, fine.parent, fine.kpos, w, fine.valid)
-                       + fine.valid.shape[0] * cout * x.element_size(),
-                       CONV_PEAK[dt])
-        cases.append(("up_conv", name, per))
+    per = {}
+    live = int((fine.valid & (fine.parent >= 0)).sum())
+    for dt in (torch.float32, torch.bfloat16):
+        x = _randn(gen, (coarse.valid.shape[0], cin), dt)
+        w = _randn(gen, (8, cin, cout), dt, cin ** -0.5)
+        per[dt] = (lambda x=x, w=w: SC.up_conv_rows(
+                       x, fine.child, fine.parent, fine.kpos, w, fine.valid),
+                   lambda x=x, w=w: SC.up_conv_plain(
+                       x, fine.parent, fine.kpos, w, fine.valid),
+                   lambda x=x, w=w: up_library(x, fine.parent, fine.kpos, w),
+                   2.0 * live * cin * cout,
+                   nbytes(x, fine.parent, fine.kpos, w, fine.valid)
+                   + fine.valid.shape[0] * cout * x.element_size(),
+                   CONV_PEAK[dt])
+    cases.append(("up_conv", name, per))
 
-    # the decoder's four up convs, the forward's order reversed
-    up_case("up 96->96 L1->L0", lv[1], lv[0], 96, 96)
-    up_case("up 128->96 L2->L1", lv[2], lv[1], 128, 96)
-    up_case("up 256->128 L3->L2", lv[3], lv[2], 256, 128)
-    up_case("up 256->256 L4->L3", lv[4], lv[3], 256, 256)
 
-    # K3 as the forward calls it: the voxel mean from two column sources
-    # (the points' colour columns and the 2D features, each read in place
-    # and rounded to the compute dtype), over the forward's voxel CSR
+def voxel_mean_cases(cases, gen, plan, n_points, centred=False):
+    """K3 as the forward calls it: the voxel mean from its column sources
+    (the points' colour columns, on the v2 path the centred xyz, and the
+    2D features with fp32 and with fp16 values, each read in place and
+    rounded to the compute dtype), over the forward's voxel CSR."""
+    from segdino3d_tpu_torch.ops import scatter as SS
+
+    v0 = plan.levels[0].valid.shape[0]
     inverse = plan.inverse
     pvalid = inverse >= 0
     seg_vox = torch.where(inverse >= 0, inverse, v0).contiguous()
     vox_csr = SS.segment_csr(seg_vox, v0, pvalid)
     n_members = int(pvalid.sum())
     pts = _randn(gen, (n_points, 6), torch.float32)
+    mid = [_randn(gen, (n_points, 3), torch.float32)] if centred else []
+    cols = 3 + 3 * len(mid) + 256
     for fdt in (torch.float32, torch.float16):
         f2d = _randn(gen, (n_points, 256), fdt)
-        srcs = [pts[:, 3:], f2d]
+        srcs = [pts[:, 3:]] + mid + [f2d]
         per = {}
         for dt in (torch.float32, torch.bfloat16):
             per[dt] = (lambda dt=dt, srcs=srcs: SS.segment_mean_gather(
@@ -359,12 +434,12 @@ def kernel_cases(batch, s_cap, gen):
                            round_to=dt),
                        lambda dt=dt, srcs=srcs: SS.segment_mean_gather_plain(
                            seg_vox, v0, pvalid, d=srcs, round_to=dt),
-                       lambda dt=dt, f2d=f2d: segment_library(
+                       lambda dt=dt, srcs=srcs: segment_library(
                            seg_vox, v0, pvalid, torch.cat(
-                               [pts[:, 3:], f2d.float()], 1).to(dt).float()),
-                       float(n_members * 259),
-                       nbytes(seg_vox, pvalid, f2d) + n_points * 3 * 4
-                       + v0 * 259 * 4, "fp32",
+                               [s.float() for s in srcs], 1).to(dt).float()),
+                       float(n_members * cols),
+                       nbytes(seg_vox, pvalid, f2d, *mid) + n_points * 3 * 4
+                       + v0 * cols * 4, "fp32",
                        {"CSR build (segment_csr)": lambda: SS.segment_csr(
                            seg_vox, v0, pvalid),
                         "as the forward calls it (CSR, K3, cast)":
@@ -372,8 +447,82 @@ def kernel_cases(batch, s_cap, gen):
                             srcs, seg_vox, v0, dt, pvalid,
                             SS.segment_csr(seg_vox, v0, pvalid))})
         fname = str(fdt).replace("torch.", "")
-        cases.append(("segment_mean_gather", f"voxel mean, rgb (N,6)[:,3:6] "
-                      f"+ 2D (N,256) {fname} -> V0", per))
+        tag, what = ("v2 ", " + centred xyz (N,3)") if centred else ("", "")
+        cases.append(("segment_mean_gather", f"{tag}voxel mean, rgb (N,6)"
+                      f"[:,3:6]{what} + 2D (N,256) {fname} -> V0 x {cols}",
+                      per))
+    return seg_vox, pvalid
+
+
+def pool_case(cases, gen, batch, s_cap, width, tag=""):
+    """K3 as the fused devoxelize + superpoint pool: the (V0, width) U-Net
+    output gathered through the inverse map, and the two (N, 3) centroid
+    sets."""
+    from segdino3d_tpu_torch.models.backbone.wrapper import \
+        superpoint_segment_ids
+    from segdino3d_tpu_torch.ops import scatter as SS
+
+    plan = batch.plan
+    v0 = plan.levels[0].valid.shape[0]
+    inverse = plan.inverse
+    pvalid = inverse >= 0
+    n_points = inverse.shape[0]
+    n_members = int(pvalid.sum())
+    seg_sp = superpoint_segment_ids(batch.superpoint_ids, s_cap)
+    sp_csr = SS.segment_csr(seg_sp, s_cap, pvalid)
+    q = [_randn(gen, (n_points, 3), torch.float32) for _ in range(2)]
+    per = {}
+    for dt in (torch.float32, torch.bfloat16):
+        g = _randn(gen, (v0, width), dt)
+
+        def lib(g=g):
+            gp = torch.cat([g.float(), g.new_zeros(1, width).float()])
+            rows = torch.cat([gp[torch.where(inverse < 0, v0, inverse).long()],
+                              *q], 1)
+            return segment_library(seg_sp, s_cap, pvalid, rows)
+
+        per[dt] = (lambda g=g: SS.segment_mean_gather(
+                       seg_sp, s_cap, pvalid, g=g, gather_idx=inverse, d=q,
+                       csr=sp_csr),
+                   lambda g=g: SS.segment_mean_gather_plain(
+                       seg_sp, s_cap, pvalid, g=g, gather_idx=inverse, d=q),
+                   lib, float(n_members * (width + 6)),
+                   nbytes(seg_sp, pvalid, g, inverse, *q)
+                   + s_cap * (width + 6) * 4, "fp32",
+                   {"CSR build (segment_csr)": lambda: SS.segment_csr(
+                       seg_sp, s_cap, pvalid)})
+    cases.append(("segment_mean_gather", f"{tag}superpoint pool (V0,{width})"
+                  f"+2x(N,3)->{s_cap}", per))
+    return seg_sp
+
+
+def kernel_cases(batch, s_cap, gen):
+    """(kernel, case name, {dtype: (kernel_fn, plain_fn, library_fn,
+    ops, bytes, peak)}) at the main path's shapes."""
+    from segdino3d_tpu_torch.ops import scatter as SS
+
+    plan = batch.plan
+    n_points = batch.points.shape[1]
+    lv = plan.levels
+    cases = []
+    v0 = lv[0].valid.shape[0]
+    conv_case(cases, gen, "stem k5 259->32 L0", v0, plan.stem_nbr,
+              lv[0].valid, 259, 32)
+    conv_case(cases, gen, "subm k3 96->96 L0", v0, lv[0].nbr, lv[0].valid,
+              96, 96)
+    for li, c in ((1, 96), (2, 64), (3, 128), (4, 256)):
+        conv_case(cases, gen, f"subm k3 {c}->{c} L{li}",
+                  lv[li].valid.shape[0], lv[li].nbr, lv[li].valid, c, c)
+    conv_case(cases, gen, "down 32->32 L0->L1", v0, lv[0].child, lv[1].valid,
+              32, 32)
+    conv_case(cases, gen, "down 128->128 L3->L4", lv[3].valid.shape[0],
+              lv[3].child, lv[4].valid, 128, 128)
+    # the decoder's four up convs, the forward's order reversed
+    up_case(cases, gen, "up 96->96 L1->L0", lv[1], lv[0], 96, 96)
+    up_case(cases, gen, "up 128->96 L2->L1", lv[2], lv[1], 128, 96)
+    up_case(cases, gen, "up 256->128 L3->L2", lv[3], lv[2], 256, 128)
+    up_case(cases, gen, "up 256->256 L4->L3", lv[4], lv[3], 256, 256)
+    seg_vox, pvalid = voxel_mean_cases(cases, gen, plan, n_points)
 
     # the CSR both run on: its two kernels around torch.sort, equal to the
     # plain version; library: the int64 sort and searchsorted it replaced
@@ -405,61 +554,90 @@ def kernel_cases(batch, s_cap, gen):
                           "fp32", 0.0)}))
 
     csr_case("voxels", seg_vox, v0)
-
-    # the fused devoxelize + superpoint pool: the (V0, 96) U-Net output
-    # gathered through the inverse map, and the two (N, 3) centroid sets
-    seg_sp = superpoint_segment_ids(batch.superpoint_ids, s_cap)
-    sp_csr = SS.segment_csr(seg_sp, s_cap, pvalid)
+    seg_sp = pool_case(cases, gen, batch, s_cap, 96)
     csr_case("superpoints", seg_sp, s_cap)
-    q = [_randn(gen, (n_points, 3), torch.float32) for _ in range(2)]
-    per = {}
-    for dt in (torch.float32, torch.bfloat16):
-        g = _randn(gen, (v0, 96), dt)
-
-        def lib(g=g):
-            gp = torch.cat([g.float(), g.new_zeros(1, 96).float()])
-            rows = torch.cat([gp[torch.where(inverse < 0, v0, inverse).long()],
-                              *q], 1)
-            return segment_library(seg_sp, s_cap, pvalid, rows)
-
-        per[dt] = (lambda g=g: SS.segment_mean_gather(
-                       seg_sp, s_cap, pvalid, g=g, gather_idx=inverse, d=q,
-                       csr=sp_csr),
-                   lambda g=g: SS.segment_mean_gather_plain(
-                       seg_sp, s_cap, pvalid, g=g, gather_idx=inverse, d=q),
-                   lib, float(n_members * 102),
-                   nbytes(seg_sp, pvalid, g, inverse, *q) + s_cap * 102 * 4,
-                   "fp32",
-                   {"CSR build (segment_csr)": lambda: SS.segment_csr(
-                       seg_sp, s_cap, pvalid)})
-    cases.append(("segment_mean_gather",
-                  "superpoint pool (V0,96)+2x(N,3)->1536", per))
     return cases
 
 
-def wgrad_library(a, ia, b, ib, mirror):
-    """Yardstick for K4: gather each offset's rows, then one batched
-    library GEMM."""
+def wgrad_case(cases, name, a, ia, b, ib, mirror=False):
+    """K4 on the tables' compacted pair lists, fp32."""
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
     table = ia if ia is not None else ib
     n_off, rows = table.shape
+    cin, cout = a.shape[1], b.shape[1]
+    live = torch.ones_like(table, dtype=torch.bool)
+    for t in (ia, ib):
+        if t is not None:
+            live &= t >= 0
+    live = int(live.sum())
+    pairs = SC.gather_pairs(ia, ib)
+    torch.cuda.synchronize()
+    if int(pairs.counts.sum()) != live:
+        raise SystemExit(f"gather_pairs [{name}]: {int(pairs.counts.sum())}"
+                         f" listed pairs, {live} live")
+    cases.append(("gather_wgrad", f"{name}; the compacted lists hold "
+                  f"{live} live pairs of {n_off * rows}", {torch.float32: (
+        lambda: SC.gather_wgrad(a, ia, b, ib, mirror),
+        lambda: SC.gather_wgrad_plain(a, ia, b, ib, n_off, rows, mirror),
+        lambda: wgrad_library(a, ia, b, ib, mirror),
+        2.0 * live * cin * cout,
+        nbytes(a, ia, b, ib) + n_off * cin * cout * 4, "fp32",
+        WGRAD_TOL,
+        {"pair list build (gather_pairs, once per table and step)":
+         lambda: SC.gather_pairs(ia, ib)})}))
 
-    def side(x, idx):
-        if idx is None:
-            return x[:rows].expand(n_off, -1, -1)
-        xp = torch.cat([x, x.new_zeros(1, x.shape[1])])
-        return xp[torch.where(idx < 0, x.shape[0], idx).long()]
 
-    dw = torch.matmul(side(a, ia).transpose(1, 2), side(b, ib))
-    return dw.flip(0) if mirror else dw
+def pool_backward_case(cases, gen, batch, s_cap, width, tag=""):
+    """K5: the pooling's gradient into the U-Net output, as the pool's
+    backward runs it: the voxel columns of the (S, width + 6) gradient
+    read in place, each divided by its superpoint's count inside the
+    kernel; exactly one operation on the card."""
+    from segdino3d_tpu_torch.models.backbone.wrapper import \
+        superpoint_segment_ids
+    from segdino3d_tpu_torch.ops import scatter as SS
+
+    plan = batch.plan
+    v0 = plan.levels[0].valid.shape[0]
+    inverse = plan.inverse
+    pvalid = batch.point_valid.reshape(-1)
+    seg = superpoint_segment_ids(batch.superpoint_ids, s_cap)
+    vox_csr = SS.segment_csr(inverse, v0, pvalid)
+    sp_off = SS.segment_csr(seg, s_cap, pvalid).offsets
+    dmeans = _randn(gen, (s_cap, width + 6), torch.float32)
+    g = dmeans[:, :width]
+    keep = pvalid & (inverse >= 0) & (seg >= 0) & (seg < s_cap)
+    vidx, sidx = inverse[keep].long(), seg[keep].long()
+    quot = g / SS.segment_counts(sp_off)[:, None]
+    n_members = int(keep.sum())
+
+    def pool_backward():
+        return SS.segment_grad(g, seg, s_cap, sp_off, inverse, pvalid,
+                               vox_csr)
+
+    ops, us = device_ops(pool_backward)
+    print(f"segment_grad [the pool's backward, C = {width}]: one call puts "
+          f"{len(ops)} operations on the card, {us:.1f} us of device time: "
+          f"{ops}", flush=True)
+    if len(ops) != 1:
+        raise SystemExit(f"segment_grad: the pool's backward made {len(ops)} "
+                         "operations, 1 expected")
+    cases.append(("segment_grad", f"{tag}pool backward ({s_cap},{width} of "
+                  f"{width + 6})->(V0,{width}), the count division inside; "
+                  "library: index_add_ of the quotients", {torch.float32: (
+        pool_backward,
+        lambda: SS.segment_grad_plain(g, seg, s_cap, sp_off, inverse, pvalid,
+                                      v0),
+        lambda: g.new_zeros(v0, width).index_add_(0, vidx, quot[sidx]),
+        float(n_members * width * 2),
+        nbytes(g, seg, vox_csr.offsets, vox_csr.members, sp_off)
+        + v0 * width * 4, "fp32")}))
 
 
 def backward_cases(batch, s_cap, gen):
     """The backward kernels at the training path's shapes, fp32: K4 for
     the stem, a level-0 k3 conv, a down and an up conv; K5 for the
     pooling; K1 and K2 in their backward roles."""
-    from segdino3d_tpu_torch.models.backbone.wrapper import \
-        superpoint_segment_ids
-    from segdino3d_tpu_torch.ops import scatter as SS
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
     plan = batch.plan
@@ -467,44 +645,15 @@ def backward_cases(batch, s_cap, gen):
     v0, v1 = lv[0].valid.shape[0], lv[1].valid.shape[0]
     f32 = torch.float32
     cases = []
-
-    def live_pairs(ia, ib):
-        live = torch.ones_like((ia if ia is not None else ib), dtype=torch.bool)
-        for t in (ia, ib):
-            if t is not None:
-                live &= t >= 0
-        return int(live.sum())
-
-    def wgrad_case(name, a, ia, b, ib, mirror=False):
-        table = ia if ia is not None else ib
-        n_off, rows = table.shape
-        cin, cout = a.shape[1], b.shape[1]
-        live = live_pairs(ia, ib)
-        pairs = SC.gather_pairs(ia, ib)
-        torch.cuda.synchronize()
-        if int(pairs.counts.sum()) != live:
-            raise SystemExit(f"gather_pairs [{name}]: {int(pairs.counts.sum())}"
-                             f" listed pairs, {live} live")
-        cases.append(("gather_wgrad", f"{name}; the compacted lists hold "
-                      f"{live} live pairs of {n_off * rows}", {f32: (
-            lambda: SC.gather_wgrad(a, ia, b, ib, mirror),
-            lambda: SC.gather_wgrad_plain(a, ia, b, ib, n_off, rows, mirror),
-            lambda: wgrad_library(a, ia, b, ib, mirror),
-            2.0 * live * cin * cout,
-            nbytes(a, ia, b, ib) + n_off * cin * cout * 4, "fp32",
-            WGRAD_TOL,
-            {"pair list build (gather_pairs, once per table and step)":
-             lambda: SC.gather_pairs(ia, ib)})}))
-
-    wgrad_case("stem dW k5 259->32 L0 (dY gathered, mirrored)",
+    wgrad_case(cases, "stem dW k5 259->32 L0 (dY gathered, mirrored)",
                _randn(gen, (v0, 259), f32), None, _randn(gen, (v0, 32), f32),
                plan.stem_nbr, mirror=True)
-    wgrad_case("subm dW k3 96->96 L0", _randn(gen, (v0, 96), f32), lv[0].nbr,
-               _randn(gen, (v0, 96), f32), None)
-    wgrad_case("down dW 32->32 L0->L1", _randn(gen, (v0, 32), f32),
+    wgrad_case(cases, "subm dW k3 96->96 L0", _randn(gen, (v0, 96), f32),
+               lv[0].nbr, _randn(gen, (v0, 96), f32), None)
+    wgrad_case(cases, "down dW 32->32 L0->L1", _randn(gen, (v0, 32), f32),
                lv[0].child, _randn(gen, (v1, 32), f32), None)
-    wgrad_case("up dW 96->96 L1->L0", _randn(gen, (v1, 96), f32), None,
-               _randn(gen, (v0, 96), f32), lv[0].child)
+    wgrad_case(cases, "up dW 96->96 L1->L0", _randn(gen, (v1, 96), f32),
+               None, _randn(gen, (v0, 96), f32), lv[0].child)
 
     # K1 and K2 in the backward's roles
     def conv_role(name, x, nbr, w, valid, hits):
@@ -538,43 +687,44 @@ def backward_cases(batch, s_cap, gen):
         2.0 * live * 32 * 32,
         nbytes(dy, fine.parent, fine.kpos, wt, fine.valid)
         + v0 * 32 * 4, "fp32")}))
+    pool_backward_case(cases, gen, batch, s_cap, 96)
+    return cases
 
-    # K5: the pooling's gradient into the U-Net output, as the pool's
-    # backward runs it: the voxel columns of the (1,536, 102) gradient read
-    # in place, each divided by its superpoint's count inside the kernel
-    inverse = plan.inverse
-    pvalid = batch.point_valid.reshape(-1)
-    seg = superpoint_segment_ids(batch.superpoint_ids, s_cap)
-    vox_csr = SS.segment_csr(inverse, v0, pvalid)
-    sp_off = SS.segment_csr(seg, s_cap, pvalid).offsets
-    dmeans = _randn(gen, (s_cap, 102), f32)
-    g = dmeans[:, :96]
-    keep = pvalid & (inverse >= 0) & (seg >= 0) & (seg < s_cap)
-    vidx, sidx = inverse[keep].long(), seg[keep].long()
-    quot = g / SS.segment_counts(sp_off)[:, None]
-    n_members = int(keep.sum())
 
-    def pool_backward():
-        return SS.segment_grad(g, seg, s_cap, sp_off, inverse, pvalid,
-                               vox_csr)
-
-    ops, us = device_ops(pool_backward)
-    print(f"segment_grad [the pool's backward]: one call puts {len(ops)} "
-          f"operations on the card, {us:.1f} us of device time: {ops}",
-          flush=True)
-    if len(ops) != 1:
-        raise SystemExit(f"segment_grad: the pool's backward made {len(ops)} "
-                         "operations, 1 expected")
-    cases.append(("segment_grad", "pool backward (1,536,96 of 102)->(V0,96), "
-                  "the count division inside; library: index_add_ of the "
-                  "quotients", {f32: (
-        pool_backward,
-        lambda: SS.segment_grad_plain(g, seg, s_cap, sp_off, inverse, pvalid,
-                                      v0),
-        lambda: g.new_zeros(v0, 96).index_add_(0, vidx, quot[sidx]),
-        float(n_members * 96 * 2),
-        nbytes(g, seg, vox_csr.offsets, vox_csr.members, sp_off)
-        + v0 * 96 * 4, "fp32")}))
+def v2_cases(batch, s_cap, gen):
+    """The ScanNet v2 path's new shapes (phase 5's scene on its host plan:
+    the exact min shift, a k3 stem), forward and backward: K1 at the k3
+    stem 262->32 (Cin 262 takes the kernel's scalar A path), at level 4
+    160->160 (Cout 160: column tiles of 64 + 64 + 32), a level-2 tail
+    block's 192->96 and the 128->160 down conv; K2 at the up convs
+    160->128 and 64->32; K3 as the voxel mean from three column sources and
+    as the pool of the 32-channel output; K4 at the stem's 27x262x32 and
+    level 4's 27x160x160 dW; K5 at C = 32."""
+    plan = batch.plan
+    lv = plan.levels
+    v0 = lv[0].valid.shape[0]
+    v = [l.valid.shape[0] for l in lv]
+    f32 = torch.float32
+    cases = []
+    conv_case(cases, gen, "v2 stem k3 262->32 L0", v0, lv[0].nbr,
+              lv[0].valid, 262, 32)
+    conv_case(cases, gen, "v2 subm k3 160->160 L4", v[4], lv[4].nbr,
+              lv[4].valid, 160, 160)
+    conv_case(cases, gen, "v2 tail subm k3 192->96 L2", v[2], lv[2].nbr,
+              lv[2].valid, 192, 96)
+    conv_case(cases, gen, "v2 down 128->160 L3->L4", v[3], lv[3].child,
+              lv[4].valid, 128, 160)
+    up_case(cases, gen, "v2 up 160->128 L4->L3", lv[4], lv[3], 160, 128)
+    up_case(cases, gen, "v2 up 64->32 L1->L0", lv[1], lv[0], 64, 32)
+    voxel_mean_cases(cases, gen, plan, batch.points.shape[1], centred=True)
+    pool_case(cases, gen, batch, s_cap, 32, "v2 ")
+    wgrad_case(cases, "v2 stem dW k3 262->32 L0 (dY gathered, mirrored)",
+               _randn(gen, (v0, 262), f32), None,
+               _randn(gen, (v0, 32), f32), lv[0].nbr, mirror=True)
+    wgrad_case(cases, "v2 subm dW k3 160->160 L4",
+               _randn(gen, (v[4], 160), f32), lv[4].nbr,
+               _randn(gen, (v[4], 160), f32), None)
+    pool_backward_case(cases, gen, batch, s_cap, 32, "v2 ")
     return cases
 
 
@@ -849,12 +999,13 @@ def check_kernels(cases):
             if not ok:
                 raise SystemExit(f"{kernel} [{name}] {dts} disagrees with "
                                  f"its plain version")
-            row = rows.setdefault(kernel, dict(max_abs_err=0.0))
+            row = rows.setdefault(kernel, dict(max_abs_err=0.0, cases=[]))
             if dt == torch.float32:
                 row["max_abs_err"] = max(row["max_abs_err"], err)
-                row.setdefault("headline", dict(
-                    case=name, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                    bound_ms=b_ms, bound_by=b_by))
+                row["cases"].append(dict(
+                    shape=name, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
+                row.setdefault("headline", dict(row["cases"][-1], case=name))
     return rows
 
 
@@ -1143,10 +1294,10 @@ def stem_compact_cases(records, spec, gen):
 # phase 3: the main path
 # --------------------------------------------------------------------------
 
-def make_records():
+def make_records(n_classes=SCENE["n_classes"]):
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
 
-    rec = synthetic_scene(0, **SCENE)
+    rec = synthetic_scene(0, **dict(SCENE, n_classes=n_classes))
     # production loaders read DINO-X features as fp16
     rec["points_2dfeats"] = rec["points_2dfeats"].astype(np.float16)
     return [rec]
@@ -1256,9 +1407,9 @@ def concat_shapes(run):
     return mode.shapes
 
 
-def forward_device_ms(model, batch):
+def forward_device_ms(model, batch, cols=259):
     """({K1, K2, K3, device} ms of one eval forward, backbone and decoder,
-    by ``torch.profiler``; the (N, 259) concatenations of one more, the
+    by ``torch.profiler``; the (N, cols) concatenations of one more, the
     early-fused point features the forward no longer builds)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1271,7 +1422,7 @@ def forward_device_ms(model, batch):
         forward()
     n = batch.points.shape[0] * batch.points.shape[1]
     return kernel_ms(prof.events()), [
-        sh for sh in concat_shapes(forward) if sh == (n, 259)]
+        sh for sh in concat_shapes(forward) if sh == (n, cols)]
 
 
 # the kernels of the gather layout's training step on device plans
@@ -1296,17 +1447,23 @@ def run_main_path(model, test_cfg, records, spec, device_plan=False,
     """The eval path on host plans of ``layout`` (``plan_layout``); with
     ``device_plan`` the batch carries no host plan and the backbone builds
     it on the card ("plan" is then the collate alone, and the backbone
-    stage holds the device plan)."""
+    stage holds the device plan).  The ScanNet v2 layout scores with the
+    v2 evaluator (20 classes), the others with the ScanNet200 one."""
     from segdino3d_tpu_torch.data.collate import (attach_host_plan, collate,
                                                   eval_annotation)
     from segdino3d_tpu_torch.evaluation.evaluate import (host_prediction,
                                                          postprocess)
-    from segdino3d_tpu_torch.data.scannet_constants import (
-        SCANNET200_CLASS_NAMES, SCANNET200_RAW_IDS)
+    from segdino3d_tpu_torch.data import scannet_constants as SC
     from segdino3d_tpu_torch.evaluation.evaluator import InstanceSeg3DEvaluator
 
-    evaluator = InstanceSeg3DEvaluator(SCANNET200_RAW_IDS,
-                                       SCANNET200_CLASS_NAMES)
+    if layout == "v2":
+        evaluator = InstanceSeg3DEvaluator(SC.SCANNET20_RAW_IDS,
+                                           SC.SCANNET20_CLASS_NAMES)
+        bg_class_id = 20
+    else:
+        evaluator = InstanceSeg3DEvaluator(SC.SCANNET200_RAW_IDS,
+                                           SC.SCANNET200_CLASS_NAMES)
+        bg_class_id = 200
     plan_args = plan_layout(layout)
 
     def once():
@@ -1335,8 +1492,9 @@ def run_main_path(model, test_cfg, records, spec, device_plan=False,
         t0 = time.perf_counter()
         evaluator.reset()
         for record, r in zip(records, res):
-            evaluator.process(eval_annotation(record), host_prediction(
-                record, *r, plan_overflow=out["plan_overflow"]))
+            evaluator.process(
+                eval_annotation(record, bg_class_id), host_prediction(
+                    record, *r, plan_overflow=out["plan_overflow"]))
         metrics = evaluator.evaluate()
         t["ap_eval"] = time.perf_counter() - t0
         return t, batch, bb, out, res, metrics
@@ -1352,12 +1510,15 @@ def run_main_path(model, test_cfg, records, spec, device_plan=False,
     return launches, times, peak, batch, bb, out, res, metrics
 
 
-def check_outputs(bb, out, res, s_cap):
+def check_outputs(bb, out, res, s_cap, width=96, n_inst=198, n_sem=200):
+    """Shapes (``width`` backbone channels, ``n_inst`` and ``n_sem``
+    classes) and finite values of the eval path's outputs."""
     checks = {"sp_feats": bb.sp_feats, "cls_preds": out["cls_preds"],
               "masks": out["masks"], "sem_preds": out["sem_preds"],
               "centers": out["centers"], "sizes": out["sizes"]}
-    shapes = {"sp_feats": (1, s_cap, 96), "cls_preds": (1, s_cap, 199),
-              "masks": (1, s_cap, s_cap), "sem_preds": (1, s_cap, 201),
+    shapes = {"sp_feats": (1, s_cap, width),
+              "cls_preds": (1, s_cap, n_inst + 1),
+              "masks": (1, s_cap, s_cap), "sem_preds": (1, s_cap, n_sem + 1),
               "centers": (1, s_cap, 3), "sizes": (1, s_cap, 3)}
     for k, v in checks.items():
         if tuple(v.shape) != shapes[k]:
@@ -1373,10 +1534,11 @@ def check_outputs(bb, out, res, s_cap):
 
 def check_small_reference(model, plans=("host", "device")):
     """The card's forward (kernels) against the CPU's plain path, same
-    weights, on a small scene, on a host plan and on a device plan (K6-K8
-    on the card; the device plan's capacity is the scene's point count),
-    at rtol = atol = 1e-3, and on a hybrid host plan ("hybrid", K9 and
-    K10) or one with the compacted stem ("compact", K12) at 1e-4.
+    weights, on a small scene, on a host plan ("host", or the v2 model's
+    "v2") and on a device plan (K6-K8 on the card; the device plan's
+    capacity is the scene's point count), at rtol = atol = 1e-3, and on a
+    hybrid host plan ("hybrid", K9 and K10) or one with the compacted stem
+    ("compact", K12) at 1e-4.
     Compared before any attention threshold: the superpoint features and
     the first head's class and mask logits."""
     from segdino3d_tpu_torch.data.collate import PadSpec, attach_host_plan, \
@@ -1461,31 +1623,34 @@ def compare_plans(dev, host):
 
 
 def run_device_plan_path(model, test_cfg, records, spec, host_batch, host_bb,
-                         host_out):
-    """Phase 3b: tables, the plan's time beside the host plan's, then the
-    eval path on device plans."""
+                         host_out, layout="gather", n_conv=51, width=96,
+                         n_inst=198, n_sem=200):
+    """Phases 3b and 5b: tables, the plan's time beside the host plan's
+    (of ``layout``), then the eval path on device plans, ``n_conv`` K1
+    launches a forward."""
     from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
 
+    tag = "v2 " if layout == "v2" else ""
     bare = collate(records, spec, DEVICE)
-    coords = bare.points.reshape(-1, 6)[:, :3] / torch.full(
-        (), 0.02, device=DEVICE)
-    plan, overflow = model.backbone.device_plan(coords, bare.point_valid)
+    xyz = bare.points.reshape(-1, 6)[:, :3]
+    plan, overflow = model.backbone.device_plan(xyz, bare.point_valid)
     torch.cuda.synchronize()
     if bool(overflow):
         raise SystemExit("device plan overflowed at the host plan's caps")
     whole = compare_plans(plan, host_batch.plan)
     n_tables = 2 + sum(getattr(lv, k) is not None for lv in plan.levels
                        for k in PLAN_FIELDS)
-    print(f"device plan equals the host plan on every valid row (inverse, "
-          f"stem_nbr, each level's valid/nbr/parent/kpos/child/up_order; "
+    print(f"{tag}device plan equals the host plan on every valid row "
+          f"(inverse, stem_nbr, each level's valid/nbr/parent/kpos/child/up_order; "
           f"{whole} of {n_tables - 1} tables equal whole)", flush=True)
 
     def device():
-        model.backbone.device_plan(coords, bare.point_valid)
+        model.backbone.device_plan(xyz, bare.point_valid)
 
     def host():
-        attach_host_plan(bare, records, spec, voxel_size=0.02,
-                         level_cap_ratios=LEVEL_CAP_RATIOS)
+        attach_host_plan(bare, records, spec,
+                         level_cap_ratios=LEVEL_CAP_RATIOS,
+                         **plan_layout(layout))
 
     plan_ms = {}
     for fn in (device, host):
@@ -1499,21 +1664,22 @@ def run_device_plan_path(model, test_cfg, records, spec, host_batch, host_bb,
             plan_ms.setdefault(name, []).append(
                 1e3 * (time.perf_counter() - t0))
     dev_ms = time_ms(device, reps=TIMED_ITERS)
-    print(f"plan alone, mean of {TIMED_ITERS} (host clock, synchronised): "
-          f"device {float(np.mean(plan_ms['device'])):.3f} ms "
+    print(f"{tag}plan alone, mean of {TIMED_ITERS} (host clock, "
+          f"synchronised): device {float(np.mean(plan_ms['device'])):.3f} ms "
           f"(CUDA events {dev_ms:.3f} ms), host (C++ plan + copies) "
           f"{float(np.mean(plan_ms['host'])):.3f} ms", flush=True)
 
     launches, times, peak, batch, bb, out, res, metrics = run_main_path(
-        model, test_cfg, records, spec, device_plan=True)
+        model, test_cfg, records, spec, device_plan=True, layout=layout)
     if batch.plan is not None:
         raise SystemExit("the device-plan run got a host plan")
     # coord_hash: one build-and-lookup launch a level (voxelize and four
     # downsamples)
-    expected = {"gather_gemm_conv": 51, "up_conv": 4, "segment_mean_gather": 2,
-                "coord_hash": 5, "voxel_compact": 5, "neighbor_table": 1}
-    print(f"launches in one forward on a device plan: {launches} (expected "
-          f"{expected})", flush=True)
+    expected = {"gather_gemm_conv": n_conv, "up_conv": 4,
+                "segment_mean_gather": 2, "coord_hash": 5,
+                "voxel_compact": 5, "neighbor_table": 1}
+    print(f"{tag}launches in one forward on a device plan: {launches} "
+          f"(expected {expected})", flush=True)
     for k, n in expected.items():
         if launches[k] < n or (k != "gather_gemm_conv" and launches[k] != n):
             raise SystemExit(f"{k}: {launches[k]} launches on the device "
@@ -1524,16 +1690,16 @@ def run_device_plan_path(model, test_cfg, records, spec, host_batch, host_bb,
     for k, (a, b) in pairs.items():
         err = float((a - b).abs().max())
         ok = torch.allclose(a, b, rtol=1e-5, atol=1e-5)
-        print(f"device-plan forward vs host-plan forward {k}: "
+        print(f"{tag}device-plan forward vs host-plan forward {k}: "
               f"max_abs_err={err:.3e} (rtol=atol=1e-5) "
               f"{'ok' if ok else 'MISMATCH'}", flush=True)
         if not ok:
             raise SystemExit(f"device-plan forward disagrees on {k}")
-    check_outputs(bb, out, res, SCENE["n_superpoints"])
+    check_outputs(bb, out, res, SCENE["n_superpoints"], width, n_inst, n_sem)
     stages = {k: 1e3 * float(np.mean([t[k] for t in times]))
               for k in times[0]}
     total = [sum(t.values()) for t in times]
-    print(f"main path on device plans: {1.0 / float(np.mean(total)):.3f} "
+    print(f"{tag}main path on device plans: {1.0 / float(np.mean(total)):.3f} "
           f"scenes/s over {TIMED_ITERS} iterations (batch 1, fp32); ms per "
           f"stage " + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
           + f" (plan = collate only; the backbone builds the plan); total "
@@ -1560,7 +1726,9 @@ def numpy_queries(num_superpoints, s_cap, seed):
             torch.from_numpy(np.arange(s_cap)[None, :] < n_sel[:, None]))
 
 
-def make_train_step(model, accum_steps, ema=True):
+def make_train_step(model, accum_steps, ema=True, cfg=None):
+    """The recipe's step (AdamW/PolyLR, clip 10, EMA with ``ema``) with
+    the criterion of ``cfg`` (default: the flagship's)."""
     from segdino3d_tpu_torch.builder import build_criterion
     from segdino3d_tpu_torch.parallel.train_step import TrainStep
     from segdino3d_tpu_torch.train.ema import EMA
@@ -1568,7 +1736,7 @@ def make_train_step(model, accum_steps, ema=True):
 
     opt = build_optimizer(model.named_parameters(), OPTIMIZER, SCHEDULER,
                           clip_max_norm=CLIP_MAX_NORM)
-    return TrainStep(model, build_criterion(train_cfg()), opt,
+    return TrainStep(model, build_criterion(cfg or train_cfg()), opt,
                      EMA(model.named_parameters(), EMA_DECAY) if ema
                      else None, accum_steps=accum_steps)
 
@@ -1583,17 +1751,19 @@ def check_metrics(step, metrics, what):
     return vals
 
 
-def run_training(model, records, spec, layout="gather", accum=True):
+def run_training(model, records, spec, layout="gather", accum=True,
+                 cfg=None, ema=True):
     """A warm-up and TRAIN_STEPS measured batch-1 steps on host plans of
-    ``layout`` (``plan_layout``), then (with ``accum``) one accum_steps=4
-    step over four scenes.  Returns (launches in one batch-1 step, per-step stage seconds,
-    the accumulated step's stage seconds and launches or None, peak bytes,
-    metrics)."""
+    ``layout`` (``plan_layout``), with the criterion of ``cfg`` and EMA
+    with ``ema``, then (with ``accum``) one accum_steps=4 step over four
+    scenes.  Returns (launches in one batch-1 step, per-step stage
+    seconds, the accumulated step's stage seconds and launches or None,
+    peak bytes, metrics)."""
     from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
     from segdino3d_tpu_torch.parallel.train_step import StageClock, TrainStep
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    step1 = make_train_step(model, 1)
+    step1 = make_train_step(model, 1, ema, cfg)
     # the accumulated step continues the run: one optimizer and EMA
     step4 = TrainStep(model, step1.criterion, step1.optimizer, step1.ema,
                       accum_steps=4)
@@ -1654,7 +1824,7 @@ def run_training(model, records, spec, layout="gather", accum=True):
             torch.cuda.max_memory_allocated(), metrics)
 
 
-def check_small_train(model, layout="gather"):
+def check_small_train(model, layout="gather", cfg=None):
     """One train step of the card (kernels) against the CPU's plain path,
     same weights and queries, on a small sparse scene (500 points per m^2,
     so every U-Net level keeps enough voxels for well-conditioned batch
@@ -1665,10 +1835,13 @@ def check_small_train(model, layout="gather"):
         collate
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
 
+    crit = (cfg or train_cfg())["criterion_cfg"]
     rec = [synthetic_scene(1, n_points=4000, n_instances=6, n_superpoints=128,
-                           n_classes=180, feat_dim_2d=256,
+                           n_classes=min(180, crit["inst_criterion"][
+                               "num_classes"]), feat_dim_2d=256,
                            point_density=500.0)]
-    spec = PadSpec(4096, SCENE["n_superpoints"], 16, 16, 200)
+    spec = PadSpec(4096, SCENE["n_superpoints"], 16, 16,
+                   crit["num_semantic_classes"])
     out = {}
     for dev in (DEVICE, "cpu"):
         m = copy.deepcopy(model).to(dev)
@@ -1678,7 +1851,7 @@ def check_small_train(model, layout="gather"):
                                  **plan_layout(layout))
         q = numpy_queries(batch.num_superpoints.cpu().numpy(),
                           SCENE["n_superpoints"], seed=5)
-        step = make_train_step(m, 1, ema=False)
+        step = make_train_step(m, 1, ema=False, cfg=cfg)
         metrics = step([batch], queries=[tuple(t.to(dev) for t in q)])
         out[dev] = (check_metrics(step, metrics, f"small step on {dev}"),
                     {n: float(p.grad.norm()) for n, p in m.named_parameters()})
@@ -1725,10 +1898,9 @@ def run_training_device(model, records, spec):
     steps, launches, metrics = [], None, []
     for i in range(TRAIN_STEPS):
         b, t_collate = bare(records[i % len(records)])
-        coords = b.points.reshape(-1, 6)[:, :3] / torch.full(
-            (), 0.02, device=DEVICE)
         t0 = time.perf_counter()
-        _, overflow = model.backbone.device_plan(coords, b.point_valid)
+        _, overflow = model.backbone.device_plan(
+            b.points.reshape(-1, 6)[:, :3], b.point_valid)
         torch.cuda.synchronize()
         t_plan = time.perf_counter() - t0
         if bool(overflow):
@@ -2026,6 +2198,124 @@ def run_dense_training(model, records, spec):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 5: the ScanNet v2 model (SpConvUNet)
+# --------------------------------------------------------------------------
+
+# a v2 forward: the k3 stem, 20 block convs and 16 tail convs, 4 down convs
+# (K1); 4 up convs (K2); the voxel mean and the pool (K3) on their CSRs;
+# one pair list per index table (each level's k3 table, the stem's being
+# level 0's, and each child table)
+V2_FORWARD = {"gather_gemm_conv": 41, "up_conv": 4, "segment_mean_gather": 2,
+              "segment_csr": 2}
+V2_PAIR_LISTS = 9
+V2_WIDTHS = dict(width=32, n_inst=18, n_sem=20)
+
+
+def v2_spec():
+    from segdino3d_tpu_torch.data.collate import PadSpec
+
+    return PadSpec(SCENE["n_points"], SCENE["n_superpoints"], 64, 128, 20)
+
+
+def v2_host_batch(records):
+    """The first v2 scene, collated on the card with its host plan."""
+    from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
+
+    return attach_host_plan(collate(records[:1], v2_spec(), DEVICE),
+                            records[:1], v2_spec(),
+                            level_cap_ratios=LEVEL_CAP_RATIOS,
+                            **plan_layout("v2"))
+
+
+def run_v2_phase(records):
+    """Phase 5 on the v2 scenes ``records``: 5a eval on host plans, 5b on
+    device plans at the first scene's host-plan capacities, 5c batch-1
+    training steps on host plans (the config's recipe: no EMA).  Returns
+    the launches of a host-plan forward, of a device-plan forward and of a
+    training step."""
+    from segdino3d_tpu_torch.builder import Capacities, build_model, \
+        random_init_
+
+    s_cap = SCENE["n_superpoints"]
+    spec = v2_spec()
+    caps = Capacities(num_superpoints=s_cap,
+                      num_voxels=v2_host_batch(records).plan.levels[0]
+                      .valid.shape[0],
+                      level_cap_ratios=LEVEL_CAP_RATIOS)
+    cfg = v2_model_cfg()
+
+    # 5a: eval on host plans (a k3 stem, the exact min shift)
+    model, test_cfg = build_model(cfg, caps)
+    random_init_(model, seed=0)
+    launches, times, peak, batch, bb, out, res, metrics = run_main_path(
+        model, test_cfg, records[:1], spec, layout="v2")
+    print(f"v2 launches in one forward: {launches} (expected "
+          f"{V2_FORWARD}, gather_pairs {V2_PAIR_LISTS})", flush=True)
+    for k, n in V2_FORWARD.items():
+        if launches[k] != n:
+            raise SystemExit(f"v2 {k}: {launches[k]} launches, expected {n}")
+    if launches["gather_pairs"] != V2_PAIR_LISTS:
+        raise SystemExit(f"v2 gather_pairs: {launches['gather_pairs']} pair "
+                         f"lists in one forward, expected {V2_PAIR_LISTS}")
+    stages = {k: 1e3 * float(np.mean([t[k] for t in times]))
+              for k in times[0]}
+    total = [sum(t.values()) for t in times]
+    print(f"v2 main path {plan_layout('v2')}: levels "
+          f"{[int(lv.valid.sum()) for lv in batch.plan.levels]} (caps "
+          f"{[lv.valid.shape[0] for lv in batch.plan.levels]}); "
+          f"{1.0 / float(np.mean(total)):.3f} scenes/s over {TIMED_ITERS} "
+          f"iterations (batch 1, fp32); ms per stage "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f"; total {1e3 * float(np.mean(total)):.2f} ms; peak "
+          f"{peak / 2 ** 30:.3f} GiB", flush=True)
+    print(f"v2 AP on the random-weight scene (ScanNet v2 evaluator): "
+          f"all_ap={metrics['all_ap']:.4f} all_ap_50="
+          f"{metrics['all_ap_50']:.4f} all_ap_25={metrics['all_ap_25']:.4f}",
+          flush=True)
+    check_outputs(bb, out, res, s_cap, **V2_WIDTHS)
+    fwd_ms, cats = forward_device_ms(model, batch, cols=262)
+    print(f"one v2 forward (torch.profiler, device ms): K1 "
+          f"{fwd_ms['K1']:.4f}, K2 {fwd_ms['K2']:.4f}, K3 {fwd_ms['K3']:.4f} "
+          f"of {fwd_ms['device']:.4f}; (N, 262) concatenations: {len(cats)}",
+          flush=True)
+    if cats:
+        raise SystemExit("the v2 forward concatenated the (N, 262) point "
+                         "features on the card")
+    check_small_reference(model, plans=("v2", "device"))
+
+    # 5b: the same eval on device plans
+    dev_launches = run_device_plan_path(
+        model, test_cfg, records[:1], spec, batch, bb, out, layout="v2",
+        n_conv=V2_FORWARD["gather_gemm_conv"], **V2_WIDTHS)
+    del model, batch, bb, out, res
+
+    # 5c: batch-1 training steps on host plans
+    tmodel, _ = build_model(cfg, caps, train=True)
+    random_init_(tmodel, seed=0)
+    check_small_train(tmodel, "v2", cfg)
+    train_launches, steps, _, _, train_peak, train_metrics = run_training(
+        tmodel, records, spec, layout="v2", accum=False, cfg=cfg, ema=False)
+    print(f"v2 launches in one batch-1 train step: {train_launches}",
+          flush=True)
+    for k in ("gather_gemm_conv", "up_conv", "segment_mean_gather",
+              "gather_wgrad", "segment_grad"):
+        if train_launches[k] <= 0:
+            raise SystemExit(f"v2 {k}: not launched in the train step")
+    if train_launches["gather_pairs"] != V2_PAIR_LISTS:
+        raise SystemExit(f"v2 gather_pairs: {train_launches['gather_pairs']}"
+                         f" pair lists in a step, expected {V2_PAIR_LISTS}")
+    keys = ("plan", "forward", "criterion", "backward", "optimizer")
+    mean = {k: 1e3 * float(np.mean([st[k] for st in steps])) for k in keys}
+    total = [sum(st[k] for k in keys) for st in steps]
+    print(f"v2 train batch 1: {float(np.mean(total)):.4f} s/step over "
+          f"{TRAIN_STEPS} steps (fp32, AdamW/PolyLR, clip 10, no EMA); ms "
+          f"per stage " + ", ".join(f"{k} {v:.2f}" for k, v in mean.items())
+          + f"; peak {train_peak / 2 ** 30:.3f} GiB", flush=True)
+    print(f"v2 train metrics (finite): {train_metrics[-1]}", flush=True)
+    return launches, dev_launches, train_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2068,6 +2358,17 @@ def main() -> int:
           f"{[l.valid.shape[0] for l in plan.levels]}), built in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
+    # the v2 scenes (the same geometry, 18 instance classes); the first
+    # one's host plan lives on the card for phase 2 only, so the earlier
+    # phases' peaks do not count it
+    from segdino3d_tpu_torch.data.synthetic import synthetic_scene
+    v2_records = []
+    for seed in TRAIN_SEEDS[:TRAIN_STEPS]:
+        rec = synthetic_scene(seed, **dict(SCENE, n_classes=18))
+        rec["points_2dfeats"] = rec["points_2dfeats"].astype(np.float16)
+        v2_records.append(rec)
+    v2_batch = v2_host_batch(v2_records)
+
     # phase 2: kernels against their plain versions
     level_caps = [lv.valid.shape[0] for lv in plan.levels]
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -2078,8 +2379,9 @@ def main() -> int:
                          + backward_cases(batch, SCENE["n_superpoints"], gen)
                          + plan_engine_cases(batch, level_caps)
                          + dense_cases(hybrid.plan, gen)
-                         + stem_compact_cases(records, spec, gen))
-    del hybrid
+                         + stem_compact_cases(records, spec, gen)
+                         + v2_cases(v2_batch, SCENE["n_superpoints"], gen))
+    del hybrid, v2_batch
 
     # phase 3: the main path at full width; a batch without a host plan
     # (phase 3b) gets a device plan at the host plan's capacities
@@ -2137,7 +2439,6 @@ def main() -> int:
     disk_launches = run_disk_phase(model, test_cfg)
 
     # phase 4: the training path at full width
-    from segdino3d_tpu_torch.data.synthetic import synthetic_scene
     tmodel, _ = build_model(train_cfg(), caps, train=True)
     random_init_(tmodel, seed=0)
     check_small_train(tmodel)
@@ -2170,7 +2471,13 @@ def main() -> int:
     random_init_(dmodel, seed=0)
     dense_train_launches = run_dense_training(dmodel, train_records, tspec)
 
-    # phase 5: the kernels line, then the result line
+    del tmodel, dmodel
+
+    # phase 5: the ScanNet v2 model (SpConvUNet) at full width
+    v2_launches, v2_dev_launches, v2_train_launches = run_v2_phase(
+        v2_records)
+
+    # phase 6: the kernels line, then the result line
     meta = {
         "gather_gemm_conv": ("segdino3d_tpu_torch/csrc/gather_gemm_conv.cu",
                              "segdino3d_tpu/ops/sparse_conv.py:232"),
@@ -2228,13 +2535,20 @@ def main() -> int:
         else:
             main_launches = launches[name] if launches[name] > 0 \
                 else train_launches[name]
+        # phase 5's counts: the host-plan forward's, the device-plan
+        # forward's for the plan engine's kernels, else the train step's
+        v2_main = v2_dev_launches[name] if name in plan_kernels else \
+            v2_launches[name] or v2_train_launches[name]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=main_launches, launches_train_step=train_launches[name],
             max_abs_err=rows[name]["max_abs_err"],
             ms=h["ms"], plain_ms=h["plain_ms"], bound_ms=h["bound_ms"],
             bound_by=h["bound_by"], library_ms=h["library_ms"],
-            shape=h["case"]))
+            shape=h["case"], launches_v2=v2_main,
+            launches_v2_train_step=v2_train_launches[name],
+            v2_cases=[c for c in rows[name]["cases"]
+                      if c["shape"].startswith("v2 ")]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Config-driven model assembly, on the config schema of the JAX package.
 
 Counterpart of ``segdino3d_tpu/builder.py:build_model`` for the
-Res16UNet34C + ScanNetQueryDecoder model, with its criterion
+Res16UNet34C or SpConvUNet + ScanNetQueryDecoder model, with its criterion
 (``build_criterion``).  The conv layout is a property of the plan, and the
 backbone config's layout settings are honoured through the host plan:
 ``host_plan_args`` turns ``block_edges`` and ``stem_gather`` (eval) or
@@ -25,6 +25,7 @@ from torch import nn
 from segdino3d_tpu_torch.device import resolve_device
 from segdino3d_tpu_torch.models.architecture.segdino3d import SegDINO3D
 from segdino3d_tpu_torch.models.backbone.res16unet import Res16UNet34C
+from segdino3d_tpu_torch.models.backbone.spconv_unet import SpConvUNet
 from segdino3d_tpu_torch.models.backbone.wrapper import SparseBackboneWrapper
 from segdino3d_tpu_torch.models.criterion.losses import \
     ScanNetUnifiedCriterion
@@ -93,21 +94,35 @@ def build_model(model_cfg: Dict, caps: Capacities, device=None,
     if train and cfg["decoder_cfg"].get("dropout", 0.0):
         raise NotImplementedError("decoder dropout in training is not ported")
     bcfg = dict(cfg["pointcloud_backbone_cfg"])
-    if bcfg.get("type") != "Res16UNet34C":
-        raise NotImplementedError(f"backbone {bcfg.get('type')} is not ported")
-    in_channels = bcfg.get("in_channels", 259)
     voxel_size = bcfg.get("voxel_size", 0.02)
-    unet = Res16UNet34C(in_channels=in_channels,
-                        out_channels=bcfg.get("out_channels", 96),
-                        config=bcfg.get("config"))
+    spconv = bcfg.get("type") == "SpConvUNet"
+    if spconv:
+        in_channels = bcfg.get("in_channels", 262)
+        unet = SpConvUNet(num_planes=bcfg.get("num_planes",
+                                              (32, 64, 96, 128, 160)),
+                          block_reps=bcfg.get("block_reps", 2),
+                          in_channels=in_channels,
+                          bn_momentum=bcfg.get("bn_momentum", 0.1))
+    elif bcfg.get("type") == "Res16UNet34C":
+        in_channels = bcfg.get("in_channels", 259)
+        unet = Res16UNet34C(in_channels=in_channels,
+                            out_channels=bcfg.get("out_channels", 96),
+                            config=bcfg.get("config"))
+    else:
+        raise NotImplementedError(f"backbone {bcfg.get('type')} is not ported")
+    # the SpConvUNet path adds the centred xyz to the point features and
+    # shifts its grid by each scene's exact minimum (see the wrapper)
     backbone = SparseBackboneWrapper(
         unet, caps.level_cap_ratios, voxel_size=voxel_size,
         s_cap=caps.num_superpoints,
         mode_fuse_2d_feat=bcfg.get("mode_fuse_2d_feat", "early_fusion"),
         compute_dtype=bcfg.get("compute_dtype", "float32"),
-        voxel_cap=caps.num_voxels)
-    # DINO-X query features share the per-point 2D feature width
-    decoder = build_decoder(dict(cfg["decoder_cfg"]), dinox_dim=in_channels - 3)
+        voxel_cap=caps.num_voxels, include_centered_xyz=spconv,
+        exact_min_shift=spconv)
+    # DINO-X query features share the per-point 2D feature width: the
+    # input less rgb and, on the SpConvUNet path, the centred xyz
+    decoder = build_decoder(dict(cfg["decoder_cfg"]),
+                            dinox_dim=in_channels - (6 if spconv else 3))
     model = SegDINO3D(backbone, decoder, voxel_size=voxel_size,
                       query_thr=cfg.get("query_thr", 0.5),
                       mode_3d_center=cfg.get("mode_3d_center", "median"))
@@ -119,7 +134,8 @@ def host_plan_args(model_cfg: Dict, train: bool = False) -> Dict:
     the backbone config names: voxel size, stem kernel and layout; for
     training ``block_edges_train``, else ``block_edges``, ``stem_gather``
     and, where the config names them, ``stem_compact`` and
-    ``stem_compact_slots`` (``train_3d.py``'s eval and training plans)."""
+    ``stem_compact_slots`` (``train_3d.py``'s eval and training plans).
+    SpConvUNet's plans have a k3 stem and the exact min shift."""
     bcfg = model_cfg["pointcloud_backbone_cfg"]
     edges = bcfg.get("block_edges")
     if train:
@@ -129,10 +145,13 @@ def host_plan_args(model_cfg: Dict, train: bool = False) -> Dict:
         if any(e and e not in EDGES for e in edges):
             raise NotImplementedError(f"block edges {edges}: the block conv "
                                       f"takes {EDGES}")
+    spconv = bcfg.get("type") == "SpConvUNet"
     args = dict(voxel_size=bcfg.get("voxel_size", 0.02),
-                stem_kernel=(bcfg.get("config") or {}).get(
+                stem_kernel=3 if spconv else (bcfg.get("config") or {}).get(
                     "conv1_kernel_size", 5),
                 block_edges=edges)
+    if spconv:
+        args["exact_min_shift"] = True
     if not train:
         args["stem_gather"] = bool(bcfg.get("stem_gather", False))
         # the compacted stem is eval only; off unless the config names it

@@ -128,10 +128,13 @@ def collate(records: List[Dict], spec: PadSpec, device) -> SceneBatch:
     )
 
 
-def _plan_coords(records: List[Dict], num_points: int, voxel_size: float):
+def _plan_coords(records: List[Dict], num_points: int, voxel_size: float,
+                 exact_min_shift: bool = False):
     """Voxel-unit plan coordinates: elastic coords when present, else
-    xyz/voxel_size, min-shifted per scene by a multiple of 16 (the backbone
-    wrapper's coordinate policy, ``models.backbone.wrapper``)."""
+    xyz/voxel_size, min-shifted per scene (the backbone wrapper's
+    coordinate policy, ``models.backbone.wrapper``): by a multiple of 16,
+    or with ``exact_min_shift`` by the minimum itself, subtracted in metric
+    space before the division."""
     b = len(records)
     coords = np.zeros((b, num_points, 3), np.float32)
     valid = np.zeros((b, num_points), bool)
@@ -140,9 +143,15 @@ def _plan_coords(records: List[Dict], num_points: int, voxel_size: float):
         valid[bi, :n] = True
         if r.get("elastic_coords") is not None:
             c = np.asarray(r["elastic_coords"], np.float32)
+        elif exact_min_shift:
+            xyz = np.asarray(r["points"][:, :3], np.float32)
+            coords[bi, :n] = (xyz - xyz.min(0)) / voxel_size
+            continue
         else:
             c = np.asarray(r["points"][:, :3], np.float32) / voxel_size
-        mins = np.floor(c.min(0) / 16.0) * 16.0
+        mins = c.min(0)
+        if not exact_min_shift:
+            mins = np.floor(mins / 16.0) * 16.0
         coords[bi, :n] = c - mins
     bidx = np.repeat(np.arange(b, dtype=np.int32), num_points)
     return coords, valid, bidx
@@ -158,6 +167,7 @@ def attach_host_plan(batch: SceneBatch, records: List[Dict], spec: PadSpec,
                      stem_gather: bool = False, stem_compact: bool = False,
                      stem_compact_slots: Optional[int] = None,
                      stem_ov_cap: Optional[int] = None,
+                     exact_min_shift: bool = False,
                      auto_l0_layout: bool = True) -> SceneBatch:
     """Build the sparse-conv plan on the host (C++) and attach it on the
     batch's device.
@@ -171,10 +181,13 @@ def attach_host_plan(batch: SceneBatch, records: List[Dict], spec: PadSpec,
     model config).  ``stem_compact`` replaces a gather k5 stem by the
     degree-compacted one (eval only; ``stem_compact_slots`` slots per
     voxel, ``stem_ov_cap`` overflow pairs, ``ops.host_plan``).
-    ``auto_l0_layout`` lets level 0 fall back to the gather layout when its
-    dense convs would outgrow the JAX package's budget
-    (``ops.host_plan.l0_dense_fits``, ``L0_BUDGET_BYTES``)."""
-    coords, valid, bidx = _plan_coords(records, spec.num_points, voxel_size)
+    ``exact_min_shift`` shifts each scene by its exact minimum (the
+    SpConvUNet path, ``_plan_coords``).  ``auto_l0_layout`` lets level 0
+    fall back to the gather layout when its dense convs would outgrow the
+    JAX package's budget (``ops.host_plan.l0_dense_fits``,
+    ``L0_BUDGET_BYTES``)."""
+    coords, valid, bidx = _plan_coords(records, spec.num_points, voxel_size,
+                                       exact_min_shift)
     if level_caps is not None:
         caps = [max(256, -(-int(c) // 256) * 256)
                 for c in level_caps[:num_levels]]

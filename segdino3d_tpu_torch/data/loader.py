@@ -114,8 +114,9 @@ class EvalLoader:
         stem_d = stem_slots_default(cfg.get("stem_compact_slots"))
         per_rung: Dict = {}
         for recs, spec in self._batches():
-            coords, valid, bidx = _plan_coords(recs, spec.num_points,
-                                               cfg.get("voxel_size", 0.02))
+            coords, valid, bidx = _plan_coords(
+                recs, spec.num_points, cfg.get("voxel_size", 0.02),
+                cfg.get("exact_min_shift", False))
             voxels, blocks, stem_ov = probe_plan_counts(
                 coords.reshape(-1, 3), bidx, valid.reshape(-1), edges,
                 num_levels, stem_kernel=stem_kernel if probe_stem else 0,

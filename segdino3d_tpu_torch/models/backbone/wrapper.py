@@ -3,12 +3,18 @@
 Counterpart of ``segdino3d_tpu/models/backbone/wrapper.py:
 SparseBackboneWrapper``:
 
-1. early-fuse per-point DINO-X features with rgb (as the voxel mean's two
-   column sources, each read in its own dtype: no (N, 259) tensor);
+1. early-fuse per-point features: rgb, on the SpConvUNet path
+   (``include_centered_xyz``) the xyz centred on the scene's mean over its
+   valid points, and the DINO-X features, as the voxel mean's column
+   sources, each read in its own dtype: no (N, 259) or (N, 262) tensor;
 2. take the batch's host plan or, when the batch has none, build the plan
    on the device of its tensors (``device_plan``: the per-scene min shift
-   of the conv grid, rounded down to a multiple of 16, then ``voxelize``
-   and ``build_unet_plan``, kernels K6-K8);
+   of the conv grid, then ``voxelize`` and ``build_unet_plan``, kernels
+   K6-K8).  The shift is the valid points' minimum rounded down to a
+   multiple of 16 (Res16UNet34C), or with ``exact_min_shift``
+   (SpConvUNet) the minimum itself, subtracted in metric space before the
+   division by the voxel size, as the reference quantizes
+   ``(p - p.min(0)) / voxel``;
 3. average point features into the plan's level-0 voxels (kernel K3),
    each element rounded to the compute dtype first;
 4. run the sparse U-Net;
@@ -52,16 +58,26 @@ def superpoint_segment_ids(superpoint_ids: torch.Tensor, s_cap: int
     return (base + sp).reshape(-1)
 
 
-def min_shift(coords_vox: torch.Tensor, point_valid: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def voxel_units(xyz: torch.Tensor, voxel_size: float) -> torch.Tensor:
+    """``xyz / voxel_size`` as a true division, as numpy's in the host
+    plan: a CUDA tensor divided by a Python scalar is multiplied by its
+    reciprocal, which can floor a point into the neighbouring voxel."""
+    return xyz / torch.full((), voxel_size, device=xyz.device)
+
+
+def min_shift(coords_vox: torch.Tensor, point_valid: torch.Tensor,
+              exact: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scene index (B*P,) int32, coordinates (B*P, 3) shifted per scene by
-    the valid points' minimum, rounded down to a multiple of 16): a lattice
-    translation that keeps every level's 2x grouping, so the keys stay
-    non-negative without changing the voxels."""
+    the valid points' minimum): rounded down to a multiple of 16, a
+    lattice translation that keeps every level's 2x grouping, so the keys
+    stay non-negative without changing the voxels; with ``exact`` the
+    minimum itself."""
     b, p = point_valid.shape
     per_scene = coords_vox.reshape(b, p, 3)
     masked = torch.where(point_valid[..., None], per_scene, 1e9)
-    mins = torch.floor(masked.amin(dim=1) / 16.0) * 16.0
+    mins = masked.amin(dim=1)
+    if not exact:
+        mins = torch.floor(mins / 16.0) * 16.0
     bidx = torch.arange(b, dtype=torch.int32, device=coords_vox.device
                         )[:, None].expand(b, p).reshape(-1)
     return bidx, (per_scene - mins[:, None, :]).reshape(b * p, 3)
@@ -71,13 +87,17 @@ class SparseBackboneWrapper(nn.Module):
     """``voxel_cap`` is the device plan's level-0 voxel capacity (``None``:
     the batch's point count) and ``level_cap_ratios`` each level's share of
     it, rounded up to a multiple of 256 and at least 256, as in the JAX
-    wrapper.  The stem's kernel size is the U-Net's."""
+    wrapper.  The stem's kernel size is the U-Net's.  The SpConvUNet path
+    sets ``include_centered_xyz`` and ``exact_min_shift`` (see the module
+    docstring)."""
 
     def __init__(self, unet: nn.Module, level_cap_ratios: Sequence[float],
                  voxel_size: float = 0.02, s_cap: int = 1024,
                  mode_fuse_2d_feat: str = "early_fusion",
                  compute_dtype: str = "float32",
-                 voxel_cap: Optional[int] = None):
+                 voxel_cap: Optional[int] = None,
+                 include_centered_xyz: bool = False,
+                 exact_min_shift: bool = False):
         super().__init__()
         self.unet = unet
         self.voxel_size = voxel_size
@@ -86,12 +106,25 @@ class SparseBackboneWrapper(nn.Module):
         self.compute_dtype = getattr(torch, compute_dtype)
         self.voxel_cap = voxel_cap
         self.level_cap_ratios = tuple(level_cap_ratios)
+        self.include_centered_xyz = include_centered_xyz
+        self.exact_min_shift = exact_min_shift
 
-    def device_plan(self, coords_vox: torch.Tensor, point_valid: torch.Tensor
+    def device_plan(self, xyz: torch.Tensor, point_valid: torch.Tensor,
+                    elastic_coords: Optional[torch.Tensor] = None
                     ) -> Tuple[UNetPlan, torch.Tensor]:
-        """(plan, overflow) built on the device of ``coords_vox`` (B*P, 3),
-        voxel units, for the points ``point_valid`` (B, P)."""
-        bidx, shifted = min_shift(coords_vox, point_valid)
+        """(plan, overflow) built on the device of ``xyz`` (B*P, 3), metric,
+        for the points ``point_valid`` (B, P); the grid is the elastic
+        coordinates' (voxel units) where they are given."""
+        if elastic_coords is not None:
+            bidx, shifted = min_shift(elastic_coords.reshape(-1, 3),
+                                      point_valid, self.exact_min_shift)
+        elif self.exact_min_shift:
+            # the minimum subtracted in metric space, then divided
+            bidx, shifted = min_shift(xyz, point_valid, exact=True)
+            shifted = voxel_units(shifted, self.voxel_size)
+        else:
+            bidx, shifted = min_shift(voxel_units(xyz, self.voxel_size),
+                                      point_valid)
         grid = voxelize(bidx, shifted, point_valid.reshape(-1),
                         num_voxels_static=self.voxel_cap)
         v0 = grid.coords_T.shape[1]
@@ -108,17 +141,18 @@ class SparseBackboneWrapper(nn.Module):
         s_cap = self.s_cap
         pts = batch.points.reshape(n, 6)
         pvalid = batch.point_valid.reshape(n)
-        # a true division, as numpy's in the host plan: a CUDA tensor
-        # divided by a Python scalar is multiplied by its reciprocal, which
-        # can floor a point into the neighbouring voxel
-        raw_vox = pts[:, :3] / torch.full((), self.voxel_size,
-                                          device=pts.device)
+        raw_vox = voxel_units(pts[:, :3], self.voxel_size)
         coords_vox = raw_vox if batch.elastic_coords is None \
             else batch.elastic_coords.reshape(n, 3)   # voxel units
 
-        # the early-fused point features [rgb | 2D features], as column
-        # sources of the voxel mean: never concatenated on the card
+        # the early-fused point features [rgb | centred xyz | 2D features],
+        # as column sources of the voxel mean: never concatenated on the card
         feats = [pts[:, 3:]]
+        if self.include_centered_xyz:
+            xyz = batch.points[..., :3]
+            w = batch.point_valid[..., None].to(xyz.dtype)
+            mean = (xyz * w).sum(1) / w.sum(1).clamp(min=1.0)
+            feats.append((xyz - mean[:, None, :]).reshape(n, 3))
         if (self.mode_fuse_2d_feat == "early_fusion"
                 and batch.points_2dfeats is not None):
             feats.append(batch.points_2dfeats.reshape(n, -1))
@@ -127,7 +161,8 @@ class SparseBackboneWrapper(nn.Module):
             plan = batch.plan
             overflow = torch.zeros((), dtype=torch.bool, device=pts.device)
         else:
-            plan, overflow = self.device_plan(coords_vox, batch.point_valid)
+            plan, overflow = self.device_plan(pts[:, :3], batch.point_valid,
+                                              batch.elastic_coords)
         valid0 = plan.levels[0].valid
         v0 = valid0.shape[0]
         inverse = plan.inverse          # -1: the point has no voxel

@@ -136,11 +136,11 @@ def records(point_density=SCENE["point_density"]):
             for s in SEEDS]
 
 
-def initial_variables(seed=0):
-    """Seeded variables in the flax tree's layout, drawn with numpy in the
-    flax tree's leaf order (sorted keys, depth first): fan-in scaled
-    kernels, small biases and means, positive variances."""
-    model, _ = build_model(PORT_CFG, Capacities(num_superpoints=S_CAP),
+def initial_variables(seed=0, cfg=PORT_CFG):
+    """Seeded variables in the flax tree's layout of ``cfg``'s model, drawn
+    with numpy in the flax tree's leaf order (sorted keys, depth first):
+    fan-in scaled kernels, small biases and means, positive variances."""
+    model, _ = build_model(cfg, Capacities(num_superpoints=S_CAP),
                            device="cpu")
     rng = np.random.RandomState(seed)
 
@@ -169,17 +169,35 @@ def jax_reference():
     """The JAX package's step on the two microbatches, from
     ``initial_variables()`` -> a dict of numpy arrays (the fixture's
     contents)."""
+    import __graft_entry__ as ge
+    from segdino3d_tpu.data import collate as JC
+    from test_torch_port_jaxlib import load_jax_sparseplan
+
+    load_jax_sparseplan()
+    jmodel, jcrit, _, _, _ = ge._build(
+        n_points=N_POINTS, s_cap=S_CAP, i_cap=I_CAP, k2d=K2D, num_layers=2,
+        d_model=64, n_sem=N_SEM, n_inst_cls=N_CLS, feat2d=FEAT2D, init=False)
+    spec = JC.PadSpec(N_POINTS, S_CAP, I_CAP, K2D, N_SEM)
+    mbs = [JC.attach_host_plan(JC.collate([r], spec), [r], spec,
+                               voxel_size=0.02, voxel_cap=VOXEL_CAP,
+                               stem_compact=False) for r in records()]
+    return jax_step(jmodel, jcrit, mbs, initial_variables())
+
+
+def jax_step(jmodel, jcrit, mbs, variables):
+    """The JAX package's ``accum_steps=2`` step of ``jmodel`` and
+    ``jcrit`` on the microbatches ``mbs``, from ``variables``, with this
+    file's query selection, optimizer and EMA -> the fixture's
+    contents."""
     import jax
     import jax.numpy as jnp
     import optax
 
-    import __graft_entry__ as ge
     from segdino3d_tpu.data import collate as JC
     from segdino3d_tpu.models.architecture import segdino3d as JA
     from segdino3d_tpu.parallel.train_step import (create_train_state,
                                                    make_train_step)
     from segdino3d_tpu.train.optim import build_optimizer as jax_optimizer
-    from test_torch_port_jaxlib import load_jax_sparseplan
 
     def select(rng, sp_valid, query_thr):
         del rng, query_thr
@@ -190,16 +208,6 @@ def jax_reference():
                           ).astype(jnp.int32)
         return order, jnp.arange(s)[None, :] < n_sel[:, None]
 
-    load_jax_sparseplan()
-    jmodel, jcrit, _, _, _ = ge._build(
-        n_points=N_POINTS, s_cap=S_CAP, i_cap=I_CAP, k2d=K2D, num_layers=2,
-        d_model=64, n_sem=N_SEM, n_inst_cls=N_CLS, feat2d=FEAT2D, init=False)
-    spec = JC.PadSpec(N_POINTS, S_CAP, I_CAP, K2D, N_SEM)
-    recs = records()
-    mbs = [JC.attach_host_plan(JC.collate([r], spec), [r], spec,
-                               voxel_size=0.02, voxel_cap=VOXEL_CAP,
-                               stem_compact=False) for r in recs]
-    variables = initial_variables()
     tx, _ = jax_optimizer(OPT, SCHED, clip_max_norm=CLIP)
     state = create_train_state(variables, tx, use_ema=True)
     patched = JA.select_queries_random
@@ -266,23 +274,25 @@ def regen():
 # the port's side
 # --------------------------------------------------------------------------
 
-def port_step(variables, recs=None, device_plan=False, layout=None):
-    """The port's step on the two microbatches, from ``variables``; with
-    ``device_plan`` the microbatches carry no host plan and the backbone
-    builds theirs on the device, at the host plan's capacities.  ``layout``
-    adds host-plan arguments (``attach_host_plan``)."""
+def port_step(variables, recs=None, device_plan=False, layout=None,
+              cfg=PORT_CFG):
+    """The port's step of ``cfg``'s model on the two microbatches, from
+    ``variables``; with ``device_plan`` the microbatches carry no host
+    plan and the backbone builds theirs on the device, at the host plan's
+    capacities.  ``layout`` adds or overrides host-plan arguments
+    (``attach_host_plan``)."""
     caps = Capacities(num_superpoints=S_CAP, num_voxels=VOXEL_CAP)
-    model, _ = build_model(PORT_CFG, caps, device="cpu", train=True)
+    model, _ = build_model(cfg, caps, device="cpu", train=True)
     load_jax_variables(model, variables)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     spec = TC.PadSpec(N_POINTS, S_CAP, I_CAP, K2D, N_SEM)
     recs = recs or records()
     mbs = [TC.collate([r], spec, "cpu") for r in recs]
     if not device_plan:
-        mbs = [TC.attach_host_plan(mb, [r], spec, voxel_size=0.02,
-                                   voxel_cap=VOXEL_CAP,
-                                   level_cap_ratios=caps.level_cap_ratios,
-                                   **(layout or {}))
+        args = dict(dict(voxel_size=0.02, voxel_cap=VOXEL_CAP,
+                         level_cap_ratios=caps.level_cap_ratios),
+                    **(layout or {}))
+        mbs = [TC.attach_host_plan(mb, [r], spec, **args)
                for mb, r in zip(mbs, recs)]
     queries = [tuple(torch.from_numpy(a) for a in
                      numpy_selection(mb.num_superpoints.numpy()))
@@ -290,7 +300,7 @@ def port_step(variables, recs=None, device_plan=False, layout=None):
     # matches of the first microbatch, on a copy (a training forward moves
     # the batch-norm statistics)
     probe = copy.deepcopy(model)
-    crit = build_criterion(PORT_CFG)
+    crit = build_criterion(cfg)
     with torch.no_grad():
         outputs, gt = probe(mbs[0], queries[0])
     ic = crit.inst_criterion
