@@ -122,8 +122,40 @@ Phases, in order; any failure exits non-zero before the result line:
    config says): s/step, ms per stage, launches, peak memory, K1's and
    K4's device time in a profiled step, finite losses and gradient norm,
    and the card against the CPU on a small scene;
-6. print one ``kernels`` JSON line (each kernel's ScanNet v2 cases and
-   launches in it too), then the result line.
+6. run the Baseline model (``configs/prototypes/Baseline_ScanNet200.py``:
+   the flagship Res16UNet34C on rgb alone, a k5 stem over 3 channels, the
+   6-layer decoder without DINO-X cross-attention) at full width with
+   seeded random weights on phase 3's scene without 2D features: 6a eval
+   at batch 1 on the config's hybrid host plans -> predict_instance -> the
+   ScanNet200 AP evaluator: scenes/s, ms per stage, launches (K1 5, K2 4,
+   K3 2, K10 46, K9 18), peak memory, K1/K3/K10 device time of a profiled
+   forward, finite outputs, the card against the CPU on a small scene
+   (hybrid and device plan); 6b the same eval on device plans: tables
+   equal to a gather host plan's on valid rows, outputs within 1e-5 of
+   its forward's; 6e the eval entry point on scenes written without 2D
+   features, read with ``root_points_2dfeats=None``: the loader wait per
+   scene beside phase 3d's; 6c batch-1 training steps on the config's
+   block-dense training plans (the dense k5 stem over 3 channels; no
+   EMA): s/step, ms per stage, launches, K10/K11 device time of a
+   profiled step, finite losses, the card against the CPU on a small
+   scene; 6d two batch-1 steps on device plans (K4 at the 3-channel
+   stem); phase 2 holds its new shapes (K1 at the k5 stem 3->32, K10 at
+   the dense stem 3->32 on the L0 row list, K11 and K4 at the stem's
+   125x3x32 dW, K3 from the one 3-channel colour source);
+7. run the decoder options on the flagship model at full width: 7a an
+   eval forward and two training steps with the Fourier PE, objectness,
+   ``query_num`` 400, a two-layer semantic head, dropout 0.1 (masks from
+   the step's generator) and activation checkpointing, finite outputs and
+   losses, the card against the CPU on a small scene with dropout 0; 7b
+   an eval forward of the plain decoder with 100 learned queries; 7c an
+   eval forward with the decoder's projections in bf16: with the config's
+   mask gating the first head that reads them (layer 1) within 5e-2 x
+   max|.| of the fp32 forward's masks and class logits (the later layers
+   printed: gating flips move them), and without the gating every
+   layer's;
+8. print one ``kernels`` JSON line (each kernel's ScanNet v2 and Baseline
+   cases and launches in it too), the run's wall time, then the result
+   line.
 
 It needs one card, imports no JAX, and takes its kernels from the
 checkout: run from anywhere else it fails.
@@ -261,6 +293,57 @@ def v2_model_cfg():
                       matrix_nms_kernel="linear", stuff_classes=[0, 1]))
 
 
+def baseline_model_cfg():
+    """The Baseline model (``configs/prototypes/Baseline_ScanNet200.py`` as
+    the config loader reads its ``model``, ``_base_`` merged): the flagship
+    Res16UNet34C on rgb alone (``only_rgb``, a k5 stem over 3 channels), the
+    6-layer decoder without DINO-X cross-attention, its criterion and
+    layouts (``tests/test_torch_port_baseline.py`` holds this copy to the
+    file)."""
+    costs = [dict(type="QueryClassificationCost", weight=0.5),
+             dict(type="MaskBCECost", weight=1.0),
+             dict(type="MaskDiceCost", weight=1.0),
+             dict(type="CenterL1Cost", weight=0.5),
+             dict(type="SizeL1Cost", weight=0.5)]
+    return dict(
+        type="SegDINO3D", num_classes=198, query_thr=0.5,
+        mode_3d_center="median", add_positional_embedding=True,
+        filter_outofbox_points_eval=True,
+        pointcloud_backbone_cfg=dict(
+            type="Res16UNet34C", block_edges=[4, 4, 4, 4, 4],
+            stem_gather=True, block_edges_train=[4, 4, 4, 4, 4],
+            in_channels=3, out_channels=96, voxel_size=0.02,
+            mode_fuse_2d_feat="only_rgb", add_positional_embedding=True,
+            config=dict(dilations=[1, 1, 1, 1], conv1_kernel_size=5,
+                        bn_momentum=0.02)),
+        decoder_cfg=dict(
+            type="ScanNetQueryDecoder", num_layers=6,
+            num_instance_queries=0, num_semantic_queries=0,
+            num_instance_classes=198, num_semantic_classes=200,
+            num_semantic_linears=1, in_channels=96, d_model=256,
+            num_heads=8, hidden_dim=1024, dropout=0.0, activation_fn="gelu",
+            iter_pred=True, attn_mask=True, fix_attention=True,
+            objectness_flag=False, add_dinox_query_ca=False,
+            add_dinox_query_ca_mask=False, dinox_query_ca_mask_threshold=0.2,
+            add_positional_embedding=True, pos_type="sine", temperature=20,
+            add_box_size_pred=True, box_modulate_ca=True,
+            normalize_box_prediction=True),
+        criterion_cfg=dict(
+            type="ScanNetUnifiedCriterion", num_semantic_classes=200,
+            sem_criterion=dict(type="ScanNetSemanticCriterion",
+                               ignore_index=200, loss_weight=0.5),
+            inst_criterion=dict(
+                type="InstanceCriterion",
+                matcher=dict(type="SparseMatcher", topk=1, costs=costs),
+                loss_weight=[0.5, 1.0, 1.0, 0.5, 0.5, 0.5], num_classes=198,
+                non_object_weight=0.1, fix_dice_loss_weight=True,
+                iter_matcher=True, fix_mean_loss=True)),
+        test_cfg=dict(topk_insts=600, inst_score_thr=0.0, pan_score_thr=0.5,
+                      npoint_thr=100, obj_normalization=True,
+                      sp_score_thr=0.4, nms=True,
+                      matrix_nms_kernel="linear", stuff_classes=[0, 1]))
+
+
 def compact_cfg():
     """The flagship eval config with the degree-compacted stem turned on
     (its default D = 32 slots)."""
@@ -274,7 +357,9 @@ def plan_layout(name):
     3-4b), or the flagship config's eval layout "hybrid", the same with the
     compacted stem "compact" (phase 3d) or its training layout
     "block-dense", or the ScanNet v2 model's "v2" (phase 5: gather, a k3
-    stem, the exact min shift) (``builder.host_plan_args``)."""
+    stem, the exact min shift), or the Baseline's eval and training
+    layouts "baseline" and "baseline-train" (phase 6: the flagship's on a
+    3-channel stem) (``builder.host_plan_args``)."""
     from segdino3d_tpu_torch.builder import host_plan_args
 
     if name == "hybrid":
@@ -285,6 +370,10 @@ def plan_layout(name):
         return host_plan_args(train_cfg(), train=True)
     if name == "v2":
         return host_plan_args(v2_model_cfg())
+    if name == "baseline":
+        return host_plan_args(baseline_model_cfg())
+    if name == "baseline-train":
+        return host_plan_args(baseline_model_cfg(), train=True)
     if name != "gather":
         raise ValueError(f"unknown layout {name}")
     return dict(voxel_size=0.02)
@@ -408,11 +497,13 @@ def up_case(cases, gen, name, coarse, fine, cin, cout):
     cases.append(("up_conv", name, per))
 
 
-def voxel_mean_cases(cases, gen, plan, n_points, centred=False):
+def voxel_mean_cases(cases, gen, plan, n_points, centred=False,
+                     rgb_only=False):
     """K3 as the forward calls it: the voxel mean from its column sources
     (the points' colour columns, on the v2 path the centred xyz, and the
     2D features with fp32 and with fp16 values, each read in place and
-    rounded to the compute dtype), over the forward's voxel CSR."""
+    rounded to the compute dtype; with ``rgb_only``, the Baseline's, the
+    colour columns alone), over the forward's voxel CSR."""
     from segdino3d_tpu_torch.ops import scatter as SS
 
     v0 = plan.levels[0].valid.shape[0]
@@ -423,10 +514,10 @@ def voxel_mean_cases(cases, gen, plan, n_points, centred=False):
     n_members = int(pvalid.sum())
     pts = _randn(gen, (n_points, 6), torch.float32)
     mid = [_randn(gen, (n_points, 3), torch.float32)] if centred else []
-    cols = 3 + 3 * len(mid) + 256
-    for fdt in (torch.float32, torch.float16):
-        f2d = _randn(gen, (n_points, 256), fdt)
-        srcs = [pts[:, 3:]] + mid + [f2d]
+    cols = 3 if rgb_only else 3 + 3 * len(mid) + 256
+    for fdt in (None,) if rgb_only else (torch.float32, torch.float16):
+        f2d = None if rgb_only else _randn(gen, (n_points, 256), fdt)
+        srcs = [pts[:, 3:]] + mid + ([] if rgb_only else [f2d])
         per = {}
         for dt in (torch.float32, torch.bfloat16):
             per[dt] = (lambda dt=dt, srcs=srcs: SS.segment_mean_gather(
@@ -446,6 +537,10 @@ def voxel_mean_cases(cases, gen, plan, n_points, centred=False):
                         lambda dt=dt, srcs=srcs: SS.segment_mean_columns(
                             srcs, seg_vox, v0, dt, pvalid,
                             SS.segment_csr(seg_vox, v0, pvalid))})
+        if rgb_only:
+            cases.append(("segment_mean_gather", "baseline voxel mean, rgb "
+                          "(N,6)[:,3:6] alone -> V0 x 3", per))
+            continue
         fname = str(fdt).replace("torch.", "")
         tag, what = ("v2 ", " + centred xyz (N,3)") if centred else ("", "")
         cases.append(("segment_mean_gather", f"{tag}voxel mean, rgb (N,6)"
@@ -725,6 +820,26 @@ def v2_cases(batch, s_cap, gen):
                _randn(gen, (v[4], 160), f32), lv[4].nbr,
                _randn(gen, (v[4], 160), f32), None)
     pool_backward_case(cases, gen, batch, s_cap, 32, "v2 ")
+    return cases
+
+
+def baseline_cases(batch, gen):
+    """The Baseline's new shapes (rgb alone, Cin 3) on the main scene's
+    plan: K1 at the k5 stem 3->32 (fp32, bf16: 12- and 6-byte rows), K3
+    as the voxel mean from the one 3-channel colour source and K4 at the
+    stem's 125x3x32 dW (K10's dense stem and K11's stem dW are in
+    ``dense_cases``)."""
+    plan = batch.plan
+    lv = plan.levels
+    v0 = lv[0].valid.shape[0]
+    f32 = torch.float32
+    cases = []
+    conv_case(cases, gen, "baseline stem k5 3->32 L0", v0, plan.stem_nbr,
+              lv[0].valid, 3, 32)
+    voxel_mean_cases(cases, gen, plan, batch.points.shape[1], rgb_only=True)
+    wgrad_case(cases, "baseline stem dW k5 3->32 L0 (dY gathered, "
+               "mirrored)", _randn(gen, (v0, 3), f32), None,
+               _randn(gen, (v0, 32), f32), plan.stem_nbr, mirror=True)
     return cases
 
 
@@ -1174,6 +1289,8 @@ def dense_cases(plan, gen):
     conv_case("k3 96->96 L0", t0, 96, 96, 3, both)
     conv_case("k3 384->256 L3", t3, 384, 256, 3, both)
     conv_case("dense stem k5 259->32 L0", t0, 259, 32, 5, both)
+    # the Baseline's dense stem over rgb alone, on the same L0 row list
+    conv_case("baseline dense stem k5 3->32 L0", t0, 3, 32, 5, both)
     conv_case("dX k3 96->96 L0 (flipped, transposed W, under the "
               "dilation)", t0, 96, 96, 3, (f32,), dx=True)
     dilate_case(t0, 3)
@@ -1225,6 +1342,7 @@ def dense_cases(plan, gen):
 
     wgrad_case("dW k3 96->96 L0", t0, 96, 96, 3)
     wgrad_case("stem dW k5 259->32 L0", t0, 259, 32, 5)
+    wgrad_case("baseline stem dW k5 3->32 L0", t0, 3, 32, 5)
     return cases
 
 
@@ -1294,6 +1412,13 @@ def stem_compact_cases(records, spec, gen):
 # phase 3: the main path
 # --------------------------------------------------------------------------
 
+def rgb_only(rec):
+    """A record as the reader gives it without 2D features (the
+    Baseline's ``root_points_2dfeats=None``)."""
+    return dict(rec, points_2dfeats=None, query2d_feats=None,
+                query2d_pos=None)
+
+
 def make_records(n_classes=SCENE["n_classes"]):
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
 
@@ -1355,10 +1480,10 @@ def step_kernel_ms(run):
 
 
 def kernel_ms(events):
-    """{K1, K2, K3, K4, K4 pair lists, K11, device}: summed device ms of
+    """{K1, K2, K3, K4, K4 pair lists, K10, K11, device}: summed device ms of
     ``events``; and the count of K10's row-list launches."""
-    ms = dict.fromkeys(("K1", "K2", "K3", "K4", "K4 pair lists", "K11",
-                        "device"), 0.0)
+    ms = dict.fromkeys(("K1", "K2", "K3", "K4", "K4 pair lists", "K10",
+                        "K11", "device"), 0.0)
     ms["row-list launches"] = 0
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1375,6 +1500,8 @@ def kernel_ms(events):
             ms["K2"] += t
         elif "segment_mean_kernel" in n:
             ms["K3"] += t
+        elif "block_conv_kernel" in n:
+            ms["K10"] += t
         elif "gather_wgrad_kernel" in n or ("sum_splits" in n and
                                           "ListPairs" in n):
             ms["K4"] += t
@@ -1408,9 +1535,10 @@ def concat_shapes(run):
 
 
 def forward_device_ms(model, batch, cols=259):
-    """({K1, K2, K3, device} ms of one eval forward, backbone and decoder,
-    by ``torch.profiler``; the (N, cols) concatenations of one more, the
-    early-fused point features the forward no longer builds)."""
+    """({K1, K2, K3, K10, device} ms of one eval forward, backbone and
+    decoder, by ``torch.profiler``; the (N, cols) concatenations of one
+    more, the early-fused point features the forward no longer builds,
+    unless ``cols`` is None (one column source: nothing to concatenate))."""
     from torch.profiler import ProfilerActivity, profile
 
     def forward():
@@ -1420,6 +1548,8 @@ def forward_device_ms(model, batch, cols=259):
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         forward()
+    if cols is None:
+        return kernel_ms(prof.events()), []
     n = batch.points.shape[0] * batch.points.shape[1]
     return kernel_ms(prof.events()), [
         sh for sh in concat_shapes(forward) if sh == (n, cols)]
@@ -1537,8 +1667,9 @@ def check_small_reference(model, plans=("host", "device")):
     weights, on a small scene, on a host plan ("host", or the v2 model's
     "v2") and on a device plan (K6-K8 on the card; the device plan's
     capacity is the scene's point count), at rtol = atol = 1e-3, and on a
-    hybrid host plan ("hybrid", K9 and K10) or one with the compacted stem
-    ("compact", K12) at 1e-4.
+    hybrid host plan ("hybrid" or the Baseline's "baseline", K9 and K10)
+    or one with the compacted stem ("compact", K12) at 1e-4.  An rgb-only
+    model gets the scene without its 2D features.
     Compared before any attention threshold: the superpoint features and
     the first head's class and mask logits."""
     from segdino3d_tpu_torch.data.collate import PadSpec, attach_host_plan, \
@@ -1547,6 +1678,8 @@ def check_small_reference(model, plans=("host", "device")):
 
     rec = [synthetic_scene(1, n_points=4000, n_instances=6, n_superpoints=128,
                            n_classes=180, feat_dim_2d=256)]
+    if model.backbone.mode_fuse_2d_feat == "only_rgb":
+        rec = [rgb_only(r) for r in rec]
     spec = PadSpec(4096, SCENE["n_superpoints"], 16, 16, 200)
     cpu_model = copy.deepcopy(model).cpu()
     cpu_model.backbone.voxel_cap = None
@@ -1554,7 +1687,8 @@ def check_small_reference(model, plans=("host", "device")):
     try:
         for plan in plans:
             outs = {}
-            tol = 1e-4 if plan in ("hybrid", "compact") else 1e-3
+            tol = 1e-4 if plan in ("hybrid", "compact", "baseline") \
+                else 1e-3
             for dev, m in ((DEVICE, model), ("cpu", cpu_model)):
                 batch = collate(rec, spec, dev)
                 if plan != "device":
@@ -1624,13 +1758,14 @@ def compare_plans(dev, host):
 
 def run_device_plan_path(model, test_cfg, records, spec, host_batch, host_bb,
                          host_out, layout="gather", n_conv=51, width=96,
-                         n_inst=198, n_sem=200):
-    """Phases 3b and 5b: tables, the plan's time beside the host plan's
-    (of ``layout``), then the eval path on device plans, ``n_conv`` K1
-    launches a forward."""
+                         n_inst=198, n_sem=200, tag=None):
+    """Phases 3b, 5b and 6b: tables, the plan's time beside the host
+    plan's (of ``layout``), then the eval path on device plans, ``n_conv``
+    K1 launches a forward; ``tag`` prefixes the printed lines."""
     from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
 
-    tag = "v2 " if layout == "v2" else ""
+    if tag is None:
+        tag = "v2 " if layout == "v2" else ""
     bare = collate(records, spec, DEVICE)
     xyz = bare.points.reshape(-1, 6)[:, :3]
     plan, overflow = model.backbone.device_plan(xyz, bare.point_valid)
@@ -1795,10 +1930,11 @@ def run_training(model, records, spec, layout="gather", accum=True,
     b, _ = plan(records[0])
     BD.block_conv.own_lists = 0
     ms = step_kernel_ms(lambda: step1([b], generator=gen))
-    print(f"K1-K3 and the weight gradients in one batch-1 {layout} step "
-          f"(torch.profiler, device ms): K1 {ms['K1']:.4f}, K2 "
-          f"{ms['K2']:.4f}, K3 {ms['K3']:.4f}, K4 {ms['K4']:.4f} "
-          f"(+ pair lists {ms['K4 pair lists']:.4f}), K11 {ms['K11']:.4f}, "
+    print(f"K1-K3, K10 and the weight gradients in one batch-1 {layout} "
+          f"step (torch.profiler, device ms): K1 {ms['K1']:.4f}, K2 "
+          f"{ms['K2']:.4f}, K3 {ms['K3']:.4f}, K10 {ms['K10']:.4f}, K4 "
+          f"{ms['K4']:.4f} (+ pair lists {ms['K4 pair lists']:.4f}), K11 "
+          f"{ms['K11']:.4f}, "
           f"of {ms['device']:.4f} ms of device work; K10's row-list "
           f"launches {ms['row-list launches']} (two per level's occupancy "
           f"and dilation list, none inside a conv)", flush=True)
@@ -1824,23 +1960,39 @@ def run_training(model, records, spec, layout="gather", accum=True,
             torch.cuda.max_memory_allocated(), metrics)
 
 
-def check_small_train(model, layout="gather", cfg=None):
-    """One train step of the card (kernels) against the CPU's plain path,
-    same weights and queries, on a small sparse scene (500 points per m^2,
+def small_train_records(model, cfg, n_points=4000):
+    """The small sparse scene of ``check_small_train`` (500 points per m^2,
     so every U-Net level keeps enough voxels for well-conditioned batch
-    norms), on host plans of ``layout``: the losses and the gradient
-    norm (rtol 1e-4), and each leaf's clipped gradient norm (rtol 1e-3,
-    atol 1e-3 x the largest)."""
-    from segdino3d_tpu_torch.data.collate import PadSpec, attach_host_plan, \
-        collate
+    norms), without its 2D features for an rgb-only model."""
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
 
-    crit = (cfg or train_cfg())["criterion_cfg"]
-    rec = [synthetic_scene(1, n_points=4000, n_instances=6, n_superpoints=128,
-                           n_classes=min(180, crit["inst_criterion"][
-                               "num_classes"]), feat_dim_2d=256,
-                           point_density=500.0)]
-    spec = PadSpec(4096, SCENE["n_superpoints"], 16, 16,
+    crit = cfg["criterion_cfg"]
+    rec = [synthetic_scene(1, n_points=n_points, n_instances=6,
+                           n_superpoints=128, n_classes=min(
+                               180, crit["inst_criterion"]["num_classes"]),
+                           feat_dim_2d=256, point_density=500.0)]
+    if model.backbone.mode_fuse_2d_feat == "only_rgb":
+        rec = [rgb_only(r) for r in rec]
+    return rec
+
+
+def check_small_train(model, layout="gather", cfg=None, n_points=4000):
+    """One train step of the card (kernels) against the CPU's plain path,
+    same weights and queries, on the small sparse scene of
+    ``small_train_records`` with ``n_points`` points, on host plans of
+    ``layout``: the losses and the gradient norm (rtol 1e-4), and each
+    leaf's clipped gradient norm (rtol 1e-3, atol 1e-3 x the largest).
+    (The Baseline's and the decoder options' steps take 16,000 points: at
+    4,000 a 1e-6 relative change of the convs' outputs moves their
+    gradient norm by up to 2.1e-4 and 1.0e-4, at 16,000 by at most 2.1e-5
+    and 2.9e-6, ``tools/step_sensitivity.py``.)"""
+    from segdino3d_tpu_torch.data.collate import PadSpec, attach_host_plan, \
+        collate
+
+    cfg = cfg or train_cfg()
+    crit = cfg["criterion_cfg"]
+    rec = small_train_records(model, cfg, n_points)
+    spec = PadSpec(n_points + 96, SCENE["n_superpoints"], 16, 16,
                    crit["num_semantic_classes"])
     out = {}
     for dev in (DEVICE, "cpu"):
@@ -1877,15 +2029,17 @@ def check_small_train(model, layout="gather", cfg=None):
         raise SystemExit(f"card gradients disagree with the CPU on {bad[:5]}")
 
 
-def run_training_device(model, records, spec):
-    """Phase 4b: TRAIN_STEPS batch-1 steps on batches without a host plan
-    (the backbone builds each plan in the forward), after a warm-up.  The
-    plan is also built alone before each step and timed, to report it."""
+def run_training_device(model, records, spec, n_steps=TRAIN_STEPS, cfg=None,
+                        ema=True, tag=""):
+    """Phases 4b and 6d: ``n_steps`` batch-1 steps on batches without a
+    host plan (the backbone builds each plan in the forward), after a
+    warm-up, with the criterion of ``cfg``.  The plan is also built alone
+    before each step and timed, to report it."""
     from segdino3d_tpu_torch.data.collate import collate
     from segdino3d_tpu_torch.parallel.train_step import StageClock
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    step = make_train_step(model, 1)
+    step = make_train_step(model, 1, ema, cfg)
 
     def bare(rec):
         t0 = time.perf_counter()
@@ -1896,7 +2050,7 @@ def run_training_device(model, records, spec):
     check_metrics(step, step([bare(records[0])[0]], generator=gen),
                   "device-plan warm-up step")
     steps, launches, metrics = [], None, []
-    for i in range(TRAIN_STEPS):
+    for i in range(n_steps):
         b, t_collate = bare(records[i % len(records)])
         t0 = time.perf_counter()
         _, overflow = model.backbone.device_plan(
@@ -1917,16 +2071,19 @@ def run_training_device(model, records, spec):
     mean = {k: 1e3 * float(np.mean([st[k] for st in steps]))
             for k in keys + ("plan_alone",)}
     total = [sum(st[k] for k in keys) for st in steps]
-    print(f"launches in one batch-1 train step on a device plan: {launches}",
-          flush=True)
+    print(f"{tag}launches in one batch-1 train step on a device plan: "
+          f"{launches}", flush=True)
     for k in GATHER_STEP_KERNELS:
         if launches[k] <= 0:
-            raise SystemExit(f"{k}: not launched in the device-plan step")
-    print(f"train batch 1 on device plans: {float(np.mean(total)):.4f} s/step "
-          f"over {TRAIN_STEPS} steps (fp32; the forward builds the plan); "
-          f"ms per stage " + ", ".join(f"{k} {mean[k]:.2f}" for k in keys)
+            raise SystemExit(f"{tag}{k}: not launched in the device-plan "
+                             "step")
+    print(f"{tag}train batch 1 on device plans: {float(np.mean(total)):.4f} "
+          f"s/step over {n_steps} steps (fp32; the forward builds the "
+          f"plan); ms per stage " + ", ".join(f"{k} {mean[k]:.2f}"
+                                             for k in keys)
           + f"; device plan alone {mean['plan_alone']:.2f} ms", flush=True)
-    print(f"device-plan train metrics (finite): {metrics[-1]}", flush=True)
+    print(f"{tag}device-plan train metrics (finite): {metrics[-1]}",
+          flush=True)
     return launches
 
 
@@ -2057,13 +2214,14 @@ class StageTimer:
             h.remove()
 
 
-def run_disk_eval(model, test_cfg, root, layout):
+def run_disk_eval(model, test_cfg, root, layout, features_2d=True):
     """One pass of the eval entry point over the scenes under ``root``:
-    the port's ScanNet200 reader, ``EvalLoader`` (batch 1, the default
-    buckets, the capacity prescan, one batch of prefetch) on host plans of
-    ``layout``, and ``evaluate`` (packed result transfer).  Returns
-    (launches, stage ms, scenes/s, peak bytes, metrics, sp_feats per
-    scene)."""
+    the port's ScanNet200 reader (with the DINO-X features as fp16, or
+    without ``features_2d`` none: ``root_points_2dfeats=None``),
+    ``EvalLoader`` (batch 1, the default buckets, the capacity prescan,
+    one batch of prefetch) on host plans of ``layout``, and ``evaluate``
+    (packed result transfer).  Returns (launches, stage ms, scenes/s, peak
+    bytes, metrics, sp_feats per scene)."""
     from segdino3d_tpu_torch.data.bucketing import BucketPolicy
     from segdino3d_tpu_torch.data.loader import EvalLoader
     from segdino3d_tpu_torch.data.scannet_constants import (
@@ -2076,8 +2234,8 @@ def run_disk_eval(model, test_cfg, root, layout):
     # the synthetic labels are class ids already
     reader = ScanNet200InstanceSeg3D(
         scene_set="val", root_scenes=root, adjust_class_ids=False,
-        root_points_2dfeats=os.path.join(root, "features_2d"),
-        feats_2d_dtype="float16")
+        root_points_2dfeats=os.path.join(root, "features_2d")
+        if features_2d else None, feats_2d_dtype="float16")
     loader = EvalLoader(reader, batch_size=1,
                         bucket_policy=BucketPolicy.default(),
                         host_plan_cfg=plan_layout(layout), prefetch=1,
@@ -2164,7 +2322,7 @@ def run_disk_phase(model, test_cfg):
             raise SystemExit("the compacted stem disagrees with the gather "
                              "stem")
     check_small_reference(model, plans=("compact",))
-    return runs["compact"][0]
+    return runs["compact"][0], runs["hybrid"][1]
 
 
 def run_dense_training(model, records, spec):
@@ -2316,10 +2474,309 @@ def run_v2_phase(records):
     return launches, dev_launches, train_launches
 
 
+# --------------------------------------------------------------------------
+# phase 6: the Baseline_ScanNet200 model (rgb alone, no DINO-X)
+# --------------------------------------------------------------------------
+
+# the hybrid eval forward: the stem and four down convs (K1), 46 block
+# convs (K10) with their slot gathers (K9) and one occupancy row list per
+# level, four up convs (K2), the voxel mean and the pool (K3)
+HYBRID_FORWARD = {"gather_gemm_conv": 5, "up_conv": 4,
+                  "segment_mean_gather": 2, "block_conv": 46,
+                  "slot_gather": 18, "block_rows": 5}
+# the block-dense training step (phase 4c's)
+BLOCK_DENSE_STEP = {"block_conv": 93, "block_dilate": 5, "block_wgrad": 47,
+                    "slot_gather": 35, "gather_gemm_conv": 8, "up_conv": 8,
+                    "gather_wgrad": 8, "segment_mean_gather": 2,
+                    "segment_grad": 1, "block_rows": 5, "gather_pairs": 4}
+
+
+def check_counts(launches, expected, what):
+    print(f"{what}: {launches} (expected {expected})", flush=True)
+    for k, n in expected.items():
+        if launches[k] != n:
+            raise SystemExit(f"{what}: {k} {launches[k]}, expected {n}")
+
+
+def stage_line(times):
+    stages = {k: 1e3 * float(np.mean([t[k] for t in times]))
+              for k in times[0]}
+    total = [sum(t.values()) for t in times]
+    return (f"{1.0 / float(np.mean(total)):.3f} scenes/s over {len(times)} "
+            f"iterations (batch 1, fp32); ms per stage "
+            + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+            + f"; total {1e3 * float(np.mean(total)):.2f} ms")
+
+
+def run_baseline_phase(records, train_records, spec, disk_ms):
+    """Phase 6 on the rgb-only scenes ``records`` (eval) and
+    ``train_records`` (training): 6a eval on the config's hybrid host
+    plans, 6b on device plans (against a gather host plan), 6e the eval
+    entry point from disk without 2D features, 6c batch-1 steps on the
+    config's block-dense training plans, 6d batch-1 steps on device plans.
+    Returns the launches of a host-plan forward, of a device-plan forward,
+    of a block-dense step and of a device-plan step."""
+    import tempfile
+
+    from segdino3d_tpu_torch.builder import Capacities, build_model, \
+        random_init_
+    from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
+    from segdino3d_tpu_torch.data.synthetic import write_scannet_layout
+    from segdino3d_tpu_torch.ops import host_plan
+
+    s_cap = SCENE["n_superpoints"]
+    cfg = baseline_model_cfg()
+    gather = attach_host_plan(collate(records[:1], spec, DEVICE),
+                              records[:1], spec,
+                              level_cap_ratios=LEVEL_CAP_RATIOS,
+                              **plan_layout("gather"))
+    caps = Capacities(num_superpoints=s_cap,
+                      num_voxels=gather.plan.levels[0].valid.shape[0],
+                      level_cap_ratios=LEVEL_CAP_RATIOS)
+
+    # 6a: eval on the config's hybrid host plans
+    model, test_cfg = build_model(cfg, caps)
+    random_init_(model, seed=0)
+    if model.backbone.unet.conv0p1s1.kernel.shape[1] != 3 or \
+            hasattr(model.decoder, "dinox_ca"):
+        raise SystemExit("the Baseline model is not rgb-only")
+    launches, times, peak, batch, bb, out, res, metrics = run_main_path(
+        model, test_cfg, records[:1], spec, layout="baseline")
+    if batch.points_2dfeats is not None or batch.plan.blocks is None:
+        raise SystemExit("baseline: a batch with 2D features or without "
+                         "block tables")
+    check_counts(launches, HYBRID_FORWARD, "baseline launches in one "
+                 "hybrid forward")
+    print(f"baseline main path {plan_layout('baseline')}: "
+          f"{stage_line(times)}; peak {peak / 2 ** 30:.3f} GiB", flush=True)
+    print(f"baseline AP on the random-weight scene: all_ap="
+          f"{metrics['all_ap']:.4f} all_ap_50={metrics['all_ap_50']:.4f} "
+          f"all_ap_25={metrics['all_ap_25']:.4f}", flush=True)
+    check_outputs(bb, out, res, s_cap)
+    fwd_ms, _ = forward_device_ms(model, batch, cols=None)
+    print(f"one baseline hybrid forward (torch.profiler, device ms): K1 "
+          f"{fwd_ms['K1']:.4f}, K3 {fwd_ms['K3']:.4f}, K10 "
+          f"{fwd_ms['K10']:.4f}, K2 {fwd_ms['K2']:.4f} of "
+          f"{fwd_ms['device']:.4f}", flush=True)
+    check_small_reference(model, plans=("baseline", "device"))
+
+    # 6b: the same eval on device plans, against a gather host plan
+    with torch.no_grad():
+        gbb = model.backbone(gather)
+        gout = model.decode(gather, gbb)
+    dev_launches = run_device_plan_path(model, test_cfg, records[:1], spec,
+                                        gather, gbb, gout, tag="baseline ")
+    del gather, gbb, gout, batch, bb, out, res
+
+    # 6e: the eval entry point from disk, no 2D features written or read
+    with tempfile.TemporaryDirectory() as root:
+        write_scannet_layout(root, DISK_SEEDS, features_2d=False, **SCENE)
+        if os.listdir(os.path.join(root, "features_2d")):
+            raise SystemExit("baseline: 2D features written")
+        d_launches, ms, rate, d_peak, d_metrics, _ = run_disk_eval(
+            model, test_cfg, root, "baseline", features_2d=False)
+    n = len(DISK_SEEDS)
+    check_counts(d_launches, {k: n * v for k, v in HYBRID_FORWARD.items()},
+                 f"baseline entry point launches over {n} forwards")
+    wait = "loader wait (read, plan, copy)"
+    print(f"baseline eval entry point: {rate:.3f} scenes/s over {n} scenes "
+          f"read from disk without 2D features (batch 1, fp32, prefetch 1); "
+          f"ms per scene " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; peak {d_peak / 2 ** 30:.3f} GiB; loader wait {ms[wait]:.2f} "
+          f"ms a scene against phase 3d's {disk_ms[wait]:.2f} with the "
+          f"DINO-X features", flush=True)
+    del model
+
+    # 6c: batch-1 steps on the config's block-dense training plans
+    tmodel, _ = build_model(cfg, caps, train=True)
+    random_init_(tmodel, seed=0)
+    check_small_train(tmodel, "baseline-train", cfg, n_points=16000)
+    train_launches, steps, _, _, t_peak, t_metrics = run_training(
+        tmodel, train_records, spec, layout="baseline-train", accum=False,
+        cfg=cfg, ema=False)
+    check_counts(train_launches, BLOCK_DENSE_STEP,
+                 "baseline launches in one block-dense train step")
+    keys = ("plan", "forward", "criterion", "backward", "optimizer")
+    mean = {k: 1e3 * float(np.mean([st[k] for st in steps])) for k in keys}
+    total = [sum(st[k] for k in keys) for st in steps]
+    print(f"baseline train batch 1 {plan_layout('baseline-train')}: "
+          f"{float(np.mean(total)):.4f} s/step over {TRAIN_STEPS} steps "
+          f"(fp32, AdamW/PolyLR, clip 10, no EMA); ms per stage "
+          + ", ".join(f"{k} {v:.2f}" for k, v in mean.items())
+          + f"; peak {t_peak / 2 ** 30:.3f} GiB", flush=True)
+    print(f"baseline train metrics (finite): {t_metrics[-1]}", flush=True)
+
+    # 6d: batch-1 steps on device plans (K4 at the 3-channel stem)
+    from segdino3d_tpu_torch.data.collate import _plan_coords
+    tmodel.backbone.voxel_cap = max(
+        host_plan.voxel_bucket(host_plan.probe_voxel_count(
+            c.reshape(-1, 3), bidx, valid.reshape(-1)))
+        for c, valid, bidx in (_plan_coords([r], spec.num_points, 0.02)
+                               for r in train_records[:2]))
+    dev_train_launches = run_training_device(
+        tmodel, train_records, spec, n_steps=2, cfg=cfg, ema=False,
+        tag="baseline ")
+    return launches, dev_launches, train_launches, dev_train_launches
+
+
+# --------------------------------------------------------------------------
+# phase 7: the decoder options on the flagship model
+# --------------------------------------------------------------------------
+
+def options_cfg(dropout=0.1):
+    """The flagship training config with the Fourier PE, objectness, a
+    two-layer semantic head, dropout, activation checkpointing and
+    ``query_num`` top-k queries."""
+    cfg = train_cfg()
+    cfg["decoder_cfg"].update(pos_type="fourier", objectness_flag=True,
+                              num_semantic_linears=2, dropout=dropout,
+                              use_activation_checkpoint=True)
+    cfg["query_num"] = 400
+    return cfg
+
+
+def check_finite(out, what, shapes):
+    for k, shape in shapes.items():
+        v = out[k]
+        if tuple(v.shape) != shape:
+            raise SystemExit(f"{what} {k}: shape {tuple(v.shape)} != {shape}")
+        if not bool(torch.isfinite(v).all()):
+            raise SystemExit(f"{what} {k}: non-finite values")
+
+
+def run_options_phase(fp32_model, records, train_records, spec, caps):
+    """Phase 7: 7a a forward and two training steps of ``options_cfg()``
+    (gather host plans) and its card-vs-CPU step with dropout 0; 7b an
+    eval forward of the plain decoder with learned queries; 7c a bf16
+    decoder's eval forward against ``fp32_model``'s."""
+    from segdino3d_tpu_torch.builder import build_model, random_init_
+    from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
+    from segdino3d_tpu_torch.evaluation.evaluate import postprocess
+
+    s_cap = SCENE["n_superpoints"]
+    batch = attach_host_plan(collate(records[:1], spec, DEVICE), records[:1],
+                             spec, level_cap_ratios=LEVEL_CAP_RATIOS,
+                             **plan_layout("gather"))
+
+    def forward(model, what):
+        with torch.no_grad():
+            model(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(batch)
+            res = postprocess(out, batch, test_cfg)
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        inst = res[0][0]
+        if not bool(torch.isfinite(inst.scores).all()):
+            raise SystemExit(f"{what}: non-finite instance scores")
+        print(f"{what}: forward + postprocess {ms:.2f} ms (batch 1, host "
+              f"plan built before), {int(inst.valid.sum())} instances kept",
+              flush=True)
+        return out
+
+    # 7a: Fourier PE, objectness, two-layer semantic head, top-k queries,
+    # dropout and activation checkpointing
+    cfg = options_cfg()
+    model, test_cfg = build_model(cfg, caps)
+    random_init_(model, seed=0)
+    out = forward(model, "options eval (fourier, objectness, query_num 400)")
+    q = min(cfg["query_num"], s_cap)
+    check_finite(out, "options eval", {
+        "cls_preds": (1, q, 199), "masks": (1, q, s_cap),
+        "sem_preds": (1, q, 201), "scores": (1, q, 1), "centers": (1, q, 3),
+        "sizes": (1, q, 3)})
+    tmodel, _ = build_model(cfg, caps, train=True)
+    tmodel.load_state_dict(model.state_dict())
+    del model
+    step = make_train_step(tmodel, 1, ema=False, cfg=cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    for i in range(2):
+        rec = train_records[i]
+        b = attach_host_plan(collate([rec], spec, DEVICE), [rec], spec,
+                             level_cap_ratios=LEVEL_CAP_RATIOS,
+                             **plan_layout("gather"))
+        state = gen.get_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step([b], generator=gen)
+        vals = check_metrics(step, m, f"options step {i}")
+        if torch.equal(gen.get_state(), state):
+            raise SystemExit("options step: dropout drew nothing")
+        print(f"options train step {i} (dropout 0.1 from the step's "
+              f"generator, checkpointed): {time.perf_counter() - t0:.4f} s; "
+              f"metrics (finite) {vals}", flush=True)
+    # the card against the CPU with dropout 0, same weights
+    cfg0 = options_cfg(dropout=0.0)
+    model0, _ = build_model(cfg0, caps, train=True)
+    model0.load_state_dict(tmodel.state_dict())
+    del tmodel
+    check_small_train(model0, "gather", cfg0, n_points=16000)
+    del model0
+
+    # 7b: the plain decoder with learned queries, no positions
+    cfg = model_cfg()
+    cfg["decoder_cfg"].update(
+        iter_pred=False, num_instance_queries=100,
+        add_positional_embedding=False, box_modulate_ca=False,
+        add_box_size_pred=False, normalize_box_prediction=False)
+    cfg["add_positional_embedding"] = False
+    model, test_cfg = build_model(cfg, caps)
+    random_init_(model, seed=0)
+    out = forward(model, "plain decoder, 100 learned queries")
+    check_finite(out, "plain decoder", {
+        "cls_preds": (1, 100, 199), "masks": (1, 100, s_cap),
+        "sem_preds": (1, 100, 201)})
+    if out["centers"] is not None or out["aux_outputs"]:
+        raise SystemExit("plain decoder: centers or aux outputs")
+    del model
+
+    # 7c: the decoder's projections in bf16 against fp32, same weights.
+    # With the config's mask-attention gating, a head's bf16 rounding
+    # flips some sigmoid(mask) < 0.5 decisions of the next layer, which
+    # then attends to other superpoints: the first head that reads the
+    # bf16 projections (layer 1) is held, the last is printed.  Without
+    # the gating every layer is held.
+    for gated in (True, False):
+        cfg = model_cfg()
+        cfg["decoder_cfg"]["attn_mask"] = gated
+        ref_model = fp32_model
+        if not gated:
+            ref_model, _ = build_model(cfg, caps)
+            ref_model.load_state_dict(fp32_model.state_dict())
+        cfg["decoder_cfg"]["compute_dtype"] = "bfloat16"
+        model, test_cfg = build_model(cfg, caps)
+        model.load_state_dict(fp32_model.state_dict())
+        what = "bf16 decoder" + ("" if gated else " without mask gating")
+        out = forward(model, what)
+        with torch.no_grad():
+            ref = ref_model(batch)
+        for i, (o, r) in enumerate(zip(out["aux_outputs"] + [out],
+                                       ref["aux_outputs"] + [ref])):
+            if i == 0:          # the input queries' head: no bf16 inside
+                continue
+            held = i == 1 or not gated
+            for k in ("masks", "cls_preds"):
+                a, b = o[k].float(), r[k]
+                err, scale = float((a - b).abs().max()), float(b.abs().max())
+                ok = err <= 5e-2 * scale
+                print(f"{what} vs fp32, layer {i} {k}: max_abs_err={err:.3e}"
+                      f" (5e-2 x max|fp32| = {5e-2 * scale:.3e}) "
+                      + (("ok" if ok else "MISMATCH") if held
+                         else "(printed only)"), flush=True)
+                if held and not ok:
+                    raise SystemExit(f"{what} disagrees with fp32 on {k}, "
+                                     f"layer {i}")
+        del model
+        if not gated:
+            del ref_model
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     from segdino3d_tpu_torch.builder import Capacities, build_model, \
         random_init_
     from segdino3d_tpu_torch.data.collate import PadSpec
@@ -2380,7 +2837,8 @@ def main() -> int:
                          + plan_engine_cases(batch, level_caps)
                          + dense_cases(hybrid.plan, gen)
                          + stem_compact_cases(records, spec, gen)
-                         + v2_cases(v2_batch, SCENE["n_superpoints"], gen))
+                         + v2_cases(v2_batch, SCENE["n_superpoints"], gen)
+                         + baseline_cases(batch, gen))
     del hybrid, v2_batch
 
     # phase 3: the main path at full width; a batch without a host plan
@@ -2436,7 +2894,7 @@ def main() -> int:
 
     # phase 3d: the eval entry point on scenes read from disk, the gather
     # stem and the compacted stem
-    disk_launches = run_disk_phase(model, test_cfg)
+    disk_launches, disk_ms = run_disk_phase(model, test_cfg)
 
     # phase 4: the training path at full width
     tmodel, _ = build_model(train_cfg(), caps, train=True)
@@ -2477,7 +2935,16 @@ def main() -> int:
     v2_launches, v2_dev_launches, v2_train_launches = run_v2_phase(
         v2_records)
 
-    # phase 6: the kernels line, then the result line
+    # phase 6: the Baseline_ScanNet200 model (rgb alone) at full width
+    (bl_launches, bl_dev_launches, bl_train_launches,
+     bl_dev_train_launches) = run_baseline_phase(
+        [rgb_only(r) for r in records],
+        [rgb_only(r) for r in train_records], spec, disk_ms)
+
+    # phase 7: the decoder options on the flagship model at full width
+    run_options_phase(model, records, train_records, spec, caps)
+
+    # phase 8: the kernels line, then the result line
     meta = {
         "gather_gemm_conv": ("segdino3d_tpu_torch/csrc/gather_gemm_conv.cu",
                              "segdino3d_tpu/ops/sparse_conv.py:232"),
@@ -2548,8 +3015,19 @@ def main() -> int:
             shape=h["case"], launches_v2=v2_main,
             launches_v2_train_step=v2_train_launches[name],
             v2_cases=[c for c in rows[name]["cases"]
-                      if c["shape"].startswith("v2 ")]))
+                      if c["shape"].startswith("v2 ")],
+            launches_baseline=(bl_dev_launches[name] if name in plan_kernels
+                               else bl_launches[name]
+                               or bl_train_launches[name]),
+            launches_baseline_train_step=(
+                bl_dev_train_launches[name] if name in plan_kernels
+                else bl_train_launches[name]
+                or bl_dev_train_launches[name]),
+            baseline_cases=[c for c in rows[name]["cases"]
+                            if c["shape"].startswith("baseline ")]))
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

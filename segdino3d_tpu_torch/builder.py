@@ -11,8 +11,10 @@ The flagship config's eval plan is the hybrid layout (a gather k5 stem,
 block-dense convs everywhere else), its training plan block-dense with a
 dense stem.  A batch with a host plan runs on it; a batch without one gets
 a gather-layout plan built on the device by the backbone, at the
-capacities of ``Capacities``.  Options the port does not implement raise
-instead of being ignored.
+capacities of ``Capacities``.  Every decoder option and every
+``SegDINO3D`` argument the JAX builder reads is built; an unknown decoder
+key raises ``KeyError``, and a combination the JAX decoder rejects
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -47,32 +49,28 @@ class Capacities:
     level_cap_ratios: Tuple[float, ...] = (1.0, 0.7, 0.35, 0.12, 0.05)
 
 
-# decoder options with the one value the port implements
-_DECODER_FIXED = dict(
-    iter_pred=True, attn_mask=True, fix_attention=True,
-    objectness_flag=False, add_dinox_query_ca=True,
-    add_dinox_query_ca_mask=True, add_positional_embedding=True,
-    pos_type="sine", add_box_size_pred=True, box_modulate_ca=True,
-    normalize_box_prediction=True, num_instance_queries=0,
-    num_semantic_queries=0, num_semantic_linears=1, activation_fn="gelu",
-    compute_dtype="float32")
-_DECODER_ARGS = ("num_layers", "num_instance_classes", "num_semantic_classes",
-                 "in_channels", "d_model", "num_heads", "hidden_dim",
-                 "mask_attention_threshold", "dinox_query_ca_mask_threshold",
-                 "temperature")
-# training-only options, without effect on the eval forward
-_DECODER_IGNORED = ("type", "dropout", "use_activation_checkpoint",
-                    "gauss_scale")
+# every field of the JAX ScanNetQueryDecoder, a constructor argument here
+_DECODER_ARGS = (
+    "num_layers", "num_instance_classes", "num_semantic_classes",
+    "num_instance_queries", "num_semantic_queries", "num_semantic_linears",
+    "in_channels", "d_model", "num_heads", "hidden_dim", "dropout",
+    "activation_fn", "iter_pred", "attn_mask", "objectness_flag",
+    "add_dinox_query_ca", "add_dinox_query_ca_mask",
+    "dinox_query_ca_mask_threshold", "mask_attention_threshold",
+    "add_positional_embedding", "pos_type", "temperature", "gauss_scale",
+    "add_box_size_pred", "box_modulate_ca", "normalize_box_prediction",
+    "use_activation_checkpoint", "compute_dtype")
+# the registry key, and fix_attention, which the JAX decoder declares and
+# never reads
+_DECODER_IGNORED = ("type", "fix_attention")
 
 
 def build_decoder(cfg: Dict, dinox_dim: int) -> ScanNetQueryDecoder:
+    """The decoder of ``cfg`` (a ``decoder_cfg``); an unknown key raises
+    ``KeyError``, a combination the JAX decoder rejects ``ValueError``."""
     kwargs = {}
     for key, value in cfg.items():
-        if key in _DECODER_FIXED:
-            if value != _DECODER_FIXED[key]:
-                raise NotImplementedError(
-                    f"decoder option {key}={value!r} is not ported")
-        elif key in _DECODER_ARGS:
+        if key in _DECODER_ARGS:
             kwargs[key] = value
         elif key not in _DECODER_IGNORED:
             raise KeyError(f"unknown decoder option {key}")
@@ -88,11 +86,6 @@ def build_model(model_cfg: Dict, caps: Capacities, device=None,
     cfg = dict(model_cfg)
     if cfg.get("type", "SegDINO3D") not in ("Baseline3D", "SegDINO3D"):
         raise KeyError(f"unknown architecture {cfg['type']}")
-    if cfg.get("query_num", -1) > 0:
-        raise NotImplementedError("top-k query selection (query_num > 0) "
-                                  "is not ported")
-    if train and cfg["decoder_cfg"].get("dropout", 0.0):
-        raise NotImplementedError("decoder dropout in training is not ported")
     bcfg = dict(cfg["pointcloud_backbone_cfg"])
     voxel_size = bcfg.get("voxel_size", 0.02)
     spconv = bcfg.get("type") == "SpConvUNet"
@@ -120,12 +113,17 @@ def build_model(model_cfg: Dict, caps: Capacities, device=None,
         voxel_cap=caps.num_voxels, include_centered_xyz=spconv,
         exact_min_shift=spconv)
     # DINO-X query features share the per-point 2D feature width: the
-    # input less rgb and, on the SpConvUNet path, the centred xyz
+    # input less rgb and, on the SpConvUNet path, the centred xyz (0 with
+    # "only_rgb", where the decoder has no DINO-X cross-attention)
     decoder = build_decoder(dict(cfg["decoder_cfg"]),
                             dinox_dim=in_channels - (6 if spconv else 3))
     model = SegDINO3D(backbone, decoder, voxel_size=voxel_size,
                       query_thr=cfg.get("query_thr", 0.5),
-                      mode_3d_center=cfg.get("mode_3d_center", "median"))
+                      mode_3d_center=cfg.get("mode_3d_center", "median"),
+                      query_num=cfg.get("query_num", -1),
+                      add_positional_embedding=cfg.get(
+                          "add_positional_embedding", True),
+                      num_classes=cfg.get("num_classes", 198))
     return model.to(device).train(train), dict(cfg.get("test_cfg", {}))
 
 
@@ -176,7 +174,8 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights that stay finite through the full-width U-Net:
     every kernel is N(0, 1/fan_in) (raw N(0, 1) convs overflow over ~40
     convs), biases 0, batch-norm running statistics near (0, 1) with a
-    positive variance."""
+    positive variance, and a Fourier PE's Gaussian matrix N(0,
+    gauss_scale^2)."""
     gen = torch.Generator().manual_seed(seed)
 
     def normal(shape, std):
@@ -193,4 +192,6 @@ def random_init_(model: nn.Module, seed: int) -> nn.Module:
             m.running_var.copy_(0.5 + normal(m.running_var.shape, 1.0).abs())
         if isinstance(m, nn.Linear) and m.bias is not None:
             m.bias.zero_()
+        if isinstance(m, ScanNetQueryDecoder) and hasattr(m, "gauss_B"):
+            m.gauss_B.copy_(normal(m.gauss_B.shape, m.gauss_scale))
     return model

@@ -68,7 +68,7 @@ def jax_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                 name, leaf = "weight", leaf.T
             elif name == "scale":
                 name = "weight"
-            key = f"{_module_path(mods)}.{name}"
+            key = f"{_module_path(mods)}.{name}" if mods else name
             if key in out:
                 raise KeyError(f"two JAX leaves map to {key}")
             out[key] = torch.from_numpy(np.array(leaf, copy=True))

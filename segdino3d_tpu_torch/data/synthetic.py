@@ -222,10 +222,13 @@ def synthetic_scene(seed: int = 0,
     )
 
 
-def write_scannet_layout(root: str, seeds, n_classes: int = 18, **kw):
+def write_scannet_layout(root: str, seeds, n_classes: int = 18,
+                         features_2d: bool = True, **kw):
     """Write the scenes of ``seeds`` (``synthetic_scene`` with ``kw``) in
     the reference's .bin/.pth layout under ``root``, every scene in each of
-    the train, val and test lists; returns the scene ids."""
+    the train, val and test lists; returns the scene ids.  Without
+    ``features_2d`` the DINO-X ``.pth`` files are not written (an rgb-only
+    model's reader does not open them)."""
     import torch
 
     feat_root = os.path.join(root, "features_2d")
@@ -243,6 +246,8 @@ def write_scannet_layout(root: str, seeds, n_classes: int = 18, **kw):
                                 ("super_points", "superpoint_ids", np.int64)):
             rec[key].astype(dtype).tofile(os.path.join(root, sub,
                                                        f"{sid}.bin"))
+        if not features_2d:
+            continue
         torch.save([torch.tensor(rec["points_2dfeats"])],
                    os.path.join(feat_root, f"{sid}.pth"))
         torch.save(torch.tensor(rec["query2d_feats"]),

@@ -39,14 +39,20 @@ def postprocess(out, batch: SceneBatch, test_cfg: Dict,
         return base._replace(valid=valid,
                              scores=torch.where(valid, base.scores, 0.0))
 
+    def scene(key, b):
+        # centers and sizes are None without positional embeddings, the
+        # objectness scores without objectness_flag
+        v = out.get(key)
+        return None if v is None else v[b]
+
     results = []
     for b in range(batch.batch_size):
         base = predict_instance(
             out["cls_preds"][b], out["masks"][b], out["query_valid"][b],
             out["sp_valid"][b], batch.superpoint_ids[b], batch.point_valid[b],
             batch.points[b, :, :3], min(thr_i, thr_p), test_cfg,
-            centers=out["centers"][b], sizes=out["sizes"][b],
-            filter_outofbox=filter_outofbox)
+            centers=scene("centers", b), sizes=scene("sizes", b),
+            scores_q=scene("scores", b), filter_outofbox=filter_outofbox)
         sem = predict_semantic(out["sem_preds"][b], batch.superpoint_ids[b])
         pan_sem, pan_map = predict_panoptic(
             out["sem_preds"][b], at_threshold(base, thr_p),

@@ -4,8 +4,10 @@ Counterpart of ``segdino3d_tpu/models/architecture/segdino3d.py``: the scene
 range (and GT instance centers/sizes) from elastic-or-raw coordinates, the
 eval forward in which every superpoint is a query, and the training forward
 (``module.train()``), which subsamples the queries at random with
-``query_thr`` and gathers the GT targets to the selection.  The top-k query
-selection (``query_num > 0``) is not ported.  Both forwards carry the
+``query_thr`` and gathers the GT targets to the selection.  With
+``query_num > 0`` both forwards take the top-k superpoints by the decoder's
+``score_superpoints`` instead; with ``add_positional_embedding=False`` the
+decoder gets no query positions.  Both forwards carry the
 backbone's plan overflow flag as ``outputs["plan_overflow"]`` (a 0-d bool
 tensor, set when a plan built on the device outgrew its capacities), which
 the eval driver and the training step read.
@@ -104,46 +106,83 @@ def _gather_sp(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class SegDINO3D(nn.Module):
     def __init__(self, backbone: nn.Module, decoder: nn.Module,
                  voxel_size: float = 0.02, query_thr: float = 0.5,
-                 mode_3d_center: str = "median"):
+                 mode_3d_center: str = "median", query_num: int = -1,
+                 add_positional_embedding: bool = True,
+                 num_classes: int = 198):
         super().__init__()
         self.backbone = backbone
         self.decoder = decoder
         self.voxel_size = voxel_size
         self.query_thr = query_thr
         self.mode_3d_center = mode_3d_center
+        self.query_num = query_num
+        self.add_positional_embedding = add_positional_embedding
+        self.num_classes = num_classes
+
+    def select_queries(self, bb: BackboneOutput, queries=None,
+                       generator: Optional[torch.Generator] = None):
+        """(query_sp_idx (B, Q) int32 or None for every superpoint in
+        order, query_valid (B, Q)).  With ``query_num > 0`` the top
+        ``query_num`` superpoints by the decoder's ``score_superpoints``
+        (a stable descending sort: ties keep the lower index first, as
+        ``lax.top_k``; invalid ones score -1 and are not valid queries).
+        Else in training mode ``queries`` where given, or the random
+        selection with ``query_thr < 1``; else every superpoint."""
+        if self.query_num > 0:
+            with torch.no_grad():
+                scores = torch.where(bb.sp_valid,
+                                     self.decoder.score_superpoints(
+                                         bb.sp_feats), -1.0)
+            k = min(self.query_num, scores.shape[1])
+            top, idx = torch.sort(scores, dim=-1, descending=True,
+                                  stable=True)
+            return idx[:, :k].to(torch.int32), top[:, :k] > -0.5
+        if self.training:
+            if queries is not None:
+                return queries
+            if self.query_thr < 1:
+                return select_queries_random(bb.sp_valid, self.query_thr,
+                                             generator)
+        return None, bb.sp_valid
+
+    def _decode(self, batch: SceneBatch, bb: BackboneOutput, rng, q_idx,
+                q_valid, generator=None) -> Dict[str, Any]:
+        if q_idx is None:
+            feats, pos = bb.sp_feats, bb.sp_pos
+        else:
+            feats = _gather_sp(bb.sp_feats, q_idx)
+            pos = _gather_sp(bb.sp_pos, q_idx)
+        return self.decoder(
+            sp_feats=bb.sp_feats, sp_valid=bb.sp_valid, sp_pos=bb.sp_pos,
+            sp_pos_wo_elastic=bb.sp_pos_wo_elastic, queries_feat=feats,
+            query_valid=q_valid,
+            queries_pos=pos if self.add_positional_embedding else None,
+            dinox_queries=batch.query2d_feats,
+            dinox_query_pos=batch.query2d_pos,
+            dinox_valid=batch.query2d_valid, scene_range=rng,
+            generator=generator)
 
     def forward(self, batch: SceneBatch,
                 queries: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None):
-        """Eval mode: the decoder outputs, every valid superpoint a query.
+        """Eval mode: the decoder outputs (``decode``).
 
-        Training mode: ``(outputs, gt)``.  The queries are
-        ``select_queries_random`` drawn from ``generator``, unless
-        ``queries`` gives the selection ``(q_idx, q_valid)``; ``gt`` holds
-        the targets gathered to it, as the criterion reads them."""
+        Training mode: ``(outputs, gt)``.  The queries are those of
+        ``select_queries``: the top-k with ``query_num > 0``, else
+        ``queries`` where given, else drawn from ``generator``, which also
+        draws the decoder's dropout masks; ``gt`` holds the targets
+        gathered to the selection, as the criterion reads them."""
         if not self.training:
             return self.decode(batch, self.backbone(batch))
         rng, centers, sizes = compute_scene_range_and_boxes(
             batch, self.voxel_size, self.mode_3d_center)
         bb = self.backbone(batch)
         b, s = bb.sp_valid.shape
-        if queries is not None:
-            q_idx, q_valid = queries
-        elif self.query_thr < 1:
-            q_idx, q_valid = select_queries_random(bb.sp_valid,
-                                                   self.query_thr, generator)
-        else:
+        q_idx, q_valid = self.select_queries(bb, queries, generator)
+        if q_idx is None:
             q_idx = torch.arange(s, dtype=torch.int32,
                                  device=rng.device).expand(b, s)
-            q_valid = bb.sp_valid
-        outputs = self.decoder(
-            sp_feats=bb.sp_feats, sp_valid=bb.sp_valid, sp_pos=bb.sp_pos,
-            sp_pos_wo_elastic=bb.sp_pos_wo_elastic,
-            queries_feat=_gather_sp(bb.sp_feats, q_idx), query_valid=q_valid,
-            queries_pos=_gather_sp(bb.sp_pos, q_idx),
-            dinox_queries=batch.query2d_feats,
-            dinox_query_pos=batch.query2d_pos,
-            dinox_valid=batch.query2d_valid, scene_range=rng)
+        outputs = self._decode(batch, bb, rng, q_idx, q_valid, generator)
         sem_sp = torch.argmax(batch.sp_sem_masks.to(torch.uint8), dim=1)
         gt = dict(
             labels=batch.inst_labels, gt_valid=batch.inst_valid,
@@ -161,20 +200,18 @@ class SegDINO3D(nn.Module):
         return outputs, gt
 
     def decode(self, batch: SceneBatch, bb: BackboneOutput) -> Dict[str, Any]:
-        """The decoder half of ``forward`` on the backbone's output."""
+        """The eval forward's decoder half on the backbone's output: every
+        valid superpoint a query, or the top-k with ``query_num > 0``."""
         rng = scene_range(batch, self.voxel_size)
         b, s = bb.sp_valid.shape
-        outputs = self.decoder(
-            sp_feats=bb.sp_feats, sp_valid=bb.sp_valid, sp_pos=bb.sp_pos,
-            sp_pos_wo_elastic=bb.sp_pos_wo_elastic,
-            queries_feat=bb.sp_feats, query_valid=bb.sp_valid,
-            queries_pos=bb.sp_pos, dinox_queries=batch.query2d_feats,
-            dinox_query_pos=batch.query2d_pos,
-            dinox_valid=batch.query2d_valid, scene_range=rng)
+        q_idx, q_valid = self.select_queries(bb)
+        outputs = self._decode(batch, bb, rng, q_idx, q_valid)
+        if q_idx is None:
+            q_idx = torch.arange(s, dtype=torch.int32,
+                                 device=rng.device).expand(b, s)
         outputs["scene_range"] = rng
         outputs["sp_valid"] = bb.sp_valid
-        outputs["query_sp_idx"] = torch.arange(
-            s, dtype=torch.int32, device=rng.device).expand(b, s)
+        outputs["query_sp_idx"] = q_idx
         outputs["sp_pos_wo_elastic"] = bb.sp_pos_wo_elastic
         outputs["plan_overflow"] = bb.overflow
         return outputs

@@ -12,7 +12,10 @@ reference's asymmetries:
 * mask BCE is the mean over (n_matched x n_superpoints) elements, summed
   over scenes, / B;
 * center/size L1: sum over xyz, mean over matched, mean over scenes;
-* per-layer re-matching when ``iter_matcher``.
+* per-layer re-matching when ``iter_matcher``;
+* with objectness scores (``loss_weight[3]``): the squared error of each
+  matched query's score against its mask's IoU, over the pairs with IoU
+  above 0.5, summed over the scenes that have one and divided by B.
 
 Matching reads the predictions without a gradient.  ``SparseMatcher``
 keeps, per GT instance, the queries inside it whose cost is strictly below
@@ -64,6 +67,17 @@ def pairwise_dice_cost(mask_logits, gt_masks, sp_valid):
     num = 2 * probs @ gt.transpose(1, 2)
     den = probs.sum(-1)[:, :, None] + gt.sum(-1)[:, None, :]
     return 1 - (num + 1) / (den + 1)
+
+
+def get_iou_pairs(pred_logits, gt, sp_valid):
+    """Per-pair IoU of the binarised predictions over the valid
+    superpoints: (B, P, S), (B, P, S), (B, S) -> (B, P)."""
+    sp_w = sp_valid.to(pred_logits.dtype)[:, None, :]
+    binp = (torch.sigmoid(pred_logits) >= 0.5).to(pred_logits.dtype) * sp_w
+    gtw = (gt > 0.5).to(pred_logits.dtype) * sp_w
+    inter = (binp * gtw).sum(-1)
+    union = binp.sum(-1) + gtw.sum(-1) - inter
+    return inter / (union + 1e-6)
 
 
 def dice_loss_pairs(pred_logits, gt, pair_valid, sp_valid):
@@ -285,6 +299,18 @@ class InstanceCriterion:
 
         lw = self.loss_weight
         loss = lw[0] * cls_loss + lw[1] * mask_bce_loss + lw[2] * mask_dice_loss
+        scores = layer.get("scores")        # (B, Q, 1) | None
+        if scores is not None:
+            # objectness: MSE of the matched queries' scores against their
+            # masks' IoU, over the pairs with IoU > 0.5; a scene without
+            # such a pair adds nothing, the sum over scenes is divided by B
+            sc_pair = torch.gather(scores[..., 0], 1, pq)
+            iou = get_iou_pairs(pred_pair, gt_pair, spv)
+            w = (pair_w.bool() & (iou > 0.5)).to(iou.dtype)
+            per_scene = ((sc_pair - iou).square() * w).sum(1) / \
+                w.sum(1).clamp(min=1.0)
+            has = (w.sum(1) > 0).to(per_scene.dtype)
+            loss = loss + lw[3] * (per_scene * has).sum() / b
         if len(lw) >= 5 and centers is not None:
             loss = loss + lw[4] * pair_l1(centers, gt["centers"])
         if len(lw) >= 6 and sizes is not None:
@@ -295,8 +321,6 @@ class InstanceCriterion:
         """pred: the decoder's output dict; gt: the training forward's
         targets (labels, sp_masks, query_masks, centers, sizes,
         query_valid, gt_valid, sp_valid)."""
-        if pred.get("scores") is not None:
-            raise NotImplementedError("the objectness loss is not ported")
         match = self.match(pred, gt)
         loss = self.layer_loss(pred, gt, match, aux=False)
         for layer in pred.get("aux_outputs", []):

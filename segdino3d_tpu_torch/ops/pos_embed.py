@@ -1,10 +1,12 @@
-"""Sine positional embeddings over scene-normalized coordinates.
+"""Sine and Fourier positional embeddings over scene-normalized coordinates.
 
-Counterpart of ``segdino3d_tpu/ops/pos_embed.py:sine_pos_embed`` and
-``shift_scale_points``: coordinates map to [0, 1] per scene, scale by 2*pi,
-then per-dimension interleaved sin/cos with temperature-geometric
+Counterpart of ``segdino3d_tpu/ops/pos_embed.py``: coordinates map to
+[0, 1] per scene (``shift_scale_points``).  ``sine_pos_embed`` scales them
+by 2*pi, then per-dimension interleaved sin/cos with temperature-geometric
 frequencies; ``modulated`` multiplies each spatial dim's block by a
-per-point factor (box-modulated attention).
+per-point factor (box-modulated attention).  ``fourier_pos_embed`` divides
+them by ``modulated``, scales by 2*pi and projects them with a fixed
+Gaussian matrix, then [sin, cos].
 """
 from __future__ import annotations
 
@@ -21,6 +23,21 @@ def shift_scale_points(xyz: torch.Tensor,
     mn, mx = src_range
     extent = mx - mn
     return (xyz - mn[:, None, :]) / extent[:, None, :].clamp(min=1e-12)
+
+
+def fourier_pos_embed(xyz: torch.Tensor, gauss_b: torch.Tensor,
+                      num_channels: int,
+                      src_range: Tuple[torch.Tensor, torch.Tensor],
+                      modulated: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """(B, N, 3) -> (B, N, 2 * (num_channels // 2)) Gaussian-Fourier
+    features; ``gauss_b`` is the (3, >= num_channels // 2) projection."""
+    d_out = num_channels // 2
+    x = shift_scale_points(xyz, src_range)
+    if modulated is not None:
+        x = x / modulated
+    proj = torch.einsum("bnd,dk->bnk", x * (2 * math.pi), gauss_b[:, :d_out])
+    return torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
 
 
 def sine_pos_embed(xyz: torch.Tensor, num_channels: int,

@@ -70,7 +70,8 @@ class TrainStep:
         """One step over ``accum_steps`` microbatches (each a
         ``SceneBatch`` with its host plan).  ``queries`` gives each
         microbatch's query selection; otherwise they are drawn from
-        ``generator``."""
+        ``generator``, which also draws the decoder's dropout masks, in
+        order: a step is reproducible from the generator's seed."""
         if len(microbatches) != self.accum_steps:
             raise ValueError(f"accum_steps={self.accum_steps} but "
                              f"{len(microbatches)} microbatches")

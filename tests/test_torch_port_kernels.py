@@ -1138,3 +1138,74 @@ def test_segment_grad_division_matches_plain(levels, cols):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
         assert torch.equal(got, TS.segment_grad(g, seg, s, sp, inverse,
                                                 valid, vox))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1_stem", "k10_dense_stem", "k11_stem_dw",
+                                  "k4_stem_dw", "k3_rgb_mean"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rgb_only_shapes_match_plain(levels, case, dtype):
+    """The Baseline model's 3-channel inputs: 12-byte fp32 and 6-byte bf16
+    rows in K1's k5 stem, K10's dense k5 stem on its occupied-row list,
+    K11's and K4's stem dW (125 x 3 x 32), and K3's voxel mean from one
+    3-channel column source (a slice of (N, 6) points), each against its
+    plain version; K1 and K3 bit-equal in two calls."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    again = None
+    rel = None
+    if case == "k1_stem":
+        nbr, valid = levels.stem_nbr, levels.levels[0].valid
+        x = randn(CAPS[0], 3)
+        w = randn(125, 3, 32, scale=375 ** -0.5)
+        got = TSC.gather_conv(x, nbr, w, valid)
+        again = TSC.gather_conv(x, nbr, w, valid)
+        want = TSC.gather_conv_plain(x, nbr, w, valid)
+    elif case in ("k10_dense_stem", "k11_stem_dw"):
+        t = _block_plan_on("cuda", [4] * 5).blocks[0]
+        occ = TBD.occupancy(t)
+        x = torch.where(occ[:, None], randn(occ.shape[0], 3), 0.0).to(dt)
+        rows = TBD.row_list(t, occ)
+        if case == "k10_dense_stem":
+            w = randn(125, 3, 32, scale=375 ** -0.5)
+            got = TBD.block_conv(x, t.block_nbr, w, occ, 4, rows)
+            want = TBD.dense_subm_conv_plain(x, t.block_nbr, w, occ, 4)
+        else:
+            dy = torch.where(occ[:, None], randn(occ.shape[0], 32), 0.0) \
+                .to(dt)
+            got = TBD.block_wgrad(x, dy, t.block_nbr, occ, 4, 5, rows)
+            want = TBD.block_wgrad_plain(x, dy, t.block_nbr, occ, 4, 5)
+            rel = 1e-4 if dtype == "float32" else 1e-2
+    elif case == "k4_stem_dw":
+        a, b = randn(CAPS[0], 3), randn(CAPS[0], 32)
+        got = TSC.gather_wgrad(a, None, b, levels.stem_nbr, mirror=True)
+        want = TSC.gather_wgrad_plain(a, None, b, levels.stem_nbr, 125,
+                                      CAPS[0], True)
+        rel = 1e-4 if dtype == "float32" else 1e-2
+    else:
+        n, s = 3000, 40
+        pts = torch.randn(n, 6, generator=gen, device="cuda")
+        seg = torch.randint(0, s + 3, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        valid = torch.rand(n, generator=gen, device="cuda") > 0.1
+        got = TS.segment_mean_gather(seg, s, valid, d=[pts[:, 3:]],
+                                     round_to=dt)
+        again = TS.segment_mean_gather(seg, s, valid, d=[pts[:, 3:]],
+                                       round_to=dt)
+        want = TS.segment_mean_gather_plain(seg, s, valid, d=[pts[:, 3:]],
+                                            round_to=dt)
+    torch.cuda.synchronize()
+    if again is not None:
+        assert torch.equal(got, again)
+    if rel is not None:
+        scale = float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=0, atol=rel * scale)
+    else:
+        tol = TOL[dtype]
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)

@@ -275,12 +275,13 @@ def regen():
 # --------------------------------------------------------------------------
 
 def port_step(variables, recs=None, device_plan=False, layout=None,
-              cfg=PORT_CFG):
+              cfg=PORT_CFG, generator=None):
     """The port's step of ``cfg``'s model on the two microbatches, from
     ``variables``; with ``device_plan`` the microbatches carry no host
     plan and the backbone builds theirs on the device, at the host plan's
     capacities.  ``layout`` adds or overrides host-plan arguments
-    (``attach_host_plan``)."""
+    (``attach_host_plan``); ``generator`` goes to the step (it draws the
+    decoder's dropout masks)."""
     caps = Capacities(num_superpoints=S_CAP, num_voxels=VOXEL_CAP)
     model, _ = build_model(cfg, caps, device="cpu", train=True)
     load_jax_variables(model, variables)
@@ -311,7 +312,7 @@ def port_step(variables, recs=None, device_plan=False, layout=None,
                           clip_max_norm=CLIP)
     ema = EMA(model.named_parameters(), EMA_DECAY)
     step = TrainStep(model, crit, opt, ema, accum_steps=2)
-    metrics = step(mbs, queries)
+    metrics = step(mbs, queries, generator)
     return dict(model=model, before=before, metrics=metrics,
                 matches=matches, ema=ema, batches=mbs)
 
@@ -444,12 +445,21 @@ def test_builder_training_mode_and_refusals():
     assert not build_model(PORT_CFG, caps, device="cpu")[0].training
     crit = build_criterion(PORT_CFG)
     assert crit.inst_criterion.matcher.topk == 1
-    with pytest.raises(NotImplementedError, match="query_num"):
-        build_model(dict(PORT_CFG, query_num=100), caps, device="cpu")
-    with pytest.raises(NotImplementedError, match="dropout"):
-        build_model(dict(PORT_CFG, decoder_cfg=dict(PORT_CFG["decoder_cfg"],
-                                                    dropout=0.1)),
-                    caps, device="cpu", train=True)
+    # top-k queries and decoder dropout in training are built; the
+    # combinations the JAX decoder rejects raise, as an unknown key does
+    assert build_model(dict(PORT_CFG, query_num=100), caps,
+                       device="cpu")[0].query_num == 100
+    dropped, _ = build_model(dict(PORT_CFG, decoder_cfg=dict(
+        PORT_CFG["decoder_cfg"], dropout=0.1)), caps, device="cpu",
+        train=True)
+    assert dropped.decoder.ffn[0].dropout == 0.1
+    for bad in (dict(iter_pred=False), dict(num_instance_queries=4)):
+        with pytest.raises(ValueError):
+            build_model(dict(PORT_CFG, decoder_cfg=dict(
+                PORT_CFG["decoder_cfg"], **bad)), caps, device="cpu")
+    with pytest.raises(KeyError, match="unknown decoder option"):
+        build_model(dict(PORT_CFG, decoder_cfg=dict(
+            PORT_CFG["decoder_cfg"], no_such_option=1)), caps, device="cpu")
     step = TrainStep(model, crit, build_optimizer(
         model.named_parameters(), OPT, SCHED, CLIP), accum_steps=2)
     with pytest.raises(ValueError, match="accum_steps=2"):
