@@ -96,6 +96,22 @@ Phases, in order; any failure exits non-zero before the result line:
    row-list launches in a profiled step (no conv may build its own list),
    peak memory, finite losses and gradient norm, and the card
    against the CPU on a small scene;
+4d. run the training entry point from disk: four headline-size scenes
+   written to a temp dir, a temp config that inherits
+   ``configs/prototypes/SegDINO3D_ScanNet200.py`` and changes only the
+   data roots and the loop's lengths (batch 4, 8 process workers, sync
+   scale, shared memory), and ``python -m segdino3d_tpu_torch.train_3d``
+   in a child process twice: run A (``--accum_steps 4``, 4 steps,
+   checkpoints at 2 and 4, steps 2-3 profiled, the in-loop eval of 2
+   scenes building the eval cache) must log four finite steps, write both
+   checkpoints, an mAP line, a complete cache manifest and a trace that
+   holds each kernel of the block-dense step exactly 2 x 4 times as
+   often as phase 4c's step launches it (two steps of four
+   microbatches); run B
+   (``--resume``, to step 6) must resume at step 4, write checkpoint 6
+   and serve its eval from run A's cache unchanged.  It prints the CLI's
+   s/step beside phase 4's accumulated step, the loader wait, the eval's
+   scenes/s, the peak device memory and each run's wall time;
 3d. run the eval entry point on three headline-size scenes written to a
    temp dir (``write_scannet_layout``): the port's ScanNet200 reader,
    ``EvalLoader`` (batch 1, default buckets, capacity prescan, prefetch 1)
@@ -154,8 +170,9 @@ Phases, in order; any failure exits non-zero before the result line:
    printed: gating flips move them), and without the gating every
    layer's;
 8. print one ``kernels`` JSON line (each kernel's ScanNet v2 and Baseline
-   cases and launches in it too), the run's wall time, then the result
-   line.
+   cases and launches in it too, and its CUDA launches per step of the
+   CLI, ``cli_device_launches_per_step``), the run's wall time, then the
+   result line.
 
 It needs one card, imports no JAX, and takes its kernels from the
 checkout: run from anywhere else it fails.
@@ -2357,6 +2374,218 @@ def run_dense_training(model, records, spec):
 
 
 # --------------------------------------------------------------------------
+# phase 4d: the training entry point from disk
+# --------------------------------------------------------------------------
+
+CLI_SEEDS = (0, 1, 2, 3)
+CLI_TIMEOUT_S = 480
+# the block-dense training step's kernels (phase 4c's) and the CUDA
+# functions each launches, as named in the profile trace
+CLI_STEP_KERNELS = {
+    "slot_gather": ("slot_gather_kernel",),
+    "block_conv": ("block_conv_kernel",),
+    "block_dilate": ("dilate_kernel",),
+    "block_wgrad": ("block_wgrad_kernel",),
+    "gather_gemm_conv": ("conv_products_kernel", "conv_pair_sum_kernel"),
+    "up_conv": ("up_conv_kernel",),
+    "gather_wgrad": ("gather_wgrad_kernel",),
+    "segment_mean_gather": ("segment_mean_kernel",),
+    "segment_grad": ("segment_grad_kernel",),
+    "segment_csr": ("csr_keys_kernel", "csr_offsets_kernel"),
+}
+
+
+def cli_config(root):
+    """The flagship prototype with only the data roots and the loop's
+    lengths changed (batch 4, 8 process workers, sync scale, shm)."""
+    proto = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "configs", "prototypes", "SegDINO3D_ScanNet200.py")
+    feats = os.path.join(root, "features_2d")
+    return "\n".join([
+        f"_base_ = [{proto!r}]",
+        *(f"_base_.data.{split}[0].{key} = {value!r}"
+          for split in ("train_main", "eval_main")
+          for key, value in (("root_scenes", root),
+                             ("root_points_2dfeats", feats))),
+        "num_iterations = 4", "save_step = 2", "eval_step = 4",
+        "print_freq = 1", ""])
+
+
+def run_cli(args, what):
+    """``python -m segdino3d_tpu_torch.train_3d args`` in a child process
+    (its own session: past ``CLI_TIMEOUT_S`` it is killed with its loader
+    workers); (its stdout and stderr, wall seconds).  Fails unless it
+    exits 0."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "segdino3d_tpu_torch.train_3d", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=CLI_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        print("\n".join(out.splitlines()[-80:]), flush=True)
+        raise SystemExit(f"{what}: the CLI ran past {CLI_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print("\n".join(out.splitlines()[-80:]), flush=True)
+        raise SystemExit(f"{what}: the CLI exited with code "
+                         f"{proc.returncode}")
+    return out, wall
+
+
+def print_cli_lines(out, what):
+    """The CLI's log lines that the phase reads, as it logged them."""
+    keys = ("iter [", "resumed at", "eval", "mAP", "GiB", "profil")
+    for line in out.splitlines():
+        if "segdino3d_tpu_torch INFO] " in line and any(k in line
+                                                       for k in keys):
+            print(f"  {what}: {line.split('] ', 1)[-1]}", flush=True)
+
+
+def cli_iterations(out):
+    """[(step, {metric: value})] of the CLI's logged iterations."""
+    import re
+
+    its = []
+    for m in re.finditer(r"iter \[(\d+)/\d+\] (.*)", out):
+        vals = dict(re.findall(r"(\w+): ([-+0-9.eainfINF]+)s?", m.group(2)))
+        its.append((int(m.group(1)), {k: float(v) for k, v in vals.items()}))
+    return its
+
+
+def trace_launches(trace_dir):
+    """{kernel: CUDA launches} of ``CLI_STEP_KERNELS`` in the CLI's
+    profile trace."""
+    path = os.path.join(trace_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = dict.fromkeys(CLI_STEP_KERNELS, 0)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = e.get("name", "")
+        for k, fns in CLI_STEP_KERNELS.items():
+            counts[k] += any(f in name for f in fns)
+    return counts
+
+
+def run_cli_phase(step4_s):
+    """Phase 4d: the flagship config trained from scenes on disk by the
+    CLI (run A: 4 steps, checkpoints 2 and 4, profiled steps 2-3, the
+    in-loop eval building the eval cache; run B: resumed to step 6, its
+    eval served from the cache).  Returns the kernels' CUDA launches per
+    profiled step."""
+    import re
+    import shutil
+    import tempfile
+
+    from segdino3d_tpu_torch.data.synthetic import write_scannet_layout
+
+    torch.cuda.empty_cache()
+    shm = shutil.disk_usage("/dev/shm")
+    print(f"/dev/shm: {shm.free / 2 ** 30:.1f} GiB free of "
+          f"{shm.total / 2 ** 30:.1f}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        root, work = os.path.join(tmp, "data"), os.path.join(tmp, "work")
+        t0 = time.perf_counter()
+        write_scannet_layout(root, CLI_SEEDS, **SCENE)
+        cfg_path = os.path.join(tmp, "cfg.py")
+        with open(cfg_path, "w") as f:
+            f.write(cli_config(root))
+        print(f"wrote {len(CLI_SEEDS)} scenes for the CLI in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        base = ["--config_file", cfg_path, "--work_dir", work,
+                "--accum_steps", "4", "--num_eval_scenes", "2"]
+
+        out_a, wall_a = run_cli(base + ["--profile_steps", "2:3"], "run A")
+        print_cli_lines(out_a, "run A")
+        its = cli_iterations(out_a)
+        if [s for s, _ in its] != [0, 1, 2, 3]:
+            raise SystemExit(f"run A logged steps {[s for s, _ in its]}, "
+                             "expected 0-3")
+        for s, vals in its:
+            if not all(np.isfinite(vals.get(k, np.nan))
+                       for k in ("total_loss", "grad_norm")):
+                raise SystemExit(f"run A step {s}: non-finite {vals}")
+        ckpts = sorted(os.listdir(os.path.join(work, "checkpoints")))
+        if ckpts != ["step_0000000002.pth", "step_0000000004.pth"]:
+            raise SystemExit(f"run A checkpoints {ckpts}, expected 2 and 4")
+        ap = re.search(r"mAP: ([0-9.]+)  mAP50: ([0-9.]+)  mAP25: "
+                       r"([0-9.]+)", out_a)
+        if ap is None:
+            raise SystemExit("run A logged no mAP line")
+        rate_a = float(re.search(r"eval: 2 scenes in [0-9.]+ s \(([0-9.]+) "
+                                 r"scenes/s\)", out_a).group(1))
+        caches = os.listdir(os.path.join(work, "eval_cache"))
+        manifest = os.path.join(work, "eval_cache", caches[0],
+                                "manifest.json")
+        with open(manifest) as f:
+            n_batches = json.load(f)["n_batches"]
+        if len(caches) != 1 or n_batches != 2:
+            raise SystemExit(f"eval cache {caches}: {n_batches} batches, "
+                             "expected one namespace of 2")
+        launches = trace_launches(os.path.join(work, "profile"))
+        print(f"phase 4d run A: CUDA launches of the block-dense step's "
+              f"kernels in profiled steps 2-3 (the trace): {launches}",
+              flush=True)
+        # per microbatch, phase 4c's step: its wrapper calls times the
+        # CUDA functions of a call (K1 and the CSR build launch two)
+        want = {k: 2 * 4 * BLOCK_DENSE_STEP.get(k, 2)
+                * (2 if k in ("gather_gemm_conv", "segment_csr") else 1)
+                for k in CLI_STEP_KERNELS}
+        if launches != want:
+            raise SystemExit(f"the CLI's profiled steps launched {launches}, "
+                             f"expected 2 steps x 4 microbatches of phase "
+                             f"4c's step: {want}")
+        peak = re.search(r"GiB in use, ([0-9.]+) GiB peak", out_a)
+        cache_dir = os.path.dirname(manifest)
+        mtimes = {n: os.stat(os.path.join(cache_dir, n)).st_mtime_ns
+                  for n in os.listdir(cache_dir)}
+
+        out_b, wall_b = run_cli(base + ["--resume", "--options",
+                                        "num_iterations=6", "eval_step=6"],
+                                "run B")
+        print_cli_lines(out_b, "run B")
+        if "resumed at step 4" not in out_b:
+            raise SystemExit("run B did not log 'resumed at step 4'")
+        its_b = cli_iterations(out_b)
+        if [s for s, _ in its_b] != [4, 5]:
+            raise SystemExit(f"run B logged steps {[s for s, _ in its_b]}, "
+                             "expected 4 and 5")
+        if not os.path.isfile(os.path.join(work, "checkpoints",
+                                           "step_0000000006.pth")):
+            raise SystemExit("run B wrote no checkpoint 6")
+        if f"eval cache {cache_dir}: serving" not in out_b or mtimes != {
+                n: os.stat(os.path.join(cache_dir, n)).st_mtime_ns
+                for n in os.listdir(cache_dir)}:
+            raise SystemExit("run B's eval was not served from run A's "
+                             "cache unchanged")
+        rate_b = float(re.search(r"eval: 2 scenes in [0-9.]+ s \(([0-9.]+) "
+                                 r"scenes/s\)", out_b).group(1))
+    step_s = float(np.median([v["time"] for _, v in its[1:]]))
+    data_s = float(np.median([v["data"] for _, v in its[1:]]))
+    print(f"phase 4d: the CLI (flagship config, batch 4 = accum_steps 4 x 1 "
+          f"scene, block-dense training plans, 8 process workers, shm): "
+          f"{step_s:.4f} s/step (median of logged steps 1-3, loader wait "
+          f"included) beside phase 4's TrainStep alone at accum_steps=4 "
+          f"(gather layout) {step4_s:.4f} s/step; loader wait "
+          f"{data_s:.4f} s/step (median of steps 1-3; step 0, with the "
+          f"workers' start, {its[0][1]['data']:.3f} s); in-loop eval "
+          f"{rate_a:.3f} scenes/s building the eval cache, {rate_b:.3f} "
+          f"served from it; peak device memory "
+          f"{peak.group(1) if peak else 'not logged'} GiB; mAP "
+          f"{ap.group(1)}; run A {wall_a:.1f} s, run B {wall_b:.1f} s wall",
+          flush=True)
+    return {k: n / 2 for k, n in launches.items()}
+
+
+# --------------------------------------------------------------------------
 # phase 5: the ScanNet v2 model (SpConvUNet)
 # --------------------------------------------------------------------------
 
@@ -2931,6 +3160,10 @@ def main() -> int:
 
     del tmodel, dmodel
 
+    # phase 4d: the training entry point (the CLI) from scenes on disk
+    cli_launches = run_cli_phase(sum(v for k, v in accum.items()
+                                     if k != "plan"))
+
     # phase 5: the ScanNet v2 model (SpConvUNet) at full width
     v2_launches, v2_dev_launches, v2_train_launches = run_v2_phase(
         v2_records)
@@ -3024,7 +3257,8 @@ def main() -> int:
                 else bl_train_launches[name]
                 or bl_dev_train_launches[name]),
             baseline_cases=[c for c in rows[name]["cases"]
-                            if c["shape"].startswith("baseline ")]))
+                            if c["shape"].startswith("baseline ")],
+            cli_device_launches_per_step=cli_launches.get(name, 0)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -43,10 +43,27 @@ class Capacities:
     ``level_cap_ratios`` size the device plan of a batch without a host
     plan: its level-0 voxels (``None``: the batch's point count) and each
     level's share of them, by default the JAX wrapper's ratios.  (The JAX
-    ``Capacities`` field of this name sizes host plans instead.)"""
+    ``Capacities`` field of this name sizes host plans instead.)
+    ``num_points``, ``num_instances`` and ``num_queries2d`` (with
+    ``num_superpoints``) are the training entry point's ``PadSpec``."""
     num_superpoints: int = 2048
     num_voxels: Optional[int] = 131072
     level_cap_ratios: Tuple[float, ...] = (1.0, 0.7, 0.35, 0.12, 0.05)
+    num_points: int = 262144
+    num_instances: int = 256
+    num_queries2d: int = 256
+
+    @staticmethod
+    def from_cfg(cfg: Optional[Dict]) -> "Capacities":
+        """The config's ``capacities`` dict (``configs/models/base_3d.py``);
+        keys that are no field are ignored, as in the JAX package."""
+        if cfg is None:
+            return Capacities()
+        kw = {k: v for k, v in cfg.items()
+              if k in Capacities.__dataclass_fields__}
+        if kw.get("level_cap_ratios") is not None:
+            kw["level_cap_ratios"] = tuple(kw["level_cap_ratios"])
+        return Capacities(**kw)
 
 
 # every field of the JAX ScanNetQueryDecoder, a constructor argument here

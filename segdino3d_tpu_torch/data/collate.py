@@ -215,18 +215,25 @@ def attach_host_plan(batch: SceneBatch, records: List[Dict], spec: PadSpec,
         batch, plan=host_plan_to_device(plan, batch.points.device))
 
 
-def to_device(tree, device):
+def map_leaves(tree, fn):
     """``tree`` (a ``SceneBatch``, a plan, or any nest of dataclasses,
-    lists and tuples) with every tensor moved to ``device``."""
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if dataclasses.is_dataclass(tree):
+    dicts, lists and tuples) with ``fn`` applied to every other value."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: to_device(getattr(tree, f.name), device)
+            f.name: map_leaves(getattr(tree, f.name), fn)
             for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, dict):
+        return {k: map_leaves(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_device(x, device) for x in tree)
-    return tree
+        return type(tree)(map_leaves(x, fn) for x in tree)
+    return fn(tree)
+
+
+def to_device(tree, device):
+    """``tree`` (see ``map_leaves``) with every tensor moved to
+    ``device``."""
+    return map_leaves(tree, lambda x: x.to(device)
+                      if isinstance(x, torch.Tensor) else x)
 
 
 def eval_annotation(record: Dict, bg_class_id: int = 200

@@ -1,9 +1,26 @@
-"""The eval loader: records -> padded batches with host plans, in order.
+"""The data loaders: training batches and eval batches, on the device.
 
-Counterpart of ``segdino3d_tpu/data/loader.py:EvalLoader`` on one process
-and one device.  Scenes are read ``batch_size`` at a time, padded to a
-fixed ``pad_spec`` or to the smallest rungs of a ``bucket_policy`` that
-hold the batch, and given a host plan (``host_plan_cfg``:
+Counterpart of ``segdino3d_tpu/data/loader.py`` on one device.
+
+``TrainLoader`` streams training batches without end: an epoch-shuffled
+index stream (leftovers carry over into the next epoch), sharded over
+``process_count`` processes, each batch with one sync scale drawn from
+``(seed, epoch, pos)`` and each record with its own ``RandomState`` of
+``(seed, epoch, pos, k, process_index)``, the JAX loader's seeds, so its
+records and batches are bit-equal to the JAX package's.  With
+``mesh_shards`` > 1 a batch is a list of ``mesh_shards`` ``SceneBatch``es
+(the training step's microbatches), each with its own host plan.  Batches
+are built on the CPU (records, collate, the C++ host plan) in one of three
+``worker_mode``s: ``sync`` inline; ``thread``, producer threads over a
+record thread pool; ``process``, ``spawn``ed worker processes that never
+touch the card and return each batch through shared memory
+(``data.shm_transport``) or the result queue.  The consumer moves each
+batch to ``device``; an error in a thread or a worker, or a worker that
+dies, is raised in the consumer.
+
+``EvalLoader`` reads scenes ``batch_size`` at a time, pads them to a fixed
+``pad_spec`` or to the smallest rungs of a ``bucket_policy`` that hold the
+batch, and gives each a host plan (``host_plan_cfg``:
 ``data.collate.attach_host_plan`` arguments).  With ``prefetch`` > 0 one
 background thread builds up to that many batches ahead (record IO, the
 val transforms, the collate and the C++ plan of scene i + 1 while the
@@ -20,27 +37,360 @@ scene of a rung then gets tables of one shape.  It applies with a
 ``bucket_policy`` and a ``host_plan_cfg`` that pins neither ``voxel_cap``
 nor ``block_caps``.
 
-Mesh sharding, multi-process sharding and the batch cache wait for the
-distribution and cache slices, and the training loader for the
-training-data slice.
+``cache_dir``: the eval batch cache (``data.eval_cache``).  The first pass
+writes each CPU batch with the slim records the eval driver reads; a later
+loader with the same data and settings serves them from a memory map.
+
+Mesh-sharded and multi-process eval wait for the distribution slice.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Optional
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from segdino3d_tpu_torch.data.collate import (PadSpec, _plan_coords,
                                               attach_host_plan, collate,
-                                              to_device)
+                                              map_leaves, to_device)
 from segdino3d_tpu_torch.device import resolve_device
 from segdino3d_tpu_torch.ops.host_plan import (L0_BUDGET_BYTES,
                                                l0_dense_fits,
                                                overflow_bucket,
                                                probe_plan_counts,
                                                stem_slots_default)
+
+
+class ConcatDataset:
+    """Several readers behind one index space."""
+
+    def __init__(self, datasets: Sequence):
+        self.datasets = list(datasets)
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def get_record(self, idx: int, rng=None, sync_scale=None) -> Dict:
+        di = int(np.searchsorted(self._offsets, idx, side="right") - 1)
+        return self.datasets[di].get_record(
+            idx - int(self._offsets[di]), rng, sync_scale=sync_scale)
+
+
+def _to_numpy(tree):
+    return map_leaves(tree, lambda x: x.numpy()
+                      if isinstance(x, torch.Tensor) else x)
+
+
+def _to_torch(tree):
+    return map_leaves(tree, lambda x: torch.from_numpy(x)
+                      if isinstance(x, np.ndarray) else x)
+
+
+def _batch_worker_main(task_q, result_q, loader):
+    """A process-mode worker: builds whole CPU batches (records, collate,
+    host plan) with ``loader`` (a pickled copy) and returns them with
+    numpy leaves, through shared memory with ``shm_transport``.  It never
+    touches the card."""
+    from segdino3d_tpu_torch.data.shm_transport import encode
+
+    torch.set_num_threads(1)
+    while True:
+        task = task_q.get()
+        if task is None:
+            return
+        seq = task[0]
+        try:
+            b = _to_numpy(loader._make_batch(*task[1:]))
+            result_q.put((seq, encode(b) if loader.shm_transport else b))
+        except Exception as e:      # raised in the consumer
+            result_q.put((seq, e))
+
+
+class TrainLoader:
+    """Endless shuffled training batches on ``device`` (see the module's
+    docstring); the device is the card unless the caller names one."""
+
+    def __init__(self, dataset, batch_size: int, pad_spec: PadSpec,
+                 seed: int = 0, sync_scale: bool = True,
+                 scale_range=(0.8, 1.2), num_workers: int = 4,
+                 prefetch: int = 2, process_index: int = 0,
+                 process_count: int = 1, mesh_shards: int = 1,
+                 host_plan_cfg: Optional[Dict] = None,
+                 worker_mode: str = "thread", shm_transport: bool = True,
+                 device=None):
+        if worker_mode not in ("sync", "thread", "process"):
+            raise ValueError(f"worker_mode {worker_mode!r}")
+        if batch_size % mesh_shards:
+            raise ValueError(f"batch_size {batch_size} is not a multiple of "
+                             f"mesh_shards {mesh_shards}")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} of "
+                             f"{process_count}")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.pad_spec = pad_spec
+        self.seed = seed
+        self.sync_scale = sync_scale
+        self.scale_range = scale_range
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
+        self.mesh_shards = mesh_shards
+        self.host_plan_cfg = host_plan_cfg
+        self.worker_mode = worker_mode if num_workers > 0 else "sync"
+        self.shm_transport = shm_transport
+        self.device = resolve_device(device)
+        self._pool = None
+
+    def _index_stream(self) -> Iterator:
+        """(indices, epoch, pos) of each batch: each epoch a permutation
+        from ``RandomState(seed + epoch)``, this process's shard of it
+        (DistributedSampler's: same seed, disjoint shards), leftovers
+        carried into the next epoch."""
+        epoch = 0
+        n = len(self.dataset)
+        carry: List[int] = []
+        pos = 0
+        while True:
+            rng = np.random.RandomState(self.seed + epoch)
+            perm = rng.permutation(n)
+            carry.extend(int(x) for x in
+                         perm[self.process_index::self.process_count])
+            while len(carry) >= self.batch_size:
+                yield carry[:self.batch_size], epoch, pos
+                carry = carry[self.batch_size:]
+                pos += self.batch_size
+            epoch += 1
+            pos = 0
+
+    def _make_batch(self, idxs, epoch, pos):
+        """The CPU batch of ``idxs``: a ``SceneBatch``, or with
+        ``mesh_shards`` > 1 a list of them."""
+        # one scale per batch, the same in every process for (epoch, pos)
+        scale = None
+        if self.sync_scale:
+            srng = np.random.RandomState(
+                hash((self.seed, epoch, pos)) % (2 ** 31))
+            scale = float(srng.uniform(*self.scale_range))
+
+        def load_one(k_idx):
+            k, idx = k_idx
+            rng = np.random.RandomState(
+                hash((self.seed, epoch, pos, k, self.process_index))
+                % (2 ** 31))
+            return self.dataset.get_record(idx, rng, sync_scale=scale)
+
+        pool = self._record_pool()
+        records = (list(pool.map(load_one, enumerate(idxs))) if pool
+                   else [load_one(ki) for ki in enumerate(idxs)])
+
+        def one(recs):
+            b = collate(recs, self.pad_spec, "cpu")
+            if self.host_plan_cfg:
+                b = attach_host_plan(b, recs, self.pad_spec,
+                                     **self.host_plan_cfg)
+            return b
+
+        if self.mesh_shards <= 1:
+            return one(records)
+        per = len(records) // self.mesh_shards
+        return [one(records[i * per:(i + 1) * per])
+                for i in range(self.mesh_shards)]
+
+    def _record_pool(self):
+        """The thread pool of thread mode's record loads, else None."""
+        if self.num_workers <= 1 or self.worker_mode != "thread":
+            return None
+        if self._pool is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        return self._pool
+
+    def __getstate__(self):
+        # a process-mode worker gets a copy of the loader, not its pool
+        state = dict(self.__dict__)
+        state["_pool"] = None
+        return state
+
+    def __iter__(self):
+        if self.worker_mode == "process":
+            yield from self._iter_process()
+            return
+        for batch in self._produced():
+            yield to_device(batch, self.device)
+
+    def _produced(self):
+        """CPU batches, in order, in sync or thread mode."""
+        if self.worker_mode == "sync":
+            for item in self._index_stream():
+                yield self._make_batch(*item)
+            return
+        # `prefetch` producers build batches at once (each over the shared
+        # record pool); a sequence-numbered reorder keeps the order
+        n_prod = max(1, min(self.prefetch, 4))
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch + n_prod)
+        stop = threading.Event()
+        lock = threading.Lock()
+        stream = enumerate(self._index_stream())
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.5)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            while not stop.is_set():
+                with lock:
+                    seq, item = next(stream)
+                try:
+                    if not put((seq, self._make_batch(*item))):
+                        return
+                except Exception as e:   # raised in the consumer
+                    put((seq, e))
+                    return
+
+        threads = [threading.Thread(target=producer, daemon=True)
+                   for _ in range(n_prod)]
+        for t in threads:
+            t.start()
+        try:
+            pending = {}
+            want = 0
+            while True:
+                while want not in pending:
+                    seq, b = q.get()
+                    pending[seq] = b
+                b = pending.pop(want)
+                if isinstance(b, BaseException):
+                    raise b
+                yield b
+                want += 1
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
+
+    def _iter_process(self):
+        """``num_workers`` spawned processes build whole batches; the order
+        is kept by sequence numbers.  Each batch is moved to the device
+        before its shared memory is released; on the CPU the batch's
+        tensors are views into it, released once the consumer has moved on
+        (``Graveyard``)."""
+        import multiprocessing as mp
+
+        from segdino3d_tpu_torch.data.shm_transport import (Graveyard,
+                                                            decode, track)
+
+        ctx = mp.get_context("spawn")
+        task_q = ctx.Queue()
+        result_q = ctx.Queue()
+        procs = [ctx.Process(target=_batch_worker_main,
+                             args=(task_q, result_q, self), daemon=True)
+                 for _ in range(self.num_workers)]
+        for p in procs:
+            p.start()
+        stream = enumerate(self._index_stream())
+        graveyard = Graveyard()
+        pending = {}
+
+        def receive():
+            # a worker only exits on its sentinel: one that is gone died
+            while True:
+                try:
+                    return result_q.get(timeout=1.0)
+                except queue.Empty:
+                    dead = [p for p in procs if not p.is_alive()]
+                    if dead:
+                        raise RuntimeError(
+                            f"loader worker {dead[0].pid} exited with code "
+                            f"{dead[0].exitcode}")
+
+        try:
+            for _ in range(self.num_workers + self.prefetch):
+                seq, item = next(stream)
+                task_q.put((seq, *item))
+            want = 0
+            while True:
+                while want not in pending:
+                    seq, b = receive()
+                    pending[seq] = track(b)
+                b = pending.pop(want)
+                if isinstance(b, BaseException):
+                    raise b
+                b, shm = decode(b)
+                seq, item = next(stream)
+                task_q.put((seq, *item))
+                graveyard.sweep()
+                batch = to_device(_to_torch(b), self.device)
+                del b
+                if self.device.type != "cpu":
+                    # the copy to the card was synchronous (pageable)
+                    graveyard.add(shm)
+                    shm = None
+                yield batch
+                del batch
+                graveyard.add(shm)
+                want += 1
+        finally:
+            _shut_down(procs, task_q, result_q, pending, graveyard)
+
+
+def _shut_down(procs, task_q, result_q, pending, graveyard):
+    """Stop the workers: a sentinel each, then read results while joining
+    (a worker's exit waits for its queue feeder to flush), terminate
+    stragglers after 15 s (and never read the queue after a terminate: a
+    frame cut short would block the reader), unlink the segments of
+    batches never decoded, and close the decoded ones."""
+    import multiprocessing.shared_memory as msm
+    import time
+
+    from segdino3d_tpu_torch.data.shm_transport import ShmBatch, track
+
+    try:
+        for _ in procs:
+            task_q.put_nowait(None)
+    except Exception:
+        pass
+    deadline = time.monotonic() + 15.0
+    while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+        try:
+            seq, b = result_q.get(timeout=0.1)
+            pending.setdefault(seq, track(b))
+        except (queue.Empty, OSError, EOFError):
+            pass
+        for p in procs:
+            if not p.is_alive():
+                p.join(timeout=0)
+    terminated = False
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+            terminated = True
+    if not terminated:
+        while True:
+            try:
+                seq, b = result_q.get_nowait()
+                pending.setdefault(seq, track(b))
+            except (queue.Empty, OSError, EOFError):
+                break
+    for p in procs:
+        p.join(timeout=1.0)
+    for item in pending.values():
+        if isinstance(item, ShmBatch):
+            try:
+                msm.SharedMemory(name=item.name).unlink()
+            except Exception:
+                pass
+    graveyard.drain()
 
 
 class EvalLoader:
@@ -64,9 +414,6 @@ class EvalLoader:
             raise NotImplementedError("process_index/process_count: "
                                       "multi-process eval comes with the "
                                       "distribution slice")
-        if cache_dir is not None:
-            raise NotImplementedError("cache_dir: the eval batch cache is "
-                                      "not ported")
         self.dataset = dataset
         self.pad_spec = pad_spec
         self.limit = limit
@@ -75,8 +422,10 @@ class EvalLoader:
         self.host_plan_cfg = host_plan_cfg
         self.prefetch = prefetch
         self.prescan_caps = prescan_caps
+        self.cache_dir = cache_dir
         self.device = resolve_device(device)
         self._rung_caps: Optional[Dict] = None
+        self._cache_obj = None
 
     @property
     def num_scenes(self) -> int:
@@ -144,6 +493,43 @@ class EvalLoader:
             self._rung_caps[spec] = caps
         return self._rung_caps
 
+    @property
+    def cache(self):
+        """The ``eval_cache.EvalBatchCache`` of this loader's data and
+        settings, or None without ``cache_dir``."""
+        if self.cache_dir is None:
+            return None
+        if self._cache_obj is None:
+            from segdino3d_tpu_torch.data import eval_cache as ec
+
+            cfg = dict(package="segdino3d_tpu_torch",
+                       ds=ec.dataset_fingerprint(self.dataset),
+                       limit=self.limit, batch_size=self.batch_size,
+                       spec=repr(self.pad_spec),
+                       bucket=repr(self.bucket_policy),
+                       plan=ec.stable_repr(self.host_plan_cfg),
+                       prescan=self.prescan_caps)
+            self._cache_obj = ec.EvalBatchCache(
+                self.cache_dir, ec.config_key(**cfg),
+                config_note=ec.stable_repr(cfg))
+        return self._cache_obj
+
+    def _iter_cpu(self):
+        """(records, CPU batch) of each batch: built, built and written to
+        the cache, or served from it (slim records; on the CPU copied out
+        of the read-only map)."""
+        cache = self.cache
+        if cache is None:
+            yield from self._iter_build()
+        elif cache.complete():
+            for recs, batch in cache.iter_batches():
+                if self.device.type == "cpu":
+                    batch = map_leaves(batch, lambda x: x.clone()
+                                       if isinstance(x, torch.Tensor) else x)
+                yield recs, batch
+        else:
+            yield from cache.write_through(self._iter_build())
+
     def _iter_build(self):
         """(records, batch on the CPU) of each batch, in order."""
         for recs, spec in self._batches():
@@ -160,7 +546,7 @@ class EvalLoader:
 
     def _produced(self):
         if self.prefetch <= 0:
-            yield from self._iter_build()
+            yield from self._iter_cpu()
             return
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -177,7 +563,7 @@ class EvalLoader:
 
         def producer():
             try:
-                for item in self._iter_build():
+                for item in self._iter_cpu():
                     if not put(item):
                         return
                 put(end)

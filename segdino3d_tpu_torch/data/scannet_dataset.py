@@ -1,4 +1,4 @@
-"""ScanNet200 / ScanNet v2 instance-segmentation readers (host side, val).
+"""ScanNet200 / ScanNet v2 instance-segmentation readers (host side).
 
 Counterpart of ``segdino3d_tpu/data/scannet_dataset.py``: reads the
 reference's on-disk scene layout (``points/{id}.bin`` float32 N x 6,
@@ -8,12 +8,16 @@ int64, the DINO-X features ``{id}.pth``, ``{id}_query_feats.pth`` and
 the chair/floor swap and the raw-id lookup table; v2: the NYU40 -> 20
 table), stuff exclusion and instance re-indexing, the GT superpoint pooling
 and the eval-time merging of stuff points, and returns the same numpy
-records.  Plain constructors, no registry.
+records.  Both readers are registered in ``registry.DATASETS``.
 
-The transforms are the val/test pipeline of ``data.transforms``: a
-``transform_cfg`` that names anything else raises.  The DINO-X query
-dropout (``dropout_rate_2dfeats``) applies to the train scene set, as in
-the JAX package, drawn from the caller's ``np.random.RandomState``.
+The transforms are the pipelines of ``data.transforms`` (train, or
+val/test), built through ``registry.TRANSFORMS``; a ``transform_cfg`` that
+names anything else raises.  Every random draw comes from the caller's
+``np.random.RandomState`` in the JAX reader's order: the DINO-X query
+dropout (``dropout_rate_2dfeats``, train scenes only), then the
+transforms.  ``get_record(..., sync_scale=s)`` presets the pipeline's
+scale factor (the loader's batch-wide sync scale), which then draws no
+scale.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from segdino3d_tpu_torch.data import scannet_constants as C
-from segdino3d_tpu_torch.data.transforms import Scannet200Transforms
+import segdino3d_tpu_torch.data.transforms  # noqa: F401 (registers them)
+from segdino3d_tpu_torch.registry import DATASETS, TRANSFORMS
 
 _TRANSFORM_TYPES = ("Scannet200Transforms", "ScannetTransforms")
 # ``voxel_size`` sizes the training pipeline's elastic distortion only
@@ -40,20 +45,23 @@ def pool_to_superpoints(onehot: np.ndarray, sp_ids: np.ndarray,
     return means > 0.5
 
 
-def _transforms(transform_cfg: Optional[Dict], scene_set: str):
+def _transforms(transform_cfg: Optional[Dict], scene_set: str,
+                voxel_size: float = 0.02):
     """The pipeline a reader's ``transform_cfg`` names (the factory's cfg,
     or the reference's wrapper around it), the default one for None."""
     if transform_cfg is None:
-        return Scannet200Transforms(scene_set)
-    cfg = dict(transform_cfg)
-    cfg = dict(cfg.get("transform_cfg", cfg))
+        cfg = dict(type="Scannet200Transforms", voxel_size=voxel_size)
+    else:
+        cfg = dict(transform_cfg)
+        cfg = dict(cfg.get("transform_cfg", cfg))
     if cfg.get("type") not in _TRANSFORM_TYPES or set(cfg) - set(
             _TRANSFORM_KEYS):
         raise NotImplementedError(
-            f"transform_cfg {transform_cfg}: the port reads the val pipeline "
-            f"only ({' or '.join(_TRANSFORM_TYPES)} with keys "
+            f"transform_cfg {transform_cfg}: the port reads the ScanNet "
+            f"pipelines only ({' or '.join(_TRANSFORM_TYPES)} with keys "
             f"{_TRANSFORM_KEYS})")
-    return Scannet200Transforms(cfg.get("scene_set", scene_set))
+    cfg.setdefault("scene_set", scene_set)
+    return TRANSFORMS.build(cfg)
 
 
 class _ScanNetBase:
@@ -70,8 +78,14 @@ class _ScanNetBase:
                  transform_cfg: Optional[Dict] = None,
                  mode_fuse_multi_scale_2d_feats: str = "mean",
                  stuff_categories: Sequence[str] = ("wall", "floor"),
+                 dataset_type: str = "scannet",
+                 skip_empty_scenes: bool = False,
+                 voxel_size: float = 0.02,
                  feats_2d_dtype: str = "float32",
                  num_semantic_classes: Optional[int] = None):
+        """``dataset_type`` and ``skip_empty_scenes`` are the configs'
+        reader keys: stored and, as in the JAX reader, read only by
+        ``cache_fingerprint``."""
         if scene_set not in ("train", "val", "test"):
             raise ValueError(scene_set)
         if mode_fuse_multi_scale_2d_feats != "mean":
@@ -87,13 +101,16 @@ class _ScanNetBase:
         self.exclude_stuffs = exclude_stuffs
         self.root_points_2dfeats = root_points_2dfeats
         self.dropout_rate_2dfeats = dropout_rate_2dfeats
+        self.mode_fuse = mode_fuse_multi_scale_2d_feats
         self.n_stuff = len(stuff_categories)
+        self.dataset_type = dataset_type
+        self.skip_empty_scenes = skip_empty_scenes
         self.feats_2d_dtype = np.dtype(feats_2d_dtype)
         with open(os.path.join(root_scenes, "meta_data",
                                f"scannetv2_{scene_set}.txt")) as f:
             self.scene_ids: List[str] = [l.strip() for l in f if l.strip()]
         self._lut = self._build_lut()
-        self.transforms = _transforms(transform_cfg, scene_set)
+        self.transforms = _transforms(transform_cfg, scene_set, voxel_size)
 
     def _build_lut(self) -> np.ndarray:
         raise NotImplementedError
@@ -103,6 +120,27 @@ class _ScanNetBase:
 
     def __len__(self):
         return len(self.scene_ids)
+
+    def cache_fingerprint(self) -> str:
+        """Identity for the eval batch cache (``data.eval_cache``): the
+        scene list, each points file's size and mtime, and every reader
+        setting that shapes a record, as the JAX reader's."""
+        import hashlib
+
+        stats = []
+        for sid in self.scene_ids:
+            try:
+                st = os.stat(os.path.join(self.root_scenes, "points",
+                                          f"{sid}.bin"))
+                stats.append((sid, st.st_size, st.st_mtime_ns))
+            except OSError:
+                stats.append((sid, -1, -1))
+        knobs = (type(self).__name__, self.scene_set, self.use_super_points,
+                 self.adjust_class_ids, self.exclude_stuffs,
+                 str(self.feats_2d_dtype), self.root_points_2dfeats,
+                 self.mode_fuse, self.n_stuff, self.dataset_type,
+                 self.skip_empty_scenes, self.num_semantic_classes)
+        return hashlib.sha1(repr((knobs, stats)).encode()).hexdigest()[:16]
 
     def _load_2d(self, scene_id: str, rng: np.random.RandomState):
         """(point features mean-fused over scales, query features, query
@@ -137,9 +175,11 @@ class _ScanNetBase:
                                         f"{scene_id}.bin"), dtype=dtype)
 
     def get_record(self, idx: int,
-                   rng: Optional[np.random.RandomState] = None) -> Dict:
+                   rng: Optional[np.random.RandomState] = None,
+                   sync_scale: Optional[float] = None) -> Dict:
         """Load, label-adjust, pool and transform one scene: a numpy
-        record of the JAX package's schema."""
+        record of the JAX package's schema.  ``sync_scale`` presets the
+        pipeline's scale factor."""
         rng = rng or np.random.RandomState()
         scene_id = self.scene_ids[idx]
         points = self._read("points", scene_id, np.float32).reshape(-1, 6)
@@ -195,8 +235,10 @@ class _ScanNetBase:
                 cid = int(sem[m][0])
                 labels[i] = cid - self.n_stuff if self.exclude_stuffs else cid
 
-        points, target = self.transforms(
-            points, {"extra_features": {"query2d_pos": qp}}, rng)
+        target = {"extra_features": {"query2d_pos": qp}}
+        if sync_scale is not None:
+            target["pcd_scale_factor"] = sync_scale
+        points, target = self.transforms(points, target, rng)
         return dict(
             scene_id=scene_id, scene_idx=idx, points=points,
             superpoint_ids=sp, point_inst_ids=inst, inst_labels=labels,
@@ -208,6 +250,7 @@ class _ScanNetBase:
             semantic_masks=sem, inst_merged=inst_merged)
 
 
+@DATASETS.register_module()
 class ScanNet200InstanceSeg3D(_ScanNetBase):
     num_semantic_classes = 200
     bg_class_id = 200
@@ -225,10 +268,15 @@ class ScanNet200InstanceSeg3D(_ScanNetBase):
         return self._lut[s]
 
 
+@DATASETS.register_module()
 class ScanNetInstanceSeg3D(_ScanNetBase):
     """ScanNet v2 (20 classes)."""
     num_semantic_classes = 20
     bg_class_id = 20
+
+    def __init__(self, *args, **kw):
+        kw.setdefault("skip_empty_scenes", True)
+        super().__init__(*args, **kw)
 
     def _build_lut(self):
         return C.scannet20_seg_label_lut()

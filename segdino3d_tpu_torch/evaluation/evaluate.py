@@ -86,7 +86,9 @@ def host_prediction(record: Dict, inst: InstancePred, sem, pan_sem,
     masks copied whole, the valid rows unpacked.  Raises where
     ``plan_overflow`` is set: it is read after the first copy, when the
     device is done."""
-    n_pts = record["points"].shape[0]
+    # the eval cache's records are slim: the point count, no points
+    n_pts = (record["points"].shape[0] if "points" in record
+             else int(record["n_points"]))
     valid = inst.valid.cpu().numpy()
     if plan_overflow is not None and bool(plan_overflow):
         raise ValueError(DEVICE_PLAN_OVERFLOW)

@@ -11,10 +11,11 @@ dX (the mirror identity: Cin and Cout swapped); the four down convs over
 the child tables and the four up convs' dX over them.  Each case is timed
 with CUDA events, ``reps`` back-to-back calls a sample, the cases taken in
 turn ``rounds`` times, fp32 as the main path runs, and beside it once the
-library yardstick (``chip_smoke.conv_library``: a gather and one cuBLAS
-GEMM, TF32 off).  Prints the card's name and power limit, then per case
-its calls per forward and per step, the samples' minimum and median in ms,
-the library's ms and the bound of its live pairs (2 x pairs x Cin x Cout
+plain version (``sparse_conv.gather_conv_plain``) and the library
+yardstick (``chip_smoke.conv_library``: a gather and one cuBLAS GEMM, TF32
+off).  Prints the card's name and power limit, then per case its calls
+per forward and per step, the samples' minimum and median in ms, the
+plain version's and the library's ms and the bound of its live pairs (2 x pairs x Cin x Cout
 operations at the fp32 peak, or its bytes at the memory rate, the
 larger); then the calls' medians summed per forward and per step.  K1's pair lists (K4's, ``cached_pairs``) are built before the
 timing, as a forward builds them once per table.  Run it in two checkouts
@@ -50,7 +51,7 @@ UP_CONVS = ((0, 96, 96), (1, 128, 96), (2, 256, 128), (3, 256, 256))
 
 def cases(plan, gen):
     """(name, calls per forward, calls per step, kernel call, library
-    call, live pairs, Cin, Cout, bytes)"""
+    call, live pairs, Cin, Cout, bytes, plain call)"""
     import chip_smoke as C
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
@@ -65,7 +66,8 @@ def cases(plan, gen):
         byts = sum(t.numel() * t.element_size() for t in (x, nbr, w, valid))
         out.append((name, fwd, step, lambda: SC.gather_conv(x, nbr, w, valid),
                     lambda: C.conv_library(x, nbr, w), pairs, cin, cout,
-                    byts + nbr.shape[1] * cout * 4))
+                    byts + nbr.shape[1] * cout * 4,
+                    lambda: SC.gather_conv_plain(x, nbr, w, valid)))
 
     v = [t.valid.shape[0] for t in lv]
     case("stem k5 259->32 L0", 1, 1, v[0], plan.stem_nbr, lv[0].valid, 259,
@@ -120,8 +122,10 @@ def main() -> int:
         for i, run in enumerate(runs):
             samples[i].append(C.time_ms(run[3], args.reps))
     library = [C.time_ms(run[4], args.reps) for run in runs]
+    plain = [C.time_ms(run[9], args.reps) for run in runs]
     per_fwd = per_step = bound_step = 0.0
-    for i, (name, fwd, step, _, _, pairs, cin, cout, byts) in enumerate(runs):
+    for i, (name, fwd, step, _, _, pairs, cin, cout, byts,
+            _) in enumerate(runs):
         t = np.array(samples[i])
         med = float(np.median(t))
         b_ms, b_by = C.bound(2.0 * pairs * cin * cout, byts, "fp32")
@@ -129,8 +133,8 @@ def main() -> int:
         per_step += step * med
         bound_step += step * b_ms
         print(f"{name}: min {t.min():.4f} ms, median {med:.4f} ms over "
-              f"{args.rounds} x {args.reps} calls; library {library[i]:.4f} "
-              f"ms; {pairs} live pairs, bound {b_ms:.4f} ms ({b_by}); calls "
+              f"{args.rounds} x {args.reps} calls; plain {plain[i]:.4f} ms; "
+              f"library {library[i]:.4f} ms; {pairs} live pairs, bound {b_ms:.4f} ms ({b_by}); calls "
               f"per forward {fwd}, per step {step}", flush=True)
     print(f"K1 summed over its calls (medians): {per_fwd:.4f} ms per gather "
           f"forward, {per_step:.4f} ms per gather training step (bound "

@@ -6,6 +6,7 @@ each optimizer step (the JAX package builds a new tree each step).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterable, Tuple
 
 import torch
@@ -27,3 +28,19 @@ class EMA:
         torch._foreach_mul_(shadow, self.decay)
         torch._foreach_add_(shadow, [p.detach() for p in self.params],
                             alpha=1.0 - self.decay)
+
+    @contextlib.contextmanager
+    def applied(self):
+        """The shadow in place of the parameters inside the block, the
+        parameters restored after it (the JAX package's ``swap_in_ema``
+        for eval)."""
+        backup = [p.detach().clone() for p in self.params]
+        with torch.no_grad():
+            for p, s in zip(self.params, self.shadow.values()):
+                p.copy_(s)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for p, b in zip(self.params, backup):
+                    p.copy_(b)

@@ -145,11 +145,18 @@ def test_reader_records_match_jax(data_root, reader):
 
 
 def test_reader_refuses_the_train_pipeline_and_other_transforms(data_root):
-    with pytest.raises(NotImplementedError, match="training-data slice"):
-        _readers(data_root, scene_set="train")
+    """The train scene set now reads through the training pipeline (its
+    records are held to JAX's in ``test_torch_port_train_data.py``); any
+    other transform still raises."""
+    from segdino3d_tpu_torch.data import transforms as TT
+
+    port, _ = _readers(data_root, scene_set="train")
+    assert [type(t) for t in port.transforms.transforms] == [
+        TT.RandomFlip3D, TT.GlobalRotScaleTrans, TT.NormalizePointsColor,
+        TT.ElasticTransform]
     for cfg in (dict(type="RandomFlip3D"),
                 dict(type="Scannet200Transforms", elastic=True)):
-        with pytest.raises(NotImplementedError, match="val pipeline"):
+        with pytest.raises(NotImplementedError, match="ScanNet pipelines"):
             TD.ScanNet200InstanceSeg3D(scene_set="val", root_scenes=data_root,
                                        transform_cfg=cfg)
 
@@ -271,7 +278,6 @@ def test_eval_loader_refuses_unported_options(data_root, monkeypatch):
     port, _ = _readers(data_root)
     policy = _policy(TB.BucketPolicy)
     for kw, what in ((dict(mesh_shards=2), "mesh_shards"),
-                     (dict(cache_dir="x"), "cache_dir"),
                      (dict(process_index=1, process_count=2),
                       "process_index")):
         with pytest.raises(NotImplementedError, match=what):
