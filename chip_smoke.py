@@ -870,16 +870,24 @@ def flat_compaction(c):
 def device_ops(fn):
     """(names of the kernels, copies and memsets that one call of ``fn``
     puts on the card, their summed device time in us), by
-    ``torch.profiler`` after a warm-up call."""
+    ``torch.profiler`` after a warm-up call.  A trace that holds no device
+    event at all is taken again (up to six times): every call measured
+    here puts work on the card, and the profiler has returned an empty
+    trace for a one-kernel call, twice in a row for another."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    for attempt in range(6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
+        print(f"device_ops: an empty trace (attempt {attempt + 1})",
+              flush=True)
     names = [e.name.replace("(anonymous namespace)::", "").split("(")[0]
              for e in events]
     return names, sum(e.time_range.elapsed_us() for e in events)
@@ -2231,10 +2239,12 @@ class StageTimer:
             h.remove()
 
 
-def run_disk_eval(model, test_cfg, root, layout, features_2d=True):
+def run_disk_eval(model, test_cfg, root, layout, features_2d=True,
+                  adjust_class_ids=False):
     """One pass of the eval entry point over the scenes under ``root``:
     the port's ScanNet200 reader (with the DINO-X features as fp16, or
-    without ``features_2d`` none: ``root_points_2dfeats=None``),
+    without ``features_2d`` none: ``root_points_2dfeats=None``; raw
+    ScanNet label ids with ``adjust_class_ids``),
     ``EvalLoader`` (batch 1, the default buckets, the capacity prescan,
     one batch of prefetch) on host plans of ``layout``, and ``evaluate``
     (packed result transfer).  Returns (launches, stage ms, scenes/s, peak
@@ -2248,9 +2258,9 @@ def run_disk_eval(model, test_cfg, root, layout, features_2d=True):
     from segdino3d_tpu_torch.evaluation.evaluate import evaluate
     from segdino3d_tpu_torch.evaluation.evaluator import InstanceSeg3DEvaluator
 
-    # the synthetic labels are class ids already
+    # the synthetic layout's labels are class ids already
     reader = ScanNet200InstanceSeg3D(
-        scene_set="val", root_scenes=root, adjust_class_ids=False,
+        scene_set="val", root_scenes=root, adjust_class_ids=adjust_class_ids,
         root_points_2dfeats=os.path.join(root, "features_2d")
         if features_2d else None, feats_2d_dtype="float16")
     loader = EvalLoader(reader, batch_size=1,
@@ -2284,7 +2294,7 @@ def run_disk_eval(model, test_cfg, root, layout, features_2d=True):
         backbone.remove()
         decoder.remove()
     launches = read_counts()
-    n = len(DISK_SEEDS)
+    n = loader.num_scenes
     stages = {"loader wait (read, plan, copy)": sum(waited),
               "backbone": backbone.seconds, "decoder": decoder.seconds}
     stages["postprocess + result copy + AP"] = total - sum(stages.values())
@@ -2411,16 +2421,17 @@ def cli_config(root):
         "print_freq = 1", ""])
 
 
-def run_cli(args, what):
-    """``python -m segdino3d_tpu_torch.train_3d args`` in a child process
-    (its own session: past ``CLI_TIMEOUT_S`` it is killed with its loader
-    workers); (its stdout and stderr, wall seconds).  Fails unless it
-    exits 0."""
+def run_cli(args, what, launcher=()):
+    """``python [launcher] -m segdino3d_tpu_torch.train_3d args`` in a
+    child process (its own session: past ``CLI_TIMEOUT_S`` it is killed
+    with its loader workers); (its stdout and stderr, wall seconds).
+    Fails unless it exits 0."""
     import signal
 
     t0 = time.perf_counter()
     proc = subprocess.Popen(
-        [sys.executable, "-m", "segdino3d_tpu_torch.train_3d", *args],
+        [sys.executable, *launcher, "-m", "segdino3d_tpu_torch.train_3d",
+         *args],
         cwd=os.path.dirname(os.path.abspath(__file__)),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         start_new_session=True)
@@ -3001,6 +3012,593 @@ def run_options_phase(fp32_model, records, train_records, spec, caps):
             del ref_model
 
 
+# --------------------------------------------------------------------------
+# phase 9: distribution and the prepared data
+# --------------------------------------------------------------------------
+
+DIST_TIMEOUT_S = 420
+CLI_BACKEND = "nccl"        # the CLI's group on the card (phase 9b)
+# |2-rank - one process's mean| <= DIST_TOL x max |one process's| per
+# tensor family: the ranks and the reference run the same kernels on the
+# same card, but the weight gradients' float atomics add in any order
+DIST_TOL = 1e-4
+EVAL_DIST_SEEDS = (0, 1, 2, 3)
+# phase 9c's thresholds over the flagship's: its random weights give mask
+# logits of about -2.9 to -1.7 (no positive one, so the objectness
+# normalisation zeroes every score) and sigmoids under its 0.4, so its
+# own test config keeps no instance and the comparison would hold
+# nothing; these keep the top 50 of each scene
+EVAL_DIST_TEST_CFG = dict(topk_insts=50, sp_score_thr=0.1,
+                          obj_normalization=False)
+# phase 9a's layouts: phase 4's gather host plans and the flagship's
+# training layout (phase 4c's block-dense plans)
+DIST_LAYOUTS = ("gather", "block-dense")
+FLAG_ITERS = 200            # timed calls of the stop flag's all-reduce
+
+
+def dist_train_model():
+    from segdino3d_tpu_torch.builder import Capacities, build_model, \
+        random_init_
+
+    model, _ = build_model(train_cfg(), Capacities(
+        num_superpoints=SCENE["n_superpoints"],
+        level_cap_ratios=LEVEL_CAP_RATIOS), train=True)
+    return random_init_(model, seed=0)
+
+
+def dist_shard(rank, layout):
+    """Rank ``rank``'s batch-1 microbatch (phase 4's scene of
+    ``TRAIN_SEEDS[rank]`` on a host plan of ``layout``) and its numpy
+    queries."""
+    from segdino3d_tpu_torch.data.collate import (PadSpec, attach_host_plan,
+                                                  collate)
+    from segdino3d_tpu_torch.data.synthetic import synthetic_scene
+
+    rec = synthetic_scene(TRAIN_SEEDS[rank], **SCENE)
+    rec["points_2dfeats"] = rec["points_2dfeats"].astype(np.float16)
+    spec = PadSpec(SCENE["n_points"], SCENE["n_superpoints"], 64, 128, 200)
+    b = attach_host_plan(collate([rec], spec, DEVICE), [rec], spec,
+                         level_cap_ratios=LEVEL_CAP_RATIOS,
+                         **plan_layout(layout))
+    q = numpy_queries(b.num_superpoints.cpu().numpy(), SCENE["n_superpoints"],
+                      seed=100 + rank)
+    return b, tuple(t.to(DEVICE) for t in q)
+
+
+def bn_buffers(model):
+    return {n: b for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def _child_fail(path):
+    import traceback
+
+    with open(path + ".err", "w") as f:
+        f.write(traceback.format_exc())
+
+
+def dist_step_rank(rank, world, store, out):
+    """Phase 9a, one rank: one flagship step on its shard of each layout
+    of ``DIST_LAYOUTS`` (a fresh model each) in a gloo group of ``world``
+    processes on cuda:0, then the engine's stop flag (``mesh.any_flag``)
+    timed; rank 0 writes its gradients, parameters and batch-norm
+    statistics after each step to ``out``."""
+    from segdino3d_tpu_torch.parallel import mesh
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        # NCCL refuses two ranks on one device ("Duplicate GPU detected"):
+        # on one card the group is gloo, which all-reduces CUDA tensors
+        # through the host; the NCCL path is phase 9b's
+        mesh.init_distributed(init_method=f"file://{store}", rank=rank,
+                              world_size=world, backend="gloo",
+                              timeout_s=300.0)
+        res = {}
+        for layout in DIST_LAYOUTS:
+            model = dist_train_model()
+            step = make_train_step(model, 1)
+            step.process_group = torch.distributed.group.WORLD
+            b, q = dist_shard(rank, layout)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics = step([b], queries=[q])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_counts()
+            vals = check_metrics(step, metrics, f"rank {rank} {layout} step")
+            state = ([p.detach() for p in model.parameters()]
+                     + [p.grad for p in model.parameters()]
+                     + list(bn_buffers(model).values()))
+            flat = torch.cat([t.reshape(-1).float() for t in state])
+            ref = flat.clone()
+            torch.distributed.broadcast(ref, 0)
+            res[layout] = dict(metrics=vals, seconds=seconds,
+                               launches=launches,
+                               same=bool(torch.equal(flat, ref)))
+            if rank == 0:
+                res[layout].update(
+                    grads={n: p.grad.cpu()
+                           for n, p in model.named_parameters()},
+                    params={n: p.detach().cpu()
+                            for n, p in model.named_parameters()},
+                    stats={n: v.cpu() for n, v in bn_buffers(model).items()})
+            del model, step, b, q
+            torch.cuda.empty_cache()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(FLAG_ITERS):
+            mesh.any_flag(False)
+        res["flag_us"] = 1e6 * (time.perf_counter() - t0) / FLAG_ITERS
+        torch.save(res, f"{out}.rank{rank}")
+    except BaseException:
+        _child_fail(f"{out}.rank{rank}")
+        raise
+    finally:
+        mesh.shutdown_distributed()
+
+
+def run_children(target, args_of, world, what):
+    """``world`` spawned processes of ``target(rank, *args_of(rank))``;
+    fails when one fails or outlives ``DIST_TIMEOUT_S`` (then all are
+    killed)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args_of(r)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10.0)
+    codes = [p.exitcode for p in procs]
+    if hung or codes != [0] * world:
+        raise SystemExit(f"{what}: processes ended with {codes}"
+                         + (f", {len(hung)} killed after {DIST_TIMEOUT_S} s"
+                            if hung else ""))
+
+
+def child_results(path, world, what):
+    out = []
+    for r in range(world):
+        err = f"{path}.rank{r}.err"
+        if os.path.exists(err):
+            with open(err) as f:
+                print(f.read(), flush=True)
+            raise SystemExit(f"{what}: rank {r} failed")
+        out.append(torch.load(f"{path}.rank{r}", weights_only=False))
+    return out
+
+
+def one_process_mean_step(world, layout):
+    """Phase 9a's reference: one process runs every rank's shard of
+    ``layout`` from the same state and weights, averages the gradients,
+    losses and batch-norm statistics and takes the optimizer step on the
+    mean."""
+    from segdino3d_tpu_torch.train.optim import global_norm
+
+    model = dist_train_model()
+    step = make_train_step(model, 1)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    params = dict(model.named_parameters())
+    grads = {n: torch.zeros_like(p) for n, p in params.items()}
+    stats = {n: torch.zeros_like(v) for n, v in bn_buffers(model).items()}
+    losses = {}
+    for r in range(world):
+        model.load_state_dict(init)
+        model.train()
+        for p in params.values():
+            p.grad = None
+        b, q = dist_shard(r, layout)
+        outputs, gt = model(b, q, None)
+        ls = step.criterion(outputs, gt)
+        ls["total_loss"] = sum(ls.values())
+        ls["total_loss"].backward()
+        for n, p in params.items():
+            if p.grad is not None:
+                grads[n] += p.grad / world
+        for n, v in bn_buffers(model).items():
+            stats[n] += v / world
+        for k, v in ls.items():
+            losses[k] = losses.get(k, 0.0) + float(v.detach()) / world
+    model.load_state_dict(init)
+    with torch.no_grad():
+        for n, p in params.items():
+            p.grad = grads[n]
+        for n, v in bn_buffers(model).items():
+            v.copy_(stats[n])
+        norm = global_norm(list(grads.values()))
+    step.optimizer.step(norm)
+    losses["grad_norm"] = float(norm)
+    return dict(metrics=losses,
+                grads={n: p.grad for n, p in params.items()},
+                params={n: p.detach() for n, p in params.items()},
+                stats=bn_buffers(model))
+
+
+def compare_family(got, want, what, layout):
+    scale = max(float(v.abs().max()) for v in want.values())
+    err = max(float((got[n].to(v.device) - v).abs().max())
+              for n, v in want.items())
+    ok = err <= DIST_TOL * scale
+    print(f"phase 9a {layout} {what}: max_abs_err={err:.3e} over {len(want)} "
+          f"tensors (<= {DIST_TOL} x max|reference| = "
+          f"{DIST_TOL * scale:.3e}) {'ok' if ok else 'MISMATCH'}",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"phase 9a: the 2-rank {layout} step's {what} "
+                         f"disagree with one process's mean")
+
+
+def run_dist_step_phase(card, expected):
+    """Phase 9a: a 2-rank flagship step of each layout on the one card,
+    against one process that runs both shards and takes the mean; each
+    rank's launches equal ``expected[layout]`` (phase 4's and 4c's batch-1
+    steps).  Returns rank 0's launches of each layout."""
+    import tempfile
+
+    world = 2
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "step")
+        t0 = time.perf_counter()
+        run_children(dist_step_rank, lambda r: (world, os.path.join(
+            tmp, "store"), out), world, "phase 9a")
+        wall = time.perf_counter() - t0
+        ranks = child_results(out, world, "phase 9a")
+    for layout in DIST_LAYOUTS:
+        got_ranks = [r[layout] for r in ranks]
+        ref = one_process_mean_step(world, layout)
+        for k, v in ref["metrics"].items():
+            got = [r["metrics"][k] for r in got_ranks]
+            ok = all(np.isclose(g, v, rtol=1e-5, atol=0) for g in got)
+            print(f"phase 9a {layout} {k}: ranks {got} one process {v:.6f} "
+                  f"(rtol 1e-5) {'ok' if ok else 'MISMATCH'}", flush=True)
+            if not ok:
+                raise SystemExit(f"phase 9a: {layout} {k} disagrees with "
+                                 f"one process's mean")
+        if not all(r["same"] for r in got_ranks):
+            raise SystemExit(f"phase 9a: the ranks' states differ after the "
+                             f"{layout} step")
+        for fam, what in (("grads", "clipped gradients"),
+                          ("stats", "batch-norm statistics"),
+                          ("params", "updated parameters")):
+            compare_family(got_ranks[0][fam], ref[fam], what, layout)
+        del ref
+        for r, res in enumerate(got_ranks):
+            if res["launches"] != expected[layout]:
+                raise SystemExit(
+                    f"phase 9a rank {r} launched {res['launches']} in the "
+                    f"{layout} step, expected the one-process batch-1 step's "
+                    f"{expected[layout]}")
+        print(f"phase 9a: 2-rank flagship step on {layout} host plans (gloo "
+              f"on one card, batch 1 a rank), every rank equal to rank 0 and "
+              f"to one process's mean; step "
+              f"{max(r['seconds'] for r in got_ranks):.4f} s (slowest rank, "
+              f"the all-reduce through the host included); launches a rank "
+              f"{got_ranks[0]['launches']}; {card}", flush=True)
+    print(f"phase 9a: the engine's stop flag (mesh.any_flag, a host int32 "
+          f"all-reduced over gloo, no wait on the card) "
+          f"{[round(r['flag_us'], 1) for r in ranks]} us a call on the "
+          f"ranks (mean of {FLAG_ITERS}); the phase {wall:.1f} s wall with "
+          f"the processes' start; {card}", flush=True)
+    return {layout: ranks[0][layout]["launches"] for layout in DIST_LAYOUTS}
+
+
+def dist_eval_rank(rank, world, store, root, gather_dir, out):
+    """Phase 9c, one process: its share of the scenes under ``root``
+    (``EvalLoader`` process shards), gathered through ``gather_dir`` in a
+    gloo group (the gather's barriers; NCCL takes one rank a card)."""
+    from segdino3d_tpu_torch.parallel import mesh
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        mesh.init_distributed(init_method=f"file://{store}", rank=rank,
+                              world_size=world, backend="gloo",
+                              timeout_s=300.0)
+        res = dist_eval(root, rank, world, gather_dir)
+        torch.save(res, f"{out}.rank{rank}")
+    except BaseException:
+        _child_fail(f"{out}.rank{rank}")
+        raise
+    finally:
+        mesh.shutdown_distributed()
+
+
+def dist_eval(root, rank, world, gather_dir=None):
+    """The flagship eval model (seeded weights) over process ``rank``'s
+    share of the scenes under ``root``: the AP dict, the gathered results
+    (scene id, instance masks, labels, scores) in their order, launches
+    and seconds."""
+    from segdino3d_tpu_torch.builder import Capacities, build_model, \
+        random_init_
+    from segdino3d_tpu_torch.data.bucketing import BucketPolicy
+    from segdino3d_tpu_torch.data.loader import EvalLoader
+    from segdino3d_tpu_torch.data.scannet_constants import (
+        SCANNET200_CLASS_NAMES, SCANNET200_RAW_IDS)
+    from segdino3d_tpu_torch.data.scannet_dataset import \
+        ScanNet200InstanceSeg3D
+    from segdino3d_tpu_torch.evaluation.evaluate import evaluate
+    from segdino3d_tpu_torch.evaluation.evaluator import \
+        InstanceSeg3DEvaluator
+
+    model, test_cfg = build_model(model_cfg(), Capacities(
+        num_superpoints=SCENE["n_superpoints"],
+        level_cap_ratios=LEVEL_CAP_RATIOS))
+    random_init_(model, seed=0)
+    reader = ScanNet200InstanceSeg3D(
+        scene_set="val", root_scenes=root, adjust_class_ids=False,
+        root_points_2dfeats=os.path.join(root, "features_2d"),
+        feats_2d_dtype="float16")
+    loader = EvalLoader(reader, batch_size=1,
+                        bucket_policy=BucketPolicy.default(),
+                        host_plan_cfg=plan_layout("hybrid"), prefetch=1,
+                        device=DEVICE, process_index=rank,
+                        process_count=world)
+    ev = InstanceSeg3DEvaluator(SCANNET200_RAW_IDS, SCANNET200_CLASS_NAMES)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ap = evaluate(model, loader, ev, dict(test_cfg, **EVAL_DIST_TEST_CFG),
+                  gather_dir=gather_dir, process_index=rank,
+                  process_count=world)
+    seconds = time.perf_counter() - t0
+    return dict(ap=ap, results=[
+        (a["lidar_idx"], p["pts_instance_masks"], p["instance_labels"],
+         p["instance_scores"]) for a, p in ev._results],
+        launches=read_counts(), seconds=seconds, n_local=len(loader))
+
+
+def run_dist_eval_phase(card, root):
+    """Phase 9c: eval from disk in 2 processes on the card, gathered
+    through a directory, against one process on the same scenes."""
+    import tempfile
+
+    world = 2
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "eval")
+        t0 = time.perf_counter()
+        run_children(dist_eval_rank, lambda r: (
+            world, os.path.join(tmp, "store"), root,
+            os.path.join(tmp, "gather"), out), world, "phase 9c")
+        wall = time.perf_counter() - t0
+        ranks = child_results(out, world, "phase 9c")
+    one = dist_eval(root, 0, 1)
+    n = len(EVAL_DIST_SEEDS)
+    # merged in rank order: rank 0's scenes (global batches 0, 2, ...),
+    # then rank 1's
+    order = [one["results"][i] for r in range(world)
+             for i in range(r, n, world)]
+    for r, res in enumerate(ranks):
+        try:
+            np.testing.assert_equal(res["ap"], one["ap"])
+        except AssertionError as e:
+            raise SystemExit(f"phase 9c: rank {r}'s gathered AP differs "
+                             f"from one process's: {e}")
+        if not all(len(g[2]) for g in res["results"]):
+            raise SystemExit(f"phase 9c: a scene of rank {r} kept no "
+                             f"instance, so the comparison holds nothing")
+        got_ids = [g[0] for g in res["results"]]
+        if got_ids != [o[0] for o in order]:
+            raise SystemExit(f"phase 9c: rank {r} gathered scenes {got_ids},"
+                             f" expected {[o[0] for o in order]}")
+        # the same kernels on the same card: bit for bit
+        for g, o in zip(res["results"], order):
+            for what, a, b in zip(("masks", "labels", "scores"), g[1:],
+                                  o[1:]):
+                if a.shape != b.shape or not np.array_equal(a, b):
+                    diff = (float(np.abs(a.astype(np.float64) - b).max())
+                            if a.shape == b.shape else None)
+                    raise SystemExit(
+                        f"phase 9c: rank {r}'s gathered {what} of {g[0]} "
+                        f"differ from one process's (shapes {a.shape} "
+                        f"{b.shape}, max |diff| {diff})")
+    total = {k: sum(r["launches"][k] for r in ranks) for k in one["launches"]}
+    if total != one["launches"] or not all(
+            one["launches"].get(k) == n * v for k, v in
+            {"gather_gemm_conv": 5, "block_conv": 46}.items()):
+        raise SystemExit(f"phase 9c: the processes launched {total} in all, "
+                         f"one process {one['launches']}")
+    print(f"phase 9c: eval of {n} scenes from disk in 2 processes on the "
+          f"card ({[r['n_local'] for r in ranks]} scenes each, hybrid host "
+          f"plans), gathered through a directory: every rank's gathered "
+          f"scene order, instance masks, labels and scores "
+          f"({sum(len(o[2]) for o in order)} instances) bit-equal to one "
+          f"process's, and its AP equal (all_ap="
+          f"{one['ap']['all_ap']:.4f} all_ap_25="
+          f"{one['ap']['all_ap_25']:.4f}); {n / max(r['seconds'] for r in ranks):.3f} "
+          f"scenes/s (the slower process's eval, gather included) against "
+          f"{n / one['seconds']:.3f} in one process; the phase {wall:.1f} s "
+          f"wall with the processes' start; launches per process "
+          f"{[{k: v for k, v in r['launches'].items() if v} for r in ranks]}"
+          f"; {card}", flush=True)
+
+
+def run_torchrun_cli_phase(card, root):
+    """Phase 9b: the CLI under ``torch.distributed.run --nproc_per_node 1``:
+    an NCCL group of one on the card, two steps from disk through the
+    group's all-reduce, a checkpoint, the in-loop eval."""
+    import re
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg_path = os.path.join(tmp, "cfg.py")
+        with open(cfg_path, "w") as f:
+            f.write(cli_config(root))
+        work = os.path.join(tmp, "work")
+        out, wall = run_cli(
+            ["--config_file", cfg_path, "--work_dir", work,
+             "--accum_steps", "1", "--num_eval_scenes", "2", "--options",
+             "num_iterations=2", "save_step=2", "eval_step=2",
+             "data.train_batch_size=1", "data.num_workers=2"], "phase 9b",
+            launcher=["-m", "torch.distributed.run", "--nproc_per_node", "1",
+                      "--master_addr", "127.0.0.1", "--master_port",
+                      str(port)])
+        print_cli_lines(out, "phase 9b")
+        if f"process 0 of 1 ({CLI_BACKEND})" not in out:
+            raise SystemExit("phase 9b: the CLI did not log an NCCL group")
+        its = cli_iterations(out)
+        if [s for s, _ in its] != [0, 1] or not all(
+                np.isfinite(v.get("total_loss", np.nan)) for _, v in its):
+            raise SystemExit(f"phase 9b: logged steps {its}")
+        if sorted(os.listdir(os.path.join(work, "checkpoints"))) != [
+                "step_0000000002.pth"]:
+            raise SystemExit("phase 9b: no checkpoint of step 2")
+        if re.search(r"mAP: [0-9.]+", out) is None:
+            raise SystemExit("phase 9b: no mAP line")
+    print(f"phase 9b: torch.distributed.run --nproc_per_node 1 (NCCL group "
+          f"of one) ran the flagship config 2 steps at batch 1 from disk "
+          f"through the group's all-reduce, checkpointed and evaluated; "
+          f"step 1 {its[1][1]['time']:.4f} s (loader wait "
+          f"{its[1][1]['data']:.4f}); {wall:.1f} s wall; {card}", flush=True)
+
+
+# a ScanNet-style scan: a vh_clean_2 mesh's scale
+SCAN_GRID = 387              # 149,769 vertices, 297,992 faces
+
+
+def write_scan(scans_dir, sid, seed=0):
+    """A seeded room: a 6 m x 6 m floor grid whose boxes are raised into
+    objects, with colours, a labels ply (ScanNet raw ids), the
+    aggregation / segs json pair and an axis alignment; returns the
+    vertex and face counts."""
+    from segdino3d_tpu_torch.data.scannet_constants import SCANNET200_RAW_IDS
+    from segdino3d_tpu_torch.tools.ply_io import write_ply
+
+    rng = np.random.RandomState(seed)
+    n = SCAN_GRID
+    x, y = np.meshgrid(np.linspace(0, 6, n), np.linspace(0, 6, n))
+    z = 0.002 * rng.randn(n, n)
+    obj = np.zeros((n, n), np.int64)
+    for k in range(1, 25):
+        cx, cy = rng.uniform(0.5, 5.5, 2)
+        w, d = rng.uniform(0.3, 1.0, 2)
+        inside = (np.abs(x - cx) < w / 2) & (np.abs(y - cy) < d / 2)
+        z[inside] = rng.uniform(0.4, 1.5)
+        obj[inside] = k
+    verts = np.stack([x, y, z], -1).reshape(-1, 3).astype(np.float32)
+    obj = obj.ravel()
+    a = (np.arange(n - 1)[:, None] * n + np.arange(n - 1)[None, :]).ravel()
+    faces = np.concatenate([np.stack([a, a + 1, a + n], 1),
+                            np.stack([a + 1, a + n + 1, a + n], 1)])
+    palette = rng.randint(0, 256, (25, 3))
+    colors = np.clip(palette[obj] + rng.randint(-8, 9, (len(obj), 3)), 0,
+                     255).astype(np.uint8)
+    raw = np.asarray(SCANNET200_RAW_IDS)
+    cls = rng.randint(2, 60, 25)                  # things; 2 = floor
+    labels = np.where(obj > 0, raw[cls[obj]], raw[1]).astype(np.uint16)
+    sdir = os.path.join(scans_dir, sid)
+    os.makedirs(sdir)
+    write_ply(os.path.join(sdir, f"{sid}_vh_clean_2.ply"), verts, faces,
+              colors)
+    write_ply(os.path.join(sdir, f"{sid}_vh_clean_2.labels.ply"), verts,
+              faces, colors, labels=labels)
+    with open(os.path.join(sdir, f"{sid}_vh_clean_2.0.010000.segs.json"),
+              "w") as f:
+        json.dump({"segIndices": obj.tolist()}, f)
+    with open(os.path.join(sdir, f"{sid}.aggregation.json"), "w") as f:
+        json.dump({"segGroups": [
+            {"objectId": k - 1, "label": f"object{k}", "segments": [k]}
+            for k in range(1, 25) if (obj == k).any()]}, f)
+    with open(os.path.join(sdir, f"{sid}.txt"), "w") as f:
+        f.write("axisAlignment = 0 -1 0 3 1 0 0 -3 0 0 1 0 0 0 0 1\n")
+    return len(verts), len(faces)
+
+
+def run_prepared_data_phase(card):
+    """Phase 9d: a synthetic scan of a vh_clean_2 mesh's size through the
+    port's ``prepare_scannet``, then the Baseline's eval entry point (rgb
+    alone) on the card from the prepared layout."""
+    import tempfile
+
+    from segdino3d_tpu_torch.builder import Capacities, build_model, \
+        random_init_
+    from segdino3d_tpu_torch.tools import prepare_scannet
+
+    sid = "scene0000_00"
+    with tempfile.TemporaryDirectory() as tmp:
+        scans, out = os.path.join(tmp, "scans"), os.path.join(tmp, "prep")
+        splits = os.path.join(tmp, "splits")
+        os.makedirs(scans)
+        os.makedirs(splits)
+        t0 = time.perf_counter()
+        n_v, n_f = write_scan(scans, sid)
+        t_write = time.perf_counter() - t0
+        with open(os.path.join(splits, "scannetv2_val.txt"), "w") as f:
+            f.write(sid + "\n")
+        t0 = time.perf_counter()
+        prepare_scannet.main(["--scans_dir", scans, "--output_dir", out,
+                              "--splits_dir", splits, "--num_workers", "1"])
+        t_prep = time.perf_counter() - t0
+        sp = np.fromfile(os.path.join(out, "super_points", f"{sid}.bin"),
+                         np.int64)
+        inst = np.fromfile(os.path.join(out, "instance_mask", f"{sid}.bin"),
+                           np.int64)
+        pts = np.fromfile(os.path.join(out, "points", f"{sid}.bin"),
+                          np.float32).reshape(-1, 6)
+        if len(sp) != n_v or len(pts) != n_v or not np.isfinite(pts).all():
+            raise SystemExit("phase 9d: prepared files of the wrong size")
+        print(f"phase 9d: prepare_scannet on a {n_v}-vertex, {n_f}-face "
+              f"scan (written in {t_write:.1f} s): {t_prep:.2f} s, "
+              f"{len(np.unique(sp))} superpoints, {len(np.unique(inst)) - 1} "
+              f"instances", flush=True)
+        cfg = baseline_model_cfg()
+        model, test_cfg = build_model(cfg, Capacities(
+            num_superpoints=SCENE["n_superpoints"],
+            level_cap_ratios=LEVEL_CAP_RATIOS))
+        random_init_(model, seed=0)
+        # the prepared labels are raw ScanNet ids: the reader maps them
+        launches, ms, rate, peak, metrics, kept = run_disk_eval(
+            model, test_cfg, out, "baseline", features_2d=False,
+            adjust_class_ids=True)
+    check_counts(launches, HYBRID_FORWARD, "phase 9d baseline launches in "
+                 "one hybrid forward of the prepared scan")
+    if not all(bool(torch.isfinite(k).all()) for k in kept) or \
+            not np.isfinite(metrics["all_ap_25"]):
+        raise SystemExit("phase 9d: non-finite outputs")
+    print(f"phase 9d: the Baseline eval entry point on the prepared scan "
+          f"(rgb alone, raw ids mapped by the reader): {rate:.3f} scenes/s, "
+          f"ms " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; peak {peak / 2 ** 30:.3f} GiB; all_ap_25="
+          f"{metrics['all_ap_25']:.4f}; prepare {t_prep:.2f} s; {card}",
+          flush=True)
+
+
+def run_phase9(card, step_launches):
+    """Phase 9: 9a a 2-rank step of each layout (``step_launches``: the
+    one-process step's launches of each), 9b the CLI under
+    torch.distributed.run, 9c eval in 2 processes, 9d prepared data;
+    returns 9a's launches a rank of each layout."""
+    import tempfile
+
+    from segdino3d_tpu_torch.data.synthetic import write_scannet_layout
+
+    launches = run_dist_step_phase(card, step_launches)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_scannet_layout(root, EVAL_DIST_SEEDS, **SCENE)
+        print(f"phase 9: wrote {len(EVAL_DIST_SEEDS)} scenes in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        run_torchrun_cli_phase(card, root)
+        run_dist_eval_phase(card, root)
+    run_prepared_data_phase(card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3176,6 +3774,13 @@ def main() -> int:
 
     # phase 7: the decoder options on the flagship model at full width
     run_options_phase(model, records, train_records, spec, caps)
+    del model
+
+    # phase 9: a 2-rank step, the CLI in an NCCL group, eval in 2
+    # processes, the prepared data
+    dist_launches = run_phase9(card, {
+        "gather": dict(train_launches),
+        "block-dense": dict(dense_train_launches)})
 
     # phase 8: the kernels line, then the result line
     meta = {
@@ -3258,7 +3863,9 @@ def main() -> int:
                 or bl_dev_train_launches[name]),
             baseline_cases=[c for c in rows[name]["cases"]
                             if c["shape"].startswith("baseline ")],
-            cli_device_launches_per_step=cli_launches.get(name, 0)))
+            cli_device_launches_per_step=cli_launches.get(name, 0),
+            launches_2rank_step=dist_launches["block-dense"][name],
+            launches_2rank_step_gather=dist_launches["gather"][name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -15,8 +15,9 @@ are built on the CPU (records, collate, the C++ host plan) in one of three
 record thread pool; ``process``, ``spawn``ed worker processes that never
 touch the card and return each batch through shared memory
 (``data.shm_transport``) or the result queue.  The consumer moves each
-batch to ``device``; an error in a thread or a worker, or a worker that
-dies, is raised in the consumer.
+batch to ``device``; an error in a thread or a worker, a worker that
+dies, or no batch within ``receive_timeout_s`` (a worker or thread that
+is alive but stuck) is raised in the consumer.
 
 ``EvalLoader`` reads scenes ``batch_size`` at a time, pads them to a fixed
 ``pad_spec`` or to the smallest rungs of a ``bucket_policy`` that hold the
@@ -41,12 +42,21 @@ nor ``block_caps``.
 writes each CPU batch with the slim records the eval driver reads; a later
 loader with the same data and settings serves them from a memory map.
 
-Mesh-sharded and multi-process eval wait for the distribution slice.
+``mesh_shards`` > 1 gives each batch as a list of ``mesh_shards``
+``SceneBatch``es of ``batch_size / mesh_shards`` scenes, each with its own
+host plan, a partial tail padded by repeating its last scene (only the
+real records are yielded).  ``process_index`` / ``process_count`` shard
+the global batches round-robin (process p takes batches p, p + count,
+...), so every process sees the batches of a one-process run; the prescan
+still covers the whole set, so every process pins the same capacities.
 """
 from __future__ import annotations
 
+import multiprocessing as mp
+import os
 import queue
 import threading
+import time
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -79,6 +89,26 @@ class ConcatDataset:
             idx - int(self._offsets[di]), rng, sync_scale=sync_scale)
 
 
+# a batch slower than this is a stuck worker, not a slow one: a
+# full-size training batch takes seconds
+RECEIVE_TIMEOUT_S = 600.0
+
+
+def _get(q, timeout_s: float, check, what: str):
+    """The next item of ``q``.  While none comes, ``check()`` raises when
+    the producers are gone; after ``timeout_s`` (producers alive but
+    stuck) a ``RuntimeError`` says ``what`` waited."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            return q.get(timeout=min(1.0, timeout_s))
+        except queue.Empty:
+            check()
+            if time.monotonic() >= deadline:
+                raise RuntimeError(f"{what}: nothing within {timeout_s} s"
+                                   ) from None
+
+
 def _to_numpy(tree):
     return map_leaves(tree, lambda x: x.numpy()
                       if isinstance(x, torch.Tensor) else x)
@@ -92,19 +122,30 @@ def _to_torch(tree):
 def _batch_worker_main(task_q, result_q, loader):
     """A process-mode worker: builds whole CPU batches (records, collate,
     host plan) with ``loader`` (a pickled copy) and returns them with
-    numpy leaves, through shared memory with ``shm_transport``.  It never
-    touches the card."""
+    numpy leaves, through shared memory with ``shm_transport`` (segments
+    named by the process group's rank, the worker's pid and the batch, so
+    that no two ranks on a host pick one name).  It stops on its sentinel
+    or when its parent is gone, and never touches the card."""
     from segdino3d_tpu_torch.data.shm_transport import encode
 
     torch.set_num_threads(1)
+    parent = mp.parent_process()
     while True:
-        task = task_q.get()
+        try:
+            task = task_q.get(timeout=1.0)
+        except queue.Empty:
+            if parent is not None and not parent.is_alive():
+                return
+            continue
         if task is None:
             return
         seq = task[0]
         try:
             b = _to_numpy(loader._make_batch(*task[1:]))
-            result_q.put((seq, encode(b) if loader.shm_transport else b))
+            if loader.shm_transport:
+                b = encode(b, name=f"segdino_r{loader.process_index}_"
+                           f"{os.getpid()}_{seq}")
+            result_q.put((seq, b))
         except Exception as e:      # raised in the consumer
             result_q.put((seq, e))
 
@@ -120,7 +161,7 @@ class TrainLoader:
                  process_count: int = 1, mesh_shards: int = 1,
                  host_plan_cfg: Optional[Dict] = None,
                  worker_mode: str = "thread", shm_transport: bool = True,
-                 device=None):
+                 device=None, receive_timeout_s: float = RECEIVE_TIMEOUT_S):
         if worker_mode not in ("sync", "thread", "process"):
             raise ValueError(f"worker_mode {worker_mode!r}")
         if batch_size % mesh_shards:
@@ -144,6 +185,7 @@ class TrainLoader:
         self.worker_mode = worker_mode if num_workers > 0 else "sync"
         self.shm_transport = shm_transport
         self.device = resolve_device(device)
+        self.receive_timeout_s = receive_timeout_s
         self._pool = None
 
     def _index_stream(self) -> Iterator:
@@ -262,12 +304,20 @@ class TrainLoader:
                    for _ in range(n_prod)]
         for t in threads:
             t.start()
+
+        def producers():
+            if not any(t.is_alive() for t in threads):
+                raise RuntimeError("train loader: the producer threads "
+                                   "exited")
+
         try:
             pending = {}
             want = 0
             while True:
                 while want not in pending:
-                    seq, b = q.get()
+                    seq, b = _get(q, self.receive_timeout_s, producers,
+                                  f"train loader threads, waiting for batch "
+                                  f"{want}")
                     pending[seq] = b
                 b = pending.pop(want)
                 if isinstance(b, BaseException):
@@ -277,7 +327,7 @@ class TrainLoader:
         finally:
             stop.set()
             for t in threads:
-                t.join()
+                t.join(timeout=60.0)
 
     def _iter_process(self):
         """``num_workers`` spawned processes build whole batches; the order
@@ -285,8 +335,6 @@ class TrainLoader:
         before its shared memory is released; on the CPU the batch's
         tensors are views into it, released once the consumer has moved on
         (``Graveyard``)."""
-        import multiprocessing as mp
-
         from segdino3d_tpu_torch.data.shm_transport import (Graveyard,
                                                             decode, track)
 
@@ -302,17 +350,12 @@ class TrainLoader:
         graveyard = Graveyard()
         pending = {}
 
-        def receive():
+        def workers():
             # a worker only exits on its sentinel: one that is gone died
-            while True:
-                try:
-                    return result_q.get(timeout=1.0)
-                except queue.Empty:
-                    dead = [p for p in procs if not p.is_alive()]
-                    if dead:
-                        raise RuntimeError(
-                            f"loader worker {dead[0].pid} exited with code "
-                            f"{dead[0].exitcode}")
+            dead = [p for p in procs if not p.is_alive()]
+            if dead:
+                raise RuntimeError(f"loader worker {dead[0].pid} exited with "
+                                   f"code {dead[0].exitcode}")
 
         try:
             for _ in range(self.num_workers + self.prefetch):
@@ -321,7 +364,10 @@ class TrainLoader:
             want = 0
             while True:
                 while want not in pending:
-                    seq, b = receive()
+                    seq, b = _get(result_q, self.receive_timeout_s, workers,
+                                  f"train loader workers "
+                                  f"{[p.pid for p in procs]}, waiting for "
+                                  f"batch {want}")
                     pending[seq] = track(b)
                 b = pending.pop(want)
                 if isinstance(b, BaseException):
@@ -351,7 +397,6 @@ def _shut_down(procs, task_q, result_q, pending, graveyard):
     frame cut short would block the reader), unlink the segments of
     batches never decoded, and close the decoded ones."""
     import multiprocessing.shared_memory as msm
-    import time
 
     from segdino3d_tpu_torch.data.shm_transport import ShmBatch, track
 
@@ -407,13 +452,12 @@ class EvalLoader:
         if pad_spec is None and bucket_policy is None:
             raise ValueError("EvalLoader needs a pad_spec or a "
                              "bucket_policy")
-        if mesh_shards != 1:
-            raise NotImplementedError("mesh_shards: mesh-sharded eval comes "
-                                      "with the distribution slice")
-        if (process_index, process_count) != (0, 1):
-            raise NotImplementedError("process_index/process_count: "
-                                      "multi-process eval comes with the "
-                                      "distribution slice")
+        if mesh_shards < 1 or batch_size % mesh_shards:
+            raise ValueError(f"batch_size {batch_size} is not a multiple of "
+                             f"mesh_shards {mesh_shards}")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} of "
+                             f"{process_count}")
         self.dataset = dataset
         self.pad_spec = pad_spec
         self.limit = limit
@@ -423,6 +467,9 @@ class EvalLoader:
         self.prefetch = prefetch
         self.prescan_caps = prescan_caps
         self.cache_dir = cache_dir
+        self.mesh_shards = mesh_shards
+        self.process_index = process_index
+        self.process_count = process_count
         self.device = resolve_device(device)
         self._rung_caps: Optional[Dict] = None
         self._cache_obj = None
@@ -433,18 +480,34 @@ class EvalLoader:
         return min(n, self.limit) if self.limit else n
 
     def __len__(self):
-        return -(-self.num_scenes // self.batch_size)
+        """The number of this process's batches."""
+        gb = -(-self.num_scenes // self.batch_size)
+        return -(-(gb - self.process_index) // self.process_count)
 
-    def _batches(self):
-        """(records, pad spec) of each batch, in order; the readers' random
-        draws come from one ``RandomState(0)`` stream."""
+    def _batches(self, mine: bool = True):
+        """(records, padded records, pad spec) of each batch in order, of
+        this process's share (``mine``) or of the whole set; the padded
+        records fill a partial tail to ``batch_size`` with ``mesh_shards``
+        > 1.  The readers' random draws come from one ``RandomState(0)``
+        stream over the batches read, as in the JAX loader."""
         rng = np.random.RandomState(0)
         n = self.num_scenes
-        for lo in range(0, n, self.batch_size):
+        for gi, lo in enumerate(range(0, n, self.batch_size)):
+            if mine and gi % self.process_count != self.process_index:
+                continue
             recs = [self.dataset.get_record(i, rng)
                     for i in range(lo, min(lo + self.batch_size, n))]
-            yield recs, (self.bucket_policy.spec_for(recs)
-                         if self.bucket_policy is not None else self.pad_spec)
+            padded = recs
+            if self.mesh_shards > 1 and len(recs) < self.batch_size:
+                padded = recs + [recs[-1]] * (self.batch_size - len(recs))
+            yield recs, padded, (self.bucket_policy.spec_for(padded)
+                                 if self.bucket_policy is not None
+                                 else self.pad_spec)
+
+    def _shards(self, padded):
+        """The record lists of a batch's ``mesh_shards`` shards."""
+        per = self.batch_size // self.mesh_shards
+        return [padded[i:i + per] for i in range(0, len(padded), per)]
 
     def _prescan(self) -> Dict:
         """{pad spec: plan capacities} of every occupied rung (see the
@@ -462,20 +525,21 @@ class EvalLoader:
         probe_stem = stem_kernel != 3 and bool(cfg.get("stem_compact"))
         stem_d = stem_slots_default(cfg.get("stem_compact_slots"))
         per_rung: Dict = {}
-        for recs, spec in self._batches():
-            coords, valid, bidx = _plan_coords(
-                recs, spec.num_points, cfg.get("voxel_size", 0.02),
-                cfg.get("exact_min_shift", False))
-            voxels, blocks, stem_ov = probe_plan_counts(
-                coords.reshape(-1, 3), bidx, valid.reshape(-1), edges,
-                num_levels, stem_kernel=stem_kernel if probe_stem else 0,
-                stem_slots=stem_d)
-            acc = per_rung.setdefault(spec, [np.zeros(num_levels, np.int64),
-                                             np.zeros(num_levels, np.int64),
-                                             0])
-            np.maximum(acc[0], voxels, out=acc[0])
-            np.maximum(acc[1], blocks, out=acc[1])
-            acc[2] = max(acc[2], stem_ov)
+        for _, padded, spec in self._batches(mine=False):
+            for sub in self._shards(padded):
+                coords, valid, bidx = _plan_coords(
+                    sub, spec.num_points, cfg.get("voxel_size", 0.02),
+                    cfg.get("exact_min_shift", False))
+                voxels, blocks, stem_ov = probe_plan_counts(
+                    coords.reshape(-1, 3), bidx, valid.reshape(-1), edges,
+                    num_levels, stem_kernel=stem_kernel if probe_stem else 0,
+                    stem_slots=stem_d)
+                acc = per_rung.setdefault(
+                    spec, [np.zeros(num_levels, np.int64),
+                           np.zeros(num_levels, np.int64), 0])
+                np.maximum(acc[0], voxels, out=acc[0])
+                np.maximum(acc[1], blocks, out=acc[1])
+                acc[2] = max(acc[2], stem_ov)
         for spec, (voxels, blocks, stem_ov) in per_rung.items():
             block_caps = [0 if i >= len(edges) or not edges[i]
                           else -(-int(b) // 16) * 16
@@ -505,6 +569,8 @@ class EvalLoader:
             cfg = dict(package="segdino3d_tpu_torch",
                        ds=ec.dataset_fingerprint(self.dataset),
                        limit=self.limit, batch_size=self.batch_size,
+                       mesh_shards=self.mesh_shards,
+                       proc=(self.process_index, self.process_count),
                        spec=repr(self.pad_spec),
                        bucket=repr(self.bucket_policy),
                        plan=ec.stable_repr(self.host_plan_cfg),
@@ -530,15 +596,23 @@ class EvalLoader:
         else:
             yield from cache.write_through(self._iter_build())
 
+    def _build_one(self, recs, spec):
+        batch = collate(recs, spec, "cpu")
+        if self.host_plan_cfg:
+            cfg = dict(self.host_plan_cfg)
+            cfg.update(self._prescan().get(spec, {}))
+            batch = attach_host_plan(batch, recs, spec, **cfg)
+        return batch
+
     def _iter_build(self):
-        """(records, batch on the CPU) of each batch, in order."""
-        for recs, spec in self._batches():
-            batch = collate(recs, spec, "cpu")
-            if self.host_plan_cfg:
-                cfg = dict(self.host_plan_cfg)
-                cfg.update(self._prescan().get(spec, {}))
-                batch = attach_host_plan(batch, recs, spec, **cfg)
-            yield recs, batch
+        """(records, batch on the CPU) of each of this process's batches,
+        in order; the batch a list of shards with ``mesh_shards`` > 1."""
+        for recs, padded, spec in self._batches():
+            if self.mesh_shards <= 1:
+                yield recs, self._build_one(recs, spec)
+            else:
+                yield recs, [self._build_one(sub, spec)
+                             for sub in self._shards(padded)]
 
     def __iter__(self):
         for recs, batch in self._produced():
@@ -572,9 +646,15 @@ class EvalLoader:
 
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
+
+        def producer_alive():
+            if not thread.is_alive():
+                raise RuntimeError("eval loader: the producer thread exited")
+
         try:
             while True:
-                item = q.get()
+                item = _get(q, RECEIVE_TIMEOUT_S, producer_alive,
+                            "eval loader")
                 if item is end:
                     return
                 if isinstance(item, BaseException):
@@ -582,4 +662,4 @@ class EvalLoader:
                 yield item
         finally:
             stop.set()
-            thread.join()
+            thread.join(timeout=60.0)

@@ -9,8 +9,10 @@ worker pickles the batch (its tensor leaves as numpy arrays) with protocol
 shared-memory segment and sends only a descriptor (segment name, the
 in-band pickle, offsets); the consumer attaches the segment and
 ``pickle.loads(..., buffers=...)`` rebuilds the arrays as views into the
-mapping, with no copy.  Below ``MIN_SHM_BYTES`` of payload, or where
-shared memory cannot be had, the batch goes through the queue as it is.
+mapping, with no copy.  Below ``MIN_SHM_BYTES`` of payload the batch goes
+through the queue as it is.  A batch larger than the free space of
+``/dev/shm`` raises (``ShmSpaceError``, with both sizes): a mapping past
+the end of the tmpfs would kill the process that touches it with SIGBUS.
 
 Lifetime: the worker closes its handle and unregisters the segment from
 its resource tracker, so the consumer owns it; the consumer registers it
@@ -29,6 +31,26 @@ from typing import Any, List, Optional, Tuple
 # pipe copy it saves: small batches go through the queue as they are
 # (the environment variable lets a test force the shm path)
 MIN_SHM_BYTES = int(os.environ.get("SEGDINO_SHM_MIN_BYTES", 1 << 20))
+SHM_DIR = "/dev/shm"
+
+
+class ShmSpaceError(OSError):
+    """A batch does not fit in the free space of ``SHM_DIR``."""
+
+
+def shm_free_bytes() -> int:
+    st = os.statvfs(SHM_DIR)
+    return st.f_bavail * st.f_frsize
+
+
+def check_shm_space(nbytes: int) -> None:
+    """Raise ``ShmSpaceError`` unless ``nbytes`` fit in ``SHM_DIR`` now."""
+    free = shm_free_bytes()
+    if nbytes > free:
+        raise ShmSpaceError(
+            f"a {nbytes}-byte batch does not fit in {SHM_DIR}, which has "
+            f"{free} bytes free: enlarge it (docker --shm-size) or set "
+            f"shm_transport=False")
 
 
 class _Segment(shared_memory.SharedMemory):
@@ -59,11 +81,13 @@ class ShmBatch:
         self.offsets = offsets
 
 
-def encode(obj: Any, min_bytes: int = MIN_SHM_BYTES):
-    """Worker side: return ``obj`` itself (small) or a ``ShmBatch``.
+def encode(obj: Any, min_bytes: int = MIN_SHM_BYTES,
+           name: Optional[str] = None):
+    """Worker side: return ``obj`` itself (small) or a ``ShmBatch`` whose
+    segment is called ``name`` (default: a random name).
 
-    Falls back to returning ``obj`` unchanged if shared memory is
-    unavailable, so the loader degrades to plain queue pickling.
+    Raises ``ShmSpaceError`` when the payload does not fit in the free
+    space of ``SHM_DIR``.
     """
     buffers: List[pickle.PickleBuffer] = []
     payload = pickle.dumps(obj, protocol=5, buffer_callback=buffers.append)
@@ -76,10 +100,8 @@ def encode(obj: Any, min_bytes: int = MIN_SHM_BYTES):
     total = sum(r.nbytes for r in raws)
     if total < min_bytes:
         return obj
-    try:
-        shm = shared_memory.SharedMemory(create=True, size=total)
-    except OSError:
-        return obj
+    check_shm_space(total)
+    shm = shared_memory.SharedMemory(name=name, create=True, size=total)
     offsets: List[Tuple[int, int]] = []
     pos = 0
     for r in raws:

@@ -11,6 +11,16 @@ A forward on a plan built on the device reports whether the plan
 outgrew its capacities (``BackboneOutput.overflow``); the driver reads
 that flag at the result copy, which waits on the device anyway, and
 raises, as a host plan does when it overflows.
+
+With ``process_count`` > 1 each process evaluates its share of the
+batches (``EvalLoader(process_index=..., process_count=...)``), writes
+its results to ``gather_dir`` and reads every process's back, so every
+process returns the metrics of the whole set.  The processes form a
+``parallel.mesh`` group: process 0 removes the shards of an earlier eval
+in ``gather_dir`` before any process writes its own (a barrier), and no
+process returns before every one has read the shards (a second one), so
+a shard left by another run or round never stands in for this one's.
+(The JAX driver waits only for each shard file to exist.)
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ from segdino3d_tpu_torch.models.architecture.postprocess import (
     InstancePred, predict_instance, predict_panoptic, predict_semantic)
 from segdino3d_tpu_torch.models.backbone.wrapper import DEVICE_PLAN_OVERFLOW
 from segdino3d_tpu_torch.ops.bitpack import pack_bits, unpack_bits_np
+from segdino3d_tpu_torch.parallel import mesh
 
 
 def postprocess(out, batch: SceneBatch, test_cfg: Dict,
@@ -104,16 +115,40 @@ def host_prediction(record: Dict, inst: InstancePred, sem, pan_sem,
 
 def evaluate(model, eval_loader: Iterable, evaluator: InstanceSeg3DEvaluator,
              test_cfg: Dict, filter_outofbox: bool = True,
-             bg_class_id: int = 200) -> Dict:
+             bg_class_id: int = 200, gather_dir: Optional[str] = None,
+             process_index: int = 0, process_count: int = 1) -> Dict:
     """``eval_loader`` (a ``data.loader.EvalLoader``, or any iterable of
-    (records, batch) pairs with the batch on the model's device); returns
-    the metric dict of ``evaluator``."""
+    (records, batch) pairs with the batch on the model's device, or a list
+    of per-shard batches whose scenes follow one another, the padding
+    last); returns the metric dict of ``evaluator``, of every process's
+    scenes where ``process_count`` > 1 (through ``gather_dir``, a path
+    every process can read)."""
+    if process_count > 1:
+        if gather_dir is None:
+            raise ValueError("multi-process eval needs gather_dir")
+        if mesh.process_count() != process_count:
+            raise ValueError(
+                f"multi-process eval of {process_count} processes needs a "
+                f"process group of that size (parallel.mesh."
+                f"init_distributed), not {mesh.process_count()}")
+        if process_index == 0:
+            evaluator.clear_shards(gather_dir)
+        mesh.barrier()
     predict = make_predict_fn(model, test_cfg, filter_outofbox)
     evaluator.reset()
     for records, batch in eval_loader:
-        results, overflow = predict(batch)
-        for record, result in zip(records, results):
+        shards = batch if isinstance(batch, list) else [batch]
+        scenes = []
+        for shard in shards:
+            results, overflow = predict(shard)
+            scenes += [(r, overflow) for r in results]
+        # the padded tail's scenes have no record: zip drops them
+        for record, (result, overflow) in zip(records, scenes):
             evaluator.process(eval_annotation(record, bg_class_id),
                               host_prediction(record, *result,
                                               plan_overflow=overflow))
+    if process_count > 1:
+        evaluator.save_shard(gather_dir, process_index)
+        evaluator.load_shards(gather_dir, process_count)
+        mesh.barrier()
     return evaluator.evaluate()

@@ -1,17 +1,27 @@
 """One training step: forward, criterion, backward, clip, AdamW/PolyLR, EMA.
 
-Counterpart of ``segdino3d_tpu/parallel/train_step.py:make_train_step``
-on one device (no mesh).  With ``accum_steps = k`` the step takes k
-microbatches in turn, as the JAX package scans them (its recipe for the
-reference's batch 4 on one chip): the batch-norm running statistics are
-updated by each microbatch in order, the gradients are summed over the
-microbatches and scaled by 1/k once, and the losses are averaged.  The
-metrics are each loss, ``total_loss`` and ``grad_norm`` (the global norm of
-the averaged gradients, before clipping), as 0-d tensors on the device.
-After a step the parameters' ``.grad`` hold the clipped gradients.
+Counterpart of ``segdino3d_tpu/parallel/train_step.py:make_train_step``.
+With ``accum_steps = k`` the step takes k microbatches in turn, as the
+JAX package scans them (its recipe for the reference's batch 4 on one
+chip): the batch-norm running statistics are updated by each microbatch
+in order, the gradients are summed over the microbatches and scaled by
+1/k once, and the losses are averaged.  The metrics are each loss,
+``total_loss`` and ``grad_norm`` (the global norm of the averaged
+gradients, before clipping), as 0-d tensors on the device.  After a step
+the parameters' ``.grad`` hold the clipped gradients.
 ``host_metrics`` reads them in one copy, together with whether a plan
 built on the device outgrew its capacities in the step, and raises if one
 did: a step never waits on the device for that flag alone.
+
+With a ``process_group`` (``parallel.mesh``) each process steps its own
+microbatches, then the gradients, each loss, ``total_loss`` and the
+batch-norm running statistics are averaged over the group (JAX's
+``pmean`` over the ``data`` axis), in one all-reduce per dtype, once a
+step whatever ``accum_steps``; the norm, the clipping and the update read
+the averaged gradients, so every process takes the same update.  There is
+no ``DistributedDataParallel``: it would broadcast rank 0's batch-norm
+buffers where JAX averages them, and reduce in every microbatch's
+backward.
 
 ``StageClock`` times the stages of a step for measurement: it synchronises
 the device at every stage boundary, so it is off unless a caller passes
@@ -28,6 +38,7 @@ from torch import nn
 
 from segdino3d_tpu_torch.gtypes import SceneBatch
 from segdino3d_tpu_torch.models.backbone.wrapper import DEVICE_PLAN_OVERFLOW
+from segdino3d_tpu_torch.parallel.mesh import all_reduce_mean_
 from segdino3d_tpu_torch.train.ema import EMA
 from segdino3d_tpu_torch.train.optim import AdamW, global_norm
 
@@ -53,12 +64,14 @@ class StageClock:
 
 class TrainStep:
     def __init__(self, model: nn.Module, criterion, optimizer: AdamW,
-                 ema: Optional[EMA] = None, accum_steps: int = 1):
+                 ema: Optional[EMA] = None, accum_steps: int = 1,
+                 process_group=None):
         self.model = model
         self.criterion = criterion
         self.optimizer = optimizer
         self.ema = ema
         self.accum_steps = accum_steps
+        self.process_group = process_group
         self.plan_overflow: Optional[torch.Tensor] = None
 
     def __call__(self, microbatches: Sequence[SceneBatch],
@@ -99,22 +112,35 @@ class TrainStep:
             for k, v in losses.items():
                 loss_sums[k] = loss_sums.get(k, 0.0) + v.detach()
             total_sum = total_sum + total.detach()
+        inv = 1.0 / self.accum_steps
+        metrics = {k: v * inv for k, v in loss_sums.items()}
+        metrics["total_loss"] = total_sum * inv
+        if self.process_group is not None:
+            # every process reduces the same list: a parameter without a
+            # gradient here may have one elsewhere
+            for p in self.optimizer.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.optimizer.params if p.grad is not None]
         with torch.no_grad():
             if self.accum_steps > 1:
-                torch._foreach_mul_(grads, 1.0 / self.accum_steps)
+                torch._foreach_mul_(grads, inv)
+            if self.process_group is not None:
+                all_reduce_mean_(grads + list(metrics.values())
+                                 + self._bn_stats(), self.process_group)
             grad_norm = global_norm(grads)
         self.optimizer.step(grad_norm)
         if self.ema is not None:
             self.ema.update()
         if clock is not None:
             clock.mark("optimizer")
-        inv = 1.0 / self.accum_steps
-        metrics = {k: v * inv for k, v in loss_sums.items()}
-        metrics["total_loss"] = total_sum * inv
         metrics["grad_norm"] = grad_norm
         self.plan_overflow = overflow
         return metrics
+
+    def _bn_stats(self):
+        return [b for n, b in self.model.named_buffers()
+                if n.endswith(("running_mean", "running_var"))]
 
     def host_metrics(self, metrics: Dict[str, torch.Tensor]
                      ) -> Dict[str, float]:

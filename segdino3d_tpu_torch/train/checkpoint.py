@@ -104,11 +104,15 @@ def save_checkpoint(work_dir: str, state: TrainState, keep: int = 5):
     _write(work_dir, host_state(state), keep)
 
 
+# bound on ``CheckpointWriter.close``'s wait for the pending writes
+CLOSE_TIMEOUT_S = 600.0
+
+
 class CheckpointWriter:
     """Checkpoints written on a background thread: ``save`` takes the host
     copy and returns, the thread writes it.  ``close()`` (or the context
-    exit) waits for every pending write; an error of the thread is raised
-    by the next ``save`` or by ``close``."""
+    exit) waits for every pending write, at most ``CLOSE_TIMEOUT_S``; an
+    error of the thread is raised by the next ``save`` or by ``close``."""
 
     def __init__(self, work_dir: str, keep: int = 5):
         self.work_dir = work_dir
@@ -120,7 +124,12 @@ class CheckpointWriter:
 
     def _run(self):
         while True:
-            ckpt = self._q.get()
+            try:
+                ckpt = self._q.get(timeout=1.0)
+            except queue.Empty:
+                if not threading.main_thread().is_alive():
+                    return
+                continue
             if ckpt is None:
                 return
             try:
@@ -140,7 +149,11 @@ class CheckpointWriter:
     def close(self):
         if self._thread.is_alive():
             self._q.put(None)
-            self._thread.join()
+            self._thread.join(CLOSE_TIMEOUT_S)
+            if self._thread.is_alive():
+                raise RuntimeError(
+                    f"checkpoint writer: pending writes to {self.work_dir} "
+                    f"not done after {CLOSE_TIMEOUT_S} s")
         self._raise()
 
     def __enter__(self):

@@ -9,9 +9,17 @@ steps, profiles ``profile_steps`` and saves at the end.  The first
 SIGTERM or SIGINT checkpoints at the next step boundary and returns.
 
 The step's query sampling and dropout masks come from one
-``torch.Generator`` on the step's device, seeded with ``seed``.  A resumed
-state continues from its step with a fresh loader stream and generator,
-as in the JAX package.
+``torch.Generator`` on the step's device, seeded with ``seed`` (in a
+group of several processes, ``seed`` folded with the process's rank, as
+the JAX step folds the mesh axis index into its key).  A resumed state
+continues from its step with a fresh loader stream and generator, as in
+the JAX package.
+
+In a process group (``parallel.mesh``) only process 0 writes checkpoints;
+the others wait for it at a barrier after each save.  A signal to any
+process stops every process at the same step boundary: the guard's flag
+is all-reduced there, as a host tensor over gloo, so the boundary waits
+for the other processes but not for the card.
 """
 from __future__ import annotations
 
@@ -23,6 +31,9 @@ from typing import Callable, Optional
 
 import torch
 
+from segdino3d_tpu_torch.parallel.mesh import (any_flag, barrier,
+                                               process_count, process_index,
+                                               process_is_main)
 from segdino3d_tpu_torch.train.checkpoint import CheckpointWriter, TrainState
 from segdino3d_tpu_torch.utils import profiling
 from segdino3d_tpu_torch.utils.metrics import MetricLogger
@@ -83,8 +94,10 @@ def train_loop(*, step_fn: Callable, state: TrainState, train_loader,
     lives on the model's device."""
     log = logger.info if logger else print
     metric_logger = MetricLogger(logger=logger)
-    gen = torch.Generator(device=next(state.model.parameters()).device
-                          ).manual_seed(seed)
+    device = next(state.model.parameters()).device
+    n_proc = process_count()
+    gen = torch.Generator(device=device).manual_seed(
+        seed if n_proc == 1 else hash((seed, process_index())) % (2 ** 63))
 
     if eval_first and eval_fn is not None:
         eval_fn(state)
@@ -92,7 +105,9 @@ def train_loop(*, step_fn: Callable, state: TrainState, train_loader,
     start_step = state.step
     it = iter(train_loader)
     t_end = time.time()
-    writer = CheckpointWriter(work_dir) if work_dir else None
+    writer = (CheckpointWriter(work_dir) if work_dir and process_is_main()
+              else None)
+    saves = bool(work_dir)
     last_saved = -1
     try:
         with _PreemptionGuard() as guard:
@@ -123,18 +138,27 @@ def train_loop(*, step_fn: Callable, state: TrainState, train_loader,
                     path = profiling.stop_trace()
                     log(f"profile trace: {path}")
                     log(profiling.device_memory_summary())
-                if writer and save_step and (step + 1) % save_step == 0:
-                    writer.save(state)
+                if saves and save_step and (step + 1) % save_step == 0:
+                    if writer:
+                        writer.save(state)
+                    barrier()
                     last_saved = state.step
                 if (eval_fn is not None and eval_step
                         and (step + 1) % eval_step == 0):
                     eval_fn(state)
-                if guard.signum is not None:
-                    log(f"signal {guard.signum} received: checkpointing at "
-                        f"step {step + 1} and exiting the train loop")
+                stop = guard.signum is not None
+                if n_proc > 1:
+                    stop = any_flag(stop)
+                if stop:
+                    log(f"signal {guard.signum or 'on another process'} "
+                        f"received: checkpointing at step {step + 1} and "
+                        f"exiting the train loop")
                     break
-        if writer and state.step != last_saved:
-            writer.save(state)
+        if saves and state.step != last_saved:
+            if writer:
+                writer.save(state)
+                writer.close()
+            barrier()
     finally:
         if hasattr(it, "close"):
             it.close()      # a process-mode loader stops its workers

@@ -1,6 +1,8 @@
-"""Training and evaluation entry point of the port, on one card.
+"""Training and evaluation entry point of the port.
 
     python -m segdino3d_tpu_torch.train_3d --config_file CFG --work_dir DIR
+    python -m torch.distributed.run --nproc_per_node N \
+        -m segdino3d_tpu_torch.train_3d --config_file CFG --work_dir DIR
 
 Counterpart of ``train_3d.py``, with its flags (``--config_file
 --work_dir --seed --eval_only --eval_first --resume --load_pretrained_ckpt
@@ -15,6 +17,15 @@ config's training plan (``mesh_shards = accum_steps``: the microbatches of
 a step) and the train loop.  ``--device`` names the device (default: the
 card; without one it raises); the kernels build once into the build
 directory, so there is no compile cache flag.
+
+Under ``torch.distributed.run`` each process joins the group
+(``parallel.mesh``: NCCL on the cards, ``cuda:LOCAL_RANK`` each; gloo with
+``--device cpu``), reads its shard of the training stream and of the eval
+batches, and steps its own ``train_batch_size`` scenes; the step averages
+gradients, losses and batch-norm statistics over the group.  Process 0
+writes the config, the code snapshot and the checkpoints; every process
+logs to ``work_dir/log_<rank>``, builds its own eval cache, and gathers
+the eval results through ``work_dir/eval_gather/step_<N>``.
 """
 from __future__ import annotations
 
@@ -75,6 +86,18 @@ def parse_options(opts):
 def main(argv=None):
     args = get_args(argv)
 
+    from segdino3d_tpu_torch.device import resolve_device
+    from segdino3d_tpu_torch.parallel import mesh
+
+    device = mesh.local_device(resolve_device(args.device))
+    mesh.init_distributed(device)
+    try:
+        return _run(args, device)
+    finally:
+        mesh.shutdown_distributed()
+
+
+def _run(args, device):
     import torch
 
     from segdino3d_tpu_torch.builder import (Capacities, build_criterion,
@@ -88,10 +111,10 @@ def main(argv=None):
     from segdino3d_tpu_torch.data.scannet_constants import (
         SCANNET200_CLASS_NAMES, SCANNET200_RAW_IDS, SCANNET20_CLASS_NAMES,
         SCANNET20_RAW_IDS)
-    from segdino3d_tpu_torch.device import resolve_device
     from segdino3d_tpu_torch.evaluation.evaluate import evaluate
     from segdino3d_tpu_torch.evaluation.evaluator import \
         InstanceSeg3DEvaluator
+    from segdino3d_tpu_torch.parallel import mesh
     from segdino3d_tpu_torch.parallel.train_step import TrainStep
     from segdino3d_tpu_torch.registry import DATASETS
     from segdino3d_tpu_torch.train.checkpoint import (TrainState,
@@ -104,18 +127,23 @@ def main(argv=None):
                                                    setup_logger)
     import segdino3d_tpu_torch.data.scannet_dataset  # noqa: F401 (registry)
 
-    device = resolve_device(args.device)
+    rank, n_proc = mesh.process_index(), mesh.process_count()
     os.makedirs(args.work_dir, exist_ok=True)
-    logger = setup_logger(args.work_dir)
+    logger = setup_logger(args.work_dir, process_index=rank)
     logger.info(f"git sha: {get_git_sha()}")
     logger.info(f"device: {device}" + (
         f" ({torch.cuda.get_device_name(device)})"
-        if device.type == "cuda" else ""))
-    dump_code(args.work_dir)
+        if device.type == "cuda" else "")
+        + (f", process {rank} of {n_proc} "
+           f"({torch.distributed.get_backend()})"
+           if torch.distributed.is_initialized() else ""))
+    if rank == 0:
+        dump_code(args.work_dir)
 
     cfg = Config.fromfile(args.config_file)
     cfg.merge_from_options(parse_options(args.options))
-    cfg.dump(os.path.join(args.work_dir, "config.py"))
+    if rank == 0:
+        cfg.dump(os.path.join(args.work_dir, "config.py"))
 
     caps = Capacities.from_cfg(cfg.get("capacities"))
     model, test_cfg = build_model(cfg.model, caps, device=device, train=True)
@@ -178,7 +206,8 @@ def main(argv=None):
         bucket_policy=BucketPolicy.default(
             n_sem, caps.num_points, caps.num_superpoints,
             caps.num_instances, caps.num_queries2d),
-        host_plan_cfg=eval_plan_cfg, cache_dir=eval_cache, device=device)
+        host_plan_cfg=eval_plan_cfg, cache_dir=eval_cache, device=device,
+        process_index=rank, process_count=n_proc)
 
     def run_eval(st):
         cache = eval_loader.cache
@@ -190,10 +219,17 @@ def main(argv=None):
         try:
             with (st.ema.applied() if st.ema is not None
                   else contextlib.nullcontext()):
-                res = evaluate(st.model, eval_loader, evaluator, test_cfg,
-                               filter_outofbox=cfg.model.get(
-                                   "filter_outofbox_points_eval", True),
-                               bg_class_id=eval_ds.bg_class_id)
+                res = evaluate(
+                    st.model, eval_loader, evaluator, test_cfg,
+                    filter_outofbox=cfg.model.get(
+                        "filter_outofbox_points_eval", True),
+                    bg_class_id=eval_ds.bg_class_id,
+                    # a directory per step: shards of an earlier eval
+                    # round must never satisfy this one's wait
+                    gather_dir=(os.path.join(args.work_dir, "eval_gather",
+                                             f"step_{st.step:010d}")
+                                if n_proc > 1 else None),
+                    process_index=rank, process_count=n_proc)
         finally:
             st.model.train()
         dt = time.perf_counter() - t0
@@ -226,8 +262,12 @@ def main(argv=None):
         num_workers=cfg.data.get("num_workers", 4),
         worker_mode=cfg.data.get("worker_mode", "thread"),
         shm_transport=cfg.data.get("shm_transport", True),
+        process_index=rank, process_count=n_proc,
         mesh_shards=accum, host_plan_cfg=train_plan_cfg, device=device)
-    step = TrainStep(model, criterion, optimizer, ema, accum_steps=accum)
+    step = TrainStep(model, criterion, optimizer, ema, accum_steps=accum,
+                     process_group=(torch.distributed.group.WORLD
+                                    if torch.distributed.is_initialized()
+                                    else None))
     return train_loop(
         step_fn=step, state=state, train_loader=train_loader,
         num_iterations=cfg.get("num_iterations", 1000),

@@ -3,8 +3,10 @@ with ``--device cpu`` on tiny scenes written from seeds, with the small
 model config of ``tests/test_cli.py`` (its capacities cut to the scenes:
 a 4,096-voxel cap and shrinking level caps, so a CPU step takes seconds).
 
-It trains and checkpoints, then evaluates the checkpoint
-(``--eval_only --resume``) to an AP dict; runs ``--accum_steps 2``; merges
+It trains with ``--accum_steps 2`` and checkpoints (one run, which two
+tests read), then evaluates the checkpoint (``--eval_only --resume``) to
+an AP dict; refuses an ``--accum_steps`` that does not divide the batch;
+merges
 a partial reference-layout checkpoint (``--load_pretrained_ckpt``), whose
 parameters and batch-norm running statistics must reach the evaluated
 model bit-equal to the port's reference import (the counterpart of
@@ -62,16 +64,25 @@ def _run(cfg, work, *flags):
                           "--seed", "1", "--device", "cpu", *flags])
 
 
-def test_cli_train_then_eval(tmp_path):
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """Two steps of batch 2 as two microbatches of 1 (``--accum_steps
+    2``), a checkpoint after each: (config, work dir, state, log)."""
+    tmp_path = tmp_path_factory.mktemp("cli_train")
     cfg, work = _setup(tmp_path, [0, 1, 2], **{
         "num_iterations = 4": "num_iterations = 2",
         "save_step = 4": "save_step = 1"})
-    state = _run(cfg, work)
+    state = _run(cfg, work, "--accum_steps", "2")
+    with open(os.path.join(work, "log_0", "log.txt")) as f:
+        log = f.read()
+    return cfg, work, state, log
+
+
+def test_cli_train_then_eval(trained):
+    cfg, work, state, log = trained
     assert state.step == 2
     assert sorted(os.listdir(os.path.join(work, "checkpoints"))) == [
         "step_0000000001.pth", "step_0000000002.pth"]
-    with open(os.path.join(work, "log_0", "log.txt")) as f:
-        log = f.read()
     assert "iter [0/2]" in log and "total_loss" in log
     res = _run(cfg, work, "--eval_only", "--resume", "--num_eval_scenes",
                "2")
@@ -84,13 +95,11 @@ def test_cli_train_then_eval(tmp_path):
     assert os.path.isfile(os.path.join(work, "config.py"))
 
 
-def test_cli_train_accum_steps(tmp_path):
+def test_cli_train_accum_steps(trained, tmp_path):
     """--accum_steps 2: a batch of 2 scenes as 2 microbatches of 1."""
-    cfg, work = _setup(tmp_path, [0, 1], **{
-        "num_iterations = 4": "num_iterations = 2",
-        "save_step = 4": "save_step = 2"})
-    state = _run(cfg, work, "--accum_steps", "2")
+    cfg, work, state, _ = trained
     assert state.step == 2 and latest_step(work) == 2
+    assert state.optimizer.count == 2
     with pytest.raises(SystemExit, match="not divisible"):
         _run(cfg, str(tmp_path / "w3"), "--accum_steps", "3")
 

@@ -8,9 +8,7 @@ bit-equal to freshly built ones, as ``tests/test_eval_cache.py`` holds the
 JAX cache.
 """
 import os
-import signal
 import sys
-import threading
 import time
 
 import numpy as np
@@ -189,30 +187,24 @@ class _FakeStep:
 
 def test_sigterm_checkpoints_at_the_step_boundary(tmp_path):
     """A SIGTERM mid-loop checkpoints at the next step boundary and
-    returns; the checkpoint restores that step; the handlers come back."""
-    import itertools
+    returns; the checkpoint restores that step; the handlers come back.
+    The loop runs in a spawned process that signals itself, so that no
+    signal reaches the test runner's process
+    (``torch_port_procs.sigterm``)."""
+    from torch_port_procs import spawn_group
 
-    from segdino3d_tpu_torch.train.engine import train_loop
-
-    state = _state()
-    timer = threading.Timer(0.4, lambda: os.kill(os.getpid(),
-                                                 signal.SIGTERM))
-    timer.start()
-    try:
-        out = train_loop(step_fn=_FakeStep(state), state=state,
-                         train_loader=itertools.count(),
-                         num_iterations=10_000, print_freq=10_000,
-                         save_step=10_000, work_dir=str(tmp_path))
-    finally:
-        timer.cancel()
-    done = out.step
+    work = str(tmp_path / "work")
+    (res,) = spawn_group(1, str(tmp_path),
+                         [("sigterm", "sigterm", dict(work_dir=work))],
+                         timeout_s=90.0, group=False)
+    done = res["sigterm"]["step"]
     assert 0 < done < 10_000
-    assert CK.latest_step(str(tmp_path)) == done
+    assert res["sigterm"]["saves"] == [done]
+    assert res["sigterm"]["handlers_back"]
+    assert CK.latest_step(work) == done
     fresh = _state(seed=3)
-    CK.restore_checkpoint(str(tmp_path), fresh)
+    CK.restore_checkpoint(work, fresh)
     assert fresh.step == done
-    assert signal.getsignal(signal.SIGTERM) in (signal.SIG_DFL,
-                                                signal.default_int_handler)
 
 
 def test_train_loop_logs_saves_and_evaluates(tmp_path):

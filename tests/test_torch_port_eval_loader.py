@@ -277,10 +277,12 @@ def test_eval_loader_raises_reader_errors_in_the_consumer(data_root,
 def test_eval_loader_refuses_unported_options(data_root, monkeypatch):
     port, _ = _readers(data_root)
     policy = _policy(TB.BucketPolicy)
-    for kw, what in ((dict(mesh_shards=2), "mesh_shards"),
-                     (dict(process_index=1, process_count=2),
-                      "process_index")):
-        with pytest.raises(NotImplementedError, match=what):
+    # shards and process shares are ported (test_torch_port_dist.py);
+    # values that name no shard are refused
+    for kw, what in ((dict(mesh_shards=2), "multiple of mesh_shards"),
+                     (dict(process_index=2, process_count=2),
+                      "process_index 2 of 2")):
+        with pytest.raises(ValueError, match=what):
             TL.EvalLoader(port, bucket_policy=policy, device="cpu", **kw)
     with pytest.raises(ValueError, match="pad_spec or a bucket_policy"):
         TL.EvalLoader(port, device="cpu")

@@ -184,11 +184,12 @@ def jax_reference():
     return jax_step(jmodel, jcrit, mbs, initial_variables())
 
 
-def jax_step(jmodel, jcrit, mbs, variables):
-    """The JAX package's ``accum_steps=2`` step of ``jmodel`` and
-    ``jcrit`` on the microbatches ``mbs``, from ``variables``, with this
-    file's query selection, optimizer and EMA -> the fixture's
-    contents."""
+def jax_step(jmodel, jcrit, mbs, variables, mesh=None, accum_steps=2):
+    """The JAX package's ``accum_steps`` step of ``jmodel`` and ``jcrit``
+    on the microbatches ``mbs``, from ``variables``, with this file's query
+    selection, optimizer and EMA -> the fixture's contents.  With a
+    ``mesh`` the step is the ``shard_map`` one over its devices, ``mbs``
+    stacked device-major (``accum_steps`` a device)."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -214,7 +215,8 @@ def jax_step(jmodel, jcrit, mbs, variables):
     JA.select_queries_random = select
     try:
         step = make_train_step(jmodel, jcrit, tx, ema_decay=EMA_DECAY,
-                               donate=False, accum_steps=2)
+                               donate=False, accum_steps=accum_steps,
+                               mesh=mesh, stacked_batch=mesh is not None)
         new, metrics = step(state, JC.stack_batches(mbs),
                             jax.random.PRNGKey(3))
         outputs, gt = jax.jit(lambda v, b: jmodel.apply(
@@ -275,13 +277,14 @@ def regen():
 # --------------------------------------------------------------------------
 
 def port_step(variables, recs=None, device_plan=False, layout=None,
-              cfg=PORT_CFG, generator=None):
-    """The port's step of ``cfg``'s model on the two microbatches, from
-    ``variables``; with ``device_plan`` the microbatches carry no host
-    plan and the backbone builds theirs on the device, at the host plan's
-    capacities.  ``layout`` adds or overrides host-plan arguments
+              cfg=PORT_CFG, generator=None, process_group=None):
+    """The port's step of ``cfg``'s model on one microbatch per record
+    (``recs``, default the two of ``records()``), from ``variables``; with
+    ``device_plan`` the microbatches carry no host plan and the backbone
+    builds theirs on the device, at the host plan's capacities.
+    ``layout`` adds or overrides host-plan arguments
     (``attach_host_plan``); ``generator`` goes to the step (it draws the
-    decoder's dropout masks)."""
+    decoder's dropout masks), and so does ``process_group``."""
     caps = Capacities(num_superpoints=S_CAP, num_voxels=VOXEL_CAP)
     model, _ = build_model(cfg, caps, device="cpu", train=True)
     load_jax_variables(model, variables)
@@ -311,7 +314,8 @@ def port_step(variables, recs=None, device_plan=False, layout=None,
     opt = build_optimizer(model.named_parameters(), OPT, SCHED,
                           clip_max_norm=CLIP)
     ema = EMA(model.named_parameters(), EMA_DECAY)
-    step = TrainStep(model, crit, opt, ema, accum_steps=2)
+    step = TrainStep(model, crit, opt, ema, accum_steps=len(mbs),
+                     process_group=process_group)
     metrics = step(mbs, queries, generator)
     return dict(model=model, before=before, metrics=metrics,
                 matches=matches, ema=ema, batches=mbs)

@@ -9,6 +9,7 @@ records, batches and host plans bit-equal to the JAX package's.
 """
 import os
 import sys
+import time
 
 import jax
 import numpy as np
@@ -369,30 +370,13 @@ def test_process_shards_are_disjoint_and_match_jax():
     assert len(idx[0]) == 4 and idx[0].isdisjoint(idx[1])
 
 
-class _FailingDS:
-    """Module level, so spawned workers can unpickle it: raises on idx 5,
-    or with ``die`` ends its process."""
-
-    def __init__(self, die=False):
-        self.die = die
-
-    def __len__(self):
-        return 8
-
-    def get_record(self, idx, rng, sync_scale=None):
-        if idx == 5:
-            if self.die:
-                os._exit(3)
-            raise ValueError("boom at idx 5")
-        return synthetic_scene(idx, n_points=300, n_superpoints=16,
-                               n_classes=8, n_queries2d=4, feat_dim_2d=4)
-
-
 @pytest.mark.parametrize("die", [False, True], ids=["raises", "dies"])
 def test_process_worker_failure_raised_in_consumer(die):
     """A worker's exception is re-raised in the consumer; a worker that
     dies is reported there too; the pool shuts down after either."""
-    loader = TL.TrainLoader(_FailingDS(die), 4, TC.PadSpec(512, 16, 16, 8, 8),
+    from torch_port_procs import FailingDS
+
+    loader = TL.TrainLoader(FailingDS(die), 4, TC.PadSpec(512, 16, 16, 8, 8),
                             seed=0, num_workers=2, worker_mode="process",
                             device="cpu")
     it = iter(loader)
@@ -400,6 +384,37 @@ def test_process_worker_failure_raised_in_consumer(die):
     with pytest.raises((ValueError, RuntimeError), match=match):
         for _ in range(4):   # idx 5 comes within the first two epochs
             next(it)
+    it.close()
+
+
+def test_process_worker_that_sends_nothing_raises_after_the_deadline():
+    """Workers that are alive but send no batch within
+    ``receive_timeout_s``: the consumer raises, naming the workers and
+    the batch it waited for, and the pool shuts down after."""
+    from torch_port_procs import StuckDS
+
+    loader = TL.TrainLoader(StuckDS(3.0), 1, TC.PadSpec(512, 16, 16, 8, 8),
+                            seed=0, num_workers=2, worker_mode="process",
+                            prefetch=0, device="cpu", receive_timeout_s=1.0)
+    it = iter(loader)
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"workers \[\d+, \d+\], waiting "
+                                           r"for batch 0: nothing within "
+                                           r"1.0 s"):
+        next(it)
+    assert time.monotonic() - t0 < 30.0
+    it.close()
+
+
+def test_thread_producer_that_sends_nothing_raises_after_the_deadline():
+    from torch_port_procs import StuckDS
+
+    loader = TL.TrainLoader(StuckDS(2.0), 2, TC.PadSpec(512, 16, 16, 8, 8),
+                            seed=0, num_workers=2, worker_mode="thread",
+                            prefetch=1, device="cpu", receive_timeout_s=0.5)
+    it = iter(loader)
+    with pytest.raises(RuntimeError, match="nothing within 0.5 s"):
+        next(it)
     it.close()
 
 
@@ -432,3 +447,16 @@ def test_shm_round_trip_leaves_no_segment(monkeypatch):
     small = TS.encode(tree)              # below MIN_SHM_BYTES: inline
     assert small is tree
     assert TS.decode(small) == (tree, None)
+
+
+def test_shm_batch_past_the_free_space_raises(monkeypatch):
+    """A batch larger than the free space of /dev/shm raises with both
+    sizes and creates no segment (a mapping past the end of the tmpfs
+    would end in SIGBUS); the queue transport is not taken instead."""
+    tree = dict(a=np.zeros((64, 3), np.float32))
+    before = set(os.listdir("/dev/shm"))
+    monkeypatch.setattr(TS, "shm_free_bytes", lambda: 100)
+    with pytest.raises(TS.ShmSpaceError, match="768-byte batch .* has 100 "
+                                               "bytes free"):
+        TS.encode(tree, min_bytes=1)
+    assert set(os.listdir("/dev/shm")) == before
