@@ -474,8 +474,10 @@ def wgrad_library(a, ia, b, ib, mirror):
     return dw.flip(0) if mirror else dw
 
 
-def conv_case(cases, gen, name, vin, nbr, valid, cin, cout):
-    """K1 in its forward role, fp32 and bf16."""
+def conv_case(cases, gen, name, vin, nbr, valid, cin, cout, wide=False):
+    """K1 in its forward role, fp32 and bf16; with ``wide``, K1's wide
+    path (the pair-major schedule) forced and timed beside it as a
+    yardstick."""
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
     per = {}
@@ -484,12 +486,16 @@ def conv_case(cases, gen, name, vin, nbr, valid, cin, cout):
         x = _randn(gen, (vin, cin), dt)
         w = _randn(gen, (nbr.shape[0], cin, cout), dt,
                    (nbr.shape[0] * cin) ** -0.5)
+        extra = {"the wide path":
+                 lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid,
+                                                 narrow=False)} if wide else {}
         per[dt] = (lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid),
                    lambda x=x, w=w: SC.gather_conv_plain(x, nbr, w, valid),
                    lambda x=x, w=w: conv_library(x, nbr, w),
                    2.0 * hits * cin * cout,
                    nbytes(x, nbr, w, valid)
-                   + nbr.shape[1] * cout * x.element_size(), CONV_PEAK[dt])
+                   + nbr.shape[1] * cout * x.element_size(), CONV_PEAK[dt],
+                   extra)
     cases.append(("gather_gemm_conv", name, per))
 
 
@@ -840,19 +846,77 @@ def v2_cases(batch, s_cap, gen):
     return cases
 
 
+def narrow_stem_check(plan, gen):
+    """K1's narrow path at the Baseline's stem allocates its output alone
+    and builds no pair list (on a fresh copy of the stem table, which no
+    list was built for), where the wide path builds the list and
+    allocates its (n_off * V, 32) fp32 buffer, and the two paths' fp32
+    outputs are bit-equal (one order of sums); and ``narrow.smem_bytes``
+    equals the library's ``narrow_conv_smem`` on every shape the rule
+    admits at k3 and k5 into 32 or 64 channels."""
+    from segdino3d_tpu_torch.ops import cuda_build
+    from segdino3d_tpu_torch.ops import narrow as N
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    lib = cuda_build.library("gather_gemm_conv")
+    for n_off in (27, 125):
+        for cin in range(1, N.KERNEL_MAX_CIN + 1):
+            for cout in (32, 64):
+                for dt in (torch.float32, torch.bfloat16):
+                    if not N.narrow_fits(n_off, cin, cout, dt):
+                        continue
+                    want = lib.narrow_conv_smem(n_off, cin, cout,
+                                                cuda_build.dtype_code(dt))
+                    if N.smem_bytes(n_off, cin, cout, dt) != want:
+                        raise SystemExit(f"narrow.smem_bytes{(n_off, cin, cout)}"
+                                         f" {dt} differs from the kernel's "
+                                         f"{want}")
+    lv = plan.levels[0]
+    x = _randn(gen, (lv.valid.shape[0], 3), torch.float32)
+    w = _randn(gen, (125, 3, 32), torch.float32, 375 ** -0.5)
+    grown, outs = {}, {}
+    for path in ("narrow", "wide"):
+        table = plan.stem_nbr.clone()
+        torch.cuda.synchronize()
+        lists = SC.gather_pairs.launches
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = SC.gather_conv(x, table, w, lv.valid,
+                             narrow=None if path == "narrow" else False)
+        torch.cuda.synchronize()
+        grown[path] = (torch.cuda.max_memory_allocated() - base,
+                       SC.gather_pairs.launches - lists)
+        outs[path] = out
+        del out, table
+    out_bytes = lv.valid.shape[0] * 32 * 4
+    print(f"K1 at the Baseline stem 3->32: the narrow path's peak "
+          f"allocation {grown['narrow'][0] / 2 ** 20:.2f} MiB (its output "
+          f"{out_bytes / 2 ** 20:.2f} MiB), {grown['narrow'][1]} pair lists "
+          f"built; the wide path's {grown['wide'][0] / 2 ** 20:.2f} MiB, "
+          f"{grown['wide'][1]} pair list; fp32 outputs of the two paths "
+          f"bit-equal; narrow.smem_bytes equal to the kernel's", flush=True)
+    if grown["narrow"][0] > out_bytes or grown["narrow"][1]:
+        raise SystemExit("K1's narrow path allocated more than its output "
+                         "or built a pair list")
+    if not torch.equal(outs["narrow"], outs["wide"]):
+        raise SystemExit("K1's narrow and wide paths differ in fp32 at the "
+                         "Baseline stem")
+
+
 def baseline_cases(batch, gen):
     """The Baseline's new shapes (rgb alone, Cin 3) on the main scene's
-    plan: K1 at the k5 stem 3->32 (fp32, bf16: 12- and 6-byte rows), K3
-    as the voxel mean from the one 3-channel colour source and K4 at the
-    stem's 125x3x32 dW (K10's dense stem and K11's stem dW are in
-    ``dense_cases``)."""
+    plan: K1 at the k5 stem 3->32 (fp32, bf16: 12- and 6-byte rows) on its
+    narrow path, the wide path timed beside it, K3 as the voxel mean from
+    the one 3-channel colour source and K4 at the stem's 125x3x32 dW
+    (K10's dense stem and K11's stem dW are in ``dense_cases``)."""
     plan = batch.plan
     lv = plan.levels
     v0 = lv[0].valid.shape[0]
     f32 = torch.float32
     cases = []
-    conv_case(cases, gen, "baseline stem k5 3->32 L0", v0, plan.stem_nbr,
-              lv[0].valid, 3, 32)
+    narrow_stem_check(plan, gen)
+    conv_case(cases, gen, "baseline stem k5 3->32 L0 (narrow path)", v0,
+              plan.stem_nbr, lv[0].valid, 3, 32, wide=True)
     voxel_mean_cases(cases, gen, plan, batch.points.shape[1], rgb_only=True)
     wgrad_case(cases, "baseline stem dW k5 3->32 L0 (dY gathered, "
                "mirrored)", _randn(gen, (v0, 3), f32), None,
@@ -1212,12 +1276,13 @@ def dense_cases(plan, gen):
                 "dense rows (B0*64,96) -> voxels (V0,96), through vox_slot")
         cases.append(("slot_gather", f"{what}, fill {fill(t0):.1%}", per))
 
-    def conv_case(name, t, cin, cout, k, dtypes, dx=False):
+    def conv_case(name, t, cin, cout, k, dtypes, dx=False, wide=False):
         """The forward under the occupancy mask, or (``dx``) the input
         gradient's role: flipped, transposed weights on an input that is
         zero outside the occupancy, under the occupancy's k-dilation as
         the backward runs it, held to the plain version without a mask on
-        every cell."""
+        every cell.  With ``wide``, K10's wide path (the per-offset stage
+        loop) forced and timed beside it."""
         occ = BD.occupancy(t)
         # the level's cached list of the mask, as the autograd Function
         # passes it: the dilation's (dX) or the occupancy's
@@ -1256,6 +1321,17 @@ def dense_cases(plan, gen):
                       "dilation list bit-equal to each other and to the "
                       "per-call list's", flush=True)
                 del twice, per_call
+            extra = {"library without the halo assembly (conv3d alone)":
+                     lambda p=padded, wc=wc: F.conv3d(p, wc)}
+            if wide:
+                extra["the wide path"] = \
+                    lambda x=x, w=w: BD.block_conv(x, t.block_nbr, w, mask,
+                                                   e, rlist, narrow=False)
+                if dt == torch.float32 and not torch.equal(
+                        BD.block_conv(x, t.block_nbr, w, mask, e, rlist),
+                        extra["the wide path"]()):
+                    raise SystemExit(f"block_conv [{name}]: the narrow and "
+                                     "wide paths differ in fp32")
             per[dt] = (lambda x=x, w=w: BD.block_conv(
                            x, t.block_nbr, w, mask, e, rlist),
                        lambda x=x, w=w: BD.dense_subm_conv_plain(
@@ -1263,9 +1339,7 @@ def dense_cases(plan, gen):
                        lib, 2.0 * need * cin * cout,
                        nbytes(x, t.block_nbr, w, mask)
                        + occ.shape[0] * cout * x.element_size(),
-                       CONV_PEAK[dt],
-                       {"library without the halo assembly (conv3d alone)":
-                        lambda p=padded, wc=wc: F.conv3d(p, wc)})
+                       CONV_PEAK[dt], extra)
         ops, us = device_ops(per[dtypes[0]][0])
         print(f"block_conv [{name}]: one call puts {len(ops)} operations on "
               f"the card, {us:.1f} us of device time: {ops}", flush=True)
@@ -1315,7 +1389,8 @@ def dense_cases(plan, gen):
     conv_case("k3 384->256 L3", t3, 384, 256, 3, both)
     conv_case("dense stem k5 259->32 L0", t0, 259, 32, 5, both)
     # the Baseline's dense stem over rgb alone, on the same L0 row list
-    conv_case("baseline dense stem k5 3->32 L0", t0, 3, 32, 5, both)
+    conv_case("baseline dense stem k5 3->32 L0 (narrow path)", t0, 3, 32, 5,
+              both, wide=True)
     conv_case("dX k3 96->96 L0 (flipped, transposed W, under the "
               "dilation)", t0, 96, 96, 3, (f32,), dx=True)
     dilate_case(t0, 3)
@@ -1462,6 +1537,9 @@ def counters():
     from segdino3d_tpu_torch.ops import voxelize as TV
 
     return {"gather_gemm_conv": (SC.gather_conv,),
+            # of K1's and K10's launches, those on the narrow path (the
+            # Baseline's 3-channel stem)
+            "gather_gemm_conv narrow": (SC.gather_conv.narrow,),
             "up_conv": (SC.up_conv_rows,),
             "segment_mean_gather": (SS.segment_mean_gather,),
             # the CSR of K3's segments (two launches around torch.sort),
@@ -1474,6 +1552,7 @@ def counters():
             "voxel_compact": (TV.voxel_compact,),
             "slot_gather": (BD.slot_gather,),
             "block_conv": (BD.block_conv,),
+            "block_conv narrow": (BD.block_conv.narrow,),
             "block_dilate": (BD.dilated_rows,),
             "block_wgrad": (BD.block_wgrad,),
             "stem_slot_sum": (SC.stem_slot_sum,),
@@ -1519,13 +1598,13 @@ def kernel_ms(events):
         ms["row-list launches"] += any(
             f in n for f in ("count_rows_kernel", "list_rows_kernel",
                              "dilate_kernel"))
-        if "conv_products_kernel" in n or "conv_pair_sum_kernel" in n:
+        if any(f in n for f in CLI_STEP_KERNELS["gather_gemm_conv"]):
             ms["K1"] += t
         elif "up_conv_kernel" in n:
             ms["K2"] += t
         elif "segment_mean_kernel" in n:
             ms["K3"] += t
-        elif "block_conv_kernel" in n:
+        elif any(f in n for f in CLI_STEP_KERNELS["block_conv"]):
             ms["K10"] += t
         elif "gather_wgrad_kernel" in n or ("sum_splits" in n and
                                           "ListPairs" in n):
@@ -2182,7 +2261,8 @@ def run_hybrid_eval(model, test_cfg, records, spec, gather_bb):
     # one occupancy row list per block-dense level, which its convs share
     expected = {"gather_gemm_conv": 5, "up_conv": 4, "segment_mean_gather": 2,
                 "block_conv": 46, "slot_gather": 18,
-                "block_rows": sum(t is not None for t in plan.blocks)}
+                "block_rows": sum(t is not None for t in plan.blocks),
+                "gather_gemm_conv narrow": 0, "block_conv narrow": 0}
     print(f"launches in one hybrid forward: {launches} (expected "
           f"{expected})", flush=True)
     for k, n in expected.items():
@@ -2357,10 +2437,8 @@ def run_dense_training(model, records, spec):
     check_small_train(model, "block-dense")
     launches, steps, _, _, peak, metrics = run_training(
         model, records, spec, layout="block-dense", accum=False)
-    expected = {"block_conv": 93, "block_dilate": 5, "block_wgrad": 47,
-                "slot_gather": 35, "gather_gemm_conv": 8, "up_conv": 8,
-                "gather_wgrad": 8, "segment_mean_gather": 2,
-                "segment_grad": 1, "block_rows": 5, "gather_pairs": 4}
+    expected = dict(BLOCK_DENSE_STEP, **{"gather_gemm_conv narrow": 0,
+                                         "block_conv narrow": 0})
     print(f"launches in one block-dense train step: {launches} (expected "
           f"{expected}: K10 47 forward + 46 dX, per level one k3 dilation "
           f"with its list (the dX convs') and one occupancy row list (the "
@@ -2393,10 +2471,11 @@ CLI_TIMEOUT_S = 480
 # functions each launches, as named in the profile trace
 CLI_STEP_KERNELS = {
     "slot_gather": ("slot_gather_kernel",),
-    "block_conv": ("block_conv_kernel",),
+    "block_conv": ("block_conv_kernel", "block_conv_narrow_kernel"),
     "block_dilate": ("dilate_kernel",),
     "block_wgrad": ("block_wgrad_kernel",),
-    "gather_gemm_conv": ("conv_products_kernel", "conv_pair_sum_kernel"),
+    "gather_gemm_conv": ("conv_products_kernel", "conv_pair_sum_kernel",
+                         "gather_conv_narrow_kernel"),
     "up_conv": ("up_conv_kernel",),
     "gather_wgrad": ("gather_wgrad_kernel",),
     "segment_mean_gather": ("segment_mean_kernel",),
@@ -2729,6 +2808,13 @@ BLOCK_DENSE_STEP = {"block_conv": 93, "block_dilate": 5, "block_wgrad": 47,
                     "slot_gather": 35, "gather_gemm_conv": 8, "up_conv": 8,
                     "gather_wgrad": 8, "segment_mean_gather": 2,
                     "segment_grad": 1, "block_rows": 5, "gather_pairs": 4}
+# the Baseline's: the same, with its 3-channel stem on K1's narrow path
+# (eval: the gather stem) or K10's (training: the dense stem; its input
+# needs no gradient, so no dX role)
+BASELINE_FORWARD = dict(HYBRID_FORWARD, **{"gather_gemm_conv narrow": 1,
+                                           "block_conv narrow": 0})
+BASELINE_STEP = dict(BLOCK_DENSE_STEP, **{"gather_gemm_conv narrow": 0,
+                                          "block_conv narrow": 1})
 
 
 def check_counts(launches, expected, what):
@@ -2785,7 +2871,7 @@ def run_baseline_phase(records, train_records, spec, disk_ms):
     if batch.points_2dfeats is not None or batch.plan.blocks is None:
         raise SystemExit("baseline: a batch with 2D features or without "
                          "block tables")
-    check_counts(launches, HYBRID_FORWARD, "baseline launches in one "
+    check_counts(launches, BASELINE_FORWARD, "baseline launches in one "
                  "hybrid forward")
     print(f"baseline main path {plan_layout('baseline')}: "
           f"{stage_line(times)}; peak {peak / 2 ** 30:.3f} GiB", flush=True)
@@ -2816,7 +2902,7 @@ def run_baseline_phase(records, train_records, spec, disk_ms):
         d_launches, ms, rate, d_peak, d_metrics, _ = run_disk_eval(
             model, test_cfg, root, "baseline", features_2d=False)
     n = len(DISK_SEEDS)
-    check_counts(d_launches, {k: n * v for k, v in HYBRID_FORWARD.items()},
+    check_counts(d_launches, {k: n * v for k, v in BASELINE_FORWARD.items()},
                  f"baseline entry point launches over {n} forwards")
     wait = "loader wait (read, plan, copy)"
     print(f"baseline eval entry point: {rate:.3f} scenes/s over {n} scenes "
@@ -2834,7 +2920,7 @@ def run_baseline_phase(records, train_records, spec, disk_ms):
     train_launches, steps, _, _, t_peak, t_metrics = run_training(
         tmodel, train_records, spec, layout="baseline-train", accum=False,
         cfg=cfg, ema=False)
-    check_counts(train_launches, BLOCK_DENSE_STEP,
+    check_counts(train_launches, BASELINE_STEP,
                  "baseline launches in one block-dense train step")
     keys = ("plan", "forward", "criterion", "backward", "optimizer")
     mean = {k: 1e3 * float(np.mean([st[k] for st in steps])) for k in keys}
@@ -3565,7 +3651,7 @@ def run_prepared_data_phase(card):
         launches, ms, rate, peak, metrics, kept = run_disk_eval(
             model, test_cfg, out, "baseline", features_2d=False,
             adjust_class_ids=True)
-    check_counts(launches, HYBRID_FORWARD, "phase 9d baseline launches in "
+    check_counts(launches, BASELINE_FORWARD, "phase 9d baseline launches in "
                  "one hybrid forward of the prepared scan")
     if not all(bool(torch.isfinite(k).all()) for k in kept) or \
             not np.isfinite(metrics["all_ap_25"]):
@@ -3686,6 +3772,8 @@ def main() -> int:
     for k, n in expected.items():
         if launches[k] < n or (k == "up_conv" and launches[k] != n):
             raise SystemExit(f"{k}: {launches[k]} launches, expected {n}")
+    if launches["gather_gemm_conv narrow"]:
+        raise SystemExit("the flagship's forward took K1's narrow path")
     if launches["gather_pairs"] != GATHER_PAIR_LISTS:
         raise SystemExit(f"gather_pairs: {launches['gather_pairs']} pair "
                          f"lists in one forward, expected "
@@ -3864,6 +3952,11 @@ def main() -> int:
             baseline_cases=[c for c in rows[name]["cases"]
                             if c["shape"].startswith("baseline ")],
             cli_device_launches_per_step=cli_launches.get(name, 0),
+            **({"narrow_launches": dict(
+                flagship=launches[f"{name} narrow"],
+                baseline=bl_launches[f"{name} narrow"],
+                baseline_train_step=bl_train_launches[f"{name} narrow"])}
+               if f"{name} narrow" in launches else {}),
             launches_2rank_step=dist_launches["block-dense"][name],
             launches_2rank_step_gather=dist_launches["gather"][name]))
     print(json.dumps({"kernels": kernels}), flush=True)

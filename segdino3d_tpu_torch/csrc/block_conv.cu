@@ -54,6 +54,17 @@
 // training step amplifies (PERF.md section 6).  No atomics touch the
 // output, so a run is deterministic.
 //
+// The narrow path (narrow != 0, for a few input channels: the Baseline's
+// dense k5 stem, rgb 3 -> 32; ops/narrow.py picks it from the shape): the
+// stage loop above, at Cin 3, ran 125 stages a tile behind as many
+// barriers, each copying 64 rows of which 3 lanes of 32 were real and a
+// 32 x BN weight slice of which 29 rows were zero.  The narrow path keeps
+// the row list, the ticket, the mask and unmasked variants, edge 4 / 8 and
+// k 3 / 5, and runs tiles of 128 listed rows on narrow_tile.cuh's core:
+// the weight staged once per block, each chunk of offsets gathered through
+// the block halo (HaloSrc) straight into an im2col tile (no per-offset
+// stages), the fp32 sums in the order above.
+//
 // Contract: x (n_blocks * edge^3, Cin), w (k^3, Cin, Cout) and out
 // (n_blocks * edge^3, Cout) share one dtype (fp32 or bf16), rows
 // contiguous; block_nbr (26, n_blocks) int32; mask (n_blocks * edge^3,)
@@ -71,6 +82,7 @@
 // padded z-row and dilates them separably with shifts and ORs (see
 // dilate_kernel).
 #include "block_tile.cuh"
+#include "narrow_tile.cuh"
 
 namespace {
 
@@ -659,26 +671,12 @@ cudaError_t launch_conv(const void* x, const void* nbr, const void* w, int32_t* 
                         void* out, int n_blocks, int edge, int k, int cin, int cout,
                         cudaStream_t s) {
   auto kernel = block_conv_kernel<T, BN>;
-  const int n_off = k * k * k;
-  const size_t smem = Smem<T, BN>::bytes(n_off);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  static int per_sm[2] = {0, 0};  // resident thread blocks per SM, k = 3 and 5
-  int& fit = per_sm[k == 5];
-  if (fit == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (fit < 1) return cudaErrorInvalidConfiguration;
-  }
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return err;
+  const size_t smem = Smem<T, BN>::bytes(k * k * k);
   const int n_rows = n_blocks * edge * edge * edge;
   const int64_t max_items = (int64_t)(n_rows + BM - 1) / BM * ((cout + BN - 1) / BN);
-  const int grid = max_items < sms * fit ? (int)max_items : sms * fit;
+  int grid = 0;
+  cudaError_t err = ntt::grid_of(kernel, kThreads, smem, max_items, &grid);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const int32_t*>(nbr),
       static_cast<const T*>(w), ws, ws + n_rows, ws + n_rows + 1, static_cast<T*>(out),
@@ -699,6 +697,89 @@ cudaError_t launch_bn(const void* x, const void* nbr, const void* w, int32_t* ws
   if (cout <= 64 || cout > 96)
     return launch_conv<T, 64>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s);
   return launch_conv<T, 96>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s);
+}
+
+// ---------------------------------------------------------------------------
+// the narrow path
+// ---------------------------------------------------------------------------
+
+// the source of dense row `row` at offset o: the cell shifted by o - h,
+// through the block halo (bdt::halo_row's addressing without its branch,
+// so that what stays live while the shell block's id loads is the cell's
+// index; the branchy form ran slower here)
+template <int E, int K>
+struct HaloSrc {
+  static constexpr bool kAhead = false;
+  const int32_t* __restrict__ nbr;
+  int n_blocks;
+  __device__ __forceinline__ int operator()(int row, int o) const {
+    constexpr int H = (K - 1) / 2, E3 = E * E * E;
+    const int b = row / E3, c = row % E3;
+    const int qx = c / (E * E) + o / (K * K) - H, qy = (c / E) % E + (o / K) % K - H,
+              qz = c % E + o % K - H;
+    const int dx = (qx >= E) - (qx < 0), dy = (qy >= E) - (qy < 0), dz = (qz >= E) - (qz < 0);
+    const int cell = ((qx - dx * E) * E + qy - dy * E) * E + qz - dz * E;
+    const int d = (dx + 1) * 9 + (dy + 1) * 3 + dz + 1;   // 13: the block itself
+    const int blk = d == 13 ? b : nbr[(int64_t)(d - (d > 13)) * n_blocks + b];
+    return blk < 0 ? -1 : blk * E3 + cell;
+  }
+};
+
+template <typename T, int E, int K>
+__global__ void __launch_bounds__(ntt::kThreads)
+block_conv_narrow_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
+                         const T* __restrict__ w, const int32_t* __restrict__ list,
+                         const int32_t* __restrict__ count, int32_t* __restrict__ ticket,
+                         T* __restrict__ out, int n_blocks, int cin, int cout) {
+  constexpr int n_off = K * K * K;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ntt::Layout l = ntt::layout(n_off, cin, cout, sizeof(T) == 2);
+  const ntt::Smem<T> s(smem, l);
+  const HaloSrc<E, K> src{nbr, n_blocks};
+  __shared__ int s_item;
+  const int tid = threadIdx.x;
+  const int n_list = *count, n_tiles = (n_list + ntt::BM - 1) / ntt::BM;
+  ntt::stage_weights<T>(s, l, w, n_off, cin, cout);
+  for (;;) {
+    if (tid == 0) s_item = atomicAdd(ticket, 1);
+    __syncthreads();  // also: the last tile's stores are done with s.row
+    const int item = s_item;
+    if (item >= n_tiles) {
+      // the last ticket taken: every block is done with the counter
+      if (tid == 0 && item == n_tiles + (int)gridDim.x - 1) *ticket = 0;
+      break;
+    }
+    if (tid < ntt::BM) {
+      const int m = item * ntt::BM + tid;
+      s.row[tid] = s.key[tid] = m < n_list ? list[m] : -1;
+    }
+    __syncthreads();
+    ntt::tile<T>(s, l, x, src, out, n_off, cin, cout);
+  }
+}
+
+template <typename T, int E, int K>
+cudaError_t launch_narrow(const void* x, const void* nbr, const void* w, int32_t* ws,
+                          void* out, int n_blocks, int cin, int cout, cudaStream_t s) {
+  auto kernel = block_conv_narrow_kernel<T, E, K>;
+  const size_t smem = ntt::smem_bytes(K * K * K, cin, cout, sizeof(T) == 2);
+  const int n_rows = n_blocks * E * E * E;
+  int grid = 0;
+  cudaError_t err =
+      ntt::grid_of(kernel, ntt::kThreads, smem, (n_rows + ntt::BM - 1) / ntt::BM, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, ntt::kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const int32_t*>(nbr), static_cast<const T*>(w),
+      ws, ws + n_rows, ws + n_rows + 1, static_cast<T*>(out), n_blocks, cin, cout);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t narrow_conv(const void* x, const void* nbr, const void* w, int32_t* ws, void* out,
+                        int n_blocks, int edge, int k, int cin, int cout, cudaStream_t s) {
+  auto launch = edge == 4 ? (k == 3 ? launch_narrow<T, 4, 3> : launch_narrow<T, 4, 5>)
+                          : (k == 3 ? launch_narrow<T, 8, 3> : launch_narrow<T, 8, 5>);
+  return launch(x, nbr, w, ws, out, n_blocks, cin, cout, s);
 }
 
 }  // namespace
@@ -734,8 +815,13 @@ extern "C" int block_dilate(const void* mask, const void* block_nbr, void* out, 
 namespace {
 
 cudaError_t conv(const void* x, const void* nbr, const void* w, int32_t* ws, void* out,
-                 int n_blocks, int edge, int k, int cin, int cout, int dtype,
+                 int n_blocks, int edge, int k, int cin, int cout, int dtype, int narrow,
                  cudaStream_t s) {
+  if (narrow && (cin < 1 || cin > ntt::kMaxCin)) return cudaErrorInvalidValue;
+  if (narrow)
+    return dtype == 1
+        ? narrow_conv<__nv_bfloat16>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s)
+        : narrow_conv<float>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s);
   return dtype == 1
       ? launch_bn<__nv_bfloat16>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s)
       : launch_bn<float>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s);
@@ -743,12 +829,12 @@ cudaError_t conv(const void* x, const void* nbr, const void* w, int32_t* ws, voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; mask may be null (every row).  Rows
-// outside the mask are left as they are: the caller zeroes out first.
-// Returns the launches' cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; mask may be null (every row); narrow:
+// the narrow path.  Rows outside the mask are left as they are: the caller
+// zeroes out first.  Returns the launches' cudaError_t.
 extern "C" int block_conv(const void* x, const void* block_nbr, const void* w,
                           const void* mask, void* ws, void* out, int n_blocks, int edge,
-                          int k, int cin, int cout, int dtype, void* stream) {
+                          int k, int cin, int cout, int dtype, int narrow, void* stream) {
   if (n_blocks == 0 || cout == 0) return 0;
   if ((edge != 4 && edge != 8) || (k != 3 && k != 5)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -756,17 +842,17 @@ extern "C" int block_conv(const void* x, const void* block_nbr, const void* w,
   cudaError_t err = launch_rows(mask, wsi, n_blocks * edge * edge * edge, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(conv(x, block_nbr, w, wsi, out, n_blocks, edge, k, cin, cout,
-                               dtype, s));
+                               dtype, narrow, s));
 }
 
 // The same over a row list built before (block_rows or block_dilate into
 // ws, its ticket 0, as every conv leaves it): no list passes.
 extern "C" int block_conv_rows(const void* x, const void* block_nbr, const void* w,
                                void* ws, void* out, int n_blocks, int edge, int k, int cin,
-                               int cout, int dtype, void* stream) {
+                               int cout, int dtype, int narrow, void* stream) {
   if (n_blocks == 0 || cout == 0) return 0;
   if ((edge != 4 && edge != 8) || (k != 3 && k != 5)) return cudaErrorInvalidValue;
   return static_cast<int>(conv(x, block_nbr, w, static_cast<int32_t*>(ws), out, n_blocks,
-                               edge, k, cin, cout, dtype,
+                               edge, k, cin, cout, dtype, narrow,
                                static_cast<cudaStream_t>(stream)));
 }

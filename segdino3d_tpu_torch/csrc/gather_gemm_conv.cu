@@ -42,7 +42,20 @@
 // (n_off x V rows, n_off counts, the ticket); pos (n_off, V) int32 scratch;
 // partial (n_off * V, gather_conv_pair_stride(Cout)) fp32 scratch.  Rows
 // outside valid are written as 0.
+//
+// The narrow path (gather_conv_narrow, for a few input channels: the
+// Baseline's k5 stem, rgb 3 -> 32; ops/narrow.py picks it from the shape):
+// at Cin 3 every pair's 32 products are ten times as wide as its input, and
+// the pair-major buffer moved ~274 MB each way, against ~58 MB of table and
+// output.  So the narrow path takes no pair list, no map and no buffer:
+// one launch over tiles of 128 consecutive rows on narrow_tile.cuh's core,
+// each row's sources read straight from nbr (a warp reads one offset's 32
+// consecutive rows, one 128-byte line), rows outside valid gathering
+// nothing (their output is 0).  The tiles cost alike (every row runs every
+// chunk its tile touches), so persistent blocks stride over them without a
+// ticket, and no scratch is allocated.
 #include "gather_tile.cuh"
+#include "narrow_tile.cuh"
 
 namespace {
 
@@ -155,33 +168,12 @@ cudaError_t launch(const T* x, const int32_t* nbr, const T* w, const uint8_t* va
   auto kernel = conv_products_kernel<T, BN>;
   const size_t smem = sizeof(T) * 2 * gtt::Smem<T, BN>::kStage +
                       sizeof(int) * (BM + 2 * (n_off + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  // resident thread blocks per SM, by shared-memory size (the offset count)
-  static size_t known_smem[4] = {0, 0, 0, 0};
-  static int known_fit[4] = {0, 0, 0, 0};
-  int fit = 0, slot = 0;
-  for (; slot < 4 && known_smem[slot] != 0; ++slot)
-    if (known_smem[slot] == smem) fit = known_fit[slot];
-  if (fit == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    if (fit < 1) return cudaErrorInvalidConfiguration;
-    if (slot < 4) {
-      known_smem[slot] = smem;
-      known_fit[slot] = fit;
-    }
-  }
-  int dev = 0, sms = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return err;
   // the items of a table whose every pair is live; the count is on the card
   const int n_col = (cout + BN - 1) / BN;
   const int64_t max_items = (int64_t)((v + BM - 1) / BM) * n_off * n_col;
-  const int grid = max_items < (int64_t)sms * fit ? (int)max_items : sms * fit;
+  int grid = 0;
+  cudaError_t err = ntt::grid_of(kernel, kThreads, smem, max_items, &grid);
+  if (err != cudaSuccess) return err;
   const int64_t n_list = (int64_t)n_off * v;
   kernel<<<grid, kThreads, smem, s>>>(x, nbr, w, pairs, pairs + n_list, pairs + n_list + n_off,
                                       pos, partial, v, cin, cout, n_off);
@@ -213,7 +205,75 @@ cudaError_t launch_bn(const void* x, const void* nbr, const void* w, const void*
   }
 }
 
+// the narrow path: out[r] = sum_o x[nbr[o][r]] @ w[o] on valid rows
+struct TableSrc {
+  static constexpr bool kAhead = true;   // one load a source
+  const int32_t* __restrict__ nbr;
+  int v;
+  __device__ __forceinline__ int operator()(int r, int o) const {
+    return nbr[(int64_t)o * v + r];
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(ntt::kThreads)
+gather_conv_narrow_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
+                          const T* __restrict__ w, const uint8_t* __restrict__ valid,
+                          T* __restrict__ out, int v, int cin, int cout, int n_off) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ntt::Layout l = ntt::layout(n_off, cin, cout, sizeof(T) == 2);
+  const ntt::Smem<T> s(smem, l);
+  const TableSrc src{nbr, v};
+  const int tid = threadIdx.x, n_tiles = (v + ntt::BM - 1) / ntt::BM;
+  ntt::stage_weights<T>(s, l, w, n_off, cin, cout);
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    __syncthreads();  // the last tile's stores are done with s.row
+    if (tid < ntt::BM) {
+      const int r = t * ntt::BM + tid;
+      s.row[tid] = r < v ? r : -1;
+      s.key[tid] = r < v && valid[r] ? r : -1;
+    }
+    __syncthreads();
+    ntt::tile<T>(s, l, x, src, out, n_off, cin, cout);
+  }
+}
+
+template <typename T>
+cudaError_t launch_narrow(const void* x, const void* nbr, const void* w, const void* valid,
+                          void* out, int v, int cin, int cout, int n_off, cudaStream_t s) {
+  auto kernel = gather_conv_narrow_kernel<T>;
+  const size_t smem = ntt::smem_bytes(n_off, cin, cout, sizeof(T) == 2);
+  int grid = 0;
+  cudaError_t err =
+      ntt::grid_of(kernel, ntt::kThreads, smem, (v + ntt::BM - 1) / ntt::BM, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, ntt::kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const int32_t*>(nbr), static_cast<const T*>(w),
+      static_cast<const uint8_t*>(valid), static_cast<T*>(out), v, cin, cout, n_off);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The narrow path's dynamic shared memory a block (ops/narrow.py:smem_bytes
+// computes the same).  dtype: 0 = float32, 1 = bfloat16.
+extern "C" int narrow_conv_smem(int n_off, int cin, int cout, int dtype) {
+  return static_cast<int>(ntt::smem_bytes(n_off, cin, cout, dtype == 1));
+}
+
+// K1's narrow path: the same contract without pairs, pos and partial, one
+// launch.  Returns its cudaError_t.
+extern "C" int gather_conv_narrow(const void* x, const void* nbr, const void* w,
+                                  const void* valid, void* out, int v, int cin, int cout,
+                                  int n_off, int dtype, void* stream) {
+  if (v == 0 || cout == 0) return 0;
+  if (cin < 1 || cin > ntt::kMaxCin) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = dtype == 1
+      ? launch_narrow<__nv_bfloat16>(x, nbr, w, valid, out, v, cin, cout, n_off, s)
+      : launch_narrow<float>(x, nbr, w, valid, out, v, cin, cout, n_off, s);
+  return static_cast<int>(err);
+}
 
 // The row width of the partial buffer for Cout.
 extern "C" int gather_conv_pair_stride(int cout) { return pair_stride(cout); }

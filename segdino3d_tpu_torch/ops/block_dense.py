@@ -23,7 +23,9 @@ Three hand-written CUDA kernels carry it:
 * ``block_conv`` (K10, ``csrc/block_conv.cu``): the halo-padded dense conv
   at the rows of its output mask only (a row list built on the card, 64-row
   tiles across blocks, each row's sources read through the halo addressing;
-  the halo is never written to device memory), the other rows zero;
+  the halo is never written to device memory), the other rows zero; for a
+  few input channels (the Baseline's rgb stem, ``narrow.narrow_path``) on
+  its narrow path, im2col tiles of every offset at once;
 * ``block_wgrad`` (K11, ``csrc/block_wgrad.cu``): its weight gradient,
   reduced over the level's occupied-row list (``row_list``: K10's
   ``block_rows``, built once per level and step and kept on the tables,
@@ -50,12 +52,14 @@ package and ``chip_smoke.py`` holds the kernel against on the card.
 from __future__ import annotations
 
 import itertools
+import types
 from dataclasses import dataclass, field
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from segdino3d_tpu_torch.ops import cuda_build
+from segdino3d_tpu_torch.ops import narrow as N
 from segdino3d_tpu_torch.ops.sparse_conv import (_gather_rows, _require_cuda,
                                                  _transposed, as_sum_type,
                                                  wgrad_splits)
@@ -362,7 +366,8 @@ def dilation(tables: BlockTables, occ: torch.Tensor, k: int
 
 def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
                weights: torch.Tensor, occ: Optional[torch.Tensor],
-               edge: int, rows: Optional[RowList] = None) -> torch.Tensor:
+               edge: int, rows: Optional[RowList] = None,
+               narrow: Optional[bool] = None) -> torch.Tensor:
     """Submanifold conv of flat dense rows with each block halo-padded from
     its shell neighbours: ``out[c] = sum_o halo[c + o] @ weights[o]``,
     zero at unoccupied cells when ``occ`` is given.
@@ -372,7 +377,9 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     rows the card's row list of ``occ`` (``row_list``, ``dilation``), built
     inside the call when not given.  Returns (B*edge^3, Cout) in feats'
     dtype, summed in fp32.  On the card only the rows of ``occ`` are
-    computed (every row without it)."""
+    computed (every row without it), on the narrow path where
+    ``narrow.narrow_path`` of the shape says so (or ``narrow``, where a
+    benchmark forces one path)."""
     n_off, cin, cout = weights.shape
     _check_layout("block_conv", feats, block_nbr, n_off, edge, cin)
     if feats.device.type == "cpu":
@@ -385,6 +392,7 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
                         "block_nbr must be int32 and occ bool")
     b = block_nbr.shape[1]
     n_rows = b * edge ** 3
+    narrow = N.pick(narrow, n_off, cin, cout, feats.dtype, "block_conv")
     if rows is not None and (occ is None or rows.ws is None
                              or rows.rows.shape[0] != n_rows):
         raise ValueError("block_conv: rows must be the card's row list of "
@@ -393,7 +401,8 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
         n_rows, cout, dtype=feats.dtype, device=feats.device)
     lib = cuda_build.library("block_conv")
     args = (b, edge, kernel_size(n_off), cin, cout,
-            cuda_build.dtype_code(feats.dtype), cuda_build.stream_ptr(feats))
+            cuda_build.dtype_code(feats.dtype), int(narrow),
+            cuda_build.stream_ptr(feats))
     if rows is None:
         ws = row_workspace(n_rows, feats.device)
         block_conv.own_lists += 1
@@ -407,10 +416,12 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
             rows.ws.data_ptr(), out.data_ptr(), *args)
     cuda_build.check(err, "block_conv")
     block_conv.launches += 1
+    block_conv.narrow.launches += int(narrow)
     return out
 
 
 block_conv.launches = 0
+block_conv.narrow = types.SimpleNamespace(launches=0)   # of them narrow
 block_conv.own_lists = 0     # calls that built their row list themselves
 
 

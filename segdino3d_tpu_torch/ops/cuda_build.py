@@ -29,18 +29,22 @@ KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
            "gather_wgrad", "segment_grad", "coord_hash", "neighbor_table",
            "voxel_compact", "slot_gather", "block_conv", "block_wgrad",
            "stem_slot_sum")
-_HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh"),
+_HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh",
+                                 "narrow_tile.cuh"),
             "up_conv": ("gather_tile.cuh", "wgrad_tile.cuh"),
             "segment_mean_gather": (), "gather_wgrad": ("wgrad_tile.cuh",),
             "segment_grad": (),
             "coord_hash": ("coord_hash.cuh",),
             "neighbor_table": ("coord_hash.cuh",), "voxel_compact": (),
-            "slot_gather": (), "block_conv": ("block_tile.cuh",),
+            "slot_gather": (),
+            "block_conv": ("block_tile.cuh", "narrow_tile.cuh"),
             "block_wgrad": ("block_tile.cuh", "wgrad_tile.cuh"),
             "stem_slot_sum": ()}
 # a library's C functions, where they are not the one named after it
 _ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
-                                      "gather_conv_pair_stride"),
+                                      "gather_conv_pair_stride",
+                                      "gather_conv_narrow",
+                                      "narrow_conv_smem"),
                  "coord_hash": ("coord_hash_build", "coord_hash_lookup"),
                  "gather_wgrad": ("gather_wgrad", "gather_pairs"),
                  "segment_mean_gather": ("segment_mean_gather",
@@ -63,6 +67,10 @@ _SIGNATURES = {
                          _P],
     # cout
     "gather_conv_pair_stride": [_I],
+    # x, nbr, w, valid, out, v, cin, cout, n_off, dtype, stream
+    "gather_conv_narrow": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # n_off, cin, cout, dtype
+    "narrow_conv_smem": [_I, _I, _I, _I],
     # x, child, w, pairs, parent, valid, out, v_coarse, v_fine, cin, cout,
     # dtype, stream
     "up_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -98,10 +106,11 @@ _SIGNATURES = {
     # x, idx, out, n, row_bytes, stream
     "slot_gather": [_P, _P, _P, _I, _I, _P],
     # x, block_nbr, w, mask, ws, out, n_blocks, edge, k, cin, cout, dtype,
+    # narrow, stream
+    "block_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, block_nbr, w, ws, out, n_blocks, edge, k, cin, cout, dtype, narrow,
     # stream
-    "block_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, block_nbr, w, ws, out, n_blocks, edge, k, cin, cout, dtype, stream
-    "block_conv_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "block_conv_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # mask, ws, n_rows, stream
     "block_rows": [_P, _P, _I, _P],
     # mask, block_nbr, out, ws, n_blocks, edge, k, stream

@@ -9,7 +9,9 @@ hand-written CUDA kernels:
   submanifold convs (27 offsets), the k5 stem (125 offsets) and the stride-2
   down convs, whose (8, V_coarse) child table ``child[kpos, parent] = fine``
   (``ops.host_plan``) turns the TPU version's scatter into a gather.  It
-  multiplies each offset's live pairs only, from K4's pair list below;
+  multiplies each offset's live pairs only, from K4's pair list below; for
+  a few input channels (the Baseline's rgb stem, ``narrow.narrow_path``)
+  its narrow path instead runs im2col tiles over the table itself;
 * ``up_conv_rows`` (K2, ``csrc/up_conv.cu``):
   ``fine[i] = x[parent[i]] @ W[kpos[i]]``, on K1's tile core over the
   child table's pair list, each product stored in its fine row;
@@ -44,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+import types
 import weakref
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -52,6 +55,7 @@ import torch
 
 from segdino3d_tpu_torch.ops import cuda_build
 from segdino3d_tpu_torch.ops import keys as K
+from segdino3d_tpu_torch.ops import narrow as N
 from segdino3d_tpu_torch.ops.hashing import CoordHash, build_and_lookup
 from segdino3d_tpu_torch.ops.voxelize import VoxelGrid, voxel_compact
 
@@ -100,15 +104,19 @@ def gather_conv_plain(feats: torch.Tensor, nbr: torch.Tensor,
 
 
 def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
+                valid: torch.Tensor, narrow: Optional[bool] = None
+                ) -> torch.Tensor:
     """``out[i] = sum_o feats[nbr[o, i]] @ weights[o]``, 0 on invalid rows.
 
     feats (V_in, Cin); nbr (n_off, V) int32, -1 = absent; weights
     (n_off, Cin, Cout) in feats' dtype; valid (V,) bool.  Returns (V, Cout)
-    in feats' dtype, summed in fp32.  On the card the kernel multiplies
-    each offset's live pairs (``cached_pairs``, the weight gradient's
-    list) into an (n_off * V, Cout rounded up to its column tile) fp32
-    scratch, then adds each row's products in ascending offset order."""
+    in feats' dtype, summed in fp32.  On the card the kernel's wide path
+    multiplies each offset's live pairs (``cached_pairs``, the weight
+    gradient's list) into an (n_off * V, Cout rounded up to its column
+    tile) fp32 scratch, then adds each row's products in ascending offset
+    order.  Its narrow path (``narrow.narrow_path`` of the shape, or
+    ``narrow`` where a benchmark forces one path) is one launch that
+    allocates nothing but the output and builds no pair list."""
     n_off, cin, cout = weights.shape
     if nbr.shape[0] != n_off or feats.shape[1] != cin \
             or tuple(valid.shape) != (nbr.shape[1],):
@@ -123,10 +131,20 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
         raise TypeError("gather_conv: weights must match feats' dtype, nbr "
                         "must be int32 and valid bool")
     v, dev = nbr.shape[1], feats.device
+    narrow = N.pick(narrow, n_off, cin, cout, feats.dtype, "gather_conv")
     out = torch.empty(v, cout, dtype=feats.dtype, device=dev)
     if out.numel() == 0:
         return out
     lib = cuda_build.library("gather_gemm_conv")
+    if narrow:
+        cuda_build.check(lib.gather_conv_narrow(
+            feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
+            valid.data_ptr(), out.data_ptr(), v, cin, cout, n_off,
+            cuda_build.dtype_code(feats.dtype), cuda_build.stream_ptr(feats)),
+            "gather_conv_narrow")
+        gather_conv.launches += 1
+        gather_conv.narrow.launches += 1
+        return out
     pairs = cached_pairs(None, nbr)
     pos = torch.empty(n_off, v, dtype=torch.int32, device=dev)
     partial = torch.empty(n_off * v, lib.gather_conv_pair_stride(cout),
@@ -142,6 +160,7 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
 
 
 gather_conv.launches = 0
+gather_conv.narrow = types.SimpleNamespace(launches=0)   # of them narrow
 
 
 def up_conv_plain(feats: torch.Tensor, parent: torch.Tensor,
@@ -292,7 +311,9 @@ def cached_pairs(ia: Optional[torch.Tensor], ib: Optional[torch.Tensor]
                  ) -> PairList:
     """``gather_pairs`` of these tables, once: the live rows depend on the
     set of tables only, so the down conv's role (ia = child) and the up
-    conv's (ib = child) share one list."""
+    conv's (ib = child) share one list.  K1's narrow path takes no list,
+    so at the Baseline's rgb stem K4's dW builds the table's list itself
+    when it first needs one."""
     tables = sorted((t for t in (ia, ib) if t is not None), key=id)
     key = tuple(id(t) for t in tables)
     hit = _PAIR_LISTS.get(key)

@@ -20,6 +20,19 @@ operations at the fp32 peak, or its bytes at the memory rate, the
 larger); then the calls' medians summed per forward and per step.  K1's pair lists (K4's, ``cached_pairs``) are built before the
 timing, as a forward builds them once per table.  Run it in two checkouts
 within one call to compare two versions of the kernels.
+
+    python -m segdino3d_tpu_torch.tools.conv_bench --narrow
+
+times instead K1's and K10's two paths against each other at Cin 1, 3, 4,
+8 and 16 into 32 channels (the Baseline's stem is 3 -> 32), fp32 and
+bf16: K1 on the scene's k5 stem table and level 0's k3 table, K10 on the
+hybrid plan's level-0 blocks under the occupancy (k5 and k3), the wide
+path and the narrow path (``gather_conv(..., narrow=)``, ``block_conv(...,
+narrow=)``) forced, in turn, medians of ``rounds`` samples.  Each case is
+held to its plain version (fp32 1e-4, bf16 1e-2) and, in fp32, the two
+paths to each other bit for bit.  The crossing, where the narrow path
+stops winning, sets ``ops/narrow.py:NARROW_MAX_CIN``; a shape the narrow
+kernel does not take (``narrow.narrow_fits``) shows "not taken".
 """
 from __future__ import annotations
 
@@ -88,10 +101,92 @@ def cases(plan, gen):
     return out
 
 
+NARROW_CINS = (1, 3, 4, 8, 16)
+
+
+def narrow_sweep(plan, hybrid, gen, rounds, reps):
+    """K1 and K10, wide path against narrow path, at ``NARROW_CINS``."""
+    import chip_smoke as C
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import narrow as N
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    lv, t = plan.levels, hybrid.blocks[0]
+    occ = BD.occupancy(t)
+    rows = BD.row_list(t, occ)
+    cases = []
+    for cin in NARROW_CINS:
+        for dt in (torch.float32, torch.bfloat16):
+            for k, nbr in ((5, plan.stem_nbr), (3, lv[0].nbr)):
+                x = torch.randn(lv[0].valid.shape[0], cin, generator=gen,
+                                device="cuda").to(dt)
+                w = (torch.randn(k ** 3, cin, 32, generator=gen,
+                                 device="cuda") * (k ** 3 * cin) ** -0.5
+                     ).to(dt)
+                cases.append((
+                    f"K1 k{k} {cin}->32 L0", dt, k ** 3, cin,
+                    lambda x=x, w=w, nbr=nbr, f=None: SC.gather_conv(
+                        x, nbr, w, lv[0].valid, narrow=f),
+                    lambda x=x, w=w, nbr=nbr: SC.gather_conv_plain(
+                        x, nbr, w, lv[0].valid)))
+            for k in (5, 3):
+                x = torch.where(occ[:, None], torch.randn(
+                    occ.shape[0], cin, generator=gen, device="cuda"),
+                    0.0).to(dt)
+                w = (torch.randn(k ** 3, cin, 32, generator=gen,
+                                 device="cuda") * (k ** 3 * cin) ** -0.5
+                     ).to(dt)
+                cases.append((
+                    f"K10 k{k} {cin}->32 L0 under the occupancy", dt,
+                    k ** 3, cin,
+                    lambda x=x, w=w, f=None: BD.block_conv(
+                        x, t.block_nbr, w, occ, t.edge, rows, narrow=f),
+                    lambda x=x, w=w: BD.dense_subm_conv_plain(
+                        x, t.block_nbr, w, occ, t.edge)))
+    for name, dt, n_off, cin, call, plain in cases:
+        dts = str(dt).replace("torch.", "")
+        fits = N.narrow_fits(n_off, cin, 32, dt)
+        wide = call(f=False)
+        want = plain()
+        tol = C.TOL[dt]
+        paths = {"wide": wide}
+        if fits:
+            paths["narrow"] = call(f=True)
+        for path, got in paths.items():
+            if not torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol):
+                raise SystemExit(f"{name} {dts} {path} path disagrees with "
+                                 "the plain version")
+        same = ""
+        if fits and dt == torch.float32:
+            if not torch.equal(paths["narrow"], wide):
+                raise SystemExit(f"{name} fp32: the narrow path is not "
+                                 "bit-equal to the wide path")
+            same = "; fp32 paths bit-equal"
+        del wide, want, paths
+        samples = {"wide": [], "narrow": []}
+        for _ in range(rounds):
+            for path in (("wide", "narrow") if fits else ("wide",)):
+                samples[path].append(C.time_ms(
+                    lambda path=path: call(f=path == "narrow"), reps))
+        med = {p: float(np.median(v)) for p, v in samples.items() if v}
+        narrow_text = (f"narrow {med['narrow']:.4f} ms "
+                       f"({med['wide'] / med['narrow']:.2f}x)"
+                       if fits else "narrow: not taken (Cin above "
+                       f"{N.KERNEL_MAX_CIN} or {N.smem_bytes(n_off, cin, 32, dt)}"
+                       " bytes of shared memory)")
+        print(f"narrow sweep {name} {dts}: wide {med['wide']:.4f} ms, "
+              f"{narrow_text}; the rule picks "
+              f"{'narrow' if N.narrow_path(n_off, cin, 32, dt) else 'wide'}"
+              f"{same}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--narrow", action="store_true",
+                    help="K1 and K10, wide against narrow path, by Cin")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("conv_bench: no CUDA device", file=sys.stderr)
@@ -102,7 +197,7 @@ def main() -> int:
     from segdino3d_tpu_torch.ops import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cuda_build.build_all(("gather_gemm_conv", "gather_wgrad"))
+    cuda_build.build_all(("gather_gemm_conv", "gather_wgrad", "block_conv"))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -116,6 +211,12 @@ def main() -> int:
     print(f"voxels per level {[int(t.valid.sum()) for t in plan.levels]}, "
           f"caps {[t.valid.shape[0] for t in plan.levels]}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.narrow:
+        hybrid = attach_host_plan(collate(records, spec, "cuda"), records,
+                                  spec, level_cap_ratios=C.LEVEL_CAP_RATIOS,
+                                  **C.plan_layout("hybrid")).plan
+        narrow_sweep(plan, hybrid, gen, args.rounds, args.reps)
+        return 0
     runs = cases(plan, gen)
     samples = {i: [] for i in range(len(runs))}
     for _ in range(args.rounds):

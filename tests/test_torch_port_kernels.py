@@ -25,6 +25,7 @@ from segdino3d_tpu_torch.ops import block_dense as TBD
 from segdino3d_tpu_torch.ops import hashing as TQ
 from segdino3d_tpu_torch.ops import host_plan as TH
 from segdino3d_tpu_torch.ops import keys as TK
+from segdino3d_tpu_torch.ops import narrow as TN
 from segdino3d_tpu_torch.ops import scatter as TS
 from segdino3d_tpu_torch.ops import sparse_conv as TSC
 from segdino3d_tpu_torch.ops import voxelize as TV
@@ -1209,3 +1210,105 @@ def test_rgb_only_shapes_match_plain(levels, case, dtype):
         tol = TOL[dtype]
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [1, 3, 8])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_conv_narrow_matches_plain(levels, cin, k, masked, dtype):
+    """K1's narrow path (forced: the dispatch takes it at the Baseline's
+    Cin 3) on the k3 table of level 0 and the k5 stem table, Cout 32 as
+    the Baseline's stem: equal to the plain version at the tolerance, zero
+    outside the mask (masked: the level's valid rows; else every row), in
+    fp32 bit-equal to the wide path (the same sums in the same order), and
+    no pair list built."""
+    dt = getattr(torch, dtype)
+    lv = levels.levels
+    nbr = levels.stem_nbr if k == 5 else lv[0].nbr
+    valid = lv[0].valid if masked else torch.ones_like(lv[0].valid)
+    assert TN.narrow_fits(k ** 3, cin, 32, dt)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(CAPS[0], cin, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(k ** 3, cin, 32, generator=gen, device="cuda")
+         * (k ** 3 * cin) ** -0.5).to(dt)
+    table = nbr.clone()   # a table no pair list was built for
+    lists, narrow = TSC.gather_pairs.launches, TSC.gather_conv.narrow.launches
+    got = TSC.gather_conv(x, table, w, valid, narrow=True)
+    torch.cuda.synchronize()
+    assert TSC.gather_pairs.launches == lists
+    assert TSC.gather_conv.narrow.launches == narrow + 1
+    want = TSC.gather_conv_plain(x, nbr, w, valid)
+    assert not got[~valid].float().any()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dt == torch.float32:
+        assert torch.equal(got, TSC.gather_conv(x, nbr, w, valid,
+                                                narrow=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [1, 3, 8])
+@pytest.mark.parametrize("edge,k", [(4, 3), (4, 5), (8, 3), (8, 5)])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_conv_narrow_matches_plain(card, cin, edge, k, masked, dtype):
+    """K10's narrow path (forced, as K1's above) with and without the
+    output mask, edges 4 and 8, k 3 and 5, Cout 32 as the Baseline's dense
+    stem: equal to the plain
+    version at the tolerance, zero outside the mask, and in fp32 bit-equal
+    to the wide path."""
+    dt = getattr(torch, dtype)
+    t = _block_plan_on(card, [edge] * 5).blocks[0]
+    assert TN.narrow_fits(k ** 3, cin, 32, dt)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    occ = TBD.occupancy(t)
+    x = torch.randn(t.slot_vox.shape[0], cin, generator=gen, device="cuda")
+    x = torch.where(occ[:, None], x, 0.0).to(dt)
+    w = (torch.randn(k ** 3, cin, 32, generator=gen, device="cuda")
+         * (k ** 3 * cin) ** -0.5).to(dt)
+    mask = occ if masked else None
+    narrow = TBD.block_conv.narrow.launches
+    got = TBD.block_conv(x, t.block_nbr, w, mask, edge, narrow=True)
+    torch.cuda.synchronize()
+    assert TBD.block_conv.narrow.launches == narrow + 1
+    want = TBD.dense_subm_conv_plain(x, t.block_nbr, w, mask, edge)
+    if masked:
+        assert not got[~occ].float().any()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dt == torch.float32:
+        assert torch.equal(got, TBD.block_conv(x, t.block_nbr, w, mask, edge,
+                                               narrow=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_narrow_paths_bit_equal_in_two_calls(levels, dtype):
+    """Two calls of each narrow path on the same inputs are bit-equal (no
+    atomics touch the output): K1 at the k5 stem 3 -> 32, K10 at the dense
+    k5 stem on the level's cached row list, whose ticket each call leaves
+    at 0; the dispatch takes the narrow path at that shape."""
+    dt = getattr(torch, dtype)
+    narrow = (TSC.gather_conv.narrow.launches,
+              TBD.block_conv.narrow.launches)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    lv = levels.levels
+    x = torch.randn(CAPS[0], 3, generator=gen, device="cuda").to(dt)
+    w = (torch.randn(125, 3, 32, generator=gen, device="cuda")
+         * 375 ** -0.5).to(dt)
+    calls = [TSC.gather_conv(x, levels.stem_nbr, w, lv[0].valid)
+             for _ in range(2)]
+    t = _block_plan_on("cuda", [4] * 5).blocks[0]
+    occ = TBD.occupancy(t)
+    xd = torch.where(occ[:, None], torch.randn(
+        occ.shape[0], 3, generator=gen, device="cuda"), 0.0).to(dt)
+    rows = TBD.row_list(t, occ)
+    dense = [TBD.block_conv(xd, t.block_nbr, w, occ, t.edge, rows)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*calls) and torch.equal(*dense)
+    assert int(rows.ws[occ.shape[0] + 1]) == 0
+    assert (TSC.gather_conv.narrow.launches,
+            TBD.block_conv.narrow.launches) == (narrow[0] + 2, narrow[1] + 2)
