@@ -43,16 +43,35 @@
 //      4-byte copies, or plain loads in bf16, when Cin or Cout breaks the
 //      16-byte alignment), at one barrier per stage, the next stage's copies
 //      in flight during this one's products.  fp32 multiplies with FMAs,
-//      each thread an interleaved TM x TN sub-tile; bf16 with
-//      mma.sync.m16n8k16 tensor-core tiles (ldmatrix), fp32 sums.  The
-//      caller zeroes the output first when it passes a mask.
-// The order of each output's sums is fixed whatever tile or thread block
-// computes it: an offset's products over Cin (slices, then channels,
+//      each thread an interleaved TM x TN sub-tile.  The caller zeroes the
+//      output first when it passes a mask.
+// The order of each fp32 output's sums is fixed whatever tile or thread
+// block computes it: an offset's products over Cin (slices, then channels,
 // ascending) into a partial sum, the partials added in ascending offset
 // order, as the plain version adds its per-offset products.  This keeps
 // the kernel's rounding close to the plain version's, which a small
 // training step amplifies (PERF.md section 6).  No atomics touch the
 // output, so a run is deterministic.
+//
+// bf16 (the wide path's bf16 calls): the same row lists, ticket, tiles and
+// source tables, on the warpgroup core of wgmma_tile.cuh.  The stage loop
+// of the fp32 kernel, with mma.sync, lost to cuDNN's bf16 conv3d at the
+// small levels (L3 384 -> 256: 152 items of 324 stages, each behind a
+// full barrier, 2 x 4 mma.sync a warp) and at the dense stem (Cin 259:
+// 2-byte loads).  Now a tile's (active offset, 64-channel) stages run
+// through a four-buffer cp.async ring into the swizzled layouts wgmma
+// reads, two stages' copies in flight during a stage's four
+// wgmma.m64nBNk16 (BN = Cout up to 128); where a level's (tile, column
+// tile) items are fewer than two per resident block, each tile's active
+// offsets are cut into up to 16 contiguous groups, each group's fp32
+// partial goes to a scratch the wrapper allocates at the level's capacity
+// (block_conv_split_cap), and group_sum_kernel adds the groups in
+// ascending order and writes bf16: no float atomics, so two calls are
+// bit-equal.  Each output's sum runs over the stages in order in one fp32
+// accumulator (no per-offset partials: the bf16 tolerance is one rounding
+// of the output).  The stems' rows reach it at an aligned pitch (264 for
+// Cin 259, ops/narrow.py:row_pitch); a row that breaks 16-byte alignment
+// is copied element by element, and the wrapper counts such calls.
 //
 // The narrow path (narrow != 0, for a few input channels: the Baseline's
 // dense k5 stem, rgb 3 -> 32; ops/narrow.py picks it from the shape): the
@@ -83,6 +102,7 @@
 // dilate_kernel).
 #include "block_tile.cuh"
 #include "narrow_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -292,10 +312,10 @@ constexpr int kThreads = 128;
 constexpr int BM = 64;   // list rows per tile
 constexpr int BK = 32;   // input channels per stage
 constexpr int kFewTiles = 512;
+constexpr int kMaxGroups = 16;   // the bf16 conv's offset groups, at most
 
 template <typename T> struct Elt;
 template <> struct Elt<float> { static constexpr int kVec = 4, kPad = 4; };
-template <> struct Elt<__nv_bfloat16> { static constexpr int kVec = 8, kPad = 8; };
 
 template <typename T, int BN>
 struct Smem {
@@ -340,14 +360,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // one element of a slice that breaks 16-byte alignment: a 4-byte async copy
-// in fp32, a plain load in bf16 (no async copy is narrower than 4 bytes)
 __device__ __forceinline__ void copy_one(float* dst, const float* src, bool ok,
                                          const float* any) {
   cp_async4(dst, ok ? src : any, ok ? 4 : 0);
-}
-__device__ __forceinline__ void copy_one(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                         bool ok, const __nv_bfloat16*) {
-  *dst = ok ? *src : from_f<__nv_bfloat16>(0.f);
 }
 
 // Stage (o, k0): A[r][kk] = x[src[r]][k0 + kk], B[kk][n] = w[o][k0 + kk][n0 + n]
@@ -435,48 +450,6 @@ __device__ __forceinline__ void compute_stage(const float* __restrict__ As,
   }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bf16: warp w owns rows 16 w .. 16 w + 15 and every column, BN / 8 n8 tiles
-template <int BN>
-__device__ __forceinline__ void compute_stage(const __nv_bfloat16* __restrict__ As,
-                                              const __nv_bfloat16* __restrict__ Bs,
-                                              float (&acc)[BN / 8][4]) {
-  using S = Smem<__nv_bfloat16, BN>;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    uint32_t a[4];
-    ldmatrix_x4(a, As + (16 * warp + (lane & 15)) * S::AST + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int nt = 0; nt < BN / 8; nt += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, Bs + (kk + (lane & 15)) * S::BST + nt * 8 + (lane >> 4) * 8);
-      mma_bf16(acc[nt], a, b[0], b[1]);
-      mma_bf16(acc[nt + 1], a, b[2], b[3]);
-    }
-  }
-}
-
 template <typename T, int BN> struct Acc;
 template <int BN> struct Acc<float, BN> {
   float v[Fma<BN>::TM][Fma<BN>::TN];
@@ -518,47 +491,6 @@ template <int BN> struct Acc<float, BN> {
     }
   }
 };
-template <int BN> struct Acc<__nv_bfloat16, BN> {
-  float v[BN / 8][4];
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int t = 0; t < BN / 8; ++t)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) v[t][q] = 0.f;
-  }
-  __device__ __forceinline__ void add(const Acc& p) {
-#pragma unroll
-    for (int t = 0; t < BN / 8; ++t)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) v[t][q] += p.v[t][q];
-  }
-  // mma accumulator: v[t][2 h + e] is row 16 w + lane / 4 + 8 h, column
-  // t * 8 + 2 (lane % 4) + e
-  __device__ __forceinline__ void store(__nv_bfloat16* __restrict__ out,
-                                        const int* __restrict__ rows, int n0,
-                                        int cout) const {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const bool pair = cout % 2 == 0;
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = rows[16 * warp + lane / 4 + 8 * hh];
-      if (row < 0) continue;
-      __nv_bfloat16* __restrict__ o = out + (int64_t)row * cout;
-#pragma unroll
-      for (int t = 0; t < BN / 8; ++t) {
-        const int c = n0 + t * 8 + 2 * (lane % 4);
-        if (pair && c + 1 < cout) {
-          *reinterpret_cast<__nv_bfloat162*>(o + c) =
-              __floats2bfloat162_rn(v[t][2 * hh], v[t][2 * hh + 1]);
-        } else {
-          if (c < cout) o[c] = from_f<__nv_bfloat16>(v[t][2 * hh]);
-          if (c + 1 < cout) o[c + 1] = from_f<__nv_bfloat16>(v[t][2 * hh + 1]);
-        }
-      }
-    }
-  }
-};
-
 template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads)
 block_conv_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
@@ -700,6 +632,217 @@ cudaError_t launch_bn(const void* x, const void* nbr, const void* w, int32_t* ws
 }
 
 // ---------------------------------------------------------------------------
+// the bf16 conv: warpgroup tiles (wgmma_tile.cuh)
+// ---------------------------------------------------------------------------
+
+// Work items are (tile, column tile, group): a tile's active offsets are
+// cut into S contiguous groups.  S is 1 where the level's items number at
+// least `target` (two per SM); else up to `split_cap` (the wrapper's
+// scratch) so that they do.  Both this kernel and the group sum derive S
+// from the row count on the card, the same way.  (Two per resident block
+// instead split L0's and L1's levels too, and lost there: a second launch
+// and the partials' round trip for items that already filled the card.)
+__device__ __forceinline__ int wg_groups(int n_list, int n_col, int target,
+                                        int split_cap) {
+  const int base = (n_list + wgc::BM - 1) / wgc::BM * n_col;
+  if (base == 0 || split_cap <= 1) return 1;
+  return min(split_cap, max(1, (target + base - 1) / base));
+}
+
+// A tile's source table in shared memory: s_src[o][i] the dense row of row
+// s_row[i]'s cell shifted by offset o through the block halo, -1 where none.
+__device__ __forceinline__ void halo_table(int* __restrict__ s_src, const int* __restrict__ s_row,
+                                           const int32_t* __restrict__ nbr, int n_blocks,
+                                           int edge, int k, int n_off) {
+  const int h = (k - 1) / 2, e3 = edge * edge * edge;
+  for (int e = threadIdx.x; e < n_off * wgc::BM; e += wgc::kThreads) {
+    const int o = e / wgc::BM, row = s_row[e % wgc::BM];
+    int s = -1;
+    if (row >= 0) {
+      const int b = row / e3, c = row % e3;
+      s = bdt::halo_row(nbr, n_blocks, b, edge, c / (edge * edge) + o / (k * k) - h,
+                        (c / edge) % edge + (o / k) % k - h, c % edge + o % k - h);
+    }
+    s_src[e] = s;
+  }
+}
+
+template <int BN>
+__global__ void __launch_bounds__(wgc::kThreads)
+block_conv_wg_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ nbr,
+                     const __nv_bfloat16* __restrict__ w, const int32_t* __restrict__ list,
+                     const int32_t* __restrict__ count, int32_t* __restrict__ ticket,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ scratch,
+                     int n_rows, int n_blocks, int edge, int k, int cin, int cout,
+                     int target, int split_cap, int vec_a, int vec_b) {
+  using wgc::BM;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* const ring = wgc::ring_base(smem);
+  const int n_off = k * k * k;
+  int* const s_src = reinterpret_cast<int*>(smem + wgc::Ring<BN>::kBytes);  // [n_off][BM]
+  int* const s_row = s_src + n_off * BM;                                    // [BM]
+  int* const s_hit = s_row + BM;                                            // [n_off]
+  int* const s_act = s_hit + n_off;                                         // [n_off]
+  __shared__ int s_item, s_n_act;
+
+  const int tid = threadIdx.x;
+  const int n_list = *count;
+  const int n_tiles = (n_list + BM - 1) / BM, n_col = (cout + BN - 1) / BN;
+  const int groups = wg_groups(n_list, n_col, target, split_cap);
+  const int n_items = n_tiles * n_col * groups;
+  const int n_kc = (cin + wgc::BK - 1) / wgc::BK;
+  const int64_t ld = (int64_t)n_col * BN;
+  float acc[BN / 2];
+
+  for (;;) {
+    if (tid == 0) s_item = atomicAdd(ticket, 1);
+    __syncthreads();  // also: the last item's reads of shared memory are done
+    const int item = s_item;
+    if (item >= n_items) {
+      // the last ticket taken: every block is done with the counter
+      if (tid == 0 && item == n_items + (int)gridDim.x - 1) *ticket = 0;
+      break;
+    }
+    const int g = item % groups, ct = item / groups % n_col, m0 = item / groups / n_col * BM;
+    if (tid < BM) s_row[tid] = m0 + tid < n_list ? list[m0 + tid] : -1;
+    __syncthreads();
+    halo_table(s_src, s_row, nbr, n_blocks, edge, k, n_off);
+    __syncthreads();
+    const int n_act = wgc::active_offsets(s_src, n_off, s_hit, s_act, &s_n_act);
+    const int a0 = g * n_act / groups, a1 = (g + 1) * n_act / groups;
+    auto stage = [&](int st) {
+      const int o = s_act[a0 + st / n_kc];
+      return wgc::Stage{s_src + o * BM, o, st % n_kc * wgc::BK};
+    };
+    wgc::mainloop<BN>(acc, ring, x, w, (a1 - a0) * n_kc, stage, ct * BN, cin, cout,
+                      vec_a != 0, vec_b != 0);
+    if (groups == 1)
+      wgc::store_rows<BN>(acc, out, s_row, ct * BN, cout);
+    else
+      wgc::store_f32<BN>(acc, scratch + ((int64_t)g * n_rows + m0) * ld + ct * BN, ld,
+                         min(BM, n_list - m0));
+  }
+}
+
+// out[list[i]][c] = the groups' partials of list entry i added in ascending
+// group order, rounded to bf16; nothing when the conv ran one group.  A
+// thread adds 4 columns of one entry.
+__global__ void __launch_bounds__(256)
+group_sum_kernel(const float* __restrict__ scratch, const int32_t* __restrict__ list,
+                 const int32_t* __restrict__ count, __nv_bfloat16* __restrict__ out, int n_rows,
+                 int cout, int bn, int target, int split_cap) {
+  const int n_list = *count, n_col = (cout + bn - 1) / bn;
+  const int groups = wg_groups(n_list, n_col, target, split_cap);
+  if (groups == 1) return;
+  const int64_t ld = (int64_t)n_col * bn, q = ld / 4;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < (int64_t)n_list * q;
+       e += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t i = e / q;
+    const int c = (int)(e % q) * 4;
+    if (c >= cout) continue;
+    float4 s = *reinterpret_cast<const float4*>(scratch + i * ld + c);
+    for (int g = 1; g < groups; ++g) {
+      const float4 p = *reinterpret_cast<const float4*>(scratch + ((int64_t)g * n_rows + i) * ld + c);
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
+    }
+    __nv_bfloat16* const o = out + (int64_t)list[i] * cout + c;
+    const float v[4] = {s.x, s.y, s.z, s.w};
+    for (int j = 0; j < 4 && c + j < cout; ++j) o[j] = __float2bfloat16(v[j]);
+  }
+}
+
+template <int BN>
+size_t wg_smem(int n_off) {
+  return wgc::Ring<BN>::kBytes + sizeof(int) * ((size_t)n_off * wgc::BM + wgc::BM + 2 * n_off);
+}
+
+// the items the bf16 conv aims at: two per SM
+cudaError_t wg_target(int* target) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    cached = 2 * sms;
+  }
+  *target = cached;
+  return cudaSuccess;
+}
+
+// the resident blocks of the bf16 kernel at this shape, its item target,
+// and the groups its scratch must hold (1: none)
+template <int BN>
+cudaError_t wg_grid(int n_rows, int k, int cout, int* grid, int* target, int* split_cap) {
+  const int n_off = k * k * k;
+  const int64_t cap_items = (int64_t)(n_rows + wgc::BM - 1) / wgc::BM * ((cout + BN - 1) / BN);
+  cudaError_t err = ntt::grid_of(block_conv_wg_kernel<BN>, wgc::kThreads, wg_smem<BN>(n_off),
+                                 INT32_MAX, grid);
+  if (err == cudaSuccess) err = wg_target(target);
+  if (err != cudaSuccess) return err;
+  // a level's rows at a quarter of its cells (the levels' fill is 20-35%):
+  // groups where those would not reach the target
+  const int64_t est = cap_items / 4 > 0 ? cap_items / 4 : 1;
+  const int64_t want = (*target + est - 1) / est;
+  *split_cap = want < 1 ? 1 : want > kMaxGroups ? kMaxGroups : (int)want;
+  return cudaSuccess;
+}
+
+template <int BN>
+cudaError_t launch_wg(const void* x, const void* nbr, const void* w, int32_t* ws, void* out,
+                      float* scratch, int split_cap, int n_blocks, int edge, int k, int cin,
+                      int cout, cudaStream_t s) {
+  const int n_rows = n_blocks * edge * edge * edge;
+  int grid = 0, target = 0, cap = 0;
+  cudaError_t err = wg_grid<BN>(n_rows, k, cout, &grid, &target, &cap);
+  if (err != cudaSuccess) return err;
+  if (split_cap > 1 && scratch == nullptr) return cudaErrorInvalidValue;
+  const bool vec_a = cin % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vec_b = cout % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  block_conv_wg_kernel<BN><<<grid, wgc::kThreads, wg_smem<BN>(k * k * k), s>>>(
+      xb, static_cast<const int32_t*>(nbr), static_cast<const __nv_bfloat16*>(w), ws,
+      ws + n_rows, ws + n_rows + 1, ob, scratch, n_rows, n_blocks, edge, k, cin, cout, target,
+      split_cap, vec_a, vec_b);
+  if ((err = cudaGetLastError()) != cudaSuccess || split_cap <= 1) return err;
+  group_sum_kernel<<<264, 256, 0, s>>>(scratch, ws, ws + n_rows, ob, n_rows, cout, BN, target,
+                                       split_cap);
+  return cudaGetLastError();
+}
+
+cudaError_t wg_conv(const void* x, const void* nbr, const void* w, int32_t* ws, void* out,
+                    float* scratch, int split_cap, int n_blocks, int edge, int k, int cin,
+                    int cout, cudaStream_t s) {
+  switch (wgc::pick_bn(cout)) {
+    case 32:
+      return launch_wg<32>(x, nbr, w, ws, out, scratch, split_cap, n_blocks, edge, k, cin, cout, s);
+    case 64:
+      return launch_wg<64>(x, nbr, w, ws, out, scratch, split_cap, n_blocks, edge, k, cin, cout, s);
+    case 96:
+      return launch_wg<96>(x, nbr, w, ws, out, scratch, split_cap, n_blocks, edge, k, cin, cout, s);
+    default:
+      return launch_wg<128>(x, nbr, w, ws, out, scratch, split_cap, n_blocks, edge, k, cin, cout,
+                            s);
+  }
+}
+
+// the groups the bf16 conv's scratch must hold at this shape (1: none)
+cudaError_t wg_split_cap(int n_rows, int k, int cout, int* cap) {
+  int grid = 0, target = 0;
+  switch (wgc::pick_bn(cout)) {
+    case 32: return wg_grid<32>(n_rows, k, cout, &grid, &target, cap);
+    case 64: return wg_grid<64>(n_rows, k, cout, &grid, &target, cap);
+    case 96: return wg_grid<96>(n_rows, k, cout, &grid, &target, cap);
+    default: return wg_grid<128>(n_rows, k, cout, &grid, &target, cap);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // the narrow path
 // ---------------------------------------------------------------------------
 
@@ -815,44 +958,58 @@ extern "C" int block_dilate(const void* mask, const void* block_nbr, void* out, 
 namespace {
 
 cudaError_t conv(const void* x, const void* nbr, const void* w, int32_t* ws, void* out,
-                 int n_blocks, int edge, int k, int cin, int cout, int dtype, int narrow,
-                 cudaStream_t s) {
+                 void* scratch, int split_cap, int n_blocks, int edge, int k, int cin, int cout,
+                 int dtype, int narrow, cudaStream_t s) {
   if (narrow && (cin < 1 || cin > ntt::kMaxCin)) return cudaErrorInvalidValue;
   if (narrow)
     return dtype == 1
         ? narrow_conv<__nv_bfloat16>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s)
         : narrow_conv<float>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s);
-  return dtype == 1
-      ? launch_bn<__nv_bfloat16>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s)
-      : launch_bn<float>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s);
+  if (dtype == 1)
+    return wg_conv(x, nbr, w, ws, out, static_cast<float*>(scratch), split_cap, n_blocks, edge,
+                   k, cin, cout, s);
+  return launch_bn<float>(x, nbr, w, ws, out, n_blocks, edge, k, cin, cout, s);
 }
 
 }  // namespace
 
+// The offset groups the bf16 conv's scratch must hold at this shape: 1
+// (no scratch), or up to kMaxGroups, each (n_blocks * edge^3) x (Cout
+// rounded up to the column tile) fp32.  Negative: a cudaError_t.
+extern "C" int block_conv_split_cap(int n_blocks, int edge, int k, int cout) {
+  int cap = 1;
+  const cudaError_t err = wg_split_cap(n_blocks * edge * edge * edge, k, cout, &cap);
+  return err == cudaSuccess ? cap : -static_cast<int>(err);
+}
+
 // dtype: 0 = float32, 1 = bfloat16; mask may be null (every row); narrow:
-// the narrow path.  Rows outside the mask are left as they are: the caller
-// zeroes out first.  Returns the launches' cudaError_t.
+// the narrow path; scratch and split_cap: the bf16 conv's offset groups
+// (block_conv_split_cap; a test may ask for more or fewer), scratch null
+// when split_cap is 1.  Rows outside the mask are left as they are: the
+// caller zeroes out first.  Returns the launches' cudaError_t.
 extern "C" int block_conv(const void* x, const void* block_nbr, const void* w,
-                          const void* mask, void* ws, void* out, int n_blocks, int edge,
-                          int k, int cin, int cout, int dtype, int narrow, void* stream) {
+                          const void* mask, void* ws, void* out, void* scratch, int split_cap,
+                          int n_blocks, int edge, int k, int cin, int cout, int dtype,
+                          int narrow, void* stream) {
   if (n_blocks == 0 || cout == 0) return 0;
   if ((edge != 4 && edge != 8) || (k != 3 && k != 5)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int32_t* wsi = static_cast<int32_t*>(ws);
   cudaError_t err = launch_rows(mask, wsi, n_blocks * edge * edge * edge, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(conv(x, block_nbr, w, wsi, out, n_blocks, edge, k, cin, cout,
-                               dtype, narrow, s));
+  return static_cast<int>(conv(x, block_nbr, w, wsi, out, scratch, split_cap, n_blocks, edge, k,
+                               cin, cout, dtype, narrow, s));
 }
 
 // The same over a row list built before (block_rows or block_dilate into
 // ws, its ticket 0, as every conv leaves it): no list passes.
 extern "C" int block_conv_rows(const void* x, const void* block_nbr, const void* w,
-                               void* ws, void* out, int n_blocks, int edge, int k, int cin,
-                               int cout, int dtype, int narrow, void* stream) {
+                               void* ws, void* out, void* scratch, int split_cap, int n_blocks,
+                               int edge, int k, int cin, int cout, int dtype, int narrow,
+                               void* stream) {
   if (n_blocks == 0 || cout == 0) return 0;
   if ((edge != 4 && edge != 8) || (k != 3 && k != 5)) return cudaErrorInvalidValue;
-  return static_cast<int>(conv(x, block_nbr, w, static_cast<int32_t*>(ws), out, n_blocks,
-                               edge, k, cin, cout, dtype, narrow,
+  return static_cast<int>(conv(x, block_nbr, w, static_cast<int32_t*>(ws), out, scratch,
+                               split_cap, n_blocks, edge, k, cin, cout, dtype, narrow,
                                static_cast<cudaStream_t>(stream)));
 }

@@ -43,6 +43,19 @@
 // partial (n_off * V, gather_conv_pair_stride(Cout)) fp32 scratch.  Rows
 // outside valid are written as 0.
 //
+// The bf16 wide stems (gather_conv_wg, ops/narrow.py:wide_stem: Cin above
+// 256 into Cout 32, the flagship's k5 259 -> 32 and the v2 model's k3 262
+// -> 32): at Cin 259 the mma.sync core copied the rows element by element
+// and its two-buffer stages sat behind a barrier each 32 channels, so the
+// bf16 stem ran slower than fp32 and lost to a gather and cuBLAS.  The
+// stems now reach K1 at an aligned pitch (264, zero past Cin) and run on
+// the warpgroup core (wgmma_tile.cuh: 64-channel stages in a four-buffer
+// cp.async ring, wgmma.m64n32k16) in the pair-major form above (the items
+// and the pair-major buffer, Cin in stages).  An output-stationary form
+// (64-row tiles walking the offsets some row has a neighbour at: no pair
+// list or buffer, products at dead cells) was slower at both stems, by up
+// to three times, and was dropped (PERF.md section 6).
+//
 // The narrow path (gather_conv_narrow, for a few input channels: the
 // Baseline's k5 stem, rgb 3 -> 32; ops/narrow.py picks it from the shape):
 // at Cin 3 every pair's 32 products are ten times as wide as its input, and
@@ -56,6 +69,7 @@
 // ticket, and no scratch is allocated.
 #include "gather_tile.cuh"
 #include "narrow_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -205,6 +219,86 @@ cudaError_t launch_bn(const void* x, const void* nbr, const void* w, const void*
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 wide stems: warpgroup tiles (wgmma_tile.cuh)
+// ---------------------------------------------------------------------------
+
+using wgc::bf16;
+
+// Pair-major form: an item is 64 live pairs of one offset and one column
+// tile, as conv_products_kernel's, its Cin in 64-channel stages through
+// the warpgroup core; the products go to the pair-major buffer and
+// conv_pair_sum_kernel adds them.
+template <int BN>
+__global__ void __launch_bounds__(wgc::kThreads)
+conv_products_wg_kernel(const bf16* __restrict__ x, const int32_t* __restrict__ nbr,
+                        const bf16* __restrict__ w, const int32_t* __restrict__ list,
+                        const int32_t* __restrict__ counts, int32_t* __restrict__ ticket,
+                        int32_t* __restrict__ pos, float* __restrict__ partial, int v, int cin,
+                        int cout, int n_off, int vec_a, int vec_b) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* const ring = wgc::ring_base(smem);
+  int* const s_src = reinterpret_cast<int*>(smem + wgc::Ring<BN>::kBytes);  // [BM]
+  int* const s_first = s_src + BM;                                          // [n_off + 1]
+  int* const s_group = s_first + n_off + 1;                                 // [n_off + 1]
+  __shared__ int s_item;
+  const int tid = threadIdx.x;
+  gtt::pair_prefixes(counts, n_off, s_first, s_group);
+  const int n_col = (cout + BN - 1) / BN, ld = n_col * BN;
+  const int n_kc = (cin + wgc::BK - 1) / wgc::BK;
+  const int n_items = s_group[n_off] * n_col;
+  float acc[BN / 2];
+  for (;;) {
+    if (tid == 0) s_item = atomicAdd(ticket, 1);
+    __syncthreads();  // also: the last item's reads of shared memory are done
+    const int item = s_item;
+    if (item >= n_items) {
+      // the last ticket taken: every block is done with the counter
+      if (tid == 0 && item == n_items + (int)gridDim.x - 1) *ticket = 0;
+      break;
+    }
+    const gtt::Item it = gtt::decode_item(item, s_first, s_group, n_off, n_col);
+    const int o = it.o, j0 = it.j0, live = it.live, ct = it.ct;
+    if (tid < BM) {
+      int s = -1;
+      if (tid < live) {
+        const int r = list[(int64_t)o * v + j0 + tid];
+        if (ct == 0) pos[(int64_t)o * v + r] = s_first[o] + j0 + tid;
+        s = nbr[(int64_t)o * v + r];
+      }
+      s_src[tid] = s;
+    }
+    __syncthreads();
+    auto stage = [&](int st) { return wgc::Stage{s_src, o, st * wgc::BK}; };
+    wgc::mainloop<BN>(acc, ring, x, w, n_kc, stage, ct * BN, cin, cout, vec_a != 0,
+                      vec_b != 0);
+    wgc::store_f32<BN>(acc, partial + (int64_t)(s_first[o] + j0) * ld + ct * BN, ld, live);
+  }
+}
+
+template <int BN>
+cudaError_t launch_wg(const bf16* x, const int32_t* nbr, const bf16* w, const uint8_t* valid,
+                      int32_t* pairs, int32_t* pos, float* partial, bf16* out, int v, int cin,
+                      int cout, int n_off, cudaStream_t s) {
+  const int vec_a = cin % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int vec_b = cout % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const int n_col = (cout + BN - 1) / BN;
+  int grid = 0;
+  auto kernel = conv_products_wg_kernel<BN>;
+  const size_t smem = wgc::Ring<BN>::kBytes + sizeof(int) * (BM + 2 * (n_off + 1));
+  cudaError_t err = ntt::grid_of(kernel, wgc::kThreads, smem,
+                                 (int64_t)((v + BM - 1) / BM) * n_off * n_col, &grid);
+  if (err != cudaSuccess) return err;
+  const int64_t n_list = (int64_t)n_off * v;
+  kernel<<<grid, wgc::kThreads, smem, s>>>(x, nbr, w, pairs, pairs + n_list,
+                                           pairs + n_list + n_off, pos, partial, v, cin, cout,
+                                           n_off, vec_a, vec_b);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  conv_pair_sum_kernel<bf16><<<dim3((v + 31) / 32, (cout + 31) / 32), 128, 0, s>>>(
+      nbr, pos, partial, n_col * BN, valid, out, v, cout, n_off);
+  return cudaGetLastError();
+}
+
 // the narrow path: out[r] = sum_o x[nbr[o][r]] @ w[o] on valid rows
 struct TableSrc {
   static constexpr bool kAhead = true;   // one load a source
@@ -289,5 +383,33 @@ extern "C" int gather_gemm_conv(const void* x, const void* nbr, const void* w,
       ? launch_bn<__nv_bfloat16>(x, nbr, w, valid, pairs, pos, partial, out, v, cin, cout,
                                  n_off, s)
       : launch_bn<float>(x, nbr, w, valid, pairs, pos, partial, out, v, cin, cout, n_off, s);
+  return static_cast<int>(err);
+}
+
+// K1's bf16 wide stems (ops/narrow.py:wide_stem): the contract of
+// gather_gemm_conv in bf16 on the warpgroup core.  Returns the launches'
+// cudaError_t.
+extern "C" int gather_conv_wg(const void* x, const void* nbr, const void* w, const void* valid,
+                              void* pairs, void* pos, void* partial, void* out, int v, int cin,
+                              int cout, int n_off, void* stream) {
+  if (v == 0 || cout == 0) return 0;
+  const int bn = wgc::pick_bn(cout);
+  if (pair_stride(cout) != (cout + bn - 1) / bn * bn) return cudaErrorInvalidValue;
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* wb = static_cast<const bf16*>(w);
+  const auto* nb = static_cast<const int32_t*>(nbr);
+  const auto* va = static_cast<const uint8_t*>(valid);
+  auto* pl = static_cast<int32_t*>(pairs);
+  auto* ps = static_cast<int32_t*>(pos);
+  auto* pt = static_cast<float*>(partial);
+  auto* ob = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (bn) {
+    case 32: err = launch_wg<32>(xb, nb, wb, va, pl, ps, pt, ob, v, cin, cout, n_off, s); break;
+    case 64: err = launch_wg<64>(xb, nb, wb, va, pl, ps, pt, ob, v, cin, cout, n_off, s); break;
+    case 96: err = launch_wg<96>(xb, nb, wb, va, pl, ps, pt, ob, v, cin, cout, n_off, s); break;
+    default: err = launch_wg<128>(xb, nb, wb, va, pl, ps, pt, ob, v, cin, cout, n_off, s);
+  }
   return static_cast<int>(err);
 }

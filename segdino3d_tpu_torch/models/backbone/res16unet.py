@@ -78,14 +78,20 @@ def make_level_ctxs(plan: UNetPlan):
 
 class SubMConv(nn.Module):
     """Submanifold conv; ``kernel`` (k^3, Cin, Cout), canonical order, run
-    by the level's context."""
+    by the level's context.  Input rows wider than Cin (the stem's aligned
+    pitch, ``ops.narrow.row_pitch``, zero past Cin) meet the kernel padded
+    with zero rows on its Cin axis inside the forward, so its gradient is
+    the unpadded one and the parameter keeps its shape."""
 
     def __init__(self, cin: int, cout: int, kernel_volume: int = 27):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(kernel_volume, cin, cout))
 
     def forward(self, feats, ctx):
-        return ctx.subm(feats, self.kernel.to(feats.dtype))
+        w = self.kernel.to(feats.dtype)
+        if feats.shape[1] > w.shape[1]:
+            w = F.pad(w, (0, 0, 0, feats.shape[1] - w.shape[1]))
+        return ctx.subm(feats, w)
 
 
 class DownConv(nn.Module):

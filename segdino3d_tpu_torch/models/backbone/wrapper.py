@@ -16,7 +16,10 @@ SparseBackboneWrapper``:
    division by the voxel size, as the reference quantizes
    ``(p - p.min(0)) / voxel``;
 3. average point features into the plan's level-0 voxels (kernel K3),
-   each element rounded to the compute dtype first;
+   each element rounded to the compute dtype first, into rows at the
+   stem's aligned pitch (``ops.narrow.row_pitch``: in bf16 the 259 or 262
+   channels reach the stem's kernels as 264, zero past Cin; the stem pads
+   its weight to match);
 4. run the sparse U-Net;
 5. unpool voxel -> point and pool point -> superpoint in one fused K3
    launch, together with the superpoint centroids of the quantized point
@@ -40,6 +43,7 @@ from torch import nn
 
 from segdino3d_tpu_torch.gtypes import BackboneOutput, SceneBatch
 from segdino3d_tpu_torch.models.backbone.res16unet import build_unet_plan
+from segdino3d_tpu_torch.ops import narrow as N
 from segdino3d_tpu_torch.ops import scatter
 from segdino3d_tpu_torch.ops.host_plan import UNetPlan
 from segdino3d_tpu_torch.ops.voxelize import voxelize
@@ -168,7 +172,9 @@ class SparseBackboneWrapper(nn.Module):
         inverse = plan.inverse          # -1: the point has no voxel
         vox_csr = scatter.segment_csr(inverse, v0, pvalid)
         vox_feats = scatter.segment_mean_columns(
-            feats, inverse, v0, self.compute_dtype, pvalid, csr=vox_csr)
+            feats, inverse, v0, self.compute_dtype, pvalid, csr=vox_csr,
+            width=N.row_pitch(sum(f.shape[1] for f in feats),
+                              self.compute_dtype))
         vox_feats = torch.where(valid0[:, None], vox_feats, 0.0)
         vox_out = self.unet(vox_feats, plan)
 

@@ -266,7 +266,7 @@ class ScanNetQueryDecoder(nn.Module):
     def score_superpoints(self, sp_feats):
         """Per-superpoint max class probability, for the architecture's
         ``query_num`` top-k query selection."""
-        q = self.query_proj2(F.relu(self.query_proj1(sp_feats)))
+        q = self.query_proj2(F.relu(dense(sp_feats, self.query_proj1)))
         cls = self.out_cls(self.out_norm(q))
         return torch.softmax(cls, dim=-1)[..., :-1].amax(-1)
 
@@ -311,7 +311,7 @@ class ScanNetQueryDecoder(nn.Module):
 
         inst_feats = F.relu(self.input_proj_norm(
             dense(sp_feats, self.input_proj_dense, dt).float()))
-        mask_feats = self.x_mask2(F.relu(self.x_mask1(sp_feats)))
+        mask_feats = self.x_mask2(F.relu(dense(sp_feats, self.x_mask1)))
         mask_feats = torch.where(sp_valid[..., None], mask_feats, 0.0)
 
         # learned queries first, then the projected superpoint queries
@@ -320,9 +320,12 @@ class ScanNetQueryDecoder(nn.Module):
             parts.append(self.query_embed.embedding[None].to(
                 queries_feat.dtype).expand(B, -1, -1))
         if self.num_instance_queries == 0:
-            parts.append(self.query_proj2(F.relu(self.query_proj1(
-                queries_feat))))
-        queries = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+            parts.append(self.query_proj2(F.relu(dense(
+                queries_feat, self.query_proj1))))
+        # the learned table rounded to a bf16 backbone's dtype, as in JAX,
+        # then in fp32: flax's fp32 layers promote it at their first use
+        queries = (torch.cat(parts, dim=1) if len(parts) > 1
+                   else parts[0]).float()
         if self.n_learned > 0:
             ones = torch.ones(B, self.n_learned, dtype=torch.bool, device=dev)
             query_valid = (torch.cat([ones, query_valid], dim=1)

@@ -66,8 +66,12 @@ def dense(x: torch.Tensor, layer: nn.Linear,
           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``layer(x)``; with ``dtype`` the flax ``Dense(dtype=...)`` pattern:
     the input cast to ``dtype``, the product in it (the parameters stay
-    fp32)."""
-    return layer(x) if dtype is None else linear(x.to(dtype), layer)
+    fp32).  Without ``dtype``, as flax's ``Dense()``, the input and the
+    parameters are promoted to a common dtype first (a bf16 backbone's
+    features meet an fp32 head in fp32)."""
+    if dtype is not None:
+        return linear(x.to(dtype), layer)
+    return layer(x.to(torch.promote_types(x.dtype, layer.weight.dtype)))
 
 
 def dropout_keep(shapes: Sequence[Sequence[int]], rate: float,

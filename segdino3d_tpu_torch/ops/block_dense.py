@@ -367,7 +367,8 @@ def dilation(tables: BlockTables, occ: torch.Tensor, k: int
 def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
                weights: torch.Tensor, occ: Optional[torch.Tensor],
                edge: int, rows: Optional[RowList] = None,
-               narrow: Optional[bool] = None) -> torch.Tensor:
+               narrow: Optional[bool] = None,
+               groups: Optional[int] = None) -> torch.Tensor:
     """Submanifold conv of flat dense rows with each block halo-padded from
     its shell neighbours: ``out[c] = sum_o halo[c + o] @ weights[o]``,
     zero at unoccupied cells when ``occ`` is given.
@@ -379,7 +380,11 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     dtype, summed in fp32.  On the card only the rows of ``occ`` are
     computed (every row without it), on the narrow path where
     ``narrow.narrow_path`` of the shape says so (or ``narrow``, where a
-    benchmark forces one path)."""
+    benchmark forces one path).  In bf16 the wide path runs on the
+    warpgroup core; where a level's tiles are too few to fill the card it
+    cuts each tile's offsets into groups whose fp32 partials a second
+    launch adds in order, into a scratch allocated here at the level's
+    capacity (``groups``: at most this many, where a test asks)."""
     n_off, cin, cout = weights.shape
     _check_layout("block_conv", feats, block_nbr, n_off, edge, cin)
     if feats.device.type == "cpu":
@@ -400,7 +405,18 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     out = (torch.empty if occ is None else torch.zeros)(
         n_rows, cout, dtype=feats.dtype, device=feats.device)
     lib = cuda_build.library("block_conv")
-    args = (b, edge, kernel_size(n_off), cin, cout,
+    split_cap, scratch = 1, None
+    if feats.dtype == torch.bfloat16 and not narrow:
+        split_cap = groups or _split_cap(lib, b, edge, kernel_size(n_off),
+                                         cout)
+        if split_cap > 1:
+            cols = -(-cout // N.wg_bn(cout)) * N.wg_bn(cout)
+            scratch = torch.empty(split_cap * n_rows * cols,
+                                  dtype=torch.float32, device=feats.device)
+    if not narrow:
+        N.count_element_loads(feats, weights)
+    args = (None if scratch is None else scratch.data_ptr(), split_cap, b,
+            edge, kernel_size(n_off), cin, cout,
             cuda_build.dtype_code(feats.dtype), int(narrow),
             cuda_build.stream_ptr(feats))
     if rows is None:
@@ -418,6 +434,20 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     block_conv.launches += 1
     block_conv.narrow.launches += int(narrow)
     return out
+
+
+# the bf16 conv's offset groups by (blocks, edge, k, Cout): one query of
+# the card each shape
+_SPLIT_CAPS: Dict[Tuple[int, int, int, int], int] = {}
+
+
+def _split_cap(lib, b, edge, k, cout):
+    key = (b, edge, k, cout)
+    if key not in _SPLIT_CAPS:
+        _SPLIT_CAPS[key] = cuda_build.check_count(
+            lib.block_conv_split_cap(b, edge, k, cout),
+            "block_conv_split_cap")
+    return _SPLIT_CAPS[key]
 
 
 block_conv.launches = 0
@@ -517,6 +547,7 @@ def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
                       device=feats.device)
     partial = out if splits == 1 else torch.empty(
         splits, k ** 3, cin, cout, dtype=torch.float32, device=feats.device)
+    N.count_element_loads(feats, dy)
     lib = cuda_build.library("block_wgrad")
     cuda_build.check(lib.block_wgrad(
         feats.data_ptr(), dy.data_ptr(), block_nbr.data_ptr(),

@@ -30,21 +30,22 @@ KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
            "voxel_compact", "slot_gather", "block_conv", "block_wgrad",
            "stem_slot_sum")
 _HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh",
-                                 "narrow_tile.cuh"),
+                                 "narrow_tile.cuh", "wgmma_tile.cuh"),
             "up_conv": ("gather_tile.cuh", "wgrad_tile.cuh"),
             "segment_mean_gather": (), "gather_wgrad": ("wgrad_tile.cuh",),
             "segment_grad": (),
             "coord_hash": ("coord_hash.cuh",),
             "neighbor_table": ("coord_hash.cuh",), "voxel_compact": (),
             "slot_gather": (),
-            "block_conv": ("block_tile.cuh", "narrow_tile.cuh"),
+            "block_conv": ("block_tile.cuh", "narrow_tile.cuh",
+                           "wgmma_tile.cuh"),
             "block_wgrad": ("block_tile.cuh", "wgrad_tile.cuh"),
             "stem_slot_sum": ()}
 # a library's C functions, where they are not the one named after it
 _ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
                                       "gather_conv_pair_stride",
                                       "gather_conv_narrow",
-                                      "narrow_conv_smem"),
+                                      "narrow_conv_smem", "gather_conv_wg"),
                  "coord_hash": ("coord_hash_build", "coord_hash_lookup"),
                  "gather_wgrad": ("gather_wgrad", "gather_pairs"),
                  "segment_mean_gather": ("segment_mean_gather",
@@ -52,7 +53,7 @@ _ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
                                          "segment_csr_offsets"),
                  "neighbor_table": ("neighbor_tables", "empty_launch"),
                  "block_conv": ("block_conv", "block_conv_rows", "block_rows",
-                                "block_dilate")}
+                                "block_dilate", "block_conv_split_cap")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -71,6 +72,9 @@ _SIGNATURES = {
     "gather_conv_narrow": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # n_off, cin, cout, dtype
     "narrow_conv_smem": [_I, _I, _I, _I],
+    # x, nbr, w, valid, pairs, pos, partial, out, v, cin, cout, n_off,
+    # stream
+    "gather_conv_wg": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, child, w, pairs, parent, valid, out, v_coarse, v_fine, cin, cout,
     # dtype, stream
     "up_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -105,12 +109,16 @@ _SIGNATURES = {
     "voxel_compact": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # x, idx, out, n, row_bytes, stream
     "slot_gather": [_P, _P, _P, _I, _I, _P],
-    # x, block_nbr, w, mask, ws, out, n_blocks, edge, k, cin, cout, dtype,
-    # narrow, stream
-    "block_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, block_nbr, w, ws, out, n_blocks, edge, k, cin, cout, dtype, narrow,
-    # stream
-    "block_conv_rows": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, block_nbr, w, mask, ws, out, scratch, split_cap, n_blocks, edge, k,
+    # cin, cout, dtype, narrow, stream
+    "block_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _P],
+    # x, block_nbr, w, ws, out, scratch, split_cap, n_blocks, edge, k, cin,
+    # cout, dtype, narrow, stream
+    "block_conv_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
+    # n_blocks, edge, k, cout
+    "block_conv_split_cap": [_I, _I, _I, _I],
     # mask, ws, n_rows, stream
     "block_rows": [_P, _P, _I, _P],
     # mask, block_nbr, out, ws, n_blocks, edge, k, stream
@@ -202,6 +210,14 @@ def check(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {err}")
+
+
+def check_count(value: int, name: str) -> int:
+    """A count returned by a C function that returns a negated
+    cudaError_t on failure."""
+    if value < 0:
+        raise RuntimeError(f"CUDA query {name} failed: cudaError_t {-value}")
+    return value
 
 
 # the current stream's handle as an int, without building a Stream object

@@ -1,4 +1,6 @@
-"""The narrow-input path of K1 and K10: when it runs, and its shared memory.
+"""K1's and K10's paths by the conv's shape: the narrow-input path (when it
+runs, and its shared memory), K1's bf16 path at the wide stems, the stems'
+aligned row pitch, and the count of calls that copy element by element.
 
 K1 (``sparse_conv.gather_conv``) and K10 (``block_dense.block_conv``) each
 have two paths on the card.  The wide one stages Cin in 32-channel slices
@@ -12,9 +14,22 @@ forces a path, so both kernels switch at the same place.
 ``ntt::smem_bytes`` of ``narrow_tile.cuh`` (``chip_smoke.py`` holds them
 equal to the library's ``narrow_conv_smem`` on the card).  Nothing here
 needs a card.
+
+bf16 rows: K1, K2, K4, K10 and K11 copy rows with 16-byte copies where a
+row's width (and its tensor's address) keeps 16-byte alignment, else
+element by element, which costs the stems several times their products.
+A bf16 row of the flagship's 259 or the v2 model's 262 channels breaks it,
+so the backbone wrapper gives the stem its input at ``row_pitch`` (264,
+zero columns past Cin) and the stem pads its weight to match
+(``models/backbone/res16unet.py:SubMConv``).  ``element_loads.calls``
+counts the bf16 kernel calls that still copy element by element
+(``count_element_loads``); ``chip_smoke.py`` holds it at 0 on the bf16
+paths.  In fp32 the pitch stays Cin (the kernels copy 4 bytes at a time
+there), so fp32 results are unchanged.
 """
 from __future__ import annotations
 
+import types
 from typing import NamedTuple, Optional
 
 import torch
@@ -98,3 +113,47 @@ def pick(forced: Optional[bool], n_off: int, cin: int, cout: int, dtype,
         raise ValueError(f"{name}: the narrow path does not take {n_off} "
                          f"offsets x {cin} -> {cout} channels in {dtype}")
     return forced
+
+
+# K1's bf16 warpgroup path (``gather_gemm_conv.cu:gather_conv_wg``) takes
+# the wide stems: Cin above this and Cout at most WIDE_STEM_MAX_COUT.  The
+# flagship's k5 stem (259 -> 32) and the v2 model's k3 stem (262 -> 32) are
+# the port's only such convs; every other bf16 K1 conv keeps the mma.sync
+# core (Cin <= 384 with Cout >= 64, or Cin <= 96).
+WIDE_STEM_MIN_CIN = 257
+WIDE_STEM_MAX_COUT = 32
+
+
+def wide_stem(cin: int, cout: int, dtype) -> bool:
+    """Whether K1 runs this conv on its bf16 warpgroup path."""
+    return dtype == torch.bfloat16 and cin >= WIDE_STEM_MIN_CIN \
+        and cout <= WIDE_STEM_MAX_COUT
+
+
+def wg_bn(cout: int) -> int:
+    """The warpgroup core's column tile for Cout (``wgc::pick_bn``)."""
+    return 32 if cout <= 32 else 64 if cout <= 64 else 96 if cout <= 96 \
+        else 128
+
+
+def row_pitch(cin: int, dtype) -> int:
+    """The row width at which a stem's ``cin`` input channels reach the
+    kernels: Cin rounded up to 16 bytes in bf16, Cin itself in fp32 and
+    on the narrow path (Cin <= NARROW_MAX_CIN, whose kernels read a few
+    channels a row by design: padded, the Baseline's 3-channel stem would
+    leave that path)."""
+    if dtype != torch.bfloat16 or cin <= NARROW_MAX_CIN:
+        return cin
+    return -(-cin // 8) * 8
+
+
+element_loads = types.SimpleNamespace(calls=0)
+
+
+def count_element_loads(*tensors: torch.Tensor) -> None:
+    """Count a bf16 kernel call whose rows the kernel copies element by
+    element: a tensor whose row width or address breaks 16-byte
+    alignment."""
+    if tensors[0].dtype == torch.bfloat16 and any(
+            t.shape[-1] % 8 or t.data_ptr() % 16 for t in tensors):
+        element_loads.calls += 1

@@ -258,12 +258,23 @@ def segment_mean(x: torch.Tensor, seg_ids: torch.Tensor, num_segments: int,
 def segment_mean_columns(xs: Sequence[torch.Tensor], seg_ids: torch.Tensor,
                          num_segments: int, dtype: torch.dtype,
                          valid: Optional[torch.Tensor] = None,
-                         csr: Optional[SegmentCSR] = None) -> torch.Tensor:
+                         csr: Optional[SegmentCSR] = None,
+                         width: Optional[int] = None) -> torch.Tensor:
     """``segment_mean(torch.cat(xs, 1).to(dtype), ...)`` without the
     concatenation: each (N, c) block is read where it lies, in its own
-    dtype, each element rounded to ``dtype`` before it is added."""
-    return segment_mean_gather(seg_ids, num_segments, valid, d=xs, csr=csr,
-                               round_to=dtype).to(dtype)
+    dtype, each element rounded to ``dtype`` before it is added.  With
+    ``width`` the rows are that wide, zero past the columns of ``xs`` (the
+    stems' aligned pitch, ``narrow.row_pitch``): the cast to ``dtype``
+    writes into the wider rows, so no further copy is made."""
+    means = segment_mean_gather(seg_ids, num_segments, valid, d=xs, csr=csr,
+                                round_to=dtype)
+    c = means.shape[1]
+    if width is None or width == c:
+        return means.to(dtype)
+    out = means.new_empty(num_segments, width, dtype=dtype)
+    out[:, c:] = 0
+    out[:, :c] = means
+    return out
 
 
 def segment_mean_stack(xs: Sequence[torch.Tensor], seg_ids: torch.Tensor,

@@ -116,7 +116,9 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
     tile) fp32 scratch, then adds each row's products in ascending offset
     order.  Its narrow path (``narrow.narrow_path`` of the shape, or
     ``narrow`` where a benchmark forces one path) is one launch that
-    allocates nothing but the output and builds no pair list."""
+    allocates nothing but the output and builds no pair list.  The bf16
+    wide stems (``narrow.wide_stem``) run the pair-major form on the
+    warpgroup core."""
     n_off, cin, cout = weights.shape
     if nbr.shape[0] != n_off or feats.shape[1] != cin \
             or tuple(valid.shape) != (nbr.shape[1],):
@@ -145,14 +147,24 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
         gather_conv.launches += 1
         gather_conv.narrow.launches += 1
         return out
+    N.count_element_loads(feats, weights)
+    wide = N.wide_stem(cin, cout, feats.dtype)
     pairs = cached_pairs(None, nbr)
     pos = torch.empty(n_off, v, dtype=torch.int32, device=dev)
     partial = torch.empty(n_off * v, lib.gather_conv_pair_stride(cout),
                           dtype=torch.float32, device=dev)
+    ptrs = (pairs.ws.data_ptr(), pos.data_ptr(), partial.data_ptr())
+    if wide:
+        cuda_build.check(lib.gather_conv_wg(
+            feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
+            valid.data_ptr(), *ptrs, out.data_ptr(), v, cin, cout, n_off,
+            cuda_build.stream_ptr(feats)), "gather_conv_wg")
+        gather_conv.launches += 1
+        gather_conv.wide_stem.launches += 1
+        return out
     cuda_build.check(lib.gather_gemm_conv(
         feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
-        valid.data_ptr(), pairs.ws.data_ptr(), pos.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), v, cin, cout, n_off,
+        valid.data_ptr(), *ptrs, out.data_ptr(), v, cin, cout, n_off,
         cuda_build.dtype_code(feats.dtype), cuda_build.stream_ptr(feats)),
         "gather_gemm_conv")
     gather_conv.launches += 1
@@ -161,6 +173,8 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
 
 gather_conv.launches = 0
 gather_conv.narrow = types.SimpleNamespace(launches=0)   # of them narrow
+# of them on the bf16 wide-stem path
+gather_conv.wide_stem = types.SimpleNamespace(launches=0)
 
 
 def up_conv_plain(feats: torch.Tensor, parent: torch.Tensor,
@@ -208,6 +222,7 @@ def up_conv_rows(feats: torch.Tensor, child: torch.Tensor,
     if out.numel() == 0:
         return out
     pairs = cached_pairs(None, child)
+    N.count_element_loads(feats, weights)
     lib = cuda_build.library("up_conv")
     cuda_build.check(lib.up_conv(
         feats.data_ptr(), child.data_ptr(), weights.data_ptr(),
@@ -392,6 +407,7 @@ def gather_wgrad(a: torch.Tensor, ia: Optional[torch.Tensor], b: torch.Tensor,
     out = torch.empty(n_off, cin, cout, dtype=torch.float32, device=a.device)
     partial = out if splits == 1 else torch.empty(
         splits, n_off, cin, cout, dtype=torch.float32, device=a.device)
+    N.count_element_loads(a, b)
     lib = cuda_build.library("gather_wgrad")
     cuda_build.check(lib.gather_wgrad(
         a.data_ptr(), None if ia is None else ia.data_ptr(), b.data_ptr(),

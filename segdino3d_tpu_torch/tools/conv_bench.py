@@ -33,6 +33,22 @@ held to its plain version (fp32 1e-4, bf16 1e-2) and, in fp32, the two
 paths to each other bit for bit.  The crossing, where the narrow path
 stops winning, sets ``ops/narrow.py:NARROW_MAX_CIN``; a shape the narrow
 kernel does not take (``narrow.narrow_fits``) shows "not taken".
+
+    python -m segdino3d_tpu_torch.tools.conv_bench --dtype bf16
+
+times the bf16 backbone's K1, K10, K4 and K11 cases, each in bf16 and
+fp32 on the same seeded inputs: K1 at the wide stems (the flagship's k5
+259 -> 32 on the stem table, the v2 model's 262 -> 32 on level 0's k3
+table), the bf16 rows at the aligned pitch (264, zero past Cin) and at
+the bare width; K10 at every distinct (level,
+Cin, Cout) of the hybrid forward, the dense k5 stem and the dX role on the
+hybrid plan's blocks; K4 and K11 at the stem's dW.  Per case: the median
+of ``rounds`` interleaved samples, the library call (K1: a gather and one
+cuBLAS GEMM; K10: ``conv3d`` of the halo-padded blocks alone), the bound
+and a digest of the output, so that two checkouts timed in one call show
+which outputs are bit-equal (every fp32 one should be).  Only the tools'
+older helpers of ``chip_smoke.py`` are used, so the file runs in an older
+checkout too (copy it into that checkout's ``tools/``).
 """
 from __future__ import annotations
 
@@ -181,12 +197,168 @@ def narrow_sweep(plan, hybrid, gen, rounds, reps):
               f"{same}", flush=True)
 
 
+def padded(x, dim, pitch):
+    """``x`` widened along ``dim`` to ``pitch`` with zero columns."""
+    if x.shape[dim] == pitch:
+        return x
+    shape = list(x.shape)
+    shape[dim] = pitch - x.shape[dim]
+    return torch.cat([x, x.new_zeros(shape)], dim).contiguous()
+
+
+def digest(t):
+    import hashlib
+
+    return hashlib.sha1(t.detach().float().cpu().numpy().tobytes()
+                        ).hexdigest()[:12]
+
+
+def bf16_cases(plan, hybrid, gen):
+    """(name, dtype, kernel call, plain call or None, library call or None,
+    operations, bytes)"""
+    import torch.nn.functional as F
+
+    import chip_smoke as C
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    lv = plan.levels
+    v0, valid = lv[0].valid.shape[0], lv[0].valid
+    out = []
+
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    for label, nbr, cin in (("stem k5 259->32 L0", plan.stem_nbr, 259),
+                            ("v2-width stem k3 262->32 on L0's k3 table",
+                             lv[0].nbr, 262)):
+        hits = int((nbr[:, valid] >= 0).sum())
+        x32 = torch.randn(v0, cin, generator=gen, device="cuda")
+        w32 = torch.randn(nbr.shape[0], cin, 32, generator=gen,
+                          device="cuda") * (nbr.shape[0] * cin) ** -0.5
+        for dt, pitch in ((torch.float32, cin), (torch.bfloat16, 264),
+                          (torch.bfloat16, cin)):
+            x, w = padded(x32.to(dt), 1, pitch), padded(w32.to(dt), 1, pitch)
+            out.append((f"K1 {label} at width {pitch}", dt,
+                        lambda x=x, w=w, nbr=nbr: SC.gather_conv(
+                            x, nbr, w, valid),
+                        lambda x=x, w=w, nbr=nbr: SC.gather_conv_plain(
+                            x, nbr, w, valid),
+                        lambda x=x, w=w, nbr=nbr: C.conv_library(x, nbr, w),
+                        2.0 * hits * cin * 32,
+                        nb(x, nbr, w, valid) + v0 * 32 * x.element_size()))
+
+    def k10(name, t, cin, cout, k, dx=False, pitch=None):
+        occ = BD.occupancy(t)
+        mask, rows = BD.dilated_rows(occ, t.block_nbr, t.edge, k) if dx \
+            else (occ, BD.row_list(t, occ))
+        e, b, h = t.edge, t.num_blocks, (k - 1) // 2
+        x32 = torch.where(occ[:, None], torch.randn(
+            occ.shape[0], cin, generator=gen, device="cuda"), 0.0)
+        w32 = torch.randn(k ** 3, cin, cout, generator=gen,
+                          device="cuda") * (k ** 3 * cin) ** -0.5
+        ones = torch.ones(k ** 3, 1, 1, device="cuda")
+        hits = BD.dense_subm_conv_plain(occ.float()[:, None], t.block_nbr,
+                                        ones, None, e)[:, 0]
+        need = float(hits.sum() if dx else hits[occ].sum())
+        for dt in (torch.float32, torch.bfloat16):
+            pw = pitch if (pitch and dt == torch.bfloat16) else cin
+            x, w = padded(x32.to(dt), 1, pw), padded(w32.to(dt), 1, pw)
+            wc = w.reshape(k, k, k, pw, cout).permute(4, 3, 0, 1, 2
+                                                      ).contiguous()
+            p5 = BD.halo_pad_plain(x.reshape(b, e, e, e, pw), t.block_nbr, h)
+            pad = p5.permute(0, 4, 1, 2, 3).contiguous()
+            del p5
+            out.append((f"K10 {name}" + (f" at width {pw}" if pitch else ""),
+                        dt, lambda x=x, w=w: BD.block_conv(
+                            x, t.block_nbr, w, mask, e, rows),
+                        lambda x=x, w=w: BD.dense_subm_conv_plain(
+                            x, t.block_nbr, w, None if dx else occ, e),
+                        lambda p=pad, wc=wc: F.conv3d(p, wc),
+                        2.0 * need * cin * cout,
+                        nb(x, t.block_nbr, w, mask)
+                        + occ.shape[0] * cout * x.element_size()))
+
+    for li, cin, cout, _ in K3_CONVS:
+        k10(f"k3 {cin}->{cout} L{li}", hybrid.blocks[li], cin, cout, 3)
+    k10("dense stem k5 259->32 L0", hybrid.blocks[0], 259, 32, 5, pitch=264)
+    k10("dX k3 96->96 L0 under the dilation", hybrid.blocks[0], 96, 96, 3,
+        dx=True)
+
+    t = hybrid.blocks[0]
+    occ = BD.occupancy(t)
+    x32 = torch.randn(v0, 259, generator=gen, device="cuda")
+    dy32 = torch.randn(v0, 32, generator=gen, device="cuda")
+    xd32 = torch.where(occ[:, None], torch.randn(
+        occ.shape[0], 259, generator=gen, device="cuda"), 0.0)
+    dyd32 = torch.where(occ[:, None], torch.randn(
+        occ.shape[0], 32, generator=gen, device="cuda"), 0.0)
+    for dt in (torch.float32, torch.bfloat16):
+        pw = 264 if dt == torch.bfloat16 else 259
+        x, dy = padded(x32.to(dt), 1, pw), dy32.to(dt)
+        live = int((plan.stem_nbr >= 0).sum())
+        out.append((f"K4 stem dW k5 259->32 L0 at width {pw}", dt,
+                    lambda x=x, dy=dy: SC.gather_wgrad(x, None, dy,
+                                                       plan.stem_nbr, True),
+                    None, lambda x=x, dy=dy: C.wgrad_library(
+                        x, None, dy, plan.stem_nbr, True),
+                    2.0 * live * 259 * 32,
+                    nb(x, dy, plan.stem_nbr) + 125 * 259 * 32 * 4))
+        xd, dyd = padded(xd32.to(dt), 1, pw), dyd32.to(dt)
+        out.append((f"K11 stem dW k5 259->32 L0 at width {pw}", dt,
+                    lambda xd=xd, dyd=dyd: BD.block_wgrad(
+                        xd, dyd, t.block_nbr, occ, t.edge, 5,
+                        BD.row_list(t, occ)), None, None,
+                    2.0 * live * 259 * 32,
+                    nb(xd, dyd, t.block_nbr, occ) + 125 * 259 * 32 * 4))
+    return out
+
+
+def bf16_sweep(plan, hybrid, gen, rounds, reps):
+    """Each case of ``bf16_cases``: held to its plain version where it has
+    one, its output's digest, then timed."""
+    import chip_smoke as C
+
+    runs = bf16_cases(plan, hybrid, gen)
+    digests = []
+    for name, dt, call, plain, *_ in runs:
+        got = call()
+        if plain is not None:
+            want = plain()
+            tol = C.TOL[dt]
+            if not torch.allclose(got.float(), want.float(), rtol=tol,
+                                  atol=tol):
+                err = float((got.float() - want.float()).abs().max())
+                raise SystemExit(f"{name} {dt}: max_abs_err {err:.3e} "
+                                 "against the plain version")
+            del want
+        digests.append(digest(got))
+        del got
+    samples = {i: [] for i in range(len(runs))}
+    for _ in range(rounds):
+        for i, run in enumerate(runs):
+            samples[i].append(C.time_ms(run[2], reps))
+    for i, (name, dt, _, _, lib, ops, byts) in enumerate(runs):
+        med = float(np.median(samples[i]))
+        peak = "bf16" if dt == torch.bfloat16 else "fp32"
+        b_ms, b_by = C.bound(ops, byts, peak)
+        lib_text = "" if lib is None else \
+            f"; library {C.time_ms(lib, reps):.4f} ms"
+        print(f"bf16 sweep {name} {str(dt).replace('torch.', '')}: median "
+              f"{med:.4f} ms over {rounds} x {reps} calls{lib_text}; "
+              f"bound {b_ms:.4f} ms ({b_by}); output digest {digests[i]}",
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--narrow", action="store_true",
                     help="K1 and K10, wide against narrow path, by Cin")
+    ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32",
+                    help="bf16: the bf16 backbone's K1, K10, K4 and K11 "
+                    "cases, each beside its fp32 run")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("conv_bench: no CUDA device", file=sys.stderr)
@@ -197,7 +369,8 @@ def main() -> int:
     from segdino3d_tpu_torch.ops import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cuda_build.build_all(("gather_gemm_conv", "gather_wgrad", "block_conv"))
+    cuda_build.build_all(("gather_gemm_conv", "gather_wgrad", "block_conv",
+                          "block_wgrad"))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -211,11 +384,14 @@ def main() -> int:
     print(f"voxels per level {[int(t.valid.sum()) for t in plan.levels]}, "
           f"caps {[t.valid.shape[0] for t in plan.levels]}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.narrow:
+    if args.narrow or args.dtype == "bf16":
         hybrid = attach_host_plan(collate(records, spec, "cuda"), records,
                                   spec, level_cap_ratios=C.LEVEL_CAP_RATIOS,
                                   **C.plan_layout("hybrid")).plan
-        narrow_sweep(plan, hybrid, gen, args.rounds, args.reps)
+        if args.narrow:
+            narrow_sweep(plan, hybrid, gen, args.rounds, args.reps)
+        else:
+            bf16_sweep(plan, hybrid, gen, args.rounds, args.reps)
         return 0
     runs = cases(plan, gen)
     samples = {i: [] for i in range(len(runs))}

@@ -27,6 +27,14 @@ launch and probes every offset, whose dilation writes the mask alone (its
 list then takes the two list passes) and whose K10 builds its row list
 inside each call: copy it into that checkout's ``tools/`` and run it there too,
 parent, new, new, parent in one call.
+
+    python -m segdino3d_tpu_torch.tools.table_bench --dtype bf16
+
+runs the K10 cases in bf16 (the warpgroup path), adds K10's level-3
+384 -> 256 forward (where the level's tiles are cut into offset groups,
+one more launch for the group sum) and K1 at the flagship's k5 stem at the
+bf16 pitch (264), so that each call's operations and host time show
+beside the fp32 run's.
 """
 from __future__ import annotations
 
@@ -85,8 +93,8 @@ def plan_cases(batch):
     ]
 
 
-def dense_cases(plan, gen):
-    """The dilation and K10 at level 0 of the hybrid plan:
+def dense_cases(plan, gen, dt=torch.float32):
+    """The dilation and K10 at level 0 of the hybrid plan, K10 in ``dt``:
     (name, calls per block-dense step, call, bytes)"""
     from segdino3d_tpu_torch.ops import block_dense as BD
     from segdino3d_tpu_torch.ops.sparse_conv import _transposed
@@ -98,8 +106,9 @@ def dense_cases(plan, gen):
     mask = BD.occupancy_dilation_plain(occ, t.block_nbr, e, 3)
     listed = int(mask.sum())
     x = torch.where(occ[:, None], torch.randn(n, 96, generator=gen,
-                                              device="cuda"), 0.0)
-    w = torch.randn(27, 96, 96, generator=gen, device="cuda") * 27 ** -0.5
+                                              device="cuda"), 0.0).to(dt)
+    w = (torch.randn(27, 96, 96, generator=gen, device="cuda")
+         * 27 ** -0.5).to(dt)
     wt = _transposed(w.flip(0))
     if cached:
         mask_rows = BD.dilated_rows(occ, t.block_nbr, e, 3)[1]
@@ -115,12 +124,44 @@ def dense_cases(plan, gen):
         dx = lambda: BD.block_conv(x, t.block_nbr, wt, mask, e)  # noqa: E731
         fwd = lambda: BD.block_conv(x, t.block_nbr, w, occ, e)  # noqa: E731
     base = nbytes(occ, t.block_nbr) + n
-    conv = nbytes(x, t.block_nbr, w) + n + n * 96 * 4
+    conv = nbytes(x, t.block_nbr, w) + n + n * 96 * x.element_size()
     return [
         ("dilation k3, level 0, the mask and its row list", 5, with_list,
          base + 4 * listed + 4),
         ("K10 dX k3 96->96 level 0 under the dilation", 46, dx, conv),
         ("K10 forward k3 96->96 level 0 on the occupancy", 47, fwd, conv),
+    ]
+
+
+def bf16_cases(batch, hybrid, gen):
+    """K10's level-3 384 -> 256 forward and K1's k5 stem at the bf16
+    pitch: (name, calls per forward, call, bytes)"""
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    bf16 = torch.bfloat16
+    t = hybrid.blocks[3]
+    occ = BD.occupancy(t)
+    x = torch.where(occ[:, None], torch.randn(
+        occ.shape[0], 384, generator=gen, device="cuda"), 0.0).to(bf16)
+    w = (torch.randn(27, 384, 256, generator=gen, device="cuda")
+         * (27 * 384) ** -0.5).to(bf16)
+    rows = BD.row_list(t, occ) if hasattr(BD, "row_list") else None
+    lv = batch.plan.levels
+    v0 = lv[0].valid.shape[0]
+    xs = torch.randn(v0, 264, generator=gen, device="cuda")
+    xs[:, 259:] = 0.0
+    xs = xs.to(bf16)
+    ws = torch.randn(125, 264, 32, generator=gen, device="cuda") * 0.005
+    ws[:, 259:] = 0.0
+    ws = ws.to(bf16)
+    return [
+        ("K10 forward k3 384->256 level 3 on the occupancy (bf16)", 1,
+         lambda: BD.block_conv(x, t.block_nbr, w, occ, t.edge, rows),
+         nbytes(x, t.block_nbr, w) + occ.shape[0] * (1 + 256 * 2)),
+        ("K1 stem k5 264->32 level 0 (bf16 pitch)", 1,
+         lambda: SC.gather_conv(xs, batch.plan.stem_nbr, ws, lv[0].valid),
+         nbytes(xs, batch.plan.stem_nbr, ws, lv[0].valid) + v0 * 32 * 2),
     ]
 
 
@@ -166,6 +207,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32",
+                    help="K10 in bf16, and the bf16 cases of K10 and K1")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("table_bench: no CUDA device", file=sys.stderr)
@@ -177,7 +220,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda_build.build_all(("coord_hash", "voxel_compact", "neighbor_table",
-                          "block_conv"))
+                          "block_conv", "gather_gemm_conv", "gather_wgrad"))
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -203,7 +246,11 @@ def main() -> int:
                               level_cap_ratios=C.LEVEL_CAP_RATIOS,
                               **C.plan_layout("hybrid"))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    runs = plan_cases(batch) + dense_cases(hybrid.plan, gen)
+    if args.dtype == "bf16":
+        runs = dense_cases(hybrid.plan, gen, torch.bfloat16) + bf16_cases(
+            batch, hybrid.plan, gen)
+    else:
+        runs = plan_cases(batch) + dense_cases(hybrid.plan, gen)
     samples = {i: [] for i in range(len(runs))}
     for _ in range(args.rounds):
         for i, run in enumerate(runs):

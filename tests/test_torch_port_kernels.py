@@ -1312,3 +1312,82 @@ def test_narrow_paths_bit_equal_in_two_calls(levels, dtype):
     assert int(rows.ws[occ.shape[0] + 1]) == 0
     assert (TSC.gather_conv.narrow.launches,
             TBD.block_conv.narrow.launches) == (narrow[0] + 2, narrow[1] + 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_tile", "level"])
+@pytest.mark.parametrize("shape", ["stem_264", "k3_384_256", "odd_35_40"])
+@pytest.mark.parametrize("groups", [1, 3, 16])
+def test_block_conv_bf16_offset_groups(card, case, shape, groups):
+    """K10's bf16 warpgroup path with its offsets cut into groups (the fill
+    split of the small levels: fp32 partials, then the ordered group sum):
+    one tile of fewer than 64 rows and a whole level; the dense k5 stem at
+    the padded pitch (264 columns, zero past 259), a k3 384 -> 256 conv
+    (two column tiles) and Cin 35 -> Cout 40 (element copies).  Equal to
+    the plain version at bf16's tolerance, zero outside the mask, two calls
+    bit-equal, and the element-copy count moved only by the odd widths."""
+    k, cin, cout = {"stem_264": (5, 264, 32), "k3_384_256": (3, 384, 256),
+                    "odd_35_40": (3, 35, 40)}[shape]
+    if case == "one_tile":
+        t = _grid_tables(card)
+        gen = torch.Generator(device="cuda").manual_seed(30)
+        occ = torch.zeros(t.slot_vox.shape[0], dtype=torch.bool, device=card)
+        occ[torch.randperm(occ.shape[0], generator=gen,
+                           device="cuda")[:40]] = True
+    else:
+        t = _block_plan_on(card, [4] * 5).blocks[0]
+        occ = TBD.occupancy(t)
+        gen = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(occ.shape[0], cin, generator=gen, device="cuda")
+    if shape == "stem_264":
+        x[:, 259:] = 0.0
+    x = torch.where(occ[:, None], x, 0.0).to(torch.bfloat16)
+    w = (torch.randn(k ** 3, cin, cout, generator=gen, device="cuda")
+         * (k ** 3 * cin) ** -0.5).to(torch.bfloat16)
+    rows = TBD.row_list(t, occ)
+    before = TN.element_loads.calls
+    got = TBD.block_conv(x, t.block_nbr, w, occ, t.edge, rows, groups=groups)
+    again = TBD.block_conv(x, t.block_nbr, w, occ, t.edge, rows,
+                           groups=groups)
+    want = TBD.dense_subm_conv_plain(x, t.block_nbr, w, occ, t.edge)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert not got[~occ].float().any()
+    assert int(rows.ws[occ.shape[0] + 1]) == 0
+    assert TN.element_loads.calls - before == (2 if shape == "odd_35_40"
+                                               else 0)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+    t.rows = None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,k", [(264, 5), (264, 3), (259, 5)])
+def test_gather_conv_bf16_wide_stem(levels, cin, k):
+    """K1's bf16 wide-stem path on a small plan's stem table (k5) and
+    level 0's k3 table:
+    at the padded pitch (264, zero past 259 or 262) and at 259 (element
+    copies, counted).  Equal to the plain version at bf16's tolerance, zero
+    outside valid, two calls bit-equal."""
+    lv = levels.levels
+    nbr = levels.stem_nbr if k == 5 else lv[0].nbr
+    valid = lv[0].valid
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    x = torch.randn(CAPS[0], cin, generator=gen, device="cuda")
+    x[:, 259:] = 0.0
+    x = x.to(torch.bfloat16)
+    w = (torch.randn(k ** 3, cin, 32, generator=gen, device="cuda")
+         * (k ** 3 * cin) ** -0.5).to(torch.bfloat16)
+    assert TN.wide_stem(cin, 32, torch.bfloat16)
+    launches = TSC.gather_conv.wide_stem.launches
+    loads = TN.element_loads.calls
+    got = TSC.gather_conv(x, nbr, w, valid)
+    again = TSC.gather_conv(x, nbr, w, valid)
+    want = TSC.gather_conv_plain(x, nbr, w, valid)
+    torch.cuda.synchronize()
+    assert TSC.gather_conv.wide_stem.launches == launches + 2
+    assert TN.element_loads.calls - loads == (2 if cin % 8 else 0)
+    assert torch.equal(got, again)
+    assert not got[~valid].float().any()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)

@@ -256,7 +256,9 @@ def test_wrapper_voxel_mean_matches_jax_feats_path(compute):
     """The backbone wrapper's voxel mean (two column sources, fp16 2D
     features as the ScanNet reader gives them) against the JAX wrapper's
     ``feats`` path: ``concatenate([rgb, 2D features]).astype(dtype)``,
-    then ``segment_mean`` over the plan's inverse map."""
+    then ``segment_mean`` over the plan's inverse map.  In bf16 the port's
+    rows are at the stem's aligned pitch (``narrow.row_pitch``: 35 -> 40
+    columns), zero past the 35 features."""
     from segdino3d_tpu_torch.data.collate import (PadSpec, attach_host_plan,
                                                   collate)
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
@@ -298,8 +300,13 @@ def test_wrapper_voxel_mean_matches_jax_feats_path(compute):
                                                        v0)), v0,
                            jnp.asarray(batch.point_valid.reshape(-1).numpy()))
     want = np.where(valid0[:, None], np.asarray(want, np.float32), 0.0)
+    from segdino3d_tpu_torch.ops.narrow import row_pitch
+    c = want.shape[1]
+    assert got.shape[1] == row_pitch(c, DTYPES[compute])
+    assert not got[:, c:].float().any()
     # bf16: JAX sums in bf16, the port in fp32, each rounded once to bf16
-    _close(got.float(), want, 1e-2 if compute == "bfloat16" else REL_JAX)
+    _close(got[:, :c].float(), want,
+           1e-2 if compute == "bfloat16" else REL_JAX)
 
 
 # ---------------------------------------------------------------------------
