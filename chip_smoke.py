@@ -169,9 +169,25 @@ Phases, in order; any failure exits non-zero before the result line:
    max|.| of the fp32 forward's masks and class logits (the later layers
    printed: gating flips move them), and without the gating every
    layer's;
+11. (run after phase 9) export the serving artifact of the bf16 flagship
+   (``segdino3d_tpu_torch/tools/export_serving.py``: ``torch.export`` of
+   backbone + decoder + ``predict_instance`` with bit-packed masks, every
+   kernel a registered op) at full width (PadSpec 131,072 points, 1,536
+   superpoints, the hybrid plan at the capacities ``probe_plan_caps``
+   gives four headline scenes); load it in a child process that imports
+   no model module, builder or registry (``sys.modules`` checked) and run
+   it on the four scenes; its labels, validity and packed masks must equal
+   the eager served function's in this process and its scores be within
+   1e-2 (or within the spread of two eager calls where they differ); its
+   launches a forward, counted by the wrappers, must equal phase 10a's,
+   and its hand-written kernels in the profiler's trace the eager
+   forward's, name for name and count for count, with no library
+   convolution in either.  It prints the export's seconds, the artifact's
+   MB, the cold load's seconds, both paths' ms a forward and scenes/s;
 8. print one ``kernels`` JSON line (each kernel's ScanNet v2 and Baseline
-   cases and launches in it too, and its CUDA launches per step of the
-   CLI, ``cli_device_launches_per_step``), the run's wall time, then the
+   cases and launches in it too, its CUDA launches per step of the
+   CLI, ``cli_device_launches_per_step``, and in a forward of the serving
+   artifact, ``launches_artifact``), the run's wall time, then the
    result line.
 
 It needs one card, imports no JAX, and takes its kernels from the
@@ -956,27 +972,55 @@ def flat_compaction(c):
     return torch.cat(parts + ([c.kpos] if c.kpos is not None else []))
 
 
-def device_ops(fn):
-    """(names of the kernels, copies and memsets that one call of ``fn``
-    puts on the card, their summed device time in us), by
-    ``torch.profiler`` after a warm-up call.  A trace that holds no device
-    event at all is taken again (up to six times): every call measured
-    here puts work on the card, and the profiler has returned an empty
-    trace for a one-kernel call, twice in a row for another."""
+def profiled_events(fn, lead):
+    """The device events (kernels, copies, memsets) of one call of
+    ``fn()``, by ``torch.profiler``, in a trace that first runs ``lead()``
+    and a marker kernel (``torch.cuda._sleep``); only the events after the
+    marker count.  A trace can lose its first device events: phase 11's
+    eager forward lost its first 1 to 17 hand-written launches (K3's CSR
+    and voxel mean, K1's stem conv and its pair list) in some traces of a
+    long-lived process, also after a warm-up step of the profiler's
+    schedule and after 20 ms of idle time at the trace's start.  A trace
+    that lost the marker is taken again (up to six times)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     for attempt in range(6):
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if marks:
+            return events[marks[-1] + 1:]
+        print(f"profiled_events: the trace lost its marker (attempt "
+              f"{attempt + 1}, {len(events)} device events)", flush=True)
+    raise SystemExit("profiled_events: the profiler kept no marker")
+
+
+def device_ops(fn, prepare=tuple):
+    """(names of the kernels, copies and memsets that one call of
+    ``fn(*prepare())`` puts on the card, their summed device time in us),
+    by ``profiled_events`` with a call on other ``prepare()`` arguments as
+    its lead, ``prepare`` called outside the trace.  A trace that holds no
+    device event of the call is taken again (up to six times): every call
+    measured here puts work on the card, and the profiler has returned an
+    empty trace for a one-kernel call, twice in a row for another."""
+    for attempt in range(6):
+        first, second = prepare(), prepare()
+        events = profiled_events(lambda: fn(*second), lambda: fn(*first))
         if events:
             break
         print(f"device_ops: an empty trace (attempt {attempt + 1})",
               flush=True)
+    else:
+        raise SystemExit("device_ops: the profiler kept no device event")
     names = [e.name.replace("(anonymous namespace)::", "").split("(")[0]
              for e in events]
     return names, sum(e.time_range.elapsed_us() for e in events)
@@ -1157,6 +1201,11 @@ HOST_BOUND = ("coord_hash", "neighbor_table", "voxel_compact",
               "block_dilate", "segment_csr", "segment_grad")
 
 
+# what a kernel's library call is, where the line names it: K10's is the
+# whole of it in the case's dtype, beside "conv3d alone"
+LIBRARY_CALL = {"block_conv": "library (halo assembly + cuDNN conv3d)"}
+
+
 def launch_floor():
     """(CUDA-event ms, profiled device ms) of one launch of an empty kernel
     through the same ctypes path as the kernels: the floor under a kernel
@@ -1224,8 +1273,8 @@ def check_kernels(cases):
             print(f"kernel {kernel} [{name}] {dts}: max_abs_err={err:.3e} "
                   f"({tol_text}) {'ok' if ok else 'MISMATCH'}; "
                   f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"library {l_ms:.4f} ms{extra_text}, bound {b_ms:.4f} ms "
-                  f"({b_by})", flush=True)
+                  f"{LIBRARY_CALL.get(kernel, 'library')} {l_ms:.4f} ms"
+                  f"{extra_text}, bound {b_ms:.4f} ms ({b_by})", flush=True)
             if not ok:
                 raise SystemExit(f"{kernel} [{name}] {dts} disagrees with "
                                  f"its plain version")
@@ -1628,18 +1677,14 @@ def counters():
 GATHER_PAIR_LISTS = 10
 
 
-def step_kernel_ms(run):
+def step_kernel_ms(run, lead):
     """Device ms of K1 (its products and sums; the pair lists it shares with
     K4 apart), K4 (its tiles and split sums; its pair lists apart) and K11
     (the same; its row lists are K10's row-list kernels and are not told
     apart from K10's own), and of all device work, in one call of ``run``
-    (one training step), by ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    return kernel_ms(prof.events())
+    (one training step), by ``profiled_events`` after ``lead`` (another
+    step)."""
+    return kernel_ms(profiled_events(run, lead))
 
 
 def kernel_ms(events):
@@ -1676,45 +1721,52 @@ def kernel_ms(events):
     return ms
 
 
-def concat_shapes(run):
-    """The output shapes of every ``aten::cat`` that ``run()`` dispatches
-    (the profiler records no shapes of a tensor list)."""
+def dispatched(run):
+    """[(operator, its output's shape or None)] of every operator that
+    ``run()`` dispatches, in order (a ``TorchDispatchMode``: the wrappers'
+    direct kernel launches are not operators)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    class Cats(TorchDispatchMode):
+    class Record(TorchDispatchMode):
         def __init__(self):
             super().__init__()
-            self.shapes = []
+            self.calls = []
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
-            if func.overloadpacket is torch.ops.aten.cat:
-                self.shapes.append(tuple(out.shape))
+            self.calls.append((func.overloadpacket, tuple(out.shape)
+                               if isinstance(out, torch.Tensor) else None))
             return out
 
-    with Cats() as mode:
+    with Record() as mode:
         run()
-    return mode.shapes
+    return mode.calls
+
+
+def concat_shapes(run):
+    """The output shapes of every ``aten::cat`` that ``run()`` dispatches
+    (the profiler records no shapes of a tensor list)."""
+    return [shape for op, shape in dispatched(run)
+            if op is torch.ops.aten.cat]
 
 
 def forward_device_ms(model, batch, cols=259):
     """({K1, K2, K3, K10, device} ms of one eval forward, backbone and
-    decoder, by ``torch.profiler``; the (N, cols) concatenations of one
-    more, the early-fused point features the forward no longer builds,
-    unless ``cols`` is None (one column source: nothing to concatenate))."""
-    from torch.profiler import ProfilerActivity, profile
-
+    decoder, by ``profiled_events`` after a lead forward of the same
+    batch (its pair and row lists built already); the (N, cols)
+    concatenations of one more, the early-fused point features the forward
+    no longer builds, unless ``cols`` is None (one column source: nothing
+    to concatenate))."""
     def forward():
         with torch.no_grad():
             model.decode(batch, model.backbone(batch))
         torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        forward()
+    ms = kernel_ms(profiled_events(forward, forward))
     if cols is None:
-        return kernel_ms(prof.events()), []
+        return ms, []
     n = batch.points.shape[0] * batch.points.shape[1]
-    return kernel_ms(prof.events()), [
+    return ms, [
         sh for sh in concat_shapes(forward) if sh == (n, cols)]
 
 
@@ -2091,9 +2143,11 @@ def run_training(model, records, spec, layout="gather", accum=True,
     # a fresh plan, so that the step builds its pair and row lists
     from segdino3d_tpu_torch.ops import block_dense as BD
 
+    b0, _ = plan(records[0])
     b, _ = plan(records[0])
     BD.block_conv.own_lists = 0
-    ms = step_kernel_ms(lambda: step1([b], generator=gen))
+    ms = step_kernel_ms(lambda: step1([b], generator=gen),
+                        lambda: step1([b0], generator=gen))
     print(f"K1-K3, K10 and the weight gradients in one batch-1 {layout} "
           f"step (torch.profiler, device ms): K1 {ms['K1']:.4f}, K2 "
           f"{ms['K2']:.4f}, K3 {ms['K3']:.4f}, K10 {ms['K10']:.4f}, K4 "
@@ -3225,13 +3279,15 @@ def bf16_cfg(cfg):
 
 def k10_level_ms(model, batch):
     """{level: device ms} of K10's launches in one forward of ``model``'s
-    backbone (``torch.profiler``): each conv's warpgroup kernel (and group
+    backbone (``profiled_events``): each conv's warpgroup kernel (and group
     sum) tied to its level by the launch order, recorded by a wrapper
     around ``block_dense.row_list``, which each forward conv calls once
-    just before its launch, for the profiled call."""
-    from torch.profiler import ProfilerActivity, profile
-
+    just before its launch, for the profiled call (after a lead call)."""
     from segdino3d_tpu_torch.ops import block_dense as BD
+
+    def forward():
+        with torch.no_grad():
+            model.backbone(batch)
 
     level_of = {t.block_nbr.data_ptr(): li
                 for li, t in enumerate(batch.plan.blocks) if t is not None}
@@ -3241,18 +3297,18 @@ def k10_level_ms(model, batch):
         order.append(level_of[tables.block_nbr.data_ptr()])
         return orig(tables, occ)
 
-    BD.row_list = recorded
-    try:
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            with torch.no_grad():
-                model.backbone(batch)
-            torch.cuda.synchronize()
-    finally:
-        BD.row_list = orig
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA and
-                     any(f in e.name for f in ("block_conv_wg_kernel",
-                                               "group_sum_kernel"))),
+    def recorded_forward():
+        order.clear()
+        BD.row_list = recorded
+        try:
+            forward()
+        finally:
+            BD.row_list = orig
+
+    events = profiled_events(recorded_forward, forward)
+    events = sorted((e for e in events
+                     if any(f in e.name for f in ("block_conv_wg_kernel",
+                                                  "group_sum_kernel"))),
                     key=lambda e: e.time_range.start)
     ms, conv = {}, -1
     for e in events:
@@ -3950,6 +4006,416 @@ def run_phase9(card, step_launches):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 11: the serving export
+# --------------------------------------------------------------------------
+
+# the scenes the artifact serves (the headline scene's generator, seeds
+# 0-3), padded to the JAX tool's PadSpec (131,072 points)
+SERVE_SEEDS = (0, 1, 2, 3)
+SERVE_POINTS = 131072
+SERVE_TIMED = 3            # timed calls a scene, after one warm-up call
+# the port's hand-written kernels (csrc/), as the profiler names them
+OWN_KERNELS = ("block_conv_kernel", "block_conv_narrow_kernel",
+               "block_conv_wg_kernel", "group_sum_kernel",
+               "block_wgrad_kernel", "build_lookup_kernel",
+               "conv_pair_sum_kernel", "conv_products_kernel",
+               "conv_products_wg_kernel", "count_pairs_kernel",
+               "count_rows_kernel", "csr_keys_kernel", "csr_offsets_kernel",
+               "dilate_kernel", "finish_kernel", "flags_kernel",
+               "gather_conv_narrow_kernel", "gather_wgrad_kernel",
+               "list_pairs_kernel", "list_rows_kernel", "lookup_kernel",
+               "neighbor_kernel", "segment_grad_kernel",
+               "segment_mean_kernel", "slot_gather_kernel",
+               "stem_slot_sum_kernel", "sum_splits_kernel", "up_conv_kernel")
+# fragments of library convolution kernels (cuDNN's) that must not stand
+# in for them
+LIBRARY_CONV = ("cudnn", "fprop", "dgrad", "implicit_convolve",
+                "implicit_gemm", "winograd")
+
+
+def kernel_counts(names):
+    """{kernel name: launches} of ``device_ops``'s names, copies and
+    memsets left out."""
+    import collections
+
+    return dict(collections.Counter(
+        n for n in names if not n.startswith(("Memcpy", "Memset"))))
+
+
+def own_kernels(names):
+    """The entries of ``kernel_counts`` that are the port's kernels."""
+    return {n: c for n, c in names.items()
+            if any(k in n for k in OWN_KERNELS)}
+
+
+def library_convs(names):
+    return sorted(n for n in names if n not in own_kernels(names)
+                  and any(f in n.lower() for f in LIBRARY_CONV))
+
+
+def served_leaves(records, meta, seed):
+    """The leaves of scene ``seed`` of ``records`` at the artifact's
+    capacities (``meta``), on the card."""
+    from segdino3d_tpu_torch.tools import export_serving as ES
+
+    return ES.serving_batch([records[seed]], meta, DEVICE)
+
+
+def serve_scenes(call, records, meta):
+    """Each scene of ``records`` ({seed: record}) served by ``call`` (1 +
+    ``SERVE_TIMED`` synchronised calls, each on a batch built anew by
+    ``served_leaves``):
+    {"outs": {seed: the first call's outputs on the host}, "last": the
+    last call's, and the means over the timed calls of "plan" ms (collate
+    + the host plan: ``serving_batch``), "collate" ms (``collate`` to the
+    card alone, at ``spec``, timed apart after each batch) and "forward"
+    ms (the served function), and "faults", the minor page faults of the
+    process a plan}."""
+    import resource
+
+    from segdino3d_tpu_torch.data.collate import collate
+
+    spec = served_spec(meta)
+    res = dict(outs={}, last={})
+    plan_ms, collate_ms, fwd_ms, faults = [], [], [], []
+    for seed in records:
+        for rep in range(1 + SERVE_TIMED):
+            torch.cuda.synchronize()
+            f0 = resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+            t0 = time.perf_counter()
+            leaves = served_leaves(records, meta, seed)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            f1 = resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+            got = call(leaves)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if rep == 0:
+                res["outs"][seed] = {k: v.cpu() for k, v in got.items()}
+                continue
+            plan_ms.append(1e3 * (t1 - t0))
+            fwd_ms.append(1e3 * (t2 - t1))
+            faults.append(f1 - f0)
+            del leaves, got
+            t0 = time.perf_counter()
+            collate([records[seed]], spec, DEVICE)
+            torch.cuda.synchronize()
+            collate_ms.append(1e3 * (time.perf_counter() - t0))
+        res["last"][seed] = {k: v.cpu() for k, v in call(
+            served_leaves(records, meta, seed)).items()}
+    res.update(plan=float(np.mean(plan_ms)),
+               collate=float(np.mean(collate_ms)),
+               forward=float(np.mean(fwd_ms)),
+               faults=float(np.mean(faults)))
+    return res
+
+
+def served_spec(meta):
+    from segdino3d_tpu_torch.data.collate import PadSpec
+
+    p = meta["pad_spec"]
+    return PadSpec(p["n_points"], p["s_cap"], p["i_cap"], p["k2d"],
+                   p["n_sem"])
+
+
+def host_threads():
+    """(torch's intra-op threads, the process's live threads)."""
+    return torch.get_num_threads(), len(os.listdir("/proc/self/task"))
+
+
+def serve_child(art, records_path, out):
+    """Phase 11's serving process: load the artifact (``load_artifact``:
+    the registered ops, not the model code), build each scene's batch from
+    its record (``records_path``, as a reader would give it) at the
+    artifact's capacities (``serving_batch``), run it, count its launches
+    and profile its kernels; writes the results to ``out``."""
+    t0 = time.perf_counter()
+    from segdino3d_tpu_torch.tools import export_serving as ES
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    call, meta = ES.load_artifact(art)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    records = torch.load(records_path, weights_only=False)
+    first = served_leaves(records, meta, SERVE_SEEDS[0])
+    t0 = time.perf_counter()
+    call(first)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    served = serve_scenes(call, records, meta)
+    reset_counts()
+    call(first)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    names = kernel_counts(device_ops(lambda: call(first))[0])
+    barred = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith(
+                        ("jax.", "segdino3d_tpu.",
+                         "segdino3d_tpu_torch.models"))
+                    or m in ("segdino3d_tpu", "segdino3d_tpu_torch.builder",
+                             "segdino3d_tpu_torch.registry"))
+    torch.save(dict(served, load_s=load_s, first_s=first_s,
+                    launches=launches, names=names, barred=barred,
+                    threads=host_threads()), out)
+
+
+OP_CALLS = 1000
+
+
+def op_route_us(registered):
+    """Host microseconds a call of K9 on a small input, launched by its
+    wrapper or through its registered op (``ops/custom_ops.py``, which
+    the eager paths take only while ``torch.export`` traces)."""
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import custom_ops as CO
+
+    x = torch.randn(1024, 32, device=DEVICE)
+    idx = torch.arange(1024, dtype=torch.int32, device=DEVICE)
+    fn = CO.slot_gather if registered else BD.slot_gather
+    fn(x, idx)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OP_CALLS):
+        fn(x, idx)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / OP_CALLS * 1e6
+
+
+def differing_slots(a, b):
+    """Slots of one scene's outputs whose label, validity or packed mask
+    differ between ``a`` and ``b``."""
+    return int(((a["labels"] != b["labels"]) | (a["valid"] != b["valid"])
+                | (a["masks_packed"] != b["masks_packed"]).any(-1)).sum())
+
+
+def eager_spread(eager):
+    """{seed: the slots and the largest score difference by which two
+    eager calls on the scene differ} (``serve_scenes``'s first and last
+    calls)."""
+    return {seed: dict(slots=differing_slots(eager["outs"][seed], last),
+                       scores=float((eager["outs"][seed]["scores"]
+                                     - last["scores"]).abs().max()))
+            for seed, last in eager["last"].items()}
+
+
+def compare_served(got, want, spread, what):
+    """Each scene's labels, validity and packed masks equal, and scores
+    within ``TOL[bf16]``; where two eager calls on the scene differed
+    (``spread``), in no more slots than they did, and scores no further
+    apart than theirs."""
+    for seed in want:
+        g, w, sp = got[seed], want[seed], spread[seed]
+        slots = differing_slots(g, w)
+        err = float((g["scores"] - w["scores"]).abs().max())
+        tol = max(TOL[torch.bfloat16], sp["scores"])
+        print(f"phase 11 scene {seed}: {what} against the eager path: "
+              f"labels, valid, masks_packed differ in {slots} slots (limit "
+              f"{sp['slots']}, two eager calls); scores max_abs_err="
+              f"{err:.3e} (limit {tol:.3e}); {int(g['valid'].sum())} valid "
+              f"slots of {g['valid'].numel()}", flush=True)
+        if slots > sp["slots"] or err > tol:
+            raise SystemExit(f"phase 11: {what} disagrees with the eager "
+                             f"path on scene {seed}")
+
+
+PAIRED_ORDER = ("artifact", "eager", "eager", "artifact")
+
+
+def paired_forwards(calls, records, meta):
+    """Forward ms of each of ``calls`` ({route: call}) in one process, in
+    ``PAIRED_ORDER`` on every scene, each call on a batch built anew:
+    {route: [ms]}, the i-th entries of the two routes a pair."""
+    ms = {r: [] for r in calls}
+    for seed in records:
+        for route in PAIRED_ORDER:
+            leaves = served_leaves(records, meta, seed)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[route](leaves)
+            torch.cuda.synchronize()
+            ms[route].append(1e3 * (time.perf_counter() - t0))
+    return ms
+
+
+def run_serving_phase(card):
+    """Phase 11: the bf16 flagship's serving artifact (``tools/
+    export_serving.py``) at full width on the card, loaded and run in a
+    child process without the model code, against the eager served
+    function on the same scenes; returns the artifact's launches a
+    forward."""
+    import collections
+    import tempfile
+
+    from segdino3d_tpu_torch.data.collate import collate, probe_plan_caps
+    from segdino3d_tpu_torch.tools import export_serving as ES
+
+    t_phase = time.perf_counter()
+    spec = ES.pad_spec(SERVE_POINTS, SCENE["n_superpoints"], False)
+    plan = ES.plan_args(False)
+    records = {seed: ES.scene_records([seed], SCENE["n_points"],
+                                      SCENE["n_superpoints"], False)[0]
+               for seed in SERVE_SEEDS}
+    vox, blocks = 0, None
+    for seed in SERVE_SEEDS:
+        rec = [records[seed]]
+        v, b = probe_plan_caps(collate(rec, spec, "cpu"), rec,
+                               voxel_size=plan["voxel_size"],
+                               level_cap_ratios=plan["level_cap_ratios"],
+                               block_edges=plan["block_edges"])
+        vox = max(vox, v)
+        blocks = b if blocks is None else [max(x, y)
+                                           for x, y in zip(blocks, b)]
+    with tempfile.TemporaryDirectory() as tmp:
+        art = os.path.join(tmp, "artifact")
+        # the tool's default backbone dtype, bf16
+        dtype_env = os.environ.pop("SEGDINO_COMPUTE_DTYPE", None)
+        t0 = time.perf_counter()
+        try:
+            _, _, _, meta, served_fn = ES.export_artifact(
+                art, DEVICE, SERVE_POINTS, SCENE["n_superpoints"], 1,
+                SCENE["n_points"], records=[records[SERVE_SEEDS[0]]],
+                voxel_cap=vox, block_caps=blocks,
+                # phase 9c's thresholds: the random weights keep no
+                # instance under the flagship's own
+                test_cfg=EVAL_DIST_TEST_CFG)
+        finally:
+            if dtype_env is not None:
+                os.environ["SEGDINO_COMPUTE_DTYPE"] = dtype_env
+        export_s = time.perf_counter() - t0
+        mb = os.path.getsize(os.path.join(art, "model.pt2")) / 1e6
+        print(f"phase 11: exported the {meta['compute_dtype']} flagship "
+              f"(6 decoder layers, d_model 256) at PadSpec "
+              f"{meta['pad_spec']}, plan caps voxels {vox} blocks {blocks} "
+              f"(probe_plan_caps of scenes {list(SERVE_SEEDS)}), "
+              f"{meta['n_batch_leaves']} batch leaves: {export_s:.1f} s, "
+              f"model.pt2 {mb:.1f} MB", flush=True)
+
+        out = os.path.join(tmp, "served.pt")
+        records_path = os.path.join(tmp, "records.pt")
+        torch.save(records, records_path)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c",
+             "import sys; sys.path.insert(0, %r); import chip_smoke; "
+             "chip_smoke.serve_child(%r, %r, %r)"
+             % (os.path.dirname(os.path.abspath(__file__)), art,
+                records_path, out)],
+            capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            print(child.stdout[-4000:], child.stderr[-8000:], flush=True)
+            raise SystemExit("phase 11: the serving process failed")
+        served = torch.load(out, weights_only=False)
+        # the artifact again in this process, for forwards paired with
+        # the eager path's
+        art_call, _ = ES.load_artifact(art)
+
+    if served["barred"]:
+        raise SystemExit(f"phase 11: the serving process imported "
+                         f"{served['barred']}")
+
+    def eager(leaves):
+        return served_fn(*leaves)
+
+    def fresh():
+        return (served_leaves(records, meta, SERVE_SEEDS[0]),)
+
+    want = serve_scenes(eager, records, meta)
+    spread = eager_spread(want)
+    print("phase 11: two eager calls a scene differ in "
+          + "; ".join(f"scene {seed}: {sp['slots']} slots, scores by "
+                      f"{sp['scores']:.3e}" for seed, sp in spread.items()),
+          flush=True)
+    compare_served(served["outs"], want["outs"], spread,
+                   "the artifact in the serving process")
+    paired = paired_forwards(dict(artifact=art_call, eager=eager), records,
+                             meta)
+    diff = np.subtract(paired["artifact"], paired["eager"])
+    print(f"phase 11 ({card}) paired forwards in this process "
+          f"({len(diff)} pairs, {'/'.join(PAIRED_ORDER)} a scene, a batch "
+          f"built anew each): artifact {np.mean(paired['artifact']):.2f} "
+          f"ms, eager {np.mean(paired['eager']):.2f} ms; artifact - eager "
+          f"a pair: mean {diff.mean():.2f}, median {np.median(diff):.2f}, "
+          f"min {diff.min():.2f}, max {diff.max():.2f} ms", flush=True)
+    ops = {route: collections.Counter(str(op) for op, _ in dispatched(
+        lambda: call(*fresh()))) for route, call in
+        (("artifact", art_call), ("eager", eager))}
+    gap = sorted(set(ops["artifact"]) | set(ops["eager"]),
+                 key=lambda op: ops["eager"][op] - ops["artifact"][op])
+    print(f"phase 11 operators a forward (dispatched, the wrappers' direct "
+          f"launches apart): artifact {sum(ops['artifact'].values())}, "
+          f"eager {sum(ops['eager'].values())}; the largest differences "
+          f"(artifact / eager): " + ", ".join(
+              f"{op} {ops['artifact'][op]} / {ops['eager'][op]}"
+              for op in gap[:8]), flush=True)
+    compare_served({seed: {k: v.cpu() for k, v in art_call(
+        served_leaves(records, meta, seed)).items()} for seed in records},
+        want["outs"], spread, "the artifact in this process")
+
+    # a batch built anew, as each of phase 10a's forwards takes: the
+    # eager path keeps a table's pair list while the table lives
+    reset_counts()
+    eager(*fresh())
+    torch.cuda.synchronize()
+    launches = read_counts()
+    expected = dict(HYBRID_FORWARD, **{"gather_gemm_conv wide stem": 1,
+                                       "gather_gemm_conv narrow": 0,
+                                       "block_conv narrow": 0})
+    check_counts(launches, expected, "phase 11 eager served forward "
+                 "(phase 10a's launches)")
+    check_counts(served["launches"], launches, "phase 11 artifact forward "
+                 "in the serving process")
+    names = kernel_counts(device_ops(eager, fresh)[0])
+    own_e, own_a = own_kernels(names), own_kernels(served["names"])
+    same = "name for name and count for count equal" if own_a == own_e \
+        else "DIFFERENT"
+    print(f"phase 11 hand-written kernels a forward (torch.profiler): eager "
+          f"{sum(own_e.values())} launches of {len(own_e)} kernels, the "
+          f"artifact {sum(own_a.values())} of {len(own_a)}: {same}; "
+          + ", ".join(f"{n} {c}" for n, c in sorted(own_a.items())),
+          flush=True)
+    if own_a != own_e:
+        raise SystemExit(f"phase 11: the artifact's kernels {own_a} differ "
+                         f"from the eager forward's {own_e}")
+    convs = library_convs(served["names"]) + library_convs(names)
+    rest_e = {n: c for n, c in names.items() if n not in own_e}
+    rest_a = {n: c for n, c in served["names"].items() if n not in own_a}
+    only_a = sorted(set(rest_a.items()) - set(rest_e.items()))
+    only_e = sorted(set(rest_e.items()) - set(rest_a.items()))
+    rest = "equal" if rest_a == rest_e else \
+        f"differ: the artifact's {only_a}, the eager path's {only_e}"
+    print(f"phase 11 library convolutions in either forward: {convs}; the "
+          f"other kernels ({sum(rest_a.values())} launches in the artifact, "
+          f"{sum(rest_e.values())} eager) {rest}", flush=True)
+    if convs:
+        raise SystemExit(f"phase 11: library convolutions {convs}")
+    print(f"phase 11 host us a call of K9 (slot_gather, 1,024 x 32 rows, "
+          f"{OP_CALLS} calls back to back): the wrapper's launch "
+          f"{op_route_us(False):.2f}, through the registered op "
+          f"{op_route_us(True):.2f}", flush=True)
+    n = len(SERVE_SEEDS)
+    c_plan, e_plan = served["plan"], want["plan"]
+    print(f"phase 11 ({card}): export {export_s:.1f} s, artifact "
+          f"{mb:.1f} MB, cold load {served['load_s']:.2f} s (the serving "
+          f"process, its first call {served['first_s']:.2f} s, the process "
+          f"{child_s:.1f} s in all); a forward: artifact in the serving "
+          f"process {served['forward']:.2f} ms, eager {want['forward']:.2f} "
+          f"ms; collate + host plan {c_plan:.2f} / {e_plan:.2f} ms, of "
+          f"which collate {served['collate']:.2f} / {want['collate']:.2f} "
+          f"and the host plan {c_plan - served['collate']:.2f} / "
+          f"{e_plan - want['collate']:.2f}, minor page faults a plan "
+          f"{served['faults']:.0f} / {want['faults']:.0f}; torch threads / "
+          f"live threads "
+          f"{served['threads']} / {host_threads()}; scenes/s (plan + "
+          f"forward, {n} scenes x {SERVE_TIMED} calls) artifact "
+          f"{1e3 / (c_plan + served['forward']):.3f}, eager "
+          f"{1e3 / (e_plan + want['forward']):.3f}; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return served["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4142,6 +4608,10 @@ def main() -> int:
         "gather": dict(train_launches),
         "block-dense": dict(dense_train_launches)})
 
+    # phase 11: the bf16 flagship's serving export, run in a process
+    # without the model code
+    artifact_launches = run_serving_phase(card)
+
     # phase 8: the kernels line, then the result line
     meta = {
         "gather_gemm_conv": ("segdino3d_tpu_torch/csrc/gather_gemm_conv.cu",
@@ -4232,6 +4702,7 @@ def main() -> int:
             launches_2rank_step=dist_launches["block-dense"][name],
             launches_2rank_step_gather=dist_launches["gather"][name],
             launches_bf16=bf16_launches[name],
+            launches_artifact=artifact_launches[name],
             launches_bf16_train_step=bf16_train_launches[name],
             bf16_cases=rows[name]["bf16_cases"]))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,21 +1,24 @@
 """Padded-batch assembly: numpy records -> ``SceneBatch`` tensors.
 
 Counterpart of ``segdino3d_tpu/data/collate.py`` (``PadSpec``, ``collate``,
-``_plan_coords``, ``attach_host_plan`` in the gather, block-dense and
-hybrid layouts, and ``eval_annotation``).  Scenes are padded to static
-capacities.
+``_plan_coords``, ``probe_plan_caps``, ``attach_host_plan`` in the gather,
+block-dense and hybrid layouts, and ``eval_annotation``).  Scenes are
+padded to static capacities.  ``batch_leaves`` flattens a collated, planned
+batch into its tensors with their key paths in a fixed order, the input
+contract of an exported model (``tools/export_serving.py``), and
+``batch_skeleton`` / ``fill_skeleton`` put such a list back into a batch.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from segdino3d_tpu_torch.gtypes import SceneBatch
-from segdino3d_tpu_torch.ops.host_plan import (L0_BUDGET_BYTES,
+from segdino3d_tpu_torch.ops.host_plan import (L0_BUDGET_BYTES, block_bucket,
                                                build_host_plan,
                                                host_plan_to_device,
                                                probe_voxel_count,
@@ -157,6 +160,39 @@ def _plan_coords(records: List[Dict], num_points: int, voxel_size: float,
     return coords, valid, bidx
 
 
+def probe_plan_caps(batch: SceneBatch, records: List[Dict], *,
+                    voxel_size: float,
+                    level_cap_ratios=(1.0, 0.7, 0.35, 0.12, 0.05),
+                    num_levels: int = 5,
+                    block_edges: Optional[Sequence[int]] = None,
+                    headroom: float = 1.04,
+                    exact_min_shift: bool = False):
+    """``(voxel_cap, block_caps)``: the bucketed capacities the automatic
+    path of ``attach_host_plan`` would pick for this batch, with
+    ``headroom`` slack, without attaching a plan.  Pinned across batches
+    (``attach_host_plan(voxel_cap=..., block_caps=...)``) they give every
+    batch one plan shape, as fixed-shape serving needs (an exported model
+    takes one shape).  ``block_caps`` is None without block-dense levels,
+    else 0 at a gather level."""
+    coords, valid, bidx = _plan_coords(records, batch.num_points, voxel_size,
+                                       exact_min_shift)
+    n_vox = probe_voxel_count(coords.reshape(-1, 3), bidx, valid.reshape(-1))
+    voxel_cap = voxel_bucket(int(n_vox * headroom))
+    caps = [max(256, -(-int(voxel_cap * r) // 256) * 256)
+            for r in level_cap_ratios[:num_levels]]
+    caps[0] = voxel_cap
+    block_caps = None
+    if block_edges is not None and any(block_edges):
+        plan = build_host_plan(coords.reshape(-1, 3), bidx,
+                               valid.reshape(-1), caps,
+                               num_levels=num_levels,
+                               block_edges=block_edges)
+        block_caps = [0 if not lv.block_edge
+                      else block_bucket(int(lv.num_blocks * headroom))
+                      for lv in plan.levels]
+    return voxel_cap, block_caps
+
+
 def attach_host_plan(batch: SceneBatch, records: List[Dict], spec: PadSpec,
                      *, voxel_size: float, voxel_cap: Optional[int] = None,
                      level_cap_ratios=(1.0, 0.7, 0.35, 0.12, 0.05),
@@ -234,6 +270,84 @@ def to_device(tree, device):
     ``device``."""
     return map_leaves(tree, lambda x: x.to(device)
                       if isinstance(x, torch.Tensor) else x)
+
+
+class _Leaf:
+    """A tensor's place in a ``batch_skeleton``."""
+
+    def __init__(self, index: int):
+        self.index = index
+
+
+def _rebuilt(tree, fn):
+    """A dataclass ``tree`` with ``fn`` of each compared field; a field with
+    ``compare=False`` (a cache such as ``BlockTables.rows``) back at its
+    default."""
+    kw = {}
+    for f in dataclasses.fields(tree):
+        if not f.init:
+            continue
+        if f.compare:
+            kw[f.name] = fn(f.name, getattr(tree, f.name))
+        elif f.default_factory is not dataclasses.MISSING:
+            kw[f.name] = f.default_factory()
+        else:
+            kw[f.name] = f.default
+    return dataclasses.replace(tree, **kw)
+
+
+def _walk(tree, path: str, visit):
+    """``tree`` with ``visit(path, tensor)`` in each tensor's place:
+    dataclass fields in their order (``_rebuilt``), lists and tuples in
+    order."""
+    if isinstance(tree, torch.Tensor):
+        return visit(path, tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return _rebuilt(tree, lambda name, v: _walk(v, f"{path}.{name}",
+                                                    visit))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(x, f"{path}[{i}]", visit)
+                          for i, x in enumerate(tree))
+    return tree
+
+
+def batch_leaves(batch: SceneBatch) -> Tuple[List[str], List[torch.Tensor]]:
+    """(key paths, tensors) of every tensor of a collated, planned batch,
+    in a fixed order (``_walk``'s): the counterpart of the JAX export's
+    ``batch_leaf_paths``, e.g. ``.points`` or ``.plan.blocks[1].vox_slot``.
+    Fields that are None hold no leaf."""
+    paths, tensors = [], []
+
+    def visit(path, t):
+        paths.append(path)
+        tensors.append(t)
+        return t
+
+    _walk(batch, "", visit)
+    return paths, tensors
+
+
+def batch_skeleton(batch: SceneBatch) -> Any:
+    """``batch`` with each tensor replaced by its index in
+    ``batch_leaves``: its structure and its static values (block edges,
+    which fields are None), for ``fill_skeleton``."""
+    count = iter(range(1 << 62))
+    return _walk(batch, "", lambda path, t: _Leaf(next(count)))
+
+
+def fill_skeleton(skeleton: Any, tensors: Sequence[torch.Tensor]) -> Any:
+    """The batch of ``skeleton`` with ``tensors`` (``batch_leaves``'
+    order) in its places."""
+    def fill(tree):
+        if isinstance(tree, _Leaf):
+            return tensors[tree.index]
+        if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+            return _rebuilt(tree, lambda name, v: fill(v))
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(fill(x) for x in tree)
+        return tree
+
+    return fill(skeleton)
 
 
 def eval_annotation(record: Dict, bg_class_id: int = 200

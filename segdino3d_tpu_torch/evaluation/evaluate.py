@@ -38,6 +38,40 @@ from segdino3d_tpu_torch.ops.bitpack import pack_bits, unpack_bits_np
 from segdino3d_tpu_torch.parallel import mesh
 
 
+def scene_instances(out, batch: SceneBatch, b: int, test_cfg: Dict,
+                    threshold: float, filter_outofbox: bool = True
+                    ) -> InstancePred:
+    """``predict_instance`` of scene ``b`` of the model's outputs at score
+    ``threshold``."""
+    def scene(key):
+        # centers and sizes are None without positional embeddings, the
+        # objectness scores without objectness_flag
+        v = out.get(key)
+        return None if v is None else v[b]
+
+    return predict_instance(
+        out["cls_preds"][b], out["masks"][b], out["query_valid"][b],
+        out["sp_valid"][b], batch.superpoint_ids[b], batch.point_valid[b],
+        batch.points[b, :, :3], threshold, test_cfg,
+        centers=scene("centers"), sizes=scene("sizes"),
+        scores_q=scene("scores"), filter_outofbox=filter_outofbox)
+
+
+def served_instances(out, batch: SceneBatch, test_cfg: Dict,
+                     filter_outofbox: bool = True) -> Dict[str, torch.Tensor]:
+    """The instance results the serving export returns, stacked over the
+    batch's scenes: ``scores``, ``labels``, ``valid`` and the bit-packed
+    point masks ``masks_packed``, at score threshold 0.0 (the JAX tool's
+    ``build_infer_fn``)."""
+    scenes = [scene_instances(out, batch, b, test_cfg, 0.0, filter_outofbox)
+              for b in range(batch.batch_size)]
+    return dict(scores=torch.stack([r.scores for r in scenes]),
+                labels=torch.stack([r.labels for r in scenes]),
+                valid=torch.stack([r.valid for r in scenes]),
+                masks_packed=torch.stack([pack_bits(r.point_masks)
+                                          for r in scenes]))
+
+
 def postprocess(out, batch: SceneBatch, test_cfg: Dict,
                 filter_outofbox: bool = True, n_stuff: int = 2) -> List[Tuple]:
     """Per scene (inst, sem, pan_sem, pan_map) from the model's outputs;
@@ -50,20 +84,10 @@ def postprocess(out, batch: SceneBatch, test_cfg: Dict,
         return base._replace(valid=valid,
                              scores=torch.where(valid, base.scores, 0.0))
 
-    def scene(key, b):
-        # centers and sizes are None without positional embeddings, the
-        # objectness scores without objectness_flag
-        v = out.get(key)
-        return None if v is None else v[b]
-
     results = []
     for b in range(batch.batch_size):
-        base = predict_instance(
-            out["cls_preds"][b], out["masks"][b], out["query_valid"][b],
-            out["sp_valid"][b], batch.superpoint_ids[b], batch.point_valid[b],
-            batch.points[b, :, :3], min(thr_i, thr_p), test_cfg,
-            centers=scene("centers", b), sizes=scene("sizes", b),
-            scores_q=scene("scores", b), filter_outofbox=filter_outofbox)
+        base = scene_instances(out, batch, b, test_cfg, min(thr_i, thr_p),
+                               filter_outofbox)
         sem = predict_semantic(out["sem_preds"][b], batch.superpoint_ids[b])
         pan_sem, pan_map = predict_panoptic(
             out["sem_preds"][b], at_threshold(base, thr_p),

@@ -47,7 +47,10 @@ and the port, which never materialises the halo, does neither.
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 its ``launches`` attribute; for a CPU tensor it runs the plain PyTorch
 version beside it (``*_plain``), which the CPU tests hold against the JAX
-package and ``chip_smoke.py`` holds the kernel against on the card.
+package and ``chip_smoke.py`` holds the kernel against on the card.  While
+``torch.export`` traces a model, ``slot_gather``, ``block_conv`` and the
+row list put their kernels in the graph as ``ops.custom_ops``' registered
+ops instead.
 """
 from __future__ import annotations
 
@@ -128,6 +131,9 @@ def slot_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"slot_gather: x {tuple(x.shape)}, idx "
                          f"{tuple(idx.shape)}")
+    if torch.compiler.is_exporting():
+        from segdino3d_tpu_torch.ops import custom_ops
+        return custom_ops.slot_gather(x, idx)
     if x.device.type == "cpu":
         return slot_gather_plain(x, idx)
     _require_cuda("slot_gather", x, idx)
@@ -239,11 +245,15 @@ def _check_layout(name, feats, block_nbr, n_off, edge, cin):
 LIST_ROWS = 4096
 
 
-def row_workspace(n_rows: int, device) -> torch.Tensor:
+def row_workspace_size(n_rows: int) -> int:
     """K10's int32 scratch: the row list (``n_rows``), its count, the conv's
     tile ticket and the list passes' per-block counts."""
-    return torch.empty(n_rows + 2 + -(-n_rows // LIST_ROWS),
-                       dtype=torch.int32, device=device)
+    return n_rows + 2 + -(-n_rows // LIST_ROWS)
+
+
+def row_workspace(n_rows: int, device) -> torch.Tensor:
+    return torch.empty(row_workspace_size(n_rows), dtype=torch.int32,
+                       device=device)
 
 
 def occupied_rows_plain(mask: torch.Tensor) -> Tuple[torch.Tensor,
@@ -268,9 +278,17 @@ class RowList(NamedTuple):
     #                                 a tile ticket), None on the CPU
 
 
+def rows_in(ws: torch.Tensor, n_rows: int) -> RowList:
+    """The ``RowList`` of ``n_rows`` rows whose workspace is ``ws``."""
+    return RowList(ws[:n_rows], ws[n_rows], ws)
+
+
 def _row_list(mask: torch.Tensor) -> RowList:
     if mask.dim() != 1 or mask.dtype != torch.bool:
         raise TypeError("occupied_rows: mask must be (R,) bool")
+    if torch.compiler.is_exporting():
+        from segdino3d_tpu_torch.ops import custom_ops
+        return custom_ops.block_rows(mask)
     if mask.device.type == "cpu":
         return RowList(*occupied_rows_plain(mask), None)
     _require_cuda("occupied_rows", mask)
@@ -281,7 +299,7 @@ def _row_list(mask: torch.Tensor) -> RowList:
                                     cuda_build.stream_ptr(mask)),
                      "block_rows")
     occupied_rows.launches += 1
-    return RowList(ws[:n], ws[n], ws)
+    return rows_in(ws, n)
 
 
 def occupied_rows(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -346,7 +364,7 @@ def dilated_rows(mask: torch.Tensor, block_nbr: torch.Tensor, edge: int,
         mask.data_ptr(), block_nbr.data_ptr(), out.data_ptr(), ws.data_ptr(),
         b, edge, k, cuda_build.stream_ptr(mask)), "block_dilate")
     dilated_rows.launches += 1
-    return out, RowList(ws[:n], ws[n], ws)
+    return out, rows_in(ws, n)
 
 
 dilated_rows.launches = 0
@@ -387,6 +405,10 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     capacity (``groups``: at most this many, where a test asks)."""
     n_off, cin, cout = weights.shape
     _check_layout("block_conv", feats, block_nbr, n_off, edge, cin)
+    if torch.compiler.is_exporting():
+        from segdino3d_tpu_torch.ops import custom_ops
+        return custom_ops.block_conv(feats, block_nbr, weights, occ, edge,
+                                     rows)
     if feats.device.type == "cpu":
         return dense_subm_conv_plain(feats, block_nbr, weights, occ, edge)
     _require_cuda("block_conv", feats, block_nbr, weights,

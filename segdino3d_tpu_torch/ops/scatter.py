@@ -21,6 +21,10 @@ coordinates pooled beside them are data): its backward, ``segment_grad``,
 walks the voxel CSR of the forward's voxel mean, so each voxel adds its
 points' superpoint gradients in one fixed order.  The voxel mean itself
 pools input data and raises if asked for a gradient.
+
+While ``torch.export`` traces a model, ``segment_csr`` and
+``segment_mean_gather`` put their kernels in the graph as
+``ops.custom_ops``' registered ops instead.
 """
 from __future__ import annotations
 
@@ -77,6 +81,9 @@ def segment_csr(seg_ids: torch.Tensor, num_segments: int,
     around ``torch.sort`` (which also zero the counters).  Nothing here
     waits for the device."""
     n, dev = seg_ids.shape[0], seg_ids.device
+    if torch.compiler.is_exporting():
+        from segdino3d_tpu_torch.ops import custom_ops
+        return custom_ops.segment_csr(seg_ids, num_segments, valid)
     if dev.type == "cpu":
         return segment_csr_plain(seg_ids, num_segments, valid)
     present = [seg_ids] + ([] if valid is None else [valid])
@@ -195,6 +202,10 @@ def segment_mean_gather(seg_ids: torch.Tensor, num_segments: int,
     if round_to not in (None, torch.float32, torch.bfloat16):
         raise TypeError(f"segment_mean_gather: round_to {round_to}")
     ref = g if g is not None else cols[0]
+    if torch.compiler.is_exporting():
+        from segdino3d_tpu_torch.ops import custom_ops
+        return custom_ops.segment_mean_gather(seg_ids, num_segments, valid, g,
+                                              gather_idx, cols, csr, round_to)
     if ref.device.type == "cpu":
         return segment_mean_gather_plain(seg_ids, num_segments, valid, g,
                                          gather_idx, cols, round_to)

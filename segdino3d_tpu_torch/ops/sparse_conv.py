@@ -34,6 +34,9 @@ its ``launches`` attribute; for a CPU tensor it runs the plain PyTorch
 version beside it (``*_plain``), which the CPU tests hold against the JAX
 package and ``chip_smoke.py`` holds the kernel against on the card.
 Kernel offsets follow the canonical ``itertools.product`` order.
+While ``torch.export`` traces a model, ``gather_conv``, ``up_conv_rows``
+and ``gather_pairs`` put their kernels in the graph as ``ops.custom_ops``'
+registered ops instead.
 
 The coordinate pyramid of the on-device plan engine lives here too, as in
 the JAX module: ``downsample`` (K6 + K8 over the 2x-coarsened keys),
@@ -104,8 +107,8 @@ def gather_conv_plain(feats: torch.Tensor, nbr: torch.Tensor,
 
 
 def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
-                valid: torch.Tensor, narrow: Optional[bool] = None
-                ) -> torch.Tensor:
+                valid: torch.Tensor, narrow: Optional[bool] = None,
+                pairs: Optional["PairList"] = None) -> torch.Tensor:
     """``out[i] = sum_o feats[nbr[o, i]] @ weights[o]``, 0 on invalid rows.
 
     feats (V_in, Cin); nbr (n_off, V) int32, -1 = absent; weights
@@ -118,13 +121,17 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
     ``narrow`` where a benchmark forces one path) is one launch that
     allocates nothing but the output and builds no pair list.  The bf16
     wide stems (``narrow.wide_stem``) run the pair-major form on the
-    warpgroup core."""
+    warpgroup core.  ``pairs`` is the table's pair list where the caller
+    has it (an exported graph's), else ``cached_pairs``'."""
     n_off, cin, cout = weights.shape
     if nbr.shape[0] != n_off or feats.shape[1] != cin \
             or tuple(valid.shape) != (nbr.shape[1],):
         raise ValueError(f"gather_conv: nbr {tuple(nbr.shape)}, feats "
                          f"{tuple(feats.shape)}, weights {tuple(weights.shape)}"
                          f", valid {tuple(valid.shape)}")
+    if torch.compiler.is_exporting():
+        from segdino3d_tpu_torch.ops import custom_ops
+        return custom_ops.gather_conv(feats, nbr, weights, valid)
     if feats.device.type == "cpu":
         return gather_conv_plain(feats, nbr, weights, valid)
     _require_cuda("gather_conv", feats, nbr, weights, valid)
@@ -149,7 +156,7 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
         return out
     N.count_element_loads(feats, weights)
     wide = N.wide_stem(cin, cout, feats.dtype)
-    pairs = cached_pairs(None, nbr)
+    pairs = pairs if pairs is not None else cached_pairs(None, nbr)
     pos = torch.empty(n_off, v, dtype=torch.int32, device=dev)
     partial = torch.empty(n_off * v, lib.gather_conv_pair_stride(cout),
                           dtype=torch.float32, device=dev)
@@ -192,7 +199,8 @@ def up_conv_plain(feats: torch.Tensor, parent: torch.Tensor,
 
 def up_conv_rows(feats: torch.Tensor, child: torch.Tensor,
                  parent: torch.Tensor, kpos: torch.Tensor,
-                 weights: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+                 weights: torch.Tensor, valid: torch.Tensor,
+                 pairs: Optional["PairList"] = None) -> torch.Tensor:
     """``fine[i] = feats[parent[i]] @ weights[kpos[i]]``, 0 where invalid
     or without a parent.
 
@@ -201,7 +209,8 @@ def up_conv_rows(feats: torch.Tensor, child: torch.Tensor,
     once; parent, kpos (V_fine,) int32; weights (8, Cin, Cout) in feats'
     dtype; valid (V_fine,) bool.  On the card the kernel multiplies the
     child table's cached pair list (``cached_pairs(None, child)``, shared
-    with K1's down conv and K4) and stores each product in its fine row."""
+    with K1's down conv and K4, or ``pairs`` where the caller has it) and
+    stores each product in its fine row."""
     cin, cout = weights.shape[1:]
     if weights.shape[0] != 8 or feats.shape[1] != cin \
             or tuple(child.shape) != (8, feats.shape[0]) \
@@ -210,6 +219,10 @@ def up_conv_rows(feats: torch.Tensor, child: torch.Tensor,
                          f"{tuple(child.shape)}, weights "
                          f"{tuple(weights.shape)}, parent "
                          f"{tuple(parent.shape)}, valid {tuple(valid.shape)}")
+    if torch.compiler.is_exporting():
+        from segdino3d_tpu_torch.ops import custom_ops
+        return custom_ops.up_conv_rows(feats, child, parent, kpos, weights,
+                                       valid)
     if feats.device.type == "cpu":
         return up_conv_plain(feats, parent, kpos, weights, valid)
     _require_cuda("up_conv", feats, child, parent, weights, valid)
@@ -221,7 +234,7 @@ def up_conv_rows(feats: torch.Tensor, child: torch.Tensor,
     out = torch.empty(v, cout, dtype=feats.dtype, device=feats.device)
     if out.numel() == 0:
         return out
-    pairs = cached_pairs(None, child)
+    pairs = pairs if pairs is not None else cached_pairs(None, child)
     N.count_element_loads(feats, weights)
     lib = cuda_build.library("up_conv")
     cuda_build.check(lib.up_conv(
@@ -268,6 +281,20 @@ class PairList(NamedTuple):
 PAIR_LIST_ROWS = 4096
 
 
+def pair_workspace_size(n_off: int, rows: int) -> int:
+    """``gather_pairs``' int32 workspace: the rows, the counts, a ticket
+    and the list passes' per-block counts."""
+    return n_off * rows + n_off + 1 \
+        + n_off * max(1, -(-rows // PAIR_LIST_ROWS))
+
+
+def pairs_in(ws: torch.Tensor, n_off: int, rows: int) -> PairList:
+    """The ``PairList`` of (n_off, rows) tables whose workspace is
+    ``ws``."""
+    return PairList(ws[:n_off * rows].view(n_off, rows),
+                    ws[n_off * rows:n_off * rows + n_off], ws)
+
+
 def gather_pairs_plain(ia: Optional[torch.Tensor],
                        ib: Optional[torch.Tensor]) -> PairList:
     """Plain version of K4's pair list (``gather_pairs``)."""
@@ -294,6 +321,9 @@ def gather_pairs(ia: Optional[torch.Tensor], ib: Optional[torch.Tensor]
         if t is not None and (t.dim() != 2 or t.shape != table.shape):
             raise ValueError(f"gather_pairs: index tables "
                              f"{tuple(t.shape)} and {tuple(table.shape)}")
+    if torch.compiler.is_exporting():
+        from segdino3d_tpu_torch.ops import custom_ops
+        return custom_ops.gather_pairs(ia, ib)
     if table.device.type == "cpu":
         return gather_pairs_plain(ia, ib)
     present = [t for t in (ia, ib) if t is not None]
@@ -301,17 +331,15 @@ def gather_pairs(ia: Optional[torch.Tensor], ib: Optional[torch.Tensor]
     if any(t.dtype != torch.int32 for t in present):
         raise TypeError("gather_pairs: index tables must be int32")
     n_off, rows = table.shape
-    ws = torch.empty(n_off * rows + n_off + 1
-                     + n_off * max(1, -(-rows // PAIR_LIST_ROWS)),
-                     dtype=torch.int32, device=table.device)
+    ws = torch.empty(pair_workspace_size(n_off, rows), dtype=torch.int32,
+                     device=table.device)
     lib = cuda_build.library("gather_wgrad")
     cuda_build.check(lib.gather_pairs(
         None if ia is None else ia.data_ptr(),
         None if ib is None else ib.data_ptr(), ws.data_ptr(), rows, n_off,
         cuda_build.stream_ptr(table)), "gather_pairs")
     gather_pairs.launches += 1
-    return PairList(ws[:n_off * rows].view(n_off, rows),
-                    ws[n_off * rows:n_off * rows + n_off], ws)
+    return pairs_in(ws, n_off, rows)
 
 
 gather_pairs.launches = 0

@@ -49,6 +49,18 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _float32_jax_backbone():
+    """``__graft_entry__._build`` reads the backbone dtype from
+    ``SEGDINO_COMPUTE_DTYPE``, which the JAX package's export tool sets to
+    bfloat16 for the rest of a process where it is unset
+    (``tools/export_serving.py``): pin the float32 these comparisons are
+    made at, whatever ran before in the process."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SEGDINO_COMPUTE_DTYPE", "float32")
+        yield
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """One torch thread: the suite runs several test workers at once."""
     n = torch.get_num_threads()

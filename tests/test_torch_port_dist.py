@@ -94,6 +94,18 @@ CLASS_NAMES = ["wall", "floor"] + [f"c{i}" for i in range(N_CLS - 2)]
 # the JAX side
 # --------------------------------------------------------------------------
 
+@pytest.fixture(scope="module", autouse=True)
+def _float32_jax_backbone():
+    """``__graft_entry__._build`` reads the backbone dtype from
+    ``SEGDINO_COMPUTE_DTYPE``, which the JAX package's export tool sets to
+    bfloat16 for the rest of a process where it is unset
+    (``tools/export_serving.py``): pin the float32 these comparisons are
+    made at, whatever ran before in the process."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SEGDINO_COMPUTE_DTYPE", "float32")
+        yield
+
+
 def _jax_model():
     import __graft_entry__ as ge
 

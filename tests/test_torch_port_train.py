@@ -107,6 +107,18 @@ UPDATE_RTOL = 1e-2
 STATS_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _float32_jax_backbone():
+    """``__graft_entry__._build`` reads the backbone dtype from
+    ``SEGDINO_COMPUTE_DTYPE``, which the JAX package's export tool sets to
+    bfloat16 for the rest of a process where it is unset
+    (``tools/export_serving.py``): pin the float32 these comparisons are
+    made at, whatever ran before in the process."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SEGDINO_COMPUTE_DTYPE", "float32")
+        yield
+
+
 def numpy_selection(num_superpoints):
     """(q_idx, q_valid) per scene: the valid superpoints ordered by a fixed
     noise, the first floor(QUERY_FRAC * n_valid) of them valid."""
