@@ -154,10 +154,16 @@ Phases, in order; any failure exits non-zero before the result line:
    block-dense training plans (the dense k5 stem over 3 channels; no
    EMA): s/step, ms per stage, launches, K10/K11 device time of a
    profiled step, finite losses, the card against the CPU on a small
-   scene; 6d two batch-1 steps on device plans (K4 at the 3-channel
-   stem); phase 2 holds its new shapes (K1 at the k5 stem 3->32, K10 at
-   the dense stem 3->32 on the L0 row list, K11 and K4 at the stem's
-   125x3x32 dW, K3 from the one 3-channel colour source);
+   scene; 6d two batch-1 steps on device plans (K1's and K4's narrow
+   paths at the 3-channel stem, launches checked: one pair list fewer
+   than a gather step's); phase 2 holds its new shapes (K1 at the k5 stem
+   3->32, K10 at the dense stem 3->32 on the L0 row list, K11 and K4 at
+   the stem's 125x3x32 dW in the forms the steps run, each on its narrow
+   path and on its wide path forced, fp32 and bf16; two calls of each
+   narrow dW path bit-equal, K4's narrow path building no pair list and
+   allocating its output and split scratch alone,
+   ``narrow.wgrad_smem_bytes`` equal to the library's; K3 from the one
+   3-channel colour source);
 7. run the decoder options on the flagship model at full width: 7a an
    eval forward and two training steps with the Fourier PE, objectness,
    ``query_num`` 400, a two-layer semantic head, dropout 0.1 (masks from
@@ -944,24 +950,141 @@ def narrow_stem_check(plan, gen):
                          "Baseline stem")
 
 
-def baseline_cases(batch, gen):
+def narrow_wgrad_check(plan, hybrid, gen):
+    """K4's narrow path at the Baseline's stem dW (the step's form,
+    ``gather_wgrad(x, nbr, dy, None)``) builds no pair list and allocates
+    its output and split scratch alone (on a fresh copy of the stem table,
+    which no list was built for), where the wide path builds the table's
+    list and its workspace; two calls of each narrow path, K4's and K11's
+    (the dense stem's dW on level 0's cached row list of ``hybrid``, whose
+    ticket it leaves at 0), are bit-equal in fp32 and bf16; and ``narrow.wgrad_smem_bytes`` equals the library's
+    ``narrow_wgrad_smem`` on every shape the narrow path takes at 8, 27
+    and 125 offsets."""
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import cuda_build
+    from segdino3d_tpu_torch.ops import narrow as N
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    lib = cuda_build.library("gather_wgrad")
+    for n_off in (8, 27, 125):
+        for cin in range(1, N.KERNEL_MAX_CIN + 1):
+            for cout in (1, 32, 38, 64, 96):
+                for dt in (torch.float32, torch.bfloat16):
+                    if not N.wgrad_fits(n_off, cin, cout, dt):
+                        continue
+                    want = lib.narrow_wgrad_smem(n_off, cin, cout,
+                                                 cuda_build.dtype_code(dt))
+                    if N.wgrad_smem_bytes(n_off, cin, cout, dt) != want:
+                        raise SystemExit(
+                            f"narrow.wgrad_smem_bytes{(n_off, cin, cout)} "
+                            f"{dt} differs from the kernel's {want}")
+    lv = plan.levels[0]
+    v0 = lv.valid.shape[0]
+    x = _randn(gen, (v0, 3), torch.float32)
+    dy = torch.where(lv.valid[:, None],
+                     _randn(gen, (v0, 32), torch.float32), 0.0)
+    grown = {}
+    for path in ("narrow", "wide"):
+        table = plan.stem_nbr.clone()
+        torch.cuda.synchronize()
+        lists = SC.gather_pairs.launches
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = SC.gather_wgrad(x, table, dy, None,
+                              narrow=None if path == "narrow" else False)
+        torch.cuda.synchronize()
+        grown[path] = (torch.cuda.max_memory_allocated() - base,
+                       SC.gather_pairs.launches - lists)
+        del out, table
+    splits = SC.wgrad_splits(v0, 125, 3, 32)
+    # the output and the split scratch, each in the allocator's 512-byte
+    # steps
+    own = sum(-(-n * 125 * 3 * 32 * 4 // 512) * 512 for n in (1, splits))
+    print(f"K4 at the Baseline stem dW 125x3x32: the narrow path's peak "
+          f"allocation {grown['narrow'][0] / 2 ** 20:.3f} MiB (its output "
+          f"and {splits} splits' scratch {own / 2 ** 20:.3f} MiB), "
+          f"{grown['narrow'][1]} pair lists built; the wide path's "
+          f"{grown['wide'][0] / 2 ** 20:.3f} MiB, {grown['wide'][1]} pair "
+          f"list", flush=True)
+    if grown["narrow"][0] > own or grown["narrow"][1]:
+        raise SystemExit("K4's narrow path allocated more than its output "
+                         "and scratch or built a pair list")
+    t = hybrid.blocks[0]
+    occ = BD.occupancy(t)
+    rows = BD.row_list(t, occ)
+    narrow = (SC.gather_wgrad.narrow.launches, BD.block_wgrad.narrow.launches)
+    for dt in (torch.float32, torch.bfloat16):
+        x, dy = _randn(gen, (v0, 3), dt), _randn(gen, (v0, 32), dt)
+        xd = _randn(gen, (occ.shape[0], 3), dt)
+        dyd = torch.where(occ[:, None],
+                          _randn(gen, (occ.shape[0], 32), dt), 0.0)
+        for what, call in (
+                ("K4", lambda: SC.gather_wgrad(x, plan.stem_nbr, dy, None)),
+                ("K11", lambda: BD.block_wgrad(xd, dyd, t.block_nbr, occ,
+                                               t.edge, 5, rows))):
+            if not torch.equal(call(), call()):
+                raise SystemExit(f"{what}'s narrow path: two calls differ "
+                                 f"in {dt}")
+    torch.cuda.synchronize()
+    if (SC.gather_wgrad.narrow.launches - narrow[0],
+            BD.block_wgrad.narrow.launches - narrow[1]) != (4, 4) or \
+            int(rows.ws[occ.shape[0] + 1]) != 0:
+        raise SystemExit("K4 or K11 at the Baseline stem dW: not on the "
+                         "narrow path, or the row list's ticket left set")
+    print("K4's and K11's narrow paths at the Baseline stem dW: two calls "
+          "bit-equal in fp32 and bf16; narrow.wgrad_smem_bytes equal to "
+          "the kernel's", flush=True)
+
+
+def narrow_wgrad_cases(cases, gen, plan):
+    """K4 at the Baseline's stem dW in the form its device-plan step runs
+    (x gathered, unmirrored, dY masked by the level's validity), on the
+    narrow path the rule picks and on the wide path forced, each fp32 and
+    bf16 and held to the plain version (1e-4 x max fp32, 1e-2 x max
+    bf16)."""
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    lv = plan.levels[0]
+    v0, nbr = lv.valid.shape[0], plan.stem_nbr
+    live = int((nbr >= 0).sum())
+    for path, forced in (("narrow path", None), ("wide path, forced",
+                                                 False)):
+        per = {}
+        for dt in (torch.float32, torch.bfloat16):
+            x = _randn(gen, (v0, 3), dt)
+            dy = torch.where(lv.valid[:, None], _randn(gen, (v0, 32), dt),
+                             0.0)
+            per[dt] = (
+                lambda x=x, dy=dy, f=forced: SC.gather_wgrad(x, nbr, dy,
+                                                             None, narrow=f),
+                lambda x=x, dy=dy: SC.gather_wgrad_plain(x, nbr, dy, None,
+                                                         125, v0),
+                lambda x=x, dy=dy: wgrad_library(x, nbr, dy, None, False),
+                2.0 * live * 3 * 32, nbytes(x, nbr, dy) + 125 * 3 * 32 * 4,
+                CONV_PEAK[dt], WGRAD_TOL if dt == torch.float32 else 1e-2)
+        cases.append(("gather_wgrad", f"baseline stem dW k5 3->32 L0 (x "
+                      f"gathered, unmirrored, as the step runs it; {path}); "
+                      f"{live} live pairs of {125 * v0}", per))
+
+
+def baseline_cases(batch, hybrid, gen):
     """The Baseline's new shapes (rgb alone, Cin 3) on the main scene's
     plan: K1 at the k5 stem 3->32 (fp32, bf16: 12- and 6-byte rows) on its
     narrow path, the wide path timed beside it, K3 as the voxel mean from
-    the one 3-channel colour source and K4 at the stem's 125x3x32 dW
-    (K10's dense stem and K11's stem dW are in ``dense_cases``)."""
+    the one 3-channel colour source and K4 at the stem's 125x3x32 dW on
+    both paths (K10's dense stem and K11's stem dW are in
+    ``dense_cases``); the narrow paths' allocation and bit-equality
+    checks."""
     plan = batch.plan
     lv = plan.levels
     v0 = lv[0].valid.shape[0]
-    f32 = torch.float32
     cases = []
     narrow_stem_check(plan, gen)
+    narrow_wgrad_check(plan, hybrid, gen)
     conv_case(cases, gen, "baseline stem k5 3->32 L0 (narrow path)", v0,
               plan.stem_nbr, lv[0].valid, 3, 32, wide=True)
     voxel_mean_cases(cases, gen, plan, batch.points.shape[1], rgb_only=True)
-    wgrad_case(cases, "baseline stem dW k5 3->32 L0 (dY gathered, "
-               "mirrored)", _randn(gen, (v0, 3), f32), None,
-               _randn(gen, (v0, 32), f32), plan.stem_nbr, mirror=True)
+    narrow_wgrad_cases(cases, gen, plan)
     return cases
 
 
@@ -1498,7 +1621,7 @@ def dense_cases(plan, gen):
                          for s in itertools.product(range(-h, h + 1),
                                                     repeat=3)))
 
-    def wgrad_case(name, t, cin, cout, k, dt=f32):
+    def wgrad_case(name, t, cin, cout, k, dt=f32, narrow=None):
         occ = BD.occupancy(t)
         need, dense = pairs(t, k, masked=True)
         every = all_pairs(t, k)
@@ -1524,7 +1647,8 @@ def dense_cases(plan, gen):
                       f"source (live-pair bound {live_ms:.4f} ms), dense-work "
                       f"bound {dense_ms:.4f} ms (fp32)", {dt: (
                           lambda: BD.block_wgrad(x, dy, t.block_nbr, occ, e,
-                                                 k, BD.row_list(t, occ)),
+                                                 k, BD.row_list(t, occ),
+                                                 narrow),
                           lambda: BD.block_wgrad_plain(x, dy, t.block_nbr,
                                                        occ, e, k),
                           lib, 2.0 * need * cin * cout,
@@ -1536,7 +1660,13 @@ def dense_cases(plan, gen):
 
     wgrad_case("dW k3 96->96 L0", t0, 96, 96, 3)
     wgrad_case("stem dW k5 259->32 L0", t0, 259, 32, 5)
-    wgrad_case("baseline stem dW k5 3->32 L0", t0, 3, 32, 5)
+    # the Baseline's dense stem dW, on the narrow path the rule picks and
+    # on the wide path forced
+    for dt in (f32, torch.bfloat16):
+        wgrad_case("baseline stem dW k5 3->32 L0 (narrow path)", t0, 3, 32,
+                   5, dt)
+        wgrad_case("baseline stem dW k5 3->32 L0 (wide path, forced)", t0, 3,
+                   32, 5, dt, narrow=False)
 
     # the bf16 backbone (phase 10): K10 at every other distinct (level,
     # Cin, Cout) of the hybrid forward (k3 96->96 L0 and 384->256 L3 are
@@ -1654,6 +1784,9 @@ def counters():
             # one per segment set and forward
             "segment_csr": (SS.segment_csr,),
             "gather_wgrad": (SC.gather_wgrad,),
+            # of K4's and K11's launches, those on the narrow path (the
+            # Baseline's 3-channel stem dW)
+            "gather_wgrad narrow": (SC.gather_wgrad.narrow,),
             "segment_grad": (SS.segment_grad,),
             "coord_hash": (TQ.build_and_lookup, TQ.lookup_hash),
             "neighbor_table": (SC.neighbor_table, SC.neighbor_tables),
@@ -1663,6 +1796,7 @@ def counters():
             "block_conv narrow": (BD.block_conv.narrow,),
             "block_dilate": (BD.dilated_rows,),
             "block_wgrad": (BD.block_wgrad,),
+            "block_wgrad narrow": (BD.block_wgrad.narrow,),
             "stem_slot_sum": (SC.stem_slot_sum,),
             # the pair lists (K1 and K4) and row lists (K11), built once per
             # table or level and forward or step; they launch in K4's and
@@ -1675,6 +1809,10 @@ def counters():
 # stem's table, each level's k3 table and each child table (one list for
 # K1's down conv and up conv dX and K4's dW of both)
 GATHER_PAIR_LISTS = 10
+# the narrow-path counts of a phase whose convs all take the wide paths
+# (the flagship and the v2 model)
+NO_NARROW = {"gather_gemm_conv narrow": 0, "block_conv narrow": 0,
+             "gather_wgrad narrow": 0, "block_wgrad narrow": 0}
 
 
 def step_kernel_ms(run, lead):
@@ -1710,13 +1848,15 @@ def kernel_ms(events):
             ms["K3"] += t
         elif any(f in n for f in CLI_STEP_KERNELS["block_conv"]):
             ms["K10"] += t
-        elif "gather_wgrad_kernel" in n or ("sum_splits" in n and
-                                          "ListPairs" in n):
+        elif "gather_wgrad_kernel" in n or "gather_wgrad_narrow_kernel" in n \
+                or ("sum_splits" in n and ("ListPairs" in n
+                                           or "TableRows" in n)):
             ms["K4"] += t
         elif "count_pairs_kernel" in n or "list_pairs_kernel" in n:
             ms["K4 pair lists"] += t
-        elif "block_wgrad_kernel" in n or ("sum_splits" in n and
-                                           "HaloPairs" in n):
+        elif "block_wgrad_kernel" in n or "block_wgrad_narrow_kernel" in n \
+                or ("sum_splits" in n and ("HaloPairs" in n
+                                           or "ListedRows" in n)):
             ms["K11"] += t
     return ms
 
@@ -2407,7 +2547,7 @@ def run_hybrid_eval(model, test_cfg, records, spec, gather_bb):
     expected = {"gather_gemm_conv": 5, "up_conv": 4, "segment_mean_gather": 2,
                 "block_conv": 46, "slot_gather": 18,
                 "block_rows": sum(t is not None for t in plan.blocks),
-                "gather_gemm_conv narrow": 0, "block_conv narrow": 0}
+                **NO_NARROW}
     print(f"launches in one hybrid forward: {launches} (expected "
           f"{expected})", flush=True)
     for k, n in expected.items():
@@ -2582,8 +2722,7 @@ def run_dense_training(model, records, spec):
     check_small_train(model, "block-dense")
     launches, steps, _, _, peak, metrics = run_training(
         model, records, spec, layout="block-dense", accum=False)
-    expected = dict(BLOCK_DENSE_STEP, **{"gather_gemm_conv narrow": 0,
-                                         "block_conv narrow": 0})
+    expected = {**BLOCK_DENSE_STEP, **NO_NARROW}
     print(f"launches in one block-dense train step: {launches} (expected "
           f"{expected}: K10 47 forward + 46 dX, per level one k3 dilation "
           f"with its list (the dX convs') and one occupancy row list (the "
@@ -2619,12 +2758,12 @@ CLI_STEP_KERNELS = {
     "block_conv": ("block_conv_kernel", "block_conv_narrow_kernel",
                    "block_conv_wg_kernel", "group_sum_kernel"),
     "block_dilate": ("dilate_kernel",),
-    "block_wgrad": ("block_wgrad_kernel",),
+    "block_wgrad": ("block_wgrad_kernel", "block_wgrad_narrow_kernel"),
     "gather_gemm_conv": ("conv_products_kernel", "conv_pair_sum_kernel",
                          "gather_conv_narrow_kernel",
                          "conv_products_wg_kernel"),
     "up_conv": ("up_conv_kernel",),
-    "gather_wgrad": ("gather_wgrad_kernel",),
+    "gather_wgrad": ("gather_wgrad_kernel", "gather_wgrad_narrow_kernel"),
     "segment_mean_gather": ("segment_mean_kernel",),
     "segment_grad": ("segment_grad_kernel",),
     "segment_csr": ("csr_keys_kernel", "csr_offsets_kernel"),
@@ -2956,12 +3095,20 @@ BLOCK_DENSE_STEP = {"block_conv": 93, "block_dilate": 5, "block_wgrad": 47,
                     "gather_wgrad": 8, "segment_mean_gather": 2,
                     "segment_grad": 1, "block_rows": 5, "gather_pairs": 4}
 # the Baseline's: the same, with its 3-channel stem on K1's narrow path
-# (eval: the gather stem) or K10's (training: the dense stem; its input
-# needs no gradient, so no dX role)
-BASELINE_FORWARD = dict(HYBRID_FORWARD, **{"gather_gemm_conv narrow": 1,
-                                           "block_conv narrow": 0})
-BASELINE_STEP = dict(BLOCK_DENSE_STEP, **{"gather_gemm_conv narrow": 0,
-                                          "block_conv narrow": 1})
+# (eval: the gather stem) or K10's and its dW on K11's (training: the dense
+# stem; its input needs no gradient, so no dX role)
+BASELINE_FORWARD = {**HYBRID_FORWARD, **NO_NARROW,
+                    "gather_gemm_conv narrow": 1}
+BASELINE_STEP = {**BLOCK_DENSE_STEP, **NO_NARROW, "block_conv narrow": 1,
+                 "block_wgrad narrow": 1}
+# its step on device plans (gather layout): the stem on K1's narrow path and
+# its dW on K4's, which take no pair list, so the stem's table gets none
+BASELINE_DEVICE_STEP = {"gather_gemm_conv": 101, "up_conv": 8,
+                        "segment_mean_gather": 2, "gather_wgrad": 55,
+                        "segment_grad": 1,
+                        "gather_pairs": GATHER_PAIR_LISTS - 1, **NO_NARROW,
+                        "gather_gemm_conv narrow": 1,
+                        "gather_wgrad narrow": 1}
 
 
 def check_counts(launches, expected, what):
@@ -3079,7 +3226,8 @@ def run_baseline_phase(records, train_records, spec, disk_ms):
           + f"; peak {t_peak / 2 ** 30:.3f} GiB", flush=True)
     print(f"baseline train metrics (finite): {t_metrics[-1]}", flush=True)
 
-    # 6d: batch-1 steps on device plans (K4 at the 3-channel stem)
+    # 6d: batch-1 steps on device plans (K4's narrow path at the 3-channel
+    # stem)
     from segdino3d_tpu_torch.data.collate import _plan_coords
     tmodel.backbone.voxel_cap = max(
         host_plan.voxel_bucket(host_plan.probe_voxel_count(
@@ -3089,6 +3237,8 @@ def run_baseline_phase(records, train_records, spec, disk_ms):
     dev_train_launches = run_training_device(
         tmodel, train_records, spec, n_steps=2, cfg=cfg, ema=False,
         tag="baseline ")
+    check_counts(dev_train_launches, BASELINE_DEVICE_STEP,
+                 "baseline launches in one device-plan train step")
     return launches, dev_launches, train_launches, dev_train_launches
 
 
@@ -3352,9 +3502,8 @@ def run_bf16_phase(model, test_cfg, records, train_records, spec, tspec,
     launches, times, peak, batch, bb, out, res, _ = run_main_path(
         bmodel, test_cfg, records, spec, layout="hybrid")
     check_element_loads("phase 10a")
-    expected = dict(HYBRID_FORWARD, **{"gather_gemm_conv wide stem": 1,
-                                       "gather_gemm_conv narrow": 0,
-                                       "block_conv narrow": 0})
+    expected = {**HYBRID_FORWARD, **NO_NARROW,
+                "gather_gemm_conv wide stem": 1}
     check_counts(launches, expected, "phase 10a launches in one bf16 "
                  "hybrid forward (phase 3c's; the stem on K1's bf16 wide-stem "
                  "path)")
@@ -3399,9 +3548,8 @@ def run_bf16_phase(model, test_cfg, records, train_records, spec, tspec,
     train_launches, steps, _, _, peak, metrics = run_training(
         dmodel, train_records, tspec, layout="block-dense", accum=False)
     check_element_loads("phase 10b")
-    expected = dict(BLOCK_DENSE_STEP, **{"gather_gemm_conv wide stem": 0,
-                                         "gather_gemm_conv narrow": 0,
-                                         "block_conv narrow": 0})
+    expected = {**BLOCK_DENSE_STEP, **NO_NARROW,
+                "gather_gemm_conv wide stem": 0}
     check_counts(train_launches, expected, "phase 10b launches in one bf16 "
                  "block-dense train step (phase 4c's)")
     grads = [p.grad for p in dmodel.parameters() if p.grad is not None]
@@ -4018,12 +4166,14 @@ SERVE_TIMED = 3            # timed calls a scene, after one warm-up call
 # the port's hand-written kernels (csrc/), as the profiler names them
 OWN_KERNELS = ("block_conv_kernel", "block_conv_narrow_kernel",
                "block_conv_wg_kernel", "group_sum_kernel",
-               "block_wgrad_kernel", "build_lookup_kernel",
+               "block_wgrad_kernel", "block_wgrad_narrow_kernel",
+               "build_lookup_kernel",
                "conv_pair_sum_kernel", "conv_products_kernel",
                "conv_products_wg_kernel", "count_pairs_kernel",
                "count_rows_kernel", "csr_keys_kernel", "csr_offsets_kernel",
                "dilate_kernel", "finish_kernel", "flags_kernel",
                "gather_conv_narrow_kernel", "gather_wgrad_kernel",
+               "gather_wgrad_narrow_kernel",
                "list_pairs_kernel", "list_rows_kernel", "lookup_kernel",
                "neighbor_kernel", "segment_grad_kernel",
                "segment_mean_kernel", "slot_gather_kernel",
@@ -4360,9 +4510,8 @@ def run_serving_phase(card):
     eager(*fresh())
     torch.cuda.synchronize()
     launches = read_counts()
-    expected = dict(HYBRID_FORWARD, **{"gather_gemm_conv wide stem": 1,
-                                       "gather_gemm_conv narrow": 0,
-                                       "block_conv narrow": 0})
+    expected = {**HYBRID_FORWARD, **NO_NARROW,
+                "gather_gemm_conv wide stem": 1}
     check_counts(launches, expected, "phase 11 eager served forward "
                  "(phase 10a's launches)")
     check_counts(served["launches"], launches, "phase 11 artifact forward "
@@ -4482,7 +4631,7 @@ def main() -> int:
                          + dense_cases(hybrid.plan, gen)
                          + stem_compact_cases(records, spec, gen)
                          + v2_cases(v2_batch, SCENE["n_superpoints"], gen)
-                         + baseline_cases(batch, gen))
+                         + baseline_cases(batch, hybrid.plan, gen))
     del hybrid, v2_batch
 
     # phase 3: the main path at full width; a batch without a host plan
@@ -4697,7 +4846,9 @@ def main() -> int:
             **({"narrow_launches": dict(
                 flagship=launches[f"{name} narrow"],
                 baseline=bl_launches[f"{name} narrow"],
-                baseline_train_step=bl_train_launches[f"{name} narrow"])}
+                baseline_train_step=bl_train_launches[f"{name} narrow"],
+                baseline_device_train_step=bl_dev_train_launches[
+                    f"{name} narrow"])}
                if f"{name} narrow" in launches else {}),
             launches_2rank_step=dist_launches["block-dense"][name],
             launches_2rank_step_gather=dist_launches["gather"][name],

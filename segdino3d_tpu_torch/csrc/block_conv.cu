@@ -81,7 +81,7 @@
 // the row list, the ticket, the mask and unmasked variants, edge 4 / 8 and
 // k 3 / 5, and runs tiles of 128 listed rows on narrow_tile.cuh's core:
 // the weight staged once per block, each chunk of offsets gathered through
-// the block halo (HaloSrc) straight into an im2col tile (no per-offset
+// the block halo (bdt::HaloSrc) straight into an im2col tile (no per-offset
 // stages), the fp32 sums in the order above.
 //
 // Contract: x (n_blocks * edge^3, Cin), w (k^3, Cin, Cout) and out
@@ -846,28 +846,6 @@ cudaError_t wg_split_cap(int n_rows, int k, int cout, int* cap) {
 // the narrow path
 // ---------------------------------------------------------------------------
 
-// the source of dense row `row` at offset o: the cell shifted by o - h,
-// through the block halo (bdt::halo_row's addressing without its branch,
-// so that what stays live while the shell block's id loads is the cell's
-// index; the branchy form ran slower here)
-template <int E, int K>
-struct HaloSrc {
-  static constexpr bool kAhead = false;
-  const int32_t* __restrict__ nbr;
-  int n_blocks;
-  __device__ __forceinline__ int operator()(int row, int o) const {
-    constexpr int H = (K - 1) / 2, E3 = E * E * E;
-    const int b = row / E3, c = row % E3;
-    const int qx = c / (E * E) + o / (K * K) - H, qy = (c / E) % E + (o / K) % K - H,
-              qz = c % E + o % K - H;
-    const int dx = (qx >= E) - (qx < 0), dy = (qy >= E) - (qy < 0), dz = (qz >= E) - (qz < 0);
-    const int cell = ((qx - dx * E) * E + qy - dy * E) * E + qz - dz * E;
-    const int d = (dx + 1) * 9 + (dy + 1) * 3 + dz + 1;   // 13: the block itself
-    const int blk = d == 13 ? b : nbr[(int64_t)(d - (d > 13)) * n_blocks + b];
-    return blk < 0 ? -1 : blk * E3 + cell;
-  }
-};
-
 template <typename T, int E, int K>
 __global__ void __launch_bounds__(ntt::kThreads)
 block_conv_narrow_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
@@ -878,7 +856,7 @@ block_conv_narrow_kernel(const T* __restrict__ x, const int32_t* __restrict__ nb
   extern __shared__ __align__(16) unsigned char smem[];
   const ntt::Layout l = ntt::layout(n_off, cin, cout, sizeof(T) == 2);
   const ntt::Smem<T> s(smem, l);
-  const HaloSrc<E, K> src{nbr, n_blocks};
+  const bdt::HaloSrc<E, K> src{nbr, n_blocks};
   __shared__ int s_item;
   const int tid = threadIdx.x;
   const int n_list = *count, n_tiles = (n_list + ntt::BM - 1) / ntt::BM;

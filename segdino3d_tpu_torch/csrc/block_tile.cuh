@@ -44,4 +44,27 @@ __device__ __forceinline__ int halo_row(const int32_t* __restrict__ block_nbr,
   return ((src * edge + lx) * edge + ly) * edge + lz;
 }
 
+// The source of dense row `row` at offset o of a k^3 kernel (K10's and
+// K11's narrow paths): the cell shifted by o - h, through the block halo
+// (halo_row's addressing without its branch, so that what stays live while
+// the shell block's id loads is the cell's index; the branchy form ran
+// slower in K10)
+template <int E, int K>
+struct HaloSrc {
+  static constexpr bool kAhead = false;
+  const int32_t* __restrict__ nbr;
+  int n_blocks;
+  __device__ __forceinline__ int operator()(int row, int o) const {
+    constexpr int H = (K - 1) / 2, E3 = E * E * E;
+    const int b = row / E3, c = row % E3;
+    const int qx = c / (E * E) + o / (K * K) - H, qy = (c / E) % E + (o / K) % K - H,
+              qz = c % E + o % K - H;
+    const int dx = (qx >= E) - (qx < 0), dy = (qy >= E) - (qy < 0), dz = (qz >= E) - (qz < 0);
+    const int cell = ((qx - dx * E) * E + qy - dy * E) * E + qz - dz * E;
+    const int d = (dx + 1) * 9 + (dy + 1) * 3 + dz + 1;   // 13: the block itself
+    const int blk = d == 13 ? b : nbr[(int64_t)(d - (d > 13)) * n_blocks + b];
+    return blk < 0 ? -1 : blk * E3 + cell;
+  }
+};
+
 }  // namespace bdt

@@ -24,12 +24,23 @@
 // absent).  A chunk of 32 listed rows spans several dense blocks.
 // The list's ticket (the word after its count) orders the work items.
 //
+// The narrow path (block_wgrad_narrow, for a few input channels: the
+// Baseline's dense k5 stem, 3 -> 32; ops/narrow.py picks it from the
+// shape): on the core above Cin 3 took a 64-row M tile (61 zero A-columns
+// a stage), and each of the 125 offsets staged every listed dY row again.
+// The narrow path walks the same occupied-row list (its count read on the
+// card, its ticket unused) on narrow_wgrad.cuh's core: tiles of 128 listed
+// rows, each chunk of offsets gathered into an im2col tile through the
+// block halo (bdt::HaloSrc, eight sources at a time), the chunk's dW block
+// held in registers, the splits' partials added in order by the split sum.
+//
 // Contract: x (n_blocks * edge^3, Cin) and dy (n_blocks * edge^3, Cout)
 // share one dtype (fp32 or bf16), rows contiguous; block_nbr (26, n_blocks)
 // int32; ws the occupied-row list (block_rows: rows, count, ticket; the
 // ticket 0 on entry, and left 0); partial (splits, k^3, Cin, Cout) fp32,
 // or out itself when splits == 1; out (k^3, Cin, Cout) fp32.
 #include "block_tile.cuh"
+#include "narrow_wgrad.cuh"
 #include "wgrad_tile.cuh"
 
 namespace {
@@ -112,6 +123,46 @@ cudaError_t launch_width(const void* x, const void* dy, const HaloPairs& pairs,
   return launch<T, 128, 128>(x, dy, pairs, ticket, partial, out, cin, cout, n_off, splits, s);
 }
 
+// ---------------------------------------------------------------------------
+// the narrow path
+// ---------------------------------------------------------------------------
+
+// the occupied-row list: its rows in order, the count on the card
+struct ListedRows {
+  const int32_t* list;
+  const int32_t* n;
+  __device__ __forceinline__ int count(int = 0) const { return *n; }
+  __device__ __forceinline__ int key(int p) const { return list[p]; }
+};
+
+template <typename T, int E, int K>
+__global__ void __launch_bounds__(nwt::kThreads)
+block_wgrad_narrow_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                          const int32_t* __restrict__ nbr, ListedRows rows,
+                          float* __restrict__ partial, int n_blocks, int cin, int cout,
+                          int splits) {
+  nwt::run_item<T>(x, dy, bdt::HaloSrc<E, K>{nbr, n_blocks}, rows, partial, K * K * K, cin,
+                   cout, splits);
+}
+
+template <typename T, int E, int K>
+cudaError_t launch_narrow(const void* x, const void* dy, const void* nbr, const ListedRows& rows,
+                          float* partial, float* out, int n_blocks, int cin, int cout,
+                          int splits, cudaStream_t s) {
+  return nwt::launch<T>(block_wgrad_narrow_kernel<T, E, K>, rows, partial, out, K * K * K, cin,
+                        cout, splits, s, static_cast<const T*>(x), static_cast<const T*>(dy),
+                        static_cast<const int32_t*>(nbr), rows, partial, n_blocks, cin, cout);
+}
+
+template <typename T>
+cudaError_t narrow_wgrad(const void* x, const void* dy, const void* nbr, const ListedRows& rows,
+                         float* partial, float* out, int n_blocks, int edge, int k, int cin,
+                         int cout, int splits, cudaStream_t s) {
+  auto launch = edge == 4 ? (k == 3 ? launch_narrow<T, 4, 3> : launch_narrow<T, 4, 5>)
+                          : (k == 3 ? launch_narrow<T, 8, 3> : launch_narrow<T, 8, 5>);
+  return launch(x, dy, nbr, rows, partial, out, n_blocks, cin, cout, splits, s);
+}
+
 }  // namespace
 
 // ws: the occupied-row list of block_rows (n_rows = n_blocks * edge^3 rows,
@@ -140,5 +191,32 @@ extern "C" int block_wgrad(const void* x, const void* dy, const void* block_nbr,
                                     splits, s)
       : launch_width<float>(x, dy, pairs, w + n_rows + 1, p, o, cin, cout, n_off, splits,
                             s);
+  return static_cast<int>(err);
+}
+
+// K11's narrow path: the contract of block_wgrad (its list's ticket not
+// used) on narrow_wgrad.cuh's core.  Returns the first failed launch's
+// cudaError_t, or 0.
+extern "C" int block_wgrad_narrow(const void* x, const void* dy, const void* block_nbr,
+                                  void* ws, void* partial, void* out, int n_blocks, int edge,
+                                  int k, int cin, int cout, int splits, int dtype,
+                                  void* stream) {
+  if (cin == 0 || cout == 0) return 0;
+  if ((edge != 4 && edge != 8) || (k != 3 && k != 5) || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  if (n_blocks == 0)
+    return static_cast<int>(
+        cudaMemsetAsync(o, 0, sizeof(float) * (size_t)k * k * k * cin * cout, s));
+  const int n_rows = n_blocks * edge * edge * edge;
+  const int32_t* w = static_cast<const int32_t*>(ws);
+  const ListedRows rows{w, w + n_rows};
+  float* p = static_cast<float*>(partial);
+  cudaError_t err = dtype == 1
+      ? narrow_wgrad<__nv_bfloat16>(x, dy, block_nbr, rows, p, o, n_blocks, edge, k, cin,
+                                    cout, splits, s)
+      : narrow_wgrad<float>(x, dy, block_nbr, rows, p, o, n_blocks, edge, k, cin, cout,
+                            splits, s);
   return static_cast<int>(err);
 }

@@ -300,15 +300,6 @@ cudaError_t launch_wg(const bf16* x, const int32_t* nbr, const bf16* w, const ui
 }
 
 // the narrow path: out[r] = sum_o x[nbr[o][r]] @ w[o] on valid rows
-struct TableSrc {
-  static constexpr bool kAhead = true;   // one load a source
-  const int32_t* __restrict__ nbr;
-  int v;
-  __device__ __forceinline__ int operator()(int r, int o) const {
-    return nbr[(int64_t)o * v + r];
-  }
-};
-
 template <typename T>
 __global__ void __launch_bounds__(ntt::kThreads)
 gather_conv_narrow_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
@@ -317,7 +308,7 @@ gather_conv_narrow_kernel(const T* __restrict__ x, const int32_t* __restrict__ n
   extern __shared__ __align__(16) unsigned char smem[];
   const ntt::Layout l = ntt::layout(n_off, cin, cout, sizeof(T) == 2);
   const ntt::Smem<T> s(smem, l);
-  const TableSrc src{nbr, v};
+  const ntt::TableSrc src{nbr, v};
   const int tid = threadIdx.x, n_tiles = (v + ntt::BM - 1) / ntt::BM;
   ntt::stage_weights<T>(s, l, w, n_off, cin, cout);
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {

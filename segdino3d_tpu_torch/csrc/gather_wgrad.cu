@@ -27,12 +27,25 @@
 // (wgrad_tile.cuh) over those lists; its ticket is the word after the
 // counts, zeroed by the list pass.
 //
+// The narrow path (gather_wgrad_narrow, for a few input channels: the
+// Baseline's k5 stem, 3 -> 32, whose step runs the unmirrored form A = X,
+// ia = nbr, B = dY; ops/narrow.py picks it from the shape): on the core
+// above Cin 3 took a 64-row M tile (61 zero A-columns a stage) and each of
+// the 125 offsets staged every live dY row again, from a pair list of the
+// whole table that only this call needed.  The narrow path takes no pair
+// list: narrow_wgrad.cuh's core walks every row of the table in tiles of
+// 128, each chunk of offsets gathered into an im2col tile straight from
+// the table (ntt::TableSrc, eight sources at a time), the chunk's dW block
+// held in registers, the splits' partials added in order by the split
+// sum.
+//
 // Contract: A (rows_a, Cin) and B (rows_b, Cout) share one dtype (fp32 or
 // bf16), rows contiguous; ia, ib (n_off, R) int32 with -1 for "no row", or
 // null for the identity (then A, resp. B, has at least R rows); ws the
 // pair list (gather_pairs: n_off x R rows, n_off counts, the ticket, then
 // the per-block counts); partial (splits, n_off, Cin, Cout) fp32, or out
 // itself when splits == 1; out (n_off, Cin, Cout) fp32.
+#include "narrow_wgrad.cuh"
 #include "wgrad_tile.cuh"
 
 namespace {
@@ -188,6 +201,36 @@ cudaError_t launch_width(const void* a, const void* b, const ListPairs& pairs,
                              mirror, s);
 }
 
+// ---------------------------------------------------------------------------
+// the narrow path
+// ---------------------------------------------------------------------------
+
+// every row of the table, in order
+struct TableRows {
+  int rows;
+  __device__ __forceinline__ int count(int = 0) const { return rows; }
+  __device__ __forceinline__ int key(int p) const { return p; }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(nwt::kThreads)
+gather_wgrad_narrow_kernel(const T* __restrict__ a, const int32_t* __restrict__ ia,
+                           const T* __restrict__ b, float* __restrict__ partial, int rows,
+                           int cin, int cout, int n_off, int splits) {
+  nwt::run_item<T>(a, b, ntt::TableSrc{ia, rows}, TableRows{rows}, partial, n_off, cin, cout,
+                   splits);
+}
+
+template <typename T>
+cudaError_t launch_narrow(const void* a, const void* ia, const void* b, float* partial,
+                          float* out, int rows, int cin, int cout, int n_off, int splits,
+                          cudaStream_t s) {
+  return nwt::launch<T>(gather_wgrad_narrow_kernel<T>, TableRows{rows}, partial, out, n_off,
+                        cin, cout, splits, s, static_cast<const T*>(a),
+                        static_cast<const int32_t*>(ia), static_cast<const T*>(b), partial,
+                        rows, cin, cout, n_off);
+}
+
 }  // namespace
 
 // The per-offset live-pair list into ws (n_off * rows + n_off + 1 +
@@ -234,5 +277,33 @@ extern "C" int gather_wgrad(const void* a, const void* ia, const void* b, const 
                                     splits, mirror, s)
       : launch_width<float>(a, b, pairs, n_pairs + n_off, p, o, cin, cout, n_off, splits,
                             mirror, s);
+  return static_cast<int>(err);
+}
+
+// The narrow path's dynamic shared memory a block (ops/narrow.py:
+// wgrad_smem_bytes computes the same; K11's narrow path uses it too).
+// dtype: 0 = float32, 1 = bfloat16.
+extern "C" int narrow_wgrad_smem(int n_off, int cin, int cout, int dtype) {
+  return static_cast<int>(nwt::smem_bytes(n_off, cin, cout, dtype == 1));
+}
+
+// K4's narrow path: dW[o] = sum_r a[ia[o, r]]^T @ b[r] over every row r <
+// rows of ia (n_off, rows) (b has at least `rows` rows), no pair list.
+// partial (splits, n_off, Cin, Cout) fp32, or `out` itself when splits is
+// 1; out (n_off, Cin, Cout) fp32.  dtype: 0 = float32, 1 = bfloat16.
+// Returns the first failed launch's cudaError_t, or 0.
+extern "C" int gather_wgrad_narrow(const void* a, const void* ia, const void* b, void* partial,
+                                   void* out, int rows, int cin, int cout, int n_off,
+                                   int splits, int dtype, void* stream) {
+  if (n_off == 0 || cin == 0 || cout == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partial);
+  float* o = static_cast<float*>(out);
+  if (rows == 0)
+    return static_cast<int>(
+        cudaMemsetAsync(o, 0, sizeof(float) * (size_t)n_off * cin * cout, s));
+  cudaError_t err = dtype == 1
+      ? launch_narrow<__nv_bfloat16>(a, ia, b, p, o, rows, cin, cout, n_off, splits, s)
+      : launch_narrow<float>(a, ia, b, p, o, rows, cin, cout, n_off, splits, s);
   return static_cast<int>(err);
 }

@@ -427,6 +427,18 @@ __device__ __forceinline__ void tile(const Smem<T>& s, const Layout& l, const T*
   }
 }
 
+// A source through an (n_off, v) index table: row r's source at offset o
+// is nbr[o][r] (K1's narrow path, K4's narrow weight gradient).  A warp's
+// 32 consecutive rows of one offset read one 128-byte line.
+struct TableSrc {
+  static constexpr bool kAhead = true;   // one load a source
+  const int32_t* __restrict__ nbr;
+  int v;
+  __device__ __forceinline__ int operator()(int r, int o) const {
+    return nbr[(int64_t)o * v + r];
+  }
+};
+
 // The launch grid of a persistent kernel (both paths of K1 and K10): as
 // many blocks of `threads` as are resident on the card at `smem` bytes of
 // dynamic shared memory, at most `items` (at least 1); sets the kernel's

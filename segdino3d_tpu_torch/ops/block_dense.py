@@ -29,7 +29,9 @@ Three hand-written CUDA kernels carry it:
 * ``block_wgrad`` (K11, ``csrc/block_wgrad.cu``): its weight gradient,
   reduced over the level's occupied-row list (``row_list``: K10's
   ``block_rows``, built once per level and step and kept on the tables,
-  which every K10 forward conv of the level also takes).
+  which every K10 forward conv of the level also takes); for a few input
+  channels (``narrow.narrow_wgrad_path``) on its narrow path, im2col
+  tiles of every offset's sources over the listed rows.
 
 ``dense_subm_conv`` is a ``torch.autograd.Function`` whose backward runs
 K10 for dX (the mirror identity of ``_chunked_conv_bwd``: the same conv of
@@ -537,14 +539,17 @@ def block_wgrad_rows_plain(feats: torch.Tensor, dy: torch.Tensor,
 
 def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
                 block_nbr: torch.Tensor, occ: torch.Tensor, edge: int,
-                k: int, rows: Optional[RowList] = None) -> torch.Tensor:
+                k: int, rows: Optional[RowList] = None,
+                narrow: Optional[bool] = None) -> torch.Tensor:
     """``dW[o] = sum over occupied cells c of halo[c + o]^T @ dy[c]`` as
     (k^3, Cin, Cout) fp32.
 
     feats (B*edge^3, Cin) and dy (B*edge^3, Cout) share one dtype;
     block_nbr (26, B) int32; occ (B*edge^3,) bool; rows its occupied-row
     list (``row_list``), built here when not given.  The kernel reduces
-    the listed rows only."""
+    the listed rows only, on the narrow path where
+    ``narrow.narrow_wgrad_path`` of the shape says so (or ``narrow``,
+    where a benchmark or test forces one path)."""
     cin, cout = feats.shape[1], dy.shape[1]
     _check_layout("block_wgrad", feats, block_nbr, k ** 3, edge, cin)
     if tuple(dy.shape) != (feats.shape[0], cout) or \
@@ -564,23 +569,30 @@ def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
         raise ValueError("block_wgrad: rows must be the card's row list of "
                          "occ")
     b = block_nbr.shape[1]
+    narrow = N.pick(narrow, k ** 3, cin, cout, feats.dtype, "block_wgrad",
+                    wgrad=True)
     splits = wgrad_splits(occ.shape[0], k ** 3, cin, cout)
     out = torch.empty(k ** 3, cin, cout, dtype=torch.float32,
                       device=feats.device)
     partial = out if splits == 1 else torch.empty(
         splits, k ** 3, cin, cout, dtype=torch.float32, device=feats.device)
-    N.count_element_loads(feats, dy)
+    if not narrow:
+        N.count_element_loads(feats, dy)
     lib = cuda_build.library("block_wgrad")
-    cuda_build.check(lib.block_wgrad(
+    entry = lib.block_wgrad_narrow if narrow else lib.block_wgrad
+    cuda_build.check(entry(
         feats.data_ptr(), dy.data_ptr(), block_nbr.data_ptr(),
         rows.ws.data_ptr(), partial.data_ptr(), out.data_ptr(), b, edge, k,
         cin, cout, splits, cuda_build.dtype_code(feats.dtype),
-        cuda_build.stream_ptr(feats)), "block_wgrad")
+        cuda_build.stream_ptr(feats)),
+        "block_wgrad_narrow" if narrow else "block_wgrad")
     block_wgrad.launches += 1
+    block_wgrad.narrow.launches += int(narrow)
     return out
 
 
 block_wgrad.launches = 0
+block_wgrad.narrow = types.SimpleNamespace(launches=0)   # of them narrow
 
 
 class _DenseSubmConv(torch.autograd.Function):

@@ -32,14 +32,17 @@ KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
 _HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh",
                                  "narrow_tile.cuh", "wgmma_tile.cuh"),
             "up_conv": ("gather_tile.cuh", "wgrad_tile.cuh"),
-            "segment_mean_gather": (), "gather_wgrad": ("wgrad_tile.cuh",),
+            "segment_mean_gather": (),
+            "gather_wgrad": ("wgrad_tile.cuh", "narrow_tile.cuh",
+                             "narrow_wgrad.cuh"),
             "segment_grad": (),
             "coord_hash": ("coord_hash.cuh",),
             "neighbor_table": ("coord_hash.cuh",), "voxel_compact": (),
             "slot_gather": (),
             "block_conv": ("block_tile.cuh", "narrow_tile.cuh",
                            "wgmma_tile.cuh"),
-            "block_wgrad": ("block_tile.cuh", "wgrad_tile.cuh"),
+            "block_wgrad": ("block_tile.cuh", "wgrad_tile.cuh",
+                            "narrow_tile.cuh", "narrow_wgrad.cuh"),
             "stem_slot_sum": ()}
 # a library's C functions, where they are not the one named after it
 _ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
@@ -47,7 +50,9 @@ _ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
                                       "gather_conv_narrow",
                                       "narrow_conv_smem", "gather_conv_wg"),
                  "coord_hash": ("coord_hash_build", "coord_hash_lookup"),
-                 "gather_wgrad": ("gather_wgrad", "gather_pairs"),
+                 "gather_wgrad": ("gather_wgrad", "gather_pairs",
+                                  "gather_wgrad_narrow", "narrow_wgrad_smem"),
+                 "block_wgrad": ("block_wgrad", "block_wgrad_narrow"),
                  "segment_mean_gather": ("segment_mean_gather",
                                          "segment_csr_keys",
                                          "segment_csr_offsets"),
@@ -92,6 +97,10 @@ _SIGNATURES = {
                      _P],
     # ia, ib, ws, rows, n_off, stream
     "gather_pairs": [_P, _P, _P, _I, _I, _P],
+    # a, ia, b, partial, out, rows, cin, cout, n_off, splits, dtype, stream
+    "gather_wgrad_narrow": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # n_off, cin, cout, dtype
+    "narrow_wgrad_smem": [_I, _I, _I, _I],
     # offsets, members, seg, g, ld, sp_offsets, out, rows, S, cols,
     # out_dtype, stream
     "segment_grad": [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I,
@@ -126,6 +135,9 @@ _SIGNATURES = {
     # x, dy, block_nbr, ws, partial, out, n_blocks, edge, k, cin, cout,
     # splits, dtype, stream
     "block_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # the same contract, the narrow path
+    "block_wgrad_narrow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
     # y2, slots, ov_src, ov_dst, valid, out, v, d, p, cout, dtype, stream
     "stem_slot_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

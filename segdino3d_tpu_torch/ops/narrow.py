@@ -1,6 +1,7 @@
-"""K1's and K10's paths by the conv's shape: the narrow-input path (when it
-runs, and its shared memory), K1's bf16 path at the wide stems, the stems'
-aligned row pitch, and the count of calls that copy element by element.
+"""K1's, K4's, K10's and K11's paths by the conv's shape: the narrow-input
+paths (when they run, and their shared memory), K1's bf16 path at the wide
+stems, the stems' aligned row pitch, and the count of calls that copy
+element by element.
 
 K1 (``sparse_conv.gather_conv``) and K10 (``block_dense.block_conv``) each
 have two paths on the card.  The wide one stages Cin in 32-channel slices
@@ -10,10 +11,18 @@ channels, the JAX package's im2col form.  Both wrappers ask ``pick``, which
 follows ``narrow_path`` of the conv's shape alone unless a benchmark or test
 forces a path, so both kernels switch at the same place.
 
+The weight gradients K4 (``sparse_conv.gather_wgrad``) and K11
+(``block_dense.block_wgrad``) have a narrow path too
+(``csrc/narrow_wgrad.cuh``): the transpose of the same im2col form, the
+chunk's dW block in registers over the listed rows.  They ask ``pick``
+with ``wgrad=True``, which follows ``narrow_wgrad_path``.
+
 ``layout`` and ``smem_bytes`` mirror ``ntt::layout`` and
-``ntt::smem_bytes`` of ``narrow_tile.cuh`` (``chip_smoke.py`` holds them
-equal to the library's ``narrow_conv_smem`` on the card).  Nothing here
-needs a card.
+``ntt::smem_bytes`` of ``narrow_tile.cuh``, ``wgrad_layout`` and
+``wgrad_smem_bytes`` ``nwt::layout`` and ``nwt::smem_bytes`` of
+``narrow_wgrad.cuh`` (``chip_smoke.py`` holds them equal to the
+libraries' ``narrow_conv_smem`` and ``narrow_wgrad_smem`` on the card).
+Nothing here needs a card.
 
 bf16 rows: K1, K2, K4, K10 and K11 copy rows with 16-byte copies where a
 row's width (and its tensor's address) keeps 16-byte alignment, else
@@ -43,6 +52,13 @@ import torch
 # and the v2 model's 262-channel stems, every k3 conv, the down convs, and
 # every dX role (whose Cin is its conv's Cout).
 NARROW_MAX_CIN = 4
+# Cin at or below which K4 and K11 reduce a dW on their narrow path:
+# measured by ``tools/wgrad_bench.py --narrow`` (PERF.md section 6, the dW
+# crossing): the narrow path won every case at Cin 1, 2, 3, 4 and 8, k3
+# and k5, fp32 and bf16 (K4 at k5 Cin 8 by 1.17x, where each of its 16 or
+# 21 chunks re-reads dY), so the dW rule reaches the kernel's largest Cin.
+# Only the Baseline's stem dW has Cin below 32 among the port's convs.
+NARROW_WGRAD_MAX_CIN = 8
 # dynamic shared memory a thread block may use on an H100 (227 KB)
 SMEM_LIMIT = 232448
 # the most input channels the kernel holds of a source row in registers
@@ -102,14 +118,55 @@ def narrow_path(n_off: int, cin: int, cout: int, dtype) -> bool:
     return cin <= NARROW_MAX_CIN and narrow_fits(n_off, cin, cout, dtype)
 
 
+class WgradLayout(NamedTuple):
+    g: int        # offsets a chunk (the forward's)
+    kc: int       # a chunk's packed channels (bf16: padded to 16)
+    ast: int      # the im2col tile's row stride, elements
+    chunks: int
+    dst: int      # the dY tile's row stride, elements
+
+
+def wgrad_layout(n_off: int, cin: int, cout: int, dtype) -> WgradLayout:
+    """The narrow weight gradient's shared-memory layout (``nwt::layout``):
+    the forward's chunks and im2col tile, no weight, a dY tile of BN
+    columns."""
+    lay = layout(n_off, cin, cout, dtype)
+    return WgradLayout(lay.g, lay.kc, lay.ast, lay.chunks,
+                       BN + 8 if _is_bf16(dtype) else BN)
+
+
+def wgrad_smem_bytes(n_off: int, cin: int, cout: int, dtype) -> int:
+    """A thread block's dynamic shared memory on the narrow weight
+    gradient: the im2col tile and the dY tile, BM rows each."""
+    lay = wgrad_layout(n_off, cin, cout, dtype)
+    return (2 if _is_bf16(dtype) else 4) * BM * (lay.ast + lay.dst)
+
+
+def wgrad_fits(n_off: int, cin: int, cout: int, dtype) -> bool:
+    """Whether K4's and K11's narrow path takes this dW shape (n_off,
+    Cin, Cout): Cin within the kernel's registers and a block that fits
+    (any Cout: column tiles of BN)."""
+    return 0 < cin <= KERNEL_MAX_CIN and \
+        wgrad_smem_bytes(n_off, cin, cout, dtype) <= SMEM_LIMIT
+
+
+def narrow_wgrad_path(n_off: int, cin: int, cout: int, dtype) -> bool:
+    """Whether K4 and K11 reduce this dW on their narrow path: a few input
+    channels, and a block that fits."""
+    return cin <= NARROW_WGRAD_MAX_CIN and \
+        wgrad_fits(n_off, cin, cout, dtype)
+
+
 def pick(forced: Optional[bool], n_off: int, cin: int, cout: int, dtype,
-         name: str) -> bool:
-    """The path a wrapper takes: ``narrow_path`` of the shape, or the path
-    a benchmark or test forces (``forced``), which must be one the kernel
-    takes."""
+         name: str, wgrad: bool = False) -> bool:
+    """The path a wrapper takes: ``narrow_path`` (``narrow_wgrad_path``
+    for a weight gradient) of the shape, or the path a benchmark or test
+    forces (``forced``), which must be one the kernel takes."""
+    fits, rule = (wgrad_fits, narrow_wgrad_path) if wgrad else \
+        (narrow_fits, narrow_path)
     if forced is None:
-        return narrow_path(n_off, cin, cout, dtype)
-    if forced and not narrow_fits(n_off, cin, cout, dtype):
+        return rule(n_off, cin, cout, dtype)
+    if forced and not fits(n_off, cin, cout, dtype):
         raise ValueError(f"{name}: the narrow path does not take {n_off} "
                          f"offsets x {cin} -> {cout} channels in {dtype}")
     return forced

@@ -19,6 +19,9 @@ hand-written CUDA kernels:
   ``dW[o] = sum_r A[ia[o, r]]^T @ B[ib[o, r]]``, reduced over each
   offset's live pairs only: ``gather_pairs`` (two launches in the same
   library) lists them once per index table and step (``cached_pairs``);
+  at a few input channels (the Baseline's rgb stem,
+  ``narrow.narrow_wgrad_path``) its narrow path instead runs im2col tiles
+  over every row of the table, with no list;
 * ``stem_slot_sum`` (K12, ``csrc/stem_slot_sum.cu``): the slot sum of the
   degree-compacted k5 stem, ``stem_compact_conv`` (inference only), after
   one wide ``torch.matmul``.
@@ -354,9 +357,8 @@ def cached_pairs(ia: Optional[torch.Tensor], ib: Optional[torch.Tensor]
                  ) -> PairList:
     """``gather_pairs`` of these tables, once: the live rows depend on the
     set of tables only, so the down conv's role (ia = child) and the up
-    conv's (ib = child) share one list.  K1's narrow path takes no list,
-    so at the Baseline's rgb stem K4's dW builds the table's list itself
-    when it first needs one."""
+    conv's (ib = child) share one list.  K1's and K4's narrow paths take
+    no list, so the Baseline's rgb stem table gets none."""
     tables = sorted((t for t in (ia, ib) if t is not None), key=id)
     key = tuple(id(t) for t in tables)
     hit = _PAIR_LISTS.get(key)
@@ -401,15 +403,20 @@ def gather_wgrad_pairs_plain(a: torch.Tensor, ia: Optional[torch.Tensor],
 
 
 def gather_wgrad(a: torch.Tensor, ia: Optional[torch.Tensor], b: torch.Tensor,
-                 ib: Optional[torch.Tensor], mirror: bool = False
-                 ) -> torch.Tensor:
+                 ib: Optional[torch.Tensor], mirror: bool = False,
+                 narrow: Optional[bool] = None) -> torch.Tensor:
     """``dW[o] = sum_r a[ia[o, r]]^T @ b[ib[o, r]]`` as (n_off, Cin, Cout)
     fp32; ``mirror`` stores offset o's sum at ``n_off - 1 - o``.
 
     a (rows_a, Cin) and b (rows_b, Cout) share one dtype; ia, ib (n_off, R)
     int32 index tables, -1 = no row, at least one of them given; an absent
-    table is the identity over the first R rows.  On the card the kernel
-    reduces the tables' live pairs only (``cached_pairs``)."""
+    table is the identity over the first R rows.  On the card the wide
+    path reduces the tables' live pairs only (``cached_pairs``).  The
+    narrow path (``narrow.narrow_wgrad_path`` of the shape, or ``narrow``
+    where a benchmark or test forces one path) takes the unmirrored form
+    with a gathered ``a`` and an identity ``b``, the one the backward runs
+    at Cin < Cout: every row of ``ia``, no pair list, no pair workspace;
+    another form runs the wide path, and forcing it narrow raises."""
     table = ia if ia is not None else ib
     if table is None:
         raise ValueError("gather_wgrad needs ia or ib")
@@ -418,6 +425,10 @@ def gather_wgrad(a: torch.Tensor, ia: Optional[torch.Tensor], b: torch.Tensor,
         if t is not None and tuple(t.shape) != (n_off, rows):
             raise ValueError(f"gather_wgrad: index tables {tuple(t.shape)} "
                              f"and {(n_off, rows)} differ")
+    form = ia is not None and ib is None and not mirror
+    if narrow and not form:
+        raise ValueError("gather_wgrad: the narrow path takes a gathered a, "
+                         "an identity b and no mirror")
     if a.device.type == "cpu":
         return gather_wgrad_plain(a, ia, b, ib, n_off, rows, mirror)
     present = [t for t in (a, ia, b, ib) if t is not None]
@@ -430,13 +441,24 @@ def gather_wgrad(a: torch.Tensor, ia: Optional[torch.Tensor], b: torch.Tensor,
         raise ValueError("gather_wgrad: an identity side has fewer rows "
                          "than the table")
     cin, cout = a.shape[1], b.shape[1]
-    pairs = cached_pairs(ia, ib)
+    narrow = form and N.pick(narrow, n_off, cin, cout, a.dtype,
+                             "gather_wgrad", wgrad=True)
     splits = wgrad_splits(rows, n_off, cin, cout)
     out = torch.empty(n_off, cin, cout, dtype=torch.float32, device=a.device)
     partial = out if splits == 1 else torch.empty(
         splits, n_off, cin, cout, dtype=torch.float32, device=a.device)
-    N.count_element_loads(a, b)
     lib = cuda_build.library("gather_wgrad")
+    if narrow:
+        cuda_build.check(lib.gather_wgrad_narrow(
+            a.data_ptr(), ia.data_ptr(), b.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), rows, cin, cout, n_off, splits,
+            cuda_build.dtype_code(a.dtype), cuda_build.stream_ptr(a)),
+            "gather_wgrad_narrow")
+        gather_wgrad.launches += 1
+        gather_wgrad.narrow.launches += 1
+        return out
+    pairs = cached_pairs(ia, ib)
+    N.count_element_loads(a, b)
     cuda_build.check(lib.gather_wgrad(
         a.data_ptr(), None if ia is None else ia.data_ptr(), b.data_ptr(),
         None if ib is None else ib.data_ptr(), pairs.ws.data_ptr(),
@@ -448,6 +470,7 @@ def gather_wgrad(a: torch.Tensor, ia: Optional[torch.Tensor], b: torch.Tensor,
 
 
 gather_wgrad.launches = 0
+gather_wgrad.narrow = types.SimpleNamespace(launches=0)   # of them narrow
 
 
 def _masked(dout: torch.Tensor, valid: torch.Tensor, dtype) -> torch.Tensor:

@@ -1391,3 +1391,155 @@ def test_gather_conv_bf16_wide_stem(levels, cin, k):
     assert not got[~valid].float().any()
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["stem", "k3_cin1", "stem_cin8", "splits",
+                                  "cout_38", "two_split_scratch",
+                                  "no_source"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_wgrad_narrow_matches_plain(levels, monkeypatch, case, dtype):
+    """K4's narrow path (forced; the rule takes it at the Baseline's Cin 3)
+    in the form the backward runs at Cin < Cout, ``gather_wgrad(x, nbr,
+    dy, None)``: the k5 stem table 3 -> 32 with dY masked by ``valid``,
+    level 0's k3 table at Cin 1, the stem at Cin 8 (21 chunks of 6
+    offsets), a table of 6,000 rows in runs (six splits), Cout 38 (a ragged
+    second column tile, element copies of dY), a scratch of two splits
+    (thousands of rows a split) and a table with no source.  Equal to the
+    plain version at the tolerance, two calls bit-equal, no pair list
+    built, one narrow launch a call."""
+    dt = getattr(torch, dtype)
+    lv = levels.levels
+    rng = np.random.RandomState(33)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    cin, cout, valid = 3, 32, lv[0].valid
+    if case in ("stem", "stem_cin8", "cout_38"):
+        table = levels.stem_nbr.clone()
+    elif case == "k3_cin1":
+        table = lv[0].nbr.clone()
+    else:
+        table = torch.from_numpy(_run_table(rng, 27, 6000, 5000)).cuda()
+        valid = torch.ones(6000, dtype=torch.bool, device="cuda")
+    if case == "k3_cin1":
+        cin = 1
+    elif case == "stem_cin8":
+        cin = 8
+    elif case == "cout_38":
+        cout = 38
+    elif case == "two_split_scratch":
+        per_split = 27 * cin * cout * 4
+        monkeypatch.setattr(TSC, "WGRAD_SCRATCH_BYTES", 2 * per_split)
+    elif case == "no_source":
+        table[:] = -1
+    n_off, rows = table.shape
+    assert TN.wgrad_fits(n_off, cin, cout, dt)
+    x = torch.randn(int(table.max()) + 1 if case != "no_source" else 1, cin,
+                    generator=gen, device="cuda").to(dt)
+    dy = torch.where(valid[:, None], torch.randn(
+        rows, cout, generator=gen, device="cuda"), 0.0).to(dt)
+    lists, narrow = TSC.gather_pairs.launches, TSC.gather_wgrad.narrow.launches
+    got = TSC.gather_wgrad(x, table, dy, None, narrow=True)
+    again = TSC.gather_wgrad(x, table, dy, None, narrow=True)
+    want = TSC.gather_wgrad_plain(x, table, dy, None, n_off, rows)
+    torch.cuda.synchronize()
+    assert TSC.gather_pairs.launches == lists
+    assert TSC.gather_wgrad.narrow.launches == narrow + 2
+    assert torch.equal(got, again)
+    if case == "no_source":
+        assert not got.any()
+        return
+    scale = float(want.abs().max())
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got, want, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k5_edge4", "k3_edge4", "k5_edge8",
+                                  "splits", "cin_1", "cin_8", "cout_38",
+                                  "empty"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_wgrad_narrow_matches_plain(card, case, dtype):
+    """K11's narrow path (forced) over the level's cached occupied-row list:
+    the small plan's level-0 blocks at k5 and k3, edges 4 and 8, 3 -> 32; a
+    grid of 216 full-neighbour blocks whose rows run over several splits;
+    Cin 1 and 8; Cout 38; an occupancy with no row (split 0 writes zeros).
+    x is not zero outside the occupancy (the op's contract: an unoccupied
+    source cell is read).  Equal to the plain version at the tolerance, two
+    calls bit-equal, the list's ticket left 0, one narrow launch a call."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    cin, cout, k = 3, 32, 5
+    if case == "splits":
+        t = _box_tables(card, (6, 6, 6), skip=5)
+        occ = torch.rand(t.slot_vox.shape[0], generator=gen,
+                         device="cuda") < 0.4
+    else:
+        t = _block_plan_on(card, [8 if case == "k5_edge8" else 4] * 5
+                           ).blocks[0]
+        occ = TBD.occupancy(t).clone()
+    if case == "k3_edge4":
+        k = 3
+    elif case == "cin_1":
+        cin = 1
+    elif case == "cin_8":
+        cin = 8
+    elif case == "cout_38":
+        cout = 38
+    elif case == "empty":
+        occ[:] = False
+    n = occ.shape[0]
+    assert TN.wgrad_fits(k ** 3, cin, cout, dt)
+    x = torch.randn(n, cin, generator=gen, device="cuda").to(dt)
+    dy = torch.where(occ[:, None], torch.randn(n, cout, generator=gen,
+                                               device="cuda"), 0.0).to(dt)
+    rows = TBD.row_list(t, occ)
+    narrow = TBD.block_wgrad.narrow.launches
+    got = TBD.block_wgrad(x, dy, t.block_nbr, occ, t.edge, k, rows,
+                          narrow=True)
+    again = TBD.block_wgrad(x, dy, t.block_nbr, occ, t.edge, k, rows,
+                            narrow=True)
+    want = TBD.block_wgrad_plain(x, dy, t.block_nbr, occ, t.edge, k)
+    torch.cuda.synchronize()
+    assert TBD.block_wgrad.narrow.launches == narrow + 2
+    assert torch.equal(got, again)
+    assert int(rows.ws[n + 1]) == 0
+    t.rows = None
+    if case == "empty":
+        assert not got.any()
+        return
+    scale = float(want.abs().max())
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got, want, rtol=0, atol=tol * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_narrow_wgrad_rule_and_shared_memory(levels, dtype):
+    """At the Baseline's stem shape (125, 3, 32) both weight gradients take
+    their narrow path unforced, and ``narrow.wgrad_smem_bytes`` equals the
+    library's ``narrow_wgrad_smem`` on every shape the narrow path
+    takes."""
+    from segdino3d_tpu_torch.ops import cuda_build
+
+    dt = getattr(torch, dtype)
+    lib = cuda_build.library("gather_wgrad")
+    for n_off in (8, 27, 125):
+        for cin in range(1, TN.KERNEL_MAX_CIN + 1):
+            for cout in (1, 32, 38, 96):
+                if TN.wgrad_fits(n_off, cin, cout, dt):
+                    assert TN.wgrad_smem_bytes(n_off, cin, cout, dt) == \
+                        lib.narrow_wgrad_smem(n_off, cin, cout,
+                                              cuda_build.dtype_code(dt))
+    gen = torch.Generator(device="cuda").manual_seed(35)
+    x = torch.randn(CAPS[0], 3, generator=gen, device="cuda").to(dt)
+    dy = torch.randn(CAPS[0], 32, generator=gen, device="cuda").to(dt)
+    narrow = TSC.gather_wgrad.narrow.launches
+    TSC.gather_wgrad(x, levels.stem_nbr, dy, None)
+    assert TSC.gather_wgrad.narrow.launches == narrow + 1
+    t = _block_plan_on("cuda", [4] * 5).blocks[0]
+    occ = TBD.occupancy(t)
+    xd = torch.randn(occ.shape[0], 3, generator=gen, device="cuda").to(dt)
+    dyd = torch.randn(occ.shape[0], 32, generator=gen, device="cuda").to(dt)
+    narrow = TBD.block_wgrad.narrow.launches
+    TBD.block_wgrad(xd, dyd, t.block_nbr, occ, t.edge, 5)
+    assert TBD.block_wgrad.narrow.launches == narrow + 1
