@@ -893,6 +893,19 @@ def v2_cases(batch, s_cap, gen):
     return cases
 
 
+def requested_growth(fn):
+    """(``fn()``, the peak of the bytes its allocations requested above
+    those live before it): the allocator's own block sizes depend on the
+    blocks it holds cached (a request may take a larger free block
+    whole), so the call's requests are counted, each at its size."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.memory_stats()["requested_bytes.all.peak"] - base
+
+
 def narrow_stem_check(plan, gen):
     """K1's narrow path at the Baseline's stem allocates its output alone
     and builds no pair list (on a fresh copy of the stem table, which no
@@ -924,15 +937,11 @@ def narrow_stem_check(plan, gen):
     grown, outs = {}, {}
     for path in ("narrow", "wide"):
         table = plan.stem_nbr.clone()
-        torch.cuda.synchronize()
         lists = SC.gather_pairs.launches
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = SC.gather_conv(x, table, w, lv.valid,
-                             narrow=None if path == "narrow" else False)
-        torch.cuda.synchronize()
-        grown[path] = (torch.cuda.max_memory_allocated() - base,
-                       SC.gather_pairs.launches - lists)
+        out, grown[path] = requested_growth(
+            lambda: SC.gather_conv(x, table, w, lv.valid,
+                                   narrow=None if path == "narrow" else False))
+        grown[path] = (grown[path], SC.gather_pairs.launches - lists)
         outs[path] = out
         del out, table
     out_bytes = lv.valid.shape[0] * 32 * 4
@@ -986,20 +995,16 @@ def narrow_wgrad_check(plan, hybrid, gen):
     grown = {}
     for path in ("narrow", "wide"):
         table = plan.stem_nbr.clone()
-        torch.cuda.synchronize()
         lists = SC.gather_pairs.launches
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        out = SC.gather_wgrad(x, table, dy, None,
-                              narrow=None if path == "narrow" else False)
-        torch.cuda.synchronize()
-        grown[path] = (torch.cuda.max_memory_allocated() - base,
-                       SC.gather_pairs.launches - lists)
+        out, grown[path] = requested_growth(
+            lambda: SC.gather_wgrad(x, table, dy, None,
+                                    narrow=None if path == "narrow"
+                                    else False))
+        grown[path] = (grown[path], SC.gather_pairs.launches - lists)
         del out, table
     splits = SC.wgrad_splits(v0, 125, 3, 32)
-    # the output and the split scratch, each in the allocator's 512-byte
-    # steps
-    own = sum(-(-n * 125 * 3 * 32 * 4 // 512) * 512 for n in (1, splits))
+    # the output and the split scratch
+    own = sum(n * 125 * 3 * 32 * 4 for n in (1, splits))
     print(f"K4 at the Baseline stem dW 125x3x32: the narrow path's peak "
           f"allocation {grown['narrow'][0] / 2 ** 20:.3f} MiB (its output "
           f"and {splits} splits' scratch {own / 2 ** 20:.3f} MiB), "
@@ -1378,7 +1383,8 @@ def check_kernels(cases):
                                     atol=tol)
                 tol_text = f"rtol=atol={tol:g}"
             del got, want
-            k_ms, p_ms, l_ms = time_ms(kfn), time_ms(pfn, 3), time_ms(lfn)
+            k_ms, p_ms = time_ms(kfn), time_ms(pfn, 3)
+            l_ms = None if lfn is None else time_ms(lfn)
             extra_ms = {k: time_ms(fn, 3) for k, fn in extra.items()}
             extra_text = "".join(
                 f", {k} {extra_ms[k]:.4f} ms (profiled device time "
@@ -1396,7 +1402,8 @@ def check_kernels(cases):
             print(f"kernel {kernel} [{name}] {dts}: max_abs_err={err:.3e} "
                   f"({tol_text}) {'ok' if ok else 'MISMATCH'}; "
                   f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                  f"{LIBRARY_CALL.get(kernel, 'library')} {l_ms:.4f} ms"
+                  f"{LIBRARY_CALL.get(kernel, 'library')} "
+                  + ("none" if l_ms is None else f"{l_ms:.4f} ms") +
                   f"{extra_text}, bound {b_ms:.4f} ms ({b_by})", flush=True)
             if not ok:
                 raise SystemExit(f"{kernel} [{name}] {dts} disagrees with "
@@ -1489,13 +1496,18 @@ def dense_cases(plan, gen):
                 "dense rows (B0*64,96) -> voxels (V0,96), through vox_slot")
         cases.append(("slot_gather", f"{what}, fill {fill(t0):.1%}", per))
 
-    def conv_case(name, t, cin, cout, k, dtypes, dx=False, wide=False):
+    def conv_case(name, t, cin, cout, k, dtypes, dx=False, wide=False,
+                  live=False):
         """The forward under the occupancy mask, or (``dx``) the input
         gradient's role: flipped, transposed weights on an input that is
         zero outside the occupancy, under the occupancy's k-dilation as
         the backward runs it, held to the plain version without a mask on
         every cell.  With ``wide``, K10's wide path (the per-offset stage
-        loop) forced and timed beside it."""
+        loop) forced and timed beside it.  With ``live``, the live-pair
+        path (the input stated zero outside the occupancy, over the level's
+        live-pair list) held to its plain version, the row-tile path forced
+        and the list's build timed beside it; fp32 bit-equal to the
+        row-tile path."""
         occ = BD.occupancy(t)
         # the level's cached list of the mask, as the autograd Function
         # passes it: the dilation's (dX) or the occupancy's
@@ -1539,6 +1551,39 @@ def dense_cases(plan, gen):
                 del twice, per_call
             extra = {"library without the halo assembly (conv3d alone)":
                      lambda p=padded, wc=wc: F.conv3d(p, wc)}
+            if live:
+                lp = BD.live_pairs(t, occ, k)
+                kernel = (lambda x=x, w=w, lp=lp: BD.block_conv(
+                    x, t.block_nbr, w, occ, e, rlist, zero_outside=True,
+                    live_list=lp))
+                extra["the row-tile path (forced)"] = \
+                    lambda x=x, w=w: BD.block_conv(x, t.block_nbr, w, occ, e,
+                                                   rlist, live=False)
+                extra["live-pair list build (block_live_pairs, once per "
+                      "level and step)"] = \
+                    lambda: BD.live_pair_list(rlist, occ, t.block_nbr, e, k,
+                                              BD.live_capacity(t))
+                got, tiles = kernel(), extra["the row-tile path (forced)"]()
+                full = BD.dense_subm_conv_plain(x, t.block_nbr, w, occ, e)
+                if not torch.allclose(got.float(), full.float(),
+                                      rtol=TOL[dt], atol=TOL[dt]) or (
+                        dt == torch.float32 and not torch.equal(got, tiles)):
+                    raise SystemExit(f"block_conv [{name}] {dt}: the "
+                                     "live-pair path differs from the "
+                                     "row-tile plain version or, in fp32, "
+                                     "from the row-tile path")
+                print(f"block_conv [{name}] {dt}: within rtol=atol="
+                      f"{TOL[dt]:g} of the row-tile plain version"
+                      + (", bit-equal to the row-tile path"
+                         if dt == torch.float32 else ""), flush=True)
+                del got, tiles, full
+                per[dt] = (kernel, lambda x=x, w=w, lp=lp:
+                           BD.block_conv_live_plain(x, w, lp),
+                           lib, 2.0 * need * cin * cout,
+                           nbytes(x, w) + 4 * int(occ.sum())
+                           + occ.shape[0] * cout * x.element_size(),
+                           CONV_PEAK[dt], extra)
+                continue
             if wide:
                 extra["the wide path"] = \
                     lambda x=x, w=w: BD.block_conv(x, t.block_nbr, w, mask,
@@ -1564,6 +1609,10 @@ def dense_cases(plan, gen):
         what = (f"dilation {rows} rows = {rows / occ.shape[0]:.1%} of the "
                 f"cells, {rows / int(occ.sum()):.2f}x the occupied"
                 if dx else f"{rows} occupied rows")
+        if live:
+            live_ms = bound(2.0 * need * cin * cout, 0.0, "fp32")[0]
+            what += (f", {int(need)} live pairs (live-pair path; bound of "
+                     f"the live pairs {live_ms:.4f} ms)")
         cases.append(("block_conv", f"{name}, fill {fill(t):.1%}, {what}; "
                       f"bound of its rows' work {rows_ms:.4f} ms, "
                       f"dense-work bound {dense_ms:.4f} ms (fp32)", per))
@@ -1603,7 +1652,43 @@ def dense_cases(plan, gen):
     both = (torch.float32, torch.bfloat16)
     conv_case("k3 96->96 L0", t0, 96, 96, 3, both)
     conv_case("k3 384->256 L3", t3, 384, 256, 3, both)
-    conv_case("dense stem k5 259->32 L0", t0, 259, 32, 5, both)
+    conv_case("dense stem k5 259->32 L0", t0, 259, 32, 5, both, live=True)
+
+    def live_list_case(t, k):
+        """The live-pair list of the level's occupied-row list (one pass,
+        two launches), held exactly to its plain version: the counts,
+        each offset's pairs and the map over the listed rows.  Bytes: the
+        row list, the occupancy and the shell table read once; the map
+        over the listed rows and the pairs written once."""
+        occ = BD.occupancy(t)
+        rlist = BD.row_list(t, occ)
+        cap = BD.live_capacity(t)
+        n_list = int(rlist.count)
+
+        def flat(lp):
+            c = lp.counts.tolist()
+            return torch.cat([lp.counts] + [lp.src[o, :n] for o, n in
+                                            enumerate(c)]
+                             + [lp.dst[o, :n] for o, n in enumerate(c)]
+                             + [lp.map[:, :n_list].reshape(-1)])
+
+        def build():
+            return BD.live_pair_list(rlist, occ, t.block_nbr, t.edge, k, cap)
+
+        def plain():
+            return flat(BD.live_pairs_plain(rlist, occ, t.block_nbr, t.edge,
+                                            k, cap))
+
+        n_pairs = int(build().counts.sum())
+        cases.append(("block_live_pairs", f"k{k} live-pair list of the L0 "
+                      f"occupancy's row list, {n_list} listed rows, {n_pairs} "
+                      "live pairs; library: none", {f32: (
+                          (build, lambda: flat(build())), plain, None, 0.0,
+                          nbytes(rlist.rows[:n_list], occ, t.block_nbr)
+                          + 4 * (k ** 3 * n_list + 2 * n_pairs + k ** 3),
+                          "fp32", exact)}))
+
+    live_list_case(t0, 5)
     # the Baseline's dense stem over rgb alone, on the same L0 row list
     conv_case("baseline dense stem k5 3->32 L0 (narrow path)", t0, 3, 32, 5,
               both, wide=True)
@@ -1621,7 +1706,11 @@ def dense_cases(plan, gen):
                          for s in itertools.product(range(-h, h + 1),
                                                     repeat=3)))
 
-    def wgrad_case(name, t, cin, cout, k, dt=f32, narrow=None):
+    def wgrad_case(name, t, cin, cout, k, dt=f32, narrow=None, live=False):
+        """K11 over the level's row list; with ``live``, the live-pair path
+        over the level's live-pair list (the input stated zero outside the
+        occupancy), held to its plain version, the row-tile path forced
+        and the list's build timed beside it."""
         occ = BD.occupancy(t)
         need, dense = pairs(t, k, masked=True)
         every = all_pairs(t, k)
@@ -1641,25 +1730,48 @@ def dense_cases(plan, gen):
         dense_ms = bound(2.0 * dense * cin * cout, 0.0, "fp32")[0]
         all_ms = bound(2.0 * every * cin * cout, 0.0, "fp32")[0]
         live_ms = bound(2.0 * need * cin * cout, 0.0, "fp32")[0]
+        rlist = BD.row_list(t, occ)
+        kernel = (lambda: BD.block_wgrad(x, dy, t.block_nbr, occ, e, k,
+                                         rlist, narrow))
+        plain = (lambda: BD.block_wgrad_plain(x, dy, t.block_nbr, occ, e,
+                                              k))
+        extra = {"row list build (block_rows, once per level and step)":
+                 lambda: BD.occupied_rows(occ)}
+        if live:
+            lp = BD.live_pairs(t, occ, k)
+            kernel = (lambda: BD.block_wgrad(x, dy, t.block_nbr, occ, e, k,
+                                             rlist, zero_outside=True,
+                                             live_list=lp))
+            full = plain()
+            if not bool(torch.equal(kernel(), kernel())) or float(
+                    (kernel() - full).abs().max()) > (
+                        WGRAD_TOL if dt == f32 else 1e-2) * float(
+                    full.abs().max()):
+                raise SystemExit(f"block_wgrad [{name}]: the live-pair path "
+                                 "differs between two calls or from the "
+                                 "row-tile plain version")
+            print(f"block_wgrad [{name}]: two calls bit-equal, within the "
+                  "tolerance of the row-tile plain version", flush=True)
+            del full
+            plain = (lambda: BD.block_wgrad_live_plain(x, dy, lp))
+            extra = {"the row-tile path (forced)": lambda: BD.block_wgrad(
+                         x, dy, t.block_nbr, occ, e, k, rlist, live=False),
+                     "live-pair list build (block_live_pairs, once per "
+                     "level and step)": lambda: BD.live_pair_list(
+                         rlist, occ, t.block_nbr, e, k, BD.live_capacity(t))}
         cases.append(("block_wgrad", f"{name}, fill {fill(t):.1%}, "
                       f"{int(every)} pairs with a source block (all-pairs "
                       f"bound {all_ms:.4f} ms), {int(need)} with an occupied "
                       f"source (live-pair bound {live_ms:.4f} ms), dense-work "
-                      f"bound {dense_ms:.4f} ms (fp32)", {dt: (
-                          lambda: BD.block_wgrad(x, dy, t.block_nbr, occ, e,
-                                                 k, BD.row_list(t, occ),
-                                                 narrow),
-                          lambda: BD.block_wgrad_plain(x, dy, t.block_nbr,
-                                                       occ, e, k),
-                          lib, 2.0 * need * cin * cout,
+                      f"bound {dense_ms:.4f} ms (fp32)"
+                      + ("; live-pair path" if live else ""), {dt: (
+                          kernel, plain, lib, 2.0 * need * cin * cout,
                           nbytes(x, dy, t.block_nbr, occ)
                           + k ** 3 * cin * cout * 4, CONV_PEAK[dt],
-                          WGRAD_TOL if dt == f32 else 1e-2,
-                          {"row list build (block_rows, once per level and "
-                           "step)": lambda: BD.occupied_rows(occ)})}))
+                          WGRAD_TOL if dt == f32 else 1e-2, extra)}))
 
     wgrad_case("dW k3 96->96 L0", t0, 96, 96, 3)
-    wgrad_case("stem dW k5 259->32 L0", t0, 259, 32, 5)
+    wgrad_case("stem dW k5 259->32 L0", t0, 259, 32, 5, live=True)
     # the Baseline's dense stem dW, on the narrow path the rule picks and
     # on the wide path forced
     for dt in (f32, torch.bfloat16):
@@ -1678,7 +1790,7 @@ def dense_cases(plan, gen):
     conv_case("dX k3 96->96 L0 (flipped, transposed W, under the "
               "dilation)", t0, 96, 96, 3, (torch.bfloat16,), dx=True)
     wgrad_case("stem dW k5 259->32 L0 at the bf16 pitch 264", t0, 259, 32, 5,
-               torch.bfloat16)
+               torch.bfloat16, live=True)
     return cases
 
 
@@ -1797,6 +1909,12 @@ def counters():
             "block_dilate": (BD.dilated_rows,),
             "block_wgrad": (BD.block_wgrad,),
             "block_wgrad narrow": (BD.block_wgrad.narrow,),
+            # of K10's and K11's launches, those on the live-pair path (the
+            # flagship's dense stem in training), and the live-pair lists
+            # they share (block_live_pairs, once per level and step)
+            "block_conv live": (BD.block_conv.live,),
+            "block_wgrad live": (BD.block_wgrad.live,),
+            "block_live_pairs": (BD.live_pair_list,),
             "stem_slot_sum": (SC.stem_slot_sum,),
             # the pair lists (K1 and K4) and row lists (K11), built once per
             # table or level and forward or step; they launch in K4's and
@@ -1813,6 +1931,9 @@ GATHER_PAIR_LISTS = 10
 # (the flagship and the v2 model)
 NO_NARROW = {"gather_gemm_conv narrow": 0, "block_conv narrow": 0,
              "gather_wgrad narrow": 0, "block_wgrad narrow": 0}
+# the live-pair counts of a phase without a dense k5 stem in training
+NO_LIVE = {"block_conv live": 0, "block_wgrad live": 0,
+           "block_live_pairs": 0}
 
 
 def step_kernel_ms(run, lead):
@@ -1826,10 +1947,11 @@ def step_kernel_ms(run, lead):
 
 
 def kernel_ms(events):
-    """{K1, K2, K3, K4, K4 pair lists, K10, K11, device}: summed device ms of
-    ``events``; and the count of K10's row-list launches."""
+    """{K1, K2, K3, K4, K4 pair lists, K10, K11, the live-pair list,
+    device}: summed device ms of ``events``; and the count of K10's
+    row-list launches."""
     ms = dict.fromkeys(("K1", "K2", "K3", "K4", "K4 pair lists", "K10",
-                        "K11", "device"), 0.0)
+                        "K11", "live-pair list", "device"), 0.0)
     ms["row-list launches"] = 0
     for e in events:
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1854,9 +1976,12 @@ def kernel_ms(events):
             ms["K4"] += t
         elif "count_pairs_kernel" in n or "list_pairs_kernel" in n:
             ms["K4 pair lists"] += t
+        elif "count_live_kernel" in n or "list_live_kernel" in n:
+            ms["live-pair list"] += t
         elif "block_wgrad_kernel" in n or "block_wgrad_narrow_kernel" in n \
                 or ("sum_splits" in n and ("HaloPairs" in n
-                                           or "ListedRows" in n)):
+                                           or "ListedRows" in n
+                                           or "LivePairs" in n)):
             ms["K11"] += t
     return ms
 
@@ -2292,7 +2417,8 @@ def run_training(model, records, spec, layout="gather", accum=True,
           f"step (torch.profiler, device ms): K1 {ms['K1']:.4f}, K2 "
           f"{ms['K2']:.4f}, K3 {ms['K3']:.4f}, K10 {ms['K10']:.4f}, K4 "
           f"{ms['K4']:.4f} (+ pair lists {ms['K4 pair lists']:.4f}), K11 "
-          f"{ms['K11']:.4f}, "
+          f"{ms['K11']:.4f}, K10 + K11 {ms['K10'] + ms['K11']:.4f} (+ the "
+          f"stem's live-pair list {ms['live-pair list']:.4f}), "
           f"of {ms['device']:.4f} ms of device work; K10's row-list "
           f"launches {ms['row-list launches']} (two per level's occupancy "
           f"and dilation list, none inside a conv)", flush=True)
@@ -2724,7 +2850,9 @@ def run_dense_training(model, records, spec):
         model, records, spec, layout="block-dense", accum=False)
     expected = {**BLOCK_DENSE_STEP, **NO_NARROW}
     print(f"launches in one block-dense train step: {launches} (expected "
-          f"{expected}: K10 47 forward + 46 dX, per level one k3 dilation "
+          f"{expected}: K10 47 forward (the stem's on the live-pair path) "
+          f"+ 46 dX, K11 47 (the stem's on the live-pair path, on the "
+          f"forward's live-pair list), per level one k3 dilation "
           f"with its list (the dX convs') and one occupancy row list (the "
           f"forward convs' and K11's), one pair list, K1's and K4's, per "
           f"child table)",
@@ -2756,7 +2884,9 @@ CLI_TIMEOUT_S = 480
 CLI_STEP_KERNELS = {
     "slot_gather": ("slot_gather_kernel",),
     "block_conv": ("block_conv_kernel", "block_conv_narrow_kernel",
-                   "block_conv_wg_kernel", "group_sum_kernel"),
+                   "block_conv_wg_kernel", "group_sum_kernel",
+                   "live_products_kernel", "live_products_wg_kernel",
+                   "live_sum_kernel"),
     "block_dilate": ("dilate_kernel",),
     "block_wgrad": ("block_wgrad_kernel", "block_wgrad_narrow_kernel"),
     "gather_gemm_conv": ("conv_products_kernel", "conv_pair_sum_kernel",
@@ -2911,9 +3041,13 @@ def run_cli_phase(step4_s):
               f"kernels in profiled steps 2-3 (the trace): {launches}",
               flush=True)
         # per microbatch, phase 4c's step: its wrapper calls times the
-        # CUDA functions of a call (K1 and the CSR build launch two)
-        want = {k: 2 * 4 * BLOCK_DENSE_STEP.get(k, 2)
-                * (2 if k in ("gather_gemm_conv", "segment_csr") else 1)
+        # CUDA functions of a call (K1, the CSR build and K10 on the
+        # live-pair path launch two)
+        want = {k: 2 * 4 * (BLOCK_DENSE_STEP.get(k, 2)
+                            * (2 if k in ("gather_gemm_conv", "segment_csr")
+                               else 1)
+                            + BLOCK_DENSE_STEP.get(f"{k} live", 0)
+                            * (k == "block_conv"))
                 for k in CLI_STEP_KERNELS}
         if launches != want:
             raise SystemExit(f"the CLI's profiled steps launched {launches}, "
@@ -3088,19 +3222,22 @@ def run_v2_phase(records):
 # level, four up convs (K2), the voxel mean and the pool (K3)
 HYBRID_FORWARD = {"gather_gemm_conv": 5, "up_conv": 4,
                   "segment_mean_gather": 2, "block_conv": 46,
-                  "slot_gather": 18, "block_rows": 5}
-# the block-dense training step (phase 4c's)
+                  "slot_gather": 18, "block_rows": 5, **NO_LIVE}
+# the block-dense training step (phase 4c's): the dense k5 stem's forward
+# and dW on the live-pair path over one list
 BLOCK_DENSE_STEP = {"block_conv": 93, "block_dilate": 5, "block_wgrad": 47,
                     "slot_gather": 35, "gather_gemm_conv": 8, "up_conv": 8,
                     "gather_wgrad": 8, "segment_mean_gather": 2,
-                    "segment_grad": 1, "block_rows": 5, "gather_pairs": 4}
+                    "segment_grad": 1, "block_rows": 5, "gather_pairs": 4,
+                    "block_conv live": 1, "block_wgrad live": 1,
+                    "block_live_pairs": 1}
 # the Baseline's: the same, with its 3-channel stem on K1's narrow path
 # (eval: the gather stem) or K10's and its dW on K11's (training: the dense
 # stem; its input needs no gradient, so no dX role)
 BASELINE_FORWARD = {**HYBRID_FORWARD, **NO_NARROW,
                     "gather_gemm_conv narrow": 1}
 BASELINE_STEP = {**BLOCK_DENSE_STEP, **NO_NARROW, "block_conv narrow": 1,
-                 "block_wgrad narrow": 1}
+                 "block_wgrad narrow": 1, **NO_LIVE}
 # its step on device plans (gather layout): the stem on K1's narrow path and
 # its dW on K4's, which take no pair list, so the stem's table gets none
 BASELINE_DEVICE_STEP = {"gather_gemm_conv": 101, "up_conv": 8,
@@ -3108,7 +3245,7 @@ BASELINE_DEVICE_STEP = {"gather_gemm_conv": 101, "up_conv": 8,
                         "segment_grad": 1,
                         "gather_pairs": GATHER_PAIR_LISTS - 1, **NO_NARROW,
                         "gather_gemm_conv narrow": 1,
-                        "gather_wgrad narrow": 1}
+                        "gather_wgrad narrow": 1, **NO_LIVE}
 
 
 def check_counts(launches, expected, what):
@@ -4167,7 +4304,9 @@ SERVE_TIMED = 3            # timed calls a scene, after one warm-up call
 OWN_KERNELS = ("block_conv_kernel", "block_conv_narrow_kernel",
                "block_conv_wg_kernel", "group_sum_kernel",
                "block_wgrad_kernel", "block_wgrad_narrow_kernel",
-               "build_lookup_kernel",
+               "build_lookup_kernel", "count_live_kernel", "list_live_kernel",
+               "live_products_kernel", "live_products_wg_kernel",
+               "live_sum_kernel",
                "conv_pair_sum_kernel", "conv_products_kernel",
                "conv_products_wg_kernel", "count_pairs_kernel",
                "count_rows_kernel", "csr_keys_kernel", "csr_offsets_kernel",
@@ -4793,12 +4932,17 @@ def main() -> int:
                          "segdino3d_tpu/ops/block_dense.py:396"),
         "block_wgrad": ("segdino3d_tpu_torch/csrc/block_wgrad.cu",
                         "segdino3d_tpu/ops/block_dense.py:414"),
+        # the live-pair list of the dense stem's forward and dW: the pairs
+        # whose products the JAX op's dense conv computes as exact zeros
+        # are left out
+        "block_live_pairs": ("segdino3d_tpu_torch/csrc/block_conv.cu",
+                             "segdino3d_tpu/ops/block_dense.py:257"),
         "stem_slot_sum": ("segdino3d_tpu_torch/csrc/stem_slot_sum.cu",
                           "segdino3d_tpu/ops/sparse_conv.py:369"),
     }
     plan_kernels = ("coord_hash", "neighbor_table", "voxel_compact")
     dense_kernels = ("slot_gather", "block_conv", "block_dilate",
-                     "block_wgrad")
+                     "block_wgrad", "block_live_pairs")
     kernels = []
     for name, (source, replaces) in meta.items():
         h = rows[name]["headline"]
@@ -4850,6 +4994,12 @@ def main() -> int:
                 baseline_device_train_step=bl_dev_train_launches[
                     f"{name} narrow"])}
                if f"{name} narrow" in launches else {}),
+            **({"live_launches": dict(
+                block_dense_train_step=dense_train_launches[f"{name} live"],
+                bf16_train_step=bf16_train_launches[f"{name} live"],
+                baseline_train_step=bl_train_launches[f"{name} live"],
+                eval_hybrid=hybrid_launches[f"{name} live"])}
+               if f"{name} live" in launches else {}),
             launches_2rank_step=dist_launches["block-dense"][name],
             launches_2rank_step_gather=dist_launches["gather"][name],
             launches_bf16=bf16_launches[name],

@@ -84,6 +84,31 @@
 // the block halo (bdt::HaloSrc) straight into an im2col tile (no per-offset
 // stages), the fp32 sums in the order above.
 //
+// The live-pair path (block_conv_live, for a conv whose caller states its
+// input zero outside the mask: the flagship's dense k5 stem in training,
+// 259 -> 32, whose input comes straight from K9's scatter to dense rows;
+// ops/narrow.py:live_path picks it): the row tiles above run every offset
+// at which some row of a 64-row tile has a source block, about 125 offsets
+// x 76,239 rows at the stem, though only 28 of a row's 125 sources are
+// occupied (4.5x the work).  A source cell outside the mask holds a zero
+// row, so its pair adds exact zeros and is skipped.  block_live_pairs
+// builds, in one pass over the occupied-row list (a count and a list
+// launch, per offset and block of listed rows), per offset and in list
+// order the listed rows whose source cell through the block halo is in
+// the mask (src, dst) and, per (offset, listed row), its pair's index
+// (map); the counts stay on the card, and the wrappers build it once per
+// level and step for the stem's forward and K11's dW.  The conv then runs
+// K1's pair-major form over it (pair_major.cuh, shared with
+// gather_gemm_conv.cu): items of 64 pairs of one offset and a column tile,
+// x[src] @ W[o] on gather_tile.cuh's FMA core (fp32) or wgmma_tile.cuh's
+// warpgroup core (bf16, the 264 pitch) into a pair-major fp32 buffer
+// (k^3 * cap rows, cap the list's capacity: 1.47 GB at the stem, as K1's),
+// then live_sum_kernel adds each listed row's products in ascending offset
+// order through the map.  Each offset's
+// product over Cin is summed as in the row tiles and the partials are
+// added in the same order without the zeros, so the fp32 result equals
+// the row-tile path's bit for bit; no float atomics.
+//
 // Contract: x (n_blocks * edge^3, Cin), w (k^3, Cin, Cout) and out
 // (n_blocks * edge^3, Cout) share one dtype (fp32 or bf16), rows
 // contiguous; block_nbr (26, n_blocks) int32; mask (n_blocks * edge^3,)
@@ -102,7 +127,7 @@
 // dilate_kernel).
 #include "block_tile.cuh"
 #include "narrow_tile.cuh"
-#include "wgmma_tile.cuh"
+#include "pair_major.cuh"
 
 namespace {
 
@@ -903,6 +928,264 @@ cudaError_t narrow_conv(const void* x, const void* nbr, const void* w, int32_t* 
   return launch(x, nbr, w, ws, out, n_blocks, cin, cout, s);
 }
 
+// ---------------------------------------------------------------------------
+// the live-pair path: the live-pair list, the products, the sum
+// ---------------------------------------------------------------------------
+
+// The live-pair list's workspace (block_dense.py:live_workspace_size), for
+// n_off offsets and a capacity of `cap` listed rows: src, dst and map
+// (n_off x cap each), the counts (n_off), a ticket, the list passes'
+// per-block counts (n_off x blocks), then the count pass's live bits
+// (n_off x blocks x kListRows / 32 words).
+struct LiveWs {
+  int32_t *src, *dst, *map, *counts, *ticket, *block_counts;
+  uint32_t* bits;
+  __host__ __device__ LiveWs(int32_t* ws, int n_off, int cap) {
+    const int64_t n = (int64_t)n_off * cap;
+    const int blocks = cap > 0 ? (cap + kListRows - 1) / kListRows : 1;
+    src = ws;
+    dst = ws + n;
+    map = ws + 2 * n;
+    counts = ws + 3 * n;
+    ticket = counts + n_off;
+    block_counts = ticket + 1;
+    bits = reinterpret_cast<uint32_t*>(block_counts + (int64_t)n_off * blocks);
+  }
+};
+
+// The list passes walk a block's kListRows listed rows as 8 warps x 16
+// chunks of 32 consecutive rows (a lane a row, so that a warp's loads of
+// the row list and stores of the map are 128-byte lines).
+constexpr int kChunks = kListRows / (kListThreads / 32) / 32;   // 16 a warp
+static_assert(kChunks * 32 * (kListThreads / 32) == kListRows, "the passes' chunks");
+
+// grid (blocks, n_off): the bits of each chunk of listed rows whose source
+// cell at offset o is occupied, and each block's count of them
+template <int E, int K>
+__global__ void __launch_bounds__(kListThreads)
+count_live_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ count,
+                  const uint8_t* __restrict__ occ, bdt::HaloSrc<E, K> halo, int cap,
+                  LiveWs ws) {
+  __shared__ int warp_sums[kListThreads / 32];
+  const int o = blockIdx.y, n_list = min(*count, cap);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t i0 = (int64_t)blockIdx.x * kListRows + warp * kChunks * 32;
+  uint32_t* const bits = ws.bits + ((int64_t)o * gridDim.x + blockIdx.x) * (kListRows / 32) +
+                         warp * kChunks;
+  int n = 0;
+#pragma unroll 4
+  for (int c = 0; c < kChunks; ++c) {
+    const int64_t i = i0 + c * 32 + lane;
+    const int r = i < n_list ? rows[i] : -1;
+    const int src = r >= 0 ? halo(r, o) : -1;
+    const unsigned live = __ballot_sync(0xFFFFFFFFu, src >= 0 && occ[src] != 0);
+    if (lane == 0) bits[c] = live;
+    n += __popc(live);
+  }
+  int total;
+  block_exclusive_scan(lane == 0 ? n : 0, warp_sums, &total);
+  if (threadIdx.x == 0) ws.block_counts[(int64_t)o * gridDim.x + blockIdx.x] = total;
+}
+
+// the pairs in list order: each block's offset over the blocks before it,
+// each warp's over the warps before it, each lane's over the chunk's bits
+// below it; the sources resolved again for the live rows alone
+template <int E, int K>
+__global__ void __launch_bounds__(kListThreads)
+list_live_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ count,
+                 bdt::HaloSrc<E, K> halo, int cap, LiveWs ws) {
+  __shared__ int warp_sums[kListThreads / 32];
+  const int o = blockIdx.y, n_list = min(*count, cap);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int32_t* oc = ws.block_counts + (int64_t)o * gridDim.x;
+  const uint32_t* const bits = ws.bits +
+      ((int64_t)o * gridDim.x + blockIdx.x) * (kListRows / 32) + warp * kChunks;
+  int part = 0;
+  for (int i = threadIdx.x; i < (int)blockIdx.x; i += kListThreads) part += oc[i];
+  int prefix;
+  block_exclusive_scan(part, warp_sums, &prefix);
+  const uint32_t mine = lane < kChunks ? bits[lane] : 0u;
+  int n = __popc(mine);
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) n += __shfl_xor_sync(0xFFFFFFFFu, n, d);
+  int total;
+  int pos = prefix + block_exclusive_scan(lane == 0 ? n : 0, warp_sums, &total);
+  pos = __shfl_sync(0xFFFFFFFFu, pos, 0);
+  const int64_t i0 = (int64_t)blockIdx.x * kListRows + warp * kChunks * 32;
+  const int64_t base = (int64_t)o * cap;
+  const unsigned below = (1u << lane) - 1u;
+  for (int c = 0; c < kChunks; ++c) {
+    const int64_t i = i0 + c * 32 + lane;
+    const uint32_t live = __shfl_sync(0xFFFFFFFFu, mine, c);
+    const bool in = (live >> lane) & 1u;
+    const int p = pos + __popc(live & below);
+    if (i < n_list) ws.map[base + i] = in ? p : -1;
+    if (in) {
+      const int r = rows[i];
+      ws.src[base + p] = halo(r, o);
+      ws.dst[base + p] = r;
+    }
+    pos += __popc(live);
+  }
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
+    ws.counts[o] = prefix + total;
+    if (o == 0) *ws.ticket = 0;
+  }
+}
+
+template <int E, int K>
+cudaError_t launch_live_list(const int32_t* rows_ws, const uint8_t* occ, const int32_t* nbr,
+                             int32_t* live_ws, int n_blocks, int cap, cudaStream_t s) {
+  const int n_rows = n_blocks * E * E * E, n_off = K * K * K;
+  const bdt::HaloSrc<E, K> halo{nbr, n_blocks};
+  const dim3 grid(cap > 0 ? (cap + kListRows - 1) / kListRows : 1, n_off);
+  const LiveWs ws(live_ws, n_off, cap);
+  count_live_kernel<E, K><<<grid, kListThreads, 0, s>>>(rows_ws, rows_ws + n_rows, occ, halo,
+                                                        cap, ws);
+  list_live_kernel<E, K><<<grid, kListThreads, 0, s>>>(rows_ws, rows_ws + n_rows, halo, cap,
+                                                       ws);
+  return cudaGetLastError();
+}
+
+// pair j of offset o: its source row in the list
+struct ListSource {
+  const int32_t* src;
+  int cap;
+  __device__ __forceinline__ int operator()(int o, int j, int, int) const {
+    return src[(int64_t)o * cap + j];
+  }
+};
+
+// the products of the live pairs (pair_major.cuh, K1's form): fp32 on the
+// FMA core, bf16 on the warpgroup core
+template <int BN>
+__global__ void __launch_bounds__(gtt::kThreads)
+live_products_kernel(const float* __restrict__ x, const float* __restrict__ w, LiveWs ws,
+                     float* __restrict__ partial, int cap, int cin, int cout, int n_off) {
+  pmc::products<float, BN>(x, w, ws.counts, ws.ticket, partial, cin, cout, n_off,
+                           ListSource{ws.src, cap});
+}
+
+template <int BN>
+__global__ void __launch_bounds__(wgc::kThreads)
+live_products_wg_kernel(const wgc::bf16* __restrict__ x, const wgc::bf16* __restrict__ w,
+                        LiveWs ws, float* __restrict__ partial, int cap, int cin, int cout,
+                        int n_off, int vec_a, int vec_b) {
+  pmc::products_wg<BN>(x, w, ws.counts, ws.ticket, partial, cin, cout, n_off, vec_a != 0,
+                       vec_b != 0, ListSource{ws.src, cap});
+}
+
+// out[rows[i]][c .. c + 7] = the live products of listed row i added in
+// ascending offset order (through map), four threads a row, eight columns
+// each (c = 32 blockIdx.y + 8 (tid % 4)), the offsets' map reads eight at
+// a time; first[] (the pairs before each offset) is a scan of the counts
+template <typename T>
+__global__ void __launch_bounds__(kListThreads)
+live_sum_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ count, LiveWs ws,
+                const float* __restrict__ partial, int ld, T* __restrict__ out, int cap,
+                int cout, int n_off) {
+  __shared__ int warp_sums[kListThreads / 32];
+  __shared__ int s_first[kListThreads];
+  const int tid = threadIdx.x;
+  int total;
+  const int first = block_exclusive_scan(tid < n_off ? ws.counts[tid] : 0, warp_sums, &total);
+  s_first[tid] = first;
+  __syncthreads();
+  const int n_list = min(*count, cap);
+  const int64_t i = (int64_t)blockIdx.x * (kListThreads / 4) + tid / 4;
+  const int c = 32 * blockIdx.y + (tid % 4) * 8;
+  if (i >= n_list || c >= cout) return;
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  for (int o0 = 0; o0 < n_off; o0 += 8) {
+    int p[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      p[t] = o0 + t < n_off ? ws.map[(int64_t)(o0 + t) * cap + i] : -1;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      if (p[t] < 0) continue;
+      const float4* src =
+          reinterpret_cast<const float4*>(partial + (int64_t)(s_first[o0 + t] + p[t]) * ld + c);
+      const float4 a = src[0], b = src[1];
+      acc[0] += a.x;
+      acc[1] += a.y;
+      acc[2] += a.z;
+      acc[3] += a.w;
+      acc[4] += b.x;
+      acc[5] += b.y;
+      acc[6] += b.z;
+      acc[7] += b.w;
+    }
+  }
+  T* const row = out + (int64_t)rows[i] * cout;
+  gtt::store4(row, c, cout, make_float4(acc[0], acc[1], acc[2], acc[3]));
+  if (c + 4 < cout) gtt::store4(row, c + 4, cout, make_float4(acc[4], acc[5], acc[6], acc[7]));
+}
+
+// the pair-major buffer's row width for Cout (a multiple of 32)
+int live_stride(int cout, int dtype) {
+  const int bn = dtype == 1 ? wgc::pick_bn(cout) : gtt::pair_bn(cout);
+  return (cout + bn - 1) / bn * bn;
+}
+
+template <int BN>
+cudaError_t live_products(const void* x, const void* w, const LiveWs& ws, float* partial,
+                          int cap, int cin, int cout, int n_off, int dtype, cudaStream_t s) {
+  const int n_col = (cout + BN - 1) / BN;
+  const int64_t max_items = (int64_t)((cap + gtt::BM - 1) / gtt::BM) * n_off * n_col;
+  int grid = 0;
+  if (dtype == 1) {
+    auto kernel = live_products_wg_kernel<BN>;
+    const size_t smem = pmc::smem_bytes_wg<BN>(n_off);
+    cudaError_t err = ntt::grid_of(kernel, wgc::kThreads, smem, max_items, &grid);
+    if (err != cudaSuccess) return err;
+    const int vec_a = cin % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    const int vec_b = cout % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+    kernel<<<grid, wgc::kThreads, smem, s>>>(static_cast<const wgc::bf16*>(x),
+                                             static_cast<const wgc::bf16*>(w), ws, partial, cap,
+                                             cin, cout, n_off, vec_a, vec_b);
+    return cudaGetLastError();
+  }
+  if constexpr (BN <= 96) {
+    auto kernel = live_products_kernel<BN>;
+    const size_t smem = pmc::smem_bytes<float, BN>(n_off);
+    cudaError_t err = ntt::grid_of(kernel, gtt::kThreads, smem, max_items, &grid);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, gtt::kThreads, smem, s>>>(static_cast<const float*>(x),
+                                             static_cast<const float*>(w), ws, partial, cap,
+                                             cin, cout, n_off);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t live_conv(const void* x, const void* w, const int32_t* rows_ws, int32_t* live_ws,
+                      float* partial, void* out, int n_rows, int cap, int n_off, int cin,
+                      int cout, int dtype, cudaStream_t s) {
+  const LiveWs ws(live_ws, n_off, cap);
+  const int bn = dtype == 1 ? wgc::pick_bn(cout) : gtt::pair_bn(cout);
+  cudaError_t err;
+  switch (bn) {
+    case 32: err = live_products<32>(x, w, ws, partial, cap, cin, cout, n_off, dtype, s); break;
+    case 64: err = live_products<64>(x, w, ws, partial, cap, cin, cout, n_off, dtype, s); break;
+    case 96: err = live_products<96>(x, w, ws, partial, cap, cin, cout, n_off, dtype, s); break;
+    default: err = live_products<128>(x, w, ws, partial, cap, cin, cout, n_off, dtype, s);
+  }
+  if (err != cudaSuccess) return err;
+  const dim3 grid((cap + kListThreads / 4 - 1) / (kListThreads / 4), (cout + 31) / 32);
+  const int ld = live_stride(cout, dtype);
+  if (dtype == 1)
+    live_sum_kernel<__nv_bfloat16><<<grid, kListThreads, 0, s>>>(
+        rows_ws, rows_ws + n_rows, ws, partial, ld, static_cast<__nv_bfloat16*>(out), cap, cout,
+        n_off);
+  else
+    live_sum_kernel<float><<<grid, kListThreads, 0, s>>>(
+        rows_ws, rows_ws + n_rows, ws, partial, ld, static_cast<float*>(out), cap, cout, n_off);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The row list alone: ws[0:count] the mask's rows ascending (every row
@@ -977,6 +1260,53 @@ extern "C" int block_conv(const void* x, const void* block_nbr, const void* w,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(conv(x, block_nbr, w, wsi, out, scratch, split_cap, n_blocks, edge, k,
                                cin, cout, dtype, narrow, s));
+}
+
+// The live-pair list of an occupied-row list (block_rows' ws of n_blocks *
+// edge^3 rows) into live_ws (block_dense.py:live_workspace_size of k^3
+// offsets and `cap` listed rows, cap >= the list's count): per offset, in
+// ascending list order, the listed rows whose source cell through the
+// block halo is occupied in mask (src: the source row, dst: the listed
+// row), map[o][i] the pair of listed row i at offset o (-1: none), the
+// counts, a zero ticket.  Two launches; the counts stay on the card.
+// Returns the launches' cudaError_t.
+extern "C" int block_live_pairs(const void* rows_ws, const void* mask, const void* block_nbr,
+                                void* live_ws, int n_blocks, int edge, int k, int cap,
+                                void* stream) {
+  if ((edge != 4 && edge != 8) || (k != 3 && k != 5) || cap < 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* rows = static_cast<const int32_t*>(rows_ws);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  const int32_t* nbr = static_cast<const int32_t*>(block_nbr);
+  int32_t* ws = static_cast<int32_t*>(live_ws);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (edge == 4 && k == 3) err = launch_live_list<4, 3>(rows, m, nbr, ws, n_blocks, cap, s);
+  if (edge == 4 && k == 5) err = launch_live_list<4, 5>(rows, m, nbr, ws, n_blocks, cap, s);
+  if (edge == 8 && k == 3) err = launch_live_list<8, 3>(rows, m, nbr, ws, n_blocks, cap, s);
+  if (edge == 8 && k == 5) err = launch_live_list<8, 5>(rows, m, nbr, ws, n_blocks, cap, s);
+  return static_cast<int>(err);
+}
+
+// The row width of the live-pair path's fp32 buffer for Cout.  dtype: 0 =
+// float32, 1 = bfloat16.
+extern "C" int block_conv_live_stride(int cout, int dtype) { return live_stride(cout, dtype); }
+
+// The conv on its live pairs: out[r] = sum over listed row r's live pairs
+// (o ascending) of x[src] @ w[o], for x zero outside the mask the list was
+// built on.  rows_ws: the occupied-row list (n_rows rows); live_ws: its
+// live-pair list (block_live_pairs, its ticket 0, as every call leaves
+// it); partial: (k^3 * cap, block_conv_live_stride) fp32 scratch.  Rows
+// outside the list are left as they are (the caller zeroes out).  Returns
+// the launches' cudaError_t.
+extern "C" int block_conv_live(const void* x, const void* w, const void* rows_ws, void* live_ws,
+                               void* partial, void* out, int n_rows, int cap, int k, int cin,
+                               int cout, int dtype, void* stream) {
+  if (cap == 0 || cout == 0) return 0;
+  if ((k != 3 && k != 5) || cin < 1) return cudaErrorInvalidValue;
+  return static_cast<int>(live_conv(x, w, static_cast<const int32_t*>(rows_ws),
+                                    static_cast<int32_t*>(live_ws), static_cast<float*>(partial),
+                                    out, n_rows, cap, k * k * k, cin, cout, dtype,
+                                    static_cast<cudaStream_t>(stream)));
 }
 
 // The same over a row list built before (block_rows or block_dilate into

@@ -10,7 +10,8 @@
 // What bounds it: operations, 2 * pairs * Cin * Cout fp32 FMAs, a pair
 // being an occupied cell and an offset whose source block exists (the
 // op's contract: the source cell may be unoccupied, and feats is not
-// promised zero there), over inputs of tens of MB.
+// promised zero there, except where the caller states it: the live-pair
+// path below), over inputs of tens of MB.
 //
 // Design: dY is zero at unoccupied cells (the forward masked them), so
 // only occupied cells are reduced.  Their list is the level's occupied-row
@@ -33,6 +34,19 @@
 // rows, each chunk of offsets gathered into an im2col tile through the
 // block halo (bdt::HaloSrc, eight sources at a time), the chunk's dW block
 // held in registers, the splits' partials added in order by the split sum.
+//
+// The live-pair path (block_wgrad_live, for an input its caller states
+// zero outside the occupancy: the flagship's dense k5 stem dW in training,
+// ops/narrow.py:live_path picks it): the pairs above include every
+// occupied cell's source in an existing block, 3.3x the pairs with an
+// occupied source at the stem, and a source outside the occupancy holds a
+// zero row.  The live-pair list of block_conv.cu:block_live_pairs (built
+// once per level and step, shared with the stem's forward) names only the
+// pairs whose source is occupied (A row src, B row dst); the same tile
+// core reduces them, fp32 on FMAs and bf16 on mma.sync.  Two forms on
+// Hopper's warpgroup core (wgmma.m64n32k16 with A transposed, the pairs
+// staged as MN-major rows) ran slower at 264 -> 32 in bf16 and were
+// dropped (PERF.md section 6, rows 6s / 8ds).
 //
 // Contract: x (n_blocks * edge^3, Cin) and dy (n_blocks * edge^3, Cout)
 // share one dtype (fp32 or bf16), rows contiguous; block_nbr (26, n_blocks)
@@ -84,32 +98,53 @@ struct HaloPairs {
   }
 };
 
-template <typename T, int BM, int BN>
+// the live-pair path: the pairs of block_live_pairs (block_conv.cu), per
+// offset the listed rows whose source cell is occupied, A row the source
+// and B row the listed row; the list's ticket orders the work items
+struct LivePairs {
+  const int32_t* src;    // (n_off, cap) source rows
+  const int32_t* dst;    // (n_off, cap) listed rows
+  const int32_t* n;      // (n_off,) how many
+  int cap;
+
+  __device__ __forceinline__ int count(int o) const { return n[o]; }
+  __device__ __forceinline__ int key(int, int p) const { return p; }
+  __device__ __forceinline__ int2 fetch(int o, int p) const {
+    const int64_t e = (int64_t)o * cap + p;
+    return make_int2(src[e], dst[e]);
+  }
+  __device__ __forceinline__ void finish(int, int, int2 f, int& ra, int& rb) const {
+    ra = f.x;
+    rb = f.y;
+  }
+};
+
+template <typename T, int BM, int BN, class Pairs>
 __global__ void __launch_bounds__(wgt::Tile<T, BM, BN>::kBlock,
                                   wgt::Tile<T, BM, BN>::kMinBlocks)
-block_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy, HaloPairs pairs,
+block_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ dy, Pairs pairs,
                    int32_t* __restrict__ ticket, float* __restrict__ partial, int cin,
                    int cout, int n_off, int splits) {
   wgt::run_tiles<T, BM, BN>(x, dy, pairs, ticket, partial, cin, cout, n_off, splits, 0);
 }
 
-template <typename T, int BM, int BN>
-cudaError_t launch(const void* x, const void* dy, const HaloPairs& pairs, int32_t* ticket,
+template <typename T, int BM, int BN, class Pairs>
+cudaError_t launch(const void* x, const void* dy, const Pairs& pairs, int32_t* ticket,
                    float* partial, float* out, int cin, int cout, int n_off, int splits,
                    cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   const T* dyt = static_cast<const T*>(dy);
-  return wgt::launch_tiles<T, BM, BN>(block_wgrad_kernel<T, BM, BN>, pairs, partial, out,
-                                      cin, cout, n_off, splits, 0, s, xt, dyt, pairs,
+  return wgt::launch_tiles<T, BM, BN>(block_wgrad_kernel<T, BM, BN, Pairs>, pairs, partial,
+                                      out, cin, cout, n_off, splits, 0, s, xt, dyt, pairs,
                                       ticket, partial, cin, cout, n_off, splits);
 }
 
 // the tile by width: Cout 32 (the stem 259 -> 32 in one 288-row tile, or
 // 64 rows), 64, 96 (96 or 128 rows), else 128 x 128
-template <typename T>
-cudaError_t launch_width(const void* x, const void* dy, const HaloPairs& pairs,
-                         int32_t* ticket, float* partial, float* out, int cin, int cout,
-                         int n_off, int splits, cudaStream_t s) {
+template <typename T, class Pairs>
+cudaError_t launch_width(const void* x, const void* dy, const Pairs& pairs, int32_t* ticket,
+                         float* partial, float* out, int cin, int cout, int n_off, int splits,
+                         cudaStream_t s) {
   if (cout <= 32)
     return cin <= 64
         ? launch<T, 64, 32>(x, dy, pairs, ticket, partial, out, cin, cout, n_off, splits, s)
@@ -218,5 +253,34 @@ extern "C" int block_wgrad_narrow(const void* x, const void* dy, const void* blo
                                     cout, splits, s)
       : narrow_wgrad<float>(x, dy, block_nbr, rows, p, o, n_blocks, edge, k, cin, cout,
                             splits, s);
+  return static_cast<int>(err);
+}
+
+// K11 on live pairs (x zero outside the mask the list was built on): dW[o]
+// = sum over offset o's live pairs of x[src]^T @ dy[dst], on the tile core
+// above.  live_ws: block_live_pairs' list (k^3 offsets, `cap` listed rows,
+// its ticket 0 on entry and left 0).  `partial` must be `out` when splits
+// is 1.  dtype: 0 = float32, 1 = bfloat16.  Returns the first failed
+// launch's cudaError_t, or 0.
+extern "C" int block_wgrad_live(const void* x, const void* dy, void* live_ws, void* partial,
+                                void* out, int cap, int k, int cin, int cout, int splits,
+                                int dtype, void* stream) {
+  if (cin == 0 || cout == 0) return 0;
+  if ((k != 3 && k != 5) || splits < 1 || cap < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* o = static_cast<float*>(out);
+  const int n_off = k * k * k;
+  if (cap == 0)
+    return static_cast<int>(
+        cudaMemsetAsync(o, 0, sizeof(float) * (size_t)n_off * cin * cout, s));
+  int32_t* w = static_cast<int32_t*>(live_ws);
+  const int64_t n = (int64_t)n_off * cap;
+  const LivePairs pairs{w, w + n, w + 3 * n, cap};
+  int32_t* ticket = w + 3 * n + n_off;
+  float* p = static_cast<float*>(partial);
+  cudaError_t err = dtype == 1
+      ? launch_width<__nv_bfloat16>(x, dy, pairs, ticket, p, o, cin, cout, n_off, splits, s)
+      : launch_width<float>(x, dy, pairs, ticket, p, o, cin, cout, n_off, splits, s);
   return static_cast<int>(err);
 }

@@ -16,13 +16,14 @@
 //      ascending order (K4's list, gather_pairs in gather_wgrad.cu, built
 //      once per table and kept by the caller, sparse_conv.py:cached_pairs;
 //      its count stays on the card);
-//   2. the products: a work item is 64 consecutive pairs of one offset and
-//      one column tile, so every item but an offset's last is a full
-//      64-row GEMM tile, and even a level of a few hundred rows makes
-//      hundreds of items.  Persistent thread blocks, as many as fit on the
-//      SMs, take items by an atomic ticket that the block taking the last
-//      ticket resets.  An item gathers its 64 source rows and multiplies
-//      them on the pipelined tile core of gather_tile.cuh (fp32 FMAs, bf16
+//   2. the products (pair_major.cuh, shared with K10's live-pair path): a
+//      work item is 64 consecutive pairs of one offset and one column
+//      tile, so every item but an offset's last is a full 64-row GEMM
+//      tile, and even a level of a few hundred rows makes hundreds of
+//      items.  Persistent thread blocks, as many as fit on the SMs, take
+//      items by an atomic ticket that the block taking the last ticket
+//      resets.  An item gathers its 64 source rows and multiplies them on
+//      the pipelined tile core of gather_tile.cuh (fp32 FMAs, bf16
 //      mma.sync), and writes the products to a pair-major fp32 buffer, row
 //      p = (the offset's first pair) + j, and p into an (n_off, V) map at
 //      (o, row);
@@ -67,14 +68,12 @@
 // nothing (their output is 0).  The tiles cost alike (every row runs every
 // chunk its tile touches), so persistent blocks stride over them without a
 // ticket, and no scratch is allocated.
-#include "gather_tile.cuh"
 #include "narrow_tile.cuh"
-#include "wgmma_tile.cuh"
+#include "pair_major.cuh"
 
 namespace {
 
 using gtt::BM;
-using gtt::Elt;
 using gtt::kThreads;
 
 using gtt::pair_bn;
@@ -85,6 +84,20 @@ __host__ __device__ __forceinline__ int pair_stride(int cout) {
   return (cout + bn - 1) / bn * bn;
 }
 
+// pair j of offset o: the row list[o][j]'s neighbour there; its buffer row
+// goes to the index map once (on the first column tile)
+struct TableSource {
+  const int32_t* list;
+  const int32_t* nbr;
+  int32_t* pos;
+  int v;
+  __device__ __forceinline__ int operator()(int o, int j, int ct, int p) const {
+    const int r = list[(int64_t)o * v + j];
+    if (ct == 0) pos[(int64_t)o * v + r] = p;
+    return nbr[(int64_t)o * v + r];
+  }
+};
+
 template <typename T, int BN>
 __global__ void __launch_bounds__(kThreads)
 conv_products_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
@@ -92,42 +105,8 @@ conv_products_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
                      const int32_t* __restrict__ counts, int32_t* __restrict__ ticket,
                      int32_t* __restrict__ pos, float* __restrict__ partial, int v, int cin,
                      int cout, int n_off) {
-  using S = gtt::Smem<T, BN>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* const stage = reinterpret_cast<T*>(smem);
-  int* const s_src = reinterpret_cast<int*>(stage + 2 * S::kStage);  // [BM]
-  int* const s_first = s_src + BM;                                  // [n_off + 1]
-  int* const s_group = s_first + n_off + 1;                         // [n_off + 1]
-  __shared__ int s_item;
-
-  const int tid = threadIdx.x;
-  gtt::pair_prefixes(counts, n_off, s_first, s_group);
-  const int n_col = (cout + BN - 1) / BN, ld = n_col * BN;
-  const bool vec_a = cin % Elt<T>::kVec == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool vec_b = cout % Elt<T>::kVec == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-  gtt::Part<T, BN> part;
-  const int n_items = s_group[n_off] * n_col;
-
-  for (;;) {
-    if (tid == 0) s_item = atomicAdd(ticket, 1);
-    __syncthreads();  // also: the last item's reads of shared memory are done
-    const int item = s_item;
-    if (item >= n_items) {
-      // the last ticket taken: every block is done with the counter
-      if (tid == 0 && item == n_items + (int)gridDim.x - 1) *ticket = 0;
-      break;
-    }
-    const gtt::Item it = gtt::decode_item(item, s_first, s_group, n_off, n_col);
-    const int o = it.o, j0 = it.j0, live = it.live, ct = it.ct;
-    if (tid < live) {
-      const int r = list[(int64_t)o * v + j0 + tid];
-      if (ct == 0) pos[(int64_t)o * v + r] = s_first[o] + j0 + tid;
-      s_src[tid] = nbr[(int64_t)o * v + r];
-    }
-    __syncthreads();
-    gtt::products<T, BN>(part, stage, x, w, s_src, live, o, ct * BN, cin, cout, vec_a, vec_b);
-    part.store(partial + (int64_t)(s_first[o] + j0) * ld + ct * BN, ld, live);
-  }
+  pmc::products<T, BN>(x, w, counts, ticket, partial, cin, cout, n_off,
+                       TableSource{list, nbr, pos, v});
 }
 
 // out[r][c .. c + 7] = sum over the offsets o ascending with nbr[o][r] >= 0
@@ -180,8 +159,7 @@ cudaError_t launch(const T* x, const int32_t* nbr, const T* w, const uint8_t* va
                    int32_t* pairs, int32_t* pos, float* partial, T* out, int v, int cin,
                    int cout, int n_off, cudaStream_t s) {
   auto kernel = conv_products_kernel<T, BN>;
-  const size_t smem = sizeof(T) * 2 * gtt::Smem<T, BN>::kStage +
-                      sizeof(int) * (BM + 2 * (n_off + 1));
+  const size_t smem = pmc::smem_bytes<T, BN>(n_off);
   // the items of a table whose every pair is live; the count is on the card
   const int n_col = (cout + BN - 1) / BN;
   const int64_t max_items = (int64_t)((v + BM - 1) / BM) * n_off * n_col;
@@ -236,44 +214,8 @@ conv_products_wg_kernel(const bf16* __restrict__ x, const int32_t* __restrict__ 
                         const int32_t* __restrict__ counts, int32_t* __restrict__ ticket,
                         int32_t* __restrict__ pos, float* __restrict__ partial, int v, int cin,
                         int cout, int n_off, int vec_a, int vec_b) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* const ring = wgc::ring_base(smem);
-  int* const s_src = reinterpret_cast<int*>(smem + wgc::Ring<BN>::kBytes);  // [BM]
-  int* const s_first = s_src + BM;                                          // [n_off + 1]
-  int* const s_group = s_first + n_off + 1;                                 // [n_off + 1]
-  __shared__ int s_item;
-  const int tid = threadIdx.x;
-  gtt::pair_prefixes(counts, n_off, s_first, s_group);
-  const int n_col = (cout + BN - 1) / BN, ld = n_col * BN;
-  const int n_kc = (cin + wgc::BK - 1) / wgc::BK;
-  const int n_items = s_group[n_off] * n_col;
-  float acc[BN / 2];
-  for (;;) {
-    if (tid == 0) s_item = atomicAdd(ticket, 1);
-    __syncthreads();  // also: the last item's reads of shared memory are done
-    const int item = s_item;
-    if (item >= n_items) {
-      // the last ticket taken: every block is done with the counter
-      if (tid == 0 && item == n_items + (int)gridDim.x - 1) *ticket = 0;
-      break;
-    }
-    const gtt::Item it = gtt::decode_item(item, s_first, s_group, n_off, n_col);
-    const int o = it.o, j0 = it.j0, live = it.live, ct = it.ct;
-    if (tid < BM) {
-      int s = -1;
-      if (tid < live) {
-        const int r = list[(int64_t)o * v + j0 + tid];
-        if (ct == 0) pos[(int64_t)o * v + r] = s_first[o] + j0 + tid;
-        s = nbr[(int64_t)o * v + r];
-      }
-      s_src[tid] = s;
-    }
-    __syncthreads();
-    auto stage = [&](int st) { return wgc::Stage{s_src, o, st * wgc::BK}; };
-    wgc::mainloop<BN>(acc, ring, x, w, n_kc, stage, ct * BN, cin, cout, vec_a != 0,
-                      vec_b != 0);
-    wgc::store_f32<BN>(acc, partial + (int64_t)(s_first[o] + j0) * ld + ct * BN, ld, live);
-  }
+  pmc::products_wg<BN>(x, w, counts, ticket, partial, cin, cout, n_off, vec_a != 0, vec_b != 0,
+                       TableSource{list, nbr, pos, v});
 }
 
 template <int BN>
@@ -285,7 +227,7 @@ cudaError_t launch_wg(const bf16* x, const int32_t* nbr, const bf16* w, const ui
   const int n_col = (cout + BN - 1) / BN;
   int grid = 0;
   auto kernel = conv_products_wg_kernel<BN>;
-  const size_t smem = wgc::Ring<BN>::kBytes + sizeof(int) * (BM + 2 * (n_off + 1));
+  const size_t smem = pmc::smem_bytes_wg<BN>(n_off);
   cudaError_t err = ntt::grid_of(kernel, wgc::kThreads, smem,
                                  (int64_t)((v + BM - 1) / BM) * n_off * n_col, &grid);
   if (err != cudaSuccess) return err;

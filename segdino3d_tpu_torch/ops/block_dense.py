@@ -31,7 +31,16 @@ Three hand-written CUDA kernels carry it:
   ``block_rows``, built once per level and step and kept on the tables,
   which every K10 forward conv of the level also takes); for a few input
   channels (``narrow.narrow_wgrad_path``) on its narrow path, im2col
-  tiles of every offset's sources over the listed rows.
+  tiles of every offset's sources over the listed rows;
+* the live-pair path of K10 and K11 (``narrow.live_path``), for a conv
+  whose caller states its input zero outside the occupancy (the dense k5
+  stem in training, its input straight from ``scatter_to_dense``): a
+  source cell outside the occupancy then holds a zero row, so only the
+  (listed row, offset) pairs with an occupied source are computed, over a
+  list built on the card once per level and step (``live_pairs``:
+  ``block_live_pairs``, a pass over the row list) that the stem's forward
+  and its dW share; the forward in K1's pair-major form, the dW on K11's
+  tile core.
 
 ``dense_subm_conv`` is a ``torch.autograd.Function`` whose backward runs
 K10 for dX (the mirror identity of ``_chunked_conv_bwd``: the same conv of
@@ -96,6 +105,9 @@ class BlockTables:
     # (occupancy, its occupied-row list), filled by ``row_list``
     rows: Optional[Tuple[torch.Tensor, "RowList"]] = field(
         default=None, repr=False, compare=False)
+    # k -> (occupancy, its live-pair list), filled by ``live_pairs``
+    live: Dict[int, Tuple[torch.Tensor, "LivePairs"]] = field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def num_blocks(self) -> int:
@@ -384,11 +396,168 @@ def dilation(tables: BlockTables, occ: torch.Tensor, k: int
     return hit[1], hit[2]
 
 
+# ---------------------------------------------------------------------------
+# the live-pair path: K10 and K11 where the input is zero outside the
+# occupancy (the dense stem)
+# ---------------------------------------------------------------------------
+
+class LivePairs(NamedTuple):
+    """The live pairs of an occupied-row list: per offset o, in list order,
+    the listed rows whose source cell (through the block halo) is occupied.
+    Pair j of offset o is ``(src[o, j], dst[o, j])``; ``map[o, i]`` is the
+    pair of listed row i at o, -1 where its source is unoccupied or
+    absent."""
+    src: torch.Tensor       # (n_off, cap) int32 source rows; past the
+    #                         count -1 (plain version) or unspecified
+    dst: torch.Tensor       # (n_off, cap) int32 listed rows, the same
+    map: torch.Tensor       # (n_off, cap) int32; past the row count -1
+    #                         (plain version) or unspecified
+    counts: torch.Tensor    # (n_off,) int32
+    rows: RowList           # the occupied-row list it was built on
+    ws: Optional[torch.Tensor]   # block_live_pairs' workspace, None on the
+    #                              CPU
+
+
+def live_workspace_size(n_off: int, cap: int) -> int:
+    """``block_live_pairs``' int32 workspace: src, dst and map, the counts,
+    a ticket, the list passes' per-block counts and the count pass's bits
+    (a word per 32 listed rows)."""
+    blocks = max(1, -(-cap // LIST_ROWS))
+    return 3 * n_off * cap + n_off + 1 + n_off * blocks * (1 + LIST_ROWS // 32)
+
+
+def live_capacity(tables: BlockTables) -> int:
+    """The listed rows a level's live-pair list holds: its occupied rows
+    are distinct voxels' slots (``vox_slot`` is injective), so at most the
+    level's voxel capacity."""
+    return min(tables.slot_vox.shape[0], tables.vox_slot.shape[0])
+
+
+def live_pairs_plain(rows: RowList, occ: torch.Tensor,
+                     block_nbr: torch.Tensor, edge: int, k: int, cap: int
+                     ) -> LivePairs:
+    """Plain version of ``block_live_pairs``."""
+    n = int(rows.count)
+    listed = rows.rows[:n]
+    h = (k - 1) // 2
+    n_off = k ** 3
+    src = torch.full((n_off, cap), -1, dtype=torch.int32, device=occ.device)
+    dst, pmap = src.clone(), src.clone()
+    counts = torch.zeros(n_off, dtype=torch.int32, device=occ.device)
+    for o, shift in enumerate(itertools.product(range(-h, h + 1), repeat=3)):
+        s = halo_rows_plain(listed, block_nbr, edge, shift)
+        live = (s >= 0) & occ[s.clamp(min=0).long()]
+        c = int(live.sum())
+        src[o, :c], dst[o, :c] = s[live], listed[live]
+        pmap[o, :n] = torch.where(live, torch.cumsum(live, 0) - 1, -1).to(
+            torch.int32)
+        counts[o] = c
+    return LivePairs(src, dst, pmap, counts, rows, None)
+
+
+def live_in(ws: torch.Tensor, n_off: int, cap: int, rows: RowList
+            ) -> LivePairs:
+    """The ``LivePairs`` of ``rows`` whose workspace is ``ws``."""
+    n = n_off * cap
+    return LivePairs(ws[:n].view(n_off, cap), ws[n:2 * n].view(n_off, cap),
+                     ws[2 * n:3 * n].view(n_off, cap),
+                     ws[3 * n:3 * n + n_off], rows, ws)
+
+
+def live_pair_list(rows: RowList, occ: torch.Tensor, block_nbr: torch.Tensor,
+                   edge: int, k: int, cap: Optional[int] = None) -> LivePairs:
+    """The live pairs of ``rows``, the row list of ``occ``: on the card one
+    pass over the list (two launches, ``block_live_pairs``), the counts
+    left there.  ``cap`` bounds the list's count (``live_capacity``; the
+    list's own capacity when not given)."""
+    n_rows = occ.shape[0]
+    cap = n_rows if cap is None else cap
+    if edge not in EDGES or k not in KERNEL_SIZES or not 0 <= cap <= n_rows \
+            or occ.dtype != torch.bool or rows.rows.shape[0] != n_rows:
+        raise ValueError(f"live_pair_list: {n_rows} rows, edge {edge}, k {k},"
+                         f" cap {cap}")
+    if occ.device.type == "cpu":
+        return live_pairs_plain(rows, occ, block_nbr, edge, k, cap)
+    _require_cuda("live_pair_list", occ, block_nbr)
+    if rows.ws is None:
+        raise ValueError("live_pair_list: rows must be the card's row list")
+    n_off = k ** 3
+    ws = torch.empty(live_workspace_size(n_off, cap), dtype=torch.int32,
+                     device=occ.device)
+    lib = cuda_build.library("block_conv")
+    cuda_build.check(lib.block_live_pairs(
+        rows.ws.data_ptr(), occ.data_ptr(), block_nbr.data_ptr(),
+        ws.data_ptr(), block_nbr.shape[1], edge, k, cap,
+        cuda_build.stream_ptr(occ)), "block_live_pairs")
+    live_pair_list.launches += 1
+    return live_in(ws, n_off, cap, rows)
+
+
+live_pair_list.launches = 0
+
+
+def live_pairs(tables: BlockTables, occ: torch.Tensor, k: int) -> LivePairs:
+    """The live-pair list of ``occ``'s row list on ``tables``, kept on the
+    tables: built once per level and step for the stem's forward (K10) and
+    its weight gradient (K11)."""
+    hit = tables.live.get(k)
+    if hit is None or hit[0] is not occ:
+        hit = (occ, live_pair_list(row_list(tables, occ), occ,
+                                   tables.block_nbr, tables.edge, k,
+                                   live_capacity(tables)))
+        tables.live[k] = hit
+    return hit[1]
+
+
+def block_conv_live_plain(feats: torch.Tensor, weights: torch.Tensor,
+                          pairs: LivePairs) -> torch.Tensor:
+    """Plain version of K10's live-pair path: per offset, ascending, its
+    live pairs' products ``feats[src] @ weights[o]`` in fp32 added to their
+    rows; every other row 0.  On an input zero outside the occupancy the
+    list was built on, ``dense_subm_conv_plain`` under that occupancy."""
+    xf, wf = as_sum_type(feats), as_sum_type(weights)
+    acc = xf.new_zeros(feats.shape[0], weights.shape[2])
+    for o in range(weights.shape[0]):
+        n = int(pairs.counts[o])
+        acc.index_add_(0, pairs.dst[o, :n].long(),
+                       xf[pairs.src[o, :n].long()] @ wf[o])
+    return acc.to(feats.dtype)
+
+
+def block_wgrad_live_plain(feats: torch.Tensor, dy: torch.Tensor,
+                           pairs: LivePairs) -> torch.Tensor:
+    """Plain version of K11's live-pair path: ``dW[o] = feats[src]^T @
+    dy[dst]`` over offset o's live pairs, fp32.  On an input zero outside
+    the occupancy the list was built on, ``block_wgrad_plain``."""
+    xf, dyf = as_sum_type(feats), as_sum_type(dy)
+    n_off = pairs.src.shape[0]
+    dw = xf.new_zeros(n_off, feats.shape[1], dy.shape[1])
+    for o in range(n_off):
+        n = int(pairs.counts[o])
+        dw[o] = xf[pairs.src[o, :n].long()].T @ dyf[pairs.dst[o, :n].long()]
+    return dw
+
+
+def _live_list(live_list, rows, occ, block_nbr, edge, k):
+    """The call's live-pair list: the caller's, else one built here on
+    ``rows`` (or on a row list built here) at the rows' capacity."""
+    if live_list is not None:
+        if live_list.src.shape[0] != k ** 3 or (
+                occ.is_cuda and live_list.ws is None):
+            raise ValueError("the live-pair list does not match the call")
+        return live_list
+    if rows is None or (occ.is_cuda and rows.ws is None):
+        rows = _row_list(occ)
+    return live_pair_list(rows, occ, block_nbr, edge, k)
+
+
 def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
                weights: torch.Tensor, occ: Optional[torch.Tensor],
                edge: int, rows: Optional[RowList] = None,
                narrow: Optional[bool] = None,
-               groups: Optional[int] = None) -> torch.Tensor:
+               groups: Optional[int] = None, zero_outside: bool = False,
+               live: Optional[bool] = None,
+               live_list: Optional[LivePairs] = None) -> torch.Tensor:
     """Submanifold conv of flat dense rows with each block halo-padded from
     its shell neighbours: ``out[c] = sum_o halo[c + o] @ weights[o]``,
     zero at unoccupied cells when ``occ`` is given.
@@ -404,13 +573,36 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     warpgroup core; where a level's tiles are too few to fill the card it
     cuts each tile's offsets into groups whose fp32 partials a second
     launch adds in order, into a scratch allocated here at the level's
-    capacity (``groups``: at most this many, where a test asks)."""
+    capacity (``groups``: at most this many, where a test asks).
+
+    ``zero_outside``: the caller states that ``feats`` is zero at every row
+    outside ``occ`` (the dense stem's input, straight from
+    ``scatter_to_dense``).  Where ``narrow.live_path`` then takes the shape
+    (the k5 stem; or ``live``, where a benchmark or test forces a path) the
+    conv runs over the live pairs of ``occ``'s row list only (``live_list``,
+    ``live_pairs``; built inside the call when not given): each offset's
+    pairs in items of 64, their products into a pair-major (k^3 * cap,
+    Cout rounded up to the column tile) fp32 scratch allocated here, then
+    each row's products added in ascending offset order.  Pairs whose
+    source is unoccupied carry exact zeros and are skipped, so the result
+    is the conv's.  On the CPU that path's plain version runs."""
     n_off, cin, cout = weights.shape
     _check_layout("block_conv", feats, block_nbr, n_off, edge, cin)
     if torch.compiler.is_exporting():
         from segdino3d_tpu_torch.ops import custom_ops
         return custom_ops.block_conv(feats, block_nbr, weights, occ, edge,
                                      rows)
+    k = kernel_size(n_off)
+    if zero_outside and occ is None:
+        raise ValueError("block_conv: zero_outside needs occ")
+    narrow = N.pick(narrow, n_off, cin, cout, feats.dtype, "block_conv") \
+        if feats.dtype in (torch.float32, torch.bfloat16) else False
+    live = N.pick_live(live, narrow, n_off, cin, cout, feats.dtype,
+                       zero_outside, "block_conv")
+    if live:
+        live_list = _live_list(live_list, rows, occ, block_nbr, edge, k)
+        if feats.device.type == "cpu":
+            return block_conv_live_plain(feats, weights, live_list)
     if feats.device.type == "cpu":
         return dense_subm_conv_plain(feats, block_nbr, weights, occ, edge)
     _require_cuda("block_conv", feats, block_nbr, weights,
@@ -421,7 +613,6 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
                         "block_nbr must be int32 and occ bool")
     b = block_nbr.shape[1]
     n_rows = b * edge ** 3
-    narrow = N.pick(narrow, n_off, cin, cout, feats.dtype, "block_conv")
     if rows is not None and (occ is None or rows.ws is None
                              or rows.rows.shape[0] != n_rows):
         raise ValueError("block_conv: rows must be the card's row list of "
@@ -429,6 +620,21 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     out = (torch.empty if occ is None else torch.zeros)(
         n_rows, cout, dtype=feats.dtype, device=feats.device)
     lib = cuda_build.library("block_conv")
+    if live:
+        N.count_element_loads(feats, weights)
+        dtype = cuda_build.dtype_code(feats.dtype)
+        cap = live_list.src.shape[1]
+        partial = torch.empty(n_off * cap,
+                              lib.block_conv_live_stride(cout, dtype),
+                              dtype=torch.float32, device=feats.device)
+        cuda_build.check(lib.block_conv_live(
+            feats.data_ptr(), weights.data_ptr(), live_list.rows.ws.data_ptr(),
+            live_list.ws.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            n_rows, cap, k, cin, cout, dtype, cuda_build.stream_ptr(feats)),
+            "block_conv_live")
+        block_conv.launches += 1
+        block_conv.live.launches += 1
+        return out
     split_cap, scratch = 1, None
     if feats.dtype == torch.bfloat16 and not narrow:
         split_cap = groups or _split_cap(lib, b, edge, kernel_size(n_off),
@@ -476,6 +682,7 @@ def _split_cap(lib, b, edge, k, cout):
 
 block_conv.launches = 0
 block_conv.narrow = types.SimpleNamespace(launches=0)   # of them narrow
+block_conv.live = types.SimpleNamespace(launches=0)     # of them live-pair
 block_conv.own_lists = 0     # calls that built their row list themselves
 
 
@@ -540,7 +747,9 @@ def block_wgrad_rows_plain(feats: torch.Tensor, dy: torch.Tensor,
 def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
                 block_nbr: torch.Tensor, occ: torch.Tensor, edge: int,
                 k: int, rows: Optional[RowList] = None,
-                narrow: Optional[bool] = None) -> torch.Tensor:
+                narrow: Optional[bool] = None, zero_outside: bool = False,
+                live: Optional[bool] = None,
+                live_list: Optional[LivePairs] = None) -> torch.Tensor:
     """``dW[o] = sum over occupied cells c of halo[c + o]^T @ dy[c]`` as
     (k^3, Cin, Cout) fp32.
 
@@ -549,13 +758,26 @@ def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
     list (``row_list``), built here when not given.  The kernel reduces
     the listed rows only, on the narrow path where
     ``narrow.narrow_wgrad_path`` of the shape says so (or ``narrow``,
-    where a benchmark or test forces one path)."""
+    where a benchmark or test forces one path).  ``zero_outside``: the
+    caller states ``feats`` zero outside ``occ``; where
+    ``narrow.live_path`` then takes the shape (or ``live`` forces it) the
+    kernel reduces the live pairs alone (``live_list``, as ``block_conv``
+    takes it), on the CPU that path's plain version."""
     cin, cout = feats.shape[1], dy.shape[1]
     _check_layout("block_wgrad", feats, block_nbr, k ** 3, edge, cin)
     if tuple(dy.shape) != (feats.shape[0], cout) or \
             tuple(occ.shape) != (feats.shape[0],):
         raise ValueError(f"block_wgrad: dy {tuple(dy.shape)}, occ "
                          f"{tuple(occ.shape)}")
+    narrow = N.pick(narrow, k ** 3, cin, cout, feats.dtype, "block_wgrad",
+                    wgrad=True) \
+        if feats.dtype in (torch.float32, torch.bfloat16) else False
+    live = N.pick_live(live, narrow, k ** 3, cin, cout, feats.dtype,
+                       zero_outside, "block_wgrad", wgrad=True)
+    if live:
+        live_list = _live_list(live_list, rows, occ, block_nbr, edge, k)
+        if feats.device.type == "cpu":
+            return block_wgrad_live_plain(feats, dy, live_list)
     if feats.device.type == "cpu":
         return block_wgrad_plain(feats, dy, block_nbr, occ, edge, k)
     _require_cuda("block_wgrad", feats, dy, block_nbr, occ)
@@ -563,14 +785,30 @@ def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
             occ.dtype != torch.bool:
         raise TypeError("block_wgrad: feats and dy must share a dtype, "
                         "block_nbr must be int32 and occ bool")
+    lib = cuda_build.library("block_wgrad")
+    if live:
+        cap = live_list.src.shape[1]
+        splits = wgrad_splits(cap, k ** 3, cin, cout)
+        out = torch.empty(k ** 3, cin, cout, dtype=torch.float32,
+                          device=feats.device)
+        partial = out if splits == 1 else torch.empty(
+            splits, k ** 3, cin, cout, dtype=torch.float32,
+            device=feats.device)
+        N.count_element_loads(feats, dy)
+        cuda_build.check(lib.block_wgrad_live(
+            feats.data_ptr(), dy.data_ptr(), live_list.ws.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), cap, k, cin, cout, splits,
+            cuda_build.dtype_code(feats.dtype), cuda_build.stream_ptr(feats)),
+            "block_wgrad_live")
+        block_wgrad.launches += 1
+        block_wgrad.live.launches += 1
+        return out
     if rows is None:
         rows = _row_list(occ)
     elif rows.ws is None or rows.rows.shape[0] != occ.shape[0]:
         raise ValueError("block_wgrad: rows must be the card's row list of "
                          "occ")
     b = block_nbr.shape[1]
-    narrow = N.pick(narrow, k ** 3, cin, cout, feats.dtype, "block_wgrad",
-                    wgrad=True)
     splits = wgrad_splits(occ.shape[0], k ** 3, cin, cout)
     out = torch.empty(k ** 3, cin, cout, dtype=torch.float32,
                       device=feats.device)
@@ -578,7 +816,6 @@ def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
         splits, k ** 3, cin, cout, dtype=torch.float32, device=feats.device)
     if not narrow:
         N.count_element_loads(feats, dy)
-    lib = cuda_build.library("block_wgrad")
     entry = lib.block_wgrad_narrow if narrow else lib.block_wgrad
     cuda_build.check(entry(
         feats.data_ptr(), dy.data_ptr(), block_nbr.data_ptr(),
@@ -593,6 +830,7 @@ def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
 
 block_wgrad.launches = 0
 block_wgrad.narrow = types.SimpleNamespace(launches=0)   # of them narrow
+block_wgrad.live = types.SimpleNamespace(launches=0)     # of them live-pair
 
 
 class _DenseSubmConv(torch.autograd.Function):
@@ -600,15 +838,22 @@ class _DenseSubmConv(torch.autograd.Function):
     involutive (``nbr_d[i] = j <=> nbr_{-d}[j] = i``), so dX is the same
     conv (K10) of the masked cotangent with offset-flipped, transposed
     weights, computed on the k-dilation of the occupancy (zero outside it,
-    as the unmasked conv is there), and dW is K11."""
+    as the unmasked conv is there), and dW is K11.  With ``zero_outside``
+    (the input zero outside the occupancy) the forward and dW run on the
+    live-pair path where its rule takes the shape, sharing one list."""
 
     @staticmethod
-    def forward(ctx, feats, occ, tables, weights):
+    def forward(ctx, feats, occ, tables, weights, zero_outside):
         ctx.save_for_backward(feats, occ, weights)
         ctx.tables = tables
+        ctx.zero_outside = zero_outside = bool(zero_outside) and \
+            not torch.compiler.is_exporting()
+        n_off, cin, cout = weights.shape
         rows = row_list(tables, occ) if feats.is_cuda else None
+        live = live_pairs(tables, occ, kernel_size(n_off)) if N.live_path(
+            n_off, cin, cout, feats.dtype, zero_outside) else None
         return block_conv(feats, tables.block_nbr, weights, occ, tables.edge,
-                          rows)
+                          rows, zero_outside=zero_outside, live_list=live)
 
     @staticmethod
     def backward(ctx, dout):
@@ -622,15 +867,21 @@ class _DenseSubmConv(torch.autograd.Function):
                             mask, t.edge, rows if dy.is_cuda else None)
         if ctx.needs_input_grad[3]:
             rows = row_list(t, occ) if feats.is_cuda else None
-            dw = block_wgrad(feats, dy, t.block_nbr, occ, t.edge, k,
-                             rows).to(weights.dtype)
-        return dx, None, None, dw
+            live = live_pairs(t, occ, k) if N.live_path(
+                k ** 3, feats.shape[1], dy.shape[1], feats.dtype,
+                ctx.zero_outside, wgrad=True) else None
+            dw = block_wgrad(feats, dy, t.block_nbr, occ, t.edge, k, rows,
+                             zero_outside=ctx.zero_outside,
+                             live_list=live).to(weights.dtype)
+        return dx, None, None, dw, None
 
 
 def dense_subm_conv(dense_flat: torch.Tensor, occ: torch.Tensor,
-                    tables: BlockTables, weights: torch.Tensor
-                    ) -> torch.Tensor:
+                    tables: BlockTables, weights: torch.Tensor,
+                    zero_outside: bool = False) -> torch.Tensor:
     """Submanifold conv on flat dense rows (B*edge^3, Cin) with weights
     (k^3, Cin, Cout) in canonical offset order; (B*edge^3, Cout), zero at
-    unoccupied cells."""
-    return _DenseSubmConv.apply(dense_flat, occ, tables, weights)
+    unoccupied cells.  ``zero_outside``: the caller states the input zero
+    at every unoccupied cell (``block_conv``)."""
+    return _DenseSubmConv.apply(dense_flat, occ, tables, weights,
+                                zero_outside)

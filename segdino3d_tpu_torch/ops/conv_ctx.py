@@ -18,6 +18,8 @@ for both:
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from segdino3d_tpu_torch.ops import block_dense as BD
@@ -66,17 +68,26 @@ class CompactStemCtx:
 class DenseCtx:
     """Block-dense execution: features live as (B*edge^3, C) flat rows;
     ``valid`` is the occupied-cell mask (K9 at the boundaries, K10 and K11
-    in the convs)."""
+    in the convs).  A conv whose input is the tensor ``enter`` returned
+    (the dense stem's) states that it is zero outside the occupancy
+    (``scatter_to_dense`` writes 0 at every empty cell), which lets K10
+    and K11 skip its unoccupied sources; every other conv's input has
+    passed a norm or an activation and states nothing."""
 
     def __init__(self, tables: BD.BlockTables):
         self.tables = tables
         self.valid = BD.occupancy(tables)
+        self._entered = None   # a weak reference to enter's last output
 
     def subm(self, feats, w):
-        return BD.dense_subm_conv(feats, self.valid, self.tables, w)
+        entered = self._entered is not None and self._entered() is feats
+        return BD.dense_subm_conv(feats, self.valid, self.tables, w,
+                                  zero_outside=entered)
 
     def enter(self, x):
-        return BD.scatter_to_dense(x, self.tables)
+        out = BD.scatter_to_dense(x, self.tables)
+        self._entered = weakref.ref(out)
+        return out
 
     def exit(self, x):
         return BD.gather_from_dense(x, self.tables)

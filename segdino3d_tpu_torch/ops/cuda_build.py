@@ -30,7 +30,8 @@ KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
            "voxel_compact", "slot_gather", "block_conv", "block_wgrad",
            "stem_slot_sum")
 _HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh",
-                                 "narrow_tile.cuh", "wgmma_tile.cuh"),
+                                 "narrow_tile.cuh", "wgmma_tile.cuh",
+                                 "pair_major.cuh"),
             "up_conv": ("gather_tile.cuh", "wgrad_tile.cuh"),
             "segment_mean_gather": (),
             "gather_wgrad": ("wgrad_tile.cuh", "narrow_tile.cuh",
@@ -39,8 +40,9 @@ _HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh",
             "coord_hash": ("coord_hash.cuh",),
             "neighbor_table": ("coord_hash.cuh",), "voxel_compact": (),
             "slot_gather": (),
-            "block_conv": ("block_tile.cuh", "narrow_tile.cuh",
-                           "wgmma_tile.cuh"),
+            "block_conv": ("block_tile.cuh", "gather_tile.cuh",
+                           "wgrad_tile.cuh", "narrow_tile.cuh",
+                           "wgmma_tile.cuh", "pair_major.cuh"),
             "block_wgrad": ("block_tile.cuh", "wgrad_tile.cuh",
                             "narrow_tile.cuh", "narrow_wgrad.cuh"),
             "stem_slot_sum": ()}
@@ -52,13 +54,16 @@ _ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
                  "coord_hash": ("coord_hash_build", "coord_hash_lookup"),
                  "gather_wgrad": ("gather_wgrad", "gather_pairs",
                                   "gather_wgrad_narrow", "narrow_wgrad_smem"),
-                 "block_wgrad": ("block_wgrad", "block_wgrad_narrow"),
+                 "block_wgrad": ("block_wgrad", "block_wgrad_narrow",
+                                 "block_wgrad_live"),
                  "segment_mean_gather": ("segment_mean_gather",
                                          "segment_csr_keys",
                                          "segment_csr_offsets"),
                  "neighbor_table": ("neighbor_tables", "empty_launch"),
                  "block_conv": ("block_conv", "block_conv_rows", "block_rows",
-                                "block_dilate", "block_conv_split_cap")}
+                                "block_dilate", "block_conv_split_cap",
+                                "block_live_pairs", "block_conv_live",
+                                "block_conv_live_stride")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -132,12 +137,22 @@ _SIGNATURES = {
     "block_rows": [_P, _P, _I, _P],
     # mask, block_nbr, out, ws, n_blocks, edge, k, stream
     "block_dilate": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # rows_ws, mask, block_nbr, live_ws, n_blocks, edge, k, cap, stream
+    "block_live_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # cout, dtype
+    "block_conv_live_stride": [_I, _I],
+    # x, w, rows_ws, live_ws, partial, out, n_rows, cap, k, cin, cout,
+    # dtype, stream
+    "block_conv_live": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, block_nbr, ws, partial, out, n_blocks, edge, k, cin, cout,
     # splits, dtype, stream
     "block_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # the same contract, the narrow path
     "block_wgrad_narrow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P],
+    # x, dy, live_ws, partial, out, cap, k, cin, cout, splits, dtype,
+    # stream
+    "block_wgrad_live": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # y2, slots, ov_src, ov_dst, valid, out, v, d, p, cout, dtype, stream
     "stem_slot_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

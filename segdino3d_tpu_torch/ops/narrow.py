@@ -1,7 +1,7 @@
 """K1's, K4's, K10's and K11's paths by the conv's shape: the narrow-input
-paths (when they run, and their shared memory), K1's bf16 path at the wide
-stems, the stems' aligned row pitch, and the count of calls that copy
-element by element.
+paths (when they run, and their shared memory), K10's and K11's live-pair
+path at the dense k5 stem, K1's bf16 path at the wide stems, the stems'
+aligned row pitch, and the count of calls that copy element by element.
 
 K1 (``sparse_conv.gather_conv``) and K10 (``block_dense.block_conv``) each
 have two paths on the card.  The wide one stages Cin in 32-channel slices
@@ -169,6 +169,43 @@ def pick(forced: Optional[bool], n_off: int, cin: int, cout: int, dtype,
     if forced and not fits(n_off, cin, cout, dtype):
         raise ValueError(f"{name}: the narrow path does not take {n_off} "
                          f"offsets x {cin} -> {cout} channels in {dtype}")
+    return forced
+
+
+# K10's and K11's live-pair path (``block_dense.block_conv`` and
+# ``block_wgrad`` with ``zero_outside``): a k5 conv whose caller states its
+# input zero outside the occupancy (the flagship's dense stem, 259 -> 32,
+# whose input comes straight from ``scatter_to_dense``), off the narrow
+# paths.  Every other block conv keeps the row-tile path: the k3 convs'
+# inputs are not promised zero there.
+LIVE_KERNEL_VOLUME = 125
+
+
+def live_path(n_off: int, cin: int, cout: int, dtype, zero_outside: bool,
+              wgrad: bool = False) -> bool:
+    """Whether K10 (K11 with ``wgrad``) runs this conv over its live
+    pairs: the caller states the input zero outside the occupancy, the
+    kernel is k5, and the narrow path does not take the shape."""
+    if not zero_outside or n_off != LIVE_KERNEL_VOLUME:
+        return False
+    rule = narrow_wgrad_path if wgrad else narrow_path
+    return dtype not in (torch.float32, torch.bfloat16) or \
+        not rule(n_off, cin, cout, dtype)
+
+
+def pick_live(forced: Optional[bool], narrow: bool, n_off: int, cin: int,
+              cout: int, dtype, zero_outside: bool, name: str,
+              wgrad: bool = False) -> bool:
+    """The path a wrapper takes: ``live_path`` of the shape and the
+    caller's statement, or the one a benchmark or test forces, which the
+    live-pair path takes only on an input stated zero outside the
+    occupancy and off the narrow path."""
+    if forced is None:
+        return not narrow and live_path(n_off, cin, cout, dtype, zero_outside,
+                                        wgrad)
+    if forced and (narrow or not zero_outside):
+        raise ValueError(f"{name}: the live-pair path takes an input stated "
+                         "zero outside the occupancy, off the narrow path")
     return forced
 
 

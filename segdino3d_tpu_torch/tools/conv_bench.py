@@ -49,6 +49,22 @@ and a digest of the output, so that two checkouts timed in one call show
 which outputs are bit-equal (every fp32 one should be).  Only the tools'
 older helpers of ``chip_smoke.py`` are used, so the file runs in an older
 checkout too (copy it into that checkout's ``tools/``).
+
+    python -m segdino3d_tpu_torch.tools.conv_bench --live
+
+times the flagship's stem forward (k5, 259 -> 32; bf16 at the aligned
+pitch 264) in the forms its steps run: K10 on the hybrid plan's level-0
+blocks for an input zero outside the occupancy (block-dense training
+plans), on the live-pair path (the level's live-pair list built before
+the timing) and on the row-tile path forced (``block_conv(..., live=)``),
+with K1 on the stem table (gather plans) beside them; each path held to
+its plain version (fp32 1e-4, bf16 1e-2), with the samples' minimum and
+median, the library call (K10: the halo assembly and cuDNN ``conv3d``;
+K1: a gather and one cuBLAS GEMM), the bound of the live pairs, a digest
+of the output and the live-pair list's build.  In a checkout whose
+wrapper takes no ``zero_outside`` the default path alone is timed (copy
+this file and ``wgrad_bench.py``, whose runner it uses, into that
+checkout's ``tools/``).
 """
 from __future__ import annotations
 
@@ -213,6 +229,80 @@ def digest(t):
                         ).hexdigest()[:12]
 
 
+def live_cases(plan, hybrid, gen):
+    """[(name, dtype, {path: call}, plain call, library call, ops, bytes)]
+    of the flagship's stem forward: K10 on level 0's blocks (the live-pair
+    and the row-tile path, where this checkout has both), K1 on the stem
+    table."""
+    import chip_smoke as C
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+    from segdino3d_tpu_torch.tools import wgrad_bench as WB
+
+    lv = plan.levels[0]
+    nbr, valid, v0 = plan.stem_nbr, lv.valid, lv.valid.shape[0]
+    t = hybrid.blocks[0]
+    occ = BD.occupancy(t)
+    rows = BD.row_list(t, occ)
+    e, b = t.edge, t.num_blocks
+    live = int((nbr >= 0).sum())
+    need = WB.live_pair_count(t, occ)
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        x = C.pitched(torch.where(occ[:, None], torch.randn(
+            occ.shape[0], 259, generator=gen, device="cuda"), 0.0).to(dt), 1)
+        w = C.pitched((torch.randn(125, 259, 32, generator=gen,
+                                   device="cuda") * (125 * 259) ** -0.5
+                       ).to(dt), 1)
+        ci = x.shape[1]
+        paths = {"default": lambda x=x, w=w: BD.block_conv(
+            x, t.block_nbr, w, occ, e, rows)}
+        if WB.takes_live(BD.block_conv):
+            lp = BD.live_pairs(t, occ, 5)
+            paths = {"live-pair": lambda x=x, w=w, lp=lp: BD.block_conv(
+                         x, t.block_nbr, w, occ, e, rows, zero_outside=True,
+                         live_list=lp),
+                     "row-tile (forced)": lambda x=x, w=w: BD.block_conv(
+                         x, t.block_nbr, w, occ, e, rows, live=False),
+                     "live-pair list build": lambda: BD.live_pair_list(
+                         rows, occ, t.block_nbr, e, 5, BD.live_capacity(t))}
+        wc = w.reshape(5, 5, 5, ci, 32).permute(4, 3, 0, 1, 2).contiguous()
+
+        def lib(x=x, wc=wc, ci=ci):
+            p = C.to_ncdhw(BD.halo_pad_plain(x.reshape(b, e, e, e, ci),
+                                             t.block_nbr, 2))
+            return torch.nn.functional.conv3d(p, wc)
+
+        out.append((
+            f"K10 dense stem k5 259->32 L0 (x at {ci}), {int(occ.sum())} "
+            f"occupied rows, {need} live pairs", dt, paths,
+            lambda x=x, w=w: BD.dense_subm_conv_plain(x, t.block_nbr, w, occ,
+                                                      e),
+            lib, 2.0 * need * 259 * 32,
+            C.nbytes(x, w) + 4 * int(occ.sum())
+            + occ.shape[0] * 32 * x.element_size()))
+        xv = C.pitched(torch.where(valid[:, None], torch.randn(
+            v0, 259, generator=gen, device="cuda"), 0.0).to(dt), 1)
+        out.append((
+            f"K1 stem k5 259->32 L0 (x at {xv.shape[1]}, the gather "
+            f"layout's; {live} live pairs)", dt,
+            {"default": lambda x=xv, w=w: SC.gather_conv(x, nbr, w, valid)},
+            lambda x=xv, w=w: SC.gather_conv_plain(x, nbr, w, valid),
+            lambda x=xv, w=w: C.conv_library(x, nbr, w),
+            2.0 * live * 259 * 32,
+            C.nbytes(xv, nbr, w, valid) + v0 * 32 * xv.element_size()))
+    return out
+
+
+def conv_held(got, want, dt):
+    """(max |got - want|, whether it is within rtol = atol = 1e-4 in fp32,
+    1e-2 in bf16)."""
+    tol = 1e-4 if dt == torch.float32 else 1e-2
+    err = float((got.float() - want.float()).abs().max())
+    return err, bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                    atol=tol))
+
+
 def bf16_cases(plan, hybrid, gen):
     """(name, dtype, kernel call, plain call or None, library call or None,
     operations, bytes)"""
@@ -356,6 +446,9 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--narrow", action="store_true",
                     help="K1 and K10, wide against narrow path, by Cin")
+    ap.add_argument("--live", action="store_true",
+                    help="the flagship stem's forward, K10's live-pair "
+                    "path against its row-tile path, K1 beside them")
     ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32",
                     help="bf16: the bf16 backbone's K1, K10, K4 and K11 "
                     "cases, each beside its fp32 run")
@@ -369,6 +462,7 @@ def main() -> int:
     from segdino3d_tpu_torch.ops import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     cuda_build.build_all(("gather_gemm_conv", "gather_wgrad", "block_conv",
                           "block_wgrad"))
     print(subprocess.run(
@@ -384,6 +478,15 @@ def main() -> int:
     print(f"voxels per level {[int(t.valid.sum()) for t in plan.levels]}, "
           f"caps {[t.valid.shape[0] for t in plan.levels]}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.live:
+        from segdino3d_tpu_torch.tools import wgrad_bench as WB
+
+        hybrid = attach_host_plan(collate(records, spec, "cuda"), records,
+                                  spec, level_cap_ratios=C.LEVEL_CAP_RATIOS,
+                                  **C.plan_layout("hybrid")).plan
+        WB.run_stem(live_cases(plan, hybrid, gen), args.rounds, args.reps,
+                    held=conv_held)
+        return 0
     if args.narrow or args.dtype == "bf16":
         hybrid = attach_host_plan(collate(records, spec, "cuda"), records,
                                   spec, level_cap_ratios=C.LEVEL_CAP_RATIOS,

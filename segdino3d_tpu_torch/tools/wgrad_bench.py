@@ -31,6 +31,21 @@ Then a crossing sweep: K4 and K11, wide against narrow, at Cin 1, 2, 3, 4
 and 8 into 32 channels, k 3 and 5, fp32 and bf16, medians of ``rounds``
 samples; the crossing, where the narrow path stops winning, is the dW
 rule's (``ops/narrow.py:narrow_wgrad_path``).
+
+    python -m segdino3d_tpu_torch.tools.wgrad_bench --live
+
+times the flagship's stem dW (k5, 259 -> 32; bf16 at the aligned pitch
+264) in the forms its training steps run: K11 on the hybrid plan's level-0
+blocks for an input zero outside the occupancy (block-dense plans), on
+the live-pair path (the level's live-pair list built before the timing,
+as a step builds it once) and on the row-tile path forced (``live=``),
+and K4 mirrored with dY gathered on the stem table (gather host plans)
+beside them; each path held to its plain version, with the samples'
+minimum and median, the library call, the bound of the live pairs, a
+digest of the output (fp32 digests of one path match across checkouts)
+and the live-pair list's build.  In a checkout whose wrappers take no
+``zero_outside`` the default path alone is timed, so the file runs in an
+older checkout too (copy it into that checkout's ``tools/``).
 """
 from __future__ import annotations
 
@@ -54,6 +69,95 @@ DEVICE = "cuda"
 def takes_narrow(fn) -> bool:
     """Whether a wrapper of this checkout takes ``narrow=``."""
     return "narrow" in inspect.signature(fn).parameters
+
+
+def takes_live(fn) -> bool:
+    """Whether a wrapper of this checkout takes ``zero_outside=``."""
+    return "zero_outside" in inspect.signature(fn).parameters
+
+
+def live_pair_count(t, occ, k=5) -> int:
+    """The (occupied row, offset) pairs whose source cell is occupied."""
+    from segdino3d_tpu_torch.ops import block_dense as BD
+
+    h, need = (k - 1) // 2, 0
+    r = torch.nonzero(occ).flatten()
+    for s in itertools.product(range(-h, h + 1), repeat=3):
+        src = BD.halo_rows_plain(r, t.block_nbr, t.edge, s)
+        need += int(((src >= 0) & occ[src.clamp(min=0).long()]).sum())
+    return need
+
+
+def digest(t):
+    import hashlib
+
+    return hashlib.sha1(t.detach().float().cpu().numpy().tobytes()
+                        ).hexdigest()[:12]
+
+
+def live_cases(plan, hybrid, gen):
+    """[(name, dtype, {path: call}, plain call, library call, ops, bytes)]
+    of the flagship's stem dW: K11 on level 0's blocks (the live-pair and
+    the row-tile path, where this checkout has both), K4 on the stem
+    table."""
+    import chip_smoke as C
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    lv = plan.levels[0]
+    nbr, v0 = plan.stem_nbr, lv.valid.shape[0]
+    t = hybrid.blocks[0]
+    occ = BD.occupancy(t)
+    rows = BD.row_list(t, occ)
+    e, b = t.edge, t.num_blocks
+    live = int((nbr >= 0).sum())
+    need = live_pair_count(t, occ)
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        xd = C.pitched(torch.where(occ[:, None], torch.randn(
+            occ.shape[0], 259, generator=gen, device=DEVICE), 0.0).to(dt), 1)
+        dyd = torch.where(occ[:, None], torch.randn(
+            occ.shape[0], 32, generator=gen, device=DEVICE), 0.0).to(dt)
+        ci = xd.shape[1]
+        paths = {"default": lambda x=xd, dy=dyd: BD.block_wgrad(
+            x, dy, t.block_nbr, occ, e, 5, rows)}
+        if takes_live(BD.block_wgrad):
+            lp = BD.live_pairs(t, occ, 5)
+            paths = {"live-pair": lambda x=xd, dy=dyd, lp=lp: BD.block_wgrad(
+                         x, dy, t.block_nbr, occ, e, 5, rows,
+                         zero_outside=True, live_list=lp),
+                     "row-tile (forced)": lambda x=xd, dy=dyd: BD.block_wgrad(
+                         x, dy, t.block_nbr, occ, e, 5, rows, live=False),
+                     "live-pair list build": lambda: BD.live_pair_list(
+                         rows, occ, t.block_nbr, e, 5, BD.live_capacity(t))}
+
+        def lib(x=xd, dy=dyd, ci=ci):
+            p = C.to_ncdhw(BD.halo_pad_plain(x.reshape(b, e, e, e, ci),
+                                             t.block_nbr, 2))
+            return torch.nn.grad.conv3d_weight(
+                p, (32, ci, 5, 5, 5), C.to_ncdhw(dy.reshape(b, e, e, e, 32)))
+
+        out.append((
+            f"K11 stem dW k5 259->32 L0 (x at {ci}), {int(occ.sum())} "
+            f"occupied rows, {need} pairs with an occupied source", dt,
+            paths, lambda x=xd, dy=dyd: BD.block_wgrad_plain(
+                x, dy, t.block_nbr, occ, e, 5),
+            lib, 2.0 * need * 259 * 32,
+            C.nbytes(xd, dyd, t.block_nbr, occ) + 125 * ci * 32 * 4))
+        x = C.pitched(torch.where(lv.valid[:, None], torch.randn(
+            v0, 259, generator=gen, device=DEVICE), 0.0).to(dt), 1)
+        dy = torch.where(lv.valid[:, None], torch.randn(
+            v0, 32, generator=gen, device=DEVICE), 0.0).to(dt)
+        out.append((
+            f"K4 stem dW k5 259->32 L0 (x at {x.shape[1]}; dY gathered, "
+            f"mirrored, as the gather step runs it; {live} live pairs)", dt,
+            {"default": lambda x=x, dy=dy: SC.gather_wgrad(
+                x, None, dy, nbr, mirror=True)},
+            lambda x=x, dy=dy: SC.gather_wgrad_plain(x, None, dy, nbr, 125,
+                                                     v0, True),
+            lambda x=x, dy=dy: C.wgrad_library(x, None, dy, nbr, True),
+            2.0 * live * 259 * 32, C.nbytes(x, nbr, dy) + 125 * 259 * 32 * 4))
+    return out
 
 
 def stem_cases(plan, hybrid, gen):
@@ -131,17 +235,22 @@ def held(got, want, dt):
     return err, err <= tol * float(want.abs().max())
 
 
-def run_stem(plan, hybrid, gen, rounds, reps):
-    """The Baseline stem cases: every path held to the plain version, then
-    the paths timed in turn."""
+def run_stem(cases, rounds, reps, held=held):
+    """Stem cases: every path held to the plain version (``held``; a path
+    named as a list build is only timed), then the paths timed in turn;
+    each output's digest printed."""
     import chip_smoke as C
 
-    for name, dt, paths, plain, lib, ops, byts in stem_cases(plan, hybrid,
-                                                             gen):
+    for name, dt, paths, plain, lib, ops, byts in cases:
         dts = str(dt).replace("torch.", "")
         want = plain()
+        digests = {}
         for path, fn in paths.items():
-            err, ok = held(fn(), want, dt)
+            if "list build" in path:
+                continue
+            got = fn()
+            digests[path] = digest(got)
+            err, ok = held(got, want, dt)
             if not ok:
                 raise SystemExit(f"{name} {dts} {path}: max_abs_err "
                                  f"{err:.3e} against the plain version")
@@ -157,7 +266,9 @@ def run_stem(plan, hybrid, gen, rounds, reps):
             print(f"stem {name} {dts} {path} path: min {t.min():.4f} ms, "
                   f"median {np.median(t):.4f} ms over {rounds} x {reps} "
                   f"calls; library {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
-                  f"({b_by})", flush=True)
+                  f"({b_by})"
+                  + (f"; output digest {digests[path]}" if path in digests
+                     else ""), flush=True)
 
 
 def crossing(plan, hybrid, gen, rounds, reps):
@@ -226,6 +337,9 @@ def main() -> int:
     ap.add_argument("--narrow", action="store_true",
                     help="the Baseline stem's dW, wide against narrow "
                     "path, and the crossing by Cin")
+    ap.add_argument("--live", action="store_true",
+                    help="the flagship stem's dW, the live-pair path "
+                    "against the row-tile path, K4 beside them")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("wgrad_bench: no CUDA device", file=sys.stderr)
@@ -253,8 +367,13 @@ def main() -> int:
                               level_cap_ratios=C.LEVEL_CAP_RATIOS,
                               **C.plan_layout("hybrid"))
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    if args.live:
+        run_stem(live_cases(batch.plan, hybrid.plan, gen), args.rounds,
+                 args.reps)
+        return 0
     if args.narrow:
-        run_stem(batch.plan, hybrid.plan, gen, args.rounds, args.reps)
+        run_stem(stem_cases(batch.plan, hybrid.plan, gen), args.rounds,
+                 args.reps)
         if takes_narrow(SC.gather_wgrad):
             crossing(batch.plan, hybrid.plan, gen, args.rounds, args.reps)
         return 0

@@ -1543,3 +1543,129 @@ def test_narrow_wgrad_rule_and_shared_memory(levels, dtype):
     narrow = TBD.block_wgrad.narrow.launches
     TBD.block_wgrad(xd, dyd, t.block_nbr, occ, t.edge, 5)
     assert TBD.block_wgrad.narrow.launches == narrow + 1
+
+
+def _live_case(device, case):
+    """(BlockTables, occupancy) of a live-pair case: the small scene's
+    level 0, a level of one occupied cell in each of two far blocks (every
+    offset but the centre has no live pair), a grid with a block skipped
+    (blocks whose neighbours are absent), or 216 blocks (many items, K11's
+    splits)."""
+    if case == "scene":
+        t = _block_plan_on(device, [4] * 5).blocks[0]
+        return t, TBD.occupancy(t)
+    t = _box_tables(device, {"dead_offsets": (2, 2, 1),
+                             "absent_neighbours": (3, 2, 2),
+                             "splits": (6, 6, 6)}[case],
+                    skip=5 if case == "absent_neighbours" else None)
+    n = t.slot_vox.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    occ = torch.rand(n, generator=gen, device="cuda") < 0.3
+    if case == "dead_offsets":
+        occ[:] = False
+        occ[0] = occ[t.edge ** 3 + 21] = True
+    return t, occ.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["scene", "dead_offsets",
+                                  "absent_neighbours", "splits"])
+@pytest.mark.parametrize("cin", [259, 264, 35])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_live_stem_matches_plain(card, case, cin, dtype):
+    """K10's and K11's live-pair path (the dense k5 stem, Cout 32, its
+    input zero outside the occupancy; Cin 259, the bf16 pitch 264 and 35):
+    the list against its plain version, the conv and dW against their
+    plain versions and the row-tile path's, two calls bit-equal; in fp32
+    the conv is bit-equal to the row-tile path (the same per-offset
+    partials added in the same order, skipping exact zeros)."""
+    dt = getattr(torch, dtype)
+    t, occ = _live_case(card, case)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    n, cout = occ.shape[0], 32
+    x = torch.where(occ[:, None], torch.randn(n, cin, generator=gen,
+                                              device="cuda"), 0.0).to(dt)
+    w = (torch.randn(125, cin, cout, generator=gen, device="cuda")
+         * (125 * cin) ** -0.5).to(dt)
+    dy = torch.where(occ[:, None], torch.randn(n, cout, generator=gen,
+                                               device="cuda"), 0.0).to(dt)
+    rows = TBD.row_list(t, occ)
+    lists = TBD.live_pair_list.launches
+    lp = TBD.live_pair_list(rows, occ, t.block_nbr, t.edge, 5)
+    assert TBD.live_pair_list.launches == lists + 1
+    want_lp = TBD.live_pairs_plain(rows, occ, t.block_nbr, t.edge, 5,
+                                   lp.src.shape[1])
+    counts = want_lp.counts
+    assert torch.equal(lp.counts, counts)
+    for o in range(125):
+        c = int(counts[o])
+        assert torch.equal(lp.src[o, :c], want_lp.src[o, :c]), o
+        assert torch.equal(lp.dst[o, :c], want_lp.dst[o, :c]), o
+    n_list = int(rows.count)
+    assert torch.equal(lp.map[:, :n_list], want_lp.map[:, :n_list])
+    if case == "dead_offsets":
+        assert int((counts > 0).sum()) == 1 and int(counts[62]) == 2
+
+    launched = (TBD.block_conv.live.launches, TBD.block_wgrad.live.launches)
+    conv = [TBD.block_conv(x, t.block_nbr, w, occ, t.edge, rows,
+                           zero_outside=True, live_list=lp) for _ in range(2)]
+    tiles = TBD.block_conv(x, t.block_nbr, w, occ, t.edge, rows, live=False)
+    dws = [TBD.block_wgrad(x, dy, t.block_nbr, occ, t.edge, 5, rows,
+                           zero_outside=True, live_list=lp)
+           for _ in range(2)]
+    assert (TBD.block_conv.live.launches - launched[0],
+            TBD.block_wgrad.live.launches - launched[1]) == (2, 2)
+    want = TBD.dense_subm_conv_plain(x, t.block_nbr, w, occ, t.edge)
+    want_live = TBD.block_conv_live_plain(x, w, lp)
+    want_dw = TBD.block_wgrad_plain(x, dy, t.block_nbr, occ, t.edge, 5)
+    want_dw_live = TBD.block_wgrad_live_plain(x, dy, lp)
+    torch.cuda.synchronize()
+    assert torch.equal(*conv) and torch.equal(*dws)
+    tol = TOL[dtype]
+    for ref in (want, want_live, tiles):
+        torch.testing.assert_close(conv[0].float(), ref.float(), rtol=tol,
+                                   atol=tol)
+    if dtype == "float32":
+        assert torch.equal(conv[0], tiles)
+    for ref in (want_dw, want_dw_live):
+        torch.testing.assert_close(
+            dws[0], ref, rtol=0, atol=(1e-4 if dtype == "float32" else 1e-2)
+            * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_stem_backward_on_card_matches_cpu(card, dtype):
+    """The stem as the backbone runs it (``DenseCtx``: enter, then the
+    conv of the entered rows, which states them zero outside the
+    occupancy) on the card (the live-pair path, one list for the forward
+    and dW) and on the CPU (its plain versions): output and weight
+    gradient."""
+    dt = getattr(torch, dtype)
+    from segdino3d_tpu_torch.ops.conv_ctx import DenseCtx
+
+    gen = torch.Generator().manual_seed(25)
+    x0 = torch.randn(CAPS[0], 40, generator=gen).to(dt)
+    w0 = (torch.randn(125, 40, 32, generator=gen) * 40 ** -0.5).to(dt)
+    got = []
+    for dev in ("cuda", "cpu"):
+        t = _block_plan_on(dev, [4] * 5).blocks[0]
+        ctx = DenseCtx(t)
+        w = w0.to(dev).requires_grad_()
+        before = (TBD.block_conv.live.launches, TBD.block_wgrad.live.launches,
+                  TBD.live_pair_list.launches)
+        out = ctx.subm(ctx.enter(x0.to(dev)), w)
+        out.float().backward(torch.ones(out.shape, device=dev)
+                             * torch.linspace(-1, 1, 32, device=dev))
+        after = (TBD.block_conv.live.launches, TBD.block_wgrad.live.launches,
+                 TBD.live_pair_list.launches)
+        assert [a - b for a, b in zip(after, before)] == \
+            ([1, 1, 1] if dev == "cuda" else [0, 0, 0])
+        got.append([out.detach().float().cpu(), w.grad.float().cpu()])
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    torch.testing.assert_close(got[0][0], got[1][0], rtol=tol, atol=tol)
+    scale = float(got[1][1].abs().max())
+    torch.testing.assert_close(got[0][1], got[1][1], rtol=0,
+                               atol=(1e-4 if dtype == "float32" else 1e-2)
+                               * scale)
