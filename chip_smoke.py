@@ -28,17 +28,23 @@ Phases, in order; any failure exits non-zero before the result line:
    beside its host-bound CUDA-event time, as for the dilation below); the
    block-dense
    layout's kernels on the flagship config's block tables: K9 (slot
-   gather, both ways, equal), K10 (block conv at the occupied rows: k3
-   96->96 at level 0, k3 384->256 at level 3, the dense k5 stem 259->32,
-   fp32 and bf16, each on the level's cached row list, and its dX role
-   under the occupancy's k-dilation on the dilation's cached list, two
-   calls in a row bit-equal to each other and to a call that builds its
-   own list, held to the unmasked plain version on every cell; with the
-   bound of the pairs whose source is occupied, of its rows' work and of
-   the dense work, and the operations one call puts on the card), the
+   gather, both ways, equal), K10 (block conv at the occupied rows: every
+   distinct k3 conv of the 46 and the dense k5 stem 259->32, fp32 and
+   bf16, on the path ``narrow.live_path`` takes (the live-pair path over
+   the level's live-pair list, or the row tiles), the other path forced
+   and timed beside it, the live-pair path bit-equal to the row tiles in
+   fp32; its dX role under the occupancy's k-dilation at each level's most
+   frequent width, over the dilation's live-pair list, and on the rows
+   path two calls in a row bit-equal to each other and to a call that
+   builds its own list, held to the unmasked plain version on every cell;
+   with the bound of the pairs whose source is occupied, of the pair-major
+   buffer, of its rows' work and of the dense work, and the operations one
+   call puts on the card), the live-pair lists (k5 and k3 of the level-0
+   occupancy, k3 of its dilation) equal to their plain versions, the
    dilation kernel beside it (the mask and its row list equal to the plain
-   dilation's occupied rows) and K11 (its weight gradient: level 0 k3 and
-   the stem, over the level's cached occupied-row list), each with its
+   dilation's occupied rows) and K11 (its weight gradient: each level's k3
+   width and the stem, on the rule's path with the other beside it,
+   bit-equal in fp32), each with its
    bound from the cells this scene occupies (K11: of the pairs whose source
    is occupied, and of all pairs whose source block exists) and the row
    list's build timed beside it; K4 with the live pairs its compacted
@@ -85,17 +91,21 @@ Phases, in order; any failure exits non-zero before the result line:
    losses and gradient norm;
 3c. run the eval path on the flagship config's eval layout, the hybrid one
    (a gather k5 stem, block-dense convs everywhere else: kernels K9 and
-   K10 at the occupied rows): blocks and fill per level, scenes/s, ms per
-   stage, launches in one forward, peak memory; the backbone output within
-   3e-3 x max|.| of the gather layout's on the same scene and weights, and
-   the card against the CPU's plain path on a small hybrid scene;
+   K10 at the occupied rows, on live pairs in fp32): blocks and fill per
+   level, scenes/s, ms per stage, launches in one forward, peak memory;
+   the backbone output within 3e-3 x max|.| of the gather layout's on the
+   same scene and weights, every block conv's input zero outside the
+   occupancy (counted on the card), and the card against the CPU's plain
+   path on a small hybrid scene;
 4c. run batch-1 training steps on the config's training layout
    (block-dense everywhere, the k5 stem too: K9, K10 forward and as dX
-   under the dilation, the dilation, K11 and its row lists): s/step, ms
+   under the dilation, the dilation, K11, its row lists and the live-pair
+   lists; in fp32 every K10 and K11 call on live pairs): s/step, ms
    per stage, launches per step, K4's and K11's device time and K10's
    row-list launches in a profiled step (no conv may build its own list),
-   peak memory, finite losses and gradient norm, and the card
-   against the CPU on a small scene;
+   peak memory, finite losses and gradient norm, every block conv's input
+   zero outside the occupancy, and the card against the CPU on a small
+   scene;
 4d. run the training entry point from disk: four headline-size scenes
    written to a temp dir, a temp config that inherits
    ``configs/prototypes/SegDINO3D_ScanNet200.py`` and changes only the
@@ -1424,13 +1434,8 @@ def check_kernels(cases):
     return rows
 
 
-# the distinct (level, Cin, Cout) of the hybrid forward's 46 K10 convs:
-# the BasicBlocks of Res16UNet34C (blocks 1-4 down, 5-8 up with the skip)
-HYBRID_K10_SHAPES = ((1, 32, 32), (2, 32, 64), (2, 64, 64), (3, 64, 128),
-                     (3, 128, 128), (4, 128, 256), (4, 256, 256),
-                     (3, 384, 256), (3, 256, 256), (2, 192, 128),
-                     (2, 128, 128), (1, 128, 96), (1, 96, 96), (0, 128, 96),
-                     (0, 96, 96))
+# each level's most frequent k3 width (Cin = Cout) of the 46 k3 convs
+LEVEL_K3_WIDTH = ((0, 96), (1, 32), (2, 64), (3, 128), (4, 256))
 
 
 def to_ncdhw(x5):
@@ -1450,6 +1455,8 @@ def dense_cases(plan, gen):
     import torch.nn.functional as F
 
     from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import narrow as N
+    from segdino3d_tpu_torch.tools.conv_bench import K3_CONVS
 
     f32, exact = torch.float32, 0.0
     cases = []
@@ -1503,15 +1510,19 @@ def dense_cases(plan, gen):
         zero outside the occupancy, under the occupancy's k-dilation as
         the backward runs it, held to the plain version without a mask on
         every cell.  With ``wide``, K10's wide path (the per-offset stage
-        loop) forced and timed beside it.  With ``live``, the live-pair
-        path (the input stated zero outside the occupancy, over the level's
-        live-pair list) held to its plain version, the row-tile path forced
-        and the list's build timed beside it; fp32 bit-equal to the
-        row-tile path."""
+        loop) forced and timed beside it.  With ``live``, the input stated
+        zero outside the occupancy, as every block conv's is: the path
+        ``narrow.live_path`` takes for the role, dtype and level (the
+        live-pair path over the level's list, ``live_pairs`` or in the dX
+        role ``dilation_pairs``, or the row tiles) is the kernel, held to
+        its plain version, and the other path is forced and timed beside
+        it with the list's build; the live-pair path held to the row-tile
+        plain version too, and in fp32 bit-equal to the row-tile path."""
         occ = BD.occupancy(t)
         # the level's cached list of the mask, as the autograd Function
         # passes it: the dilation's (dX) or the occupancy's
-        mask, rlist = BD.dilated_rows(occ, t.block_nbr, t.edge, k) if dx \
+        mask, rlist = (BD.dilation(t, occ, k) if live else
+                       BD.dilated_rows(occ, t.block_nbr, t.edge, k)) if dx \
             else (occ, BD.row_list(t, occ))
         need, dense = pairs(t, k, masked=not dx)
         rows = int(mask.sum())
@@ -1552,19 +1563,27 @@ def dense_cases(plan, gen):
             extra = {"library without the halo assembly (conv3d alone)":
                      lambda p=padded, wc=wc: F.conv3d(p, wc)}
             if live:
-                lp = BD.live_pairs(t, occ, k)
-                kernel = (lambda x=x, w=w, lp=lp: BD.block_conv(
-                    x, t.block_nbr, w, occ, e, rlist, zero_outside=True,
-                    live_list=lp))
-                extra["the row-tile path (forced)"] = \
-                    lambda x=x, w=w: BD.block_conv(x, t.block_nbr, w, occ, e,
-                                                   rlist, live=False)
+                cap = BD.live_capacity(t)
+                lp = (BD.dilation_pairs if dx else BD.live_pairs)(t, occ, k)
+                on_live = (lambda x=x, w=w, lp=lp: BD.block_conv(
+                    x, t.block_nbr, w, mask, e, rlist, zero_outside=True,
+                    live=True, live_list=lp))
+                on_rows = (lambda x=x, w=w: BD.block_conv(
+                    x, t.block_nbr, w, mask, e, rlist, live=False))
+                rule = N.live_path(k ** 3, cin, cout, dt, True, dx=dx,
+                                   cap=cap)
+                kernel = on_live if rule else on_rows
+                extra["the row-tile path (forced)" if rule else
+                      "the live-pair path (forced)"] = \
+                    on_rows if rule else on_live
                 extra["live-pair list build (block_live_pairs, once per "
                       "level and step)"] = \
                     lambda: BD.live_pair_list(rlist, occ, t.block_nbr, e, k,
-                                              BD.live_capacity(t))
-                got, tiles = kernel(), extra["the row-tile path (forced)"]()
-                full = BD.dense_subm_conv_plain(x, t.block_nbr, w, occ, e)
+                                              cap, mask.shape[0] if dx
+                                              else None)
+                got, tiles = on_live(), on_rows()
+                full = BD.dense_subm_conv_plain(x, t.block_nbr, w,
+                                                None if dx else occ, e)
                 if not torch.allclose(got.float(), full.float(),
                                       rtol=TOL[dt], atol=TOL[dt]) or (
                         dt == torch.float32 and not torch.equal(got, tiles)):
@@ -1572,15 +1591,24 @@ def dense_cases(plan, gen):
                                      "live-pair path differs from the "
                                      "row-tile plain version or, in fp32, "
                                      "from the row-tile path")
-                print(f"block_conv [{name}] {dt}: within rtol=atol="
-                      f"{TOL[dt]:g} of the row-tile plain version"
+                print(f"block_conv [{name}] {dt}: the rule runs the "
+                      f"{'live-pair' if rule else 'row-tile'} path; the "
+                      f"live-pair path within rtol=atol={TOL[dt]:g} of the "
+                      "row-tile plain version"
                       + (", bit-equal to the row-tile path"
                          if dt == torch.float32 else ""), flush=True)
                 del got, tiles, full
-                per[dt] = (kernel, lambda x=x, w=w, lp=lp:
-                           BD.block_conv_live_plain(x, w, lp),
+                per[dt] = (kernel, (lambda x=x, w=w, lp=lp:
+                                    BD.block_conv_live_plain(x, w, lp))
+                           if rule else (lambda x=x, w=w:
+                                         BD.dense_subm_conv_plain(
+                                             x, t.block_nbr, w,
+                                             None if dx else occ, e)),
                            lib, 2.0 * need * cin * cout,
-                           nbytes(x, w) + 4 * int(occ.sum())
+                           nbytes(x, w) + 4 * int(rlist.count)
+                           + occ.shape[0] * cout * x.element_size()
+                           if rule else
+                           nbytes(x, t.block_nbr, w, mask)
                            + occ.shape[0] * cout * x.element_size(),
                            CONV_PEAK[dt], extra)
                 continue
@@ -1611,8 +1639,14 @@ def dense_cases(plan, gen):
                 if dx else f"{rows} occupied rows")
         if live:
             live_ms = bound(2.0 * need * cin * cout, 0.0, "fp32")[0]
-            what += (f", {int(need)} live pairs (live-pair path; bound of "
-                     f"the live pairs {live_ms:.4f} ms)")
+            # the fp32 buffer's row: Cout in column tiles of 32, 64 or 96
+            # (gtt::pair_bn)
+            bn = 32 if cout <= 32 else 96 if 64 < cout <= 96 else 64
+            buffer_ms = bound(0.0, 8.0 * need * -(-cout // bn) * bn,
+                              "fp32")[0]
+            what += (f", {int(need)} live pairs (bound of the live pairs "
+                     f"{live_ms:.4f} ms; the fp32 pair-major buffer's bytes "
+                     f"written and read alone {buffer_ms:.4f} ms)")
         cases.append(("block_conv", f"{name}, fill {fill(t):.1%}, {what}; "
                       f"bound of its rows' work {rows_ms:.4f} ms, "
                       f"dense-work bound {dense_ms:.4f} ms (fp32)", per))
@@ -1650,19 +1684,21 @@ def dense_cases(plan, gen):
                           + 4, "fp32", exact)}))
 
     both = (torch.float32, torch.bfloat16)
-    conv_case("k3 96->96 L0", t0, 96, 96, 3, both)
-    conv_case("k3 384->256 L3", t3, 384, 256, 3, both)
+    conv_case("k3 96->96 L0", t0, 96, 96, 3, both, live=True)
+    conv_case("k3 384->256 L3", t3, 384, 256, 3, both, live=True)
     conv_case("dense stem k5 259->32 L0", t0, 259, 32, 5, both, live=True)
 
-    def live_list_case(t, k):
-        """The live-pair list of the level's occupied-row list (one pass,
-        two launches), held exactly to its plain version: the counts,
-        each offset's pairs and the map over the listed rows.  Bytes: the
-        row list, the occupancy and the shell table read once; the map
-        over the listed rows and the pairs written once."""
+    def live_list_case(t, k, dx=False):
+        """A live-pair list of the level (one pass, two launches): the
+        occupancy's row list, or (``dx``) its k-dilation's, with sources in
+        the occupancy, held exactly to its plain version: the counts, each
+        offset's pairs and the map over the listed rows.  Bytes: the row
+        list, the occupancy and the shell table read once; the map over
+        the listed rows and the pairs written once."""
         occ = BD.occupancy(t)
-        rlist = BD.row_list(t, occ)
+        rlist = BD.dilation(t, occ, k)[1] if dx else BD.row_list(t, occ)
         cap = BD.live_capacity(t)
+        row_cap = occ.shape[0] if dx else cap
         n_list = int(rlist.count)
 
         def flat(lp):
@@ -1673,15 +1709,17 @@ def dense_cases(plan, gen):
                              + [lp.map[:, :n_list].reshape(-1)])
 
         def build():
-            return BD.live_pair_list(rlist, occ, t.block_nbr, t.edge, k, cap)
+            return BD.live_pair_list(rlist, occ, t.block_nbr, t.edge, k, cap,
+                                     row_cap)
 
         def plain():
             return flat(BD.live_pairs_plain(rlist, occ, t.block_nbr, t.edge,
-                                            k, cap))
+                                            k, cap, row_cap))
 
         n_pairs = int(build().counts.sum())
+        what = "k-dilation's" if dx else "occupancy's"
         cases.append(("block_live_pairs", f"k{k} live-pair list of the L0 "
-                      f"occupancy's row list, {n_list} listed rows, {n_pairs} "
+                      f"{what} row list, {n_list} listed rows, {n_pairs} "
                       "live pairs; library: none", {f32: (
                           (build, lambda: flat(build())), plain, None, 0.0,
                           nbytes(rlist.rows[:n_list], occ, t.block_nbr)
@@ -1689,11 +1727,13 @@ def dense_cases(plan, gen):
                           "fp32", exact)}))
 
     live_list_case(t0, 5)
+    live_list_case(t0, 3)
+    live_list_case(t0, 3, dx=True)
     # the Baseline's dense stem over rgb alone, on the same L0 row list
     conv_case("baseline dense stem k5 3->32 L0 (narrow path)", t0, 3, 32, 5,
               both, wide=True)
     conv_case("dX k3 96->96 L0 (flipped, transposed W, under the "
-              "dilation)", t0, 96, 96, 3, (f32,), dx=True)
+              "dilation)", t0, 96, 96, 3, both, dx=True, live=True)
     dilate_case(t0, 3)
 
     def all_pairs(t, k):
@@ -1707,10 +1747,14 @@ def dense_cases(plan, gen):
                                                     repeat=3)))
 
     def wgrad_case(name, t, cin, cout, k, dt=f32, narrow=None, live=False):
-        """K11 over the level's row list; with ``live``, the live-pair path
-        over the level's live-pair list (the input stated zero outside the
-        occupancy), held to its plain version, the row-tile path forced
-        and the list's build timed beside it."""
+        """K11 over the level's row list; with ``live`` (the input stated
+        zero outside the occupancy, as every block conv's is) the path
+        ``narrow.live_path`` takes (the live-pair path over the level's
+        live-pair list, or the row tiles) is the kernel, held to its plain
+        version, the other path forced and the list's build timed beside
+        it; the live-pair path bit-equal between two calls, within the
+        tolerance of the row-tile plain version and in fp32 bit-equal to the
+        row-tile path (the same splits of the listed rows)."""
         occ = BD.occupancy(t)
         need, dense = pairs(t, k, masked=True)
         every = all_pairs(t, k)
@@ -1737,40 +1781,56 @@ def dense_cases(plan, gen):
                                               k))
         extra = {"row list build (block_rows, once per level and step)":
                  lambda: BD.occupied_rows(occ)}
+        rule = False
         if live:
+            cap = BD.live_capacity(t)
             lp = BD.live_pairs(t, occ, k)
-            kernel = (lambda: BD.block_wgrad(x, dy, t.block_nbr, occ, e, k,
-                                             rlist, zero_outside=True,
-                                             live_list=lp))
-            full = plain()
-            if not bool(torch.equal(kernel(), kernel())) or float(
-                    (kernel() - full).abs().max()) > (
+            on_live = (lambda: BD.block_wgrad(x, dy, t.block_nbr, occ, e, k,
+                                              rlist, zero_outside=True,
+                                              live=True, live_list=lp))
+            on_rows = (lambda: BD.block_wgrad(x, dy, t.block_nbr, occ, e, k,
+                                              rlist, live=False))
+            rule = N.live_path(k ** 3, cin, cout, dt, True, wgrad=True,
+                               cap=cap)
+            full, got, tiles = plain(), on_live(), on_rows()
+            if not bool(torch.equal(got, on_live())) or float(
+                    (got - full).abs().max()) > (
                         WGRAD_TOL if dt == f32 else 1e-2) * float(
-                    full.abs().max()):
+                    full.abs().max()) or (dt == f32 and not torch.equal(
+                        got, tiles)):
                 raise SystemExit(f"block_wgrad [{name}]: the live-pair path "
-                                 "differs between two calls or from the "
-                                 "row-tile plain version")
-            print(f"block_wgrad [{name}]: two calls bit-equal, within the "
-                  "tolerance of the row-tile plain version", flush=True)
-            del full
-            plain = (lambda: BD.block_wgrad_live_plain(x, dy, lp))
-            extra = {"the row-tile path (forced)": lambda: BD.block_wgrad(
-                         x, dy, t.block_nbr, occ, e, k, rlist, live=False),
+                                 "differs between two calls, from the "
+                                 "row-tile plain version or, in fp32, from "
+                                 "the row-tile path")
+            print(f"block_wgrad [{name}]: the rule runs the "
+                  f"{'live-pair' if rule else 'row-tile'} path; the "
+                  "live-pair path's two calls bit-equal, within the "
+                  "tolerance of the row-tile plain version"
+                  + (", bit-equal to the row-tile path" if dt == f32
+                     else ""), flush=True)
+            del full, got, tiles
+            kernel = on_live if rule else on_rows
+            if rule:
+                plain = (lambda: BD.block_wgrad_live_plain(x, dy, lp))
+            extra = {("the row-tile path (forced)" if rule else
+                      "the live-pair path (forced)"):
+                     on_rows if rule else on_live,
                      "live-pair list build (block_live_pairs, once per "
                      "level and step)": lambda: BD.live_pair_list(
-                         rlist, occ, t.block_nbr, e, k, BD.live_capacity(t))}
+                         rlist, occ, t.block_nbr, e, k, cap)}
         cases.append(("block_wgrad", f"{name}, fill {fill(t):.1%}, "
                       f"{int(every)} pairs with a source block (all-pairs "
                       f"bound {all_ms:.4f} ms), {int(need)} with an occupied "
                       f"source (live-pair bound {live_ms:.4f} ms), dense-work "
                       f"bound {dense_ms:.4f} ms (fp32)"
-                      + ("; live-pair path" if live else ""), {dt: (
+                      + ("; live-pair path" if rule else ""), {dt: (
                           kernel, plain, lib, 2.0 * need * cin * cout,
                           nbytes(x, dy, t.block_nbr, occ)
                           + k ** 3 * cin * cout * 4, CONV_PEAK[dt],
                           WGRAD_TOL if dt == f32 else 1e-2, extra)}))
 
-    wgrad_case("dW k3 96->96 L0", t0, 96, 96, 3)
+    for dt in (f32, torch.bfloat16):
+        wgrad_case("dW k3 96->96 L0", t0, 96, 96, 3, dt, live=True)
     wgrad_case("stem dW k5 259->32 L0", t0, 259, 32, 5, live=True)
     # the Baseline's dense stem dW, on the narrow path the rule picks and
     # on the wide path forced
@@ -1780,15 +1840,21 @@ def dense_cases(plan, gen):
         wgrad_case("baseline stem dW k5 3->32 L0 (wide path, forced)", t0, 3,
                    32, 5, dt, narrow=False)
 
-    # the bf16 backbone (phase 10): K10 at every other distinct (level,
-    # Cin, Cout) of the hybrid forward (k3 96->96 L0 and 384->256 L3 are
-    # above), fp32 beside each; its dX role; K11's stem dW at the pitch
-    for li, cin, cout in HYBRID_K10_SHAPES:
+    # the bf16 backbone (phase 10) and every level's k3 convs: K10 at every
+    # other distinct (level, Cin, Cout) of the 46 k3 convs (k3 96->96 L0
+    # and 384->256 L3 are above), fp32 beside each; the dX role and K11 at
+    # each level's most frequent shape; K11's stem dW at the bf16 pitch
+    for li, cin, cout, _ in K3_CONVS:
         if (li, cin, cout) not in ((0, 96, 96), (3, 384, 256)):
             conv_case(f"k3 {cin}->{cout} L{li}", plan.blocks[li], cin, cout,
-                      3, both)
-    conv_case("dX k3 96->96 L0 (flipped, transposed W, under the "
-              "dilation)", t0, 96, 96, 3, (torch.bfloat16,), dx=True)
+                      3, both, live=True)
+    for li, c in LEVEL_K3_WIDTH[1:]:
+        conv_case(f"dX k3 {c}->{c} L{li} (flipped, transposed W, under the "
+                  "dilation)", plan.blocks[li], c, c, 3, both, dx=True,
+                  live=True)
+        for dt in (f32, torch.bfloat16):
+            wgrad_case(f"dW k3 {c}->{c} L{li}", plan.blocks[li], c, c, 3, dt,
+                       live=True)
     wgrad_case("stem dW k5 259->32 L0 at the bf16 pitch 264", t0, 259, 32, 5,
                torch.bfloat16, live=True)
     return cases
@@ -1909,9 +1975,12 @@ def counters():
             "block_dilate": (BD.dilated_rows,),
             "block_wgrad": (BD.block_wgrad,),
             "block_wgrad narrow": (BD.block_wgrad.narrow,),
-            # of K10's and K11's launches, those on the live-pair path (the
-            # flagship's dense stem in training), and the live-pair lists
-            # they share (block_live_pairs, once per level and step)
+            # of K10's and K11's launches, those on the live-pair path
+            # (narrow.live_path: in fp32 every block conv in every role but
+            # the Baseline's narrow stem), and the live-pair lists they
+            # share (block_live_pairs: per level and kernel size the
+            # occupied rows' list of the forward convs and their dW, per
+            # level the dilation's list of the dX convs)
             "block_conv live": (BD.block_conv.live,),
             "block_wgrad live": (BD.block_wgrad.live,),
             "block_live_pairs": (BD.live_pair_list,),
@@ -1931,9 +2000,45 @@ GATHER_PAIR_LISTS = 10
 # (the flagship and the v2 model)
 NO_NARROW = {"gather_gemm_conv narrow": 0, "block_conv narrow": 0,
              "gather_wgrad narrow": 0, "block_wgrad narrow": 0}
-# the live-pair counts of a phase without a dense k5 stem in training
+# the live-pair counts of a phase without a block-dense level
 NO_LIVE = {"block_conv live": 0, "block_wgrad live": 0,
            "block_live_pairs": 0}
+
+
+def live_counts(dtype, caps, train=False, stem=True):
+    """The live-pair counts ``narrow.live_path`` gives one Res16UNet34C
+    forward on block-dense levels of voxel capacities ``caps``
+    (``block_dense.live_capacity``), or with ``train`` one step (then also
+    the dense k5 stem's forward and dW where ``stem``: not the Baseline's
+    narrow stem): K10's live calls, K11's and the lists they take."""
+    from segdino3d_tpu_torch.ops import narrow as N
+    from segdino3d_tpu_torch.tools.conv_bench import K3_CONVS
+
+    conv = wgrad = 0
+    lists = {("rows", 0, 5)} if train and stem else set()
+    if train and stem:
+        conv, wgrad = 1, 1
+    for li, cin, cout, n in K3_CONVS:
+        if N.live_path(27, cin, cout, dtype, True, cap=caps[li]):
+            conv += n
+            lists.add(("rows", li, 3))
+        if train and N.live_path(27, cout, cin, dtype, True, dx=True,
+                                 cap=caps[li]):
+            conv += n
+            lists.add(("dilation", li, 3))
+        if train and N.live_path(27, cin, cout, dtype, True, wgrad=True,
+                                 cap=caps[li]):
+            wgrad += n
+            lists.add(("rows", li, 3))
+    return {"block_conv live": conv, "block_wgrad live": wgrad,
+            "block_live_pairs": len(lists)}
+
+
+def plan_caps(plan):
+    """The voxel capacities of a plan's block-dense levels."""
+    from segdino3d_tpu_torch.ops import block_dense as BD
+
+    return [BD.live_capacity(t) for t in plan.blocks]
 
 
 def step_kernel_ms(run, lead):
@@ -2418,7 +2523,7 @@ def run_training(model, records, spec, layout="gather", accum=True,
           f"{ms['K2']:.4f}, K3 {ms['K3']:.4f}, K10 {ms['K10']:.4f}, K4 "
           f"{ms['K4']:.4f} (+ pair lists {ms['K4 pair lists']:.4f}), K11 "
           f"{ms['K11']:.4f}, K10 + K11 {ms['K10'] + ms['K11']:.4f} (+ the "
-          f"stem's live-pair list {ms['live-pair list']:.4f}), "
+          f"live-pair lists {ms['live-pair list']:.4f}), "
           f"of {ms['device']:.4f} ms of device work; K10's row-list "
           f"launches {ms['row-list launches']} (two per level's occupancy "
           f"and dilation list, none inside a conv)", flush=True)
@@ -2669,11 +2774,15 @@ def run_hybrid_eval(model, test_cfg, records, spec, gather_bb):
                          "table")
     print(f"hybrid plan {plan_layout('hybrid')}: {describe_blocks(plan)}",
           flush=True)
-    # one occupancy row list per block-dense level, which its convs share
+    # one occupancy row list and its live-pair list per block-dense level,
+    # which its convs share
+    n_dense = sum(t is not None for t in plan.blocks)
     expected = {"gather_gemm_conv": 5, "up_conv": 4, "segment_mean_gather": 2,
-                "block_conv": 46, "slot_gather": 18,
-                "block_rows": sum(t is not None for t in plan.blocks),
-                **NO_NARROW}
+                "block_conv": 46, "slot_gather": 18, "block_rows": n_dense,
+                **NO_NARROW, **live_counts(torch.float32, plan_caps(plan))}
+    if expected != {**HYBRID_FORWARD, **NO_NARROW}:
+        raise SystemExit(f"phase 3c: the live-pair rule gives {expected}, "
+                         f"not the hybrid forward's {HYBRID_FORWARD}")
     print(f"launches in one hybrid forward: {launches} (expected "
           f"{expected})", flush=True)
     for k, n in expected.items():
@@ -2698,8 +2807,50 @@ def run_hybrid_eval(model, test_cfg, records, spec, gather_bb):
         raise SystemExit("the hybrid backbone disagrees with the gather "
                          "backbone")
     check_outputs(bb, out, res, SCENE["n_superpoints"])
+    fwd_ms, _ = forward_device_ms(model, batch, cols=None)
+    print(f"phase 3c one hybrid forward (torch.profiler, device ms): K1 "
+          f"{fwd_ms['K1']:.4f}, K2 {fwd_ms['K2']:.4f}, K3 {fwd_ms['K3']:.4f}, "
+          f"K10 {fwd_ms['K10']:.4f} (+ the live-pair lists "
+          f"{fwd_ms['live-pair list']:.4f}) of {fwd_ms['device']:.4f}",
+          flush=True)
+    check_zero_outside(model, batch, "phase 3c (hybrid eval)")
     check_small_reference(model, plans=("hybrid",))
     return launches, bb.sp_feats
+
+
+def check_zero_outside(model, batch, what):
+    """One backbone forward of ``batch`` (the model in its mode, its batch
+    norms' running statistics restored after) with every block conv's
+    input checked: the nonzero entries outside the level's ``valid`` rows
+    (``DenseCtx.subm``'s statement, which the live-pair path relies on),
+    counted on the card and read once.  Fails unless 0."""
+    from segdino3d_tpu_torch.ops import conv_ctx as CC
+
+    inner = CC.DenseCtx.subm
+    outside, inside, convs = [], [], [0]
+
+    def hook(self, feats, w):
+        outside.append((feats[~self.valid] != 0).sum())
+        inside.append((feats[self.valid] != 0).sum())
+        convs[0] += 1
+        return inner(self, feats, w)
+
+    buffers = {k: v.clone() for k, v in model.named_buffers()}
+    CC.DenseCtx.subm = hook
+    try:
+        with torch.no_grad():
+            model.backbone(batch)
+    finally:
+        CC.DenseCtx.subm = inner
+        for k, v in model.named_buffers():
+            v.copy_(buffers[k])
+    n_out = int(torch.stack(outside).sum())
+    n_in = int(torch.stack(inside).sum())
+    print(f"{what}: {convs[0]} block convs' inputs hold {n_out} nonzero "
+          f"entries outside the occupancy ({n_in} inside)", flush=True)
+    if n_out or not n_in or convs[0] < 46:
+        raise SystemExit(f"{what}: {n_out} nonzero conv input entries "
+                         f"outside the occupancy over {convs[0]} convs")
 
 
 DISK_SEEDS = (0, 1, 2)
@@ -2843,18 +2994,32 @@ def run_disk_phase(model, test_cfg):
     return runs["compact"][0], runs["hybrid"][1]
 
 
+def layout_batch(records, spec, layout):
+    """A batch of ``records`` on host plans of ``layout``."""
+    from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
+
+    return attach_host_plan(collate(records, spec, DEVICE), records, spec,
+                            level_cap_ratios=LEVEL_CAP_RATIOS,
+                            **plan_layout(layout))
+
+
 def run_dense_training(model, records, spec):
     """Phase 4c: batch-1 steps on the config's training layout."""
     check_small_train(model, "block-dense")
     launches, steps, _, _, peak, metrics = run_training(
         model, records, spec, layout="block-dense", accum=False)
+    batch = layout_batch(records[:1], spec, "block-dense")
     expected = {**BLOCK_DENSE_STEP, **NO_NARROW}
+    if {**expected, **live_counts(torch.float32, plan_caps(batch.plan),
+                                  train=True)} != expected:
+        raise SystemExit("phase 4c: the live-pair rule differs from the "
+                         f"block-dense step's counts {BLOCK_DENSE_STEP}")
     print(f"launches in one block-dense train step: {launches} (expected "
-          f"{expected}: K10 47 forward (the stem's on the live-pair path) "
-          f"+ 46 dX, K11 47 (the stem's on the live-pair path, on the "
-          f"forward's live-pair list), per level one k3 dilation "
-          f"with its list (the dX convs') and one occupancy row list (the "
-          f"forward convs' and K11's), one pair list, K1's and K4's, per "
+          f"{expected}: K10 47 forward + 46 dX and K11 47, each on the "
+          f"live-pair path, the forwards and dW on each level's occupied "
+          f"rows' list (the stem's k5 list beside level 0's k3 list), the dX "
+          f"on the dilation's; per level one k3 dilation with its row list "
+          f"and one occupancy row list, one pair list, K1's and K4's, per "
           f"child table)",
           flush=True)
     for k, n in expected.items():
@@ -2870,6 +3035,9 @@ def run_dense_training(model, records, spec):
           + ", ".join(f"{k} {v:.2f}" for k, v in mean.items())
           + f"; peak {peak / 2 ** 30:.3f} GiB", flush=True)
     print(f"block-dense train metrics (finite): {metrics[-1]}", flush=True)
+    model.train()
+    check_zero_outside(model, batch, "phase 4c (block-dense training, "
+                       "training mode)")
     return launches
 
 
@@ -3217,27 +3385,33 @@ def run_v2_phase(records):
 # phase 6: the Baseline_ScanNet200 model (rgb alone, no DINO-X)
 # --------------------------------------------------------------------------
 
-# the hybrid eval forward: the stem and four down convs (K1), 46 block
-# convs (K10) with their slot gathers (K9) and one occupancy row list per
-# level, four up convs (K2), the voxel mean and the pool (K3)
+# the hybrid eval forward (fp32): the stem and four down convs (K1), 46
+# block convs (K10, all on the live-pair path) with their slot gathers (K9),
+# one occupancy row list and its live-pair list per level, four up convs
+# (K2), the voxel mean and the pool (K3)
 HYBRID_FORWARD = {"gather_gemm_conv": 5, "up_conv": 4,
                   "segment_mean_gather": 2, "block_conv": 46,
-                  "slot_gather": 18, "block_rows": 5, **NO_LIVE}
-# the block-dense training step (phase 4c's): the dense k5 stem's forward
-# and dW on the live-pair path over one list
+                  "slot_gather": 18, "block_rows": 5, "block_conv live": 46,
+                  "block_wgrad live": 0, "block_live_pairs": 5}
+# the block-dense training step (phase 4c's, fp32): every K10 call (47
+# forward, 46 dX) and every K11 call on the live-pair path, over 11 lists:
+# per level the occupied rows' k3 list and the dilation's, and level 0's
+# k5 list of the stem
 BLOCK_DENSE_STEP = {"block_conv": 93, "block_dilate": 5, "block_wgrad": 47,
                     "slot_gather": 35, "gather_gemm_conv": 8, "up_conv": 8,
                     "gather_wgrad": 8, "segment_mean_gather": 2,
                     "segment_grad": 1, "block_rows": 5, "gather_pairs": 4,
-                    "block_conv live": 1, "block_wgrad live": 1,
-                    "block_live_pairs": 1}
+                    "block_conv live": 93, "block_wgrad live": 47,
+                    "block_live_pairs": 11}
 # the Baseline's: the same, with its 3-channel stem on K1's narrow path
 # (eval: the gather stem) or K10's and its dW on K11's (training: the dense
-# stem; its input needs no gradient, so no dX role)
+# stem, no live-pair list of its own; its input needs no gradient, so no
+# dX role)
 BASELINE_FORWARD = {**HYBRID_FORWARD, **NO_NARROW,
                     "gather_gemm_conv narrow": 1}
 BASELINE_STEP = {**BLOCK_DENSE_STEP, **NO_NARROW, "block_conv narrow": 1,
-                 "block_wgrad narrow": 1, **NO_LIVE}
+                 "block_wgrad narrow": 1, "block_conv live": 92,
+                 "block_wgrad live": 46, "block_live_pairs": 10}
 # its step on device plans (gather layout): the stem on K1's narrow path and
 # its dW on K4's, which take no pair list, so the stem's table gets none
 BASELINE_DEVICE_STEP = {"gather_gemm_conv": 101, "up_conv": 8,
@@ -3566,10 +3740,12 @@ def bf16_cfg(cfg):
 
 def k10_level_ms(model, batch):
     """{level: device ms} of K10's launches in one forward of ``model``'s
-    backbone (``profiled_events``): each conv's warpgroup kernel (and group
-    sum) tied to its level by the launch order, recorded by a wrapper
-    around ``block_dense.row_list``, which each forward conv calls once
-    just before its launch, for the profiled call (after a lead call)."""
+    backbone (``profiled_events``): each conv's first kernel (the row
+    tiles' warpgroup kernel, or the live-pair path's products) and the one
+    after it (the group sum, or the live-pair sum) tied to its level by the
+    launch order, recorded by a wrapper around
+    ``block_dense.dense_subm_conv`` (``DenseCtx.subm``'s call) for the
+    profiled call (after a lead call)."""
     from segdino3d_tpu_torch.ops import block_dense as BD
 
     def forward():
@@ -3578,33 +3754,34 @@ def k10_level_ms(model, batch):
 
     level_of = {t.block_nbr.data_ptr(): li
                 for li, t in enumerate(batch.plan.blocks) if t is not None}
-    order, orig = [], BD.row_list
+    order, orig = [], BD.dense_subm_conv
+    first = ("block_conv_wg_kernel", "live_products_wg_kernel")
 
-    def recorded(tables, occ):
+    def recorded(feats, occ, tables, *args, **kw):
         order.append(level_of[tables.block_nbr.data_ptr()])
-        return orig(tables, occ)
+        return orig(feats, occ, tables, *args, **kw)
 
     def recorded_forward():
         order.clear()
-        BD.row_list = recorded
+        BD.dense_subm_conv = recorded
         try:
             forward()
         finally:
-            BD.row_list = orig
+            BD.dense_subm_conv = orig
 
     events = profiled_events(recorded_forward, forward)
     events = sorted((e for e in events
-                     if any(f in e.name for f in ("block_conv_wg_kernel",
-                                                  "group_sum_kernel"))),
+                     if any(f in e.name for f in first + (
+                         "group_sum_kernel", "live_sum_kernel"))),
                     key=lambda e: e.time_range.start)
     ms, conv = {}, -1
     for e in events:
-        conv += "block_conv_wg_kernel" in e.name
+        conv += any(f in e.name for f in first)
         li = order[conv]
         ms[li] = ms.get(li, 0.0) + e.time_range.elapsed_us() / 1e3
     if conv + 1 != len(order):
-        raise SystemExit(f"phase 10a: {conv + 1} K10 warpgroup launches "
-                         f"profiled, {len(order)} convs")
+        raise SystemExit(f"phase 10a: {conv + 1} K10 launches profiled, "
+                         f"{len(order)} convs")
     return dict(sorted(ms.items())), {li: order.count(li) for li in ms}
 
 
@@ -3640,7 +3817,8 @@ def run_bf16_phase(model, test_cfg, records, train_records, spec, tspec,
         bmodel, test_cfg, records, spec, layout="hybrid")
     check_element_loads("phase 10a")
     expected = {**HYBRID_FORWARD, **NO_NARROW,
-                "gather_gemm_conv wide stem": 1}
+                "gather_gemm_conv wide stem": 1,
+                **live_counts(torch.bfloat16, plan_caps(batch.plan))}
     check_counts(launches, expected, "phase 10a launches in one bf16 "
                  "hybrid forward (phase 3c's; the stem on K1's bf16 wide-stem "
                  "path)")
@@ -3686,7 +3864,10 @@ def run_bf16_phase(model, test_cfg, records, train_records, spec, tspec,
         dmodel, train_records, tspec, layout="block-dense", accum=False)
     check_element_loads("phase 10b")
     expected = {**BLOCK_DENSE_STEP, **NO_NARROW,
-                "gather_gemm_conv wide stem": 0}
+                "gather_gemm_conv wide stem": 0,
+                **live_counts(torch.bfloat16, plan_caps(layout_batch(
+                    train_records[:1], tspec, "block-dense").plan),
+                    train=True)}
     check_counts(train_launches, expected, "phase 10b launches in one bf16 "
                  "block-dense train step (phase 4c's)")
     grads = [p.grad for p in dmodel.parameters() if p.grad is not None]
@@ -4649,8 +4830,12 @@ def run_serving_phase(card):
     eager(*fresh())
     torch.cuda.synchronize()
     launches = read_counts()
+    level_caps = [vox] + [max(256, -(-int(vox * r) // 256) * 256)
+                          for r in plan["level_cap_ratios"][1:5]]
     expected = {**HYBRID_FORWARD, **NO_NARROW,
-                "gather_gemm_conv wide stem": 1}
+                "gather_gemm_conv wide stem": 1,
+                **live_counts(torch.bfloat16, [
+                    min(b * 4 ** 3, c) for b, c in zip(blocks, level_caps)])}
     check_counts(launches, expected, "phase 11 eager served forward "
                  "(phase 10a's launches)")
     check_counts(served["launches"], launches, "phase 11 artifact forward "
@@ -4932,9 +5117,9 @@ def main() -> int:
                          "segdino3d_tpu/ops/block_dense.py:396"),
         "block_wgrad": ("segdino3d_tpu_torch/csrc/block_wgrad.cu",
                         "segdino3d_tpu/ops/block_dense.py:414"),
-        # the live-pair list of the dense stem's forward and dW: the pairs
-        # whose products the JAX op's dense conv computes as exact zeros
-        # are left out
+        # the live-pair lists of the block convs' forward and dW (the
+        # occupied rows') and dX (the dilation's): the pairs whose products
+        # the JAX op's dense conv computes as exact zeros are left out
         "block_live_pairs": ("segdino3d_tpu_torch/csrc/block_conv.cu",
                              "segdino3d_tpu/ops/block_dense.py:257"),
         "stem_slot_sum": ("segdino3d_tpu_torch/csrc/stem_slot_sum.cu",

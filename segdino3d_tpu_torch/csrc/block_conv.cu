@@ -85,29 +85,39 @@
 // stages), the fp32 sums in the order above.
 //
 // The live-pair path (block_conv_live, for a conv whose caller states its
-// input zero outside the mask: the flagship's dense k5 stem in training,
-// 259 -> 32, whose input comes straight from K9's scatter to dense rows;
+// input zero outside a mask: every block conv of the Res16UNet34C, whose
+// inputs come from K9's scatter to dense rows and masked batch norms, and
+// every dX conv, whose masked cotangent is zero outside the occupancy;
 // ops/narrow.py:live_path picks it): the row tiles above run every offset
-// at which some row of a 64-row tile has a source block, about 125 offsets
-// x 76,239 rows at the stem, though only 28 of a row's 125 sources are
-// occupied (4.5x the work).  A source cell outside the mask holds a zero
-// row, so its pair adds exact zeros and is skipped.  block_live_pairs
-// builds, in one pass over the occupied-row list (a count and a list
+// at which some row of a 64-row tile has a source block, 27 offsets x
+// 76,239 rows at a level-0 k3 conv (125 at the k5 stem), though only about
+// 9 of a row's 27 sources are occupied (28 of 125 at the stem); the dX role
+// runs them over the dilation's 214,123 rows.  A source cell outside the
+// mask holds a zero row, so its pair adds exact zeros and is skipped.
+// block_live_pairs builds, in one pass over a row list (a count and a list
 // launch, per offset and block of listed rows), per offset and in list
 // order the listed rows whose source cell through the block halo is in
 // the mask (src, dst) and, per (offset, listed row), its pair's index
-// (map); the counts stay on the card, and the wrappers build it once per
-// level and step for the stem's forward and K11's dW.  The conv then runs
-// K1's pair-major form over it (pair_major.cuh, shared with
-// gather_gemm_conv.cu): items of 64 pairs of one offset and a column tile,
-// x[src] @ W[o] on gather_tile.cuh's FMA core (fp32) or wgmma_tile.cuh's
-// warpgroup core (bf16, the 264 pitch) into a pair-major fp32 buffer
-// (k^3 * cap rows, cap the list's capacity: 1.47 GB at the stem, as K1's),
-// then live_sum_kernel adds each listed row's products in ascending offset
-// order through the map.  Each offset's
-// product over Cin is summed as in the row tiles and the partials are
-// added in the same order without the zeros, so the fp32 result equals
-// the row-tile path's bit for bit; no float atomics.
+// (map); the counts stay on the card.  The wrappers build per level and
+// step one list over the occupied rows (the forward convs and K11's dW)
+// and one over the k3 dilation's rows with sources in the occupancy (the
+// dX convs).  Their capacities differ: an offset's pairs have distinct
+// sources in the occupancy, so pair_cap is the level's voxel capacity for
+// both, while row_cap is the voxel capacity for the occupied rows and the
+// level's dense rows for the dilation's (so the fp32 buffer below stays
+// 27 x 92,160 x 96 x 4 bytes = 955 MB at level 0, not 3.85 GB).  A count
+// past its capacity is not written and sets the overflow word, on which
+// the wrapper raises.  The conv then runs K1's pair-major form over the
+// list (pair_major.cuh, shared with gather_gemm_conv.cu): items of 64
+// pairs of one offset and a column tile, x[src] @ W[o] on gather_tile.cuh's
+// FMA core (fp32) or wgmma_tile.cuh's warpgroup core (bf16) into a
+// pair-major fp32 buffer (k^3 * pair_cap rows: 1.47 GB at the stem, as
+// K1's), then live_sum_kernel adds each listed row's products in ascending
+// offset order through the map, and writes every listed row (0 where it
+// has no live pair).  Each offset's product over Cin is summed as in the
+// row tiles and the partials are added in the same order without the
+// zeros, so the fp32 result equals the row-tile path's bit for bit; no
+// float atomics.
 //
 // Contract: x (n_blocks * edge^3, Cin), w (k^3, Cin, Cout) and out
 // (n_blocks * edge^3, Cout) share one dtype (fp32 or bf16), rows
@@ -933,22 +943,30 @@ cudaError_t narrow_conv(const void* x, const void* nbr, const void* w, int32_t* 
 // ---------------------------------------------------------------------------
 
 // The live-pair list's workspace (block_dense.py:live_workspace_size), for
-// n_off offsets and a capacity of `cap` listed rows: src, dst and map
-// (n_off x cap each), the counts (n_off), a ticket, the list passes'
-// per-block counts (n_off x blocks), then the count pass's live bits
-// (n_off x blocks x kListRows / 32 words).
+// n_off offsets, at most `pair_cap` pairs an offset and `row_cap` listed
+// rows: src and dst (n_off x pair_cap each), the counts (n_off), a ticket,
+// the overflow word (bit 0: more listed rows than row_cap, bit 1: an
+// offset with more pairs than pair_cap), the map (n_off x row_cap), the
+// list passes' per-block counts (n_off x blocks), then the count pass's
+// live bits (n_off x blocks x kListRows / 32 words).  The forward's list
+// has as many pair slots as listed rows; the dX role's lists the
+// dilation's rows (up to every row of the level) but has at most the
+// occupied rows' pairs an offset.
 struct LiveWs {
-  int32_t *src, *dst, *map, *counts, *ticket, *block_counts;
+  int32_t *src, *dst, *counts, *ticket, *overflow, *map, *block_counts;
   uint32_t* bits;
-  __host__ __device__ LiveWs(int32_t* ws, int n_off, int cap) {
-    const int64_t n = (int64_t)n_off * cap;
-    const int blocks = cap > 0 ? (cap + kListRows - 1) / kListRows : 1;
+  int pair_cap, row_cap;
+  __host__ __device__ LiveWs(int32_t* ws, int n_off, int pair_cap_, int row_cap_)
+      : pair_cap(pair_cap_), row_cap(row_cap_) {
+    const int64_t n = (int64_t)n_off * pair_cap;
+    const int blocks = row_cap > 0 ? (row_cap + kListRows - 1) / kListRows : 1;
     src = ws;
     dst = ws + n;
-    map = ws + 2 * n;
-    counts = ws + 3 * n;
+    counts = ws + 2 * n;
     ticket = counts + n_off;
-    block_counts = ticket + 1;
+    overflow = ticket + 1;
+    map = overflow + 1;
+    block_counts = map + (int64_t)n_off * row_cap;
     bits = reinterpret_cast<uint32_t*>(block_counts + (int64_t)n_off * blocks);
   }
 };
@@ -964,10 +982,10 @@ static_assert(kChunks * 32 * (kListThreads / 32) == kListRows, "the passes' chun
 template <int E, int K>
 __global__ void __launch_bounds__(kListThreads)
 count_live_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ count,
-                  const uint8_t* __restrict__ occ, bdt::HaloSrc<E, K> halo, int cap,
-                  LiveWs ws) {
+                  const uint8_t* __restrict__ occ, bdt::HaloSrc<E, K> halo, LiveWs ws) {
   __shared__ int warp_sums[kListThreads / 32];
-  const int o = blockIdx.y, n_list = min(*count, cap);
+  const int o = blockIdx.y, n_list = min(*count, ws.row_cap);
+  if (o == 0 && blockIdx.x == 0 && threadIdx.x == 0) *ws.overflow = *count > ws.row_cap;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t i0 = (int64_t)blockIdx.x * kListRows + warp * kChunks * 32;
   uint32_t* const bits = ws.bits + ((int64_t)o * gridDim.x + blockIdx.x) * (kListRows / 32) +
@@ -993,9 +1011,9 @@ count_live_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ 
 template <int E, int K>
 __global__ void __launch_bounds__(kListThreads)
 list_live_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ count,
-                 bdt::HaloSrc<E, K> halo, int cap, LiveWs ws) {
+                 bdt::HaloSrc<E, K> halo, LiveWs ws) {
   __shared__ int warp_sums[kListThreads / 32];
-  const int o = blockIdx.y, n_list = min(*count, cap);
+  const int o = blockIdx.y, n_list = min(*count, ws.row_cap), cap = ws.pair_cap;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int32_t* oc = ws.block_counts + (int64_t)o * gridDim.x;
   const uint32_t* const bits = ws.bits +
@@ -1012,14 +1030,16 @@ list_live_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ c
   int pos = prefix + block_exclusive_scan(lane == 0 ? n : 0, warp_sums, &total);
   pos = __shfl_sync(0xFFFFFFFFu, pos, 0);
   const int64_t i0 = (int64_t)blockIdx.x * kListRows + warp * kChunks * 32;
-  const int64_t base = (int64_t)o * cap;
+  const int64_t base = (int64_t)o * cap, map_base = (int64_t)o * ws.row_cap;
   const unsigned below = (1u << lane) - 1u;
+  // pairs past pair_cap are not written: the overflow word names them and
+  // the wrapper raises
   for (int c = 0; c < kChunks; ++c) {
     const int64_t i = i0 + c * 32 + lane;
     const uint32_t live = __shfl_sync(0xFFFFFFFFu, mine, c);
-    const bool in = (live >> lane) & 1u;
     const int p = pos + __popc(live & below);
-    if (i < n_list) ws.map[base + i] = in ? p : -1;
+    const bool in = ((live >> lane) & 1u) && p < cap;
+    if (i < n_list) ws.map[map_base + i] = in ? p : -1;
     if (in) {
       const int r = rows[i];
       ws.src[base + p] = halo(r, o);
@@ -1028,22 +1048,23 @@ list_live_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ c
     pos += __popc(live);
   }
   if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0) {
-    ws.counts[o] = prefix + total;
+    ws.counts[o] = min(prefix + total, cap);
+    if (prefix + total > cap) atomicOr(ws.overflow, 2);
     if (o == 0) *ws.ticket = 0;
   }
 }
 
 template <int E, int K>
 cudaError_t launch_live_list(const int32_t* rows_ws, const uint8_t* occ, const int32_t* nbr,
-                             int32_t* live_ws, int n_blocks, int cap, cudaStream_t s) {
+                             int32_t* live_ws, int n_blocks, int pair_cap, int row_cap,
+                             cudaStream_t s) {
   const int n_rows = n_blocks * E * E * E, n_off = K * K * K;
   const bdt::HaloSrc<E, K> halo{nbr, n_blocks};
-  const dim3 grid(cap > 0 ? (cap + kListRows - 1) / kListRows : 1, n_off);
-  const LiveWs ws(live_ws, n_off, cap);
+  const dim3 grid(row_cap > 0 ? (row_cap + kListRows - 1) / kListRows : 1, n_off);
+  const LiveWs ws(live_ws, n_off, pair_cap, row_cap);
   count_live_kernel<E, K><<<grid, kListThreads, 0, s>>>(rows_ws, rows_ws + n_rows, occ, halo,
-                                                        cap, ws);
-  list_live_kernel<E, K><<<grid, kListThreads, 0, s>>>(rows_ws, rows_ws + n_rows, halo, cap,
-                                                       ws);
+                                                        ws);
+  list_live_kernel<E, K><<<grid, kListThreads, 0, s>>>(rows_ws, rows_ws + n_rows, halo, ws);
   return cudaGetLastError();
 }
 
@@ -1061,29 +1082,30 @@ struct ListSource {
 template <int BN>
 __global__ void __launch_bounds__(gtt::kThreads)
 live_products_kernel(const float* __restrict__ x, const float* __restrict__ w, LiveWs ws,
-                     float* __restrict__ partial, int cap, int cin, int cout, int n_off) {
+                     float* __restrict__ partial, int cin, int cout, int n_off) {
   pmc::products<float, BN>(x, w, ws.counts, ws.ticket, partial, cin, cout, n_off,
-                           ListSource{ws.src, cap});
+                           ListSource{ws.src, ws.pair_cap});
 }
 
 template <int BN>
 __global__ void __launch_bounds__(wgc::kThreads)
 live_products_wg_kernel(const wgc::bf16* __restrict__ x, const wgc::bf16* __restrict__ w,
-                        LiveWs ws, float* __restrict__ partial, int cap, int cin, int cout,
-                        int n_off, int vec_a, int vec_b) {
+                        LiveWs ws, float* __restrict__ partial, int cin, int cout, int n_off,
+                        int vec_a, int vec_b) {
   pmc::products_wg<BN>(x, w, ws.counts, ws.ticket, partial, cin, cout, n_off, vec_a != 0,
-                       vec_b != 0, ListSource{ws.src, cap});
+                       vec_b != 0, ListSource{ws.src, ws.pair_cap});
 }
 
 // out[rows[i]][c .. c + 7] = the live products of listed row i added in
 // ascending offset order (through map), four threads a row, eight columns
 // each (c = 32 blockIdx.y + 8 (tid % 4)), the offsets' map reads eight at
-// a time; first[] (the pairs before each offset) is a scan of the counts
+// a time; first[] (the pairs before each offset) is a scan of the counts.
+// A listed row without a live pair gets zeros.
 template <typename T>
 __global__ void __launch_bounds__(kListThreads)
 live_sum_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ count, LiveWs ws,
-                const float* __restrict__ partial, int ld, T* __restrict__ out, int cap,
-                int cout, int n_off) {
+                const float* __restrict__ partial, int ld, T* __restrict__ out, int cout,
+                int n_off) {
   __shared__ int warp_sums[kListThreads / 32];
   __shared__ int s_first[kListThreads];
   const int tid = threadIdx.x;
@@ -1091,7 +1113,7 @@ live_sum_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ co
   const int first = block_exclusive_scan(tid < n_off ? ws.counts[tid] : 0, warp_sums, &total);
   s_first[tid] = first;
   __syncthreads();
-  const int n_list = min(*count, cap);
+  const int n_list = min(*count, ws.row_cap);
   const int64_t i = (int64_t)blockIdx.x * (kListThreads / 4) + tid / 4;
   const int c = 32 * blockIdx.y + (tid % 4) * 8;
   if (i >= n_list || c >= cout) return;
@@ -1102,7 +1124,7 @@ live_sum_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ co
     int p[8];
 #pragma unroll
     for (int t = 0; t < 8; ++t)
-      p[t] = o0 + t < n_off ? ws.map[(int64_t)(o0 + t) * cap + i] : -1;
+      p[t] = o0 + t < n_off ? ws.map[(int64_t)(o0 + t) * ws.row_cap + i] : -1;
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       if (p[t] < 0) continue;
@@ -1132,9 +1154,9 @@ int live_stride(int cout, int dtype) {
 
 template <int BN>
 cudaError_t live_products(const void* x, const void* w, const LiveWs& ws, float* partial,
-                          int cap, int cin, int cout, int n_off, int dtype, cudaStream_t s) {
+                          int cin, int cout, int n_off, int dtype, cudaStream_t s) {
   const int n_col = (cout + BN - 1) / BN;
-  const int64_t max_items = (int64_t)((cap + gtt::BM - 1) / gtt::BM) * n_off * n_col;
+  const int64_t max_items = (int64_t)((ws.pair_cap + gtt::BM - 1) / gtt::BM) * n_off * n_col;
   int grid = 0;
   if (dtype == 1) {
     auto kernel = live_products_wg_kernel<BN>;
@@ -1144,8 +1166,8 @@ cudaError_t live_products(const void* x, const void* w, const LiveWs& ws, float*
     const int vec_a = cin % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
     const int vec_b = cout % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
     kernel<<<grid, wgc::kThreads, smem, s>>>(static_cast<const wgc::bf16*>(x),
-                                             static_cast<const wgc::bf16*>(w), ws, partial, cap,
-                                             cin, cout, n_off, vec_a, vec_b);
+                                             static_cast<const wgc::bf16*>(w), ws, partial, cin,
+                                             cout, n_off, vec_a, vec_b);
     return cudaGetLastError();
   }
   if constexpr (BN <= 96) {
@@ -1154,35 +1176,35 @@ cudaError_t live_products(const void* x, const void* w, const LiveWs& ws, float*
     cudaError_t err = ntt::grid_of(kernel, gtt::kThreads, smem, max_items, &grid);
     if (err != cudaSuccess) return err;
     kernel<<<grid, gtt::kThreads, smem, s>>>(static_cast<const float*>(x),
-                                             static_cast<const float*>(w), ws, partial, cap,
-                                             cin, cout, n_off);
+                                             static_cast<const float*>(w), ws, partial, cin,
+                                             cout, n_off);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
 }
 
 cudaError_t live_conv(const void* x, const void* w, const int32_t* rows_ws, int32_t* live_ws,
-                      float* partial, void* out, int n_rows, int cap, int n_off, int cin,
-                      int cout, int dtype, cudaStream_t s) {
-  const LiveWs ws(live_ws, n_off, cap);
+                      float* partial, void* out, int n_rows, int pair_cap, int row_cap,
+                      int n_off, int cin, int cout, int dtype, cudaStream_t s) {
+  const LiveWs ws(live_ws, n_off, pair_cap, row_cap);
   const int bn = dtype == 1 ? wgc::pick_bn(cout) : gtt::pair_bn(cout);
   cudaError_t err;
   switch (bn) {
-    case 32: err = live_products<32>(x, w, ws, partial, cap, cin, cout, n_off, dtype, s); break;
-    case 64: err = live_products<64>(x, w, ws, partial, cap, cin, cout, n_off, dtype, s); break;
-    case 96: err = live_products<96>(x, w, ws, partial, cap, cin, cout, n_off, dtype, s); break;
-    default: err = live_products<128>(x, w, ws, partial, cap, cin, cout, n_off, dtype, s);
+    case 32: err = live_products<32>(x, w, ws, partial, cin, cout, n_off, dtype, s); break;
+    case 64: err = live_products<64>(x, w, ws, partial, cin, cout, n_off, dtype, s); break;
+    case 96: err = live_products<96>(x, w, ws, partial, cin, cout, n_off, dtype, s); break;
+    default: err = live_products<128>(x, w, ws, partial, cin, cout, n_off, dtype, s);
   }
   if (err != cudaSuccess) return err;
-  const dim3 grid((cap + kListThreads / 4 - 1) / (kListThreads / 4), (cout + 31) / 32);
+  const dim3 grid((row_cap + kListThreads / 4 - 1) / (kListThreads / 4), (cout + 31) / 32);
   const int ld = live_stride(cout, dtype);
   if (dtype == 1)
     live_sum_kernel<__nv_bfloat16><<<grid, kListThreads, 0, s>>>(
-        rows_ws, rows_ws + n_rows, ws, partial, ld, static_cast<__nv_bfloat16*>(out), cap, cout,
+        rows_ws, rows_ws + n_rows, ws, partial, ld, static_cast<__nv_bfloat16*>(out), cout,
         n_off);
   else
     live_sum_kernel<float><<<grid, kListThreads, 0, s>>>(
-        rows_ws, rows_ws + n_rows, ws, partial, ld, static_cast<float*>(out), cap, cout, n_off);
+        rows_ws, rows_ws + n_rows, ws, partial, ld, static_cast<float*>(out), cout, n_off);
   return cudaGetLastError();
 }
 
@@ -1262,29 +1284,29 @@ extern "C" int block_conv(const void* x, const void* block_nbr, const void* w,
                                cin, cout, dtype, narrow, s));
 }
 
-// The live-pair list of an occupied-row list (block_rows' ws of n_blocks *
-// edge^3 rows) into live_ws (block_dense.py:live_workspace_size of k^3
-// offsets and `cap` listed rows, cap >= the list's count): per offset, in
-// ascending list order, the listed rows whose source cell through the
-// block halo is occupied in mask (src: the source row, dst: the listed
+// The live-pair list of a row list (block_rows' or block_dilate's ws of
+// n_blocks * edge^3 rows) into live_ws (block_dense.py:live_workspace_size
+// of k^3 offsets, pair_cap pairs an offset, row_cap listed rows): per
+// offset, in ascending list order, the listed rows whose source cell
+// through the block halo is in mask (src: the source row, dst: the listed
 // row), map[o][i] the pair of listed row i at offset o (-1: none), the
-// counts, a zero ticket.  Two launches; the counts stay on the card.
-// Returns the launches' cudaError_t.
+// counts, a zero ticket, and the overflow word (0, or bit 0: more listed
+// rows than row_cap, bit 1: an offset with more pairs than pair_cap; what
+// does not fit is not written).  Two launches; the counts stay on the
+// card.  Returns the launches' cudaError_t.
 extern "C" int block_live_pairs(const void* rows_ws, const void* mask, const void* block_nbr,
-                                void* live_ws, int n_blocks, int edge, int k, int cap,
-                                void* stream) {
-  if ((edge != 4 && edge != 8) || (k != 3 && k != 5) || cap < 0) return cudaErrorInvalidValue;
+                                void* live_ws, int n_blocks, int edge, int k, int pair_cap,
+                                int row_cap, void* stream) {
+  if ((edge != 4 && edge != 8) || (k != 3 && k != 5) || pair_cap < 0 || row_cap < 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* rows = static_cast<const int32_t*>(rows_ws);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const int32_t* nbr = static_cast<const int32_t*>(block_nbr);
   int32_t* ws = static_cast<int32_t*>(live_ws);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (edge == 4 && k == 3) err = launch_live_list<4, 3>(rows, m, nbr, ws, n_blocks, cap, s);
-  if (edge == 4 && k == 5) err = launch_live_list<4, 5>(rows, m, nbr, ws, n_blocks, cap, s);
-  if (edge == 8 && k == 3) err = launch_live_list<8, 3>(rows, m, nbr, ws, n_blocks, cap, s);
-  if (edge == 8 && k == 5) err = launch_live_list<8, 5>(rows, m, nbr, ws, n_blocks, cap, s);
-  return static_cast<int>(err);
+  auto launch = edge == 4 ? (k == 3 ? launch_live_list<4, 3> : launch_live_list<4, 5>)
+                          : (k == 3 ? launch_live_list<8, 3> : launch_live_list<8, 5>);
+  return static_cast<int>(launch(rows, m, nbr, ws, n_blocks, pair_cap, row_cap, s));
 }
 
 // The row width of the live-pair path's fp32 buffer for Cout.  dtype: 0 =
@@ -1293,19 +1315,20 @@ extern "C" int block_conv_live_stride(int cout, int dtype) { return live_stride(
 
 // The conv on its live pairs: out[r] = sum over listed row r's live pairs
 // (o ascending) of x[src] @ w[o], for x zero outside the mask the list was
-// built on.  rows_ws: the occupied-row list (n_rows rows); live_ws: its
-// live-pair list (block_live_pairs, its ticket 0, as every call leaves
-// it); partial: (k^3 * cap, block_conv_live_stride) fp32 scratch.  Rows
-// outside the list are left as they are (the caller zeroes out).  Returns
-// the launches' cudaError_t.
+// built on.  rows_ws: the row list (n_rows rows) the list was built on;
+// live_ws: its live-pair list (block_live_pairs at pair_cap and row_cap,
+// its ticket 0, as every call leaves it); partial: (k^3 * pair_cap,
+// block_conv_live_stride) fp32 scratch.  Every listed row is written (0
+// where it has no live pair); rows outside the list are left as they are
+// (the caller zeroes out).  Returns the launches' cudaError_t.
 extern "C" int block_conv_live(const void* x, const void* w, const void* rows_ws, void* live_ws,
-                               void* partial, void* out, int n_rows, int cap, int k, int cin,
-                               int cout, int dtype, void* stream) {
-  if (cap == 0 || cout == 0) return 0;
-  if ((k != 3 && k != 5) || cin < 1) return cudaErrorInvalidValue;
+                               void* partial, void* out, int n_rows, int pair_cap, int row_cap,
+                               int k, int cin, int cout, int dtype, void* stream) {
+  if (row_cap == 0 || cout == 0) return 0;
+  if ((k != 3 && k != 5) || cin < 1 || pair_cap < 0) return cudaErrorInvalidValue;
   return static_cast<int>(live_conv(x, w, static_cast<const int32_t*>(rows_ws),
                                     static_cast<int32_t*>(live_ws), static_cast<float*>(partial),
-                                    out, n_rows, cap, k * k * k, cin, cout, dtype,
+                                    out, n_rows, pair_cap, row_cap, k * k * k, cin, cout, dtype,
                                     static_cast<cudaStream_t>(stream)));
 }
 

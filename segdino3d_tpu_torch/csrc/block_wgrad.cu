@@ -5,13 +5,14 @@
 // _chunked_conv_bwd (:414-433: the dense conv's own weight VJP per block
 // chunk, summed under lax.scan).  On the training path it runs once per
 // block conv of the Res16UNet34C: the 46 k3 convs of the BasicBlocks and
-// the dense k5 stem (259 -> 32).
+// the dense k5 stem (259 -> 32), on the live-pair path below in fp32.
 //
 // What bounds it: operations, 2 * pairs * Cin * Cout fp32 FMAs, a pair
 // being an occupied cell and an offset whose source block exists (the
 // op's contract: the source cell may be unoccupied, and feats is not
 // promised zero there, except where the caller states it: the live-pair
-// path below), over inputs of tens of MB.
+// path below, whose pairs have an occupied source), over inputs of tens
+// of MB.
 //
 // Design: dY is zero at unoccupied cells (the forward masked them), so
 // only occupied cells are reduced.  Their list is the level's occupied-row
@@ -36,17 +37,25 @@
 // held in registers, the splits' partials added in order by the split sum.
 //
 // The live-pair path (block_wgrad_live, for an input its caller states
-// zero outside the occupancy: the flagship's dense k5 stem dW in training,
+// zero outside the occupancy: every block conv's dW in training,
 // ops/narrow.py:live_path picks it): the pairs above include every
-// occupied cell's source in an existing block, 3.3x the pairs with an
-// occupied source at the stem, and a source outside the occupancy holds a
-// zero row.  The live-pair list of block_conv.cu:block_live_pairs (built
-// once per level and step, shared with the stem's forward) names only the
-// pairs whose source is occupied (A row src, B row dst); the same tile
-// core reduces them, fp32 on FMAs and bf16 on mma.sync.  Two forms on
-// Hopper's warpgroup core (wgmma.m64n32k16 with A transposed, the pairs
-// staged as MN-major rows) ran slower at 264 -> 32 in bf16 and were
-// dropped (PERF.md section 6, rows 6s / 8ds).
+// occupied cell's source in an existing block, about 3x the pairs with an
+// occupied source (3.3x at the stem), and a source outside the occupancy
+// holds a zero row.  The level's live-pair list of
+// block_conv.cu:block_live_pairs (built once per level, kernel size and
+// step, shared with the forward convs) names only the pairs whose source
+// is occupied (A row src, B row dst); the same tile core reduces them,
+// fp32 on FMAs and bf16 on mma.sync.  In fp32 the splits are the row-tile
+// path's splits of the listed rows (a binary search of each offset's
+// listed rows finds a split's first pair), so that each split adds the
+// same nonzero products in the same order and the dW equals the row-tile
+// path's bit for bit; that costs the k5 stem 1.75 -> 1.97 ms (75 splits
+// of 1,024 listed rows an offset, where 17 of 1,024 live pairs were
+// enough: PERF.md row 8d').  bf16 keeps the live pairs' own splits (the
+// stem 0.47 ms against 0.76 with the row splits).  Two forms on Hopper's
+// warpgroup core (wgmma.m64n32k16 with A transposed, the pairs staged as
+// MN-major rows) ran slower at 264 -> 32 in bf16 and were dropped
+// (PERF.md section 6, rows 6s / 8ds).
 //
 // Contract: x (n_blocks * edge^3, Cin) and dy (n_blocks * edge^3, Cout)
 // share one dtype (fp32 or bf16), rows contiguous; block_nbr (26, n_blocks)
@@ -100,12 +109,21 @@ struct HaloPairs {
 
 // the live-pair path: the pairs of block_live_pairs (block_conv.cu), per
 // offset the listed rows whose source cell is occupied, A row the source
-// and B row the listed row; the list's ticket orders the work items
+// and B row the listed row; the list's ticket orders the work items.  With
+// by_rows (fp32) the splits are the row-tile path's (HaloPairs above):
+// split s of offset o holds the live pairs of the listed rows s * per ..
+// (s + 1) * per - 1, found by a binary search of the offset's listed rows
+// (ascending), so that each split sums the row-tile path's nonzero
+// products in its order; else (bf16, whose mma sums differ from the row
+// tiles' anyway) the live pairs' own splits, fewer partials to write.
 struct LivePairs {
   const int32_t* src;    // (n_off, cap) source rows
-  const int32_t* dst;    // (n_off, cap) listed rows
+  const int32_t* dst;    // (n_off, cap) listed rows, ascending
   const int32_t* n;      // (n_off,) how many
+  const int32_t* list;   // the occupied-row list the pairs were built on
+  const int32_t* n_list; // its count
   int cap;
+  bool by_rows;
 
   __device__ __forceinline__ int count(int o) const { return n[o]; }
   __device__ __forceinline__ int key(int, int p) const { return p; }
@@ -116,6 +134,25 @@ struct LivePairs {
   __device__ __forceinline__ void finish(int, int, int2 f, int& ra, int& rb) const {
     ra = f.x;
     rb = f.y;
+  }
+  __device__ __forceinline__ int split_count(int o) const {
+    return by_rows ? *n_list : n[o];
+  }
+  // the first pair of split boundary i: with by_rows the first pair of
+  // offset o whose listed row is list entry i or later, else pair i
+  __device__ __forceinline__ int split_first(int o, int i) const {
+    const int c = n[o];
+    if (!by_rows) return min(i, c);
+    if (i >= *n_list) return c;
+    const int r = list[i];
+    const int32_t* d = dst + (int64_t)o * cap;
+    int lo = 0, hi = c;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (d[mid] < r) lo = mid + 1;
+      else hi = mid;
+    }
+    return lo;
   }
 };
 
@@ -258,26 +295,31 @@ extern "C" int block_wgrad_narrow(const void* x, const void* dy, const void* blo
 
 // K11 on live pairs (x zero outside the mask the list was built on): dW[o]
 // = sum over offset o's live pairs of x[src]^T @ dy[dst], on the tile core
-// above.  live_ws: block_live_pairs' list (k^3 offsets, `cap` listed rows,
-// its ticket 0 on entry and left 0).  `partial` must be `out` when splits
+// above, in fp32 in the row-tile path's splits of the listed rows (bf16:
+// in the live pairs' own).  rows_ws: the occupied-row list (n_rows rows)
+// the pairs were built on; live_ws: block_live_pairs' list (k^3 offsets,
+// pair_cap pairs an offset, its ticket 0 on entry and left 0); splits: as
+// block_wgrad's at the same shape.  `partial` must be `out` when splits
 // is 1.  dtype: 0 = float32, 1 = bfloat16.  Returns the first failed
 // launch's cudaError_t, or 0.
-extern "C" int block_wgrad_live(const void* x, const void* dy, void* live_ws, void* partial,
-                                void* out, int cap, int k, int cin, int cout, int splits,
-                                int dtype, void* stream) {
+extern "C" int block_wgrad_live(const void* x, const void* dy, const void* rows_ws, int n_rows,
+                                void* live_ws, void* partial, void* out, int pair_cap, int k,
+                                int cin, int cout, int splits, int dtype, void* stream) {
   if (cin == 0 || cout == 0) return 0;
-  if ((k != 3 && k != 5) || splits < 1 || cap < 0)
+  if ((k != 3 && k != 5) || splits < 1 || pair_cap < 0 || n_rows < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* o = static_cast<float*>(out);
   const int n_off = k * k * k;
-  if (cap == 0)
+  if (pair_cap == 0)
     return static_cast<int>(
         cudaMemsetAsync(o, 0, sizeof(float) * (size_t)n_off * cin * cout, s));
   int32_t* w = static_cast<int32_t*>(live_ws);
-  const int64_t n = (int64_t)n_off * cap;
-  const LivePairs pairs{w, w + n, w + 3 * n, cap};
-  int32_t* ticket = w + 3 * n + n_off;
+  const int32_t* rows = static_cast<const int32_t*>(rows_ws);
+  const int64_t n = (int64_t)n_off * pair_cap;
+  const LivePairs pairs{w, w + n, w + 2 * n, rows, rows + n_rows, pair_cap,
+                        dtype == 0};
+  int32_t* ticket = w + 2 * n + n_off;
   float* p = static_cast<float*>(partial);
   cudaError_t err = dtype == 1
       ? launch_width<__nv_bfloat16>(x, dy, pairs, ticket, p, o, cin, cout, n_off, splits, s)

@@ -65,6 +65,46 @@ __host__ __device__ __forceinline__ Split split_of(int count, int cap) {
   return {(count + per - 1) / per, per};
 }
 
+// A Pairs policy may split an offset's pairs where another list splits:
+// with a member split_count(o), the splits follow split_of(split_count(o))
+// and split s holds the pairs from split_first(o, s * per) to
+// split_first(o, (s + 1) * per) (K11's live pairs, split where the
+// row-tile path splits the listed rows, so that both sum the same nonzero
+// products in each split, in the same order).
+template <class P, class = void>
+struct SplitsOther {
+  static constexpr bool value = false;
+};
+template <class P>
+struct SplitsOther<P, decltype(void(&P::split_count))> {
+  static constexpr bool value = true;
+};
+
+struct Range {
+  int begin, end;  // the split's pairs
+  int used;        // the offset's splits holding pairs
+};
+
+template <class Pairs>
+__device__ __forceinline__ Range split_range(const Pairs& pairs, int o, int s, int cap) {
+  if constexpr (SplitsOther<Pairs>::value) {
+    const int n = pairs.split_count(o);
+    const Split sp = split_of(n, cap);
+    const int i = s * sp.per;
+    return {pairs.split_first(o, min(i, n)), pairs.split_first(o, min(i + sp.per, n)), sp.used};
+  } else {
+    const int count = pairs.count(o);
+    const Split sp = split_of(count, cap);
+    return {s * sp.per, min(count, s * sp.per + sp.per), sp.used};
+  }
+}
+
+template <class Pairs>
+__device__ __forceinline__ int splits_used(const Pairs& pairs, int o, int cap) {
+  if constexpr (SplitsOther<Pairs>::value) return split_of(pairs.split_count(o), cap).used;
+  else return split_of(pairs.count(o), cap).used;
+}
+
 template <typename T> struct Elt;
 template <> struct Elt<float> { static constexpr int kVec = 4, kPad = 4; };
 template <> struct Elt<__nv_bfloat16> { static constexpr int kVec = 8, kPad = 8; };
@@ -332,11 +372,9 @@ __device__ __forceinline__ void run_tiles(const T* __restrict__ a, const T* __re
     const int s = item / per_split, rem = item % per_split;
     const int o = rem / (n_mt * n_nt);
     const int m0 = (rem / n_nt) % n_mt * BM, n0 = rem % n_nt * BN;
-    const int count = pairs.count(o);
-    const Split sp = split_of(count, splits);
-    if (s >= (sp.used > 0 ? sp.used : 1)) continue;  // split 0 always writes
-    const int p_begin = s * sp.per;
-    const int p_end = min(count, p_begin + sp.per);
+    const Range range = split_range(pairs, o, s, splits);
+    if (s >= (range.used > 0 ? range.used : 1)) continue;  // split 0 always writes
+    const int p_begin = range.begin, p_end = range.end;
     const int n_rounds = (p_end - p_begin + 31) / 32;
 
     // The producer walks its split's pairs in rounds of 32 candidates, one
@@ -439,7 +477,7 @@ sum_splits_kernel(const float* __restrict__ partial, float* __restrict__ out,
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n) return;
   const int slot = (int)(e / per);
-  const int used = split_of(pairs.count(mirror ? n_off - 1 - slot : slot), splits).used;
+  const int used = splits_used(pairs, mirror ? n_off - 1 - slot : slot, splits);
   float acc = partial[e];
   for (int s = 1; s < used; ++s) acc += partial[(int64_t)s * n + e];
   out[e] = acc;

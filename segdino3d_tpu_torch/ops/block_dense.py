@@ -33,14 +33,15 @@ Three hand-written CUDA kernels carry it:
   channels (``narrow.narrow_wgrad_path``) on its narrow path, im2col
   tiles of every offset's sources over the listed rows;
 * the live-pair path of K10 and K11 (``narrow.live_path``), for a conv
-  whose caller states its input zero outside the occupancy (the dense k5
-  stem in training, its input straight from ``scatter_to_dense``): a
-  source cell outside the occupancy then holds a zero row, so only the
-  (listed row, offset) pairs with an occupied source are computed, over a
-  list built on the card once per level and step (``live_pairs``:
-  ``block_live_pairs``, a pass over the row list) that the stem's forward
-  and its dW share; the forward in K1's pair-major form, the dW on K11's
-  tile core.
+  whose caller states its input zero outside the occupancy (every block
+  conv: ``conv_ctx.DenseCtx``) and for every dX conv (its masked
+  cotangent): a source cell outside the occupancy then holds a zero row,
+  so only the (listed row, offset) pairs with an occupied source are
+  computed, over lists built on the card once per level and step
+  (``block_live_pairs``, a pass over a row list): the occupied rows'
+  (``live_pairs``), which a level's forward convs and their dW share, and
+  the dilation's rows' (``dilation_pairs``), which its dX convs share; the
+  convs in K1's pair-major form, the dW on K11's tile core.
 
 ``dense_subm_conv`` is a ``torch.autograd.Function`` whose backward runs
 K10 for dX (the mirror identity of ``_chunked_conv_bwd``: the same conv of
@@ -107,6 +108,10 @@ class BlockTables:
         default=None, repr=False, compare=False)
     # k -> (occupancy, its live-pair list), filled by ``live_pairs``
     live: Dict[int, Tuple[torch.Tensor, "LivePairs"]] = field(
+        default_factory=dict, repr=False, compare=False)
+    # k -> (occupancy, the live-pair list of its k-dilation's rows over its
+    # cells), filled by ``dilation_pairs``
+    dilation_live: Dict[int, Tuple[torch.Tensor, "LivePairs"]] = field(
         default_factory=dict, repr=False, compare=False)
 
     @property
@@ -398,56 +403,69 @@ def dilation(tables: BlockTables, occ: torch.Tensor, k: int
 
 # ---------------------------------------------------------------------------
 # the live-pair path: K10 and K11 where the input is zero outside the
-# occupancy (the dense stem)
+# occupancy (every block conv: ``conv_ctx.DenseCtx``)
 # ---------------------------------------------------------------------------
 
 class LivePairs(NamedTuple):
-    """The live pairs of an occupied-row list: per offset o, in list order,
-    the listed rows whose source cell (through the block halo) is occupied.
-    Pair j of offset o is ``(src[o, j], dst[o, j])``; ``map[o, i]`` is the
-    pair of listed row i at o, -1 where its source is unoccupied or
-    absent."""
-    src: torch.Tensor       # (n_off, cap) int32 source rows; past the
+    """The live pairs of a row list: per offset o, in list order, the
+    listed rows whose source cell (through the block halo) is in the source
+    mask.  Pair j of offset o is ``(src[o, j], dst[o, j])``; ``map[o, i]``
+    is the pair of listed row i at o, -1 where its source is outside the
+    mask or absent."""
+    src: torch.Tensor       # (n_off, pair_cap) int32 source rows; past the
     #                         count -1 (plain version) or unspecified
-    dst: torch.Tensor       # (n_off, cap) int32 listed rows, the same
-    map: torch.Tensor       # (n_off, cap) int32; past the row count -1
+    dst: torch.Tensor       # (n_off, pair_cap) int32 listed rows, the same
+    map: torch.Tensor       # (n_off, row_cap) int32; past the row count -1
     #                         (plain version) or unspecified
     counts: torch.Tensor    # (n_off,) int32
-    rows: RowList           # the occupied-row list it was built on
+    rows: RowList           # the row list it was built on
     ws: Optional[torch.Tensor]   # block_live_pairs' workspace, None on the
     #                              CPU
 
 
-def live_workspace_size(n_off: int, cap: int) -> int:
-    """``block_live_pairs``' int32 workspace: src, dst and map, the counts,
-    a ticket, the list passes' per-block counts and the count pass's bits
-    (a word per 32 listed rows)."""
-    blocks = max(1, -(-cap // LIST_ROWS))
-    return 3 * n_off * cap + n_off + 1 + n_off * blocks * (1 + LIST_ROWS // 32)
+def live_workspace_size(n_off: int, pair_cap: int, row_cap: int) -> int:
+    """``block_live_pairs``' int32 workspace: src and dst, the counts, a
+    ticket, the overflow word, the map, the list passes' per-block counts
+    and the count pass's bits (a word per 32 listed rows)."""
+    blocks = max(1, -(-row_cap // LIST_ROWS))
+    return 2 * n_off * pair_cap + n_off + 2 + n_off * row_cap \
+        + n_off * blocks * (1 + LIST_ROWS // 32)
 
 
 def live_capacity(tables: BlockTables) -> int:
-    """The listed rows a level's live-pair list holds: its occupied rows
-    are distinct voxels' slots (``vox_slot`` is injective), so at most the
-    level's voxel capacity."""
+    """The pairs an offset of a level's live-pair lists holds, and the
+    rows its forward list holds: an offset's pairs have distinct sources,
+    and the occupied rows are distinct voxels' slots (``vox_slot`` is
+    injective), so at most the level's voxel capacity."""
     return min(tables.slot_vox.shape[0], tables.vox_slot.shape[0])
 
 
 def live_pairs_plain(rows: RowList, occ: torch.Tensor,
-                     block_nbr: torch.Tensor, edge: int, k: int, cap: int
-                     ) -> LivePairs:
-    """Plain version of ``block_live_pairs``."""
+                     block_nbr: torch.Tensor, edge: int, k: int, cap: int,
+                     row_cap: Optional[int] = None) -> LivePairs:
+    """Plain version of ``block_live_pairs`` at ``cap`` pairs an offset
+    and ``row_cap`` listed rows (``cap`` when not given); a count past its
+    capacity raises."""
+    row_cap = cap if row_cap is None else row_cap
     n = int(rows.count)
+    if n > row_cap:
+        raise ValueError(f"live_pairs: {n} listed rows past the capacity "
+                         f"{row_cap}")
     listed = rows.rows[:n]
     h = (k - 1) // 2
     n_off = k ** 3
     src = torch.full((n_off, cap), -1, dtype=torch.int32, device=occ.device)
-    dst, pmap = src.clone(), src.clone()
+    dst = src.clone()
+    pmap = torch.full((n_off, row_cap), -1, dtype=torch.int32,
+                      device=occ.device)
     counts = torch.zeros(n_off, dtype=torch.int32, device=occ.device)
     for o, shift in enumerate(itertools.product(range(-h, h + 1), repeat=3)):
         s = halo_rows_plain(listed, block_nbr, edge, shift)
         live = (s >= 0) & occ[s.clamp(min=0).long()]
         c = int(live.sum())
+        if c > cap:
+            raise ValueError(f"live_pairs: {c} pairs at offset {o} past the "
+                             f"capacity {cap}")
         src[o, :c], dst[o, :c] = s[live], listed[live]
         pmap[o, :n] = torch.where(live, torch.cumsum(live, 0) - 1, -1).to(
             torch.int32)
@@ -455,42 +473,59 @@ def live_pairs_plain(rows: RowList, occ: torch.Tensor,
     return LivePairs(src, dst, pmap, counts, rows, None)
 
 
-def live_in(ws: torch.Tensor, n_off: int, cap: int, rows: RowList
-            ) -> LivePairs:
+def live_in(ws: torch.Tensor, n_off: int, cap: int, row_cap: int,
+            rows: RowList) -> LivePairs:
     """The ``LivePairs`` of ``rows`` whose workspace is ``ws``."""
     n = n_off * cap
+    m = 2 * n + n_off + 2
     return LivePairs(ws[:n].view(n_off, cap), ws[n:2 * n].view(n_off, cap),
-                     ws[2 * n:3 * n].view(n_off, cap),
-                     ws[3 * n:3 * n + n_off], rows, ws)
+                     ws[m:m + n_off * row_cap].view(n_off, row_cap),
+                     ws[2 * n:2 * n + n_off], rows, ws)
+
+
+LIVE_OVERFLOW = "block_live_pairs: a count past the list's capacity"
 
 
 def live_pair_list(rows: RowList, occ: torch.Tensor, block_nbr: torch.Tensor,
-                   edge: int, k: int, cap: Optional[int] = None) -> LivePairs:
-    """The live pairs of ``rows``, the row list of ``occ``: on the card one
-    pass over the list (two launches, ``block_live_pairs``), the counts
-    left there.  ``cap`` bounds the list's count (``live_capacity``; the
-    list's own capacity when not given)."""
+                   edge: int, k: int, cap: Optional[int] = None,
+                   row_cap: Optional[int] = None) -> LivePairs:
+    """The live pairs of ``rows`` (a row list of the level) with sources in
+    ``occ``: on the card one pass over the list (two launches,
+    ``block_live_pairs``), the counts left there.  ``cap`` bounds an
+    offset's pairs (``live_capacity``; the level's rows when not given),
+    ``row_cap`` the listed rows (``cap`` when not given).  A count past its
+    capacity raises: on the CPU here, on the card through a device-side
+    assert (``torch._assert_async``) on the kernel's overflow word, with no
+    host sync."""
     n_rows = occ.shape[0]
     cap = n_rows if cap is None else cap
+    row_cap = cap if row_cap is None else row_cap
     if edge not in EDGES or k not in KERNEL_SIZES or not 0 <= cap <= n_rows \
-            or occ.dtype != torch.bool or rows.rows.shape[0] != n_rows:
+            or not 0 <= row_cap <= n_rows or occ.dtype != torch.bool \
+            or rows.rows.shape[0] != n_rows:
         raise ValueError(f"live_pair_list: {n_rows} rows, edge {edge}, k {k},"
-                         f" cap {cap}")
+                         f" cap {cap}, row cap {row_cap}")
+    if torch.compiler.is_exporting():
+        from segdino3d_tpu_torch.ops import custom_ops
+        return custom_ops.live_pair_list(rows, occ, block_nbr, edge, k, cap,
+                                         row_cap)
     if occ.device.type == "cpu":
-        return live_pairs_plain(rows, occ, block_nbr, edge, k, cap)
+        return live_pairs_plain(rows, occ, block_nbr, edge, k, cap, row_cap)
     _require_cuda("live_pair_list", occ, block_nbr)
     if rows.ws is None:
         raise ValueError("live_pair_list: rows must be the card's row list")
     n_off = k ** 3
-    ws = torch.empty(live_workspace_size(n_off, cap), dtype=torch.int32,
-                     device=occ.device)
+    ws = torch.empty(live_workspace_size(n_off, cap, row_cap),
+                     dtype=torch.int32, device=occ.device)
     lib = cuda_build.library("block_conv")
     cuda_build.check(lib.block_live_pairs(
         rows.ws.data_ptr(), occ.data_ptr(), block_nbr.data_ptr(),
-        ws.data_ptr(), block_nbr.shape[1], edge, k, cap,
+        ws.data_ptr(), block_nbr.shape[1], edge, k, cap, row_cap,
         cuda_build.stream_ptr(occ)), "block_live_pairs")
     live_pair_list.launches += 1
-    return live_in(ws, n_off, cap, rows)
+    over = 2 * n_off * cap + n_off + 1
+    torch._assert_async(ws[over] == 0, LIVE_OVERFLOW)
+    return live_in(ws, n_off, cap, row_cap, rows)
 
 
 live_pair_list.launches = 0
@@ -498,14 +533,31 @@ live_pair_list.launches = 0
 
 def live_pairs(tables: BlockTables, occ: torch.Tensor, k: int) -> LivePairs:
     """The live-pair list of ``occ``'s row list on ``tables``, kept on the
-    tables: built once per level and step for the stem's forward (K10) and
-    its weight gradient (K11)."""
+    tables: built once per level, kernel size and step for the level's
+    forward convs (K10) and their weight gradients (K11)."""
     hit = tables.live.get(k)
     if hit is None or hit[0] is not occ:
+        cap = live_capacity(tables)
         hit = (occ, live_pair_list(row_list(tables, occ), occ,
-                                   tables.block_nbr, tables.edge, k,
-                                   live_capacity(tables)))
+                                   tables.block_nbr, tables.edge, k, cap))
         tables.live[k] = hit
+    return hit[1]
+
+
+def dilation_pairs(tables: BlockTables, occ: torch.Tensor, k: int
+                   ) -> LivePairs:
+    """The dX role's live-pair list, kept on the tables beside the
+    dilation: the rows of ``occ``'s k-dilation (``dilation``), each with
+    its sources in ``occ``, where the masked cotangent can be nonzero.
+    Built once per level, kernel size and step for all the level's dX
+    convs; at most ``live_capacity`` pairs an offset (distinct sources in
+    ``occ``), up to every row of the level listed."""
+    hit = tables.dilation_live.get(k)
+    if hit is None or hit[0] is not occ:
+        rows = dilation(tables, occ, k)[1]
+        hit = (occ, live_pair_list(rows, occ, tables.block_nbr, tables.edge,
+                                   k, live_capacity(tables), occ.shape[0]))
+        tables.dilation_live[k] = hit
     return hit[1]
 
 
@@ -513,8 +565,9 @@ def block_conv_live_plain(feats: torch.Tensor, weights: torch.Tensor,
                           pairs: LivePairs) -> torch.Tensor:
     """Plain version of K10's live-pair path: per offset, ascending, its
     live pairs' products ``feats[src] @ weights[o]`` in fp32 added to their
-    rows; every other row 0.  On an input zero outside the occupancy the
-    list was built on, ``dense_subm_conv_plain`` under that occupancy."""
+    rows; every other row 0.  On an input zero outside the source mask the
+    list was built on, ``dense_subm_conv_plain`` under the mask of the
+    listed rows (the occupancy; the dilation in the dX role)."""
     xf, wf = as_sum_type(feats), as_sum_type(weights)
     acc = xf.new_zeros(feats.shape[0], weights.shape[2])
     for o in range(weights.shape[0]):
@@ -543,7 +596,8 @@ def _live_list(live_list, rows, occ, block_nbr, edge, k):
     ``rows`` (or on a row list built here) at the rows' capacity."""
     if live_list is not None:
         if live_list.src.shape[0] != k ** 3 or (
-                occ.is_cuda and live_list.ws is None):
+                occ.is_cuda and live_list.ws is None) or \
+                live_list.rows.rows.shape[0] != occ.shape[0]:
             raise ValueError("the live-pair list does not match the call")
         return live_list
     if rows is None or (occ.is_cuda and rows.ws is None):
@@ -576,22 +630,21 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     capacity (``groups``: at most this many, where a test asks).
 
     ``zero_outside``: the caller states that ``feats`` is zero at every row
-    outside ``occ`` (the dense stem's input, straight from
-    ``scatter_to_dense``).  Where ``narrow.live_path`` then takes the shape
-    (the k5 stem; or ``live``, where a benchmark or test forces a path) the
-    conv runs over the live pairs of ``occ``'s row list only (``live_list``,
-    ``live_pairs``; built inside the call when not given): each offset's
-    pairs in items of 64, their products into a pair-major (k^3 * cap,
-    Cout rounded up to the column tile) fp32 scratch allocated here, then
-    each row's products added in ascending offset order.  Pairs whose
-    source is unoccupied carry exact zeros and are skipped, so the result
-    is the conv's.  On the CPU that path's plain version runs."""
+    outside ``occ`` (every block conv's input: ``conv_ctx.DenseCtx``).
+    Where ``narrow.live_path`` then takes the shape (or ``live``, which the
+    autograd Function passes by role, and benchmarks and tests force) the
+    conv runs over the live pairs of ``occ``'s row list only (``live_list``:
+    ``live_pairs``, or in the dX role ``dilation_pairs``, whose sources are
+    the occupancy inside the dilation ``occ``; built inside the call when
+    not given): each offset's pairs in items of 64, their products into a
+    pair-major (k^3 * pair cap, Cout rounded up to the column tile) fp32
+    scratch allocated here, then each listed row's products added in
+    ascending offset order.  Pairs whose source is outside the list's
+    source mask carry exact zeros and are skipped, so the result is the
+    conv's (fp32: bit-equal to the row-tile path).  On the CPU that path's
+    plain version runs."""
     n_off, cin, cout = weights.shape
     _check_layout("block_conv", feats, block_nbr, n_off, edge, cin)
-    if torch.compiler.is_exporting():
-        from segdino3d_tpu_torch.ops import custom_ops
-        return custom_ops.block_conv(feats, block_nbr, weights, occ, edge,
-                                     rows)
     k = kernel_size(n_off)
     if zero_outside and occ is None:
         raise ValueError("block_conv: zero_outside needs occ")
@@ -601,8 +654,12 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
                        zero_outside, "block_conv")
     if live:
         live_list = _live_list(live_list, rows, occ, block_nbr, edge, k)
-        if feats.device.type == "cpu":
-            return block_conv_live_plain(feats, weights, live_list)
+    if torch.compiler.is_exporting():
+        from segdino3d_tpu_torch.ops import custom_ops
+        return custom_ops.block_conv(feats, block_nbr, weights, occ, edge,
+                                     rows, live_list if live else None)
+    if live and feats.device.type == "cpu":
+        return block_conv_live_plain(feats, weights, live_list)
     if feats.device.type == "cpu":
         return dense_subm_conv_plain(feats, block_nbr, weights, occ, edge)
     _require_cuda("block_conv", feats, block_nbr, weights,
@@ -623,15 +680,15 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     if live:
         N.count_element_loads(feats, weights)
         dtype = cuda_build.dtype_code(feats.dtype)
-        cap = live_list.src.shape[1]
+        cap, row_cap = live_list.src.shape[1], live_list.map.shape[1]
         partial = torch.empty(n_off * cap,
                               lib.block_conv_live_stride(cout, dtype),
                               dtype=torch.float32, device=feats.device)
         cuda_build.check(lib.block_conv_live(
             feats.data_ptr(), weights.data_ptr(), live_list.rows.ws.data_ptr(),
             live_list.ws.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n_rows, cap, k, cin, cout, dtype, cuda_build.stream_ptr(feats)),
-            "block_conv_live")
+            n_rows, cap, row_cap, k, cin, cout, dtype,
+            cuda_build.stream_ptr(feats)), "block_conv_live")
         block_conv.launches += 1
         block_conv.live.launches += 1
         return out
@@ -761,8 +818,9 @@ def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
     where a benchmark or test forces one path).  ``zero_outside``: the
     caller states ``feats`` zero outside ``occ``; where
     ``narrow.live_path`` then takes the shape (or ``live`` forces it) the
-    kernel reduces the live pairs alone (``live_list``, as ``block_conv``
-    takes it), on the CPU that path's plain version."""
+    kernel reduces the live pairs alone (``live_list``, the forward's
+    ``live_pairs``), in fp32 in the row-tile path's splits of the listed
+    rows (bit-equal to it), on the CPU that path's plain version."""
     cin, cout = feats.shape[1], dy.shape[1]
     _check_layout("block_wgrad", feats, block_nbr, k ** 3, edge, cin)
     if tuple(dy.shape) != (feats.shape[0], cout) or \
@@ -787,8 +845,7 @@ def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
                         "block_nbr must be int32 and occ bool")
     lib = cuda_build.library("block_wgrad")
     if live:
-        cap = live_list.src.shape[1]
-        splits = wgrad_splits(cap, k ** 3, cin, cout)
+        splits = wgrad_splits(occ.shape[0], k ** 3, cin, cout)
         out = torch.empty(k ** 3, cin, cout, dtype=torch.float32,
                           device=feats.device)
         partial = out if splits == 1 else torch.empty(
@@ -796,8 +853,9 @@ def block_wgrad(feats: torch.Tensor, dy: torch.Tensor,
             device=feats.device)
         N.count_element_loads(feats, dy)
         cuda_build.check(lib.block_wgrad_live(
-            feats.data_ptr(), dy.data_ptr(), live_list.ws.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), cap, k, cin, cout, splits,
+            feats.data_ptr(), dy.data_ptr(), live_list.rows.ws.data_ptr(),
+            occ.shape[0], live_list.ws.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), live_list.src.shape[1], k, cin, cout, splits,
             cuda_build.dtype_code(feats.dtype), cuda_build.stream_ptr(feats)),
             "block_wgrad_live")
         block_wgrad.launches += 1
@@ -838,41 +896,53 @@ class _DenseSubmConv(torch.autograd.Function):
     involutive (``nbr_d[i] = j <=> nbr_{-d}[j] = i``), so dX is the same
     conv (K10) of the masked cotangent with offset-flipped, transposed
     weights, computed on the k-dilation of the occupancy (zero outside it,
-    as the unmasked conv is there), and dW is K11.  With ``zero_outside``
-    (the input zero outside the occupancy) the forward and dW run on the
-    live-pair path where its rule takes the shape, sharing one list."""
+    as the unmasked conv is there), and dW is K11.  Each role runs on the
+    live-pair path where ``narrow.live_path`` takes its shape: the forward
+    and dW when the input is stated zero outside the occupancy
+    (``zero_outside``), over one list of the level's occupied rows
+    (``live_pairs``); dX always (the masked cotangent is zero outside the
+    occupancy), over the dilation's list (``dilation_pairs``)."""
 
     @staticmethod
     def forward(ctx, feats, occ, tables, weights, zero_outside):
         ctx.save_for_backward(feats, occ, weights)
         ctx.tables = tables
-        ctx.zero_outside = zero_outside = bool(zero_outside) and \
-            not torch.compiler.is_exporting()
+        ctx.zero_outside = zero_outside = bool(zero_outside)
         n_off, cin, cout = weights.shape
         rows = row_list(tables, occ) if feats.is_cuda else None
-        live = live_pairs(tables, occ, kernel_size(n_off)) if N.live_path(
-            n_off, cin, cout, feats.dtype, zero_outside) else None
+        live = N.live_path(n_off, cin, cout, feats.dtype, zero_outside,
+                           cap=live_capacity(tables))
         return block_conv(feats, tables.block_nbr, weights, occ, tables.edge,
-                          rows, zero_outside=zero_outside, live_list=live)
+                          rows, zero_outside=zero_outside, live=live,
+                          live_list=live_pairs(tables, occ,
+                                               kernel_size(n_off))
+                          if live else None)
 
     @staticmethod
     def backward(ctx, dout):
         feats, occ, weights = ctx.saved_tensors
         t, k = ctx.tables, kernel_size(weights.shape[0])
+        cin, cout = weights.shape[1:]
+        cap = live_capacity(t)
         dy = torch.where(occ[:, None], dout, 0.0).to(feats.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             mask, rows = dilation(t, occ, k)
+            live = N.live_path(k ** 3, cout, cin, dy.dtype, True, dx=True,
+                               cap=cap)
             dx = block_conv(dy, t.block_nbr, _transposed(weights.flip(0)),
-                            mask, t.edge, rows if dy.is_cuda else None)
+                            mask, t.edge, rows if dy.is_cuda else None,
+                            zero_outside=True, live=live,
+                            live_list=dilation_pairs(t, occ, k)
+                            if live else None)
         if ctx.needs_input_grad[3]:
             rows = row_list(t, occ) if feats.is_cuda else None
-            live = live_pairs(t, occ, k) if N.live_path(
-                k ** 3, feats.shape[1], dy.shape[1], feats.dtype,
-                ctx.zero_outside, wgrad=True) else None
+            live = N.live_path(k ** 3, cin, cout, feats.dtype,
+                               ctx.zero_outside, wgrad=True, cap=cap)
             dw = block_wgrad(feats, dy, t.block_nbr, occ, t.edge, k, rows,
-                             zero_outside=ctx.zero_outside,
-                             live_list=live).to(weights.dtype)
+                             zero_outside=ctx.zero_outside, live=live,
+                             live_list=live_pairs(t, occ, k)
+                             if live else None).to(weights.dtype)
         return dx, None, None, dw, None
 
 

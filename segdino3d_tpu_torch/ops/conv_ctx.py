@@ -18,8 +18,6 @@ for both:
 """
 from __future__ import annotations
 
-import weakref
-
 import torch
 
 from segdino3d_tpu_torch.ops import block_dense as BD
@@ -68,26 +66,31 @@ class CompactStemCtx:
 class DenseCtx:
     """Block-dense execution: features live as (B*edge^3, C) flat rows;
     ``valid`` is the occupied-cell mask (K9 at the boundaries, K10 and K11
-    in the convs).  A conv whose input is the tensor ``enter`` returned
-    (the dense stem's) states that it is zero outside the occupancy
-    (``scatter_to_dense`` writes 0 at every empty cell), which lets K10
-    and K11 skip its unoccupied sources; every other conv's input has
-    passed a norm or an activation and states nothing."""
+    in the convs).
+
+    Every conv states that its input is zero outside the occupancy, which
+    lets K10 and K11 skip the unoccupied sources (``zero_outside``).  The
+    Res16UNet34C (``models/backbone/res16unet.py``, the only model that
+    runs this context) makes it hold: ``enter`` (``scatter_to_dense``)
+    writes 0 at every empty cell; ``MaskedBatchNorm`` returns
+    ``torch.where(valid[:, None], y, 0.0)`` (``models/layers.py``), and
+    every conv input is built from such tensors and the entered rows by
+    ReLU, residual sums and skip concatenations, which keep exact zeros
+    (``BasicBlock.forward``, the ``down`` and ``up`` paths, the stem's
+    ``relu(bn0(...))``).  Nothing checks it on the hot path: a CPU test
+    (``tests/test_torch_port_live_k3.py``) and ``chip_smoke.py`` count
+    nonzero inputs outside ``valid``."""
 
     def __init__(self, tables: BD.BlockTables):
         self.tables = tables
         self.valid = BD.occupancy(tables)
-        self._entered = None   # a weak reference to enter's last output
 
     def subm(self, feats, w):
-        entered = self._entered is not None and self._entered() is feats
         return BD.dense_subm_conv(feats, self.valid, self.tables, w,
-                                  zero_outside=entered)
+                                  zero_outside=True)
 
     def enter(self, x):
-        out = BD.scatter_to_dense(x, self.tables)
-        self._entered = weakref.ref(out)
-        return out
+        return BD.scatter_to_dense(x, self.tables)
 
     def exit(self, x):
         return BD.gather_from_dense(x, self.tables)

@@ -137,22 +137,25 @@ _SIGNATURES = {
     "block_rows": [_P, _P, _I, _P],
     # mask, block_nbr, out, ws, n_blocks, edge, k, stream
     "block_dilate": [_P, _P, _P, _P, _I, _I, _I, _P],
-    # rows_ws, mask, block_nbr, live_ws, n_blocks, edge, k, cap, stream
-    "block_live_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # rows_ws, mask, block_nbr, live_ws, n_blocks, edge, k, pair_cap,
+    # row_cap, stream
+    "block_live_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # cout, dtype
     "block_conv_live_stride": [_I, _I],
-    # x, w, rows_ws, live_ws, partial, out, n_rows, cap, k, cin, cout,
-    # dtype, stream
-    "block_conv_live": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, rows_ws, live_ws, partial, out, n_rows, pair_cap, row_cap, k,
+    # cin, cout, dtype, stream
+    "block_conv_live": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
     # x, dy, block_nbr, ws, partial, out, n_blocks, edge, k, cin, cout,
     # splits, dtype, stream
     "block_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # the same contract, the narrow path
     "block_wgrad_narrow": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P],
-    # x, dy, live_ws, partial, out, cap, k, cin, cout, splits, dtype,
-    # stream
-    "block_wgrad_live": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, dy, rows_ws, n_rows, live_ws, partial, out, pair_cap, k, cin,
+    # cout, splits, dtype, stream
+    "block_wgrad_live": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                         _P],
     # y2, slots, ov_src, ov_dst, valid, out, v, d, p, cout, dtype, stream
     "stem_slot_sum": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -16,11 +16,14 @@ Each op has three implementations:
 * fake: the output's shape and dtype, from the static capacities of the
   inputs alone.
 
-The pair lists (K4's ``gather_pairs``, which K1 and K2 read) and K10's row
-lists (``block_rows``) are ops of their own whose outputs, the kernels'
-int32 workspaces, feed the convs: the tracer meets each table once per
-forward through ``sparse_conv.cached_pairs`` and ``block_dense.row_list``,
-so the graph builds each list once, as an eager forward does.  On the
+The pair lists (K4's ``gather_pairs``, which K1 and K2 read), K10's row
+lists (``block_rows``) and K10's live-pair lists (``block_live_pairs``) are
+ops of their own whose outputs, the kernels' int32 workspaces, feed the
+convs: the tracer meets each table once per forward through
+``sparse_conv.cached_pairs``, ``block_dense.row_list`` and
+``block_dense.live_pairs``, so the graph builds each list once, as an
+eager forward does, and each K10 node takes the path the eager forward
+takes (``narrow.live_path``).  On the
 card those workspaces hold unspecified entries past the lists, which no
 reader touches.  Split
 counts that depend on the card (K10's bf16 offset groups) are taken on
@@ -178,39 +181,99 @@ def block_rows(mask: Tensor) -> BD.RowList:
     return BD.rows_in(block_rows_op(mask), mask.shape[0])
 
 
+@custom_op("segdino3d::block_live_pairs", mutates_args=(),
+           device_types="cpu")
+def block_live_pairs_op(rows: Tensor, occ: Tensor, block_nbr: Tensor,
+                        edge: int, k: int, cap: int, row_cap: int) -> Tensor:
+    lp = BD.live_pairs_plain(BD.rows_in(rows, occ.shape[0]), occ, block_nbr,
+                             edge, k, cap, row_cap)
+    n_off = k ** 3
+    ws = torch.zeros(BD.live_workspace_size(n_off, cap, row_cap),
+                     dtype=torch.int32, device=occ.device)
+    view = BD.live_in(ws, n_off, cap, row_cap, lp.rows)
+    for mine, plain in zip(view[:4], lp[:4]):
+        mine.copy_(plain)
+    return ws
+
+
+@block_live_pairs_op.register_kernel("cuda")
+def _(rows, occ, block_nbr, edge, k, cap, row_cap):
+    return BD.live_pair_list(BD.rows_in(rows, occ.shape[0]), occ, block_nbr,
+                             edge, k, cap, row_cap).ws
+
+
+@block_live_pairs_op.register_fake
+def _(rows, occ, block_nbr, edge, k, cap, row_cap):
+    return occ.new_empty(BD.live_workspace_size(k ** 3, cap, row_cap),
+                         dtype=torch.int32)
+
+
+def live_pair_list(rows: BD.RowList, occ: Tensor, block_nbr: Tensor,
+                   edge: int, k: int, cap: int, row_cap: int) -> BD.LivePairs:
+    return BD.live_in(block_live_pairs_op(rows.ws, occ, block_nbr, edge, k,
+                                          cap, row_cap),
+                      k ** 3, cap, row_cap, rows)
+
+
+def _live(live: Optional[Tensor], n_off: int, cap: int, row_cap: int,
+          rows: Optional[Tensor], n_rows: int) -> Optional[BD.LivePairs]:
+    if live is None:
+        return None
+    return BD.live_in(live, n_off, cap, row_cap, BD.rows_in(rows, n_rows))
+
+
 @custom_op("segdino3d::block_conv", mutates_args=(), device_types="cpu")
 def block_conv_op(feats: Tensor, block_nbr: Tensor, weights: Tensor,
                   occ: Optional[Tensor], edge: int, rows: Optional[Tensor],
-                  groups: int) -> Tensor:
+                  groups: int, live: Optional[Tensor], cap: int,
+                  row_cap: int) -> Tensor:
+    lp = _live(live, weights.shape[0], cap, row_cap, rows, feats.shape[0])
+    if lp is not None:
+        return BD.block_conv_live_plain(feats, weights, lp)
     return BD.dense_subm_conv_plain(feats, block_nbr, weights, occ, edge)
 
 
 @block_conv_op.register_kernel("cuda")
-def _(feats, block_nbr, weights, occ, edge, rows, groups):
+def _(feats, block_nbr, weights, occ, edge, rows, groups, live, cap,
+      row_cap):
+    lp = _live(live, weights.shape[0], cap, row_cap, rows, feats.shape[0])
     return BD.block_conv(feats, block_nbr, weights, occ, edge,
                          None if rows is None else BD.rows_in(
-                             rows, feats.shape[0]), groups=groups or None)
+                             rows, feats.shape[0]), groups=groups or None,
+                         zero_outside=lp is not None, live=lp is not None,
+                         live_list=lp)
 
 
 @block_conv_op.register_fake
-def _(feats, block_nbr, weights, occ, edge, rows, groups):
+def _(feats, block_nbr, weights, occ, edge, rows, groups, live, cap,
+      row_cap):
     return feats.new_empty(feats.shape[0], weights.shape[2])
 
 
 def block_conv(feats: Tensor, block_nbr: Tensor, weights: Tensor,
                occ: Optional[Tensor], edge: int,
-               rows: Optional[BD.RowList]) -> Tensor:
-    """K10's node; on the card the bf16 wide path's offset groups are
-    queried here, on the shape's ints, and stored in the graph."""
+               rows: Optional[BD.RowList],
+               live_list: Optional[BD.LivePairs] = None) -> Tensor:
+    """K10's node, on the live-pair path over ``live_list`` where given;
+    on the card the bf16 wide path's offset groups are queried here, on
+    the shape's ints, and stored in the graph."""
     n_off, cin, cout = weights.shape
     groups = 0
-    if _on_card(feats) and feats.dtype == torch.bfloat16 \
-            and not N.narrow_path(n_off, cin, cout, feats.dtype):
+    if live_list is None and _on_card(feats) and \
+            feats.dtype == torch.bfloat16 and \
+            not N.narrow_path(n_off, cin, cout, feats.dtype):
         groups = BD._split_cap(cuda_build.library("block_conv"),
                                block_nbr.shape[1], edge,
                                BD.kernel_size(n_off), cout)
+    if live_list is None:
+        live, cap, row_cap = None, 0, 0
+    else:
+        live, (cap, row_cap) = live_list.ws, (live_list.src.shape[1],
+                                              live_list.map.shape[1])
+        rows = live_list.rows
     return block_conv_op(feats, block_nbr, weights, occ, edge,
-                         None if rows is None else rows.ws, groups)
+                         None if rows is None else rows.ws, groups, live, cap,
+                         row_cap)
 
 
 # ---------------------------------------------------------------------------
@@ -281,4 +344,5 @@ def segment_mean_gather(seg_ids: Tensor, num_segments: int,
 
 # every registered op, for the tests' ``torch.library.opcheck``
 OPS = (gather_pairs_op, gather_conv_op, up_conv_op, slot_gather,
-       block_rows_op, block_conv_op, segment_csr_op, segment_mean_gather_op)
+       block_rows_op, block_live_pairs_op, block_conv_op, segment_csr_op,
+       segment_mean_gather_op)

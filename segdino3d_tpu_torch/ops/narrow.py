@@ -1,6 +1,6 @@
 """K1's, K4's, K10's and K11's paths by the conv's shape: the narrow-input
 paths (when they run, and their shared memory), K10's and K11's live-pair
-path at the dense k5 stem, K1's bf16 path at the wide stems, the stems'
+path at the block convs, K1's bf16 path at the wide stems, the stems'
 aligned row pitch, and the count of calls that copy element by element.
 
 K1 (``sparse_conv.gather_conv``) and K10 (``block_dense.block_conv``) each
@@ -173,33 +173,59 @@ def pick(forced: Optional[bool], n_off: int, cin: int, cout: int, dtype,
 
 
 # K10's and K11's live-pair path (``block_dense.block_conv`` and
-# ``block_wgrad`` with ``zero_outside``): a k5 conv whose caller states its
-# input zero outside the occupancy (the flagship's dense stem, 259 -> 32,
-# whose input comes straight from ``scatter_to_dense``), off the narrow
-# paths.  Every other block conv keeps the row-tile path: the k3 convs'
-# inputs are not promised zero there.
-LIVE_KERNEL_VOLUME = 125
+# ``block_wgrad`` with ``zero_outside``): every block conv's input is zero
+# outside the occupancy (``conv_ctx.DenseCtx``: ``scatter_to_dense`` writes
+# 0 at every empty cell, and ``MaskedBatchNorm`` zeroes every row outside
+# ``valid`` before each activation, residual sum and concatenation), and
+# every dX conv's masked cotangent is.  Off the narrow paths, fp32 runs
+# every such conv on its live pairs in every role: on the row tiles a k3
+# conv computes all 27 offsets of a listed row though about 9 sources are
+# occupied, and K1 on the same pairs beat K10's row tiles at every level.
+# bf16 runs the k5 stem there too, and a k3 conv in the roles and at the
+# level sizes where the live-pair path won the paired measurement
+# (``tools/conv_bench.py --live``, ``tools/wgrad_bench.py --live``, PERF.md
+# section 6): up to a level of this many voxels
+# (``block_dense.live_capacity``; None: every level).  The row tiles
+# (``wgmma``) won the forward at the flagship's L0 and L1 (92,160 and
+# 36,864 voxels; 96->96: 0.318 against 0.372 ms at L0, 0.136 against 0.158
+# at L1) and dX there (0.840 against 0.868 at L0); the live-pair path won
+# L3's wide forwards (384->256 0.055 against 0.082, 256->256 0.043 against
+# 0.064), L2's and L3's wide dX (128->192 0.151 against 0.165, 256->384
+# 0.090 against 0.159), and every dW (0.256 against 0.475 at L0 96->96);
+# the rest tied within the calls' noise.
+BF16_K3_LIVE_MAX_CAP = {"forward": 8192, "dx": 16384, "wgrad": None}
 
 
 def live_path(n_off: int, cin: int, cout: int, dtype, zero_outside: bool,
-              wgrad: bool = False) -> bool:
+              wgrad: bool = False, dx: bool = False,
+              cap: Optional[int] = None) -> bool:
     """Whether K10 (K11 with ``wgrad``) runs this conv over its live
-    pairs: the caller states the input zero outside the occupancy, the
-    kernel is k5, and the narrow path does not take the shape."""
-    if not zero_outside or n_off != LIVE_KERNEL_VOLUME:
+    pairs: the caller states the input zero outside the occupancy (every
+    dX conv's is), the narrow path does not take the shape, and in bf16 at
+    k3 the role (``dx``, ``wgrad``, else the forward) and the level's voxel
+    capacity ``cap`` (None: not known, the row tiles) are ones where it
+    won (``BF16_K3_LIVE_MAX_CAP``)."""
+    if not zero_outside:
         return False
-    rule = narrow_wgrad_path if wgrad else narrow_path
-    return dtype not in (torch.float32, torch.bfloat16) or \
-        not rule(n_off, cin, cout, dtype)
+    if dtype in (torch.float32, torch.bfloat16) and (
+            narrow_wgrad_path if wgrad else narrow_path)(n_off, cin, cout,
+                                                         dtype):
+        return False
+    if dtype != torch.bfloat16 or n_off != 27:
+        return True
+    most = BF16_K3_LIVE_MAX_CAP["wgrad" if wgrad else "dx" if dx
+                                else "forward"]
+    return cap is not None and (most is None or cap <= most)
 
 
 def pick_live(forced: Optional[bool], narrow: bool, n_off: int, cin: int,
               cout: int, dtype, zero_outside: bool, name: str,
               wgrad: bool = False) -> bool:
     """The path a wrapper takes: ``live_path`` of the shape and the
-    caller's statement, or the one a benchmark or test forces, which the
-    live-pair path takes only on an input stated zero outside the
-    occupancy and off the narrow path."""
+    caller's statement (of the forward's or dW's role, at no known level),
+    or the one its caller passes (the autograd Function, by role) or a
+    benchmark or test forces, which the live-pair path takes only on an
+    input stated zero outside the occupancy and off the narrow path."""
     if forced is None:
         return not narrow and live_path(n_off, cin, cout, dtype, zero_outside,
                                         wgrad)

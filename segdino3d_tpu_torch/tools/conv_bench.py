@@ -61,10 +61,19 @@ with K1 on the stem table (gather plans) beside them; each path held to
 its plain version (fp32 1e-4, bf16 1e-2), with the samples' minimum and
 median, the library call (K10: the halo assembly and cuDNN ``conv3d``;
 K1: a gather and one cuBLAS GEMM), the bound of the live pairs, a digest
-of the output and the live-pair list's build.  In a checkout whose
-wrapper takes no ``zero_outside`` the default path alone is timed (copy
-this file and ``wgrad_bench.py``, whose runner it uses, into that
-checkout's ``tools/``).
+of the output and the live-pair list's build.  Then every distinct k3
+conv of the Res16UNet34C (``K3_CONVS``) on its level's blocks of the
+hybrid plan, fp32 and bf16, in the forward role (the occupancy's row list
+and its live-pair list, ``live_pairs``) and in the dX role (flipped,
+transposed weights on a cotangent zero outside the occupancy, under the
+occupancy's k3 dilation, over the dilation's live-pair list,
+``dilation_pairs``), on the live-pair path and on the row-tile path forced,
+each with its bound with and without the pair-major buffer's traffic
+(each pair's fp32 products written once and read once).  In a checkout
+whose wrapper takes no ``zero_outside`` (or, at k3, has no
+``dilation_pairs``) the default path alone is timed (copy this file and
+``wgrad_bench.py``, whose runner it uses, into that checkout's
+``tools/``).
 """
 from __future__ import annotations
 
@@ -294,6 +303,71 @@ def live_cases(plan, hybrid, gen):
     return out
 
 
+def k3_live_cases(hybrid, gen):
+    """[(name, dtype, {path: call}, plain call, library call, ops, bytes,
+    the pair-major buffer's bytes)] of every distinct k3 conv in the
+    forward and dX roles: K10 on its level's blocks (the live-pair and the
+    row-tile path, where this checkout has both)."""
+    import chip_smoke as C
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import cuda_build
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    both = hasattr(BD, "dilation_pairs")
+    lib = cuda_build.library("block_conv")
+    out = []
+
+    def case(li, cin, cout, n, dx, dt):
+        t = hybrid.blocks[li]
+        occ = BD.occupancy(t)
+        e, b, nbr = t.edge, t.num_blocks, t.block_nbr
+        ci, co = (cout, cin) if dx else (cin, cout)
+        mask, rl = BD.dilation(t, occ, 3) if dx else (occ, BD.row_list(t, occ))
+        lp = (BD.dilation_pairs if dx else BD.live_pairs)(t, occ, 3) \
+            if both else BD.live_pair_list(rl, occ, nbr, e, 3)
+        pairs, listed = int(lp.counts.sum()), int(rl.count)
+        x = torch.where(occ[:, None], torch.randn(
+            occ.shape[0], ci, generator=gen, device="cuda"), 0.0).to(dt)
+        w = (torch.randn(27, cin, cout, generator=gen, device="cuda")
+             * (27 * cin) ** -0.5).to(dt)
+        if dx:
+            w = SC._transposed(w.flip(0))
+        paths = {"default": lambda: BD.block_conv(x, nbr, w, mask, e, rl)}
+        if both:
+            cap = BD.live_capacity(t)
+            paths = {
+                "live-pair": lambda: BD.block_conv(
+                    x, nbr, w, mask, e, rl, zero_outside=True, live=True,
+                    live_list=lp),
+                "row-tile (forced)": lambda: BD.block_conv(
+                    x, nbr, w, mask, e, rl, live=False),
+                "live-pair list build": lambda: BD.live_pair_list(
+                    rl, occ, nbr, e, 3, cap, occ.shape[0] if dx else None)}
+        wc = w.reshape(3, 3, 3, ci, co).permute(4, 3, 0, 1, 2).contiguous()
+
+        def library():
+            p = C.to_ncdhw(BD.halo_pad_plain(x.reshape(b, e, e, e, ci), nbr,
+                                             1))
+            return torch.nn.functional.conv3d(p, wc)
+
+        stride = lib.block_conv_live_stride(co, cuda_build.dtype_code(dt))
+        role = "dX" if dx else "forward"
+        out.append((
+            f"K10 k3 {role} {ci}->{co} L{li} ({n} a forward), {listed} "
+            f"listed rows, {pairs} live pairs", dt, paths,
+            lambda: BD.dense_subm_conv_plain(x, nbr, w, None if dx else mask,
+                                             e),
+            library, 2.0 * pairs * ci * co,
+            C.nbytes(x, w) + 4 * listed + occ.shape[0] * co * x.element_size(),
+            2 * 4 * pairs * stride))
+
+    for li, cin, cout, n in K3_CONVS:
+        for dx in (False, True):
+            for dt in (torch.float32, torch.bfloat16):
+                case(li, cin, cout, n, dx, dt)
+    return out
+
+
 def conv_held(got, want, dt):
     """(max |got - want|, whether it is within rtol = atol = 1e-4 in fp32,
     1e-2 in bf16)."""
@@ -486,6 +560,8 @@ def main() -> int:
                                   **C.plan_layout("hybrid")).plan
         WB.run_stem(live_cases(plan, hybrid, gen), args.rounds, args.reps,
                     held=conv_held)
+        WB.run_stem(k3_live_cases(hybrid, gen), args.rounds, args.reps,
+                    held=conv_held, prefix="k3")
         return 0
     if args.narrow or args.dtype == "bf16":
         hybrid = attach_host_plan(collate(records, spec, "cuda"), records,

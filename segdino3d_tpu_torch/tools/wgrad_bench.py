@@ -43,9 +43,14 @@ and K4 mirrored with dY gathered on the stem table (gather host plans)
 beside them; each path held to its plain version, with the samples'
 minimum and median, the library call, the bound of the live pairs, a
 digest of the output (fp32 digests of one path match across checkouts)
-and the live-pair list's build.  In a checkout whose wrappers take no
-``zero_outside`` the default path alone is timed, so the file runs in an
-older checkout too (copy it into that checkout's ``tools/``).
+and the live-pair list's build.  Then K11 at every distinct k3 conv of the
+Res16UNet34C (``conv_bench.K3_CONVS``) on its level's blocks, fp32 and
+bf16, on the live-pair path over the level's list (``live_pairs``) and on
+the row-tile path forced (fp32: bit-equal, the same splits of the listed
+rows).  In a checkout whose wrappers take no ``zero_outside`` (or, at k3,
+that has no ``dilation_pairs``) the default path alone is timed, so the
+file runs in an older checkout too (copy it and ``conv_bench.py`` into
+that checkout's ``tools/``).
 """
 from __future__ import annotations
 
@@ -160,6 +165,58 @@ def live_cases(plan, hybrid, gen):
     return out
 
 
+def k3_live_cases(hybrid, gen):
+    """[(name, dtype, {path: call}, plain call, library call, ops, bytes)]
+    of K11 at every distinct k3 conv on its level's blocks (the live-pair
+    and the row-tile path, where this checkout has both)."""
+    import chip_smoke as C
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.tools.conv_bench import K3_CONVS
+
+    both = hasattr(BD, "dilation_pairs")
+    out = []
+
+    def case(li, cin, cout, n, need, dt):
+        t = hybrid.blocks[li]
+        occ = BD.occupancy(t)
+        rows = BD.row_list(t, occ)
+        e, b, nbr = t.edge, t.num_blocks, t.block_nbr
+        x = torch.where(occ[:, None], torch.randn(
+            occ.shape[0], cin, generator=gen, device=DEVICE), 0.0).to(dt)
+        dy = torch.where(occ[:, None], torch.randn(
+            occ.shape[0], cout, generator=gen, device=DEVICE), 0.0).to(dt)
+        paths = {"default": lambda: BD.block_wgrad(x, dy, nbr, occ, e, 3,
+                                                   rows)}
+        if both:
+            lp = BD.live_pairs(t, occ, 3)
+            paths = {"live-pair": lambda: BD.block_wgrad(
+                         x, dy, nbr, occ, e, 3, rows, zero_outside=True,
+                         live=True, live_list=lp),
+                     "row-tile (forced)": lambda: BD.block_wgrad(
+                         x, dy, nbr, occ, e, 3, rows, live=False)}
+
+        def lib():
+            p = C.to_ncdhw(BD.halo_pad_plain(x.reshape(b, e, e, e, cin), nbr,
+                                             1))
+            return torch.nn.grad.conv3d_weight(
+                p, (cout, cin, 3, 3, 3),
+                C.to_ncdhw(dy.reshape(b, e, e, e, cout)))
+
+        out.append((
+            f"K11 k3 dW {cin}->{cout} L{li} ({n} a step), {int(occ.sum())} "
+            f"occupied rows, {need} pairs with an occupied source", dt,
+            paths, lambda: BD.block_wgrad_plain(x, dy, nbr, occ, e, 3),
+            lib, 2.0 * need * cin * cout,
+            C.nbytes(x, dy, nbr, occ) + 27 * cin * cout * 4))
+
+    for li, cin, cout, n in K3_CONVS:
+        t = hybrid.blocks[li]
+        need = live_pair_count(t, BD.occupancy(t), 3)
+        for dt in (torch.float32, torch.bfloat16):
+            case(li, cin, cout, n, need, dt)
+    return out
+
+
 def stem_cases(plan, hybrid, gen):
     """[(name, dtype, {path: call}, plain call, library call, ops, bytes)]
     of the Baseline's stem dW: K4 unmirrored on the stem table, K11 on
@@ -235,13 +292,15 @@ def held(got, want, dt):
     return err, err <= tol * float(want.abs().max())
 
 
-def run_stem(cases, rounds, reps, held=held):
-    """Stem cases: every path held to the plain version (``held``; a path
-    named as a list build is only timed), then the paths timed in turn;
-    each output's digest printed."""
+def run_stem(cases, rounds, reps, held=held, prefix="stem"):
+    """Cases (the stem's, or ``prefix`` others'): every path held to the
+    plain version (``held``; a path named as a list build is only timed),
+    then the paths timed in turn; each output's digest printed, and the
+    bound, also with the pair-major buffer's bytes where a case gives
+    them."""
     import chip_smoke as C
 
-    for name, dt, paths, plain, lib, ops, byts in cases:
+    for name, dt, paths, plain, lib, ops, byts, *buffer in cases:
         dts = str(dt).replace("torch.", "")
         want = plain()
         digests = {}
@@ -260,13 +319,16 @@ def run_stem(cases, rounds, reps, held=held):
             for path, fn in paths.items():
                 samples[path].append(C.time_ms(fn, reps))
         b_ms, b_by = C.bound(ops, byts, C.CONV_PEAK[dt])
+        with_buffer = "" if not buffer else \
+            "; with the pair-major buffer %.4f ms (%s)" % C.bound(
+                ops, byts + buffer[0], C.CONV_PEAK[dt])
         lib_ms = C.time_ms(lib, reps)
         for path, t in samples.items():
             t = np.array(t)
-            print(f"stem {name} {dts} {path} path: min {t.min():.4f} ms, "
-                  f"median {np.median(t):.4f} ms over {rounds} x {reps} "
+            print(f"{prefix} {name} {dts} {path} path: min {t.min():.4f} ms,"
+                  f" median {np.median(t):.4f} ms over {rounds} x {reps} "
                   f"calls; library {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
-                  f"({b_by})"
+                  f"({b_by}){with_buffer}"
                   + (f"; output digest {digests[path]}" if path in digests
                      else ""), flush=True)
 
@@ -370,6 +432,8 @@ def main() -> int:
     if args.live:
         run_stem(live_cases(batch.plan, hybrid.plan, gen), args.rounds,
                  args.reps)
+        run_stem(k3_live_cases(hybrid.plan, gen), args.rounds, args.reps,
+                 prefix="k3")
         return 0
     if args.narrow:
         run_stem(stem_cases(batch.plan, hybrid.plan, gen), args.rounds,

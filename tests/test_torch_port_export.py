@@ -42,6 +42,7 @@ from segdino3d_tpu.data import collate as JC  # noqa: E402
 from segdino3d_tpu_torch.builder import Capacities, build_model  # noqa: E402
 from segdino3d_tpu_torch.convert import load_jax_variables  # noqa: E402
 from segdino3d_tpu_torch.data import collate as TC  # noqa: E402
+from segdino3d_tpu_torch.ops import block_dense as BD  # noqa: E402
 from segdino3d_tpu_torch.ops import custom_ops as CO  # noqa: E402
 from segdino3d_tpu_torch.ops import scatter as SS  # noqa: E402
 from segdino3d_tpu_torch.tools import export_serving as ES  # noqa: E402
@@ -339,6 +340,9 @@ def _op_samples():
 
     seg = batch.superpoint_ids.reshape(-1)
     csr = list(SS.segment_csr(seg, 32, pvalid))
+    rows = CO.block_rows_op(occ)
+    cap, n_rows = BD.live_capacity(t0), occ.shape[0]
+    live = CO.block_live_pairs_op(rows, occ, t0.block_nbr, 4, 3, cap, cap)
     return [
         (CO.gather_pairs_op, (None, lv0.child)),
         (CO.gather_conv_op, (randn(v0, 5), plan.stem_nbr, randn(125, 5, 4),
@@ -347,8 +351,16 @@ def _op_samples():
                          randn(8, 6, 4), lv0.valid, None)),
         (CO.slot_gather, (randn(v0, 3), t0.slot_vox)),
         (CO.block_rows_op, (occ,)),
+        (CO.block_live_pairs_op, (rows, occ, t0.block_nbr, 4, 3, cap,
+                                  cap)),
+        (CO.block_live_pairs_op, (CO.block_rows_op(
+            BD.dilation(t0, occ, 3)[0]), occ, t0.block_nbr, 4, 3, cap,
+            n_rows)),
         (CO.block_conv_op, (randn(occ.shape[0], 4), t0.block_nbr,
-                            randn(27, 4, 3), occ, 4, None, 0)),
+                            randn(27, 4, 3), occ, 4, None, 0, None, 0, 0)),
+        (CO.block_conv_op, (randn(occ.shape[0], 4), t0.block_nbr,
+                            randn(27, 4, 3), occ, 4, rows, 0, live, cap,
+                            cap)),
         (CO.segment_csr_op, (plan.inverse, v0, pvalid)),
         (CO.segment_mean_gather_op, (seg, 32, pvalid, randn(v0, 3),
                                      plan.inverse, [pts[:, 3:], pts[:, :3]],
@@ -363,7 +375,7 @@ def test_every_op_registered_and_sampled():
     assert names == {op._qualname for op in CO.OPS}
 
 
-@pytest.mark.parametrize("case", range(9))
+@pytest.mark.parametrize("case", range(12))
 def test_opcheck(case):
     op, args = _op_samples()[case]
     torch.library.opcheck(op, args)

@@ -1669,3 +1669,88 @@ def test_dense_stem_backward_on_card_matches_cpu(card, dtype):
     torch.testing.assert_close(got[0][1], got[1][1], rtol=0,
                                atol=(1e-4 if dtype == "float32" else 1e-2)
                                * scale)
+
+
+# (level, Cin, Cout) of the Res16UNet34C's 46 k3 convs (blocks 1-4 on the
+# way down, 5-8 on the way up with the skip concatenated)
+K3_SHAPES = ((0, 128, 96), (0, 96, 96), (1, 32, 32), (1, 128, 96),
+             (1, 96, 96), (2, 32, 64), (2, 64, 64), (2, 192, 128),
+             (2, 128, 128), (3, 64, 128), (3, 128, 128), (3, 384, 256),
+             (3, 256, 256), (4, 128, 256), (4, 256, 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", K3_SHAPES,
+                         ids=[f"L{li}-{ci}-{co}" for li, ci, co in K3_SHAPES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_live_k3_matches_plain(card, shape, dtype):
+    """K10 and K11 on live pairs at a k3 conv of each level's widths, in
+    the three roles as the autograd Function runs them: the forward and dW
+    over the occupied rows' list (``live_pairs``), dX (flipped, transposed
+    weights on a cotangent zero outside the occupancy) over the dilation's
+    list (``dilation_pairs``), each against its plain versions and the
+    forced row-tile path; in fp32 bit-equal to the row-tile path, two calls
+    bit-equal; the dX list against its plain version."""
+    li, cin, cout = shape
+    dt = getattr(torch, dtype)
+    t = _block_plan_on(card, [4] * 5).blocks[li]
+    t = TBD.BlockTables(t.vox_slot, t.block_nbr, t.slot_vox, t.edge)
+    occ = TBD.occupancy(t)
+    n, e = occ.shape[0], t.edge
+    gen = torch.Generator(device="cuda").manual_seed(26 + li)
+    x = torch.where(occ[:, None], torch.randn(n, cin, generator=gen,
+                                              device="cuda"), 0.0).to(dt)
+    w = (torch.randn(27, cin, cout, generator=gen, device="cuda")
+         * (27 * cin) ** -0.5).to(dt)
+    dy = torch.where(occ[:, None], torch.randn(n, cout, generator=gen,
+                                               device="cuda"), 0.0).to(dt)
+    wt = TSC._transposed(w.flip(0))
+    rows = TBD.row_list(t, occ)
+    dil, drows = TBD.dilation(t, occ, 3)
+    fwd, dxl = TBD.live_pairs(t, occ, 3), TBD.dilation_pairs(t, occ, 3)
+    cap = TBD.live_capacity(t)
+    assert fwd.src.shape == (27, cap) and dxl.map.shape == (27, n)
+    want_lp = TBD.live_pairs_plain(drows, occ, t.block_nbr, e, 3, cap, n)
+    assert torch.equal(dxl.counts, want_lp.counts)
+    for o in range(27):
+        c = int(want_lp.counts[o])
+        assert torch.equal(dxl.src[o, :c], want_lp.src[o, :c]), o
+        assert torch.equal(dxl.dst[o, :c], want_lp.dst[o, :c]), o
+    n_list = int(drows.count)
+    assert torch.equal(dxl.map[:, :n_list], want_lp.map[:, :n_list])
+
+    launched = (TBD.block_conv.live.launches, TBD.block_wgrad.live.launches)
+    y = [TBD.block_conv(x, t.block_nbr, w, occ, e, rows, zero_outside=True,
+                        live=True, live_list=fwd) for _ in range(2)]
+    dx = [TBD.block_conv(dy, t.block_nbr, wt, dil, e, drows,
+                         zero_outside=True, live=True, live_list=dxl)
+          for _ in range(2)]
+    dw = [TBD.block_wgrad(x, dy, t.block_nbr, occ, e, 3, rows,
+                          zero_outside=True, live=True, live_list=fwd)
+          for _ in range(2)]
+    assert (TBD.block_conv.live.launches - launched[0],
+            TBD.block_wgrad.live.launches - launched[1]) == (4, 2)
+    tiles = (TBD.block_conv(x, t.block_nbr, w, occ, e, rows, live=False),
+             TBD.block_conv(dy, t.block_nbr, wt, dil, e, drows, live=False),
+             TBD.block_wgrad(x, dy, t.block_nbr, occ, e, 3, rows,
+                             live=False))
+    plain = (TBD.dense_subm_conv_plain(x, t.block_nbr, w, occ, e),
+             TBD.dense_subm_conv_plain(dy, t.block_nbr, wt, None, e),
+             TBD.block_wgrad_plain(x, dy, t.block_nbr, occ, e, 3))
+    live_plain = (TBD.block_conv_live_plain(x, w, fwd),
+                  TBD.block_conv_live_plain(dy, wt, dxl),
+                  TBD.block_wgrad_live_plain(x, dy, fwd))
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    for role, got in enumerate((y, dx, dw)):
+        assert torch.equal(*got), role
+        if dtype == "float32":
+            assert torch.equal(got[0], tiles[role]), role
+        for ref in (plain[role], live_plain[role], tiles[role]):
+            if role < 2:
+                torch.testing.assert_close(got[0].float(), ref.float(),
+                                           rtol=tol, atol=tol)
+            else:
+                torch.testing.assert_close(got[0], ref, rtol=0, atol=tol
+                                           * float(ref.abs().max()))
+    assert not dx[0][~dil].any()

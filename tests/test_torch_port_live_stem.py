@@ -12,7 +12,9 @@ Here, on the CPU:
   8, k 3 and 5), and the list kept on the tables;
 * the invariant: the stem's input is zero at every unoccupied row of host
   block-dense training plans (``host_plan_args(cfg, train=True)``), fp32
-  and in bf16 at its aligned pitch, and only the stem's conv states it;
+  and in bf16 at its aligned pitch, as every block conv's is, and every
+  conv states it (``tests/test_torch_port_live_k3.py`` holds the k3
+  convs);
 * the live-pair path's plain versions (``block_conv_live_plain``,
   ``block_wgrad_live_plain``) and the autograd path that runs them,
   against JAX's ``dense_subm_conv`` and ``jax.vjp`` of
@@ -177,11 +179,13 @@ def _step_model(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_only_the_stem_states_its_input_zero_outside(dtype, monkeypatch):
-    """On block-dense training plans the stem's conv, alone of the
-    backbone's block convs, states that its input is zero outside the
-    occupancy; its input is zero at every unoccupied row, at the bf16
-    pitch too; the forward's live-pair plain version runs once, and (fp32)
-    the backward's dW plain version once, on one list."""
+    """On block-dense training plans every block conv, the stem's first,
+    states that its input is zero outside the occupancy; the stem's input
+    is zero at every unoccupied row, at the bf16 pitch too; the live-pair
+    plain versions run where ``narrow.live_path`` takes each role (fp32:
+    every forward, every k3 dX and (with the backward) every dW; bf16: the
+    stem and the k3 roles its measured rule takes), on one list per level
+    and kernel size for the forwards and dW, one per level for the dX."""
     calls, live = [], {"conv": 0, "wgrad": 0, "lists": 0}
     inner = TBD.dense_subm_conv
     wrapped = {n: getattr(TBD, n) for n in ("block_conv_live_plain",
@@ -190,7 +194,8 @@ def test_only_the_stem_states_its_input_zero_outside(dtype, monkeypatch):
 
     def spy(feats, occ, tables, weights, zero_outside=False):
         calls.append((feats.detach().clone(), occ, weights.shape[0],
-                      zero_outside))
+                      zero_outside, tuple(weights.shape[1:]),
+                      TBD.live_capacity(tables), id(tables)))
         return inner(feats, occ, tables, weights, zero_outside)
 
     def counted(name, key):
@@ -212,13 +217,24 @@ def test_only_the_stem_states_its_input_zero_outside(dtype, monkeypatch):
     if dtype == torch.float32:   # the dW's path once, on the forward's list
         out.square().sum().backward()
     stated = [c for c in calls if c[3]]
-    assert len(calls) == 46 + 1 and len(stated) == 1
-    x, occ, n_off, _ = stated[0]
-    assert calls[0] is stated[0] and n_off == 125
+    assert len(calls) == 46 + 1 and len(stated) == 47
+    x, occ, n_off = stated[0][:3]
+    assert n_off == 125 and [c[2] for c in calls[1:]] == [27] * 46
     assert x.dtype == dtype and x.shape[1] == TN.row_pitch(cin, dtype)
     assert bool((x[~occ] == 0).all()) and bool((x[occ] != 0).any())
-    assert live == {"conv": 1, "wgrad": int(dtype == torch.float32),
-                    "lists": 1}
+    k3 = [(c[4], c[5], c[6]) for c in calls[1:]]
+    forward = sum(TN.live_path(27, ci, co, dtype, True, cap=cap)
+                  for (ci, co), cap, _ in k3)
+    if dtype == torch.float32:   # every role of every conv, 11 lists
+        assert forward == 46
+        assert all(TN.live_path(27, co, ci, dtype, True, dx=True, cap=cap)
+                   for (ci, co), cap, _ in k3)
+        assert live == {"conv": 47 + 46, "wgrad": 47, "lists": 6 + 5}
+    else:
+        levels = {level for (ci, co), cap, level in k3
+                  if TN.live_path(27, ci, co, dtype, True, cap=cap)}
+        assert live == {"conv": 1 + forward, "wgrad": 0,
+                        "lists": 1 + len(levels)}
     if dtype == torch.float32:
         stem = model.backbone.unet.conv0p1s1.kernel
         assert stem.grad is not None and bool(torch.isfinite(stem.grad).all())
@@ -276,11 +292,11 @@ def test_live_plain_versions_match_jax(cin):
 
 def test_wrappers_pick_the_live_path_from_the_statement_and_shape(
         monkeypatch):
-    """``block_conv`` and ``block_wgrad`` run the live-pair path for a k5
-    conv stated zero outside the occupancy, above the narrow paths' Cin;
-    a k3 conv, an unstated input and the Baseline's Cin 3 stem keep their
-    paths; the forced switch runs either path and refuses an unstated
-    input."""
+    """``block_conv`` and ``block_wgrad`` run the live-pair path for an
+    fp32 conv stated zero outside the occupancy, k5 or k3, above the
+    narrow paths' Cin; an unstated input and the Baseline's Cin 3 stem
+    keep their paths; the forced switch runs either path and refuses an
+    unstated input."""
     t = _fresh(_block_tables(4)[0])
     occ = TBD.occupancy(t)
     ran = []
@@ -312,13 +328,15 @@ def test_wrappers_pick_the_live_path_from_the_statement_and_shape(
     _close(y_live, y_tiles, REL_PLAIN)
     _close(dw_live, dw_tiles, REL_PLAIN)
     assert paths(9, 5, False)[0] == tiles
-    assert paths(9, 3, True)[0] == tiles
-    assert paths(9, 3, True, live=True)[0] == live
+    assert paths(9, 3, True)[0] == live          # every stated fp32 conv
+    assert paths(9, 3, False)[0] == tiles
+    assert paths(9, 3, True, live=False)[0] == tiles
     assert paths(3, 5, True)[0] == tiles        # the narrow paths' Cin
     assert TN.live_path(125, 259, 32, torch.bfloat16, True)
     assert TN.live_path(125, 5, 32, torch.float32, True)
     assert not TN.live_path(125, 5, 32, torch.float32, True, wgrad=True)
-    assert not TN.live_path(27, 262, 32, torch.float32, True)
+    assert TN.live_path(27, 262, 32, torch.float32, True)
+    assert not TN.live_path(27, 262, 32, torch.float32, False)
     assert not TN.live_path(125, 259, 32, torch.float32, False)
     with pytest.raises(ValueError, match="live-pair path"):
         paths(9, 5, False, live=True)
