@@ -30,16 +30,20 @@ Phases, in order; any failure exits non-zero before the result line:
    layout's kernels on the flagship config's block tables: K9 (slot
    gather, both ways, equal), K10 (block conv at the occupied rows: every
    distinct k3 conv of the 46 and the dense k5 stem 259->32, fp32 and
-   bf16, on the path ``narrow.live_path`` takes (the live-pair path over
-   the level's live-pair list, or the row tiles), the other path forced
-   and timed beside it, the live-pair path bit-equal to the row tiles in
-   fp32; its dX role under the occupancy's k-dilation at each level's most
+   bf16, on the path and form ``narrow.live_path`` and ``narrow.live_form``
+   take (the live-pair path over the level's live-pair list in K1's
+   pair-major form or in row groups, or the row tiles), held to its plain
+   version, the other two forced beside it, each within the tolerance of
+   the row-tile plain version and in fp32 bit-equal to the rule's; the
+   row groups, where the rule takes them, a kernel of their own
+   (``block_conv_live_rows``, ``csrc/live_rows.cuh``: bf16 dX at L0),
+   and timed elsewhere at L0 alone; its dX role under the occupancy's k-dilation at each level's most
    frequent width, over the dilation's live-pair list, and on the rows
    path two calls in a row bit-equal to each other and to a call that
    builds its own list, held to the unmasked plain version on every cell;
-   with the bound of the pairs whose source is occupied, of the pair-major
-   buffer, of its rows' work and of the dense work, and the operations one
-   call puts on the card), the live-pair lists (k5 and k3 of the level-0
+   with the bound of the pairs whose source is occupied, of its rows' work
+   and of the dense work, and the operations one call puts on the card),
+   the live-pair lists (k5 and k3 of the level-0
    occupancy, k3 of its dilation) equal to their plain versions, the
    dilation kernel beside it (the mask and its row list equal to the plain
    dilation's occupied rows) and K11 (its weight gradient: each level's k3
@@ -1332,7 +1336,7 @@ def plan_engine_cases(batch, level_caps):
 
 # kernels whose sums have one fixed order: two calls must be bit-equal
 BIT_EQUAL = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
-             "segment_grad")
+             "segment_grad", "block_conv_live_rows")
 # kernels whose CUDA-event time is mostly the wrapper's host dispatch (and
 # K5): their profiled device time and operations are printed beside it
 HOST_BOUND = ("coord_hash", "neighbor_table", "voxel_compact",
@@ -1341,7 +1345,9 @@ HOST_BOUND = ("coord_hash", "neighbor_table", "voxel_compact",
 
 # what a kernel's library call is, where the line names it: K10's is the
 # whole of it in the case's dtype, beside "conv3d alone"
-LIBRARY_CALL = {"block_conv": "library (halo assembly + cuDNN conv3d)"}
+LIBRARY_CALL = {"block_conv": "library (halo assembly + cuDNN conv3d)",
+                "block_conv_live_rows":
+                "library (halo assembly + cuDNN conv3d)"}
 
 
 def launch_floor():
@@ -1362,7 +1368,8 @@ def launch_floor():
 
 def check_kernels(cases):
     """Compare, then time; returns per-kernel rows (headline = first case
-    of each kernel, fp32) and the max error over each kernel's cases.  A
+    of each kernel, fp32, or bf16 for a kernel with no fp32 case) and the
+    max error over each kernel's cases (of that dtype).  A
     case's ``per`` maps a dtype to (kernel_fn, plain_fn, library_fn, ops,
     bytes, peak) and optionally a tolerance relative to ``max |plain|``
     (a float: for long fp32 reductions; 0 for integer outputs, which must
@@ -1431,6 +1438,14 @@ def check_kernels(cases):
                     shape=name, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err))
                 row.setdefault("headline", dict(row["cases"][-1], case=name))
+    for row in rows.values():
+        if "headline" not in row:
+            # a kernel that runs in bf16 alone (K10's row groups): its
+            # first bf16 case
+            c = row["bf16_cases"][0]
+            row["headline"] = dict(c, case=c["shape"])
+            row["max_abs_err"] = max(c["max_abs_err"]
+                                     for c in row["bf16_cases"])
     return rows
 
 
@@ -1456,6 +1471,7 @@ def dense_cases(plan, gen):
 
     from segdino3d_tpu_torch.ops import block_dense as BD
     from segdino3d_tpu_torch.ops import narrow as N
+    from segdino3d_tpu_torch.tools import wgrad_bench as WB
     from segdino3d_tpu_torch.tools.conv_bench import K3_CONVS
 
     f32, exact = torch.float32, 0.0
@@ -1511,13 +1527,16 @@ def dense_cases(plan, gen):
         the backward runs it, held to the plain version without a mask on
         every cell.  With ``wide``, K10's wide path (the per-offset stage
         loop) forced and timed beside it.  With ``live``, the input stated
-        zero outside the occupancy, as every block conv's is: the path
-        ``narrow.live_path`` takes for the role, dtype and level (the
-        live-pair path over the level's list, ``live_pairs`` or in the dX
-        role ``dilation_pairs``, or the row tiles) is the kernel, held to
-        its plain version, and the other path is forced and timed beside
-        it with the list's build; the live-pair path held to the row-tile
-        plain version too, and in fp32 bit-equal to the row-tile path."""
+        zero outside the occupancy, as every block conv's is: the path and
+        form ``narrow.live_path`` and ``narrow.live_form`` take for the
+        role, dtype and level (the live-pair path over the level's list,
+        ``live_pairs`` or in the dX role ``dilation_pairs``, in K1's
+        pair-major form or in row groups; or the row tiles) is the kernel,
+        held to its plain version, and the other two are forced and timed
+        beside it with the list's build (the row groups off L0 checked
+        alone); each forced one held to the row-tile plain version, in
+        fp32 bit-equal to the rule's.  A dtype the rule sends to the row
+        groups is a case of ``block_conv_live_rows``."""
         occ = BD.occupancy(t)
         # the level's cached list of the mask, as the autograd Function
         # passes it: the dilation's (dX) or the occupancy's
@@ -1526,7 +1545,9 @@ def dense_cases(plan, gen):
             else (occ, BD.row_list(t, occ))
         need, dense = pairs(t, k, masked=not dx)
         rows = int(mask.sum())
-        per = {}
+        # the dtypes on K10's row-group kernel (the rule's form there) are
+        # a case of their own: block_conv_live_rows
+        per, per_rows = {}, {}
         for dt in dtypes:
             # a bf16 stem at the aligned pitch, as the backbone gives it
             x = pitched(torch.where(occ[:, None], _randn(
@@ -1565,52 +1586,68 @@ def dense_cases(plan, gen):
             if live:
                 cap = BD.live_capacity(t)
                 lp = (BD.dilation_pairs if dx else BD.live_pairs)(t, occ, k)
-                on_live = (lambda x=x, w=w, lp=lp: BD.block_conv(
+                on_form = {f: (lambda x=x, w=w, lp=lp, f=f: BD.block_conv(
                     x, t.block_nbr, w, mask, e, rlist, zero_outside=True,
-                    live=True, live_list=lp))
+                    live=True, live_list=lp, form=f)) for f in N.LIVE_FORMS}
                 on_rows = (lambda x=x, w=w: BD.block_conv(
                     x, t.block_nbr, w, mask, e, rlist, live=False))
                 rule = N.live_path(k ** 3, cin, cout, dt, True, dx=dx,
                                    cap=cap)
-                kernel = on_live if rule else on_rows
-                extra["the row-tile path (forced)" if rule else
-                      "the live-pair path (forced)"] = \
-                    on_rows if rule else on_live
+                form = N.live_form(k, dt, dx=dx, cap=cap) if rule else None
+                kernel = on_form[form] if rule else on_rows
+                label = {N.PAIR_MAJOR: "the pair-major form",
+                         N.ROW_GROUPS: "the row-group kernel", None:
+                         "the row-tile path"}
+                forced = {f"{label[f]} (forced)": on_form.get(f, on_rows)
+                          for f in (*N.LIVE_FORMS, None) if f != form}
+                full = BD.dense_subm_conv_plain(x, t.block_nbr, w,
+                                                None if dx else occ, e)
+                got = kernel()
+                for fname, fn in forced.items():
+                    o = fn()
+                    if not torch.allclose(o.float(), full.float(),
+                                          rtol=TOL[dt], atol=TOL[dt]) or (
+                            dt == torch.float32 and not torch.equal(o, got)):
+                        raise SystemExit(
+                            f"block_conv [{name}] {dt}: {fname} differs from "
+                            "the row-tile plain version or, in fp32, from "
+                            f"{label[form]}")
+                    del o
+                print(f"block_conv [{name}] {dt}: the rule runs "
+                      f"{label[form]}; "
+                      + ", ".join(label[f] for f in (*N.LIVE_FORMS, None)
+                                  if f != form)
+                      + f" (forced) within rtol=atol={TOL[dt]:g} of the "
+                      "row-tile plain version"
+                      + (", bit-equal to the rule's (output digest "
+                         f"{WB.digest(got)})" if dt == torch.float32 else ""),
+                      flush=True)
+                del got, full
+                # the row groups lost every case off L0 (conv_bench
+                # --live, which times every form at every shape; PERF.md
+                # section 6): there they are checked above, not timed
+                if form != N.ROW_GROUPS and t is not t0:
+                    del forced[f"{label[N.ROW_GROUPS]} (forced)"]
+                extra.update(forced)
                 extra["live-pair list build (block_live_pairs, once per "
                       "level and step)"] = \
                     lambda: BD.live_pair_list(rlist, occ, t.block_nbr, e, k,
                                               cap, mask.shape[0] if dx
                                               else None)
-                got, tiles = on_live(), on_rows()
-                full = BD.dense_subm_conv_plain(x, t.block_nbr, w,
-                                                None if dx else occ, e)
-                if not torch.allclose(got.float(), full.float(),
-                                      rtol=TOL[dt], atol=TOL[dt]) or (
-                        dt == torch.float32 and not torch.equal(got, tiles)):
-                    raise SystemExit(f"block_conv [{name}] {dt}: the "
-                                     "live-pair path differs from the "
-                                     "row-tile plain version or, in fp32, "
-                                     "from the row-tile path")
-                print(f"block_conv [{name}] {dt}: the rule runs the "
-                      f"{'live-pair' if rule else 'row-tile'} path; the "
-                      f"live-pair path within rtol=atol={TOL[dt]:g} of the "
-                      "row-tile plain version"
-                      + (", bit-equal to the row-tile path"
-                         if dt == torch.float32 else ""), flush=True)
-                del got, tiles, full
-                per[dt] = (kernel, (lambda x=x, w=w, lp=lp:
-                                    BD.block_conv_live_plain(x, w, lp))
-                           if rule else (lambda x=x, w=w:
-                                         BD.dense_subm_conv_plain(
-                                             x, t.block_nbr, w,
-                                             None if dx else occ, e)),
-                           lib, 2.0 * need * cin * cout,
-                           nbytes(x, w) + 4 * int(rlist.count)
-                           + occ.shape[0] * cout * x.element_size()
-                           if rule else
-                           nbytes(x, t.block_nbr, w, mask)
-                           + occ.shape[0] * cout * x.element_size(),
-                           CONV_PEAK[dt], extra)
+                (per_rows if form == N.ROW_GROUPS else per)[dt] = (
+                    kernel, (lambda x=x, w=w, lp=lp:
+                             BD.block_conv_live_plain(x, w, lp))
+                    if rule else (lambda x=x, w=w:
+                                  BD.dense_subm_conv_plain(
+                                      x, t.block_nbr, w,
+                                      None if dx else occ, e)),
+                    lib, 2.0 * need * cin * cout,
+                    nbytes(x, w) + 4 * int(rlist.count)
+                    + occ.shape[0] * cout * x.element_size()
+                    if rule else
+                    nbytes(x, t.block_nbr, w, mask)
+                    + occ.shape[0] * cout * x.element_size(),
+                    CONV_PEAK[dt], extra)
                 continue
             if wide:
                 extra["the wide path"] = \
@@ -1629,7 +1666,7 @@ def dense_cases(plan, gen):
                        nbytes(x, t.block_nbr, w, mask)
                        + occ.shape[0] * cout * x.element_size(),
                        CONV_PEAK[dt], extra)
-        ops, us = device_ops(per[dtypes[0]][0])
+        ops, us = device_ops({**per_rows, **per}[dtypes[0]][0])
         print(f"block_conv [{name}]: one call puts {len(ops)} operations on "
               f"the card, {us:.1f} us of device time: {ops}", flush=True)
         dense_ms = bound(2.0 * dense * cin * cout, 0.0, "fp32")[0]
@@ -1647,9 +1684,11 @@ def dense_cases(plan, gen):
             what += (f", {int(need)} live pairs (bound of the live pairs "
                      f"{live_ms:.4f} ms; the fp32 pair-major buffer's bytes "
                      f"written and read alone {buffer_ms:.4f} ms)")
-        cases.append(("block_conv", f"{name}, fill {fill(t):.1%}, {what}; "
-                      f"bound of its rows' work {rows_ms:.4f} ms, "
-                      f"dense-work bound {dense_ms:.4f} ms (fp32)", per))
+        desc = (f"{name}, fill {fill(t):.1%}, {what}; bound of its rows' "
+                f"work {rows_ms:.4f} ms, dense-work bound {dense_ms:.4f} ms "
+                "(fp32)")
+        cases.extend((kernel, desc, p) for kernel, p in (
+            ("block_conv", per), ("block_conv_live_rows", per_rows)) if p)
 
     def dilate_case(t, k):
         """The dilation and its row list (one pass and the list pass),
@@ -1977,11 +2016,15 @@ def counters():
             "block_wgrad narrow": (BD.block_wgrad.narrow,),
             # of K10's and K11's launches, those on the live-pair path
             # (narrow.live_path: in fp32 every block conv in every role but
-            # the Baseline's narrow stem), and the live-pair lists they
-            # share (block_live_pairs: per level and kernel size the
+            # the Baseline's narrow stem; K10's are its row-group kernel,
+            # live_rows.cuh, which has its own entry in the kernels line),
+            # and the live-pair lists they share (block_live_pairs: per level and kernel size the
             # occupied rows' list of the forward convs and their dW, per
             # level the dilation's list of the dX convs)
             "block_conv live": (BD.block_conv.live,),
+            # of those, the launches of K10's row-group kernel
+            # (csrc/live_rows.cuh), the rest in K1's pair-major form
+            "block_conv_live_rows": (BD.block_conv.live_rows,),
             "block_wgrad live": (BD.block_wgrad.live,),
             "block_live_pairs": (BD.live_pair_list,),
             "stem_slot_sum": (SC.stem_slot_sum,),
@@ -2002,7 +2045,7 @@ NO_NARROW = {"gather_gemm_conv narrow": 0, "block_conv narrow": 0,
              "gather_wgrad narrow": 0, "block_wgrad narrow": 0}
 # the live-pair counts of a phase without a block-dense level
 NO_LIVE = {"block_conv live": 0, "block_wgrad live": 0,
-           "block_live_pairs": 0}
+           "block_live_pairs": 0, "block_conv_live_rows": 0}
 
 
 def live_counts(dtype, caps, train=False, stem=True):
@@ -2014,7 +2057,7 @@ def live_counts(dtype, caps, train=False, stem=True):
     from segdino3d_tpu_torch.ops import narrow as N
     from segdino3d_tpu_torch.tools.conv_bench import K3_CONVS
 
-    conv = wgrad = 0
+    conv = wgrad = rows = 0
     lists = {("rows", 0, 5)} if train and stem else set()
     if train and stem:
         conv, wgrad = 1, 1
@@ -2026,12 +2069,15 @@ def live_counts(dtype, caps, train=False, stem=True):
                                  cap=caps[li]):
             conv += n
             lists.add(("dilation", li, 3))
+            if N.live_form(3, dtype, dx=True, cap=caps[li]) == \
+                    N.ROW_GROUPS:
+                rows += n
         if train and N.live_path(27, cin, cout, dtype, True, wgrad=True,
                                  cap=caps[li]):
             wgrad += n
             lists.add(("rows", li, 3))
     return {"block_conv live": conv, "block_wgrad live": wgrad,
-            "block_live_pairs": len(lists)}
+            "block_live_pairs": len(lists), "block_conv_live_rows": rows}
 
 
 def plan_caps(plan):
@@ -3054,7 +3100,7 @@ CLI_STEP_KERNELS = {
     "block_conv": ("block_conv_kernel", "block_conv_narrow_kernel",
                    "block_conv_wg_kernel", "group_sum_kernel",
                    "live_products_kernel", "live_products_wg_kernel",
-                   "live_sum_kernel"),
+                   "live_sum_kernel", "live_rows_kernel"),
     "block_dilate": ("dilate_kernel",),
     "block_wgrad": ("block_wgrad_kernel", "block_wgrad_narrow_kernel"),
     "gather_gemm_conv": ("conv_products_kernel", "conv_pair_sum_kernel",
@@ -3386,13 +3432,15 @@ def run_v2_phase(records):
 # --------------------------------------------------------------------------
 
 # the hybrid eval forward (fp32): the stem and four down convs (K1), 46
-# block convs (K10, all on the live-pair path) with their slot gathers (K9),
+# block convs (K10, all on the live-pair path, in the pair-major form) with
+# their slot gathers (K9),
 # one occupancy row list and its live-pair list per level, four up convs
 # (K2), the voxel mean and the pool (K3)
 HYBRID_FORWARD = {"gather_gemm_conv": 5, "up_conv": 4,
                   "segment_mean_gather": 2, "block_conv": 46,
                   "slot_gather": 18, "block_rows": 5, "block_conv live": 46,
-                  "block_wgrad live": 0, "block_live_pairs": 5}
+                  "block_wgrad live": 0, "block_live_pairs": 5,
+                  "block_conv_live_rows": 0}
 # the block-dense training step (phase 4c's, fp32): every K10 call (47
 # forward, 46 dX) and every K11 call on the live-pair path, over 11 lists:
 # per level the occupied rows' k3 list and the dilation's, and level 0's
@@ -3402,7 +3450,7 @@ BLOCK_DENSE_STEP = {"block_conv": 93, "block_dilate": 5, "block_wgrad": 47,
                     "gather_wgrad": 8, "segment_mean_gather": 2,
                     "segment_grad": 1, "block_rows": 5, "gather_pairs": 4,
                     "block_conv live": 93, "block_wgrad live": 47,
-                    "block_live_pairs": 11}
+                    "block_live_pairs": 11, "block_conv_live_rows": 0}
 # the Baseline's: the same, with its 3-channel stem on K1's narrow path
 # (eval: the gather stem) or K10's and its dW on K11's (training: the dense
 # stem, no live-pair list of its own; its input needs no gradient, so no
@@ -3755,7 +3803,8 @@ def k10_level_ms(model, batch):
     level_of = {t.block_nbr.data_ptr(): li
                 for li, t in enumerate(batch.plan.blocks) if t is not None}
     order, orig = [], BD.dense_subm_conv
-    first = ("block_conv_wg_kernel", "live_products_wg_kernel")
+    first = ("block_conv_wg_kernel", "live_products_wg_kernel",
+             "live_rows_kernel")
 
     def recorded(feats, occ, tables, *args, **kw):
         order.append(level_of[tables.block_nbr.data_ptr()])
@@ -4487,7 +4536,7 @@ OWN_KERNELS = ("block_conv_kernel", "block_conv_narrow_kernel",
                "block_wgrad_kernel", "block_wgrad_narrow_kernel",
                "build_lookup_kernel", "count_live_kernel", "list_live_kernel",
                "live_products_kernel", "live_products_wg_kernel",
-               "live_sum_kernel",
+               "live_sum_kernel", "live_rows_kernel",
                "conv_pair_sum_kernel", "conv_products_kernel",
                "conv_products_wg_kernel", "count_pairs_kernel",
                "count_rows_kernel", "csr_keys_kernel", "csr_offsets_kernel",
@@ -4841,6 +4890,16 @@ def run_serving_phase(card):
     check_counts(served["launches"], launches, "phase 11 artifact forward "
                  "in the serving process")
     names = kernel_counts(device_ops(eager, fresh)[0])
+    dev = kernel_ms(profiled_events(lambda: eager(*fresh()),
+                                    lambda: eager(*fresh())))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager(*fresh())
+    torch.cuda.synchronize()
+    print(f"phase 11 ({card}) eager served forward (torch.profiler, device "
+          f"ms): {dev['device']:.4f}, of it K10 {dev['K10']:.4f}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB",
+          flush=True)
     own_e, own_a = own_kernels(names), own_kernels(served["names"])
     same = "name for name and count for count equal" if own_a == own_e \
         else "DIFFERENT"
@@ -5111,6 +5170,10 @@ def main() -> int:
                         "segdino3d_tpu/ops/block_dense.py:80"),
         "block_conv": ("segdino3d_tpu_torch/csrc/block_conv.cu",
                        "segdino3d_tpu/ops/block_dense.py:257"),
+        # K10 on the live pairs of a list, in row groups (one launch a
+        # conv; the skipped pairs are the JAX op's exact zeros)
+        "block_conv_live_rows": ("segdino3d_tpu_torch/csrc/live_rows.cuh",
+                            "segdino3d_tpu/ops/block_dense.py:257"),
         # the dX role's output mask (the dilation outside which the JAX
         # op's unmasked input gradient is zero)
         "block_dilate": ("segdino3d_tpu_torch/csrc/block_conv.cu",
@@ -5126,8 +5189,8 @@ def main() -> int:
                           "segdino3d_tpu/ops/sparse_conv.py:369"),
     }
     plan_kernels = ("coord_hash", "neighbor_table", "voxel_compact")
-    dense_kernels = ("slot_gather", "block_conv", "block_dilate",
-                     "block_wgrad", "block_live_pairs")
+    dense_kernels = ("slot_gather", "block_conv", "block_conv_live_rows",
+                     "block_dilate", "block_wgrad", "block_live_pairs")
     kernels = []
     for name, (source, replaces) in meta.items():
         h = rows[name]["headline"]
@@ -5141,6 +5204,11 @@ def main() -> int:
         elif name in plan_kernels:
             main_launches = dev_launches[name]
             train_launches[name] = train_dev_launches[name]
+        elif name == "block_conv_live_rows":
+            # the row-group kernel runs where the rule sends it: the bf16
+            # step's L0 dX convs (phase 10b)
+            main_launches = bf16_train_launches[name]
+            train_launches[name] = bf16_train_launches[name]
         elif name in dense_kernels:
             main_launches = hybrid_launches[name] or \
                 dense_train_launches[name]

@@ -84,10 +84,11 @@
 // the block halo (bdt::HaloSrc) straight into an im2col tile (no per-offset
 // stages), the fp32 sums in the order above.
 //
-// The live-pair path (block_conv_live, for a conv whose caller states its
-// input zero outside a mask: every block conv of the Res16UNet34C, whose
-// inputs come from K9's scatter to dense rows and masked batch norms, and
-// every dX conv, whose masked cotangent is zero outside the occupancy;
+// The live-pair path (block_conv_pair_major, block_conv_live: for a conv
+// whose caller states its input zero outside a mask: every block conv of
+// the Res16UNet34C, whose inputs come from K9's scatter to dense rows and
+// masked batch norms, and every dX conv, whose masked cotangent is zero
+// outside the occupancy;
 // ops/narrow.py:live_path picks it): the row tiles above run every offset
 // at which some row of a 64-row tile has a source block, 27 offsets x
 // 76,239 rows at a level-0 k3 conv (125 at the k5 stem), though only about
@@ -97,27 +98,36 @@
 // block_live_pairs builds, in one pass over a row list (a count and a list
 // launch, per offset and block of listed rows), per offset and in list
 // order the listed rows whose source cell through the block halo is in
-// the mask (src, dst) and, per (offset, listed row), its pair's index
-// (map); the counts stay on the card.  The wrappers build per level and
-// step one list over the occupied rows (the forward convs and K11's dW)
-// and one over the k3 dilation's rows with sources in the occupancy (the
-// dX convs).  Their capacities differ: an offset's pairs have distinct
-// sources in the occupancy, so pair_cap is the level's voxel capacity for
-// both, while row_cap is the voxel capacity for the occupied rows and the
-// level's dense rows for the dilation's (so the fp32 buffer below stays
-// 27 x 92,160 x 96 x 4 bytes = 955 MB at level 0, not 3.85 GB).  A count
-// past its capacity is not written and sets the overflow word, on which
-// the wrapper raises.  The conv then runs K1's pair-major form over the
-// list (pair_major.cuh, shared with gather_gemm_conv.cu): items of 64
-// pairs of one offset and a column tile, x[src] @ W[o] on gather_tile.cuh's
-// FMA core (fp32) or wgmma_tile.cuh's warpgroup core (bf16) into a
-// pair-major fp32 buffer (k^3 * pair_cap rows: 1.47 GB at the stem, as
-// K1's), then live_sum_kernel adds each listed row's products in ascending
-// offset order through the map, and writes every listed row (0 where it
-// has no live pair).  Each offset's product over Cin is summed as in the
-// row tiles and the partials are added in the same order without the
-// zeros, so the fp32 result equals the row-tile path's bit for bit; no
-// float atomics.
+// the mask (src, dst), per (offset, listed row) its pair's index (map) and
+// its live bit, and per (offset, 32 listed rows) the offset's pairs before
+// them (starts); the counts stay on the card.  The wrappers build per
+// level and step one list over the occupied rows (the forward convs and
+// K11's dW) and one over the k3 dilation's rows with sources in the
+// occupancy (the dX convs).  Their capacities differ: an offset's pairs
+// have distinct sources in the occupancy, so pair_cap is the level's voxel
+// capacity for both, while row_cap is the voxel capacity for the occupied
+// rows and the level's dense rows for the dilation's.  A count past its
+// capacity is not written and sets the overflow word, on which the
+// wrapper raises.  The conv then runs in one of two forms over the list
+// (ops/narrow.py:live_form picks by dtype, role and level).  K1's
+// pair-major form (pair_major.cuh, shared with gather_gemm_conv.cu): items
+// of 64 pairs of one offset and a column tile, x[src] @ W[o] on
+// gather_tile.cuh's FMA core (fp32) or wgmma_tile.cuh's warpgroup core
+// (bf16) into a pair-major fp32 buffer (k^3 * pair_cap rows: 955 MB at
+// level 0 for Cout 96, 1.47 GB at the stem), then live_sum_kernel adds each
+// listed row's products in ascending offset order through the map.  Or the
+// row-group kernel (live_rows.cuh), one launch and no buffer: an item is R
+// consecutive listed rows and a column tile; each offset's pairs of those
+// rows are one range of the offset's list (its start from starts, its rows
+// from the bits), gathered, multiplied and added into the group's fp32
+// accumulator in shared memory in ascending offset order.  Both write every
+// listed row (0 where it has no live pair).  Each offset's product over
+// Cin is summed as in the row tiles and the partials are added in the same
+// order without the zeros, so in fp32 both equal the row-tile path bit for
+// bit; no float atomics.  The pair-major form runs wherever the row groups
+// lost the paired measurement (PERF.md section 6): an item of the row
+// groups walks its offsets in turn, so a level's work is a few hundred
+// long chains where the pair-major form has thousands of short items.
 //
 // Contract: x (n_blocks * edge^3, Cin), w (k^3, Cin, Cout) and out
 // (n_blocks * edge^3, Cout) share one dtype (fp32 or bf16), rows
@@ -136,6 +146,7 @@
 // padded z-row and dilates them separably with shifts and ORs (see
 // dilate_kernel).
 #include "block_tile.cuh"
+#include "live_rows.cuh"
 #include "narrow_tile.cuh"
 #include "pair_major.cuh"
 
@@ -939,7 +950,8 @@ cudaError_t narrow_conv(const void* x, const void* nbr, const void* w, int32_t* 
 }
 
 // ---------------------------------------------------------------------------
-// the live-pair path: the live-pair list, the products, the sum
+// the live-pair path: the live-pair list, the pair-major form, the row
+// groups
 // ---------------------------------------------------------------------------
 
 // The live-pair list's workspace (block_dense.py:live_workspace_size), for
@@ -947,14 +959,17 @@ cudaError_t narrow_conv(const void* x, const void* nbr, const void* w, int32_t* 
 // rows: src and dst (n_off x pair_cap each), the counts (n_off), a ticket,
 // the overflow word (bit 0: more listed rows than row_cap, bit 1: an
 // offset with more pairs than pair_cap), the map (n_off x row_cap), the
-// list passes' per-block counts (n_off x blocks), then the count pass's
-// live bits (n_off x blocks x kListRows / 32 words).  The forward's list
+// list passes' per-block counts (n_off x blocks), the count pass's live
+// bits (n_off x blocks x kListRows / 32 words: offset o's word i / 32 holds
+// listed row i's bit), then the list pass's starts (the same shape: the
+// offset's pairs before the word's rows, uncapped).  The forward's list
 // has as many pair slots as listed rows; the dX role's lists the
 // dilation's rows (up to every row of the level) but has at most the
 // occupied rows' pairs an offset.
 struct LiveWs {
-  int32_t *src, *dst, *counts, *ticket, *overflow, *map, *block_counts;
+  int32_t *src, *dst, *counts, *ticket, *overflow, *map, *block_counts, *starts;
   uint32_t* bits;
+  int64_t words;   // bits and starts a offset
   int pair_cap, row_cap;
   __host__ __device__ LiveWs(int32_t* ws, int n_off, int pair_cap_, int row_cap_)
       : pair_cap(pair_cap_), row_cap(row_cap_) {
@@ -967,7 +982,9 @@ struct LiveWs {
     overflow = ticket + 1;
     map = overflow + 1;
     block_counts = map + (int64_t)n_off * row_cap;
+    words = (int64_t)blocks * (kListRows / 32);
     bits = reinterpret_cast<uint32_t*>(block_counts + (int64_t)n_off * blocks);
+    starts = block_counts + (int64_t)n_off * blocks + n_off * words;
   }
 };
 
@@ -1007,7 +1024,9 @@ count_live_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ 
 
 // the pairs in list order: each block's offset over the blocks before it,
 // each warp's over the warps before it, each lane's over the chunk's bits
-// below it; the sources resolved again for the live rows alone
+// below it; the sources resolved again for the live rows alone.  Each
+// chunk's first position goes to starts, where the conv's row groups find
+// their ranges.
 template <int E, int K>
 __global__ void __launch_bounds__(kListThreads)
 list_live_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ count,
@@ -1016,8 +1035,8 @@ list_live_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ c
   const int o = blockIdx.y, n_list = min(*count, ws.row_cap), cap = ws.pair_cap;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int32_t* oc = ws.block_counts + (int64_t)o * gridDim.x;
-  const uint32_t* const bits = ws.bits +
-      ((int64_t)o * gridDim.x + blockIdx.x) * (kListRows / 32) + warp * kChunks;
+  const int64_t word0 = ((int64_t)o * gridDim.x + blockIdx.x) * (kListRows / 32) + warp * kChunks;
+  const uint32_t* const bits = ws.bits + word0;
   int part = 0;
   for (int i = threadIdx.x; i < (int)blockIdx.x; i += kListThreads) part += oc[i];
   int prefix;
@@ -1037,6 +1056,7 @@ list_live_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ c
   for (int c = 0; c < kChunks; ++c) {
     const int64_t i = i0 + c * 32 + lane;
     const uint32_t live = __shfl_sync(0xFFFFFFFFu, mine, c);
+    if (lane == 0) ws.starts[word0 + c] = pos;
     const int p = pos + __popc(live & below);
     const bool in = ((live >> lane) & 1u) && p < cap;
     if (i < n_list) ws.map[map_base + i] = in ? p : -1;
@@ -1183,7 +1203,7 @@ cudaError_t live_products(const void* x, const void* w, const LiveWs& ws, float*
   return cudaErrorInvalidValue;
 }
 
-cudaError_t live_conv(const void* x, const void* w, const int32_t* rows_ws, int32_t* live_ws,
+cudaError_t pair_major_conv(const void* x, const void* w, const int32_t* rows_ws, int32_t* live_ws,
                       float* partial, void* out, int n_rows, int pair_cap, int row_cap,
                       int n_off, int cin, int cout, int dtype, cudaStream_t s) {
   const LiveWs ws(live_ws, n_off, pair_cap, row_cap);
@@ -1206,6 +1226,45 @@ cudaError_t live_conv(const void* x, const void* w, const int32_t* rows_ws, int3
     live_sum_kernel<float><<<grid, kListThreads, 0, s>>>(
         rows_ws, rows_ws + n_rows, ws, partial, ld, static_cast<float*>(out), cout, n_off);
   return cudaGetLastError();
+}
+
+// the conv over the list in row groups (live_rows.cuh)
+template <typename T, int BN>
+__global__ void __launch_bounds__(lrc::kThreads)
+live_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                 const int32_t* __restrict__ list, const int32_t* __restrict__ count,
+                 lrc::Pairs pairs, int32_t* __restrict__ ticket, T* __restrict__ out,
+                 int row_cap, int cin, int cout, int n_off) {
+  lrc::conv<T, BN>(x, w, list, count, pairs, ticket, out, row_cap, cin, cout, n_off);
+}
+
+template <typename T, int BN>
+cudaError_t launch_live_rows(const void* x, const void* w, const int32_t* rows_ws,
+                             const LiveWs& ws, void* out, int n_rows, int cin, int cout,
+                             int n_off, cudaStream_t s) {
+  auto kernel = live_rows_kernel<T, BN>;
+  const size_t smem = lrc::smem_bytes<T, BN>(n_off);
+  constexpr int R = lrc::Group<T>::R;
+  const int64_t max_items = (int64_t)(ws.row_cap + R - 1) / R * ((cout + BN - 1) / BN);
+  int grid = 0;
+  cudaError_t err = ntt::grid_of(kernel, lrc::kThreads, smem, max_items, &grid);
+  if (err != cudaSuccess) return err;
+  const lrc::Pairs pairs{ws.src, ws.bits, ws.starts, ws.words, ws.pair_cap};
+  kernel<<<grid, lrc::kThreads, smem, s>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                                            rows_ws, rows_ws + n_rows, pairs, ws.ticket,
+                                            static_cast<T*>(out), ws.row_cap, cin, cout, n_off);
+  return cudaGetLastError();
+}
+
+// BN: Cout up to 96 rounded up to 32, 64 or 96, else 64 (gtt::pair_bn)
+template <typename T>
+cudaError_t live_rows(const void* x, const void* w, const int32_t* rows_ws, const LiveWs& ws,
+                      void* out, int n_rows, int cin, int cout, int n_off, cudaStream_t s) {
+  switch (gtt::pair_bn(cout)) {
+    case 32: return launch_live_rows<T, 32>(x, w, rows_ws, ws, out, n_rows, cin, cout, n_off, s);
+    case 96: return launch_live_rows<T, 96>(x, w, rows_ws, ws, out, n_rows, cin, cout, n_off, s);
+    default: return launch_live_rows<T, 64>(x, w, rows_ws, ws, out, n_rows, cin, cout, n_off, s);
+  }
 }
 
 }  // namespace
@@ -1309,24 +1368,53 @@ extern "C" int block_live_pairs(const void* rows_ws, const void* mask, const voi
   return static_cast<int>(launch(rows, m, nbr, ws, n_blocks, pair_cap, row_cap, s));
 }
 
+// The conv on its live pairs: out[r] = sum over listed row r's live pairs
+// (o ascending) of x[src] @ w[o], for x zero outside the mask the list was
+// built on, in one launch over groups of listed rows (live_rows.cuh).
+// rows_ws: the row list (n_rows rows) the list was built on; live_ws: its
+// live-pair list (block_live_pairs at pair_cap and row_cap, its ticket 0,
+// as every call leaves it).  Every listed row is written (0 where it has
+// no live pair); rows outside the list are left as they are (the caller
+// zeroes out).  dtype: 0 = float32, 1 = bfloat16.  Returns the launch's
+// cudaError_t.
+extern "C" int block_conv_live(const void* x, const void* w, const void* rows_ws, void* live_ws,
+                               void* out, int n_rows, int pair_cap, int row_cap, int k, int cin,
+                               int cout, int dtype, void* stream) {
+  if (row_cap == 0 || cout == 0) return 0;
+  if ((k != 3 && k != 5) || cin < 1 || pair_cap < 0) return cudaErrorInvalidValue;
+  const int n_off = k * k * k;
+  const LiveWs ws(static_cast<int32_t*>(live_ws), n_off, pair_cap, row_cap);
+  const int32_t* rows = static_cast<const int32_t*>(rows_ws);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == 1 ? live_rows<__nv_bfloat16>(x, w, rows, ws, out, n_rows, cin, cout, n_off, s)
+                 : live_rows<float>(x, w, rows, ws, out, n_rows, cin, cout, n_off, s));
+}
+
+// The listed rows a group of block_conv_live takes (lrc::Group).  dtype: 0
+// = float32, 1 = bfloat16.
+extern "C" int block_conv_live_group_rows(int dtype) {
+  return dtype == 1 ? lrc::Group<__nv_bfloat16>::R : lrc::Group<float>::R;
+}
+
 // The row width of the live-pair path's fp32 buffer for Cout.  dtype: 0 =
 // float32, 1 = bfloat16.
 extern "C" int block_conv_live_stride(int cout, int dtype) { return live_stride(cout, dtype); }
 
-// The conv on its live pairs: out[r] = sum over listed row r's live pairs
-// (o ascending) of x[src] @ w[o], for x zero outside the mask the list was
-// built on.  rows_ws: the row list (n_rows rows) the list was built on;
-// live_ws: its live-pair list (block_live_pairs at pair_cap and row_cap,
-// its ticket 0, as every call leaves it); partial: (k^3 * pair_cap,
+// The same conv in K1's pair-major form (pair_major.cuh): each offset's
+// pairs in items of 64, their fp32 products into a pair-major buffer, then
+// each listed row's products added in ascending offset order.  rows_ws,
+// live_ws: as block_conv_live's; partial: (k^3 * pair_cap,
 // block_conv_live_stride) fp32 scratch.  Every listed row is written (0
 // where it has no live pair); rows outside the list are left as they are
 // (the caller zeroes out).  Returns the launches' cudaError_t.
-extern "C" int block_conv_live(const void* x, const void* w, const void* rows_ws, void* live_ws,
-                               void* partial, void* out, int n_rows, int pair_cap, int row_cap,
-                               int k, int cin, int cout, int dtype, void* stream) {
+extern "C" int block_conv_pair_major(const void* x, const void* w, const void* rows_ws,
+                                     void* live_ws, void* partial, void* out, int n_rows,
+                                     int pair_cap, int row_cap, int k, int cin, int cout,
+                                     int dtype, void* stream) {
   if (row_cap == 0 || cout == 0) return 0;
   if ((k != 3 && k != 5) || cin < 1 || pair_cap < 0) return cudaErrorInvalidValue;
-  return static_cast<int>(live_conv(x, w, static_cast<const int32_t*>(rows_ws),
+  return static_cast<int>(pair_major_conv(x, w, static_cast<const int32_t*>(rows_ws),
                                     static_cast<int32_t*>(live_ws), static_cast<float*>(partial),
                                     out, n_rows, pair_cap, row_cap, k * k * k, cin, cout, dtype,
                                     static_cast<cudaStream_t>(stream)));

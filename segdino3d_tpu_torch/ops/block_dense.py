@@ -41,7 +41,9 @@ Three hand-written CUDA kernels carry it:
   (``block_live_pairs``, a pass over a row list): the occupied rows'
   (``live_pairs``), which a level's forward convs and their dW share, and
   the dilation's rows' (``dilation_pairs``), which its dX convs share; the
-  convs in K1's pair-major form, the dW on K11's tile core.
+  convs in K1's pair-major form, or where ``narrow.live_form`` says so
+  in row groups (one launch sums every offset's pairs of a group of listed
+  rows, ``csrc/live_rows.cuh``), the dW on K11's tile core.
 
 ``dense_subm_conv`` is a ``torch.autograd.Function`` whose backward runs
 K10 for dX (the mirror identity of ``_chunked_conv_bwd``: the same conv of
@@ -425,11 +427,57 @@ class LivePairs(NamedTuple):
 
 def live_workspace_size(n_off: int, pair_cap: int, row_cap: int) -> int:
     """``block_live_pairs``' int32 workspace: src and dst, the counts, a
-    ticket, the overflow word, the map, the list passes' per-block counts
-    and the count pass's bits (a word per 32 listed rows)."""
+    ticket, the overflow word, the map, the list passes' per-block counts,
+    the count pass's bits (a word per 32 listed rows) and the list pass's
+    starts (per word, the offset's pairs before it)."""
     blocks = max(1, -(-row_cap // LIST_ROWS))
     return 2 * n_off * pair_cap + n_off + 2 + n_off * row_cap \
-        + n_off * blocks * (1 + LIST_ROWS // 32)
+        + n_off * blocks * (1 + 2 * (LIST_ROWS // 32))
+
+
+def live_words(pairs: LivePairs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The card's per-word views of a live-pair list's workspace, each
+    (n_off, words): the count pass's bits (word w of offset o: its pairs'
+    bits of listed rows 32 w .. 32 w + 31) and the list pass's starts (the
+    offset's pairs before word w, not capped), which K10's row groups
+    read."""
+    n_off, cap = pairs.src.shape
+    row_cap = pairs.map.shape[1]
+    blocks = max(1, -(-row_cap // LIST_ROWS))
+    words = blocks * (LIST_ROWS // 32)
+    base = 2 * n_off * cap + n_off + 2 + n_off * row_cap + n_off * blocks
+    ws = pairs.ws
+    return (ws[base:base + n_off * words].view(n_off, words),
+            ws[base + n_off * words:base + 2 * n_off * words].view(n_off,
+                                                                   words))
+
+
+def live_ranges_plain(pairs: LivePairs, group_rows: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the pair ranges of K10's row groups
+    (``csrc/live_rows.cuh``): (start, count), each (groups, n_off) int64,
+    group g the listed rows ``g * group_rows`` .. ``+ group_rows - 1``.
+    Offset o's pairs are in list order, so those of group g's rows are its
+    pairs ``start[g, o]`` .. ``start[g, o] + count[g, o] - 1``: ``count``
+    the group's rows with a pair at o, ``start`` the pairs of the rows
+    before the group."""
+    n_off, row_cap = pairs.map.shape
+    n = min(int(pairs.rows.count), row_cap)
+    groups = -(-n // group_rows)
+    live = torch.zeros(n_off, groups * group_rows, dtype=torch.int64,
+                       device=pairs.map.device)
+    live[:, :n] = (pairs.map[:, :n] >= 0).long()
+    count = live.view(n_off, groups, group_rows).sum(-1).T.contiguous()
+    return count.cumsum(0) - count, count
+
+
+def live_group_rows(dtype) -> int:
+    """The listed rows a group of K10's row-group kernel takes in
+    ``dtype``, as the built library states it (``lrc::Group`` in
+    ``csrc/live_rows.cuh``): the ``group_rows`` at which
+    ``live_ranges_plain`` and ``block_conv_live_rows_plain`` model it."""
+    return int(cuda_build.library("block_conv").block_conv_live_group_rows(
+        cuda_build.dtype_code(dtype)))
 
 
 def live_capacity(tables: BlockTables) -> int:
@@ -577,6 +625,35 @@ def block_conv_live_plain(feats: torch.Tensor, weights: torch.Tensor,
     return acc.to(feats.dtype)
 
 
+def block_conv_live_rows_plain(feats: torch.Tensor, weights: torch.Tensor,
+                               pairs: LivePairs, group_rows: int
+                               ) -> torch.Tensor:
+    """A model of K10's live-pair kernel in its order: per group of
+    ``group_rows`` listed rows, an fp32 accumulator of zeros takes, offset
+    by offset ascending, the products of the offset's pair range
+    (``live_ranges_plain``) at its rows; then the group's rows are
+    written.  A pair's product is complete over Cin whatever else shares
+    its tile, so each offset's products are computed once here.  In fp32
+    it equals ``block_conv_live_plain`` bit for bit."""
+    xf, wf = as_sum_type(feats), as_sum_type(weights)
+    n_off, cout = weights.shape[0], weights.shape[2]
+    start, count = live_ranges_plain(pairs, group_rows)
+    prods = [xf[pairs.src[o, :int(pairs.counts[o])].long()] @ wf[o]
+             for o in range(n_off)]
+    n = min(int(pairs.rows.count), pairs.map.shape[1])
+    out = xf.new_zeros(feats.shape[0], cout)
+    for g in range(start.shape[0]):
+        i0, i1 = g * group_rows, min(n, (g + 1) * group_rows)
+        acc = xf.new_zeros(i1 - i0, cout)
+        for o in range(n_off):
+            s, c = int(start[g, o]), int(count[g, o])
+            if c:
+                at = torch.nonzero(pairs.map[o, i0:i1] >= 0).flatten()
+                acc[at] += prods[o][s:s + c]
+        out[pairs.rows.rows[i0:i1].long()] = acc
+    return out.to(feats.dtype)
+
+
 def block_wgrad_live_plain(feats: torch.Tensor, dy: torch.Tensor,
                            pairs: LivePairs) -> torch.Tensor:
     """Plain version of K11's live-pair path: ``dW[o] = feats[src]^T @
@@ -611,7 +688,8 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
                narrow: Optional[bool] = None,
                groups: Optional[int] = None, zero_outside: bool = False,
                live: Optional[bool] = None,
-               live_list: Optional[LivePairs] = None) -> torch.Tensor:
+               live_list: Optional[LivePairs] = None,
+               form: Optional[str] = None) -> torch.Tensor:
     """Submanifold conv of flat dense rows with each block halo-padded from
     its shell neighbours: ``out[c] = sum_o halo[c + o] @ weights[o]``,
     zero at unoccupied cells when ``occ`` is given.
@@ -636,13 +714,18 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     conv runs over the live pairs of ``occ``'s row list only (``live_list``:
     ``live_pairs``, or in the dX role ``dilation_pairs``, whose sources are
     the occupancy inside the dilation ``occ``; built inside the call when
-    not given): each offset's pairs in items of 64, their products into a
-    pair-major (k^3 * pair cap, Cout rounded up to the column tile) fp32
-    scratch allocated here, then each listed row's products added in
-    ascending offset order.  Pairs whose source is outside the list's
-    source mask carry exact zeros and are skipped, so the result is the
-    conv's (fp32: bit-equal to the row-tile path).  On the CPU that path's
-    plain version runs."""
+    not given), in ``form`` (``narrow.live_form`` when not given: the
+    autograd Function passes it by role and level; benchmarks and tests
+    force one): ``narrow.PAIR_MAJOR``, each offset's pairs in items of 64,
+    their products into a pair-major (k^3 * pair cap, Cout rounded up to
+    the column tile) fp32 scratch allocated here, then each listed row's
+    products added in ascending offset order (two launches); or
+    ``narrow.ROW_GROUPS``, one launch and no scratch: groups of consecutive
+    listed rows, every offset's products of each group's pairs added into
+    the group's rows in ascending offset order.  Pairs whose source is outside the
+    list's source mask carry exact zeros and are skipped, so the result is
+    the conv's (fp32: bit-equal to the row-tile path).  On the CPU that
+    path's plain version runs."""
     n_off, cin, cout = weights.shape
     _check_layout("block_conv", feats, block_nbr, n_off, edge, cin)
     k = kernel_size(n_off)
@@ -652,6 +735,9 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
         if feats.dtype in (torch.float32, torch.bfloat16) else False
     live = N.pick_live(live, narrow, n_off, cin, cout, feats.dtype,
                        zero_outside, "block_conv")
+    if form is not None and (not live or form not in N.LIVE_FORMS):
+        raise ValueError(f"block_conv: form {form} takes the live-pair path "
+                         f"and one of {N.LIVE_FORMS}")
     if live:
         live_list = _live_list(live_list, rows, occ, block_nbr, edge, k)
     if torch.compiler.is_exporting():
@@ -681,14 +767,23 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
         N.count_element_loads(feats, weights)
         dtype = cuda_build.dtype_code(feats.dtype)
         cap, row_cap = live_list.src.shape[1], live_list.map.shape[1]
-        partial = torch.empty(n_off * cap,
-                              lib.block_conv_live_stride(cout, dtype),
-                              dtype=torch.float32, device=feats.device)
-        cuda_build.check(lib.block_conv_live(
-            feats.data_ptr(), weights.data_ptr(), live_list.rows.ws.data_ptr(),
-            live_list.ws.data_ptr(), partial.data_ptr(), out.data_ptr(),
-            n_rows, cap, row_cap, k, cin, cout, dtype,
-            cuda_build.stream_ptr(feats)), "block_conv_live")
+        form = form or N.live_form(k, feats.dtype)
+        args = (feats.data_ptr(), weights.data_ptr(),
+                live_list.rows.ws.data_ptr(), live_list.ws.data_ptr())
+        if form == N.PAIR_MAJOR:
+            partial = torch.empty(n_off * cap,
+                                  lib.block_conv_live_stride(cout, dtype),
+                                  dtype=torch.float32, device=feats.device)
+            cuda_build.check(lib.block_conv_pair_major(
+                *args, partial.data_ptr(), out.data_ptr(), n_rows, cap,
+                row_cap, k, cin, cout, dtype, cuda_build.stream_ptr(feats)),
+                "block_conv_pair_major")
+        else:
+            cuda_build.check(lib.block_conv_live(
+                *args, out.data_ptr(), n_rows, cap, row_cap, k, cin, cout,
+                dtype, cuda_build.stream_ptr(feats)),
+                "block_conv_live")
+            block_conv.live_rows.launches += 1
         block_conv.launches += 1
         block_conv.live.launches += 1
         return out
@@ -740,6 +835,8 @@ def _split_cap(lib, b, edge, k, cout):
 block_conv.launches = 0
 block_conv.narrow = types.SimpleNamespace(launches=0)   # of them narrow
 block_conv.live = types.SimpleNamespace(launches=0)     # of them live-pair
+# of those, the row-group kernel's (the rest pair-major)
+block_conv.live_rows = types.SimpleNamespace(launches=0)
 block_conv.own_lists = 0     # calls that built their row list themselves
 
 
@@ -934,6 +1031,8 @@ class _DenseSubmConv(torch.autograd.Function):
                             mask, t.edge, rows if dy.is_cuda else None,
                             zero_outside=True, live=live,
                             live_list=dilation_pairs(t, occ, k)
+                            if live else None,
+                            form=N.live_form(k, dy.dtype, dx=True, cap=cap)
                             if live else None)
         if ctx.needs_input_grad[3]:
             rows = row_list(t, occ) if feats.is_cuda else None

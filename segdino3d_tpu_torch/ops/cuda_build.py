@@ -42,7 +42,8 @@ _HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh",
             "slot_gather": (),
             "block_conv": ("block_tile.cuh", "gather_tile.cuh",
                            "wgrad_tile.cuh", "narrow_tile.cuh",
-                           "wgmma_tile.cuh", "pair_major.cuh"),
+                           "wgmma_tile.cuh", "pair_major.cuh",
+                           "live_rows.cuh"),
             "block_wgrad": ("block_tile.cuh", "wgrad_tile.cuh",
                             "narrow_tile.cuh", "narrow_wgrad.cuh"),
             "stem_slot_sum": ()}
@@ -63,7 +64,9 @@ _ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
                  "block_conv": ("block_conv", "block_conv_rows", "block_rows",
                                 "block_dilate", "block_conv_split_cap",
                                 "block_live_pairs", "block_conv_live",
-                                "block_conv_live_stride")}
+                                "block_conv_live_stride",
+                                "block_conv_live_group_rows",
+                                "block_conv_pair_major")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -142,10 +145,15 @@ _SIGNATURES = {
     "block_live_pairs": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # cout, dtype
     "block_conv_live_stride": [_I, _I],
+    # dtype
+    "block_conv_live_group_rows": [_I],
     # x, w, rows_ws, live_ws, partial, out, n_rows, pair_cap, row_cap, k,
     # cin, cout, dtype, stream
-    "block_conv_live": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _P],
+    "block_conv_pair_major": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
+    # x, w, rows_ws, live_ws, out, n_rows, pair_cap, row_cap, k, cin, cout,
+    # dtype, stream
+    "block_conv_live": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, dy, block_nbr, ws, partial, out, n_blocks, edge, k, cin, cout,
     # splits, dtype, stream
     "block_wgrad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -194,6 +194,16 @@ def pick(forced: Optional[bool], n_off: int, cin: int, cout: int, dtype,
 # 0.090 against 0.159), and every dW (0.256 against 0.475 at L0 96->96);
 # the rest tied within the calls' noise.
 BF16_K3_LIVE_MAX_CAP = {"forward": 8192, "dx": 16384, "wgrad": None}
+# bf16 k3 dX convs at levels of at least this many voxels run K10's
+# row-group kernel (``live_form``), where its paired measurement
+# (``tools/conv_bench.py --live``, PERF.md section 6) beat the row tiles
+# and the pair-major form: dX at the flagship's L0 (92,160 voxels; 96->96
+# 0.676 ms against the row tiles' 0.823 and the pair-major form's 0.864,
+# 96->128 0.950 against 0.962 and 1.074).  Everywhere else it lost: at L1
+# and below (dX 96->96 L1 0.295 against the row tiles' 0.204), in the
+# forward (L0 96->96 0.365 against 0.317) and in fp32 (L0 forward 1.107
+# against the pair-major form's 0.639).
+BF16_K3_DX_ROW_GROUPS_MIN_CAP = 65536
 
 
 def live_path(n_off: int, cin: int, cout: int, dtype, zero_outside: bool,
@@ -204,7 +214,8 @@ def live_path(n_off: int, cin: int, cout: int, dtype, zero_outside: bool,
     dX conv's is), the narrow path does not take the shape, and in bf16 at
     k3 the role (``dx``, ``wgrad``, else the forward) and the level's voxel
     capacity ``cap`` (None: not known, the row tiles) are ones where it
-    won (``BF16_K3_LIVE_MAX_CAP``)."""
+    won (``BF16_K3_LIVE_MAX_CAP``; dX at the largest levels, on the
+    row-group kernel: ``BF16_K3_DX_ROW_GROUPS_MIN_CAP``)."""
     if not zero_outside:
         return False
     if dtype in (torch.float32, torch.bfloat16) and (
@@ -213,9 +224,36 @@ def live_path(n_off: int, cin: int, cout: int, dtype, zero_outside: bool,
         return False
     if dtype != torch.bfloat16 or n_off != 27:
         return True
+    if _row_groups(n_off, dtype, dx, cap):
+        return True
     most = BF16_K3_LIVE_MAX_CAP["wgrad" if wgrad else "dx" if dx
                                 else "forward"]
     return cap is not None and (most is None or cap <= most)
+
+
+def _row_groups(n_off: int, dtype, dx: bool, cap: Optional[int]) -> bool:
+    """Whether a conv on the live-pair path in this role and at a level of
+    ``cap`` voxels runs K10's row-group kernel (else its pair-major form)."""
+    return dtype == torch.bfloat16 and n_off == 27 and dx and \
+        cap is not None and cap >= BF16_K3_DX_ROW_GROUPS_MIN_CAP
+
+
+# The two forms of K10's live-pair path: K1's pair-major form
+# (``csrc/pair_major.cuh``: each offset's pairs in items of 64, their fp32
+# products into a (k^3 x pair cap, Cout) buffer, then a second launch adds
+# each listed row's products) and the row-group kernel
+# (``csrc/live_rows.cuh``: one launch, groups of consecutive listed rows,
+# each offset's pairs of a group added into its rows' accumulator).
+PAIR_MAJOR, ROW_GROUPS = "pair-major", "row groups"
+LIVE_FORMS = (PAIR_MAJOR, ROW_GROUPS)
+
+
+def live_form(k: int, dtype, dx: bool = False, cap: Optional[int] = None
+              ) -> str:
+    """The form K10's live-pair path takes at kernel size ``k`` in
+    ``dtype``, in the forward's role (``dx``: the input gradient's) at a
+    level of ``cap`` voxels (None: not known)."""
+    return ROW_GROUPS if _row_groups(k ** 3, dtype, dx, cap) else PAIR_MAJOR
 
 
 def pick_live(forced: Optional[bool], narrow: bool, n_off: int, cin: int,

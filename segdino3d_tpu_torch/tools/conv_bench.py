@@ -67,9 +67,10 @@ hybrid plan, fp32 and bf16, in the forward role (the occupancy's row list
 and its live-pair list, ``live_pairs``) and in the dX role (flipped,
 transposed weights on a cotangent zero outside the occupancy, under the
 occupancy's k3 dilation, over the dilation's live-pair list,
-``dilation_pairs``), on the live-pair path and on the row-tile path forced,
-each with its bound with and without the pair-major buffer's traffic
-(each pair's fp32 products written once and read once).  In a checkout
+``dilation_pairs``), on the live-pair path and on the row-tile path forced
+(and the live-pair path's other form, the pair-major form or the
+row-group kernel, forced, where the checkout has both), each with the
+bound of its live pairs.  In a checkout
 whose wrapper takes no ``zero_outside`` (or, at k3, has no
 ``dilation_pairs``) the default path alone is timed (copy this file and
 ``wgrad_bench.py``, whose runner it uses, into that checkout's
@@ -271,6 +272,9 @@ def live_cases(plan, hybrid, gen):
             paths = {"live-pair": lambda x=x, w=w, lp=lp: BD.block_conv(
                          x, t.block_nbr, w, occ, e, rows, zero_outside=True,
                          live_list=lp),
+                     **form_paths(lambda f, x=x, w=w, lp=lp: BD.block_conv(
+                         x, t.block_nbr, w, occ, e, rows, zero_outside=True,
+                         live_list=lp, form=f), 5, dt),
                      "row-tile (forced)": lambda x=x, w=w: BD.block_conv(
                          x, t.block_nbr, w, occ, e, rows, live=False),
                      "live-pair list build": lambda: BD.live_pair_list(
@@ -303,18 +307,33 @@ def live_cases(plan, hybrid, gen):
     return out
 
 
+def form_paths(call, k, dt):
+    """{path: call} of K10's live-pair path in the form ``narrow`` does not
+    pick (``narrow.LIVE_FORMS``: the pair-major form and the row-group
+    kernel), where this checkout's wrapper takes ``form=``; ``call(f)``
+    runs it in form f."""
+    import inspect
+
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import narrow as N
+
+    if "form" not in inspect.signature(BD.block_conv).parameters:
+        return {}
+    return {f"live-pair, {f} (forced)": (lambda f=f: call(f))
+            for f in N.LIVE_FORMS if f != N.live_form(k, dt)}
+
+
 def k3_live_cases(hybrid, gen):
-    """[(name, dtype, {path: call}, plain call, library call, ops, bytes,
-    the pair-major buffer's bytes)] of every distinct k3 conv in the
-    forward and dX roles: K10 on its level's blocks (the live-pair and the
-    row-tile path, where this checkout has both)."""
+    """[(name, dtype, {path: call}, plain call, library call, ops, bytes)]
+    of every distinct k3 conv in the forward and dX roles: K10 on its
+    level's blocks (the live-pair and the row-tile path, where this
+    checkout has both; the live-pair path's other form, where it has
+    two)."""
     import chip_smoke as C
     from segdino3d_tpu_torch.ops import block_dense as BD
-    from segdino3d_tpu_torch.ops import cuda_build
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
     both = hasattr(BD, "dilation_pairs")
-    lib = cuda_build.library("block_conv")
     out = []
 
     def case(li, cin, cout, n, dx, dt):
@@ -339,6 +358,9 @@ def k3_live_cases(hybrid, gen):
                 "live-pair": lambda: BD.block_conv(
                     x, nbr, w, mask, e, rl, zero_outside=True, live=True,
                     live_list=lp),
+                **form_paths(lambda f: BD.block_conv(
+                    x, nbr, w, mask, e, rl, zero_outside=True, live=True,
+                    live_list=lp, form=f), 3, dt),
                 "row-tile (forced)": lambda: BD.block_conv(
                     x, nbr, w, mask, e, rl, live=False),
                 "live-pair list build": lambda: BD.live_pair_list(
@@ -350,7 +372,6 @@ def k3_live_cases(hybrid, gen):
                                              1))
             return torch.nn.functional.conv3d(p, wc)
 
-        stride = lib.block_conv_live_stride(co, cuda_build.dtype_code(dt))
         role = "dX" if dx else "forward"
         out.append((
             f"K10 k3 {role} {ci}->{co} L{li} ({n} a forward), {listed} "
@@ -358,8 +379,7 @@ def k3_live_cases(hybrid, gen):
             lambda: BD.dense_subm_conv_plain(x, nbr, w, None if dx else mask,
                                              e),
             library, 2.0 * pairs * ci * co,
-            C.nbytes(x, w) + 4 * listed + occ.shape[0] * co * x.element_size(),
-            2 * 4 * pairs * stride))
+            C.nbytes(x, w) + 4 * listed + occ.shape[0] * co * x.element_size()))
 
     for li, cin, cout, n in K3_CONVS:
         for dx in (False, True):

@@ -296,11 +296,10 @@ def run_stem(cases, rounds, reps, held=held, prefix="stem"):
     """Cases (the stem's, or ``prefix`` others'): every path held to the
     plain version (``held``; a path named as a list build is only timed),
     then the paths timed in turn; each output's digest printed, and the
-    bound, also with the pair-major buffer's bytes where a case gives
-    them."""
+    bound."""
     import chip_smoke as C
 
-    for name, dt, paths, plain, lib, ops, byts, *buffer in cases:
+    for name, dt, paths, plain, lib, ops, byts in cases:
         dts = str(dt).replace("torch.", "")
         want = plain()
         digests = {}
@@ -319,16 +318,13 @@ def run_stem(cases, rounds, reps, held=held, prefix="stem"):
             for path, fn in paths.items():
                 samples[path].append(C.time_ms(fn, reps))
         b_ms, b_by = C.bound(ops, byts, C.CONV_PEAK[dt])
-        with_buffer = "" if not buffer else \
-            "; with the pair-major buffer %.4f ms (%s)" % C.bound(
-                ops, byts + buffer[0], C.CONV_PEAK[dt])
         lib_ms = C.time_ms(lib, reps)
         for path, t in samples.items():
             t = np.array(t)
             print(f"{prefix} {name} {dts} {path} path: min {t.min():.4f} ms,"
                   f" median {np.median(t):.4f} ms over {rounds} x {reps} "
                   f"calls; library {lib_ms:.4f} ms; bound {b_ms:.4f} ms "
-                  f"({b_by}){with_buffer}"
+                  f"({b_by})"
                   + (f"; output digest {digests[path]}" if path in digests
                      else ""), flush=True)
 

@@ -1754,3 +1754,132 @@ def test_live_k3_matches_plain(card, shape, dtype):
                 torch.testing.assert_close(got[0], ref, rtol=0, atol=tol
                                            * float(ref.abs().max()))
     assert not dx[0][~dil].any()
+
+
+def _bit_counts(words):
+    """(n_off, n_words) int64: the set bits of each int32 word."""
+    w = words.long() & 0xFFFFFFFF
+    return sum((w >> i) & 1 for i in range(32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["scene_k3", "dx_k3", "stem_k5", "splits",
+                                  "dead_offsets"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_live_rows_kernel_matches_plain(card, case, dtype):
+    """K10's live-pair path in row groups (``csrc/live_rows.cuh``): the
+    list's per-word starts and bits give the ranges of
+    ``live_ranges_plain`` at the rows a group the library states; the
+    output within
+    1e-4 (bf16 1e-2) of the live plain version and of the kernel-order
+    model, two calls bit-equal, and in fp32 bit-equal to the forced row
+    tiles and to the pair-major form.  Cases:
+    a level-0 k3 forward 96 -> 96, its dX over the dilation's list, the k5
+    stem (259 -> 32, bf16 at the 264 pitch), 216 blocks 64 -> 128 (two
+    column tiles, many groups) and two lone occupied cells at Cin 35
+    (element copies; every offset but the centre without pairs)."""
+    dt = getattr(torch, dtype)
+    k, cin, cout = {"scene_k3": (3, 96, 96), "dx_k3": (3, 96, 96),
+                    "stem_k5": (5, 259 if dtype == "float32" else 264, 32),
+                    "splits": (3, 64, 128),
+                    "dead_offsets": (3, 35, 20)}[case]
+    if case in ("splits", "dead_offsets"):
+        t, occ = _live_case(card, case)
+    else:
+        t = _block_plan_on(card, [4] * 5).blocks[0]
+        t = TBD.BlockTables(t.vox_slot, t.block_nbr, t.slot_vox, t.edge)
+        occ = TBD.occupancy(t)
+    n, e = occ.shape[0], t.edge
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    x = torch.where(occ[:, None], torch.randn(n, cin, generator=gen,
+                                              device="cuda"), 0.0).to(dt)
+    w = (torch.randn(k ** 3, cin, cout, generator=gen, device="cuda")
+         * (k ** 3 * cin) ** -0.5).to(dt)
+    if case == "dx_k3":
+        mask, rows = TBD.dilation(t, occ, k)
+        lp = TBD.dilation_pairs(t, occ, k)
+    else:
+        mask, rows = occ, TBD.row_list(t, occ)
+        lp = TBD.live_pair_list(rows, occ, t.block_nbr, e, k,
+                                TBD.live_capacity(t) or n)
+    bits, starts = TBD.live_words(lp)
+    cap = lp.src.shape[1]
+    g = TBD.live_group_rows(dt)
+    assert g > 0 and g % 32 == 0
+    start, count = TBD.live_ranges_plain(lp, g)
+    words, groups = g // 32, start.shape[0]
+    got_start = starts[:, ::words][:, :groups].T.long().clamp(max=cap)
+    assert torch.equal(got_start, start)
+    got_count = _bit_counts(bits[:, :groups * words]).view(
+        -1, groups, words).sum(-1).T
+    assert torch.equal(got_count, count)
+    tiles = TBD.block_conv(x, t.block_nbr, w, mask, e, rows, live=False)
+    pairs = TBD.block_conv(x, t.block_nbr, w, mask, e, rows,
+                           zero_outside=True, live=True, live_list=lp,
+                           form=TN.PAIR_MAJOR)
+    plain = TBD.block_conv_live_plain(x, w, lp)
+    launched = (TBD.block_conv.live.launches,
+                TBD.block_conv.live_rows.launches)
+    got = [TBD.block_conv(x, t.block_nbr, w, mask, e, rows,
+                          zero_outside=True, live=True, live_list=lp,
+                          form=TN.ROW_GROUPS) for _ in range(2)]
+    assert (TBD.block_conv.live.launches - launched[0],
+            TBD.block_conv.live_rows.launches - launched[1]) == (2, 2)
+    model = TBD.block_conv_live_rows_plain(x, w, lp, g)
+    torch.cuda.synchronize()
+    assert torch.equal(*got)
+    if dtype == "float32":
+        assert torch.equal(got[0], tiles) and torch.equal(got[0], pairs)
+    tol = TOL[dtype]
+    for ref in (plain, model, tiles, pairs):
+        torch.testing.assert_close(got[0].float(), ref.float(), rtol=tol,
+                                   atol=tol)
+    assert not got[0][~mask].any()
+
+
+_OVERFLOW_CHILD = """
+import sys
+import torch
+sys.path.insert(0, sys.argv[2])
+import test_torch_port_kernels as K
+from segdino3d_tpu_torch.ops import block_dense as TBD
+t = K._block_plan_on("cuda", [4] * 5).blocks[0]
+occ = TBD.occupancy(t)
+rows = TBD.row_list(t, occ)
+n = occ.shape[0]
+plain = TBD.live_pairs_plain(TBD.RowList(rows.rows.cpu(), rows.count.cpu(),
+                                         None), occ.cpu(), t.block_nbr.cpu(),
+                             4, 3, n)
+cap = int(plain.counts.max()) - int(sys.argv[1])
+lp = TBD.live_pair_list(rows, occ, t.block_nbr, 4, 3, cap, n)
+x = torch.where(occ[:, None], torch.ones(n, 32, device="cuda"), 0.0)
+y = TBD.block_conv(x, t.block_nbr, torch.ones(27, 32, 32, device="cuda"),
+                   occ, 4, rows, zero_outside=True, live=True, live_list=lp,
+                   form=sys.argv[3])
+torch.cuda.synchronize()
+print("done", float(y.sum()))
+"""
+
+
+@pytest.mark.cuda
+def test_live_rows_overflow_raises(card):
+    """A live-pair list one pair short of an offset's count fails the run
+    (``torch._assert_async`` on the list's overflow word, no host sync),
+    in a child process because a device-side assert ends its CUDA
+    context; at the exact capacity the same conv runs; in both forms of
+    the live-pair path."""
+    import os
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.dirname(here)
+    for form in TN.LIVE_FORMS:
+        runs = [subprocess.run(
+            [sys.executable, "-c", _OVERFLOW_CHILD, str(short), here, form],
+            cwd=root, capture_output=True, text=True, timeout=300)
+            for short in (0, 1)]
+        assert runs[0].returncode == 0 and "done" in runs[0].stdout, \
+            runs[0].stderr[-2000:]
+        assert runs[1].returncode != 0 and "done" not in runs[1].stdout
+        assert "assert" in runs[1].stderr.lower(), runs[1].stderr[-2000:]

@@ -20,8 +20,14 @@ pairs.  Here, on the CPU:
   them, against JAX's ``dense_subm_conv`` and ``jax.vjp`` of
   ``_chunked_conv_cd`` (1e-5 x max) and against the row-tile path's plain
   versions (1e-6 x max);
-* the path rule (``narrow.live_path``) over every conv role of the
-  flagship and the Baseline, fp32 and bf16.
+* the row groups of K10's live-pair kernel (``csrc/live_rows.cuh``): each
+  group's pair range per offset against its definition from the list
+  (edges 4 and 8, k3 and k5, the forward's and the dilation's lists, a
+  group with no pair, offsets with none, a list at its capacities), and a
+  plain model of the kernel's order (row group, then ascending offset)
+  bit-equal to the live plain version in fp32 and against JAX;
+* the path rule (``narrow.live_path``, ``narrow.live_form``) over every
+  conv role of the flagship and the Baseline, fp32 and bf16.
 """
 import functools
 import itertools
@@ -310,6 +316,165 @@ def test_live_k3_plain_versions_match_jax(edge, cin, cout, monkeypatch):
 
 
 # --------------------------------------------------------------------------
+# K10's row groups: each group's pair range per offset, and a model of the
+# kernel's order
+# --------------------------------------------------------------------------
+
+# group sizes the kernel's per-word starts allow (multiples of 32 listed
+# rows); the card's own (``block_dense.live_group_rows``) is held to the
+# same plain ranges in the kernels file
+GROUP_ROWS = (32, 64, 128, 256)
+
+
+def _hold_ranges(lp, group_rows):
+    """``live_ranges_plain`` against its definition: offset o's pairs whose
+    listed row falls in group g (rows ``g * group_rows`` .. of the list)
+    are pairs start .. start + count - 1 of o's list, groups in order.
+    Returns (start, count)."""
+    start, count = TBD.live_ranges_plain(lp, group_rows)
+    n = int(lp.rows.count)
+    groups = -(-n // group_rows)
+    assert start.shape == count.shape == (groups, lp.src.shape[0])
+    at = torch.full((lp.rows.rows.shape[0],), -1, dtype=torch.long)
+    listed = lp.rows.rows[:n].long()
+    at[listed] = torch.arange(n)
+    for o in range(lp.src.shape[0]):
+        c = int(lp.counts[o])
+        grp = at[lp.dst[o, :c].long()] // group_rows
+        assert bool((grp >= 0).all()) and bool((grp[1:] >= grp[:-1]).all())
+        want = torch.bincount(grp, minlength=groups)
+        assert torch.equal(count[:, o], want), o
+        assert torch.equal(start[:, o], want.cumsum(0) - want), o
+        # the range's pairs are the group's rows that have one, in order
+        for g in range(groups):
+            s, m = int(start[g, o]), int(count[g, o])
+            rows = listed[g * group_rows:(g + 1) * group_rows]
+            live = lp.map[o, g * group_rows:g * group_rows + rows.shape[0]]
+            assert torch.equal(lp.dst[o, s:s + m].long(), rows[live >= 0])
+    return start, count
+
+
+def _zero_outside(occ, cin, seed):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(occ.shape[0], cin).astype(np.float32)
+    return torch.from_numpy(np.where(occ.numpy()[:, None], x, 0.0)
+                            .astype(np.float32))
+
+
+@pytest.mark.parametrize("role", ["forward", "dilation"])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("edge", [4, 8])
+def test_live_ranges_match_their_definition(edge, k, role):
+    """Every group size's ranges on the occupied rows' list and on the
+    k-dilation's (edges 4 and 8, k3 and k5), and the kernel-order model
+    bit-equal to the live plain version there (fp32)."""
+    t = _fresh(_block_tables(edge)[0])
+    occ = TBD.occupancy(t)
+    if role == "forward":
+        lp = TBD.live_pairs(t, occ, k)
+    else:
+        rows = TBD.dilation(t, occ, k)[1]
+        lp = TBD.live_pair_list(rows, occ, t.block_nbr, edge, k,
+                                TBD.live_capacity(t), occ.shape[0])
+    x = _zero_outside(occ, 6, seed=edge + k)
+    w = torch.from_numpy(np.random.RandomState(k).randn(
+        k ** 3, 6, 5).astype(np.float32))
+    want = TBD.block_conv_live_plain(x, w, lp)
+    for g in GROUP_ROWS:
+        _hold_ranges(lp, g)
+        assert torch.equal(TBD.block_conv_live_rows_plain(x, w, lp, g), want)
+
+
+@pytest.mark.parametrize("case", ["empty_group", "dead_offsets",
+                                  "at_capacity"])
+def test_live_ranges_at_the_edges(case):
+    """A group with no live pair (every row of the level listed, sources
+    in the first block only), offsets with no pairs (two lone
+    occupied cells: the centre alone pairs), and a list at both its
+    capacities; the kernel-order model bit-equal to the live plain
+    version in each."""
+    t = _fresh(_block_tables(4)[0])
+    occ = TBD.occupancy(t)
+    n_rows, k = occ.shape[0], 3
+    if case == "empty_group":
+        src = occ.clone()
+        src[t.edge ** 3:] = False
+        rows = TBD.RowList(*TBD.occupied_rows_plain(torch.ones_like(occ)),
+                           None)
+        lp = TBD.live_pair_list(rows, src, t.block_nbr, 4, k, n_rows, n_rows)
+        occ = src
+    elif case == "dead_offsets":
+        occ = torch.zeros_like(occ)
+        occ[5] = occ[n_rows - 60] = True
+        lp = TBD.live_pair_list(TBD.RowList(*TBD.occupied_rows_plain(occ),
+                                            None), occ, t.block_nbr, 4, k,
+                                2, 2)
+    else:
+        rows = TBD.RowList(*TBD.occupied_rows_plain(occ), None)
+        full = TBD.live_pair_list(rows, occ, t.block_nbr, 4, k)
+        cap, n = int(full.counts.max()), int(rows.count)
+        lp = TBD.live_pair_list(rows, occ, t.block_nbr, 4, k, cap, n)
+        assert lp.src.shape[1] == cap and lp.map.shape[1] == n
+    x = _zero_outside(occ, 6, seed=3)
+    w = torch.from_numpy(np.random.RandomState(4).randn(27, 6, 5)
+                         .astype(np.float32))
+    want = TBD.block_conv_live_plain(x, w, lp)
+    for g in GROUP_ROWS:
+        start, count = _hold_ranges(lp, g)
+        if case == "empty_group":
+            assert bool((count.sum(1) == 0).any()) and bool(
+                (count.sum(1) > 0).any())
+        elif case == "dead_offsets":
+            assert int(count[:, 13].sum()) == 2
+            assert int(count.sum()) == 2 and int((lp.counts > 0).sum()) == 1
+        else:
+            o = int(lp.counts.argmax())
+            assert int(start[-1, o] + count[-1, o]) == lp.src.shape[1]
+        assert torch.equal(TBD.block_conv_live_rows_plain(x, w, lp, g), want)
+    if case == "empty_group":
+        assert bool((want[~TBD.occupancy_dilation_plain(
+            occ, t.block_nbr, 4, k)] == 0).all())
+
+
+@pytest.mark.parametrize("edge,cin,cout", [(4, 12, 20), (8, 24, 16)])
+def test_live_rows_plain_matches_jax(edge, cin, cout):
+    """The kernel-order model (row groups, ascending offsets) at every
+    group size, forward and dX: bit-equal to the live plain version in
+    fp32, and against JAX's ``dense_subm_conv`` and ``jax.vjp`` of
+    ``_chunked_conv_cd`` (1e-5 x max)."""
+    t, x, w, g, want_y, want_dx, _ = _jax_k3(edge, cin, cout)
+    t = _fresh(t)
+    occ = TBD.occupancy(t)
+    fwd, dxl = TBD.live_pairs(t, occ, 3), TBD.dilation_pairs(t, occ, 3)
+    dy = torch.where(occ[:, None], g, 0.0)
+    wt = w.flip(0).transpose(1, 2).contiguous()
+    y, dx = TBD.block_conv_live_plain(x, w, fwd), \
+        TBD.block_conv_live_plain(dy, wt, dxl)
+    for rows in GROUP_ROWS:
+        got_y = TBD.block_conv_live_rows_plain(x, w, fwd, rows)
+        got_dx = TBD.block_conv_live_rows_plain(dy, wt, dxl, rows)
+        assert torch.equal(got_y, y) and torch.equal(got_dx, dx), rows
+        _close(got_y, want_y, REL_JAX, f"forward, groups of {rows}")
+        _close(got_dx, want_dx, REL_JAX, f"dX, groups of {rows}")
+
+
+def test_live_form_rule():
+    """The form K10's live-pair path takes by role and level: the
+    pair-major form, but bf16 dX at a level of
+    ``BF16_K3_DX_ROW_GROUPS_MIN_CAP`` voxels or more (the flagship's L0) on
+    the row-group kernel."""
+    caps = [92160, 36864, 13824, 5530, 2304]
+    for dt in (F32, BF16):
+        for k in (3, 5):
+            assert TN.live_form(k, dt) == TN.PAIR_MAJOR
+            for li, cap in enumerate(caps):
+                for dx in (False, True):
+                    rows = dt == BF16 and k == 3 and dx and li == 0
+                    assert TN.live_form(k, dt, dx=dx, cap=cap) == (
+                        TN.ROW_GROUPS if rows else TN.PAIR_MAJOR)
+
+
+# --------------------------------------------------------------------------
 # the path rule
 # --------------------------------------------------------------------------
 
@@ -334,8 +499,9 @@ def test_path_rule(model):
     """fp32: every stated conv on live pairs in every role (the k5 stem
     too), the Baseline's 3-channel stem on its narrow paths; an unstated
     input never.  bf16: the k5 stem on live pairs; a k3 conv by its role
-    and level size as ``BF16_K3_LIVE_MAX_CAP`` measured (the flagship's
-    forward at L3-L4, dX at L2-L4, dW everywhere); dX states its input
+    and level size as ``BF16_K3_LIVE_MAX_CAP`` and
+    ``BF16_K3_DX_ROW_GROUPS_MIN_CAP`` measured (the flagship's forward at
+    L3-L4, dX at L0 and L2-L4, dW everywhere); dX states its input
     whatever the forward stated."""
     (scin, scout), k3 = _conv_roles(model)
     caps = [92160, 36864, 13824, 5530, 2304]   # the flagship's level caps
@@ -346,7 +512,7 @@ def test_path_rule(model):
                 ci, co = (cout, cin) if role == "dx" else (cin, cout)
                 kw = dict(wgrad=role == "wgrad", dx=role == "dx", cap=cap)
                 got = TN.live_path(27, ci, co, dt, True, **kw)
-                bf16_levels = {"forward": (3, 4), "dx": (2, 3, 4),
+                bf16_levels = {"forward": (3, 4), "dx": (0, 2, 3, 4),
                                "wgrad": (0, 1, 2, 3, 4)}[role]
                 assert got == (dt == F32 or li in bf16_levels), \
                     (dt, cin, cout, li, role)
