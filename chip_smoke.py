@@ -204,10 +204,38 @@ Phases, in order; any failure exits non-zero before the result line:
    forward's, name for name and count for count, with no library
    convolution in either.  It prints the export's seconds, the artifact's
    MB, the cold load's seconds, both paths' ms a forward and scenes/s;
+12. (run after phase 11) the JAX package's two scaled configurations
+   under ``SEGDINO_CONV_CHUNK_MB=384``, ``bench.py``'s setting for both,
+   which the port's plans read for the level-0 layout and K1 and K10 for
+   their pair-major scratch (offset chunks): 12a ``BASELINE.json`` config
+   3, the flagship at full width with seeded weights on 8 headline scenes
+   a step on its hybrid host plans at ``bench.py``'s caps (8 x the largest
+   scene's counts x 1.02, pinned), fp32 and bf16, a warm-up and 3 timed
+   steps each (collate and plan, backbone, decoder, ``predict_instance``
+   per scene on the card); 12b config 5, one 400,000-point scene with
+   4,096 superpoints (``PadSpec(401408, 4096, 64, 128, 200)``) at its
+   counts x 1.02, a warm-up and 5 timed forwards each.  Each prints
+   scenes/s, ms by stage, the level-0 layout the plan picked, the caps,
+   the blocks, the peak, device ms by kernel of a profiled forward and
+   each pair-major conv's offset chunks (the counted chunks must equal
+   ``sparse_conv.offset_chunks``' on the plan); checks the launches, the
+   fp32 forward against one in one chunk (outputs bit-equal, both peaks
+   printed), 12a each fp32 scene's cls_preds and masks against the same
+   scene alone at batch 1 on the batch's layout (rtol = atol = 1e-4),
+   12b the bf16 superpoint features within 5e-2 of fp32's; then holds
+   the kernels at these shapes against their plain versions: K1 at the
+   stem and (on a gather level 0) its k3 96->96 conv, K10 at the first
+   block-dense level's k3 96->96 conv on the rule's path, its live-pair
+   list, K3's voxel mean and pool, and each K1 and K10 pair-major call in
+   the budget's chunks bit-equal to one chunk.  The plan engine's kernels
+   (K6-K8) run on device plans alone, which these configurations do not
+   use;
 8. print one ``kernels`` JSON line (each kernel's ScanNet v2 and Baseline
    cases and launches in it too, its CUDA launches per step of the
-   CLI, ``cli_device_launches_per_step``, and in a forward of the serving
-   artifact, ``launches_artifact``), the run's wall time, then the
+   CLI, ``cli_device_launches_per_step``, in a forward of the serving
+   artifact, ``launches_artifact``, and phase 12's launches, chunks and
+   cases, ``launches_batched``, ``chunks_batched``, ``batched_cases``,
+   ``launches_stress`` and the rest), the run's wall time, then the
    result line.
 
 It needs one card, imports no JAX, and takes its kernels from the
@@ -523,12 +551,15 @@ def pitched(x, dim):
     return torch.cat([x, x.new_zeros(shape)], dim).contiguous()
 
 
-def conv_case(cases, gen, name, vin, nbr, valid, cin, cout, wide=False):
+def conv_case(cases, gen, name, vin, nbr, valid, cin, cout, wide=False,
+              one_chunk=False):
     """K1 in its forward role, fp32 and bf16; with ``wide``, K1's wide
     path (the pair-major schedule) forced and timed beside it as a
     yardstick.  A bf16 stem (``narrow.wide_stem``) runs at the aligned
     pitch, as the backbone gives it (its input and weight zero past
-    Cin)."""
+    Cin).  With ``one_chunk``, the call in one offset chunk (the budget
+    lifted) is held bit-equal to the call in the budget's chunks and timed
+    beside it."""
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
     per = {}
@@ -540,6 +571,10 @@ def conv_case(cases, gen, name, vin, nbr, valid, cin, cout, wide=False):
         extra = {"the wide path":
                  lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid,
                                                  narrow=False)} if wide else {}
+        if one_chunk:
+            extra["in one chunk"] = check_one_chunk(
+                "gather_gemm_conv", name, dt, SC.gather_conv.chunks,
+                lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid))
         per[dt] = (lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid),
                    lambda x=x, w=w: SC.gather_conv_plain(x, nbr, w, valid),
                    lambda x=x, w=w: conv_library(x, nbr, w),
@@ -572,7 +607,7 @@ def up_case(cases, gen, name, coarse, fine, cin, cout):
 
 
 def voxel_mean_cases(cases, gen, plan, n_points, centred=False,
-                     rgb_only=False):
+                     rgb_only=False, tag=""):
     """K3 as the forward calls it: the voxel mean from its column sources
     (the points' colour columns, on the v2 path the centred xyz, and the
     2D features with fp32 and with fp16 values, each read in place and
@@ -616,7 +651,7 @@ def voxel_mean_cases(cases, gen, plan, n_points, centred=False,
                           "(N,6)[:,3:6] alone -> V0 x 3", per))
             continue
         fname = str(fdt).replace("torch.", "")
-        tag, what = ("v2 ", " + centred xyz (N,3)") if centred else ("", "")
+        tag, what = ("v2 ", " + centred xyz (N,3)") if centred else (tag, "")
         cases.append(("segment_mean_gather", f"{tag}voxel mean, rgb (N,6)"
                       f"[:,3:6]{what} + 2D (N,256) {fname} -> V0 x {cols}",
                       per))
@@ -638,6 +673,8 @@ def pool_case(cases, gen, batch, s_cap, width, tag=""):
     n_points = inverse.shape[0]
     n_members = int(pvalid.sum())
     seg_sp = superpoint_segment_ids(batch.superpoint_ids, s_cap)
+    # one segment set of s_cap a scene
+    s_cap *= batch.superpoint_ids.shape[0]
     sp_csr = SS.segment_csr(seg_sp, s_cap, pvalid)
     q = [_randn(gen, (n_points, 3), torch.float32) for _ in range(2)]
     per = {}
@@ -2032,7 +2069,13 @@ def counters():
             # table or level and forward or step; they launch in K4's and
             # K10's libraries
             "gather_pairs": (SC.gather_pairs,),
-            "block_rows": (BD.occupied_rows,)}
+            "block_rows": (BD.occupied_rows,),
+            # the offset chunks of K1's and K10's pair-major calls (one a
+            # call whose buffer fits SEGDINO_CONV_CHUNK_MB, more past it:
+            # sparse_conv.offset_chunks); each chunk launches the products
+            # and the sum
+            "gather_gemm_conv chunks": (SC.gather_conv.chunks,),
+            "block_conv chunks": (BD.block_conv.chunks,)}
 
 
 # the pair lists of K1 and K4 in a gather-layout forward or step: the
@@ -3256,17 +3299,36 @@ def run_cli_phase(step4_s):
               flush=True)
         # per microbatch, phase 4c's step: its wrapper calls times the
         # CUDA functions of a call (K1, the CSR build and K10 on the
-        # live-pair path launch two)
+        # live-pair path launch two), and two more for each offset chunk
+        # past a call's first (K1's and K10's pair-major calls, whose
+        # chunks at the default SEGDINO_CONV_CHUNK_MB follow each
+        # microbatch's caps; the CLI logs them)
         want = {k: 2 * 4 * (BLOCK_DENSE_STEP.get(k, 2)
                             * (2 if k in ("gather_gemm_conv", "segment_csr")
                                else 1)
                             + BLOCK_DENSE_STEP.get(f"{k} live", 0)
                             * (k == "block_conv"))
                 for k in CLI_STEP_KERNELS}
+        chunks = {k: (int(calls), int(n)) for k, calls, n in re.findall(
+            r"(\w+) (\d+) pair-major calls in (\d+) offset chunks", out_a)}
+        pair_major = {"gather_gemm_conv": BLOCK_DENSE_STEP["gather_gemm_conv"],
+                      "block_conv": BLOCK_DENSE_STEP["block_conv live"]
+                      - BLOCK_DENSE_STEP["block_conv_live_rows"]}
+        if {k: calls for k, (calls, _) in chunks.items()} != {
+                k: 2 * 4 * n for k, n in pair_major.items()}:
+            raise SystemExit(f"the CLI logged pair-major calls {chunks}, "
+                             f"expected 2 steps x 4 microbatches of "
+                             f"{pair_major}")
+        for k, (calls, n) in chunks.items():
+            want[k] += 2 * (n - calls)
+        print(f"phase 4d run A: offset chunks of the pair-major calls in "
+              f"the profiled steps at the default budget (the CLI's log): "
+              + ", ".join(f"{k} {calls} calls in {n}"
+                          for k, (calls, n) in chunks.items()), flush=True)
         if launches != want:
             raise SystemExit(f"the CLI's profiled steps launched {launches}, "
                              f"expected 2 steps x 4 microbatches of phase "
-                             f"4c's step: {want}")
+                             f"4c's step and the logged chunks: {want}")
         peak = re.search(r"GiB in use, ([0-9.]+) GiB peak", out_a)
         cache_dir = os.path.dirname(manifest)
         mtimes = {n: os.stat(os.path.join(cache_dir, n)).st_mtime_ns
@@ -4948,6 +5010,536 @@ def run_serving_phase(card):
     return served["launches"]
 
 
+# --------------------------------------------------------------------------
+# phase 12: the JAX package's batched eval and its stress scene
+# --------------------------------------------------------------------------
+
+# BASELINE.json config 3 (bench.py:186, 248-294): 8 headline scenes a step,
+# each level's cap 8 x the largest scene's count x 1.02 and each block cap
+# the bucket of 8 x the largest x 1.02, pinned for every step
+BATCH_SCENES = 8
+BATCH_TIMED = 3            # timed steps, after one warm-up step
+# config 5 (bench.py:652-707): one 400,000-point scene with 4,096
+# superpoints at 2 cm, each level's cap its count x 1.02, the block counts
+# left to the plan's buckets
+STRESS_SCENE = dict(SCENE, n_points=400000, n_superpoints=4096)
+STRESS_PAD = (401408, 4096, 64, 128, 200)
+STRESS_TIMED = 5           # timed forwards, after one warm-up forward
+CAP_HEADROOM = 1.02
+SCALE_CHUNK_MB = "384"     # bench.py:205 and :660 set SEGDINO_CONV_CHUNK_MB
+# a scene of the batch against the same scene run alone at batch 1 on the
+# batch's layout: fp32 cls_preds and masks within rtol = atol
+BATCH_TOL = 1e-4
+# a SEGDINO_CONV_CHUNK_MB that keeps every conv in one chunk (1 PiB)
+UNCHUNKED_MB = str(1 << 30)
+
+
+def in_one_chunk(call):
+    """``call`` with every conv in one offset chunk (the budget lifted)."""
+    def run():
+        with chunk_mb(UNCHUNKED_MB):
+            return call()
+    return run
+
+
+def check_one_chunk(kernel, name, dt, counter, call):
+    """``call()`` in the ``SEGDINO_CONV_CHUNK_MB`` budget's offset chunks
+    (counted in ``counter``) and in one chunk must be bit-equal (the same
+    fp32 additions in the same order), or the run fails; returns the
+    one-chunk call, a yardstick to time."""
+    from segdino3d_tpu_torch.ops import host_plan as HP
+    from segdino3d_tpu_torch.tools import wgrad_bench as WB
+
+    before = counter.launches
+    got = call()
+    n = counter.launches - before
+    whole = in_one_chunk(call)()
+    torch.cuda.synchronize()
+    same = torch.equal(got, whole)
+    dts = str(dt).replace("torch.", "")
+    print(f"{kernel} [{name}] {dts}: {n} offset chunks at "
+          f"{HP.l0_dense_budget_bytes() / 2 ** 20:g} MiB, against one chunk: "
+          f"digests {WB.digest(got)} / {WB.digest(whole)} "
+          f"{'bit-equal' if same else 'MISMATCH'}", flush=True)
+    if not same:
+        raise SystemExit(f"{kernel} [{name}] {dts}: the chunked call differs "
+                         "from the call in one chunk")
+    return in_one_chunk(call)
+
+
+def probe_caps(records, spec, edges, scenes, pin_blocks):
+    """``bench.py``'s capacities: each scene's voxels and blocks per level
+    (``host_plan.probe_plan_counts``), each level's cap ``scenes`` x the
+    largest count x 1.02; with ``pin_blocks`` each block cap the bucket of
+    ``scenes`` x the largest x 1.02, pinned, else None (the plan buckets
+    its block counts)."""
+    from segdino3d_tpu_torch.data.collate import _plan_coords
+    from segdino3d_tpu_torch.ops import host_plan as HP
+
+    counts = [HP.probe_plan_counts(c.reshape(-1, 3), bidx, valid.reshape(-1),
+                                   edges)[:2]
+              for c, valid, bidx in (_plan_coords([r], spec.num_points, 0.02)
+                                     for r in records)]
+    level_caps = [int(scenes * max(int(v[li]) for v, _ in counts)
+                      * CAP_HEADROOM) for li in range(len(counts[0][0]))]
+    block_caps = [0 if not e else HP.block_bucket(int(
+        scenes * max(int(b[i]) for _, b in counts) * CAP_HEADROOM))
+        for i, e in enumerate(edges)] if pin_blocks else None
+    return level_caps, block_caps
+
+
+def l0_layout(plan):
+    t = plan.blocks[0] if plan.blocks else None
+    return "gather" if t is None else \
+        f"block-dense (edge {t.edge}, {t.num_blocks} block slots)"
+
+
+def conv_chunks(plan, dtype):
+    """[(conv, calls a forward, offset chunks a call, its scratch bytes in
+    one chunk, in the budget's chunks)] of the pair-major convs of one eval
+    forward on ``plan`` (the flagship's hybrid layout) in ``dtype``: K1's
+    stem, its k3 convs on a gather level and its down convs, and K10's k3
+    convs where ``narrow.live_path`` and ``narrow.live_form`` take K1's
+    pair-major form; the scratch of a chunk of c offsets of cap pairs at a
+    stride of s columns: its products (c x cap x s fp32), its index map or
+    nothing (K1: c x cap int32) and the carry (cap x s fp32, or K10's listed
+    rows' where more than one chunk)."""
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import cuda_build
+    from segdino3d_tpu_torch.ops import narrow as N
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+    from segdino3d_tpu_torch.tools.conv_bench import DOWN_CONVS, K3_CONVS
+
+    k1 = cuda_build.library("gather_gemm_conv").gather_conv_pair_stride
+    k10 = cuda_build.library("block_conv").block_conv_live_stride
+    lv, out = plan.levels, []
+
+    def add(name, calls, n_off, cap, stride, carry_rows, pos):
+        chunks = SC.offset_chunks(n_off, cap, stride)
+        most = max(o1 - o0 for o0, o1 in chunks)
+        whole = n_off * cap * (stride * 4 + 4 * pos)
+        cut = most * cap * (stride * 4 + 4 * pos) + (
+            carry_rows * stride * 4 if len(chunks) > 1 else 0)
+        out.append((name, calls, len(chunks), whole, cut))
+
+    v0 = lv[0].valid.shape[0]
+    add("K1 stem k5 259->32 L0", 1, 125, v0, k1(32), v0, True)
+    for li, cin, cout, n in K3_CONVS:
+        t = plan.blocks[li] if plan.blocks else None
+        if t is None:
+            v = lv[li].valid.shape[0]
+            add(f"K1 k3 {cin}->{cout} L{li}", n, 27, v, k1(cout), v, True)
+            continue
+        cap = BD.live_capacity(t)
+        if N.live_path(27, cin, cout, dtype, True, cap=cap) and \
+                N.live_form(3, dtype, cap=cap) == N.PAIR_MAJOR:
+            add(f"K10 k3 {cin}->{cout} L{li}", n, 27, cap,
+                k10(cout, cuda_build.dtype_code(dtype)), cap, False)
+    for li, cin, cout in DOWN_CONVS:
+        v = lv[li + 1].valid.shape[0]
+        add(f"K1 down {cin}->{cout} L{li}->L{li + 1}", 1, 8, v, k1(cout), v,
+            True)
+    return out
+
+
+class chunk_mb:
+    """Within it ``SEGDINO_CONV_CHUNK_MB`` is ``mb`` (a string): the budget
+    of the plans built and of the convs run inside it."""
+
+    def __init__(self, mb):
+        self.mb = mb
+
+    def __enter__(self):
+        self.old = os.environ.get("SEGDINO_CONV_CHUNK_MB")
+        os.environ["SEGDINO_CONV_CHUNK_MB"] = self.mb
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop("SEGDINO_CONV_CHUNK_MB", None)
+        else:
+            os.environ["SEGDINO_CONV_CHUNK_MB"] = self.old
+
+
+def scale_cases(batch, s_cap, tag, gen):
+    """Phase 12's kernel cases at ``batch``'s shapes, fp32 and bf16: K1 at
+    the stem and, on a gather level 0, at its k3 96->96 conv; K10 at the
+    k3 96->96 conv of the first block-dense level on the path and form the
+    rule takes there (``narrow.live_path`` and ``live_form`` at the
+    level's capacity), and that level's k3 live-pair list; K3's voxel mean
+    from the points' colours and 2D features and its superpoint pool.
+    Each K1 call, and K10 in the pair-major form (forced where the rule
+    takes another), also runs in one offset chunk, bit-equal to the
+    budget's chunks and timed beside them."""
+    import torch.nn.functional as F
+
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import narrow as N
+
+    plan = batch.plan
+    lv = plan.levels
+    v0 = lv[0].valid.shape[0]
+    cases = []
+    conv_case(cases, gen, f"{tag} stem k5 259->32 L0, V0 cap {v0}", v0,
+              plan.stem_nbr, lv[0].valid, 259, 32, one_chunk=True)
+    if lv[0].nbr is not None:
+        conv_case(cases, gen, f"{tag} subm k3 96->96 L0, V0 cap {v0}", v0,
+                  lv[0].nbr, lv[0].valid, 96, 96, one_chunk=True)
+    li = next(i for i, t in enumerate(plan.blocks) if t is not None)
+    t = plan.blocks[li]
+    occ = BD.occupancy(t)
+    rlist = BD.row_list(t, occ)
+    lp = BD.live_pairs(t, occ, 3)
+    cap = BD.live_capacity(t)
+    need, n_list = int(lp.counts.sum()), int(rlist.count)
+    e, b, nb = t.edge, t.num_blocks, t.block_nbr
+    name = (f"{tag} k3 96->96 L{li}, {n_list} occupied rows of {b} blocks, "
+            f"{need} live pairs")
+    label = {N.PAIR_MAJOR: "the pair-major form", N.ROW_GROUPS:
+             "the row-group kernel", None: "the row-tile path"}
+    per = {}
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.where(occ[:, None], _randn(gen, (occ.shape[0], 96), dt),
+                        0.0)
+        w = _randn(gen, (27, 96, 96), dt, (27 * 96) ** -0.5)
+        rule = N.live_path(27, 96, 96, dt, True, cap=cap)
+        form = N.live_form(3, dt, cap=cap) if rule else None
+        print(f"block_conv [{name}] {str(dt).replace('torch.', '')}: the "
+              f"rule runs {label[form]}", flush=True)
+
+        def pair_major(x=x, w=w):
+            return BD.block_conv(x, nb, w, occ, e, rlist, zero_outside=True,
+                                 live=True, live_list=lp, form=N.PAIR_MAJOR)
+
+        wc = w.reshape(3, 3, 3, 96, 96).permute(4, 3, 0, 1, 2).contiguous()
+
+        def lib(x=x, wc=wc):
+            p = to_ncdhw(BD.halo_pad_plain(x.reshape(b, e, e, e, 96), nb, 1))
+            return F.conv3d(p, wc)
+
+        extra = {"the pair-major form in one chunk": check_one_chunk(
+            "block_conv", name, dt, BD.block_conv.chunks, pair_major)}
+        if form != N.PAIR_MAJOR:
+            extra["the pair-major form (forced)"] = pair_major
+        per[dt] = ((lambda x=x, w=w, rule=rule, form=form: BD.block_conv(
+                        x, nb, w, occ, e, rlist, zero_outside=True,
+                        live=rule, live_list=lp, form=form)),
+                   (lambda x=x, w=w: BD.block_conv_live_plain(x, w, lp))
+                   if rule else (lambda x=x, w=w: BD.dense_subm_conv_plain(
+                       x, nb, w, occ, e)),
+                   lib, 2.0 * need * 96 * 96,
+                   nbytes(x, w) + 4 * n_list
+                   + occ.shape[0] * 96 * x.element_size(), CONV_PEAK[dt],
+                   extra)
+    cases.append(("block_conv", name, per))
+
+    def flat(p):
+        c = p.counts.tolist()
+        return torch.cat([p.counts] + [p.src[o, :n] for o, n in enumerate(c)]
+                         + [p.dst[o, :n] for o, n in enumerate(c)]
+                         + [p.map[:, :n_list].reshape(-1)])
+
+    def build():
+        return BD.live_pair_list(rlist, occ, nb, e, 3, cap)
+
+    cases.append(("block_live_pairs", f"{tag} k3 live-pair list of the L{li} "
+                  f"occupancy's row list, {n_list} listed rows, {need} live "
+                  "pairs; library: none", {torch.float32: (
+                      (build, lambda: flat(build())),
+                      lambda: flat(BD.live_pairs_plain(rlist, occ, nb, e, 3,
+                                                       cap)),
+                      None, 0.0, nbytes(rlist.rows[:n_list], occ, nb)
+                      + 4 * (27 * n_list + 2 * need + 27), "fp32", 0.0)}))
+    voxel_mean_cases(cases, gen, plan, plan.inverse.shape[0], tag=f"{tag} ")
+    pool_case(cases, gen, batch, s_cap, 96, tag=f"{tag} ")
+    return check_kernels(cases)
+
+
+def scale_eval(model, test_cfg, records, spec, plan_args, n_timed, what):
+    """``n_timed`` steps, after a warm-up, of the eval path on ``records``
+    as one batch: collate and host plan (``plan_args``), backbone, decoder
+    and ``postprocess`` (``predict_instance`` per scene on the card).
+    Returns (launches of one step, [{stage: s}], peak bytes of the timed
+    steps, the last step's batch, backbone output and outputs, device ms by
+    kernel of one profiled forward)."""
+    from segdino3d_tpu_torch.data.collate import attach_host_plan, collate
+    from segdino3d_tpu_torch.evaluation.evaluate import postprocess
+
+    def step():
+        t = {}
+        t0 = time.perf_counter()
+        batch = attach_host_plan(collate(records, spec, DEVICE), records,
+                                 spec, **plan_args)
+        torch.cuda.synchronize()
+        t["plan"] = time.perf_counter() - t0
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            bb = model.backbone(batch)
+            torch.cuda.synchronize()
+            t["backbone"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = model.decode(batch, bb)
+            torch.cuda.synchronize()
+            t["decoder"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = postprocess(out, batch, test_cfg)
+            torch.cuda.synchronize()
+            t["postprocess"] = time.perf_counter() - t0
+        return t, batch, bb, out, res
+
+    step()
+    reset_counts()
+    _, batch, bb, out, res = step()
+    launches = read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = [step()[0] for _ in range(n_timed)]
+    peak = torch.cuda.max_memory_allocated()
+    del res
+
+    def forward():
+        with torch.no_grad():
+            model.decode(batch, model.backbone(batch))
+        torch.cuda.synchronize()
+
+    ms = kernel_ms(profiled_events(forward, forward))
+    n = len(records)
+    stages = {k: 1e3 * float(np.mean([t[k] for t in times])) for k in times[0]}
+    total = float(np.mean([sum(t.values()) for t in times]))
+    fwd = stages["backbone"] + stages["decoder"] + stages["postprocess"]
+    print(f"{what}: {n / total:.3f} scenes/s over {n_timed} steps of "
+          f"{n} scenes; ms a step by stage "
+          + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+          + f"; total {1e3 * total:.2f} ms, forward (backbone + decoder + "
+          f"postprocess) {fwd:.2f} ms, {1e3 * n / fwd:.3f} scenes/s; peak "
+          f"{peak / 2 ** 30:.3f} GiB; one profiled forward, device ms by "
+          "kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()
+                                 if k != "row-list launches"), flush=True)
+    for k in ("cls_preds", "masks", "sem_preds", "centers", "sizes"):
+        if out[k].shape[0] != n or not bool(torch.isfinite(out[k]).all()):
+            raise SystemExit(f"{what}: {k} of shape {tuple(out[k].shape)} "
+                             "is not finite for every scene")
+    return launches, times, peak, batch, bb, out, ms
+
+
+def check_scale_counts(launches, plan, dtype, what):
+    """The launches of one scaled forward: K1 at the stem, each k3 conv of
+    a gather level and the four down convs; K10 at each k3 conv of a
+    block-dense level; K2 at the four up convs; K3 twice, its CSR twice;
+    the lists and the slot gather where a level is block-dense; and each
+    offset chunk that ``conv_chunks`` predicts, counted by K1's and K10's
+    wrappers."""
+    from segdino3d_tpu_torch.tools.conv_bench import K3_CONVS
+
+    dense = [li for li, t in enumerate(plan.blocks) if t is not None]
+    k3_gather = sum(n for li, _, _, n in K3_CONVS if li not in dense)
+    expected = {"gather_gemm_conv": 1 + k3_gather + 4, "up_conv": 4,
+                "segment_mean_gather": 2, "segment_csr": 2,
+                "block_conv": sum(n for li, _, _, n in K3_CONVS
+                                  if li in dense),
+                "block_rows": len(dense), **NO_NARROW}
+    chunks = conv_chunks(plan, dtype)
+    for kernel, tag in (("gather_gemm_conv", "K1"), ("block_conv", "K10")):
+        expected[f"{kernel} chunks"] = sum(
+            calls * n for name, calls, n, _, _ in chunks
+            if name.startswith(tag + " "))
+    check_counts(launches, expected, what)
+    for kernel in ("slot_gather", "block_live_pairs") if dtype == \
+            torch.float32 else ("slot_gather",):
+        if not launches[kernel]:
+            raise SystemExit(f"{what}: {kernel} never launched")
+    print(f"{what}: offset chunks a call at "
+          f"{float(os.environ.get('SEGDINO_CONV_CHUNK_MB', 1024)):g} MiB: "
+          + "; ".join(f"{name} x{calls}: {n} ({whole / 2 ** 20:.1f} MiB of "
+                      f"scratch in one chunk, {cut / 2 ** 20:.1f} MiB in "
+                      "the budget's)"
+                      for name, calls, n, whole, cut in chunks), flush=True)
+    return chunks
+
+
+def peak_against_one_chunk(model, batch, what):
+    """One fp32 forward of ``batch`` in the budget's offset chunks and one
+    in one chunk (the budget lifted; the plan, built before, keeps its
+    layout): each one's peak device memory, and their outputs bit-equal
+    (every conv's additions in the same order)."""
+    from segdino3d_tpu_torch.tools import wgrad_bench as WB
+
+    peaks, outs = [], []
+    for whole in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad(), chunk_mb(
+                UNCHUNKED_MB if whole else SCALE_CHUNK_MB):
+            bb = model.backbone(batch)
+            out = model.decode(batch, bb)
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        outs.append((bb.sp_feats, out["cls_preds"], out["masks"]))
+        del bb, out
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    print(f"{what}: peak of one forward {peaks[0] / 2 ** 30:.3f} GiB in the "
+          f"budget's offset chunks, {peaks[1] / 2 ** 30:.3f} GiB in one "
+          f"chunk; sp_feats digests {WB.digest(outs[0][0])} / "
+          f"{WB.digest(outs[1][0])}, outputs "
+          f"{'bit-equal' if same else 'MISMATCH'}", flush=True)
+    if not same:
+        raise SystemExit(f"{what}: the chunked forward differs from the "
+                         "forward in one chunk")
+    return peaks
+
+
+def run_batched_phase(model, bmodel, test_cfg, train_records, gen):
+    """Phase 12a: ``BASELINE.json`` config 3, the flagship at batch 8 on
+    its hybrid host plans at ``bench.py``'s pinned caps, fp32 and bf16;
+    each fp32 scene's cls_preds and masks against the same scene alone at
+    batch 1 on the batch's layout; the kernels at the batch's shapes.
+    Returns ({dtype: launches}, kernel rows)."""
+    from segdino3d_tpu_torch.data.collate import (PadSpec, attach_host_plan,
+                                                  collate)
+    from segdino3d_tpu_torch.data.synthetic import synthetic_scene
+
+    t0 = time.perf_counter()
+    records = list(train_records[:BATCH_SCENES])
+    for seed in range(len(records), BATCH_SCENES):
+        rec = synthetic_scene(seed, **SCENE)
+        rec["points_2dfeats"] = rec["points_2dfeats"].astype(np.float16)
+        records.append(rec)
+    spec = PadSpec(SCENE["n_points"], SCENE["n_superpoints"], 64, 128, 200)
+    args = plan_layout("hybrid")
+    level_caps, block_caps = probe_caps(records, spec, args["block_edges"],
+                                        BATCH_SCENES, pin_blocks=True)
+    plan_args = dict(args, level_caps=level_caps, block_caps=block_caps)
+    print(f"phase 12a: {BATCH_SCENES} scenes of {SCENE['n_points']} points "
+          f"(seeds 0-{BATCH_SCENES - 1}) made and probed in "
+          f"{time.perf_counter() - t0:.1f} s; level caps {level_caps}, block "
+          f"caps {block_caps}", flush=True)
+    launches = {}
+    for dt, m in ((torch.float32, model), (torch.bfloat16, bmodel)):
+        what = f"phase 12a batched eval {str(dt).replace('torch.', '')}"
+        launches[dt], _, _, batch, _, out, _ = scale_eval(
+            m, test_cfg, records, spec, plan_args, BATCH_TIMED, what)
+        print(f"{what}: level 0 {l0_layout(batch.plan)}; "
+              f"{describe_blocks(batch.plan)}", flush=True)
+        check_scale_counts(launches[dt], batch.plan, dt, what)
+        if dt == torch.float32:
+            fp32_batch, fp32_out = batch, out
+        del batch, out
+    peak_against_one_chunk(model, fp32_batch, "phase 12a fp32")
+    # each scene alone at batch 1, on the batch's layout
+    edges = tuple(0 if t is None else t.edge for t in fp32_batch.plan.blocks)
+    worst = 0.0
+    for i, rec in enumerate(records):
+        one = attach_host_plan(collate([rec], spec, DEVICE), [rec], spec,
+                               **dict(args, block_edges=edges))
+        with torch.no_grad():
+            o = model.decode(one, model.backbone(one))
+        for k in ("cls_preds", "masks"):
+            a, b = fp32_out[k][i], o[k][0]
+            err = float((a - b).abs().max())
+            worst = max(worst, err)
+            if not torch.allclose(a, b, rtol=BATCH_TOL, atol=BATCH_TOL):
+                raise SystemExit(f"phase 12a: scene {i} {k} at batch "
+                                 f"{BATCH_SCENES} differs from batch 1 by "
+                                 f"{err:.3e}")
+        del one, o
+    print(f"phase 12a: each scene's fp32 cls_preds and masks at batch "
+          f"{BATCH_SCENES} against the scene alone at batch 1 (level 0 "
+          f"{'gather' if not edges[0] else 'block-dense'} in both): max "
+          f"abs err {worst:.3e} (rtol=atol={BATCH_TOL:g}) ok", flush=True)
+    rows = scale_cases(fp32_batch, SCENE["n_superpoints"], "batched", gen)
+    return launches, rows
+
+
+def run_stress_phase(model, gen):
+    """Phase 12b: ``BASELINE.json`` config 5, one 400,000-point scene with
+    4,096 superpoints at 2 cm on the flagship's hybrid host plan at
+    ``bench.py``'s caps, fp32 and bf16 (the fp32 model's weights); the bf16
+    superpoint features within ``BF16_FP32_TOL`` of fp32's; the kernels at
+    the scene's shapes.  Returns ({dtype: launches}, kernel rows)."""
+    from segdino3d_tpu_torch.builder import Capacities, build_model
+    from segdino3d_tpu_torch.data.collate import PadSpec
+    from segdino3d_tpu_torch.data.synthetic import synthetic_scene
+
+    t0 = time.perf_counter()
+    rec = synthetic_scene(0, **STRESS_SCENE)
+    rec["points_2dfeats"] = rec["points_2dfeats"].astype(np.float16)
+    spec = PadSpec(*STRESS_PAD)
+    args = plan_layout("hybrid")
+    level_caps, _ = probe_caps([rec], spec, args["block_edges"], 1,
+                               pin_blocks=False)
+    plan_args = dict(args, level_caps=level_caps)
+    print(f"phase 12b: a {STRESS_SCENE['n_points']}-point scene with "
+          f"{STRESS_SCENE['n_superpoints']} superpoints made and probed in "
+          f"{time.perf_counter() - t0:.1f} s; level caps {level_caps}",
+          flush=True)
+    caps = Capacities(num_superpoints=STRESS_SCENE["n_superpoints"])
+    launches, feats = {}, {}
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = model_cfg() if dt == torch.float32 else bf16_cfg(model_cfg())
+        m, test_cfg = build_model(cfg, caps)
+        m.load_state_dict(model.state_dict())
+        what = f"phase 12b stress {str(dt).replace('torch.', '')}"
+        launches[dt], _, _, batch, bb, _, _ = scale_eval(
+            m, test_cfg, [rec], spec, plan_args, STRESS_TIMED, what)
+        print(f"{what}: level 0 {l0_layout(batch.plan)}; "
+              f"{describe_blocks(batch.plan)}", flush=True)
+        check_scale_counts(launches[dt], batch.plan, dt, what)
+        feats[dt] = bb.sp_feats.float()
+        if dt == torch.float32:
+            peak_against_one_chunk(m, batch, "phase 12b fp32")
+            fp32_batch = batch
+        del m, batch, bb
+    a, b = feats[torch.bfloat16], feats[torch.float32]
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    ok = torch.allclose(a, b, rtol=BF16_FP32_TOL, atol=BF16_FP32_TOL)
+    print(f"phase 12b bf16 sp_feats vs fp32's: max_abs_err={err:.3e} of max "
+          f"{scale:.3e} (rtol=atol={BF16_FP32_TOL:g}) "
+          f"{'ok' if ok else 'MISMATCH'}", flush=True)
+    if not ok:
+        raise SystemExit("phase 12b: the bf16 backbone disagrees with fp32")
+    rows = scale_cases(fp32_batch, STRESS_SCENE["n_superpoints"], "stress",
+                       gen)
+    return launches, rows
+
+
+def scale_entry(name, scale):
+    """A kernel's phase-12 fields of the kernels line: per config
+    ("batched", "stress") its launches in one fp32 and one bf16 forward
+    (K1 and K10 also their offset chunks) and its cases there."""
+    out = {}
+    for key, (launches, rows) in scale.items():
+        for dt, sfx in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            out[f"launches_{key}{sfx}"] = launches[dt][name]
+            if f"{name} chunks" in launches[dt]:
+                out[f"chunks_{key}{sfx}"] = launches[dt][f"{name} chunks"]
+        row = rows.get(name, {})
+        out[f"{key}_cases"] = row.get("cases", [])
+        out[f"{key}_bf16_cases"] = row.get("bf16_cases", [])
+    return out
+
+
+def run_scale_phase(train_records):
+    """Phase 12 under ``SEGDINO_CONV_CHUNK_MB=384`` (``bench.py``'s
+    setting for both): 12a, then 12b.  Returns ({"batched": ..., "stress":
+    ...} of ({dtype: launches}, kernel rows)), and the phase's seconds."""
+    from segdino3d_tpu_torch.builder import Capacities, build_model, \
+        random_init_
+
+    t0 = time.perf_counter()
+    with chunk_mb(SCALE_CHUNK_MB):
+        caps = Capacities(num_superpoints=SCENE["n_superpoints"])
+        model, test_cfg = build_model(model_cfg(), caps)
+        random_init_(model, seed=0)
+        bmodel, _ = build_model(bf16_cfg(model_cfg()), caps)
+        bmodel.load_state_dict(model.state_dict())
+        gen = torch.Generator(device=DEVICE).manual_seed(12)
+        out = {"batched": run_batched_phase(model, bmodel, test_cfg,
+                                            train_records, gen)}
+        del bmodel
+        out["stress"] = run_stress_phase(model, gen)
+    print(f"phase 12 wall time: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5144,6 +5736,10 @@ def main() -> int:
     # without the model code
     artifact_launches = run_serving_phase(card)
 
+    # phase 12: the JAX package's batched eval (12a) and its stress scene
+    # (12b), under bench.py's SEGDINO_CONV_CHUNK_MB
+    scale = run_scale_phase(train_records)
+
     # phase 8: the kernels line, then the result line
     meta = {
         "gather_gemm_conv": ("segdino3d_tpu_torch/csrc/gather_gemm_conv.cu",
@@ -5258,7 +5854,7 @@ def main() -> int:
             launches_bf16=bf16_launches[name],
             launches_artifact=artifact_launches[name],
             launches_bf16_train_step=bf16_train_launches[name],
-            bf16_cases=rows[name]["bf16_cases"]))
+            bf16_cases=rows[name]["bf16_cases"], **scale_entry(name, scale)))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s",
           flush=True)

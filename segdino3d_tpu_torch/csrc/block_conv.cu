@@ -115,7 +115,13 @@
 // gather_tile.cuh's FMA core (fp32) or wgmma_tile.cuh's warpgroup core
 // (bf16) into a pair-major fp32 buffer (k^3 * pair_cap rows: 955 MB at
 // level 0 for Cout 96, 1.47 GB at the stem), then live_sum_kernel adds each
-// listed row's products in ascending offset order through the map.  Or the
+// listed row's products in ascending offset order through the map; where
+// that buffer would outgrow SEGDINO_CONV_CHUNK_MB the wrapper runs the
+// offsets in consecutive chunks (block_dense.py:block_conv), each chunk's
+// sum adding onto an fp32 carry of the listed rows that the chunk before
+// wrote (zero at first; a row without a pair in a chunk is left alone),
+// so that every row's additions keep their order and the output its bits
+// (as K1's chunks, gather_gemm_conv.cu).  Or the
 // row-group kernel (live_rows.cuh), one launch and no buffer: an item is R
 // consecutive listed rows and a column tile; each offset's pairs of those
 // rows are one range of the offset's list (its start from starts, its rows
@@ -1098,53 +1104,80 @@ struct ListSource {
 };
 
 // the products of the live pairs (pair_major.cuh, K1's form): fp32 on the
-// FMA core, bf16 on the warpgroup core
+// FMA core, bf16 on the warpgroup core; counts, src and w at the chunk's
+// first offset, n_off its offsets
 template <int BN>
 __global__ void __launch_bounds__(gtt::kThreads)
-live_products_kernel(const float* __restrict__ x, const float* __restrict__ w, LiveWs ws,
-                     float* __restrict__ partial, int cin, int cout, int n_off) {
-  pmc::products<float, BN>(x, w, ws.counts, ws.ticket, partial, cin, cout, n_off,
-                           ListSource{ws.src, ws.pair_cap});
+live_products_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const int32_t* __restrict__ counts, int32_t* __restrict__ ticket,
+                     ListSource src, float* __restrict__ partial, int cin, int cout, int n_off) {
+  pmc::products<float, BN>(x, w, counts, ticket, partial, cin, cout, n_off, src);
 }
 
 template <int BN>
 __global__ void __launch_bounds__(wgc::kThreads)
 live_products_wg_kernel(const wgc::bf16* __restrict__ x, const wgc::bf16* __restrict__ w,
-                        LiveWs ws, float* __restrict__ partial, int cin, int cout, int n_off,
-                        int vec_a, int vec_b) {
-  pmc::products_wg<BN>(x, w, ws.counts, ws.ticket, partial, cin, cout, n_off, vec_a != 0,
-                       vec_b != 0, ListSource{ws.src, ws.pair_cap});
+                        const int32_t* __restrict__ counts, int32_t* __restrict__ ticket,
+                        ListSource src, float* __restrict__ partial, int cin, int cout,
+                        int n_off, int vec_a, int vec_b) {
+  pmc::products_wg<BN>(x, w, counts, ticket, partial, cin, cout, n_off, vec_a != 0, vec_b != 0,
+                       src);
 }
 
 // out[rows[i]][c .. c + 7] = the live products of listed row i added in
 // ascending offset order (through map), four threads a row, eight columns
 // each (c = 32 blockIdx.y + 8 (tid % 4)), the offsets' map reads eight at
 // a time; first[] (the pairs before each offset) is a scan of the counts.
-// A listed row without a live pair gets zeros.
+// A listed row without a live pair gets zeros.  A chunk of the offsets
+// (o_begin and its n_off offsets) starts from carry_in's row i where given
+// and ends in carry_out's where given, else in out; the carry rows are ld
+// wide, and carry_in and carry_out may be one buffer (a thread reads its
+// entries before it writes them).  The carry starts zero (the wrapper
+// clears it), so a chunk before the last leaves alone a listed row
+// without a live pair in it.
 template <typename T>
 __global__ void __launch_bounds__(kListThreads)
 live_sum_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ count, LiveWs ws,
-                const float* __restrict__ partial, int ld, T* __restrict__ out, int cout,
-                int n_off) {
+                const float* __restrict__ partial, int ld, const float* carry_in,
+                float* carry_out, T* __restrict__ out, int cout, int o_begin, int n_off) {
   __shared__ int warp_sums[kListThreads / 32];
   __shared__ int s_first[kListThreads];
   const int tid = threadIdx.x;
   int total;
-  const int first = block_exclusive_scan(tid < n_off ? ws.counts[tid] : 0, warp_sums, &total);
+  const int first =
+      block_exclusive_scan(tid < n_off ? ws.counts[o_begin + tid] : 0, warp_sums, &total);
   s_first[tid] = first;
   __syncthreads();
   const int n_list = min(*count, ws.row_cap);
   const int64_t i = (int64_t)blockIdx.x * (kListThreads / 4) + tid / 4;
   const int c = 32 * blockIdx.y + (tid % 4) * 8;
   if (i >= n_list || c >= cout) return;
+  const int32_t* const map = ws.map + (int64_t)o_begin * ws.row_cap;
+  if (carry_out != nullptr) {
+    bool any = false;
+    for (int o = 0; o < n_off && !any; ++o) any = map[(int64_t)o * ws.row_cap + i] >= 0;
+    if (!any) return;
+  }
   float acc[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  if (carry_in != nullptr) {
+    const float4* src = reinterpret_cast<const float4*>(carry_in + i * ld + c);
+    const float4 a = src[0], b = src[1];
+    acc[0] = a.x;
+    acc[1] = a.y;
+    acc[2] = a.z;
+    acc[3] = a.w;
+    acc[4] = b.x;
+    acc[5] = b.y;
+    acc[6] = b.z;
+    acc[7] = b.w;
+  }
   for (int o0 = 0; o0 < n_off; o0 += 8) {
     int p[8];
 #pragma unroll
     for (int t = 0; t < 8; ++t)
-      p[t] = o0 + t < n_off ? ws.map[(int64_t)(o0 + t) * ws.row_cap + i] : -1;
+      p[t] = o0 + t < n_off ? map[(int64_t)(o0 + t) * ws.row_cap + i] : -1;
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       if (p[t] < 0) continue;
@@ -1161,6 +1194,12 @@ live_sum_kernel(const int32_t* __restrict__ rows, const int32_t* __restrict__ co
       acc[7] += b.w;
     }
   }
+  if (carry_out != nullptr) {
+    float4* dst = reinterpret_cast<float4*>(carry_out + i * ld + c);
+    dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    return;
+  }
   T* const row = out + (int64_t)rows[i] * cout;
   gtt::store4(row, c, cout, make_float4(acc[0], acc[1], acc[2], acc[3]));
   if (c + 4 < cout) gtt::store4(row, c + 4, cout, make_float4(acc[4], acc[5], acc[6], acc[7]));
@@ -1172,59 +1211,70 @@ int live_stride(int cout, int dtype) {
   return (cout + bn - 1) / bn * bn;
 }
 
+// the products of offsets o_begin .. o_begin + n - 1 into partial, chunk
+// relative (the chunk's first pair at row 0)
 template <int BN>
 cudaError_t live_products(const void* x, const void* w, const LiveWs& ws, float* partial,
-                          int cin, int cout, int n_off, int dtype, cudaStream_t s) {
+                          int cin, int cout, int o_begin, int n, int dtype, cudaStream_t s) {
   const int n_col = (cout + BN - 1) / BN;
-  const int64_t max_items = (int64_t)((ws.pair_cap + gtt::BM - 1) / gtt::BM) * n_off * n_col;
+  const int64_t max_items = (int64_t)((ws.pair_cap + gtt::BM - 1) / gtt::BM) * n * n_col;
+  const int64_t w0 = (int64_t)o_begin * cin * cout;
+  const ListSource src{ws.src + (int64_t)o_begin * ws.pair_cap, ws.pair_cap};
   int grid = 0;
   if (dtype == 1) {
     auto kernel = live_products_wg_kernel<BN>;
-    const size_t smem = pmc::smem_bytes_wg<BN>(n_off);
+    const size_t smem = pmc::smem_bytes_wg<BN>(n);
     cudaError_t err = ntt::grid_of(kernel, wgc::kThreads, smem, max_items, &grid);
     if (err != cudaSuccess) return err;
+    const wgc::bf16* wc = static_cast<const wgc::bf16*>(w) + w0;
     const int vec_a = cin % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-    const int vec_b = cout % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-    kernel<<<grid, wgc::kThreads, smem, s>>>(static_cast<const wgc::bf16*>(x),
-                                             static_cast<const wgc::bf16*>(w), ws, partial, cin,
-                                             cout, n_off, vec_a, vec_b);
+    const int vec_b = cout % 8 == 0 && (reinterpret_cast<uintptr_t>(wc) & 15) == 0;
+    kernel<<<grid, wgc::kThreads, smem, s>>>(static_cast<const wgc::bf16*>(x), wc,
+                                             ws.counts + o_begin, ws.ticket, src, partial, cin,
+                                             cout, n, vec_a, vec_b);
     return cudaGetLastError();
   }
   if constexpr (BN <= 96) {
     auto kernel = live_products_kernel<BN>;
-    const size_t smem = pmc::smem_bytes<float, BN>(n_off);
+    const size_t smem = pmc::smem_bytes<float, BN>(n);
     cudaError_t err = ntt::grid_of(kernel, gtt::kThreads, smem, max_items, &grid);
     if (err != cudaSuccess) return err;
     kernel<<<grid, gtt::kThreads, smem, s>>>(static_cast<const float*>(x),
-                                             static_cast<const float*>(w), ws, partial, cin,
-                                             cout, n_off);
+                                             static_cast<const float*>(w) + w0,
+                                             ws.counts + o_begin, ws.ticket, src, partial, cin,
+                                             cout, n);
     return cudaGetLastError();
   }
   return cudaErrorInvalidValue;
 }
 
 cudaError_t pair_major_conv(const void* x, const void* w, const int32_t* rows_ws, int32_t* live_ws,
-                      float* partial, void* out, int n_rows, int pair_cap, int row_cap,
-                      int n_off, int cin, int cout, int dtype, cudaStream_t s) {
+                            float* partial, float* carry, void* out, int n_rows, int pair_cap,
+                            int row_cap, int n_off, int o_begin, int o_end, int cin, int cout,
+                            int dtype, cudaStream_t s) {
   const LiveWs ws(live_ws, n_off, pair_cap, row_cap);
   const int bn = dtype == 1 ? wgc::pick_bn(cout) : gtt::pair_bn(cout);
+  const int n = o_end - o_begin;
   cudaError_t err;
   switch (bn) {
-    case 32: err = live_products<32>(x, w, ws, partial, cin, cout, n_off, dtype, s); break;
-    case 64: err = live_products<64>(x, w, ws, partial, cin, cout, n_off, dtype, s); break;
-    case 96: err = live_products<96>(x, w, ws, partial, cin, cout, n_off, dtype, s); break;
-    default: err = live_products<128>(x, w, ws, partial, cin, cout, n_off, dtype, s);
+    case 32: err = live_products<32>(x, w, ws, partial, cin, cout, o_begin, n, dtype, s); break;
+    case 64: err = live_products<64>(x, w, ws, partial, cin, cout, o_begin, n, dtype, s); break;
+    case 96: err = live_products<96>(x, w, ws, partial, cin, cout, o_begin, n, dtype, s); break;
+    default: err = live_products<128>(x, w, ws, partial, cin, cout, o_begin, n, dtype, s);
   }
   if (err != cudaSuccess) return err;
   const dim3 grid((row_cap + kListThreads / 4 - 1) / (kListThreads / 4), (cout + 31) / 32);
   const int ld = live_stride(cout, dtype);
+  const float* carry_in = o_begin > 0 ? carry : nullptr;
+  float* carry_out = o_end < n_off ? carry : nullptr;
   if (dtype == 1)
     live_sum_kernel<__nv_bfloat16><<<grid, kListThreads, 0, s>>>(
-        rows_ws, rows_ws + n_rows, ws, partial, ld, static_cast<__nv_bfloat16*>(out), cout,
-        n_off);
+        rows_ws, rows_ws + n_rows, ws, partial, ld, carry_in, carry_out,
+        static_cast<__nv_bfloat16*>(out), cout, o_begin, n);
   else
     live_sum_kernel<float><<<grid, kListThreads, 0, s>>>(
-        rows_ws, rows_ws + n_rows, ws, partial, ld, static_cast<float*>(out), cout, n_off);
+        rows_ws, rows_ws + n_rows, ws, partial, ld, carry_in, carry_out,
+        static_cast<float*>(out), cout, o_begin, n);
   return cudaGetLastError();
 }
 
@@ -1403,21 +1453,29 @@ extern "C" int block_conv_live_stride(int cout, int dtype) { return live_stride(
 
 // The same conv in K1's pair-major form (pair_major.cuh): each offset's
 // pairs in items of 64, their fp32 products into a pair-major buffer, then
-// each listed row's products added in ascending offset order.  rows_ws,
-// live_ws: as block_conv_live's; partial: (k^3 * pair_cap,
-// block_conv_live_stride) fp32 scratch.  Every listed row is written (0
-// where it has no live pair); rows outside the list are left as they are
-// (the caller zeroes out).  Returns the launches' cudaError_t.
+// each listed row's products added in ascending offset order; one chunk
+// [o_begin, o_end) of the offsets a call, the wrapper's chunks in
+// ascending order.  rows_ws, live_ws: as block_conv_live's; partial:
+// ((o_end - o_begin) * pair_cap, block_conv_live_stride) fp32 scratch;
+// carry (row_cap, the same stride) fp32, null where the chunk is every
+// offset, zero before the first chunk: the sums so far of each listed row,
+// read where o_begin > 0 and written where o_end < k^3 (out then is not).  Every listed row is
+// written by the last chunk (0 where it has no live pair); rows outside
+// the list are left as they are (the caller zeroes out).  Returns the
+// launches' cudaError_t.
 extern "C" int block_conv_pair_major(const void* x, const void* w, const void* rows_ws,
-                                     void* live_ws, void* partial, void* out, int n_rows,
-                                     int pair_cap, int row_cap, int k, int cin, int cout,
-                                     int dtype, void* stream) {
+                                     void* live_ws, void* partial, void* carry, void* out,
+                                     int n_rows, int pair_cap, int row_cap, int k, int cin,
+                                     int cout, int o_begin, int o_end, int dtype, void* stream) {
   if (row_cap == 0 || cout == 0) return 0;
-  if ((k != 3 && k != 5) || cin < 1 || pair_cap < 0) return cudaErrorInvalidValue;
-  return static_cast<int>(pair_major_conv(x, w, static_cast<const int32_t*>(rows_ws),
-                                    static_cast<int32_t*>(live_ws), static_cast<float*>(partial),
-                                    out, n_rows, pair_cap, row_cap, k * k * k, cin, cout, dtype,
-                                    static_cast<cudaStream_t>(stream)));
+  const int n_off = k * k * k;
+  if ((k != 3 && k != 5) || cin < 1 || pair_cap < 0 || o_begin < 0 || o_end <= o_begin ||
+      o_end > n_off || (carry == nullptr && (o_begin > 0 || o_end < n_off)))
+    return cudaErrorInvalidValue;
+  return static_cast<int>(pair_major_conv(
+      x, w, static_cast<const int32_t*>(rows_ws), static_cast<int32_t*>(live_ws),
+      static_cast<float*>(partial), static_cast<float*>(carry), out, n_rows, pair_cap, row_cap,
+      n_off, o_begin, o_end, cin, cout, dtype, static_cast<cudaStream_t>(stream)));
 }
 
 // The same over a row list built before (block_rows or block_dilate into

@@ -30,6 +30,18 @@
 //   3. the sum: each row adds its products in ascending offset order,
 //      through the map, four threads a row, and writes the output (zeros
 //      outside valid).
+// The buffer holds at most V rows an offset, n_off * V rows in all: 1.47 GB
+// at the flagship's k5 stem (125 x 92,160 x 32 fp32), ~10 GB for a batch
+// of 8 such scenes (past 2^31 floats).  So the wrapper may run the offsets
+// in consecutive chunks [o_begin, o_end) (sparse_conv.py:offset_chunks,
+// under SEGDINO_CONV_CHUNK_MB): each chunk's products go to a buffer of
+// (o_end - o_begin) * V rows with their own index map, and its sum adds
+// them onto an fp32 carry (V, pair stride) that the chunk before wrote, in
+// ascending offset order; the last chunk writes the output.  A row's sum
+// is then the same fp32 additions in the same order as in one chunk, so
+// the chunked output is bit-equal to the unchunked one.  A chunk before
+// the last skips the rows without a pair in it (the carry starts zero),
+// so a row's carry moves once per chunk it has pairs in.
 // So an output's sum is its offsets' products (each over Cin in ascending
 // slices) added in ascending offset order, the plain version's order; no
 // float atomics, so two calls are bit-equal.  Measured against a schedule
@@ -40,9 +52,13 @@
 // Contract: x (V_in, Cin), w (n_off, Cin, Cout) and out (V, Cout) share
 // one dtype (fp32 or bf16), rows contiguous; nbr (n_off, V) int32, -1 for
 // an absent neighbour; valid (V,) bytes; pairs gather_pairs' list of nbr
-// (n_off x V rows, n_off counts, the ticket); pos (n_off, V) int32 scratch;
-// partial (n_off * V, gather_conv_pair_stride(Cout)) fp32 scratch.  Rows
-// outside valid are written as 0.
+// (n_off x V rows, n_off counts, the ticket); a chunk [o_begin, o_end) of
+// the offsets, with pos ((o_end - o_begin), V) int32 scratch, partial
+// ((o_end - o_begin) * V, gather_conv_pair_stride(Cout)) fp32 scratch and,
+// unless the chunk is all the offsets, carry (V, the same stride) fp32,
+// zero before the first chunk: read where o_begin > 0, written where
+// o_end < n_off (out then is not).
+// Rows outside valid are written as 0.
 //
 // The bf16 wide stems (gather_conv_wg, ops/narrow.py:wide_stem: Cin above
 // 256 into Cout 32, the flagship's k5 259 -> 32 and the v2 model's k3 262
@@ -113,20 +129,44 @@ conv_products_kernel(const T* __restrict__ x, const int32_t* __restrict__ nbr,
 // of partial[pos[o][r]][c .. c + 7], 0 outside valid: four threads a row,
 // eight columns each (c = 32 blockIdx.y + 8 (tid % 4)), so a quad reads a
 // pair's 32 products as one 128-byte line; the offsets' loads eight at a
-// time
+// time.  A chunk of the offsets (nbr and pos at its first) starts from
+// carry_in where given, and ends in carry_out where given, else in out.
+// carry_in and carry_out may be one buffer: a thread reads its eight
+// entries before it writes them.  The carry starts zero (the wrapper
+// clears it), so a chunk before the last leaves alone a row without a
+// pair in it (at one offset a chunk, two thirds of a k3 level's rows): its
+// carry already holds its sum so far.
 template <typename T>
 __global__ void __launch_bounds__(128)
 conv_pair_sum_kernel(const int32_t* __restrict__ nbr, const int32_t* __restrict__ pos,
                      const float* __restrict__ partial, int ld,
-                     const uint8_t* __restrict__ valid, T* __restrict__ out, int v, int cout,
-                     int n_off) {
+                     const uint8_t* __restrict__ valid, const float* carry_in,
+                     float* carry_out, T* __restrict__ out, int v, int cout, int n_off) {
   const int64_t r = (int64_t)blockIdx.x * 32 + threadIdx.x / 4;
   const int c = 32 * blockIdx.y + (threadIdx.x % 4) * 8;
   if (r >= v) return;
+  if (carry_out != nullptr) {
+    bool any = false;
+    if (valid[r])
+      for (int o = 0; o < n_off && !any; ++o) any = nbr[(int64_t)o * v + r] >= 0;
+    if (!any) return;
+  }
   float acc[8];
 #pragma unroll
   for (int k = 0; k < 8; ++k) acc[k] = 0.f;
   if (valid[r]) {
+    if (carry_in != nullptr) {
+      const float4* src = reinterpret_cast<const float4*>(carry_in + r * ld + c);
+      const float4 a = src[0], b = src[1];
+      acc[0] = a.x;
+      acc[1] = a.y;
+      acc[2] = a.z;
+      acc[3] = a.w;
+      acc[4] = b.x;
+      acc[5] = b.y;
+      acc[6] = b.z;
+      acc[7] = b.w;
+    }
     for (int o0 = 0; o0 < n_off; o0 += 8) {
       int p[8];
 #pragma unroll
@@ -149,36 +189,57 @@ conv_pair_sum_kernel(const int32_t* __restrict__ nbr, const int32_t* __restrict_
       }
     }
   }
+  if (carry_out != nullptr) {
+    float4* dst = reinterpret_cast<float4*>(carry_out + r * ld + c);
+    dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+    return;
+  }
   T* const row = out + r * cout;
   if (c < cout) gtt::store4(row, c, cout, make_float4(acc[0], acc[1], acc[2], acc[3]));
   if (c + 4 < cout) gtt::store4(row, c + 4, cout, make_float4(acc[4], acc[5], acc[6], acc[7]));
 }
 
+// The pointers of one chunk [o_begin, o_end) of the offsets: the table's
+// and the weight's rows, the pair list's and its counts from o_begin; the
+// carry in and out as the contract says.
+struct Chunk {
+  int64_t o0;
+  int n;
+  const float* carry_in;
+  float* carry_out;
+  Chunk(int o_begin, int o_end, int n_off, float* carry)
+      : o0(o_begin), n(o_end - o_begin), carry_in(o_begin > 0 ? carry : nullptr),
+        carry_out(o_end < n_off ? carry : nullptr) {}
+};
+
 template <typename T, int BN>
 cudaError_t launch(const T* x, const int32_t* nbr, const T* w, const uint8_t* valid,
-                   int32_t* pairs, int32_t* pos, float* partial, T* out, int v, int cin,
-                   int cout, int n_off, cudaStream_t s) {
+                   int32_t* pairs, int32_t* pos, float* partial, const Chunk& ch, T* out,
+                   int v, int cin, int cout, int n_off, cudaStream_t s) {
   auto kernel = conv_products_kernel<T, BN>;
-  const size_t smem = pmc::smem_bytes<T, BN>(n_off);
-  // the items of a table whose every pair is live; the count is on the card
+  const size_t smem = pmc::smem_bytes<T, BN>(ch.n);
+  // the items of a chunk whose every pair is live; the count is on the card
   const int n_col = (cout + BN - 1) / BN;
-  const int64_t max_items = (int64_t)((v + BM - 1) / BM) * n_off * n_col;
+  const int64_t max_items = (int64_t)((v + BM - 1) / BM) * ch.n * n_col;
   int grid = 0;
   cudaError_t err = ntt::grid_of(kernel, kThreads, smem, max_items, &grid);
   if (err != cudaSuccess) return err;
-  const int64_t n_list = (int64_t)n_off * v;
-  kernel<<<grid, kThreads, smem, s>>>(x, nbr, w, pairs, pairs + n_list, pairs + n_list + n_off,
-                                      pos, partial, v, cin, cout, n_off);
+  const int64_t n_list = (int64_t)n_off * v, first = ch.o0 * v;
+  kernel<<<grid, kThreads, smem, s>>>(x, nbr + first, w + ch.o0 * cin * cout, pairs + first,
+                                      pairs + n_list + ch.o0, pairs + n_list + n_off, pos,
+                                      partial, v, cin, cout, ch.n);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   conv_pair_sum_kernel<T><<<dim3((v + 31) / 32, (cout + 31) / 32), 128, 0, s>>>(
-      nbr, pos, partial, n_col * BN, valid, out, v, cout, n_off);
+      nbr + first, pos, partial, n_col * BN, valid, ch.carry_in, ch.carry_out, out, v, cout,
+      ch.n);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_bn(const void* x, const void* nbr, const void* w, const void* valid,
-                      void* pairs, void* pos, void* partial, void* out, int v, int cin,
-                      int cout, int n_off, cudaStream_t s) {
+                      void* pairs, void* pos, void* partial, const Chunk& ch, void* out, int v,
+                      int cin, int cout, int n_off, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   const T* wt = static_cast<const T*>(w);
   T* ot = static_cast<T*>(out);
@@ -189,11 +250,11 @@ cudaError_t launch_bn(const void* x, const void* nbr, const void* w, const void*
   float* pt = static_cast<float*>(partial);
   switch (pair_bn(cout)) {
     case 32:
-      return launch<T, 32>(xt, nb, wt, va, pl, ps, pt, ot, v, cin, cout, n_off, s);
+      return launch<T, 32>(xt, nb, wt, va, pl, ps, pt, ch, ot, v, cin, cout, n_off, s);
     case 96:
-      return launch<T, 96>(xt, nb, wt, va, pl, ps, pt, ot, v, cin, cout, n_off, s);
+      return launch<T, 96>(xt, nb, wt, va, pl, ps, pt, ch, ot, v, cin, cout, n_off, s);
     default:
-      return launch<T, 64>(xt, nb, wt, va, pl, ps, pt, ot, v, cin, cout, n_off, s);
+      return launch<T, 64>(xt, nb, wt, va, pl, ps, pt, ch, ot, v, cin, cout, n_off, s);
   }
 }
 
@@ -220,24 +281,26 @@ conv_products_wg_kernel(const bf16* __restrict__ x, const int32_t* __restrict__ 
 
 template <int BN>
 cudaError_t launch_wg(const bf16* x, const int32_t* nbr, const bf16* w, const uint8_t* valid,
-                      int32_t* pairs, int32_t* pos, float* partial, bf16* out, int v, int cin,
-                      int cout, int n_off, cudaStream_t s) {
+                      int32_t* pairs, int32_t* pos, float* partial, const Chunk& ch, bf16* out,
+                      int v, int cin, int cout, int n_off, cudaStream_t s) {
+  const bf16* wc = w + ch.o0 * cin * cout;
   const int vec_a = cin % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const int vec_b = cout % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const int vec_b = cout % 8 == 0 && (reinterpret_cast<uintptr_t>(wc) & 15) == 0;
   const int n_col = (cout + BN - 1) / BN;
   int grid = 0;
   auto kernel = conv_products_wg_kernel<BN>;
-  const size_t smem = pmc::smem_bytes_wg<BN>(n_off);
+  const size_t smem = pmc::smem_bytes_wg<BN>(ch.n);
   cudaError_t err = ntt::grid_of(kernel, wgc::kThreads, smem,
-                                 (int64_t)((v + BM - 1) / BM) * n_off * n_col, &grid);
+                                 (int64_t)((v + BM - 1) / BM) * ch.n * n_col, &grid);
   if (err != cudaSuccess) return err;
-  const int64_t n_list = (int64_t)n_off * v;
-  kernel<<<grid, wgc::kThreads, smem, s>>>(x, nbr, w, pairs, pairs + n_list,
-                                           pairs + n_list + n_off, pos, partial, v, cin, cout,
-                                           n_off, vec_a, vec_b);
+  const int64_t n_list = (int64_t)n_off * v, first = ch.o0 * v;
+  kernel<<<grid, wgc::kThreads, smem, s>>>(x, nbr + first, wc, pairs + first,
+                                           pairs + n_list + ch.o0, pairs + n_list + n_off, pos,
+                                           partial, v, cin, cout, ch.n, vec_a, vec_b);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   conv_pair_sum_kernel<bf16><<<dim3((v + 31) / 32, (cout + 31) / 32), 128, 0, s>>>(
-      nbr, pos, partial, n_col * BN, valid, out, v, cout, n_off);
+      nbr + first, pos, partial, n_col * BN, valid, ch.carry_in, ch.carry_out, out, v, cout,
+      ch.n);
   return cudaGetLastError();
 }
 
@@ -305,29 +368,41 @@ extern "C" int gather_conv_narrow(const void* x, const void* nbr, const void* w,
 // The row width of the partial buffer for Cout.
 extern "C" int gather_conv_pair_stride(int cout) { return pair_stride(cout); }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the launches' cudaError_t.
+// One chunk [o_begin, o_end) of the offsets (the contract above); the
+// wrapper calls it for each chunk in ascending order.  dtype: 0 = float32,
+// 1 = bfloat16.  Returns the launches' cudaError_t.
 extern "C" int gather_gemm_conv(const void* x, const void* nbr, const void* w,
                                 const void* valid, void* pairs, void* pos, void* partial,
-                                void* out, int v, int cin, int cout, int n_off, int dtype,
-                                void* stream) {
+                                void* carry, void* out, int v, int cin, int cout, int n_off,
+                                int o_begin, int o_end, int dtype, void* stream) {
   if (v == 0 || cout == 0) return 0;
+  if (o_begin < 0 || o_end <= o_begin || o_end > n_off ||
+      (carry == nullptr && (o_begin > 0 || o_end < n_off)))
+    return cudaErrorInvalidValue;
+  const Chunk ch(o_begin, o_end, n_off, static_cast<float*>(carry));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 1
-      ? launch_bn<__nv_bfloat16>(x, nbr, w, valid, pairs, pos, partial, out, v, cin, cout,
+      ? launch_bn<__nv_bfloat16>(x, nbr, w, valid, pairs, pos, partial, ch, out, v, cin, cout,
                                  n_off, s)
-      : launch_bn<float>(x, nbr, w, valid, pairs, pos, partial, out, v, cin, cout, n_off, s);
+      : launch_bn<float>(x, nbr, w, valid, pairs, pos, partial, ch, out, v, cin, cout, n_off,
+                         s);
   return static_cast<int>(err);
 }
 
 // K1's bf16 wide stems (ops/narrow.py:wide_stem): the contract of
-// gather_gemm_conv in bf16 on the warpgroup core.  Returns the launches'
-// cudaError_t.
+// gather_gemm_conv in bf16 on the warpgroup core, one chunk of the offsets
+// a call.  Returns the launches' cudaError_t.
 extern "C" int gather_conv_wg(const void* x, const void* nbr, const void* w, const void* valid,
-                              void* pairs, void* pos, void* partial, void* out, int v, int cin,
-                              int cout, int n_off, void* stream) {
+                              void* pairs, void* pos, void* partial, void* carry, void* out,
+                              int v, int cin, int cout, int n_off, int o_begin, int o_end,
+                              void* stream) {
   if (v == 0 || cout == 0) return 0;
   const int bn = wgc::pick_bn(cout);
   if (pair_stride(cout) != (cout + bn - 1) / bn * bn) return cudaErrorInvalidValue;
+  if (o_begin < 0 || o_end <= o_begin || o_end > n_off ||
+      (carry == nullptr && (o_begin > 0 || o_end < n_off)))
+    return cudaErrorInvalidValue;
+  const Chunk ch(o_begin, o_end, n_off, static_cast<float*>(carry));
   const auto* xb = static_cast<const bf16*>(x);
   const auto* wb = static_cast<const bf16*>(w);
   const auto* nb = static_cast<const int32_t*>(nbr);
@@ -339,10 +414,17 @@ extern "C" int gather_conv_wg(const void* x, const void* nbr, const void* w, con
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (bn) {
-    case 32: err = launch_wg<32>(xb, nb, wb, va, pl, ps, pt, ob, v, cin, cout, n_off, s); break;
-    case 64: err = launch_wg<64>(xb, nb, wb, va, pl, ps, pt, ob, v, cin, cout, n_off, s); break;
-    case 96: err = launch_wg<96>(xb, nb, wb, va, pl, ps, pt, ob, v, cin, cout, n_off, s); break;
-    default: err = launch_wg<128>(xb, nb, wb, va, pl, ps, pt, ob, v, cin, cout, n_off, s);
+    case 32:
+      err = launch_wg<32>(xb, nb, wb, va, pl, ps, pt, ch, ob, v, cin, cout, n_off, s);
+      break;
+    case 64:
+      err = launch_wg<64>(xb, nb, wb, va, pl, ps, pt, ch, ob, v, cin, cout, n_off, s);
+      break;
+    case 96:
+      err = launch_wg<96>(xb, nb, wb, va, pl, ps, pt, ch, ob, v, cin, cout, n_off, s);
+      break;
+    default:
+      err = launch_wg<128>(xb, nb, wb, va, pl, ps, pt, ch, ob, v, cin, cout, n_off, s);
   }
   return static_cast<int>(err);
 }

@@ -18,9 +18,10 @@ import numpy as np
 import torch
 
 from segdino3d_tpu_torch.gtypes import SceneBatch
-from segdino3d_tpu_torch.ops.host_plan import (L0_BUDGET_BYTES, block_bucket,
+from segdino3d_tpu_torch.ops.host_plan import (block_bucket,
                                                build_host_plan,
                                                host_plan_to_device,
+                                               l0_dense_budget_bytes,
                                                probe_voxel_count,
                                                voxel_bucket)
 
@@ -220,8 +221,8 @@ def attach_host_plan(batch: SceneBatch, records: List[Dict], spec: PadSpec,
     ``exact_min_shift`` shifts each scene by its exact minimum (the
     SpConvUNet path, ``_plan_coords``).  ``auto_l0_layout`` lets level 0
     fall back to the gather layout when its dense convs would outgrow the
-    JAX package's budget (``ops.host_plan.l0_dense_fits``,
-    ``L0_BUDGET_BYTES``)."""
+    JAX package's budget (``ops.host_plan.l0_dense_fits`` against
+    ``l0_dense_budget_bytes()``, read at the call)."""
     coords, valid, bidx = _plan_coords(records, spec.num_points, voxel_size,
                                        exact_min_shift)
     if level_caps is not None:
@@ -243,8 +244,8 @@ def attach_host_plan(batch: SceneBatch, records: List[Dict], spec: PadSpec,
                            stem_compact=stem_compact,
                            stem_compact_slots=stem_compact_slots,
                            stem_ov_cap=stem_ov_cap,
-                           l0_budget_bytes=(L0_BUDGET_BYTES if auto_l0_layout
-                                            else None))
+                           l0_budget_bytes=(l0_dense_budget_bytes()
+                                            if auto_l0_layout else None))
     if plan.overflow:
         raise ValueError("host plan capacity overflow — raise voxel caps")
     return dataclasses.replace(

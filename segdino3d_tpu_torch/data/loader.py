@@ -66,7 +66,7 @@ from segdino3d_tpu_torch.data.collate import (PadSpec, _plan_coords,
                                               attach_host_plan, collate,
                                               map_leaves, to_device)
 from segdino3d_tpu_torch.device import resolve_device
-from segdino3d_tpu_torch.ops.host_plan import (L0_BUDGET_BYTES,
+from segdino3d_tpu_torch.ops.host_plan import (l0_dense_budget_bytes,
                                                l0_dense_fits,
                                                overflow_bucket,
                                                probe_plan_counts,
@@ -546,7 +546,7 @@ class EvalLoader:
                           for i, b in enumerate(blocks)]
             rung_edges = list(edges) if edges else None
             if rung_edges and rung_edges[0] and not l0_dense_fits(
-                    block_caps[0], rung_edges[0], L0_BUDGET_BYTES):
+                    block_caps[0], rung_edges[0], l0_dense_budget_bytes()):
                 # the whole rung runs level 0 in the gather layout
                 rung_edges[0] = block_caps[0] = 0
             caps = dict(voxel_cap=-(-int(voxels[0]) // 256) * 256,

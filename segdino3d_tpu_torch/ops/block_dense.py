@@ -55,8 +55,11 @@ the backward gives K10 that dilation as its output mask, which is exact on
 every cell, with the dilation's row list (``dilation``: built on the card
 once per level and kernel size by ``block_dilate``, a kernel beside K10,
 and its list pass).  The JAX module chunks
-wide convs and halves wide inputs to bound a TPU buffer; both are exact,
-and the port, which never materialises the halo, does neither.
+wide convs and halves wide inputs to bound its halo-padded buffer by
+``SEGDINO_CONV_CHUNK_MB``; the port never materialises the halo, and the
+same budget bounds what it does materialise: the live-pair path's
+pair-major scratch runs in offset chunks that fit it
+(``sparse_conv.offset_chunks``), bit-equal to one chunk.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 its ``launches`` attribute; for a CPU tensor it runs the plain PyTorch
@@ -79,7 +82,7 @@ from segdino3d_tpu_torch.ops import cuda_build
 from segdino3d_tpu_torch.ops import narrow as N
 from segdino3d_tpu_torch.ops.sparse_conv import (_gather_rows, _require_cuda,
                                                  _transposed, as_sum_type,
-                                                 wgrad_splits)
+                                                 offset_chunks, wgrad_splits)
 
 # rows of the (26, B) shell-neighbour table: itertools.product(-1, 0, 1)^3
 # order with the centre skipped; face directions land at these rows
@@ -724,8 +727,12 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     listed rows, every offset's products of each group's pairs added into
     the group's rows in ascending offset order.  Pairs whose source is outside the
     list's source mask carry exact zeros and are skipped, so the result is
-    the conv's (fp32: bit-equal to the row-tile path).  On the CPU that
-    path's plain version runs."""
+    the conv's (fp32: bit-equal to the row-tile path).  Where the
+    pair-major scratch would outgrow the ``SEGDINO_CONV_CHUNK_MB`` budget
+    (``sparse_conv.offset_chunks``) that form runs the offsets in
+    consecutive chunks, each adding onto an fp32 carry of the listed rows'
+    sums in ascending offset order (bit-equal to one chunk).  On the CPU
+    that path's plain version runs."""
     n_off, cin, cout = weights.shape
     _check_layout("block_conv", feats, block_nbr, n_off, edge, cin)
     k = kernel_size(n_off)
@@ -771,13 +778,21 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
         args = (feats.data_ptr(), weights.data_ptr(),
                 live_list.rows.ws.data_ptr(), live_list.ws.data_ptr())
         if form == N.PAIR_MAJOR:
-            partial = torch.empty(n_off * cap,
-                                  lib.block_conv_live_stride(cout, dtype),
-                                  dtype=torch.float32, device=feats.device)
-            cuda_build.check(lib.block_conv_pair_major(
-                *args, partial.data_ptr(), out.data_ptr(), n_rows, cap,
-                row_cap, k, cin, cout, dtype, cuda_build.stream_ptr(feats)),
-                "block_conv_pair_major")
+            stride = lib.block_conv_live_stride(cout, dtype)
+            chunks = offset_chunks(n_off, cap, stride)
+            most = max(o1 - o0 for o0, o1 in chunks)
+            partial = torch.empty(most * cap, stride, dtype=torch.float32,
+                                  device=feats.device)
+            carry = None if len(chunks) == 1 else torch.zeros(
+                row_cap, stride, dtype=torch.float32, device=feats.device)
+            for o0, o1 in chunks:
+                cuda_build.check(lib.block_conv_pair_major(
+                    *args, partial.data_ptr(),
+                    None if carry is None else carry.data_ptr(),
+                    out.data_ptr(), n_rows, cap, row_cap, k, cin, cout, o0,
+                    o1, dtype, cuda_build.stream_ptr(feats)),
+                    "block_conv_pair_major")
+            block_conv.chunks.launches += len(chunks)
         else:
             cuda_build.check(lib.block_conv_live(
                 *args, out.data_ptr(), n_rows, cap, row_cap, k, cin, cout,
@@ -838,6 +853,9 @@ block_conv.live = types.SimpleNamespace(launches=0)     # of them live-pair
 # of those, the row-group kernel's (the rest pair-major)
 block_conv.live_rows = types.SimpleNamespace(launches=0)
 block_conv.own_lists = 0     # calls that built their row list themselves
+# the offset chunks of the pair-major form's calls (one a call within the
+# budget)
+block_conv.chunks = types.SimpleNamespace(launches=0)
 
 
 # ---------------------------------------------------------------------------

@@ -75,19 +75,20 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # x, nbr, w, valid, pairs, pos, partial, out, v, cin, cout, n_off,
-    # dtype, stream
-    "gather_gemm_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _P],
+    # x, nbr, w, valid, pairs, pos, partial, carry, out, v, cin, cout,
+    # n_off, o_begin, o_end, dtype, stream
+    "gather_gemm_conv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _P],
     # cout
     "gather_conv_pair_stride": [_I],
     # x, nbr, w, valid, out, v, cin, cout, n_off, dtype, stream
     "gather_conv_narrow": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # n_off, cin, cout, dtype
     "narrow_conv_smem": [_I, _I, _I, _I],
-    # x, nbr, w, valid, pairs, pos, partial, out, v, cin, cout, n_off,
-    # stream
-    "gather_conv_wg": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, nbr, w, valid, pairs, pos, partial, carry, out, v, cin, cout,
+    # n_off, o_begin, o_end, stream
+    "gather_conv_wg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                       _I, _I, _P],
     # x, child, w, pairs, parent, valid, out, v_coarse, v_fine, cin, cout,
     # dtype, stream
     "up_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -147,10 +148,10 @@ _SIGNATURES = {
     "block_conv_live_stride": [_I, _I],
     # dtype
     "block_conv_live_group_rows": [_I],
-    # x, w, rows_ws, live_ws, partial, out, n_rows, pair_cap, row_cap, k,
-    # cin, cout, dtype, stream
-    "block_conv_pair_major": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _P],
+    # x, w, rows_ws, live_ws, partial, carry, out, n_rows, pair_cap,
+    # row_cap, k, cin, cout, o_begin, o_end, dtype, stream
+    "block_conv_pair_major": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _P],
     # x, w, rows_ws, live_ws, out, n_rows, pair_cap, row_cap, k, cin, cout,
     # dtype, stream
     "block_conv_live": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],

@@ -224,9 +224,15 @@ def stem_slots_default(stem_compact_slots: Optional[int] = None) -> int:
     return stem_degree_bucket(int(stem_compact_slots or 32))
 
 
-# the JAX package's level-0 layout budget (its SEGDINO_CONV_CHUNK_MB
-# default): the widest level-0 dense conv's halo-padded bf16 buffer
-L0_BUDGET_BYTES = 1 << 30
+def l0_dense_budget_bytes() -> int:
+    """The byte budget of level 0's dense layout and of the convs'
+    transient scratch: ``SEGDINO_CONV_CHUNK_MB`` MiB (1024 when unset),
+    read at each call, as the JAX package reads it
+    (``host_plan.l0_dense_budget_bytes``).  The plans' level-0 crossover
+    (``l0_dense_fits``) and the offset chunks of K1's and K10's pair-major
+    buffers (``sparse_conv.offset_chunks``) take it."""
+    return int(float(os.environ.get("SEGDINO_CONV_CHUNK_MB", "1024"))
+               * 2 ** 20)
 
 
 def l0_dense_fits(n_blocks: int, edge: int, budget: int, channels: int = 48,

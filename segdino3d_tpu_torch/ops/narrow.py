@@ -192,8 +192,13 @@ def pick(forced: Optional[bool], n_off: int, cin: int, cout: int, dtype,
 # L3's wide forwards (384->256 0.055 against 0.082, 256->256 0.043 against
 # 0.064), L2's and L3's wide dX (128->192 0.151 against 0.165, 256->384
 # 0.090 against 0.159), and every dW (0.256 against 0.475 at L0 96->96);
-# the rest tied within the calls' noise.
-BF16_K3_LIVE_MAX_CAP = {"forward": 8192, "dx": 16384, "wgrad": None}
+# the rest tied within the calls' noise.  At a batch of 8 headline scenes
+# (``chip_smoke.py`` phase 12a, L3 10,752 voxels) the live-pair path won
+# L3's wide forwards again (384->256 0.243 against 0.439, 256->256 0.207
+# against 0.301; 128->128 tied, 64->128 lost 0.094 to 0.066), so the
+# forward's bound sits between that level and the batch-1 L2 (13,824),
+# which keeps the row tiles.
+BF16_K3_LIVE_MAX_CAP = {"forward": 12288, "dx": 16384, "wgrad": None}
 # bf16 k3 dX convs at levels of at least this many voxels run K10's
 # row-group kernel (``live_form``), where its paired measurement
 # (``tools/conv_bench.py --live``, PERF.md section 6) beat the row tiles

@@ -109,6 +109,23 @@ def gather_conv_plain(feats: torch.Tensor, nbr: torch.Tensor,
     return torch.where(valid[:, None], acc, 0.0).to(feats.dtype)
 
 
+def offset_chunks(n_off: int, cap: int, stride: int) -> List[Tuple[int, int]]:
+    """The consecutive chunks ``[(o_begin, o_end), ...]`` in which K1 and
+    K10 run the offsets of a pair-major conv: ``n_off`` offsets of at most
+    ``cap`` pairs each, ``stride`` fp32 columns a pair.  One chunk where
+    the whole buffer, ``n_off * cap * stride * 4`` bytes, fits the budget
+    (``host_plan.l0_dense_budget_bytes()``: ``SEGDINO_CONV_CHUNK_MB``,
+    read at each call); else as few chunks of as even a size as fit it,
+    and a single offset a chunk where one offset alone outgrows it."""
+    from segdino3d_tpu_torch.ops.host_plan import l0_dense_budget_bytes
+
+    budget = l0_dense_budget_bytes()
+    per = max(1, budget // max(1, cap * stride * 4))
+    n = -(-n_off // per)
+    size = -(-n_off // n)
+    return [(o, min(o + size, n_off)) for o in range(0, n_off, size)]
+
+
 def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
                 valid: torch.Tensor, narrow: Optional[bool] = None,
                 pairs: Optional["PairList"] = None) -> torch.Tensor:
@@ -125,7 +142,12 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
     allocates nothing but the output and builds no pair list.  The bf16
     wide stems (``narrow.wide_stem``) run the pair-major form on the
     warpgroup core.  ``pairs`` is the table's pair list where the caller
-    has it (an exported graph's), else ``cached_pairs``'."""
+    has it (an exported graph's), else ``cached_pairs``'.  Where the
+    scratch would outgrow the ``SEGDINO_CONV_CHUNK_MB`` budget
+    (``offset_chunks``) the wide path runs
+    the offsets in consecutive chunks, each into a scratch of its own
+    offsets' rows, adding onto an fp32 carry of the rows' sums in
+    ascending offset order: bit-equal to one chunk."""
     n_off, cin, cout = weights.shape
     if nbr.shape[0] != n_off or feats.shape[1] != cin \
             or tuple(valid.shape) != (nbr.shape[1],):
@@ -160,24 +182,29 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
     N.count_element_loads(feats, weights)
     wide = N.wide_stem(cin, cout, feats.dtype)
     pairs = pairs if pairs is not None else cached_pairs(None, nbr)
-    pos = torch.empty(n_off, v, dtype=torch.int32, device=dev)
-    partial = torch.empty(n_off * v, lib.gather_conv_pair_stride(cout),
-                          dtype=torch.float32, device=dev)
-    ptrs = (pairs.ws.data_ptr(), pos.data_ptr(), partial.data_ptr())
-    if wide:
-        cuda_build.check(lib.gather_conv_wg(
-            feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
-            valid.data_ptr(), *ptrs, out.data_ptr(), v, cin, cout, n_off,
-            cuda_build.stream_ptr(feats)), "gather_conv_wg")
-        gather_conv.launches += 1
-        gather_conv.wide_stem.launches += 1
-        return out
-    cuda_build.check(lib.gather_gemm_conv(
-        feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
-        valid.data_ptr(), *ptrs, out.data_ptr(), v, cin, cout, n_off,
-        cuda_build.dtype_code(feats.dtype), cuda_build.stream_ptr(feats)),
-        "gather_gemm_conv")
+    stride = lib.gather_conv_pair_stride(cout)
+    chunks = offset_chunks(n_off, v, stride)
+    most = max(o1 - o0 for o0, o1 in chunks)
+    pos = torch.empty(most, v, dtype=torch.int32, device=dev)
+    partial = torch.empty(most * v, stride, dtype=torch.float32, device=dev)
+    carry = None if len(chunks) == 1 else torch.zeros(
+        v, stride, dtype=torch.float32, device=dev)
+    ptrs = (pairs.ws.data_ptr(), pos.data_ptr(), partial.data_ptr(),
+            None if carry is None else carry.data_ptr(), out.data_ptr())
+    args = (feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
+            valid.data_ptr(), *ptrs, v, cin, cout, n_off)
+    for o0, o1 in chunks:
+        if wide:
+            cuda_build.check(lib.gather_conv_wg(
+                *args, o0, o1, cuda_build.stream_ptr(feats)),
+                "gather_conv_wg")
+        else:
+            cuda_build.check(lib.gather_gemm_conv(
+                *args, o0, o1, cuda_build.dtype_code(feats.dtype),
+                cuda_build.stream_ptr(feats)), "gather_gemm_conv")
     gather_conv.launches += 1
+    gather_conv.wide_stem.launches += int(wide)
+    gather_conv.chunks.launches += len(chunks)
     return out
 
 
@@ -185,6 +212,8 @@ gather_conv.launches = 0
 gather_conv.narrow = types.SimpleNamespace(launches=0)   # of them narrow
 # of them on the bf16 wide-stem path
 gather_conv.wide_stem = types.SimpleNamespace(launches=0)
+# the offset chunks of the wide path's calls (one a call within the budget)
+gather_conv.chunks = types.SimpleNamespace(launches=0)
 
 
 def up_conv_plain(feats: torch.Tensor, parent: torch.Tensor,

@@ -75,6 +75,25 @@ whose wrapper takes no ``zero_outside`` (or, at k3, has no
 ``dilation_pairs``) the default path alone is timed (copy this file and
 ``wgrad_bench.py``, whose runner it uses, into that checkout's
 ``tools/``).
+
+    python -m segdino3d_tpu_torch.tools.conv_bench --live --scene batched
+    python -m segdino3d_tpu_torch.tools.conv_bench --live --scene stress \
+        --dtype bf16
+
+times the same k3 cases on ``chip_smoke.py`` phase 12's plans instead,
+in ``--dtype`` alone, under its ``SEGDINO_CONV_CHUNK_MB``: the batch of 8
+headline scenes at its pinned caps (level 0 in the gather layout there:
+levels 1-4) or the 400,000-point stress scene at its caps; the form
+thresholds of ``ops/narrow.py`` are keyed on the level's capacity.
+
+    python -m segdino3d_tpu_torch.tools.conv_bench --chunks
+
+times the convs whose pair-major buffer outgrows the budget at the
+headline scene's caps (``SEGDINO_CONV_CHUNK_MB``, 1024 MiB unset): K1 at
+the stem (fp32; bf16 at the 264 pitch), K10's dense stem and its k3 dX
+96 -> 128 at level 0 in the pair-major form, each in the budget's offset
+chunks and in one chunk (the budget lifted), held bit-equal to each other and
+to the plain version first, the two interleaved.
 """
 from __future__ import annotations
 
@@ -323,12 +342,12 @@ def form_paths(call, k, dt):
             for f in N.LIVE_FORMS if f != N.live_form(k, dt)}
 
 
-def k3_live_cases(hybrid, gen):
+def k3_live_cases(hybrid, gen, dtypes=(torch.float32, torch.bfloat16)):
     """[(name, dtype, {path: call}, plain call, library call, ops, bytes)]
-    of every distinct k3 conv in the forward and dX roles: K10 on its
-    level's blocks (the live-pair and the row-tile path, where this
-    checkout has both; the live-pair path's other form, where it has
-    two)."""
+    of every distinct k3 conv of a block-dense level in the forward and dX
+    roles, in ``dtypes``: K10 on its level's blocks (the live-pair and the
+    row-tile path, where this checkout has both; the live-pair path's other
+    form, where it has two)."""
     import chip_smoke as C
     from segdino3d_tpu_torch.ops import block_dense as BD
     from segdino3d_tpu_torch.ops import sparse_conv as SC
@@ -382,10 +401,114 @@ def k3_live_cases(hybrid, gen):
             C.nbytes(x, w) + 4 * listed + occ.shape[0] * co * x.element_size()))
 
     for li, cin, cout, n in K3_CONVS:
+        if hybrid.blocks[li] is None:
+            continue
         for dx in (False, True):
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in dtypes:
                 case(li, cin, cout, n, dx, dt)
     return out
+
+
+def chunk_cases(plan, hybrid, gen):
+    """[(name, dtype, {path: call}, plain call, library call, ops, bytes)]
+    of the pair-major convs whose buffer outgrows the budget
+    (``SEGDINO_CONV_CHUNK_MB``, 1024 MiB unset) at the headline scene's
+    caps: K1 at the stem (fp32; bf16 at the 264 pitch), K10's dense stem
+    and its k3 dX 96->128 at L0 (fp32, the pair-major form), each in the
+    budget's offset chunks and in one chunk, held bit-equal first."""
+    import chip_smoke as C
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import narrow as N
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    lv = plan.levels[0]
+    nbr, valid, v0 = plan.stem_nbr, lv.valid, lv.valid.shape[0]
+    t = hybrid.blocks[0]
+    occ = BD.occupancy(t)
+    e, nb = t.edge, t.block_nbr
+    rows = BD.row_list(t, occ)
+    dil, drows = BD.dilation(t, occ, 3)
+    out = []
+
+    def add(name, dt, k, cin, cout, call, plain, lib, pairs, counter, byts):
+        before = counter.launches
+        got = call()
+        n = counter.launches - before
+        whole = C.in_one_chunk(call)
+        if not torch.equal(got, whole()):
+            raise SystemExit(f"{name} {dt}: {n} chunks differ from one chunk")
+        out.append((f"{name}, {n} offset chunks", dt,
+                    {f"{n} chunks": call, "one chunk": whole},
+                    plain, lib, 2.0 * pairs * cin * cout, byts))
+
+    live = int((nbr >= 0).sum())
+    for dt in (torch.float32, torch.bfloat16):
+        x = C.pitched(torch.randn(v0, 259, generator=gen, device="cuda"
+                                  ).to(dt), 1)
+        w = C.pitched((torch.randn(125, 259, 32, generator=gen, device="cuda")
+                       * (125 * 259) ** -0.5).to(dt), 1)
+        add(f"K1 stem k5 259->32 L0 (x at {x.shape[1]})", dt, 5, 259, 32,
+            lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid),
+            lambda x=x, w=w: SC.gather_conv_plain(x, nbr, w, valid),
+            lambda x=x, w=w: C.conv_library(x, nbr, w), live,
+            SC.gather_conv.chunks,
+            C.nbytes(x, nbr, w, valid) + v0 * 32 * x.element_size())
+    def k10(name, k, cin, cout, mask, rlist, lp):
+        x = torch.where(occ[:, None], torch.randn(
+            occ.shape[0], cin, generator=gen, device="cuda"), 0.0)
+        w = torch.randn(k ** 3, cin, cout, generator=gen, device="cuda") \
+            * (k ** 3 * cin) ** -0.5
+        wc = w.reshape(k, k, k, cin, cout).permute(4, 3, 0, 1, 2).contiguous()
+
+        def lib():
+            p = C.to_ncdhw(BD.halo_pad_plain(
+                x.reshape(t.num_blocks, e, e, e, cin), nb, (k - 1) // 2))
+            return torch.nn.functional.conv3d(p, wc)
+
+        add(name, torch.float32, k, cin, cout,
+            lambda: BD.block_conv(x, nb, w, mask, e, rlist,
+                                  zero_outside=True, live=True,
+                                  live_list=lp, form=N.PAIR_MAJOR),
+            lambda: BD.block_conv_live_plain(x, w, lp), lib,
+            int(lp.counts.sum()), BD.block_conv.chunks,
+            C.nbytes(x, w) + occ.shape[0] * cout * 4)
+
+    k10("K10 dense stem k5 259->32 L0, pair-major", 5, 259, 32, occ, rows,
+        BD.live_pairs(t, occ, 5))
+    k10("K10 k3 dX 96->128 L0 under the dilation, pair-major", 3, 96, 128,
+        dil, drows, BD.dilation_pairs(t, occ, 3))
+    return out
+
+
+def scene_hybrid(scene):
+    """Phase 12's hybrid plan (``chip_smoke.py``) under its
+    ``SEGDINO_CONV_CHUNK_MB``: "batched", 8 headline scenes at their
+    pinned caps, or "stress", the 400,000-point scene at its caps."""
+    import chip_smoke as C
+    from segdino3d_tpu_torch.data.collate import (PadSpec, attach_host_plan,
+                                                  collate)
+    from segdino3d_tpu_torch.data.synthetic import synthetic_scene
+
+    os.environ["SEGDINO_CONV_CHUNK_MB"] = C.SCALE_CHUNK_MB
+    if scene == "batched":
+        records = [synthetic_scene(s, **C.SCENE)
+                   for s in range(C.BATCH_SCENES)]
+        spec = PadSpec(C.SCENE["n_points"], C.SCENE["n_superpoints"], 64,
+                       128, 200)
+    else:
+        records = [synthetic_scene(0, **C.STRESS_SCENE)]
+        spec = PadSpec(*C.STRESS_PAD)
+    args = C.plan_layout("hybrid")
+    level_caps, block_caps = C.probe_caps(
+        records, spec, args["block_edges"], len(records),
+        pin_blocks=scene == "batched")
+    plan = attach_host_plan(collate(records, spec, "cuda"), records, spec,
+                            level_caps=level_caps, block_caps=block_caps,
+                            **args).plan
+    print(f"{scene}: level caps {level_caps}, block caps {block_caps}; "
+          f"level 0 {C.l0_layout(plan)}; {C.describe_blocks(plan)}",
+          flush=True)
+    return plan
 
 
 def conv_held(got, want, dt):
@@ -545,7 +668,17 @@ def main() -> int:
                     "path against its row-tile path, K1 beside them")
     ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32",
                     help="bf16: the bf16 backbone's K1, K10, K4 and K11 "
-                    "cases, each beside its fp32 run")
+                    "cases, each beside its fp32 run; with --scene, the "
+                    "dtype timed")
+    ap.add_argument("--scene", choices=("headline", "batched", "stress"),
+                    default="headline",
+                    help="with --live, the plan the k3 convs run on: "
+                    "chip_smoke.py phase 12's batch of 8 or its stress "
+                    "scene, under its SEGDINO_CONV_CHUNK_MB")
+    ap.add_argument("--chunks", action="store_true",
+                    help="the convs whose pair-major buffer outgrows the "
+                    "budget at the headline caps, in its offset chunks "
+                    "and in one chunk")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("conv_bench: no CUDA device", file=sys.stderr)
@@ -554,6 +687,7 @@ def main() -> int:
     from segdino3d_tpu_torch.data.collate import (PadSpec, attach_host_plan,
                                                   collate)
     from segdino3d_tpu_torch.ops import cuda_build
+    from segdino3d_tpu_torch.tools import wgrad_bench as WB
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -563,6 +697,13 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.live and args.scene != "headline":
+        dt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+        WB.run_stem(k3_live_cases(scene_hybrid(args.scene), gen, (dt,)),
+                    args.rounds, args.reps, held=conv_held,
+                    prefix=f"{args.scene} k3")
+        return 0
     records = C.make_records()
     spec = PadSpec(C.SCENE["n_points"], C.SCENE["n_superpoints"], 64, 128,
                    200)
@@ -571,13 +712,14 @@ def main() -> int:
                             level_cap_ratios=C.LEVEL_CAP_RATIOS).plan
     print(f"voxels per level {[int(t.valid.sum()) for t in plan.levels]}, "
           f"caps {[t.valid.shape[0] for t in plan.levels]}", flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.live:
-        from segdino3d_tpu_torch.tools import wgrad_bench as WB
-
+    if args.live or args.chunks:
         hybrid = attach_host_plan(collate(records, spec, "cuda"), records,
                                   spec, level_cap_ratios=C.LEVEL_CAP_RATIOS,
                                   **C.plan_layout("hybrid")).plan
+        if args.chunks:
+            WB.run_stem(chunk_cases(plan, hybrid, gen), args.rounds,
+                        args.reps, held=conv_held, prefix="chunks")
+            return 0
         WB.run_stem(live_cases(plan, hybrid, gen), args.rounds, args.reps,
                     held=conv_held)
         WB.run_stem(k3_live_cases(hybrid, gen), args.rounds, args.reps,

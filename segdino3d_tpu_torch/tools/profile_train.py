@@ -7,8 +7,8 @@ Runs ``chip_smoke.py``'s training path (flagship SegDINO3D and criterion,
 seeded random weights, the seeded 120,000-point synthetic scene, fp32,
 batch 1, AdamW + clip + EMA): one warm-up step, then one step of forward +
 criterion + backward + optimizer under ``torch.profiler``.  Prints the
-device time summed by kernel name (top 30), the device time of K1 and of
-the weight gradients (K4, its pair lists apart, and K11;
+device time summed by kernel name (top 30), the device time of K1, of
+K10 and of the weight gradients (K4, its pair lists apart, and K11;
 ``chip_smoke.kernel_ms``), the device busy time against the wall time of
 the profiled window (the device's idle share), and the
 kernel launch count.  The host plan stays outside the window: it runs no
@@ -84,7 +84,8 @@ def main() -> int:
     print(f"layout: {args.layout}")
     print(avgs.table(sort_by="self_device_time_total", row_limit=30))
     km = C.kernel_ms(events)
-    print(f"K1 {km['K1']:.2f}, K2 {km['K2']:.4f}, K3 {km['K3']:.4f} ms; "
+    print(f"K1 {km['K1']:.2f}, K2 {km['K2']:.4f}, K3 {km['K3']:.4f}, "
+          f"K10 {km['K10']:.2f} ms; "
           f"weight gradients: K4 {km['K4']:.2f} ms (+ "
           f"pair lists {km['K4 pair lists']:.2f}), K11 {km['K11']:.2f} ms of "
           f"device time")

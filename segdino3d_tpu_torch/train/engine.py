@@ -90,8 +90,9 @@ def train_loop(*, step_fn: Callable, state: TrainState, train_loader,
     ``parallel.train_step.TrainStep`` (or anything with its call and its
     ``host_metrics``); a loader batch that is one ``SceneBatch`` is one
     microbatch.  ``profile_steps=(start, stop)`` traces those steps into
-    ``work_dir/profile`` (``utils.profiling``).  The step's generator
-    lives on the model's device."""
+    ``work_dir/profile`` (``utils.profiling``) and logs K1's and K10's
+    offset chunks in them.  The step's generator lives on the model's
+    device."""
     log = logger.info if logger else print
     metric_logger = MetricLogger(logger=logger)
     device = next(state.model.parameters()).device
@@ -114,6 +115,7 @@ def train_loop(*, step_fn: Callable, state: TrainState, train_loader,
             for step in range(start_step, num_iterations):
                 if profile_steps and work_dir and step == profile_steps[0]:
                     profiling.start_trace(os.path.join(work_dir, "profile"))
+                    chunks_before = profiling.conv_chunk_counts()
                     log(f"profiling steps {profile_steps[0]}.."
                         f"{profile_steps[1]} -> {work_dir}/profile")
                     t_end = time.time()   # the data time is the loader's
@@ -137,6 +139,8 @@ def train_loop(*, step_fn: Callable, state: TrainState, train_loader,
                 if profile_steps and work_dir and step == profile_steps[1]:
                     path = profiling.stop_trace()
                     log(f"profile trace: {path}")
+                    log("profiled steps: "
+                        + profiling.conv_chunk_summary(chunks_before))
                     log(profiling.device_memory_summary())
                 if saves and save_step and (step + 1) % save_step == 0:
                     if writer:

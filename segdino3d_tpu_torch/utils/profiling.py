@@ -9,7 +9,12 @@ Counterpart of ``segdino3d_tpu/utils/profiling.py``:
 * ``trace(dir)``: the same around a block;
 * ``annotate(name)``: a named range in the trace (``record_function``);
 * ``device_memory_summary()``: memory in use and peak memory of the card,
-  from ``torch.cuda``'s statistics.
+  from ``torch.cuda``'s statistics;
+* ``conv_chunk_counts()`` / ``conv_chunk_summary(before)``: K1's and K10's
+  pair-major calls and the offset chunks they ran in
+  (``SEGDINO_CONV_CHUNK_MB``), from their wrappers' counts (the train
+  loop logs them for its profiled steps: each chunk is two CUDA launches
+  in the trace).
 
 The JAX package's ``start_server`` (a live trace server) has no
 counterpart here.
@@ -81,3 +86,27 @@ def device_memory_summary() -> str:
         lines.append(f"cuda:{i} ({torch.cuda.get_device_name(i)}): "
                      f"{used:.3f} GiB in use, {peak:.3f} GiB peak")
     return "\n".join(lines)
+
+
+def conv_chunk_counts() -> dict:
+    """{kernel: (pair-major calls, their offset chunks)} of K1
+    (``gather_gemm_conv``) and K10 (``block_conv``) in this process so
+    far: a call whose scratch fits ``SEGDINO_CONV_CHUNK_MB`` runs in one
+    chunk, one past it in more (``sparse_conv.offset_chunks``)."""
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    k1, k10 = SC.gather_conv, BD.block_conv
+    return {"gather_gemm_conv": (k1.launches - k1.narrow.launches,
+                                 k1.chunks.launches),
+            "block_conv": (k10.live.launches - k10.live_rows.launches,
+                           k10.chunks.launches)}
+
+
+def conv_chunk_summary(before: dict) -> str:
+    """The pair-major calls and offset chunks since ``before`` (a
+    ``conv_chunk_counts()``)."""
+    now = conv_chunk_counts()
+    return "; ".join(f"{k} {now[k][0] - before[k][0]} pair-major calls in "
+                     f"{now[k][1] - before[k][1]} offset chunks"
+                     for k in now)

@@ -236,6 +236,48 @@ def test_train_loop_logs_saves_and_evaluates(tmp_path):
         "step_0000000002.pth", "step_0000000004.pth", "step_0000000005.pth"]
 
 
+def test_train_loop_logs_the_profiled_steps_offset_chunks(tmp_path,
+                                                         monkeypatch):
+    """Over ``profile_steps`` the loop logs K1's and K10's pair-major
+    calls and their offset chunks from the wrappers' counts (here a step
+    that counts as two K1 calls in three chunks and one K10 call in one;
+    CPU tensors launch nothing)."""
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+    from segdino3d_tpu_torch.train.engine import train_loop
+
+    counters = (SC.gather_conv, SC.gather_conv.chunks, BD.block_conv.live,
+                BD.block_conv.chunks)
+    for c in counters:
+        monkeypatch.setattr(c, "launches", c.launches)
+    state = _state()
+    inner, lines = _FakeStep(state), []
+
+    class Step:
+        host_metrics = staticmethod(inner.host_metrics)
+
+        def __call__(self, mbs, generator=None):
+            for c, n in zip(counters, (2, 3, 1, 1)):
+                c.launches += n
+            return inner(mbs, generator=generator)
+
+    class Log:
+        def info(self, msg):
+            lines.append(msg)
+
+    class Loader:
+        def __iter__(self):
+            while True:
+                yield [object()]
+
+    train_loop(step_fn=Step(), state=state, train_loader=Loader(),
+               num_iterations=4, logger=Log(), print_freq=1, save_step=0,
+               work_dir=str(tmp_path), profile_steps=(1, 2))
+    assert "profiled steps: gather_gemm_conv 4 pair-major calls in 6 " \
+        "offset chunks; block_conv 2 pair-major calls in 2 offset " \
+        "chunks" in lines
+
+
 # --------------------------------------------------------------------------
 # the eval batch cache
 # --------------------------------------------------------------------------

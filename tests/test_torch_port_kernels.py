@@ -1883,3 +1883,91 @@ def test_live_rows_overflow_raises(card):
             runs[0].stderr[-2000:]
         assert runs[1].returncode != 0 and "done" not in runs[1].stdout
         assert "assert" in runs[1].stderr.lower(), runs[1].stderr[-2000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    (c, d) for c in ("k1_stem", "k1_k3", "k1_wide_stem", "k10_stem",
+                     "k10_k3", "k10_k3_dx")
+    for d in ("float32", "bfloat16")
+    if not (c == "k1_wide_stem" and d == "float32")])
+@pytest.mark.parametrize("chunk", ["one_offset", "two_offsets", "uneven"])
+def test_offset_chunks_bit_equal(monkeypatch, levels, case, chunk, dtype):
+    """K1's wide path (the k5 stem, a k3 conv, the bf16 wide stem at the
+    264 pitch) and K10's pair-major form (the dense k5 stem, a k3 conv and
+    its dX over the dilation's list) with a ``SEGDINO_CONV_CHUNK_MB``
+    budget that cuts the offsets
+    into chunks of one offset, of two, or into chunks whose last is
+    shorter: each chunk runs (the counter), and the output equals the
+    call in one chunk bit for bit (the same fp32 additions in the same
+    order, through the carry), and its plain version within the usual
+    tolerance (the wide stem is bf16 alone)."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    lib = TSC.cuda_build
+    if case.startswith("k1_"):
+        lv = levels.levels
+        nbr = lv[0].nbr if case == "k1_k3" else levels.stem_nbr
+        valid = lv[0].valid
+        cin, cout = {"k1_stem": (35, 32), "k1_k3": (48, 96),
+                     "k1_wide_stem": (264, 32)}[case]
+        n_off, cap = nbr.shape[0], nbr.shape[1]
+        x = torch.randn(CAPS[0], cin, generator=gen, device="cuda").to(dt)
+        w = (torch.randn(n_off, cin, cout, generator=gen, device="cuda")
+             * (n_off * cin) ** -0.5).to(dt)
+        stride = lib.library("gather_gemm_conv").gather_conv_pair_stride(cout)
+
+        def call():
+            return TSC.gather_conv(x, nbr, w, valid)
+
+        counter = TSC.gather_conv.chunks
+        plain = TSC.gather_conv_plain(x, nbr, w, valid)
+    else:
+        t = _block_plan_on("cuda", [4] * 5).blocks[0]
+        t = TBD.BlockTables(t.vox_slot, t.block_nbr, t.slot_vox, t.edge)
+        occ = TBD.occupancy(t)
+        k = 5 if case == "k10_stem" else 3
+        n_off = k ** 3
+        cin, cout = (35, 32) if k == 5 else (40, 96)
+        dx = case == "k10_k3_dx"
+        mask, rows = TBD.dilation(t, occ, 3) if dx else \
+            (occ, TBD.row_list(t, occ))
+        lp = TBD.dilation_pairs(t, occ, 3) if dx else \
+            TBD.live_pairs(t, occ, k)
+        cap = lp.src.shape[1]
+        x = torch.where(occ[:, None], torch.randn(
+            occ.shape[0], cin, generator=gen, device="cuda"), 0.0).to(dt)
+        w = (torch.randn(n_off, cin, cout, generator=gen, device="cuda")
+             * (n_off * cin) ** -0.5).to(dt)
+        stride = lib.library("block_conv").block_conv_live_stride(
+            cout, lib.dtype_code(dt))
+
+        def call():
+            return TBD.block_conv(x, t.block_nbr, w, mask, t.edge, rows,
+                                  zero_outside=True, live=True, live_list=lp,
+                                  form=TN.PAIR_MAJOR)
+
+        counter = TBD.block_conv.chunks
+        plain = TBD.dense_subm_conv_plain(x, t.block_nbr, w,
+                                          None if dx else mask, t.edge)
+    per = {"one_offset": 1, "two_offsets": 2, "uneven": 4}[chunk]
+    def offsets_fit(n):     # SEGDINO_CONV_CHUNK_MB at n offsets' scratch
+        monkeypatch.setenv("SEGDINO_CONV_CHUNK_MB",
+                           repr(cap * stride * 4 * n / 2 ** 20))
+
+    offsets_fit(per)
+    chunks = TSC.offset_chunks(n_off, cap, stride)
+    if chunk == "uneven":
+        assert chunks[-1][1] - chunks[-1][0] < chunks[0][1] - chunks[0][0]
+    assert len(chunks) > 1
+    before = counter.launches
+    offsets_fit(n_off)
+    whole = call()
+    assert counter.launches == before + 1
+    offsets_fit(per)
+    cut = [call() for _ in range(2)]
+    assert counter.launches == before + 1 + 2 * len(chunks)
+    torch.cuda.synchronize()
+    assert torch.equal(cut[0], whole) and torch.equal(cut[1], whole)
+    torch.testing.assert_close(whole.float(), plain.float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
