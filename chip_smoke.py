@@ -557,9 +557,10 @@ def conv_case(cases, gen, name, vin, nbr, valid, cin, cout, wide=False,
     path (the pair-major schedule) forced and timed beside it as a
     yardstick.  A bf16 stem (``narrow.wide_stem``) runs at the aligned
     pitch, as the backbone gives it (its input and weight zero past
-    Cin).  With ``one_chunk``, the call in one offset chunk (the budget
-    lifted) is held bit-equal to the call in the budget's chunks and timed
-    beside it."""
+    Cin).  With ``one_chunk``, the pair-major form in one offset chunk
+    (the budget lifted) is held bit-equal to it in the budget's chunks and
+    timed beside the rule's call."""
+    from segdino3d_tpu_torch.ops import narrow as N
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
     per = {}
@@ -572,9 +573,10 @@ def conv_case(cases, gen, name, vin, nbr, valid, cin, cout, wide=False,
                  lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid,
                                                  narrow=False)} if wide else {}
         if one_chunk:
-            extra["in one chunk"] = check_one_chunk(
+            extra["the pair-major form in one chunk"] = check_one_chunk(
                 "gather_gemm_conv", name, dt, SC.gather_conv.chunks,
-                lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid))
+                lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid,
+                                                form=N.PAIR_MAJOR))
         per[dt] = (lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid),
                    lambda x=x, w=w: SC.gather_conv_plain(x, nbr, w, valid),
                    lambda x=x, w=w: conv_library(x, nbr, w),
@@ -583,6 +585,69 @@ def conv_case(cases, gen, name, vin, nbr, valid, cin, cout, wide=False,
                    + nbr.shape[1] * cout * x.element_size(), CONV_PEAK[dt],
                    extra)
     cases.append(("gather_gemm_conv", name, per))
+
+
+def rows_case(cases, gen, name, vin, nbr, valid, cin, cout, scale=False):
+    """K1's row-group form (``gather_conv_rows``) forced, fp32 and bf16 (a
+    bf16 stem at the aligned pitch): held to its plain version, in fp32 to
+    the pair-major form bit for bit, and timed beside the pair-major form.
+    ``narrow.rows_smem_bytes`` must equal the kernel's shared memory.  With ``scale`` (phase 12's shapes,
+    under its budget) the pair-major form is also timed in one chunk, and
+    the call must request no memory but its output (the table's pair list
+    built before)."""
+    from segdino3d_tpu_torch.ops import cuda_build
+    from segdino3d_tpu_torch.ops import narrow as N
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    per = {}
+    hits = int((nbr >= 0).sum())
+    for dt in (torch.float32, torch.bfloat16):
+        x = pitched(_randn(gen, (vin, cin), dt), 1)
+        w = pitched(_randn(gen, (nbr.shape[0], cin, cout), dt,
+                           (nbr.shape[0] * cin) ** -0.5), 1)
+
+        def run(form, x=x, w=w):
+            return lambda: SC.gather_conv(x, nbr, w, valid, form=form)
+
+        extra = {"the pair-major form": run(N.PAIR_MAJOR)}
+        if scale:
+            extra["the pair-major form in one chunk"] = in_one_chunk(
+                run(N.PAIR_MAJOR))
+            grown = {f: requested_growth(run(f))[1] - vin * cout
+                     * x.element_size() for f in (N.ROW_GROUPS, N.PAIR_MAJOR)}
+            print(f"gather_conv_rows [{name}] {str(dt)[6:]}: memory requested "
+                  f"past the output: row groups {grown[N.ROW_GROUPS]} bytes, "
+                  f"the pair-major form {grown[N.PAIR_MAJOR] / 2 ** 20:.1f} "
+                  "MiB", flush=True)
+            if grown[N.ROW_GROUPS]:
+                raise SystemExit(f"gather_conv_rows [{name}]: the row groups "
+                                 "allocated past their output")
+            gathered = hits * cin * x.element_size() + nbytes(nbr, w, valid) \
+                + nbr.shape[1] * cout * x.element_size()
+            print(f"gather_conv_rows [{name}] {str(dt)[6:]}: bound counting "
+                  f"each pair's gathered row {gathered} bytes, "
+                  f"{bound(2.0 * hits * cin * cout, gathered, CONV_PEAK[dt])}"
+                  , flush=True)
+        want = cuda_build.library("gather_gemm_conv").gather_conv_rows_smem(
+            nbr.shape[0], cout, int(dt == torch.bfloat16))
+        if N.rows_smem_bytes(nbr.shape[0], cout, dt) != want:
+            raise SystemExit(f"narrow.rows_smem_bytes of [{name}] differs "
+                             f"from the kernel's {want}")
+        if dt == torch.float32:
+            same = torch.equal(run(N.ROW_GROUPS)(), run(N.PAIR_MAJOR)())
+            print(f"gather_conv_rows [{name}] float32 against the pair-major "
+                  f"form: {'bit-equal' if same else 'MISMATCH'}", flush=True)
+            if not same:
+                raise SystemExit(f"gather_conv_rows [{name}]: the row groups "
+                                 "differ from the pair-major form")
+        per[dt] = (run(N.ROW_GROUPS),
+                   lambda x=x, w=w: SC.gather_conv_plain(x, nbr, w, valid),
+                   lambda x=x, w=w: conv_library(x, nbr, w),
+                   2.0 * hits * cin * cout,
+                   nbytes(x, nbr, w, valid)
+                   + nbr.shape[1] * cout * x.element_size(), CONV_PEAK[dt],
+                   extra)
+    cases.append(("gather_conv_rows", name, per))
 
 
 def up_case(cases, gen, name, coarse, fine, cin, cout):
@@ -719,6 +784,10 @@ def kernel_cases(batch, s_cap, gen):
     for li, c in ((1, 96), (2, 64), (3, 128), (4, 256)):
         conv_case(cases, gen, f"subm k3 {c}->{c} L{li}",
                   lv[li].valid.shape[0], lv[li].nbr, lv[li].valid, c, c)
+    rows_case(cases, gen, "stem k5 259->32 L0", v0, plan.stem_nbr,
+              lv[0].valid, 259, 32)
+    rows_case(cases, gen, "subm k3 96->96 L0", v0, lv[0].nbr, lv[0].valid,
+              96, 96)
     conv_case(cases, gen, "down 32->32 L0->L1", v0, lv[0].child, lv[1].valid,
               32, 32)
     conv_case(cases, gen, "down 128->128 L3->L4", lv[3].valid.shape[0],
@@ -1165,6 +1234,10 @@ def profiled_events(fn, lead):
 
     for attempt in range(6):
         torch.cuda.synchronize()
+        # the allocator's cached blocks back to the card: after phase 12's
+        # one-chunk calls (10 GB of scratch each) they left the profiler
+        # too little device memory to keep a trace's events
+        torch.cuda.empty_cache()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             lead()
             torch.cuda.synchronize()
@@ -1373,7 +1446,7 @@ def plan_engine_cases(batch, level_caps):
 
 # kernels whose sums have one fixed order: two calls must be bit-equal
 BIT_EQUAL = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
-             "segment_grad", "block_conv_live_rows")
+             "segment_grad", "block_conv_live_rows", "gather_conv_rows")
 # kernels whose CUDA-event time is mostly the wrapper's host dispatch (and
 # K5): their profiled device time and operations are printed beside it
 HOST_BOUND = ("coord_hash", "neighbor_table", "voxel_compact",
@@ -1403,7 +1476,7 @@ def launch_floor():
     return time_ms(empty), device_ops(empty)[1] / 1e3
 
 
-def check_kernels(cases):
+def check_kernels(cases, profile_extras=True):
     """Compare, then time; returns per-kernel rows (headline = first case
     of each kernel, fp32, or bf16 for a kernel with no fp32 case) and the
     max error over each kernel's cases (of that dtype).  A
@@ -1414,7 +1487,8 @@ def check_kernels(cases):
     events and profiled device time) and printed beside it.  ``kernel_fn`` may be a pair (timed, compared): the
     wrapper call alone, and the same call with what turns its outputs into
     one tensor to compare.  The outputs of K1, K2 and K3 must also be
-    bit-equal between two calls (their sums have a fixed order)."""
+    bit-equal between two calls (their sums have a fixed order).  Without
+    ``profile_extras`` the yardsticks get their CUDA-event time alone."""
     rows, floor = {}, None
     for kernel, name, per in cases:
         for dt, (kfn, pfn, lfn, ops, byts, peak, *opt) in per.items():
@@ -1441,8 +1515,9 @@ def check_kernels(cases):
             l_ms = None if lfn is None else time_ms(lfn)
             extra_ms = {k: time_ms(fn, 3) for k, fn in extra.items()}
             extra_text = "".join(
-                f", {k} {extra_ms[k]:.4f} ms (profiled device time "
-                f"{device_ops(fn)[1] / 1e3:.4f} ms)" for k, fn in extra.items())
+                f", {k} {extra_ms[k]:.4f} ms" + (
+                    f" (profiled device time {device_ops(fn)[1] / 1e3:.4f} ms)"
+                    if profile_extras else "") for k, fn in extra.items())
             if kernel in HOST_BOUND:
                 launched, us = device_ops(kfn)
                 if floor is None:
@@ -2030,8 +2105,12 @@ def counters():
             # of K1's and K10's launches, those on the narrow path (the
             # Baseline's 3-channel stem)
             "gather_gemm_conv narrow": (SC.gather_conv.narrow,),
-            # of K1's launches, those on the bf16 wide-stem path
+            # of K1's launches, those at a bf16 wide stem's shape
             "gather_gemm_conv wide stem": (SC.gather_conv.wide_stem,),
+            # of K1's launches, those in the row-group form
+            # (csrc/live_rows.cuh, gather_conv_rows: one launch a call), which
+            # has its own entry in the kernels line
+            "gather_conv_rows": (SC.gather_conv.row_groups,),
             "up_conv": (SC.up_conv_rows,),
             "segment_mean_gather": (SS.segment_mean_gather,),
             # the CSR of K3's segments (two launches around torch.sort),
@@ -3148,7 +3227,7 @@ CLI_STEP_KERNELS = {
     "block_wgrad": ("block_wgrad_kernel", "block_wgrad_narrow_kernel"),
     "gather_gemm_conv": ("conv_products_kernel", "conv_pair_sum_kernel",
                          "gather_conv_narrow_kernel",
-                         "conv_products_wg_kernel"),
+                         "conv_products_wg_kernel", "conv_rows_kernel"),
     "up_conv": ("up_conv_kernel",),
     "gather_wgrad": ("gather_wgrad_kernel", "gather_wgrad_narrow_kernel"),
     "segment_mean_gather": ("segment_mean_kernel",),
@@ -4598,7 +4677,7 @@ OWN_KERNELS = ("block_conv_kernel", "block_conv_narrow_kernel",
                "block_wgrad_kernel", "block_wgrad_narrow_kernel",
                "build_lookup_kernel", "count_live_kernel", "list_live_kernel",
                "live_products_kernel", "live_products_wg_kernel",
-               "live_sum_kernel", "live_rows_kernel",
+               "live_sum_kernel", "live_rows_kernel", "conv_rows_kernel",
                "conv_pair_sum_kernel", "conv_products_kernel",
                "conv_products_wg_kernel", "count_pairs_kernel",
                "count_rows_kernel", "csr_keys_kernel", "csr_offsets_kernel",
@@ -5095,15 +5174,18 @@ def l0_layout(plan):
 
 
 def conv_chunks(plan, dtype):
-    """[(conv, calls a forward, offset chunks a call, its scratch bytes in
-    one chunk, in the budget's chunks)] of the pair-major convs of one eval
-    forward on ``plan`` (the flagship's hybrid layout) in ``dtype``: K1's
-    stem, its k3 convs on a gather level and its down convs, and K10's k3
-    convs where ``narrow.live_path`` and ``narrow.live_form`` take K1's
-    pair-major form; the scratch of a chunk of c offsets of cap pairs at a
-    stride of s columns: its products (c x cap x s fp32), its index map or
-    nothing (K1: c x cap int32) and the carry (cap x s fp32, or K10's listed
-    rows' where more than one chunk)."""
+    """[(conv, calls a forward, its form, offset chunks a call, its
+    scratch bytes in one chunk, in the budget's chunks)] of K1's and K10's
+    wide live-pair convs of one eval forward on ``plan`` (the flagship's
+    hybrid layout) in ``dtype``: K1's stem, its k3 convs on a gather level
+    and its down convs (``narrow.gather_form`` at the table's rows), and
+    K10's k3 convs where ``narrow.live_path`` takes them
+    (``narrow.live_form`` at the level's capacity).  The row-group form
+    runs no chunk (0) and allocates no scratch; the pair-major form's
+    scratch of a chunk of c offsets of cap pairs at a stride of s columns:
+    its products (c x cap x s fp32), its index map or nothing (K1: c x cap
+    int32) and the carry (cap x s fp32, or K10's listed rows' where more
+    than one chunk)."""
     from segdino3d_tpu_torch.ops import block_dense as BD
     from segdino3d_tpu_torch.ops import cuda_build
     from segdino3d_tpu_torch.ops import narrow as N
@@ -5114,32 +5196,61 @@ def conv_chunks(plan, dtype):
     k10 = cuda_build.library("block_conv").block_conv_live_stride
     lv, out = plan.levels, []
 
-    def add(name, calls, n_off, cap, stride, carry_rows, pos):
+    def add(name, calls, form, n_off, cap, stride, carry_rows, pos):
+        if form == N.ROW_GROUPS:
+            out.append((name, calls, form, 0, 0, 0))
+            return
         chunks = SC.offset_chunks(n_off, cap, stride)
         most = max(o1 - o0 for o0, o1 in chunks)
         whole = n_off * cap * (stride * 4 + 4 * pos)
         cut = most * cap * (stride * 4 + 4 * pos) + (
             carry_rows * stride * 4 if len(chunks) > 1 else 0)
-        out.append((name, calls, len(chunks), whole, cut))
+        out.append((name, calls, form, len(chunks), whole, cut))
+
+    def k1_form(n_off, cin, cout, v):
+        return N.gather_form(n_off, cin, cout, dtype, cap=v)
 
     v0 = lv[0].valid.shape[0]
-    add("K1 stem k5 259->32 L0", 1, 125, v0, k1(32), v0, True)
+    add("K1 stem k5 259->32 L0", 1, k1_form(125, 259, 32, v0), 125, v0,
+        k1(32), v0, True)
     for li, cin, cout, n in K3_CONVS:
         t = plan.blocks[li] if plan.blocks else None
         if t is None:
             v = lv[li].valid.shape[0]
-            add(f"K1 k3 {cin}->{cout} L{li}", n, 27, v, k1(cout), v, True)
+            add(f"K1 k3 {cin}->{cout} L{li}", n, k1_form(27, cin, cout, v),
+                27, v, k1(cout), v, True)
             continue
         cap = BD.live_capacity(t)
-        if N.live_path(27, cin, cout, dtype, True, cap=cap) and \
-                N.live_form(3, dtype, cap=cap) == N.PAIR_MAJOR:
-            add(f"K10 k3 {cin}->{cout} L{li}", n, 27, cap,
-                k10(cout, cuda_build.dtype_code(dtype)), cap, False)
+        if N.live_path(27, cin, cout, dtype, True, cap=cap):
+            add(f"K10 k3 {cin}->{cout} L{li}", n, N.live_form(3, dtype,
+                                                               cap=cap),
+                27, cap, k10(cout, cuda_build.dtype_code(dtype)), cap, False)
     for li, cin, cout in DOWN_CONVS:
         v = lv[li + 1].valid.shape[0]
-        add(f"K1 down {cin}->{cout} L{li}->L{li + 1}", 1, 8, v, k1(cout), v,
-            True)
+        add(f"K1 down {cin}->{cout} L{li}->L{li + 1}", 1,
+            k1_form(8, cin, cout, v), 8, v, k1(cout), v, True)
     return out
+
+
+class pair_major_only:
+    """Within it K1 and K10 take the pair-major form wherever the rule
+    would take the row groups (``narrow.K1_ROW_GROUPS_MIN_CAP`` and
+    ``ROW_GROUPS_MIN_CAP`` emptied): the yardstick of phase 12's device
+    times and peaks."""
+
+    def __enter__(self):
+        from segdino3d_tpu_torch.ops import narrow as N
+
+        self.saved = (dict(N.K1_ROW_GROUPS_MIN_CAP),
+                      dict(N.ROW_GROUPS_MIN_CAP))
+        N.K1_ROW_GROUPS_MIN_CAP.clear()
+        N.ROW_GROUPS_MIN_CAP.clear()
+
+    def __exit__(self, *exc):
+        from segdino3d_tpu_torch.ops import narrow as N
+
+        N.K1_ROW_GROUPS_MIN_CAP.update(self.saved[0])
+        N.ROW_GROUPS_MIN_CAP.update(self.saved[1])
 
 
 class chunk_mb:
@@ -5169,7 +5280,8 @@ def scale_cases(batch, s_cap, tag, gen):
     from the points' colours and 2D features and its superpoint pool.
     Each K1 call, and K10 in the pair-major form (forced where the rule
     takes another), also runs in one offset chunk, bit-equal to the
-    budget's chunks and timed beside them."""
+    budget's chunks and timed beside them; K1's and K10's fp32 row groups
+    are held bit-equal to the pair-major form."""
     import torch.nn.functional as F
 
     from segdino3d_tpu_torch.ops import block_dense as BD
@@ -5181,9 +5293,13 @@ def scale_cases(batch, s_cap, tag, gen):
     cases = []
     conv_case(cases, gen, f"{tag} stem k5 259->32 L0, V0 cap {v0}", v0,
               plan.stem_nbr, lv[0].valid, 259, 32, one_chunk=True)
+    rows_case(cases, gen, f"{tag} stem k5 259->32 L0, V0 cap {v0}", v0,
+              plan.stem_nbr, lv[0].valid, 259, 32, scale=True)
     if lv[0].nbr is not None:
         conv_case(cases, gen, f"{tag} subm k3 96->96 L0, V0 cap {v0}", v0,
                   lv[0].nbr, lv[0].valid, 96, 96, one_chunk=True)
+        rows_case(cases, gen, f"{tag} subm k3 96->96 L0, V0 cap {v0}", v0,
+                  lv[0].nbr, lv[0].valid, 96, 96, scale=True)
     li = next(i for i, t in enumerate(plan.blocks) if t is not None)
     t = plan.blocks[li]
     occ = BD.occupancy(t)
@@ -5220,6 +5336,27 @@ def scale_cases(batch, s_cap, tag, gen):
             "block_conv", name, dt, BD.block_conv.chunks, pair_major)}
         if form != N.PAIR_MAJOR:
             extra["the pair-major form (forced)"] = pair_major
+        if form != N.ROW_GROUPS:
+            extra["the row-group form (forced)"] = (
+                lambda x=x, w=w: BD.block_conv(
+                    x, nb, w, occ, e, rlist, zero_outside=True, live=True,
+                    live_list=lp, form=N.ROW_GROUPS))
+        if dt == torch.float32:
+            same = torch.equal(BD.block_conv(
+                x, nb, w, occ, e, rlist, zero_outside=True, live=True,
+                live_list=lp, form=N.ROW_GROUPS), pair_major())
+            print(f"block_conv [{name}] float32: the row-group form against "
+                  f"the pair-major form in the budget's chunks: "
+                  f"{'bit-equal' if same else 'MISMATCH'}", flush=True)
+            if not same:
+                raise SystemExit(f"block_conv [{name}]: the row groups differ "
+                                 "from the pair-major form")
+        gathered = need * 96 * x.element_size() + nbytes(w) + 4 * n_list \
+            + occ.shape[0] * 96 * x.element_size()
+        print(f"block_conv [{name}] {str(dt)[6:]}: bound counting each "
+              f"pair's gathered row {gathered} bytes, "
+              f"{bound(2.0 * need * 96 * 96, gathered, CONV_PEAK[dt])}",
+              flush=True)
         per[dt] = ((lambda x=x, w=w, rule=rule, form=form: BD.block_conv(
                         x, nb, w, occ, e, rlist, zero_outside=True,
                         live=rule, live_list=lp, form=form)),
@@ -5251,7 +5388,7 @@ def scale_cases(batch, s_cap, tag, gen):
                       + 4 * (27 * n_list + 2 * need + 27), "fp32", 0.0)}))
     voxel_mean_cases(cases, gen, plan, plan.inverse.shape[0], tag=f"{tag} ")
     pool_case(cases, gen, batch, s_cap, 96, tag=f"{tag} ")
-    return check_kernels(cases)
+    return check_kernels(cases, profile_extras=False)
 
 
 def scale_eval(model, test_cfg, records, spec, plan_args, n_timed, what):
@@ -5301,6 +5438,8 @@ def scale_eval(model, test_cfg, records, spec, plan_args, n_timed, what):
         torch.cuda.synchronize()
 
     ms = kernel_ms(profiled_events(forward, forward))
+    with pair_major_only():
+        ms_pm = kernel_ms(profiled_events(forward, forward))
     n = len(records)
     stages = {k: 1e3 * float(np.mean([t[k] for t in times])) for k in times[0]}
     total = float(np.mean([sum(t.values()) for t in times]))
@@ -5313,6 +5452,10 @@ def scale_eval(model, test_cfg, records, spec, plan_args, n_timed, what):
           f"{peak / 2 ** 30:.3f} GiB; one profiled forward, device ms by "
           "kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()
                                  if k != "row-list launches"), flush=True)
+    print(f"{what}: device ms a forward, the rule's forms / every K1 and K10 "
+          f"conv in the pair-major form: all {ms['device']:.4f} / "
+          f"{ms_pm['device']:.4f}, K1 {ms['K1']:.4f} / {ms_pm['K1']:.4f}, "
+          f"K10 {ms['K10']:.4f} / {ms_pm['K10']:.4f}", flush=True)
     for k in ("cls_preds", "masks", "sem_preds", "centers", "sizes"):
         if out[k].shape[0] != n or not bool(torch.isfinite(out[k]).all()):
             raise SystemExit(f"{what}: {k} of shape {tuple(out[k].shape)} "
@@ -5324,9 +5467,10 @@ def check_scale_counts(launches, plan, dtype, what):
     """The launches of one scaled forward: K1 at the stem, each k3 conv of
     a gather level and the four down convs; K10 at each k3 conv of a
     block-dense level; K2 at the four up convs; K3 twice, its CSR twice;
-    the lists and the slot gather where a level is block-dense; and each
+    the lists and the slot gather where a level is block-dense; each
     offset chunk that ``conv_chunks`` predicts, counted by K1's and K10's
-    wrappers."""
+    wrappers, and each call it puts in the row-group form."""
+    from segdino3d_tpu_torch.ops import narrow as N
     from segdino3d_tpu_torch.tools.conv_bench import K3_CONVS
 
     dense = [li for li, t in enumerate(plan.blocks) if t is not None]
@@ -5337,52 +5481,68 @@ def check_scale_counts(launches, plan, dtype, what):
                                   if li in dense),
                 "block_rows": len(dense), **NO_NARROW}
     chunks = conv_chunks(plan, dtype)
-    for kernel, tag in (("gather_gemm_conv", "K1"), ("block_conv", "K10")):
-        expected[f"{kernel} chunks"] = sum(
-            calls * n for name, calls, n, _, _ in chunks
-            if name.startswith(tag + " "))
+    for kernel, tag, rows in (("gather_gemm_conv", "K1", "gather_conv_rows"),
+                              ("block_conv", "K10", "block_conv_live_rows")):
+        mine = [c for c in chunks if c[0].startswith(tag + " ")]
+        expected[f"{kernel} chunks"] = sum(calls * n
+                                           for _, calls, _, n, _, _ in mine)
+        expected[rows] = sum(calls for _, calls, form, _, _, _ in mine
+                             if form == N.ROW_GROUPS)
     check_counts(launches, expected, what)
     for kernel in ("slot_gather", "block_live_pairs") if dtype == \
             torch.float32 else ("slot_gather",):
         if not launches[kernel]:
             raise SystemExit(f"{what}: {kernel} never launched")
-    print(f"{what}: offset chunks a call at "
+    print(f"{what}: each conv's form and offset chunks a call at "
           f"{float(os.environ.get('SEGDINO_CONV_CHUNK_MB', 1024)):g} MiB: "
-          + "; ".join(f"{name} x{calls}: {n} ({whole / 2 ** 20:.1f} MiB of "
-                      f"scratch in one chunk, {cut / 2 ** 20:.1f} MiB in "
-                      "the budget's)"
-                      for name, calls, n, whole, cut in chunks), flush=True)
+          + "; ".join(f"{name} x{calls}: {form}, "
+                      + ("one launch, no scratch" if form == N.ROW_GROUPS
+                         else f"{n} chunks ({whole / 2 ** 20:.1f} MiB of "
+                         f"scratch in one chunk, {cut / 2 ** 20:.1f} MiB in "
+                         "the budget's)")
+                      for name, calls, form, n, whole, cut in chunks),
+          flush=True)
     return chunks
 
 
 def peak_against_one_chunk(model, batch, what):
-    """One fp32 forward of ``batch`` in the budget's offset chunks and one
-    in one chunk (the budget lifted; the plan, built before, keeps its
-    layout): each one's peak device memory, and their outputs bit-equal
-    (every conv's additions in the same order)."""
+    """One fp32 forward of ``batch`` in the rule's forms within the
+    budget's offset chunks, one with the budget lifted (one chunk a
+    pair-major conv; the plan, built before, keeps its layout) and one with
+    every K1 and K10 conv in the pair-major form in the budget's chunks:
+    each one's peak device memory, and their outputs bit-equal (every
+    conv's additions in the same order in each form and chunking)."""
+    import contextlib
+
     from segdino3d_tpu_torch.tools import wgrad_bench as WB
 
+    runs = (("the rule's forms, the budget's chunks", SCALE_CHUNK_MB,
+             contextlib.nullcontext),
+            ("one chunk", UNCHUNKED_MB, contextlib.nullcontext),
+            ("every conv pair-major, the budget's chunks", SCALE_CHUNK_MB,
+             pair_major_only))
     peaks, outs = [], []
-    for whole in (False, True):
+    for _, mb, forms in runs:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        with torch.no_grad(), chunk_mb(
-                UNCHUNKED_MB if whole else SCALE_CHUNK_MB):
+        with torch.no_grad(), chunk_mb(mb), forms():
             bb = model.backbone(batch)
             out = model.decode(batch, bb)
         torch.cuda.synchronize()
         peaks.append(torch.cuda.max_memory_allocated())
         outs.append((bb.sp_feats, out["cls_preds"], out["masks"]))
         del bb, out
-    same = all(torch.equal(a, b) for a, b in zip(*outs))
-    print(f"{what}: peak of one forward {peaks[0] / 2 ** 30:.3f} GiB in the "
-          f"budget's offset chunks, {peaks[1] / 2 ** 30:.3f} GiB in one "
-          f"chunk; sp_feats digests {WB.digest(outs[0][0])} / "
-          f"{WB.digest(outs[1][0])}, outputs "
-          f"{'bit-equal' if same else 'MISMATCH'}", flush=True)
+    same = all(all(torch.equal(a, b) for a, b in zip(outs[0], o))
+               for o in outs[1:])
+    print(f"{what}: peak of one forward "
+          + ", ".join(f"{p / 2 ** 30:.3f} GiB ({name})"
+                      for p, (name, _, _) in zip(peaks, runs))
+          + "; sp_feats digests "
+          + " / ".join(WB.digest(o[0]) for o in outs)
+          + f", outputs {'bit-equal' if same else 'MISMATCH'}", flush=True)
     if not same:
-        raise SystemExit(f"{what}: the chunked forward differs from the "
-                         "forward in one chunk")
+        raise SystemExit(f"{what}: the forward differs between forms or "
+                         "chunkings")
     return peaks
 
 
@@ -5744,6 +5904,10 @@ def main() -> int:
     meta = {
         "gather_gemm_conv": ("segdino3d_tpu_torch/csrc/gather_gemm_conv.cu",
                              "segdino3d_tpu/ops/sparse_conv.py:232"),
+        # K1 in row groups (one launch a conv, no pair-major buffer), the
+        # same JAX op
+        "gather_conv_rows": ("segdino3d_tpu_torch/csrc/live_rows.cuh",
+                             "segdino3d_tpu/ops/sparse_conv.py:232"),
         "up_conv": ("segdino3d_tpu_torch/csrc/up_conv.cu",
                     "segdino3d_tpu/ops/sparse_conv.py:447"),
         "segment_mean_gather": (
@@ -5800,6 +5964,14 @@ def main() -> int:
         elif name in plan_kernels:
             main_launches = dev_launches[name]
             train_launches[name] = train_dev_launches[name]
+        elif name == "gather_conv_rows":
+            # K1's row groups run where the rule sends them: phase 12's
+            # forwards (12a's fp32 first), the batch-1 paths where a
+            # level reaches the rule's cap
+            main_launches = next(
+                (ls[dt][name] for ls, _ in scale.values()
+                 for dt in (torch.float32, torch.bfloat16) if ls[dt][name]),
+                launches[name])
         elif name == "block_conv_live_rows":
             # the row-group kernel runs where the rule sends it: the bf16
             # step's L0 dX convs (phase 10b)

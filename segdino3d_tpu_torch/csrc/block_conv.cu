@@ -1281,11 +1281,10 @@ cudaError_t pair_major_conv(const void* x, const void* w, const int32_t* rows_ws
 // the conv over the list in row groups (live_rows.cuh)
 template <typename T, int BN>
 __global__ void __launch_bounds__(lrc::kThreads)
-live_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                 const int32_t* __restrict__ list, const int32_t* __restrict__ count,
-                 lrc::Pairs pairs, int32_t* __restrict__ ticket, T* __restrict__ out,
-                 int row_cap, int cin, int cout, int n_off) {
-  lrc::conv<T, BN>(x, w, list, count, pairs, ticket, out, row_cap, cin, cout, n_off);
+live_rows_kernel(const T* __restrict__ x, const T* __restrict__ w, lrc::ListRows rows,
+                 lrc::Words pw, lrc::ListSrc src, int32_t* __restrict__ ticket,
+                 T* __restrict__ out, int cin, int cout, int n_off) {
+  lrc::conv<T, BN>(x, w, rows, pw, src, ticket, out, cin, cout, n_off);
 }
 
 template <typename T, int BN>
@@ -1299,10 +1298,11 @@ cudaError_t launch_live_rows(const void* x, const void* w, const int32_t* rows_w
   int grid = 0;
   cudaError_t err = ntt::grid_of(kernel, lrc::kThreads, smem, max_items, &grid);
   if (err != cudaSuccess) return err;
-  const lrc::Pairs pairs{ws.src, ws.bits, ws.starts, ws.words, ws.pair_cap};
-  kernel<<<grid, lrc::kThreads, smem, s>>>(static_cast<const T*>(x), static_cast<const T*>(w),
-                                            rows_ws, rows_ws + n_rows, pairs, ws.ticket,
-                                            static_cast<T*>(out), ws.row_cap, cin, cout, n_off);
+  kernel<<<grid, lrc::kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      lrc::ListRows{rows_ws, rows_ws + n_rows, ws.row_cap},
+      lrc::Words{ws.bits, ws.starts, ws.words, ws.pair_cap}, lrc::ListSrc{ws.src, ws.pair_cap},
+      ws.ticket, static_cast<T*>(out), cin, cout, n_off);
   return cudaGetLastError();
 }
 

@@ -73,6 +73,25 @@
 // list or buffer, products at dead cells) was slower at both stems, by up
 // to three times, and was dropped (PERF.md section 6).
 //
+// The row-group form (gather_conv_rows, ops/narrow.py:gather_form picks it
+// by role, dtype and table size): the pair-major buffer moves every pair's
+// fp32 products twice, 2.2 GB each way at a batch of 8 scenes' level-0 k3
+// conv (5.6 M pairs at 96 columns), and past SEGDINO_CONV_CHUNK_MB its
+// chunks move an fp32 carry of every row once a chunk besides (27 chunks
+// of 240 MB there).  The row groups (live_rows.cuh, shared with K10's
+// live-pair path) keep the products in shared memory: an item is a group of
+// consecutive table rows and a column tile, each offset's pairs of the
+// group one range of the pair list (the list's per-word bits and starts,
+// gather_wgrad.cu:gather_pairs), their sources read from nbr, their
+// products added into the group's fp32 accumulator in ascending offset
+// order; one launch, no index map, no chunks, no carry, only the output
+// allocated.  fp32 sums each product and each row in the pair-major form's
+// order, so the two are bit-equal.  It won the paired measurement only at
+// the bf16 k3 convs of large tables (the batch of 8's level 0: 2.33 against
+// 5.42 ms in 27 chunks and 2.98 in one), where the rule takes it; the
+// pair-major form keeps fp32, the stems and the batch-1 tables (live_rows.cuh
+// says why).
+//
 // The narrow path (gather_conv_narrow, for a few input channels: the
 // Baseline's k5 stem, rgb 3 -> 32; ops/narrow.py picks it from the shape):
 // at Cin 3 every pair's 32 products are ten times as wide as its input, and
@@ -84,6 +103,7 @@
 // nothing (their output is 0).  The tiles cost alike (every row runs every
 // chunk its tile touches), so persistent blocks stride over them without a
 // ticket, and no scratch is allocated.
+#include "live_rows.cuh"
 #include "narrow_tile.cuh"
 #include "pair_major.cuh"
 
@@ -343,6 +363,62 @@ cudaError_t launch_narrow(const void* x, const void* nbr, const void* w, const v
   return cudaGetLastError();
 }
 
+// the row-group form (live_rows.cuh) over every row of the table
+template <typename T, int BN>
+__global__ void __launch_bounds__(lrc::kThreads)
+conv_rows_kernel(const T* __restrict__ x, const T* __restrict__ w, lrc::TableRows rows,
+                 lrc::Words pw, lrc::TableSrc src, int32_t* __restrict__ ticket,
+                 T* __restrict__ out, int cin, int cout, int n_off) {
+  lrc::conv<T, BN>(x, w, rows, pw, src, ticket, out, cin, cout, n_off);
+}
+
+// The word tables of gather_pairs' workspace (gather_wgrad.cu): after the
+// rows, the counts, the ticket and the per-block counts
+struct PairWs {
+  int32_t* ticket;
+  lrc::Words words;
+  PairWs(int32_t* ws, int v, int n_off) {
+    const int blocks = v > 0 ? (v + 4095) / 4096 : 1;
+    const int64_t n_words = (int64_t)blocks * 128;
+    int32_t* const counts = ws + (int64_t)n_off * v;
+    ticket = counts + n_off;
+    const int32_t* const block_counts = ticket + 1;
+    const int32_t* const bits = block_counts + (int64_t)n_off * blocks;
+    words = lrc::Words{reinterpret_cast<const uint32_t*>(bits), bits + n_off * n_words, n_words,
+                       v};
+  }
+};
+
+template <typename T, int BN>
+cudaError_t launch_rows(const void* x, const void* nbr, const void* w, const void* valid,
+                        const PairWs& ws, void* out, int v, int cin, int cout, int n_off,
+                        cudaStream_t s) {
+  auto kernel = conv_rows_kernel<T, BN>;
+  constexpr int R = lrc::Group<T>::R;
+  const size_t smem = lrc::smem_bytes<T, BN>(n_off);
+  const int64_t items = (int64_t)(v + R - 1) / R * ((cout + BN - 1) / BN);
+  int grid = 0;
+  cudaError_t err = ntt::grid_of(kernel, lrc::kThreads, smem, items, &grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, lrc::kThreads, smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      lrc::TableRows{static_cast<const uint8_t*>(valid), v}, ws.words,
+      lrc::TableSrc{static_cast<const int32_t*>(nbr), v}, ws.ticket, static_cast<T*>(out), cin,
+      cout, n_off);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t rows_bn(const void* x, const void* nbr, const void* w, const void* valid,
+                    const PairWs& ws, void* out, int v, int cin, int cout, int n_off,
+                    cudaStream_t s) {
+  switch (pair_bn(cout)) {
+    case 32: return launch_rows<T, 32>(x, nbr, w, valid, ws, out, v, cin, cout, n_off, s);
+    case 96: return launch_rows<T, 96>(x, nbr, w, valid, ws, out, v, cin, cout, n_off, s);
+    default: return launch_rows<T, 64>(x, nbr, w, valid, ws, out, v, cin, cout, n_off, s);
+  }
+}
+
 }  // namespace
 
 // The narrow path's dynamic shared memory a block (ops/narrow.py:smem_bytes
@@ -427,4 +503,36 @@ extern "C" int gather_conv_wg(const void* x, const void* nbr, const void* w, con
       err = launch_wg<128>(xb, nb, wb, va, pl, ps, pt, ch, ob, v, cin, cout, n_off, s);
   }
   return static_cast<int>(err);
+}
+
+// K1's row-group form: out[r] = sum over the offsets o ascending with
+// nbr[o][r] >= 0 of x[nbr[o][r]] @ w[o], 0 outside valid, in one launch
+// over groups of consecutive rows (lrc::Group: fp32 64, bf16 128).  pairs:
+// gather_pairs' workspace of nbr (its ticket 0, as every call leaves it).
+// dtype: 0 = float32, 1 = bfloat16.  Only out is written.  Returns the
+// launch's cudaError_t.
+extern "C" int gather_conv_rows(const void* x, const void* nbr, const void* w,
+                                const void* valid, void* pairs, void* out, int v, int cin,
+                                int cout, int n_off, int dtype, void* stream) {
+  if (v == 0 || cout == 0) return 0;
+  if (cin < 1) return cudaErrorInvalidValue;
+  const PairWs ws(static_cast<int32_t*>(pairs), v, n_off);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      dtype == 1 ? rows_bn<__nv_bfloat16>(x, nbr, w, valid, ws, out, v, cin, cout, n_off, s)
+                 : rows_bn<float>(x, nbr, w, valid, ws, out, v, cin, cout, n_off, s));
+}
+
+// A block's dynamic shared memory in the row-group form
+// (ops/narrow.py:rows_smem_bytes computes the same).  dtype: 0 = float32,
+// 1 = bfloat16.
+extern "C" int gather_conv_rows_smem(int n_off, int cout, int dtype) {
+  const int bn = pair_bn(cout);
+  if (dtype == 1)
+    return static_cast<int>(bn == 32   ? lrc::smem_bytes<__nv_bfloat16, 32>(n_off)
+                            : bn == 96 ? lrc::smem_bytes<__nv_bfloat16, 96>(n_off)
+                                       : lrc::smem_bytes<__nv_bfloat16, 64>(n_off));
+  return static_cast<int>(bn == 32   ? lrc::smem_bytes<float, 32>(n_off)
+                          : bn == 96 ? lrc::smem_bytes<float, 96>(n_off)
+                                     : lrc::smem_bytes<float, 64>(n_off));
 }

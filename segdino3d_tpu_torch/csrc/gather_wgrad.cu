@@ -22,6 +22,9 @@
 // (an absent table being the identity) are both >= 0, in ascending r: a
 // count pass and a list pass (per-block counts, then each block's offset
 // by a sum over the blocks before it), the counts left on the card.  The
+// count pass also stores one bit per (offset, row), whether the pair is
+// live, and the list pass per offset and 32-row word the pairs before the
+// word: K1's row groups (live_rows.cuh) find each group's pairs there.  The
 // wrapper builds the list once per table and step (a cache keyed on the
 // table).  The reduction is the shared weight-gradient tile core
 // (wgrad_tile.cuh) over those lists; its ticket is the word after the
@@ -43,8 +46,8 @@
 // bf16), rows contiguous; ia, ib (n_off, R) int32 with -1 for "no row", or
 // null for the identity (then A, resp. B, has at least R rows); ws the
 // pair list (gather_pairs: n_off x R rows, n_off counts, the ticket, then
-// the per-block counts); partial (splits, n_off, Cin, Cout) fp32, or out
-// itself when splits == 1; out (n_off, Cin, Cout) fp32.
+// the per-block counts, bits and starts); partial (splits, n_off, Cin,
+// Cout) fp32, or out itself when splits == 1; out (n_off, Cin, Cout) fp32.
 #include "narrow_wgrad.cuh"
 #include "wgrad_tile.cuh"
 
@@ -56,6 +59,7 @@ namespace {
 
 constexpr int kListThreads = 256;
 constexpr int kListRows = kListThreads * 16;   // rows per thread block, 16 a thread
+constexpr int kListWords = kListRows / 32;     // 32-row words per thread block
 
 // bit i set when row r0 + i has a live pair at offset o
 __device__ __forceinline__ unsigned live_flags(const int32_t* __restrict__ ia,
@@ -95,22 +99,32 @@ __device__ int block_exclusive_scan(int v, int* warp_sums, int* total) {
   return before + incl - v;
 }
 
-// grid (blocks, n_off): counts[o * blocks + blockIdx.x]
+// grid (blocks, n_off): counts[o * blocks + blockIdx.x], and each 32-row
+// word's live bits (bit i: row 32 word + i), bits[o * words + word]; an
+// even thread's 16 rows are its word's low half, the next thread's the
+// high half
 __global__ void __launch_bounds__(kListThreads)
 count_pairs_kernel(const int32_t* __restrict__ ia, const int32_t* __restrict__ ib,
-                   int rows, int32_t* __restrict__ counts) {
+                   int rows, int32_t* __restrict__ counts, uint32_t* __restrict__ bits) {
   __shared__ int warp_sums[kListThreads / 32];
   const int o = blockIdx.y;
   const int64_t r0 = (int64_t)blockIdx.x * kListRows + threadIdx.x * 16;
+  const unsigned m = live_flags(ia, ib, o, r0, rows);
+  const unsigned hi = __shfl_down_sync(0xFFFFFFFFu, m, 1);
+  if ((threadIdx.x & 1) == 0)
+    bits[(int64_t)o * gridDim.x * kListWords + r0 / 32] = m | hi << 16;
   int total;
-  block_exclusive_scan(__popc(live_flags(ia, ib, o, r0, rows)), warp_sums, &total);
+  block_exclusive_scan(__popc(m), warp_sums, &total);
   if (threadIdx.x == 0) counts[(int64_t)o * gridDim.x + blockIdx.x] = total;
 }
 
+// the list, and each word's pairs before it (starts[o * words + word], the
+// position of an even thread's first pair)
 __global__ void __launch_bounds__(kListThreads)
 list_pairs_kernel(const int32_t* __restrict__ ia, const int32_t* __restrict__ ib,
                   int rows, const int32_t* __restrict__ counts, int32_t* __restrict__ list,
-                  int32_t* __restrict__ n_pairs, int32_t* __restrict__ ticket) {
+                  int32_t* __restrict__ n_pairs, int32_t* __restrict__ ticket,
+                  int32_t* __restrict__ starts) {
   __shared__ int warp_sums[kListThreads / 32];
   const int o = blockIdx.y;
   const int32_t* oc = counts + (int64_t)o * gridDim.x;
@@ -122,6 +136,7 @@ list_pairs_kernel(const int32_t* __restrict__ ia, const int32_t* __restrict__ ib
   unsigned m = live_flags(ia, ib, o, r0, rows);
   int total;
   int pos = prefix + block_exclusive_scan(__popc(m), warp_sums, &total);
+  if ((threadIdx.x & 1) == 0) starts[(int64_t)o * gridDim.x * kListWords + r0 / 32] = pos;
   int32_t* ol = list + (int64_t)o * rows;
   while (m) {
     ol[pos++] = (int32_t)(r0 + __ffs(m) - 1);
@@ -234,8 +249,11 @@ cudaError_t launch_narrow(const void* a, const void* ia, const void* b, float* p
 }  // namespace
 
 // The per-offset live-pair list into ws (n_off * rows + n_off + 1 +
-// n_off * ceil(rows / 4096) int32): rows, counts, ticket, per-block counts.
-// Returns the launches' cudaError_t.
+// n_off * blocks * (1 + 2 * 128) int32, blocks = ceil(rows / 4096)): rows,
+// counts, ticket, per-block counts, then per offset and 32-row word the
+// count pass's live bits and the list pass's pairs before the word
+// (sparse_conv.py:pair_workspace_size; K1's row groups read both,
+// live_rows.cuh).  Returns the launches' cudaError_t.
 extern "C" int gather_pairs(const void* ia, const void* ib, void* ws, int rows, int n_off,
                             void* stream) {
   if (n_off == 0) return 0;
@@ -244,12 +262,14 @@ extern "C" int gather_pairs(const void* ia, const void* ib, void* ws, int rows, 
   const int blocks = rows > 0 ? (rows + kListRows - 1) / kListRows : 1;
   int32_t* n_pairs = w + (int64_t)n_off * rows;
   int32_t* counts = n_pairs + n_off + 1;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(counts + (int64_t)n_off * blocks);
+  int32_t* starts = counts + (int64_t)n_off * blocks * (1 + kListWords);
   const dim3 grid(blocks, n_off);
   const int32_t* a = static_cast<const int32_t*>(ia);
   const int32_t* b = static_cast<const int32_t*>(ib);
-  count_pairs_kernel<<<grid, kListThreads, 0, s>>>(a, b, rows, counts);
+  count_pairs_kernel<<<grid, kListThreads, 0, s>>>(a, b, rows, counts, bits);
   list_pairs_kernel<<<grid, kListThreads, 0, s>>>(a, b, rows, counts, w, n_pairs,
-                                                  n_pairs + n_off);
+                                                  n_pairs + n_off, starts);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,60 +1,71 @@
-// K10's live-pair conv in row groups (block_conv.cu:block_conv_live): one
-// kernel sums every offset's products into a group of listed rows, with no
-// pair-major buffer and no second pass.
+// The row-group form of K1 (gather_gemm_conv.cu:gather_conv_rows) and of
+// K10's live-pair conv (block_conv.cu:block_conv_live): one kernel sums
+// every offset's products into a group of rows, with no pair-major buffer,
+// no index map, no offset chunks and no carry.
 //
-// The live-pair list (block_conv.cu:block_live_pairs) keeps, per offset o
-// and in list order, the listed rows whose source cell is occupied; its
-// count pass stores one bit per (offset, listed row), whether that pair is
-// live, and its list pass, per offset and 32-row word of the list, how
-// many of the offset's pairs come before the word (`starts`).  So the
-// pairs of the listed rows i0 .. i0 + R - 1 (i0 a multiple of R, R a
-// multiple of 32) at offset o are the contiguous range
+// Both pair lists keep, per offset o and in row order, the rows that pair
+// there (K1: the table rows r with nbr[o][r] >= 0, gather_wgrad.cu:
+// gather_pairs; K10: the listed rows whose source cell is occupied,
+// block_conv.cu:block_live_pairs); their count passes store one bit per
+// (offset, row), whether that pair is live, and their list passes, per
+// offset and 32-row word, how many of the offset's pairs come before the
+// word (`starts`).  So the pairs of the rows i0 .. i0 + R - 1 (i0 a
+// multiple of R, R a multiple of 32) at offset o are the contiguous range
 // [starts[o][i0 / 32], + the group's set bits) of offset o's list, and the
 // j-th pair of that range belongs to the group's row at the j-th set bit.
 //
-// A work item is a group of R listed rows and one BN-column tile.
-// Persistent thread blocks take items by the list's atomic ticket, which
-// the block taking the last ticket resets.  An item loads its rows, its
-// bits and its ranges' starts, zeroes an fp32 accumulator of R x BN in
-// shared memory, then walks its offsets in ascending order, each offset's
-// range in chunks of up to 64 pairs.  A chunk's Cin runs in 32-channel
-// stages on gather_tile.cuh's core (K1's): each stage gathers the chunk's
-// source rows' slice with cp.async into padded shared rows (the sources
-// themselves copied into a ring of slots two stages earlier) and the
-// offset's weight slice beside them, the next stage's copies in flight, one
-// barrier a stage; fp32 on FMAs, bf16 on mma.sync.m16n8k16, only the
-// 16-row groups that hold pairs.  When a chunk's last stage is done, each
-// thread adds its pairs' products, complete over Cin, into their rows'
-// accumulators (each (pair, column) is one thread's; the next stage's
-// barrier orders the next chunk's adds after these; a row's 8-column
-// groups are permuted by the row so that the rows of one add spread over
-// the banks).  Finally every listed row of the group is written once,
-// rounded to the output type (0 where it has no live pair).
+// A work item is a group of R rows and one BN-column tile.  Persistent
+// thread blocks take items by the list's atomic ticket, which the block
+// taking the last ticket resets.  An item loads its rows, its bits and its
+// ranges' starts, zeroes an fp32 accumulator of R x BN in shared memory,
+// then walks its offsets in ascending order, each offset's range in chunks
+// of up to 64 pairs.  A chunk's source rows come from the caller's
+// `Src`: K10 copies them from its list's src with cp.async, K1 reads
+// nbr[o][row] at the chunk's rows.  A chunk's Cin runs in 32-channel stages
+// on gather_tile.cuh's core (K1's pair-major core): each stage gathers the
+// chunk's source rows' slice with cp.async into padded shared rows (the
+// sources themselves fetched into a ring of slots two stages earlier) and
+// the offset's weight slice beside them, the next stage's copies in
+// flight, one barrier a stage; fp32 on FMAs, bf16 on mma.sync.m16n8k16,
+// only the 16-row groups that hold pairs.  When a chunk's last stage is
+// done, each thread adds its pairs' products, complete over Cin, into their
+// rows' accumulators (each (pair, column) is one thread's; the next
+// stage's barrier orders the next chunk's adds after these; a row's
+// 8-column groups are permuted by the row so that the rows of one add
+// spread over the banks).  Finally every row of the group is written once,
+// rounded to the output type: 0 where it has no live pair, and (K1) 0
+// outside `valid`.
+//
+// The group size R is one constant per dtype (Group: fp32 64, bf16 128,
+// the paired measurement's best; groups of 192 rows, filled so that an
+// offset's pairs fill about one 64-pair tile, lost in both dtypes, and so
+// did K1's bf16 wide stems on the warpgroup core: PERF.md section 6).
 //
 // Order of the sums: each pair's product over Cin is summed over the
 // stages in order (fp32: an FMA chain over the slices, then the channels,
-// ascending, from 0); each row's accumulator starts at 0 and takes its
-// pairs' products in ascending offset order.  In fp32 that is the row-tile
-// path's order without its exact zeros (a pair whose source is outside the
-// occupancy multiplies a zero row), so the result equals the row tiles'
-// bit for bit.  bf16 sums in fp32 and rounds once, on the store.  No float
-// atomics: two calls are bit-equal.
+// ascending, from 0), the pair-major products' chain (pair_major.cuh); each
+// row's accumulator starts at 0 and takes its pairs' products in ascending
+// offset order, as the pair-major sum adds them, chunked or not.  So in
+// fp32 the row groups equal the pair-major form bit for bit (and K10's the
+// row-tile path's).  bf16 sums in fp32 and rounds once, on the store.  No
+// float atomics: two calls are bit-equal.
 //
 // What bounds it: the products, 2 x pairs x Cin x Cout operations, over
-// inputs read once and each listed row written once; the pair-major form
-// beside it (pair_major.cuh) also writes and reads every pair's fp32
-// products (384 bytes a pair at Cout 96).  What holds it back (PERF.md
-// section 6): an item walks its ~27 offsets in turn (125 at the k5 stem),
-// each a chunk of the third of its rows that pair there, so a stage does a
-// part of a tile's products for a whole stage's latency, barrier and
-// weight slice, and a level's work is a few hundred such chains, where the
-// pair-major form runs thousands of full 64-pair items side by side; the
-// accumulator (R x BN fp32) holds blocks an SM to two or three; fp32 is
-// FMA-bound on the partly filled chunks.  It beat the row tiles and the
-// pair-major form at the bf16 dX of the largest level, where a group's
-// chunks fill best.  (The
-// bf16 row tiles' wgmma core in its place, and other group sizes and
-// stage rings, lost: PERF.md.)
+// inputs read once and each row written once; the pair-major form beside it
+// also writes and reads every pair's fp32 products (384 bytes a pair at
+// Cout 96), and past SEGDINO_CONV_CHUNK_MB an fp32 carry of every row each
+// chunk.  What holds the groups back (PERF.md section 6): an item walks
+// its offsets in turn, each a chunk of the pairs its rows have there.  At
+// the sizes that leave two blocks an SM an offset's pairs fill about half
+// a 64-pair chunk (a third of a k3 table's rows pair at an offset, a fifth
+// of the k5 stem's, fewer where rows are padding), and larger groups spill
+// an offset's last few pairs into a second chunk, so a stage pays a whole
+// stage's latency, barrier and weight slice for about half a tile's
+// products: per SM about twice the pair-major form's stages.  fp32, on
+// FMAs, lost at every scale measured (1.1-2.4x); bf16, whose products are
+// cheap, won where the pair-major form's buffer and chunks cost most: K1's
+// k3 convs of large tables (ops/narrow.py:K1_ROW_GROUPS_MIN_CAP), K10's dX
+// from 65,536 listed rows.
 #pragma once
 
 #include "gather_tile.cuh"
@@ -71,15 +82,49 @@ struct Group {
   static constexpr int R = sizeof(T) == 2 ? 128 : 64;
 };
 
-// The live-pair list as the kernel reads it (block_conv.cu:LiveWs): the
-// sources (n_off x cap), per offset the bits (a word per 32 listed rows,
-// `words` a offset) and the pairs before each word.
-struct Pairs {
-  const int32_t* src;
+// The pair list's word tables as the kernel reads them: per offset the
+// bits (a word per 32 rows, `words` a offset) and the offset's pairs before
+// each word (uncapped); `cap` bounds an offset's list.
+struct Words {
   const uint32_t* bits;
   const int32_t* starts;
   int64_t words;
   int cap;
+};
+
+// K10's rows: a row list of at most `cap` listed rows, written where listed
+struct ListRows {
+  const int32_t* list;
+  const int32_t* count;
+  int cap;
+  __device__ __forceinline__ int n() const { return min(*count, cap); }
+  __device__ __forceinline__ int row(int i) const { return list[i]; }
+};
+// K1's: every row of the table, its sum where valid, else 0 (row -2 - r)
+struct TableRows {
+  const uint8_t* valid;
+  int v;
+  __device__ __forceinline__ int n() const { return v; }
+  __device__ __forceinline__ int row(int i) const { return valid[i] ? i : -2 - i; }
+};
+
+// K10's sources: pair p of offset o's list, copied with cp.async
+struct ListSrc {
+  static constexpr bool kByRow = false;
+  const int32_t* src;
+  int cap;
+  __device__ __forceinline__ void fetch(int* slot, int o, int p, int) const {
+    wgt::cp_async4(slot, src + (int64_t)o * cap + p, 4);
+  }
+};
+// K1's: the table's neighbour of row r at offset o
+struct TableSrc {
+  static constexpr bool kByRow = true;
+  const int32_t* nbr;
+  int v;
+  __device__ __forceinline__ void fetch(int* slot, int o, int, int r) const {
+    *slot = nbr[(int64_t)o * v + r];
+  }
 };
 
 // the slots of the chunks' sources in shared memory (see conv)
@@ -182,42 +227,146 @@ __device__ __forceinline__ void add_part(const gtt::Part<__nv_bfloat16, BN>& par
     }
   }
 }
+// An item's tables in shared memory (see smem_bytes)
+struct Tables {
+  float* acc;       // [R][BN]
+  uint32_t* bits;   // [n_off][R / 32]
+  int* start;       // [n_off]
+  int* cnt;         // [n_off]
+  int* chunk;       // [n_off * ceil(R / 64)]
+  int* row;         // [R]
+  int* src;         // [kSlots][BM]
+  __device__ Tables(unsigned char* base, int n_off, int rows, int bn) {
+    acc = reinterpret_cast<float*>(base);
+    bits = reinterpret_cast<uint32_t*>(acc + rows * bn);
+    start = reinterpret_cast<int*>(bits + n_off * (rows / 32));
+    cnt = start + n_off;
+    chunk = cnt + n_off;
+    row = chunk + n_off * (rows / BM);
+    src = row + rows;
+  }
+};
 
-// out[list[i]] for the listed rows i0 .. i0 + R - 1 of every group: see the
-// header.  list/count: the row list the pairs were built on (at most
-// row_cap rows of it listed); w (n_off, Cin, Cout).
+// Item setup for the group of rows i0 .. i0 + R - 1: its rows (-1 past the
+// list), bits (0 past the tables' words), each offset's range (start, count
+// cut at the list's capacity), the chunk table (offsets ascending, each
+// range in 64s: offset << 16 | its first pair) and a zero accumulator of
+// BN columns.  Every thread calls it; it ends with a barrier.  Returns the
+// chunks.
+template <int R, class Rows>
+__device__ __forceinline__ int setup(const Tables& s, const Rows& rows, const Words& pw,
+                                     int n_list, int i0, int bn, int n_off,
+                                     int* __restrict__ s_chunks) {
+  constexpr int W = R / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t w0 = i0 / 32;
+  for (int i = tid; i < R; i += kThreads) s.row[i] = i0 + i < n_list ? rows.row(i0 + i) : -1;
+  for (int e = tid; e < n_off * W; e += kThreads) {
+    const int o = e / W, q = e % W;
+    s.bits[e] = w0 + q < pw.words ? pw.bits[o * pw.words + w0 + q] : 0u;
+  }
+  for (int o = tid; o < n_off; o += kThreads)
+    s.start[o] = min(pw.starts[o * pw.words + w0], pw.cap);
+  for (int e = tid * 4; e < R * bn; e += kThreads * 4)
+    *reinterpret_cast<float4*>(s.acc + e) = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  // each offset's range: the group's set bits, cut at the list's capacity
+  for (int o = tid; o < n_off; o += kThreads) {
+    int c = 0;
+#pragma unroll
+    for (int q = 0; q < W; ++q) c += __popc(s.bits[o * W + q]);
+    s.cnt[o] = min(c, pw.cap - s.start[o]);
+  }
+  __syncthreads();
+  if (warp == 0) {  // the chunks: offsets ascending, each range in 64s
+    int n = 0;
+    for (int o0 = 0; o0 < n_off; o0 += 32) {
+      const int o = o0 + lane;
+      const int nc = o < n_off ? (s.cnt[o] + BM - 1) / BM : 0;
+      int incl = nc;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(0xFFFFFFFFu, incl, d);
+        if (lane >= d) incl += u;
+      }
+      for (int c = 0; c < nc; ++c) s.chunk[n + incl - nc + c] = o << 16 | c * BM;
+      n += __shfl_sync(0xFFFFFFFFu, incl, 31);
+    }
+    if (lane == 0) *s_chunks = n;
+  }
+  __syncthreads();
+  return *s_chunks;
+}
+
+// Chunk c's offset o and first pair j0 (in the offset's range); returns its
+// pairs.
+__device__ __forceinline__ int chunk_of(const Tables& s, int c, int& o, int& j0) {
+  const int ch = s.chunk[c];
+  o = ch >> 16;
+  j0 = ch & 0xFFFF;
+  return min(BM, s.cnt[o] - j0);
+}
+
+// Chunk c's source rows into `slot` (threads below 64; -1 past its pairs):
+// K10's copied from the list (cp.async), K1's read from the table at the
+// chunk's rows.
+template <int W, class Src>
+__device__ __forceinline__ void fetch_chunk(const Tables& s, const Src& src, int* slot, int c,
+                                            int i0) {
+  const int tid = threadIdx.x;
+  int o, j0;
+  const int live = chunk_of(s, c, o, j0);
+  if (tid < live) {
+    if constexpr (Src::kByRow)
+      src.fetch(slot + tid, o, 0, i0 + group_row<W>(s.bits + o * W, j0 + tid));
+    else
+      src.fetch(slot + tid, o, s.start[o] + j0 + tid, 0);
+  } else if (tid < BM) {
+    slot[tid] = -1;
+  }
+}
+
+// The group's rows written once: row r >= 0 its sum, r <= -2 (row -2 - r)
+// zeros, -1 nothing; columns n0 .. n0 + BN - 1 below Cout.
+template <typename T, int BN, int R>
+__device__ __forceinline__ void store_group(const Tables& s, T* __restrict__ out, int n0,
+                                            int cout) {
+  for (int e = threadIdx.x; e < R * (BN / 4); e += kThreads) {
+    const int i = e / (BN / 4), c = e % (BN / 4) * 4;
+    const int r = s.row[i];
+    if (r == -1 || n0 + c >= cout) continue;
+    const float4 v = r >= 0 ? *reinterpret_cast<const float4*>(s.acc + i * BN + acc_col(i, c))
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    gtt::store4(out + (int64_t)(r >= 0 ? r : -2 - r) * cout, n0 + c, cout, v);
+  }
+}
+
+// out at the rows of every group of Group<T>::R rows: see the header.  w (n_off, Cin, Cout).
 //
 // The schedule, phase p from -2: wait for the copies issued in phase p - 1,
 // one barrier, then (one copy group) the sources of the chunk that starts
-// at stage p + 2, with 4-byte cp.async copies into its slot (-1 past its
-// pairs), and stage p + 1's copies, which read the sources of their chunk
-// (fetched a phase earlier or before, so landed); then stage p's products,
-// and at a chunk's last stage its adds.  A stage buffer is reused two
-// stages on, a source slot kSlots chunks on; both were last read before an
-// earlier phase's barrier.
-template <typename T, int BN>
+// at stage p + 2 into its slot (-1 past its pairs), and stage p + 1's
+// copies, which read the sources of their chunk (fetched a phase earlier or
+// before, so landed); then stage p's products, and at a chunk's last stage
+// its adds.  A stage buffer is reused two stages on, a source slot kSlots
+// chunks on; both were last read before an earlier phase's barrier.
+template <typename T, int BN, class Rows, class Src>
 __device__ __forceinline__ void conv(const T* __restrict__ x, const T* __restrict__ w,
-                                     const int32_t* __restrict__ list,
-                                     const int32_t* __restrict__ count, const Pairs pairs,
-                                     int32_t* __restrict__ ticket, T* __restrict__ out,
-                                     int row_cap, int cin, int cout, int n_off) {
+                                     const Rows rows, const Words pw, const Src src,
+                                     int32_t* __restrict__ ticket, T* __restrict__ out, int cin,
+                                     int cout, int n_off) {
   using S = gtt::Smem<T, BN>;
-  constexpr int R = Group<T>::R, W = R / 32, CH = R / BM;
   constexpr int KQ = sizeof(T) == 2 ? 16 : 4;  // the products' channel step
+  constexpr int R = Group<T>::R;
+  constexpr int W = R / 32;
   static_assert(R % BM == 0 && (BN / 8) % 4 == 0, "whole chunks; whole column groups");
   extern __shared__ __align__(16) unsigned char smem[];
   T* const stage = reinterpret_cast<T*>(smem);
-  float* const s_acc = reinterpret_cast<float*>(stage + 2 * S::kStage);  // [R][BN]
-  uint32_t* const s_bits = reinterpret_cast<uint32_t*>(s_acc + R * BN);  // [n_off][W]
-  int* const s_start = reinterpret_cast<int*>(s_bits + n_off * W);      // [n_off]
-  int* const s_cnt = s_start + n_off;                                    // [n_off]
-  int* const s_chunk = s_cnt + n_off;                                    // [n_off * CH]
-  int* const s_row = s_chunk + n_off * CH;                               // [R]
-  int* const s_src = s_row + R;                                          // [kSlots][BM]
+  const Tables s(reinterpret_cast<unsigned char*>(stage + 2 * S::kStage), n_off, R, BN);
   __shared__ int s_item, s_chunks;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_list = min(*count, row_cap);
+  const int tid = threadIdx.x;
+  const int n_list = rows.n();
   const int n_col = (cout + BN - 1) / BN;
   const int n_items = (n_list + R - 1) / R * n_col;
   const int n_kc = (cin + BK - 1) / BK;
@@ -235,66 +384,20 @@ __device__ __forceinline__ void conv(const T* __restrict__ x, const T* __restric
       break;
     }
     const int i0 = item / n_col * R, n0 = item % n_col * BN;
-    for (int i = tid; i < R; i += kThreads) s_row[i] = i0 + i < n_list ? list[i0 + i] : -1;
-    for (int e = tid; e < n_off * W; e += kThreads)
-      s_bits[e] = pairs.bits[e / W * pairs.words + i0 / 32 + e % W];
-    for (int o = tid; o < n_off; o += kThreads)
-      s_start[o] = min(pairs.starts[o * pairs.words + i0 / 32], pairs.cap);
-    for (int e = tid * 4; e < R * BN; e += kThreads * 4)
-      *reinterpret_cast<float4*>(s_acc + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-    __syncthreads();
-    // each offset's range: the group's set bits, cut at the list's capacity
-    for (int o = tid; o < n_off; o += kThreads) {
-      int c = 0;
-#pragma unroll
-      for (int q = 0; q < W; ++q) c += __popc(s_bits[o * W + q]);
-      s_cnt[o] = min(c, pairs.cap - s_start[o]);
-    }
-    __syncthreads();
-    if (warp == 0) {  // the chunks: offsets ascending, each range in 64s
-      int n = 0;
-      for (int o0 = 0; o0 < n_off; o0 += 32) {
-        const int o = o0 + lane;
-        const int nc = o < n_off ? (s_cnt[o] + BM - 1) / BM : 0;
-        int incl = nc;
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1) {
-          const int u = __shfl_up_sync(0xFFFFFFFFu, incl, d);
-          if (lane >= d) incl += u;
-        }
-        for (int c = 0; c < nc; ++c) s_chunk[n + incl - nc + c] = o << 16 | c * BM;
-        n += __shfl_sync(0xFFFFFFFFu, incl, 31);
-      }
-      if (lane == 0) s_chunks = n;
-    }
-    __syncthreads();
-    const int n_stages = s_chunks * n_kc;
-    // chunk c: offset o, its first pair j0 in the range; returns its pairs
-    auto chunk = [&](int c, int& o, int& j0) {
-      const int ch = s_chunk[c];
-      o = ch >> 16;
-      j0 = ch & 0xFFFF;
-      return min(BM, s_cnt[o] - j0);
-    };
+    const int n_stages = setup<R>(s, rows, pw, n_list, i0, BN, n_off, &s_chunks) * n_kc;
     auto fetch_sources = [&](int st) {  // where a chunk starts at stage st
       if (st >= n_stages || st % n_kc != 0) return;
       const int c = st / n_kc;
-      int o, j0;
-      const int live = chunk(c, o, j0);
-      int* const slot = s_src + c % kSlots * BM;
-      if (tid < live)
-        wgt::cp_async4(slot + tid, pairs.src + (int64_t)o * pairs.cap + s_start[o] + j0 + tid, 4);
-      else if (tid < BM)
-        slot[tid] = -1;
+      fetch_chunk<W>(s, src, s.src + c % kSlots * BM, c, i0);
     };
     auto copy = [&](int st) {
       if (st < 0 || st >= n_stages) return;
       const int c = st / n_kc;
       int o, j0;
-      const int live = chunk(c, o, j0);
+      const int live = chunk_of(s, c, o, j0);
       T* const As = stage + st % 2 * S::kStage;
       gtt::load_stage<T, BN>(As, As + BM * S::AST, x, w + (int64_t)o * cin * cout,
-                             s_src + c % kSlots * BM, live, (live + 15) / 16 * 16,
+                             s.src + c % kSlots * BM, live, (live + 15) / 16 * 16,
                              st % n_kc * BK, n0, cin, cout, vec_a, vec_b);
     };
     part.zero();
@@ -306,23 +409,17 @@ __device__ __forceinline__ void conv(const T* __restrict__ x, const T* __restric
       wgt::cp_async_commit();
       if (st < 0) continue;
       int o, j0;
-      const int live = chunk(st / n_kc, o, j0), kc = st % n_kc;
+      const int live = chunk_of(s, st / n_kc, o, j0), kc = st % n_kc;
       const int k_end = min(BK, cin - kc * BK);
       const T* const As = stage + st % 2 * S::kStage;
       part.compute(As, As + BM * S::AST, (live + 15) / 16, (k_end + KQ - 1) / KQ * KQ);
       if (kc == n_kc - 1) {
-        add_part<BN, W>(part, s_acc, s_bits + o * W, j0, live);
+        add_part<BN, W>(part, s.acc, s.bits + o * W, j0, live);
         part.zero();
       }
     }
     __syncthreads();  // every chunk's adds are in
-    for (int e = tid; e < R * (BN / 4); e += kThreads) {
-      const int i = e / (BN / 4), c = e % (BN / 4) * 4;
-      const int row = s_row[i];
-      if (row < 0 || n0 + c >= cout) continue;
-      gtt::store4(out + (int64_t)row * cout, n0 + c, cout,
-                  *reinterpret_cast<const float4*>(s_acc + i * BN + acc_col(i, c)));
-    }
+    store_group<T, BN, R>(s, out, n0, cout);
   }
 }
 

@@ -717,7 +717,8 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     conv runs over the live pairs of ``occ``'s row list only (``live_list``:
     ``live_pairs``, or in the dX role ``dilation_pairs``, whose sources are
     the occupancy inside the dilation ``occ``; built inside the call when
-    not given), in ``form`` (``narrow.live_form`` when not given: the
+    not given), in ``form`` (``narrow.live_form`` of the forward's role at
+    the list's pair capacity, the level's voxel cap, when not given: the
     autograd Function passes it by role and level; benchmarks and tests
     force one): ``narrow.PAIR_MAJOR``, each offset's pairs in items of 64,
     their products into a pair-major (k^3 * pair cap, Cout rounded up to
@@ -774,7 +775,7 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
         N.count_element_loads(feats, weights)
         dtype = cuda_build.dtype_code(feats.dtype)
         cap, row_cap = live_list.src.shape[1], live_list.map.shape[1]
-        form = form or N.live_form(k, feats.dtype)
+        form = form or N.live_form(k, feats.dtype, cap=cap)
         args = (feats.data_ptr(), weights.data_ptr(),
                 live_list.rows.ws.data_ptr(), live_list.ws.data_ptr())
         if form == N.PAIR_MAJOR:
@@ -1025,12 +1026,14 @@ class _DenseSubmConv(torch.autograd.Function):
         ctx.zero_outside = zero_outside = bool(zero_outside)
         n_off, cin, cout = weights.shape
         rows = row_list(tables, occ) if feats.is_cuda else None
+        cap, k = live_capacity(tables), kernel_size(n_off)
         live = N.live_path(n_off, cin, cout, feats.dtype, zero_outside,
-                           cap=live_capacity(tables))
+                           cap=cap)
         return block_conv(feats, tables.block_nbr, weights, occ, tables.edge,
                           rows, zero_outside=zero_outside, live=live,
-                          live_list=live_pairs(tables, occ,
-                                               kernel_size(n_off))
+                          live_list=live_pairs(tables, occ, k)
+                          if live else None,
+                          form=N.live_form(k, feats.dtype, cap=cap)
                           if live else None)
 
     @staticmethod

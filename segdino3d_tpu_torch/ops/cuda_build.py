@@ -31,7 +31,7 @@ KERNELS = ("gather_gemm_conv", "up_conv", "segment_mean_gather",
            "stem_slot_sum")
 _HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh",
                                  "narrow_tile.cuh", "wgmma_tile.cuh",
-                                 "pair_major.cuh"),
+                                 "pair_major.cuh", "live_rows.cuh"),
             "up_conv": ("gather_tile.cuh", "wgrad_tile.cuh"),
             "segment_mean_gather": (),
             "gather_wgrad": ("wgrad_tile.cuh", "narrow_tile.cuh",
@@ -51,7 +51,9 @@ _HEADERS = {"gather_gemm_conv": ("gather_tile.cuh", "wgrad_tile.cuh",
 _ENTRY_POINTS = {"gather_gemm_conv": ("gather_gemm_conv",
                                       "gather_conv_pair_stride",
                                       "gather_conv_narrow",
-                                      "narrow_conv_smem", "gather_conv_wg"),
+                                      "narrow_conv_smem", "gather_conv_wg",
+                                      "gather_conv_rows",
+                                      "gather_conv_rows_smem"),
                  "coord_hash": ("coord_hash_build", "coord_hash_lookup"),
                  "gather_wgrad": ("gather_wgrad", "gather_pairs",
                                   "gather_wgrad_narrow", "narrow_wgrad_smem"),
@@ -89,6 +91,10 @@ _SIGNATURES = {
     # n_off, o_begin, o_end, stream
     "gather_conv_wg": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                        _I, _I, _P],
+    # x, nbr, w, valid, pairs, out, v, cin, cout, n_off, dtype, stream
+    "gather_conv_rows": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # n_off, cout, dtype
+    "gather_conv_rows_smem": [_I, _I, _I],
     # x, child, w, pairs, parent, valid, out, v_coarse, v_fine, cin, cout,
     # dtype, stream
     "up_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -60,8 +60,9 @@ def gather_pairs_op(ia: Optional[Tensor], ib: Optional[Tensor]) -> Tensor:
     n_off, rows = pairs.rows.shape
     ws = torch.zeros(SC.pair_workspace_size(n_off, rows), dtype=torch.int32,
                      device=pairs.rows.device)
-    ws[:n_off * rows] = pairs.rows.reshape(-1)
-    ws[n_off * rows:n_off * rows + n_off] = pairs.counts
+    view = SC.pairs_in(ws, n_off, rows)
+    for got, want in zip(view[:2] + view[3:], pairs[:2] + pairs[3:]):
+        got.copy_(want)
     return ws
 
 

@@ -199,16 +199,58 @@ def pick(forced: Optional[bool], n_off: int, cin: int, cout: int, dtype,
 # forward's bound sits between that level and the batch-1 L2 (13,824),
 # which keeps the row tiles.
 BF16_K3_LIVE_MAX_CAP = {"forward": 12288, "dx": 16384, "wgrad": None}
-# bf16 k3 dX convs at levels of at least this many voxels run K10's
-# row-group kernel (``live_form``), where its paired measurement
-# (``tools/conv_bench.py --live``, PERF.md section 6) beat the row tiles
-# and the pair-major form: dX at the flagship's L0 (92,160 voxels; 96->96
-# 0.676 ms against the row tiles' 0.823 and the pair-major form's 0.864,
-# 96->128 0.950 against 0.962 and 1.074).  Everywhere else it lost: at L1
-# and below (dX 96->96 L1 0.295 against the row tiles' 0.204), in the
-# forward (L0 96->96 0.365 against 0.317) and in fp32 (L0 forward 1.107
-# against the pair-major form's 0.639).
-BF16_K3_DX_ROW_GROUPS_MIN_CAP = 65536
+# The row-group form (``csrc/live_rows.cuh``) of K10's live-pair path and
+# of K1 (``gather_form``): one launch over groups of consecutive rows, each
+# offset's pairs of a group added into the group's fp32 accumulator in
+# shared memory, no pair-major buffer, no offset chunks.  It takes a conv
+# by its key, dtype and role at levels of at least this many rows (the
+# voxel cap of a gather level, ``block_dense.live_capacity`` of a
+# block-dense one), where its paired measurement beat the pair-major form
+# (``tools/conv_bench.py --form``, PERF.md section 6); a key absent here
+# keeps the pair-major form.
+#
+# K10, bf16 dX: at the flagship's L0 (92,160 voxels; 96->96 0.702 / 0.684
+# ms against the pair-major form's 0.828 / 0.809), the batch of 8's L1
+# (190,919: 1.517 / 1.512 against 2.570 / 2.582 in 6 chunks) and the
+# stress scene's L0 (262,014: 2.111 / 2.080 against 4.281 / 4.252 in 7),
+# not at L1 and below (96->96 L1 0.295 against the row tiles' 0.204,
+# ``conv_bench --live``).  Everywhere else K10 keeps its form: fp32 lost
+# in every role and at every scale (forward L0 1.098 against 0.613, the
+# batch's L1 2.712 against 2.154 in 6 chunks, the stress L0 3.262 against
+# 2.486 in 7; dX 2.882 / 5.451 / 9.273 against 1.393 / 3.995 / 6.152),
+# and the bf16 forward's row tiles beat it (the batch's L1 0.726 against
+# 0.912, the stress L0 1.018 against 1.000 tied).
+ROW_GROUPS_MIN_CAP = {
+    # K10 (``live_form``): (k, dtype, role)
+    (3, torch.bfloat16, "dx"): 65536,
+}
+# K1, keyed by the shapes the paired measurement timed (medians of 3 x 10
+# calls, the final kernels; bf16, row groups against the pair-major form
+# in the budget's chunks and in one chunk): the flagship's k3 convs of
+# level 0, 96->96 and 128->96 after the concatenation, and their dX roles
+# (96->96, 96->128).  At 155,648 rows (2 headline scenes, under 384 MiB)
+# 96->96 0.649 ms against 0.977 in 5 chunks and 0.751 in one, its dX
+# 0.648 (0.978, 0.754), 128->96 0.790 (1.025, 0.790), 96->128 0.923
+# (1.320, 1.001); at 312,832 (4 scenes) 1.235 (2.133, 1.491), 1.219,
+# 1.497, 1.757 (3.050, 1.950); at 625,664 (the batch of 8) 2.334 (5.420,
+# 2.980), 2.334, 2.841 (5.641, 3.149), 3.357 (6.949, 3.927).  At the
+# headline L0 (92,160) they tied or lost (96->96 0.379 against 0.376,
+# dX 0.378 against 0.379, 128->96 0.470 against 0.403; 96->128 0.527
+# against 0.562 in the default budget's 2 chunks but 0.503 in one), and
+# at its L1 (36,864) they lost (0.273 against 0.160): the bound sits
+# between 92,160 and 155,648 rows.  Everything else keeps the pair-major
+# form: fp32 lost at every shape and scale (the batch's L0 96->96 8.145
+# against 7.127 in 27 chunks; the headline's 1.140 against 0.610), and
+# so did the stems (bf16 k5 259->32 at the batch 10.947 against 6.931 in
+# 25 chunks, the v2 k3 262->32 at the headline 0.568 against 0.217; on
+# the warpgroup core, tried and dropped, 7.915 and 0.391).
+K1_ROW_GROUPS_MIN_CAP = {
+    # K1 (``gather_form``): (offsets, Cin, Cout, dtype, role)
+    (27, 96, 96, torch.bfloat16, "forward"): 131072,
+    (27, 96, 96, torch.bfloat16, "dx"): 131072,
+    (27, 128, 96, torch.bfloat16, "forward"): 131072,
+    (27, 96, 128, torch.bfloat16, "dx"): 131072,
+}
 
 
 def live_path(n_off: int, cin: int, cout: int, dtype, zero_outside: bool,
@@ -219,8 +261,8 @@ def live_path(n_off: int, cin: int, cout: int, dtype, zero_outside: bool,
     dX conv's is), the narrow path does not take the shape, and in bf16 at
     k3 the role (``dx``, ``wgrad``, else the forward) and the level's voxel
     capacity ``cap`` (None: not known, the row tiles) are ones where it
-    won (``BF16_K3_LIVE_MAX_CAP``; dX at the largest levels, on the
-    row-group kernel: ``BF16_K3_DX_ROW_GROUPS_MIN_CAP``)."""
+    won (``BF16_K3_LIVE_MAX_CAP``; or where its row-group form takes the
+    conv, ``ROW_GROUPS_MIN_CAP``)."""
     if not zero_outside:
         return False
     if dtype in (torch.float32, torch.bfloat16) and (
@@ -229,26 +271,28 @@ def live_path(n_off: int, cin: int, cout: int, dtype, zero_outside: bool,
         return False
     if dtype != torch.bfloat16 or n_off != 27:
         return True
-    if _row_groups(n_off, dtype, dx, cap):
+    if not wgrad and live_form(3, dtype, dx, cap) == ROW_GROUPS:
         return True
     most = BF16_K3_LIVE_MAX_CAP["wgrad" if wgrad else "dx" if dx
                                 else "forward"]
     return cap is not None and (most is None or cap <= most)
 
 
-def _row_groups(n_off: int, dtype, dx: bool, cap: Optional[int]) -> bool:
-    """Whether a conv on the live-pair path in this role and at a level of
-    ``cap`` voxels runs K10's row-group kernel (else its pair-major form)."""
-    return dtype == torch.bfloat16 and n_off == 27 and dx and \
-        cap is not None and cap >= BF16_K3_DX_ROW_GROUPS_MIN_CAP
+def _row_groups(table, key: tuple, dx: bool, cap: Optional[int]) -> bool:
+    """Whether ``table`` (``ROW_GROUPS_MIN_CAP``, ``K1_ROW_GROUPS_MIN_CAP``)
+    sends a conv of this key in this role to the row-group form at a level
+    of ``cap`` rows."""
+    least = table.get(key + ("dx" if dx else "forward",))
+    return least is not None and cap is not None and cap >= least
 
 
-# The two forms of K10's live-pair path: K1's pair-major form
+# The two forms of K1 and of K10's live-pair path: the pair-major form
 # (``csrc/pair_major.cuh``: each offset's pairs in items of 64, their fp32
-# products into a (k^3 x pair cap, Cout) buffer, then a second launch adds
-# each listed row's products) and the row-group kernel
-# (``csrc/live_rows.cuh``: one launch, groups of consecutive listed rows,
-# each offset's pairs of a group added into its rows' accumulator).
+# products into a (n_off x pair cap, Cout) buffer, then a second launch adds
+# each row's products, in offset chunks past ``SEGDINO_CONV_CHUNK_MB``) and
+# the row-group form (``csrc/live_rows.cuh``: one launch, groups of
+# consecutive rows, each offset's pairs of a group added into its rows'
+# accumulator).
 PAIR_MAJOR, ROW_GROUPS = "pair-major", "row groups"
 LIVE_FORMS = (PAIR_MAJOR, ROW_GROUPS)
 
@@ -258,8 +302,56 @@ def live_form(k: int, dtype, dx: bool = False, cap: Optional[int] = None
     """The form K10's live-pair path takes at kernel size ``k`` in
     ``dtype``, in the forward's role (``dx``: the input gradient's) at a
     level of ``cap`` voxels (None: not known)."""
-    return ROW_GROUPS if _row_groups(k ** 3, dtype, dx, cap) else PAIR_MAJOR
+    return ROW_GROUPS if _row_groups(ROW_GROUPS_MIN_CAP, (k, dtype), dx, cap) \
+        else PAIR_MAJOR
 
+
+def gather_form(n_off: int, cin: int, cout: int, dtype,
+                cap: Optional[int] = None, dx: bool = False) -> str:
+    """The form K1's wide path takes for ``n_off`` offsets of Cin -> Cout
+    in ``dtype``, in the forward's role (``dx``: a k3 conv's input
+    gradient, the same kernel with the weight flipped and transposed) on a
+    table of ``cap`` rows (None: not known)."""
+    return ROW_GROUPS if _row_groups(K1_ROW_GROUPS_MIN_CAP,
+                                     (n_off, cin, cout, dtype), dx, cap) \
+        else PAIR_MAJOR
+
+
+# The rows a group of the row-group form takes (``lrc::Group`` in
+# ``csrc/live_rows.cuh``), the faster of the sizes the paired measurement
+# timed (``conv_bench --form``, PERF.md section 6): fp32 64 (K1's k3 at the
+# headline L0 1.150 ms against 1.664 at 192), bf16 128 (the batch of 8's
+# L0 2.369 against 2.862 at 192).  Groups filled to one 64-pair tile an
+# offset (192 rows at k3; 160-320 timed) did not pay: their accumulator
+# leaves one block an SM in fp32 at 96 columns, and an offset's pairs past
+# a tile spill into a second, nearly empty chunk.  (The fp32 stems ran
+# faster at 192, 5.10 against 5.93 at the headline, but lose to the
+# pair-major form at either size.)  Every conv of the port fits two
+# blocks an SM at these sizes (``rows_smem_bytes``, which a CPU test
+# holds there and ``chip_smoke.py`` to the kernel's).
+GROUP_ROWS = {torch.float32: 64, torch.bfloat16: 128}
+# the shared memory of an H100 SM, and what each resident block reserves
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_SMEM = 1024
+
+
+def _pair_bn(cout: int) -> int:
+    """K1's and K10's column tile (``gtt::pair_bn``)."""
+    return 32 if cout <= 32 else 64 if cout <= 64 or cout > 96 else 96
+
+
+def rows_smem_bytes(n_off: int, cout: int, dtype) -> int:
+    """A block's dynamic shared memory in the row-group form
+    (``lrc::smem_bytes``, which ``chip_smoke.py`` holds it equal to): the
+    two stage buffers, the R x BN fp32 accumulator and the group's
+    tables."""
+    bf16 = _is_bf16(dtype)
+    rows, bn = GROUP_ROWS[dtype], _pair_bn(cout)
+    pad = 8 if bf16 else 4
+    stages = (2 if bf16 else 4) * 2 * (
+        64 * (32 + pad) + 32 * (bn + (pad if bf16 else 0)))
+    tables = n_off * (rows // 32 + 2 + rows // 64) + rows + 4 * 64
+    return stages + 4 * rows * bn + 4 * tables
 
 def pick_live(forced: Optional[bool], narrow: bool, n_off: int, cin: int,
               cout: int, dtype, zero_outside: bool, name: str,

@@ -128,32 +128,45 @@ def offset_chunks(n_off: int, cap: int, stride: int) -> List[Tuple[int, int]]:
 
 def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
                 valid: torch.Tensor, narrow: Optional[bool] = None,
-                pairs: Optional["PairList"] = None) -> torch.Tensor:
+                pairs: Optional["PairList"] = None, dx: bool = False,
+                form: Optional[str] = None) -> torch.Tensor:
     """``out[i] = sum_o feats[nbr[o, i]] @ weights[o]``, 0 on invalid rows.
 
     feats (V_in, Cin); nbr (n_off, V) int32, -1 = absent; weights
     (n_off, Cin, Cout) in feats' dtype; valid (V,) bool.  Returns (V, Cout)
     in feats' dtype, summed in fp32.  On the card the kernel's wide path
     multiplies each offset's live pairs (``cached_pairs``, the weight
-    gradient's list) into an (n_off * V, Cout rounded up to its column
-    tile) fp32 scratch, then adds each row's products in ascending offset
-    order.  Its narrow path (``narrow.narrow_path`` of the shape, or
-    ``narrow`` where a benchmark forces one path) is one launch that
-    allocates nothing but the output and builds no pair list.  The bf16
-    wide stems (``narrow.wide_stem``) run the pair-major form on the
-    warpgroup core.  ``pairs`` is the table's pair list where the caller
-    has it (an exported graph's), else ``cached_pairs``'.  Where the
-    scratch would outgrow the ``SEGDINO_CONV_CHUNK_MB`` budget
-    (``offset_chunks``) the wide path runs
-    the offsets in consecutive chunks, each into a scratch of its own
-    offsets' rows, adding onto an fp32 carry of the rows' sums in
-    ascending offset order: bit-equal to one chunk."""
+    gradient's list, or ``pairs`` where the caller has it: an exported
+    graph's) in one of two forms, ``narrow.gather_form`` of the conv, its
+    role (``dx``: a k3 conv's input gradient) and the table's rows V (or
+    ``form``, which benchmarks and tests force):
+
+    * ``narrow.PAIR_MAJOR``: the products into an (n_off * V, Cout rounded
+      up to its column tile) fp32 scratch, then each row adds its products
+      in ascending offset order.  Where the scratch would outgrow the
+      ``SEGDINO_CONV_CHUNK_MB`` budget (``offset_chunks``) the offsets run
+      in consecutive chunks, each into a scratch of its own offsets' rows,
+      adding onto an fp32 carry of the rows' sums in ascending offset
+      order: bit-equal to one chunk.  The bf16 wide stems
+      (``narrow.wide_stem``) run it on the warpgroup core;
+    * ``narrow.ROW_GROUPS``: one launch over groups of consecutive rows
+      (``narrow.GROUP_ROWS``), each offset's products of a group's pairs
+      added into the group's fp32 accumulator in ascending offset order;
+      it allocates only the output (so runs no offset chunks under any
+      budget) and in fp32 equals the pair-major form bit for bit.
+
+    The narrow path (``narrow.narrow_path`` of the shape, or ``narrow``
+    where a benchmark forces one path) is one launch that allocates nothing
+    but the output and builds no pair list."""
     n_off, cin, cout = weights.shape
     if nbr.shape[0] != n_off or feats.shape[1] != cin \
             or tuple(valid.shape) != (nbr.shape[1],):
         raise ValueError(f"gather_conv: nbr {tuple(nbr.shape)}, feats "
                          f"{tuple(feats.shape)}, weights {tuple(weights.shape)}"
                          f", valid {tuple(valid.shape)}")
+    if form is not None and form not in N.LIVE_FORMS:
+        raise ValueError(f"gather_conv: form {form} is not one of "
+                         f"{N.LIVE_FORMS}")
     if torch.compiler.is_exporting():
         from segdino3d_tpu_torch.ops import custom_ops
         return custom_ops.gather_conv(feats, nbr, weights, valid)
@@ -166,6 +179,8 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
                         "must be int32 and valid bool")
     v, dev = nbr.shape[1], feats.device
     narrow = N.pick(narrow, n_off, cin, cout, feats.dtype, "gather_conv")
+    if narrow and form is not None:
+        raise ValueError("gather_conv: a form is the wide path's")
     out = torch.empty(v, cout, dtype=feats.dtype, device=dev)
     if out.numel() == 0:
         return out
@@ -182,6 +197,17 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
     N.count_element_loads(feats, weights)
     wide = N.wide_stem(cin, cout, feats.dtype)
     pairs = pairs if pairs is not None else cached_pairs(None, nbr)
+    form = form or N.gather_form(n_off, cin, cout, feats.dtype, cap=v, dx=dx)
+    gather_conv.launches += 1
+    gather_conv.wide_stem.launches += int(wide)
+    if form == N.ROW_GROUPS:
+        cuda_build.check(lib.gather_conv_rows(
+            feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
+            valid.data_ptr(), pairs.ws.data_ptr(), out.data_ptr(), v, cin,
+            cout, n_off, cuda_build.dtype_code(feats.dtype),
+            cuda_build.stream_ptr(feats)), "gather_conv_rows")
+        gather_conv.row_groups.launches += 1
+        return out
     stride = lib.gather_conv_pair_stride(cout)
     chunks = offset_chunks(n_off, v, stride)
     most = max(o1 - o0 for o0, o1 in chunks)
@@ -202,18 +228,19 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
             cuda_build.check(lib.gather_gemm_conv(
                 *args, o0, o1, cuda_build.dtype_code(feats.dtype),
                 cuda_build.stream_ptr(feats)), "gather_gemm_conv")
-    gather_conv.launches += 1
-    gather_conv.wide_stem.launches += int(wide)
     gather_conv.chunks.launches += len(chunks)
     return out
 
 
 gather_conv.launches = 0
 gather_conv.narrow = types.SimpleNamespace(launches=0)   # of them narrow
-# of them on the bf16 wide-stem path
+# of them at a bf16 wide stem's shape (either form)
 gather_conv.wide_stem = types.SimpleNamespace(launches=0)
-# the offset chunks of the wide path's calls (one a call within the budget)
+# the offset chunks of the pair-major form's calls (one a call within the
+# budget)
 gather_conv.chunks = types.SimpleNamespace(launches=0)
+# of the wide path's calls, those in the row-group form (one launch each)
+gather_conv.row_groups = types.SimpleNamespace(launches=0)
 
 
 def up_conv_plain(feats: torch.Tensor, parent: torch.Tensor,
@@ -301,30 +328,67 @@ def wgrad_splits(capacity: int, n_off: int, cin: int, cout: int) -> int:
 class PairList(NamedTuple):
     """K4's compacted pairs: per offset o, the rows r at which every given
     index table holds a row (``ia[o, r] >= 0`` and ``ib[o, r] >= 0``), in
-    ascending order."""
+    ascending order; and per offset and 32-row word (``pair_words``) the
+    word's live bits (bit i: row 32 w + i pairs there) and the offset's
+    pairs before the word, where K1's row groups find their ranges."""
     rows: torch.Tensor              # (n_off, R) int32; past the count: -1
     #                                 (plain version) or unspecified (kernel)
     counts: torch.Tensor            # (n_off,) int32
     ws: Optional[torch.Tensor]      # the kernel's workspace (rows, counts,
-    #                                 its ticket), None on the CPU
+    #                                 its ticket, ...), None on the CPU
+    bits: torch.Tensor              # (n_off, words) int32, bit 31 the sign
+    starts: torch.Tensor            # (n_off, words) int32
 
 
 # K4's pair list: rows per thread block of its count and list passes
 PAIR_LIST_ROWS = 4096
 
 
+def pair_words(rows: int) -> int:
+    """The 32-row words of a pair list's bits and starts per offset: the
+    count and list passes' thread blocks' rows, whole."""
+    return max(1, -(-rows // PAIR_LIST_ROWS)) * (PAIR_LIST_ROWS // 32)
+
+
 def pair_workspace_size(n_off: int, rows: int) -> int:
-    """``gather_pairs``' int32 workspace: the rows, the counts, a ticket
-    and the list passes' per-block counts."""
+    """``gather_pairs``' int32 workspace: the rows, the counts, a ticket,
+    the list passes' per-block counts, then the count pass's bits and the
+    list pass's starts (``pair_words`` each an offset)."""
     return n_off * rows + n_off + 1 \
-        + n_off * max(1, -(-rows // PAIR_LIST_ROWS))
+        + n_off * max(1, -(-rows // PAIR_LIST_ROWS)) \
+        + 2 * n_off * pair_words(rows)
 
 
 def pairs_in(ws: torch.Tensor, n_off: int, rows: int) -> PairList:
     """The ``PairList`` of (n_off, rows) tables whose workspace is
     ``ws``."""
+    words = pair_words(rows)
+    base = n_off * rows + n_off + 1 + n_off * max(1, -(-rows //
+                                                          PAIR_LIST_ROWS))
     return PairList(ws[:n_off * rows].view(n_off, rows),
-                    ws[n_off * rows:n_off * rows + n_off], ws)
+                    ws[n_off * rows:n_off * rows + n_off], ws,
+                    ws[base:base + n_off * words].view(n_off, words),
+                    ws[base + n_off * words:base + 2 * n_off * words].view(
+                        n_off, words))
+
+
+def pair_words_plain(live: torch.Tensor) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """(bits, starts) of a (n_off, R) live mask, each (n_off,
+    ``pair_words(R)``) int32: word w's bit i is row 32 w + i's flag (0 past
+    R), its start the offset's live rows before row 32 w."""
+    n_off, rows = live.shape
+    words = pair_words(rows)
+    flags = torch.zeros(n_off, words * 32, dtype=torch.int64,
+                        device=live.device)
+    flags[:, :rows] = live.long()
+    flags = flags.view(n_off, words, 32)
+    bits = (flags << torch.arange(32, device=live.device)).sum(-1)
+    count = flags.sum(-1)
+    starts = count.cumsum(1) - count
+    # bit 31 as the sign of an int32, as the kernel's word reads in int32
+    return (torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+        torch.int32), starts.to(torch.int32))
 
 
 def gather_pairs_plain(ia: Optional[torch.Tensor],
@@ -339,7 +403,7 @@ def gather_pairs_plain(ia: Optional[torch.Tensor],
     past = torch.arange(live.shape[1], device=live.device)[None, :] \
         >= counts[:, None]
     return PairList(torch.where(past, -1, order).to(torch.int32), counts,
-                    None)
+                    None, *pair_words_plain(live))
 
 
 def gather_pairs(ia: Optional[torch.Tensor], ib: Optional[torch.Tensor]
@@ -528,7 +592,8 @@ class _SubmConv(torch.autograd.Function):
         dy = _masked(dout, valid, feats.dtype)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = gather_conv(dy, nbr, _transposed(weights.flip(0)), valid)
+            dx = gather_conv(dy, nbr, _transposed(weights.flip(0)), valid,
+                             dx=True)
         if ctx.needs_input_grad[2]:
             if feats.shape[1] > dy.shape[1]:
                 dw = gather_wgrad(feats, None, dy, nbr, mirror=True)

@@ -86,6 +86,28 @@ headline scenes at its pinned caps (level 0 in the gather layout there:
 levels 1-4) or the 400,000-point stress scene at its caps; the form
 thresholds of ``ops/narrow.py`` are keyed on the level's capacity.
 
+    python -m segdino3d_tpu_torch.tools.conv_bench --form \
+        --scene headline batched stress [--dtype fp32|bf16|both]
+
+times the two forms of K1 and of K10's live-pair path against each other,
+the paired runs behind ``ops/narrow.py``'s row-group thresholds: on each
+scene's plan (the headline scene's gather plan for K1 and hybrid plan for
+K10; phase 12's plans under its ``SEGDINO_CONV_CHUNK_MB``, as ``--live
+--scene`` builds them), K1 at the stem (k5 259 -> 32, bf16 at the 264
+pitch), at level 0's k3 96 -> 96 and 128 -> 96 in the forward and dX
+roles where level 0 is a gather level, at the headline scene's level 1
+and at the v2 model's k3 stem 262 -> 32 on level 0's k3 table; K10 at
+96 -> 96 of the first block-dense level (the headline scene's L0, the
+batch's L1, the stress scene's L0), forward and dX.  ``gather2`` and
+``gather4`` put 2 and 4 headline scenes in the gather layout (K1 at level
+0's and level 1's k3 convs, caps between the headline scene's and the
+batch's).  The paths: the pair-major form in the budget's offset chunks
+and in one chunk (where the budget cuts it) and the row-group form (K10's
+bf16 forward also on the row tiles), interleaved; each held to the plain
+version (fp32 1e-4, bf16 1e-2), every fp32 path bit-equal to the
+pair-major form (checked before the timing); beside K1's cases the build
+of its table's pair list (``gather_pairs``).
+
     python -m segdino3d_tpu_torch.tools.conv_bench --chunks
 
 times the convs whose pair-major buffer outgrows the budget at the
@@ -480,33 +502,177 @@ def chunk_cases(plan, hybrid, gen):
     return out
 
 
+
+
+def form_case(name, dt, call, plain, lib, ops, byts, chunks, more=None):
+    """A ``--form`` case: ``call(**kw)`` runs the conv with ``kw`` forcing
+    a form; its paths the pair-major form (``chunks``: a counter of offset
+    chunks, the budget's and one chunk where they differ), the row-group
+    form, and ``more``."""
+    import chip_smoke as C
+    from segdino3d_tpu_torch.ops import narrow as N
+
+    pm = lambda: call(form=N.PAIR_MAJOR)  # noqa: E731
+    before = chunks.launches
+    pm()
+    n = chunks.launches - before
+    paths = {f"pair-major, {n} chunks": pm}
+    if n > 1:
+        paths["pair-major, one chunk"] = C.in_one_chunk(pm)
+    paths["row groups"] = lambda: call(form=N.ROW_GROUPS)
+    paths.update(more or {})
+    if dt == torch.float32:
+        ref = pm()
+        for path, fn in paths.items():
+            if "list build" not in path and not torch.equal(fn(), ref):
+                raise SystemExit(f"{name}: {path} differs from the pair-major "
+                                 "form")
+        print(f"form {name} float32: every path bit-equal to the pair-major "
+              f"form, digest {digest(ref)}", flush=True)
+        del ref
+    return (name, dt, paths, plain, lib, ops, byts)
+
+
+def form_cases(scene, gen, dtypes):
+    """``--form``'s cases on ``scene``'s plans (see the module docstring):
+    [(name, dtype, {path: call}, plain call, library call, ops, bytes)]."""
+    import chip_smoke as C
+    from segdino3d_tpu_torch.data.collate import (PadSpec, attach_host_plan,
+                                                  collate)
+    from segdino3d_tpu_torch.ops import block_dense as BD
+    from segdino3d_tpu_torch.ops import narrow as N
+    from segdino3d_tpu_torch.ops import sparse_conv as SC
+
+    if scene == "headline":
+        records = C.make_records()
+        spec = PadSpec(C.SCENE["n_points"], C.SCENE["n_superpoints"], 64,
+                       128, 200)
+        plan = attach_host_plan(collate(records, spec, "cuda"), records,
+                                spec, voxel_size=0.02,
+                                level_cap_ratios=C.LEVEL_CAP_RATIOS).plan
+        hybrid = attach_host_plan(collate(records, spec, "cuda"), records,
+                                  spec, level_cap_ratios=C.LEVEL_CAP_RATIOS,
+                                  **C.plan_layout("hybrid")).plan
+    elif scene.startswith("gather"):
+        plan, hybrid = scene_hybrid(scene), None
+    else:
+        plan = hybrid = scene_hybrid(scene)
+    lv = plan.levels
+    v0, valid = lv[0].valid.shape[0], lv[0].valid
+    out = []
+
+    def k1(label, nbr, valid, cin, cout, dx=False):
+        """K1 at ``nbr`` for a conv cin -> cout, or (``dx``) its input
+        gradient: the flipped, transposed weight on a Cout-wide input."""
+        v = nbr.shape[1]
+        hits = int((nbr[:, valid] >= 0).sum())
+        width = cout if dx else cin
+        for dt in dtypes:
+            pitch = N.row_pitch(cin, dt) if cin > 256 else cin
+            x = padded(torch.randn(v, width, generator=gen, device="cuda"
+                                   ).to(dt), 1, pitch if not dx else width)
+            w = padded((torch.randn(nbr.shape[0], cin, cout, generator=gen,
+                                    device="cuda")
+                        * (nbr.shape[0] * cin) ** -0.5).to(dt), 1, pitch)
+            if dx:
+                w = SC._transposed(w.flip(0)).contiguous()
+
+            def call(x=x, w=w, **kw):
+                return SC.gather_conv(x, nbr, w, valid, dx=dx, **kw)
+
+            out.append(form_case(
+                f"K1 {label}, table of {v} rows, {hits} live pairs", dt,
+                call, lambda x=x, w=w: SC.gather_conv_plain(x, nbr, w, valid),
+                lambda x=x, w=w: C.conv_library(x, nbr, w),
+                2.0 * hits * cin * cout,
+                C.nbytes(x, nbr, w, valid) + v * w.shape[2] * x.element_size(),
+                SC.gather_conv.chunks,
+                {"pair list build": lambda: SC.gather_pairs(None, nbr)}))
+
+    k1("stem k5 259->32 L0", plan.stem_nbr, valid, 259, 32)
+    if lv[0].nbr is not None:
+        for cin in (96, 128):
+            k1(f"k3 {cin}->96 L0", lv[0].nbr, valid, cin, 96)
+            k1(f"k3 dX of {cin}->96 L0", lv[0].nbr, valid, cin, 96, dx=True)
+    if scene == "headline":
+        k1("k3 96->96 L1", lv[1].nbr, lv[1].valid, 96, 96)
+        k1("v2 k3 stem 262->32 L0", lv[0].nbr, valid, 262, 32)
+    if hybrid is None:
+        k1("k3 96->96 L1", lv[1].nbr, lv[1].valid, 96, 96)
+        return out
+
+    li = next(i for i, t in enumerate(hybrid.blocks) if t is not None)
+    t = hybrid.blocks[li]
+    occ = BD.occupancy(t)
+    e, nb = t.edge, t.block_nbr
+    for dx in (False, True):
+        mask, rl = BD.dilation(t, occ, 3) if dx else (occ, BD.row_list(t, occ))
+        lp = (BD.dilation_pairs if dx else BD.live_pairs)(t, occ, 3)
+        need, listed = int(lp.counts.sum()), int(rl.count)
+        for dt in dtypes:
+            x = torch.where(occ[:, None], torch.randn(
+                occ.shape[0], 96, generator=gen, device="cuda"), 0.0).to(dt)
+            w = (torch.randn(27, 96, 96, generator=gen, device="cuda")
+                 * (27 * 96) ** -0.5).to(dt)
+            if dx:
+                w = SC._transposed(w.flip(0))
+
+            def call(x=x, w=w, mask=mask, rl=rl, lp=lp, **kw):
+                return BD.block_conv(x, nb, w, mask, e, rl, zero_outside=True,
+                                     live=True, live_list=lp, **kw)
+
+            wc = w.reshape(3, 3, 3, 96, 96).permute(4, 3, 0, 1, 2
+                                                    ).contiguous()
+
+            def lib(x=x, wc=wc):
+                p = C.to_ncdhw(BD.halo_pad_plain(
+                    x.reshape(t.num_blocks, e, e, e, 96), nb, 1))
+                return torch.nn.functional.conv3d(p, wc)
+
+            more = {} if dx or dt == torch.float32 else {
+                "row tiles": lambda x=x, w=w, rl=rl: BD.block_conv(
+                    x, nb, w, occ, e, rl, live=False)}
+            role = "dX" if dx else "forward"
+            out.append(form_case(
+                f"K10 k3 {role} 96->96 L{li}, {listed} listed rows, {need} "
+                f"live pairs", dt, call,
+                lambda x=x, w=w, lp=lp: BD.block_conv_live_plain(x, w, lp),
+                lib, 2.0 * need * 96 * 96,
+                C.nbytes(x, w) + 4 * listed + occ.shape[0] * 96
+                * x.element_size(), BD.block_conv.chunks, more))
+    return out
+
+
 def scene_hybrid(scene):
     """Phase 12's hybrid plan (``chip_smoke.py``) under its
     ``SEGDINO_CONV_CHUNK_MB``: "batched", 8 headline scenes at their
-    pinned caps, or "stress", the 400,000-point scene at its caps."""
+    pinned caps, or "stress", the 400,000-point scene at its caps; or
+    "gatherN", N headline scenes at their caps in the gather layout (K1 at
+    every level, between the headline scene's caps and the batch's)."""
     import chip_smoke as C
     from segdino3d_tpu_torch.data.collate import (PadSpec, attach_host_plan,
                                                   collate)
     from segdino3d_tpu_torch.data.synthetic import synthetic_scene
 
     os.environ["SEGDINO_CONV_CHUNK_MB"] = C.SCALE_CHUNK_MB
-    if scene == "batched":
-        records = [synthetic_scene(s, **C.SCENE)
-                   for s in range(C.BATCH_SCENES)]
-        spec = PadSpec(C.SCENE["n_points"], C.SCENE["n_superpoints"], 64,
-                       128, 200)
-    else:
+    if scene == "stress":
         records = [synthetic_scene(0, **C.STRESS_SCENE)]
         spec = PadSpec(*C.STRESS_PAD)
-    args = C.plan_layout("hybrid")
+    else:
+        n = C.BATCH_SCENES if scene == "batched" else int(scene[6:])
+        records = [synthetic_scene(s, **C.SCENE) for s in range(n)]
+        spec = PadSpec(C.SCENE["n_points"], C.SCENE["n_superpoints"], 64,
+                       128, 200)
+    args = C.plan_layout("gather" if scene.startswith("gather") else "hybrid")
     level_caps, block_caps = C.probe_caps(
-        records, spec, args["block_edges"], len(records),
+        records, spec, args.get("block_edges", ()), len(records),
         pin_blocks=scene == "batched")
     plan = attach_host_plan(collate(records, spec, "cuda"), records, spec,
                             level_caps=level_caps, block_caps=block_caps,
                             **args).plan
     print(f"{scene}: level caps {level_caps}, block caps {block_caps}; "
-          f"level 0 {C.l0_layout(plan)}; {C.describe_blocks(plan)}",
+          f"level 0 {C.l0_layout(plan)}; "
+          f"{C.describe_blocks(plan) if plan.blocks else 'no block level'}",
           flush=True)
     return plan
 
@@ -666,15 +832,22 @@ def main() -> int:
     ap.add_argument("--live", action="store_true",
                     help="the flagship stem's forward, K10's live-pair "
                     "path against its row-tile path, K1 beside them")
-    ap.add_argument("--dtype", choices=("fp32", "bf16"), default="fp32",
+    ap.add_argument("--dtype", choices=("fp32", "bf16", "both"),
+                    default="fp32",
                     help="bf16: the bf16 backbone's K1, K10, K4 and K11 "
                     "cases, each beside its fp32 run; with --scene, the "
                     "dtype timed")
-    ap.add_argument("--scene", choices=("headline", "batched", "stress"),
-                    default="headline",
+    ap.add_argument("--scene", choices=("headline", "batched", "stress",
+                                        "gather2", "gather4"),
+                    nargs="+", default=["headline"],
                     help="with --live, the plan the k3 convs run on: "
                     "chip_smoke.py phase 12's batch of 8 or its stress "
-                    "scene, under its SEGDINO_CONV_CHUNK_MB")
+                    "scene, under its SEGDINO_CONV_CHUNK_MB; with --form, "
+                    "each scene in turn (gatherN: N headline scenes in "
+                    "the gather layout, K1 alone)")
+    ap.add_argument("--form", action="store_true",
+                    help="K1's and K10's pair-major and row-group forms "
+                    "against each other")
     ap.add_argument("--chunks", action="store_true",
                     help="the convs whose pair-major buffer outgrows the "
                     "budget at the headline caps, in its offset chunks "
@@ -698,11 +871,21 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
     gen = torch.Generator(device="cuda").manual_seed(0)
-    if args.live and args.scene != "headline":
-        dt = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-        WB.run_stem(k3_live_cases(scene_hybrid(args.scene), gen, (dt,)),
-                    args.rounds, args.reps, held=conv_held,
-                    prefix=f"{args.scene} k3")
+    dtypes = {"fp32": (torch.float32,), "bf16": (torch.bfloat16,),
+              "both": (torch.float32, torch.bfloat16)}[args.dtype]
+    if args.form:
+        for scene in args.scene:
+            runs = form_cases(scene, gen, dtypes)
+            WB.run_stem(runs, args.rounds, args.reps, held=conv_held,
+                        prefix=f"form {scene}")
+            del runs
+            torch.cuda.empty_cache()
+        return 0
+    if args.live and args.scene != ["headline"]:
+        for scene in args.scene:
+            WB.run_stem(k3_live_cases(scene_hybrid(scene), gen, dtypes),
+                        args.rounds, args.reps, held=conv_held,
+                        prefix=f"{scene} k3")
         return 0
     records = C.make_records()
     spec = PadSpec(C.SCENE["n_points"], C.SCENE["n_superpoints"], 64, 128,

@@ -97,7 +97,8 @@ def conv_chunk_counts() -> dict:
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
     k1, k10 = SC.gather_conv, BD.block_conv
-    return {"gather_gemm_conv": (k1.launches - k1.narrow.launches,
+    return {"gather_gemm_conv": (k1.launches - k1.narrow.launches
+                                 - k1.row_groups.launches,
                                  k1.chunks.launches),
             "block_conv": (k10.live.launches - k10.live_rows.launches,
                            k10.chunks.launches)}

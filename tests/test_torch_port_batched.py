@@ -335,7 +335,9 @@ def test_path_rule_at_scaled_caps(scene):
     up to L3 at a batch of 8 (10,752 voxels, where the live-pair path won
     the paired measurement), dX in row groups at the levels of at least
     65,536 voxels, on live pairs at the levels of at most 16,384; fp32
-    everywhere on live pairs."""
+    everywhere on live pairs in the pair-major form.  K1's bf16 level-0 k3
+    convs (96->96) in row groups at the levels of at least 131,072 rows,
+    its fp32 ones and its stems in the pair-major form."""
     from segdino3d_tpu_torch.ops import narrow as TN
     from segdino3d_tpu_torch.tools.conv_bench import K3_CONVS
 
@@ -351,6 +353,22 @@ def test_path_rule_at_scaled_caps(scene):
                 == TN.ROW_GROUPS) == (li in groups)
         assert TN.live_form(3, torch.bfloat16, cap=caps[li]) == \
             TN.PAIR_MAJOR
+        assert TN.live_form(3, torch.float32, cap=caps[li]) == \
+            TN.PAIR_MAJOR
+    # K1 on a gather level: bf16 k3 in row groups from 131,072 rows (the
+    # batch's L0 and L1, the stress scene's L0), fp32 k3 and the stems
+    # pair-major (the paired measurement, ``narrow.K1_ROW_GROUPS_MIN_CAP``)
+    for li, cap in enumerate(caps):
+        for dx in (False, True):
+            rows = TN.ROW_GROUPS if cap >= 131072 else TN.PAIR_MAJOR
+            assert TN.gather_form(27, 96, 96, torch.bfloat16, cap=cap,
+                                  dx=dx) == rows, (li, dx)
+            assert TN.gather_form(27, 96, 96, torch.float32, cap=cap,
+                                  dx=dx) == TN.PAIR_MAJOR
+    assert (TN.gather_form(27, 96, 96, torch.bfloat16, cap=caps[0])
+            == TN.ROW_GROUPS)
+    for dt in (torch.float32, torch.bfloat16):
+        assert TN.gather_form(125, 264, 32, dt, cap=caps[0]) == TN.PAIR_MAJOR
 
 
 # (n_off, cap, stride, budget): within the budget; the flagship's k5 stem

@@ -1918,7 +1918,7 @@ def test_offset_chunks_bit_equal(monkeypatch, levels, case, chunk, dtype):
         stride = lib.library("gather_gemm_conv").gather_conv_pair_stride(cout)
 
         def call():
-            return TSC.gather_conv(x, nbr, w, valid)
+            return TSC.gather_conv(x, nbr, w, valid, form=TN.PAIR_MAJOR)
 
         counter = TSC.gather_conv.chunks
         plain = TSC.gather_conv_plain(x, nbr, w, valid)
@@ -1971,3 +1971,124 @@ def test_offset_chunks_bit_equal(monkeypatch, levels, case, chunk, dtype):
     assert torch.equal(cut[0], whole) and torch.equal(cut[1], whole)
     torch.testing.assert_close(whole.float(), plain.float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype", [
+    (c, d) for c in ("k3", "k3_dx", "stem", "wide_stem", "down", "wide_cout")
+    for d in ("float32", "bfloat16")
+    # the wide stems are bf16
+    if not (c == "wide_stem" and d == "float32")])
+def test_gather_conv_rows_matches_plain(levels, case, dtype):
+    """K1's row-group form (``gather_conv_rows``, ``csrc/live_rows.cuh``)
+    in the forward and dX roles (a k3 conv with flipped, transposed
+    weights), at the k5 stem, the bf16 wide stem at the 264 pitch, a down
+    conv over the child table and Cout 160 (three column tiles): within
+    1e-4 (bf16 1e-2) of ``gather_conv_plain``, two calls bit-equal, one
+    launch each and no offset chunk, every row outside valid 0, and in
+    fp32 bit-equal to the pair-major form."""
+    dt = getattr(torch, dtype)
+    lv = levels.levels
+    nbr, valid, rows_in, cin, cout = {
+        "k3": (lv[0].nbr, lv[0].valid, CAPS[0], 48, 96),
+        "k3_dx": (lv[0].nbr, lv[0].valid, CAPS[0], 96, 48),
+        "stem": (levels.stem_nbr, lv[0].valid, CAPS[0], 35, 32),
+        "wide_stem": (levels.stem_nbr, lv[0].valid, CAPS[0], 264, 32),
+        "down": (lv[0].child, lv[1].valid, CAPS[0], 32, 64),
+        "wide_cout": (lv[1].nbr, lv[1].valid, CAPS[1], 64, 160)}[case]
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    n_off = nbr.shape[0]
+    x = torch.randn(rows_in, cin, generator=gen, device="cuda").to(dt)
+    if case == "k3_dx":   # the forward conv's Cout -> Cin, its weight
+        w = TSC._transposed((torch.randn(n_off, cout, cin, generator=gen,
+                                         device="cuda")
+                             * (n_off * cout) ** -0.5).to(dt).flip(0))
+    else:
+        w = (torch.randn(n_off, cin, cout, generator=gen, device="cuda")
+             * (n_off * cin) ** -0.5).to(dt)
+    before = (TSC.gather_conv.launches, TSC.gather_conv.row_groups.launches,
+              TSC.gather_conv.chunks.launches)
+    got = [TSC.gather_conv(x, nbr, w, valid, dx=case == "k3_dx",
+                           form=TN.ROW_GROUPS)
+           for _ in range(2)]
+    assert (TSC.gather_conv.launches - before[0],
+            TSC.gather_conv.row_groups.launches - before[1],
+            TSC.gather_conv.chunks.launches - before[2]) == (2, 2, 0)
+    plain = TSC.gather_conv_plain(x, nbr, w, valid)
+    pm = TSC.gather_conv(x, nbr, w, valid, form=TN.PAIR_MAJOR)
+    torch.cuda.synchronize()
+    assert torch.equal(*got)
+    if dtype == "float32":
+        assert torch.equal(got[0], pm)
+    torch.testing.assert_close(got[0].float(), plain.float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+    assert not got[0][~valid].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1_stem", "k1_k3", "k1_k3_dx",
+                                  "k10_k3", "k10_stem"])
+@pytest.mark.parametrize("budget", ["one_chunk", "384_mib", "two_offsets"])
+def test_row_groups_bit_equal_to_pair_major(monkeypatch, levels, case,
+                                            budget):
+    """fp32: the row-group form of K1 and of K10's forward equals the
+    pair-major form bit for bit, the latter in one chunk, at 384 MiB and
+    in chunks of two offsets (its carry); the row groups run no chunk under
+    any of those budgets."""
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    if case.startswith("k1_"):
+        lv = levels.levels
+        nbr = levels.stem_nbr if case == "k1_stem" else lv[0].nbr
+        valid = lv[0].valid
+        cin, cout = (35, 32) if case == "k1_stem" else (40, 96)
+        n_off, cap = nbr.shape
+        if case == "k1_k3_dx":    # the dX role of a conv cout -> cin
+            cin, cout = cout, cin
+        x = torch.randn(CAPS[0], cin, generator=gen, device="cuda")
+        w = torch.randn(n_off, cin, cout, generator=gen, device="cuda") \
+            * (n_off * cin) ** -0.5
+        if case == "k1_k3_dx":
+            w = TSC._transposed(w.transpose(1, 2).flip(0))
+        stride = TSC.cuda_build.library(
+            "gather_gemm_conv").gather_conv_pair_stride(w.shape[2])
+
+        def call(form):
+            return TSC.gather_conv(x, nbr, w, valid, form=form)
+
+        counter = TSC.gather_conv.chunks
+    else:
+        t = _block_plan_on("cuda", [4] * 5).blocks[0]
+        t = TBD.BlockTables(t.vox_slot, t.block_nbr, t.slot_vox, t.edge)
+        occ = TBD.occupancy(t)
+        k = 5 if case == "k10_stem" else 3
+        n_off = k ** 3
+        cin, cout = (35, 32) if k == 5 else (40, 96)
+        rows = TBD.row_list(t, occ)
+        lp = TBD.live_pairs(t, occ, k)
+        cap = lp.src.shape[1]
+        x = torch.where(occ[:, None], torch.randn(
+            occ.shape[0], cin, generator=gen, device="cuda"), 0.0)
+        w = torch.randn(n_off, cin, cout, generator=gen, device="cuda") \
+            * (n_off * cin) ** -0.5
+        stride = TSC.cuda_build.library("block_conv").block_conv_live_stride(
+            cout, 0)
+
+        def call(form):
+            return TBD.block_conv(x, t.block_nbr, w, occ, t.edge, rows,
+                                  zero_outside=True, live=True, live_list=lp,
+                                  form=form)
+
+        counter = TBD.block_conv.chunks
+    mib = {"one_chunk": 1 << 30, "384_mib": 384,
+           "two_offsets": cap * stride * 4 * 2 / 2 ** 20}[budget]
+    monkeypatch.setenv("SEGDINO_CONV_CHUNK_MB", repr(float(mib)))
+    n_chunks = len(TSC.offset_chunks(n_off, cap, stride))
+    assert (n_chunks > 1) == (budget == "two_offsets")
+    before = counter.launches
+    pm = call(TN.PAIR_MAJOR)
+    assert counter.launches == before + n_chunks
+    rows_out = call(TN.ROW_GROUPS)
+    assert counter.launches == before + n_chunks
+    torch.cuda.synchronize()
+    assert torch.equal(rows_out, pm)
+

@@ -461,8 +461,13 @@ def test_live_rows_plain_matches_jax(edge, cin, cout):
 def test_live_form_rule():
     """The form K10's live-pair path takes by role and level: the
     pair-major form, but bf16 dX at a level of
-    ``BF16_K3_DX_ROW_GROUPS_MIN_CAP`` voxels or more (the flagship's L0) on
-    the row-group kernel."""
+    ``ROW_GROUPS_MIN_CAP`` voxels or more (the flagship's L0) on
+    the row-group kernel; the fp32 forward keeps the pair-major form at
+    every level the paired measurement timed (up to the stress scene's
+    L0)."""
+    for cap in (92160, 190976, 262144, 625664):
+        assert TN.live_form(3, F32, cap=cap) == TN.PAIR_MAJOR
+        assert TN.live_form(5, F32, cap=cap) == TN.PAIR_MAJOR
     caps = [92160, 36864, 13824, 5530, 2304]
     for dt in (F32, BF16):
         for k in (3, 5):
@@ -500,7 +505,7 @@ def test_path_rule(model):
     too), the Baseline's 3-channel stem on its narrow paths; an unstated
     input never.  bf16: the k5 stem on live pairs; a k3 conv by its role
     and level size as ``BF16_K3_LIVE_MAX_CAP`` and
-    ``BF16_K3_DX_ROW_GROUPS_MIN_CAP`` measured (the flagship's forward at
+    ``ROW_GROUPS_MIN_CAP`` measured (the flagship's forward at
     L3-L4, dX at L0 and L2-L4, dW everywhere); dX states its input
     whatever the forward stated."""
     (scin, scout), k3 = _conv_roles(model)
