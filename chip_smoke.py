@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero before the result line:
 2. hold every kernel against its plain PyTorch version at the main path's
    shapes, and time the kernel, the plain version and a PyTorch yardstick
    with CUDA events: the forward kernels K1-K3 in fp32 and bf16, two calls
-   of each bit-equal (K1 at the k5 stem, a k3 conv of every level and two
-   down convs; K2 at the four up convs; K3 as the voxel mean from its two
+   of each bit-equal (K1 at the k5 stem, at its 16-byte pitch as every
+   stem below, fp32 equal to the same call at Cin and timed beside it, a
+   k3 conv of every level and two down convs; K2 at the four up convs; K3 as the voxel mean from its two
    column sources, with fp32 and with fp16 2D features, and as the
    superpoint pool, each CSR build timed beside it; the CSR's own two
    kernels, equal to their plain version); the
@@ -69,7 +70,7 @@ Phases, in order; any failure exits non-zero before the result line:
    superpoints: collate -> host plan -> backbone -> decoder ->
    predict_instance -> AP evaluator.  It prints scenes/s, ms per stage,
    each kernel's launches in one forward (K1's pair lists: one per index
-   table), peak memory, and K1's, K2's and K3's device time in one more,
+   table; no list's pair counts read to the host), peak memory, and K1's, K2's and K3's device time in one more,
    profiled forward; checks that the forward builds no (N, 259)
    concatenation of the point features, that every output is finite, and
    holds the card's forward against the CPU's
@@ -218,7 +219,9 @@ Phases, in order; any failure exits non-zero before the result line:
    scenes/s, ms by stage, the level-0 layout the plan picked, the caps,
    the blocks, the peak, device ms by kernel of a profiled forward and
    each pair-major conv's offset chunks (the counted chunks must equal
-   ``sparse_conv.offset_chunks``' on the plan); checks the launches, the
+   ``sparse_conv.pair_major_chunks``' on the forward's lists: sized by
+   their live pairs where the cap-sized ones would be many) and the lists
+   whose counts were read to the host; checks the launches, the
    fp32 forward against one in one chunk (outputs bit-equal, both peaks
    printed), 12a each fp32 scene's cls_preds and masks against the same
    scene alone at batch 1 on the batch's layout (rtol = atol = 1e-4),
@@ -250,6 +253,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -540,7 +544,7 @@ def wgrad_library(a, ia, b, ib, mirror):
 
 def pitched(x, dim):
     """``x`` widened along ``dim`` to the stems' aligned pitch
-    (``narrow.row_pitch``) with zero columns; as it is in fp32."""
+    (``narrow.row_pitch``: 16-byte rows) with zero columns."""
     from segdino3d_tpu_torch.ops import narrow as N
 
     pad = N.row_pitch(x.shape[dim], x.dtype) - x.shape[dim]
@@ -551,15 +555,31 @@ def pitched(x, dim):
     return torch.cat([x, x.new_zeros(shape)], dim).contiguous()
 
 
+def pitch_check(kernel, name, cin, at_pitch, at_cin):
+    """fp32: a stem's call at its 16-byte pitch (``narrow.row_pitch``, zero
+    columns past Cin in its input and weight) must equal the same call at
+    Cin value for value (a zero column adds +0 to every sum in the same
+    order), or the run fails; returns the call at Cin, timed beside it."""
+    same = torch.equal(at_pitch(), at_cin())
+    print(f"{kernel} [{name}] float32 at the pitch against the same call at "
+          f"Cin {cin} (4-byte copies): {'equal' if same else 'MISMATCH'}",
+          flush=True)
+    if not same:
+        raise SystemExit(f"{kernel} [{name}]: the stem at its pitch differs "
+                         f"from the call at Cin {cin}")
+    return at_cin
+
+
 def conv_case(cases, gen, name, vin, nbr, valid, cin, cout, wide=False,
               one_chunk=False):
     """K1 in its forward role, fp32 and bf16; with ``wide``, K1's wide
     path (the pair-major schedule) forced and timed beside it as a
-    yardstick.  A bf16 stem (``narrow.wide_stem``) runs at the aligned
-    pitch, as the backbone gives it (its input and weight zero past
-    Cin).  With ``one_chunk``, the pair-major form in one offset chunk
-    (the budget lifted) is held bit-equal to it in the budget's chunks and
-    timed beside the rule's call."""
+    yardstick.  A stem runs at the aligned pitch, as the backbone gives it
+    (its input and weight zero past Cin), in fp32 held equal to the same
+    call at Cin (``pitch_check``) and timed beside it.  With
+    ``one_chunk``, the pair-major form in one offset chunk (the budget
+    lifted) is held bit-equal to it in the budget's chunks and timed
+    beside the rule's call."""
     from segdino3d_tpu_torch.ops import narrow as N
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
@@ -572,6 +592,12 @@ def conv_case(cases, gen, name, vin, nbr, valid, cin, cout, wide=False,
         extra = {"the wide path":
                  lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid,
                                                  narrow=False)} if wide else {}
+        if dt == torch.float32 and x.shape[1] != cin:
+            xc, wc = x[:, :cin].contiguous(), w[:, :cin].contiguous()
+            extra[f"at Cin {cin} (4-byte copies)"] = pitch_check(
+                "gather_gemm_conv", name, cin,
+                lambda x=x, w=w: SC.gather_conv(x, nbr, w, valid),
+                lambda: SC.gather_conv(xc, nbr, wc, valid))
         if one_chunk:
             extra["the pair-major form in one chunk"] = check_one_chunk(
                 "gather_gemm_conv", name, dt, SC.gather_conv.chunks,
@@ -678,6 +704,7 @@ def voxel_mean_cases(cases, gen, plan, n_points, centred=False,
     2D features with fp32 and with fp16 values, each read in place and
     rounded to the compute dtype; with ``rgb_only``, the Baseline's, the
     colour columns alone), over the forward's voxel CSR."""
+    from segdino3d_tpu_torch.ops import narrow as N
     from segdino3d_tpu_torch.ops import scatter as SS
 
     v0 = plan.levels[0].valid.shape[0]
@@ -707,10 +734,12 @@ def voxel_mean_cases(cases, gen, plan, n_points, centred=False,
                        + v0 * cols * 4, "fp32",
                        {"CSR build (segment_csr)": lambda: SS.segment_csr(
                            seg_vox, v0, pvalid),
-                        "as the forward calls it (CSR, K3, cast)":
+                        "as the forward calls it (CSR, K3, cast; rows at "
+                        "the stem's pitch)":
                         lambda dt=dt, srcs=srcs: SS.segment_mean_columns(
                             srcs, seg_vox, v0, dt, pvalid,
-                            SS.segment_csr(seg_vox, v0, pvalid))})
+                            SS.segment_csr(seg_vox, v0, pvalid),
+                            width=N.row_pitch(cols, dt))})
         if rgb_only:
             cases.append(("segment_mean_gather", "baseline voxel mean, rgb "
                           "(N,6)[:,3:6] alone -> V0 x 3", per))
@@ -834,11 +863,14 @@ def kernel_cases(batch, s_cap, gen):
     return cases
 
 
-def wgrad_case(cases, name, a, ia, b, ib, mirror=False, cin=None):
+def wgrad_case(cases, name, a, ia, b, ib, mirror=False, cin=None,
+               at_cin=None):
     """K4 on the tables' compacted pair lists, in a's dtype (bf16 at the
     bf16 tolerance of the kernel tests: 1e-2 x max |plain|).  ``cin``: the
     logical input width where ``a`` comes at a wider pitch (zero columns),
-    which the bound's operations and weight bytes count."""
+    which the bound's operations and weight bytes count; ``at_cin``: ``a``
+    at that width, whose call is timed beside it (its dW's first ``cin``
+    rows printed bit-equal or not: the stem's dW before the pitch)."""
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
     table = ia if ia is not None else ib
@@ -854,6 +886,16 @@ def wgrad_case(cases, name, a, ia, b, ib, mirror=False, cin=None):
     if int(pairs.counts.sum()) != live:
         raise SystemExit(f"gather_pairs [{name}]: {int(pairs.counts.sum())}"
                          f" listed pairs, {live} live")
+    extra = {"pair list build (gather_pairs, once per table and step)":
+             lambda: SC.gather_pairs(ia, ib)}
+    if at_cin is not None:
+        extra[f"at Cin {cin}"] = lambda: SC.gather_wgrad(at_cin, ia, b, ib,
+                                                         mirror)
+        same = torch.equal(SC.gather_wgrad(a, ia, b, ib, mirror)[:, :cin],
+                           extra[f"at Cin {cin}"]())
+        print(f"gather_wgrad [{name}]: its dW's first {cin} rows against the "
+              f"call at Cin: {'bit-equal' if same else 'not bit-equal'}",
+              flush=True)
     cases.append(("gather_wgrad", f"{name}; the compacted lists hold "
                   f"{live} live pairs of {n_off * rows}", {a.dtype: (
         lambda: SC.gather_wgrad(a, ia, b, ib, mirror),
@@ -861,9 +903,7 @@ def wgrad_case(cases, name, a, ia, b, ib, mirror=False, cin=None):
         lambda: wgrad_library(a, ia, b, ib, mirror),
         2.0 * live * cin * cout,
         nbytes(a, ia, b, ib) + n_off * cin * cout * 4, CONV_PEAK[a.dtype],
-        WGRAD_TOL if a.dtype == torch.float32 else 1e-2,
-        {"pair list build (gather_pairs, once per table and step)":
-         lambda: SC.gather_pairs(ia, ib)})}))
+        WGRAD_TOL if a.dtype == torch.float32 else 1e-2, extra)}))
 
 
 def pool_backward_case(cases, gen, batch, s_cap, width, tag=""):
@@ -923,9 +963,12 @@ def backward_cases(batch, s_cap, gen):
     v0, v1 = lv[0].valid.shape[0], lv[1].valid.shape[0]
     f32 = torch.float32
     cases = []
-    wgrad_case(cases, "stem dW k5 259->32 L0 (dY gathered, mirrored)",
-               _randn(gen, (v0, 259), f32), None, _randn(gen, (v0, 32), f32),
-               plan.stem_nbr, mirror=True)
+    xs, dys = pitched(_randn(gen, (v0, 259), f32), 1), \
+        _randn(gen, (v0, 32), f32)
+    wgrad_case(cases, f"stem dW k5 259->32 L0 at the fp32 pitch "
+               f"{xs.shape[1]} (dY gathered, mirrored)", xs, None, dys,
+               plan.stem_nbr, mirror=True, cin=259,
+               at_cin=xs[:, :259].contiguous())
     wgrad_case(cases, "subm dW k3 96->96 L0", _randn(gen, (v0, 96), f32),
                lv[0].nbr, _randn(gen, (v0, 96), f32), None)
     wgrad_case(cases, "down dW 32->32 L0->L1", _randn(gen, (v0, 32), f32),
@@ -1707,6 +1750,14 @@ def dense_cases(plan, gen):
                                    cap=cap)
                 form = N.live_form(k, dt, dx=dx, cap=cap) if rule else None
                 kernel = on_form[form] if rule else on_rows
+                if dt == torch.float32 and ci != cin:
+                    xc, wn = x[:, :cin].contiguous(), w[:, :cin].contiguous()
+                    extra[f"at Cin {cin} (4-byte copies)"] = pitch_check(
+                        "block_conv", name, cin, kernel,
+                        lambda xc=xc, wn=wn, lp=lp: BD.block_conv(
+                            xc, t.block_nbr, wn, mask, e, rlist,
+                            zero_outside=True, live=rule,
+                            live_list=lp if rule else None, form=form))
                 label = {N.PAIR_MAJOR: "the pair-major form",
                          N.ROW_GROUPS: "the row-group kernel", None:
                          "the row-tile path"}
@@ -1969,6 +2020,18 @@ def dense_cases(plan, gen):
                      "live-pair list build (block_live_pairs, once per "
                      "level and step)": lambda: BD.live_pair_list(
                          rlist, occ, t.block_nbr, e, k, cap)}
+            if dt == f32 and ci != cin:
+                # the stem's dW before the fp32 pitch: at Cin
+                xc = x[:, :cin].contiguous()
+                extra[f"at Cin {cin}"] = lambda: BD.block_wgrad(
+                    xc, dy, t.block_nbr, occ, e, k, rlist,
+                    zero_outside=True, live=rule,
+                    live_list=lp if rule else None)
+                same = torch.equal(kernel()[:, :cin], extra[f"at Cin {cin}"]())
+                print(f"block_wgrad [{name}]: its dW's first {cin} rows "
+                      f"against the call at Cin: "
+                      f"{'bit-equal' if same else 'not bit-equal'}",
+                      flush=True)
         cases.append(("block_wgrad", f"{name}, fill {fill(t):.1%}, "
                       f"{int(every)} pairs with a source block (all-pairs "
                       f"bound {all_ms:.4f} ms), {int(need)} with an occupied "
@@ -2154,7 +2217,13 @@ def counters():
             # sparse_conv.offset_chunks); each chunk launches the products
             # and the sum
             "gather_gemm_conv chunks": (SC.gather_conv.chunks,),
-            "block_conv chunks": (BD.block_conv.chunks,)}
+            "block_conv chunks": (BD.block_conv.chunks,),
+            # the pair lists whose per-offset counts K1's and K10's calls
+            # read to the host to size their chunks by live pairs
+            # (sparse_conv.pair_major_chunks: one host sync a list, only
+            # where the cap-sized chunks would be many)
+            "gather_gemm_conv count reads": (SC.gather_conv.count_reads,),
+            "block_conv count reads": (BD.block_conv.count_reads,)}
 
 
 # the pair lists of K1 and K4 in a gather-layout forward or step: the
@@ -5181,11 +5250,14 @@ def conv_chunks(plan, dtype):
     and its down convs (``narrow.gather_form`` at the table's rows), and
     K10's k3 convs where ``narrow.live_path`` takes them
     (``narrow.live_form`` at the level's capacity).  The row-group form
-    runs no chunk (0) and allocates no scratch; the pair-major form's
-    scratch of a chunk of c offsets of cap pairs at a stride of s columns:
-    its products (c x cap x s fp32), its index map or nothing (K1: c x cap
-    int32) and the carry (cap x s fp32, or K10's listed rows' where more
-    than one chunk)."""
+    runs no chunk (0) and allocates no scratch; the pair-major form runs
+    ``sparse_conv.pair_major_chunks`` of its list (the cached one of the
+    forward run on ``plan``: the table's pair list, the level's live-pair
+    list), whose scratch is the largest chunk's products (its pairs x s
+    fp32 at a stride of s columns), its index map or nothing (K1: the
+    chunk's offsets x cap int32) and the carry (cap x s fp32, or K10's
+    listed rows' where more than one chunk); in one chunk every offset's
+    cap pairs and map."""
     from segdino3d_tpu_torch.ops import block_dense as BD
     from segdino3d_tpu_torch.ops import cuda_build
     from segdino3d_tpu_torch.ops import narrow as N
@@ -5196,39 +5268,52 @@ def conv_chunks(plan, dtype):
     k10 = cuda_build.library("block_conv").block_conv_live_stride
     lv, out = plan.levels, []
 
-    def add(name, calls, form, n_off, cap, stride, carry_rows, pos):
+    # the lists' counts are read where the wrapper read them (and kept):
+    # none of these calls counts a read of its own
+    reads = types.SimpleNamespace(launches=0)
+
+    def add(name, calls, form, n_off, cap, stride, carry_rows, counts, pos):
         if form == N.ROW_GROUPS:
             out.append((name, calls, form, 0, 0, 0))
             return
-        chunks = SC.offset_chunks(n_off, cap, stride)
+        chunks, pairs = SC.pair_major_chunks(n_off, cap, stride, counts,
+                                             reads, cap if pos else 0)
         most = max(o1 - o0 for o0, o1 in chunks)
         whole = n_off * cap * (stride * 4 + 4 * pos)
-        cut = most * cap * (stride * 4 + 4 * pos) + (
+        cut = pairs * stride * 4 + most * cap * 4 * pos + (
             carry_rows * stride * 4 if len(chunks) > 1 else 0)
         out.append((name, calls, form, len(chunks), whole, cut))
 
     def k1_form(n_off, cin, cout, v):
         return N.gather_form(n_off, cin, cout, dtype, cap=v)
 
+    def k1_counts(table):
+        return SC.cached_pairs(None, table).counts
+
     v0 = lv[0].valid.shape[0]
     add("K1 stem k5 259->32 L0", 1, k1_form(125, 259, 32, v0), 125, v0,
-        k1(32), v0, True)
+        k1(32), v0, k1_counts(plan.stem_nbr), True)
     for li, cin, cout, n in K3_CONVS:
         t = plan.blocks[li] if plan.blocks else None
         if t is None:
             v = lv[li].valid.shape[0]
             add(f"K1 k3 {cin}->{cout} L{li}", n, k1_form(27, cin, cout, v),
-                27, v, k1(cout), v, True)
+                27, v, k1(cout), v, k1_counts(lv[li].nbr), True)
             continue
         cap = BD.live_capacity(t)
         if N.live_path(27, cin, cout, dtype, True, cap=cap):
+            hit = t.live.get(3)
+            lp = hit[1] if hit is not None else BD.live_pairs(
+                t, BD.occupancy(t), 3)
             add(f"K10 k3 {cin}->{cout} L{li}", n, N.live_form(3, dtype,
                                                                cap=cap),
-                27, cap, k10(cout, cuda_build.dtype_code(dtype)), cap, False)
+                27, cap, k10(cout, cuda_build.dtype_code(dtype)), cap,
+                lp.counts, False)
     for li, cin, cout in DOWN_CONVS:
         v = lv[li + 1].valid.shape[0]
         add(f"K1 down {cin}->{cout} L{li}->L{li + 1}", 1,
-            k1_form(8, cin, cout, v), 8, v, k1(cout), v, True)
+            k1_form(8, cin, cout, v), 8, v, k1(cout), v,
+            k1_counts(lv[li].child), True)
     return out
 
 
@@ -5493,6 +5578,11 @@ def check_scale_counts(launches, plan, dtype, what):
             torch.float32 else ("slot_gather",):
         if not launches[kernel]:
             raise SystemExit(f"{what}: {kernel} never launched")
+    print(f"{what}: offset chunks a forward, K1 "
+          f"{launches['gather_gemm_conv chunks']}, K10 "
+          f"{launches['block_conv chunks']}; pair lists whose counts were "
+          f"read to the host, K1 {launches['gather_gemm_conv count reads']}, "
+          f"K10 {launches['block_conv count reads']}", flush=True)
     print(f"{what}: each conv's form and offset chunks a call at "
           f"{float(os.environ.get('SEGDINO_CONV_CHUNK_MB', 1024)):g} MiB: "
           + "; ".join(f"{name} x{calls}: {form}, "
@@ -5789,6 +5879,14 @@ def main() -> int:
             raise SystemExit(f"{k}: {launches[k]} launches, expected {n}")
     if launches["gather_gemm_conv narrow"]:
         raise SystemExit("the flagship's forward took K1's narrow path")
+    reads = {k: launches[f"{k} count reads"]
+             for k in ("gather_gemm_conv", "block_conv")}
+    print(f"pair-count reads to the host in one forward: {reads} (expected "
+          "0: no batch-1 conv's cap-sized chunks reach "
+          "sparse_conv.COUNT_READ_MIN_CHUNKS)", flush=True)
+    if any(reads.values()):
+        raise SystemExit(f"a batch-1 forward read pair counts to the host: "
+                         f"{reads}")
     if launches["gather_pairs"] != GATHER_PAIR_LISTS:
         raise SystemExit(f"gather_pairs: {launches['gather_pairs']} pair "
                          f"lists in one forward, expected "

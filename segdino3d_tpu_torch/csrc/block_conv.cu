@@ -113,11 +113,13 @@
 // pair-major form (pair_major.cuh, shared with gather_gemm_conv.cu): items
 // of 64 pairs of one offset and a column tile, x[src] @ W[o] on
 // gather_tile.cuh's FMA core (fp32) or wgmma_tile.cuh's warpgroup core
-// (bf16) into a pair-major fp32 buffer (k^3 * pair_cap rows: 955 MB at
-// level 0 for Cout 96, 1.47 GB at the stem), then live_sum_kernel adds each
-// listed row's products in ascending offset order through the map; where
-// that buffer would outgrow SEGDINO_CONV_CHUNK_MB the wrapper runs the
-// offsets in consecutive chunks (block_dense.py:block_conv), each chunk's
+// (bf16) into a pair-major fp32 buffer (the list's live pairs, at most
+// k^3 * pair_cap rows: 955 MB at level 0 for Cout 96, 1.47 GB at the stem),
+// then live_sum_kernel adds each listed row's products in ascending offset
+// order through the map; where that buffer would outgrow
+// SEGDINO_CONV_CHUNK_MB at pair_cap rows an offset the wrapper runs the
+// offsets in consecutive chunks (sparse_conv.py:pair_major_chunks, by the
+// list's live pairs where the cap-sized chunks would be many), each chunk's
 // sum adding onto an fp32 carry of the listed rows that the chunk before
 // wrote (zero at first; a row without a pair in a chunk is left alone),
 // so that every row's additions keep their order and the output its bits
@@ -1456,7 +1458,8 @@ extern "C" int block_conv_live_stride(int cout, int dtype) { return live_stride(
 // each listed row's products added in ascending offset order; one chunk
 // [o_begin, o_end) of the offsets a call, the wrapper's chunks in
 // ascending order.  rows_ws, live_ws: as block_conv_live's; partial:
-// ((o_end - o_begin) * pair_cap, block_conv_live_stride) fp32 scratch;
+// (the chunk's live pairs, counts[o_begin] + ... + counts[o_end - 1],
+// block_conv_live_stride) fp32 scratch;
 // carry (row_cap, the same stride) fp32, null where the chunk is every
 // offset, zero before the first chunk: the sums so far of each listed row,
 // read where o_begin > 0 and written where o_end < k^3 (out then is not).  Every listed row is

@@ -30,18 +30,22 @@
 //   3. the sum: each row adds its products in ascending offset order,
 //      through the map, four threads a row, and writes the output (zeros
 //      outside valid).
-// The buffer holds at most V rows an offset, n_off * V rows in all: 1.47 GB
-// at the flagship's k5 stem (125 x 92,160 x 32 fp32), ~10 GB for a batch
-// of 8 such scenes (past 2^31 floats).  So the wrapper may run the offsets
-// in consecutive chunks [o_begin, o_end) (sparse_conv.py:offset_chunks,
-// under SEGDINO_CONV_CHUNK_MB): each chunk's products go to a buffer of
-// (o_end - o_begin) * V rows with their own index map, and its sum adds
-// them onto an fp32 carry (V, pair stride) that the chunk before wrote, in
-// ascending offset order; the last chunk writes the output.  A row's sum
-// is then the same fp32 additions in the same order as in one chunk, so
-// the chunked output is bit-equal to the unchunked one.  A chunk before
-// the last skips the rows without a pair in it (the carry starts zero),
-// so a row's carry moves once per chunk it has pairs in.
+// The buffer holds the live pairs, at most V rows an offset: 1.47 GB at
+// the flagship's k5 stem if every pair were live (125 x 92,160 x 32 fp32),
+// ~10 GB for a batch of 8 such scenes (past 2^31 floats).  So the wrapper
+// may run the offsets in consecutive chunks [o_begin, o_end)
+// (sparse_conv.py:pair_major_chunks, under SEGDINO_CONV_CHUNK_MB): sized
+// by V rows an offset, or where those would be many, by the list's live
+// pairs and the index map, the counts read to the host once per list.
+// Each chunk's products go to a buffer of its own live pairs (row p =
+// the chunk's pairs of the offsets before o + j) with its own index map,
+// and its sum adds them onto an fp32 carry (V, pair stride) that the
+// chunk before wrote, in ascending offset order; the last chunk writes
+// the output.  A row's sum is then the same fp32 additions in the same
+// order as in one chunk, so the chunked output is bit-equal to the
+// unchunked one.  A chunk before the last skips the rows without a pair
+// in it (the carry starts zero), so a row's carry moves once per chunk it
+// has pairs in.
 // So an output's sum is its offsets' products (each over Cin in ascending
 // slices) added in ascending offset order, the plain version's order; no
 // float atomics, so two calls are bit-equal.  Measured against a schedule
@@ -54,7 +58,8 @@
 // an absent neighbour; valid (V,) bytes; pairs gather_pairs' list of nbr
 // (n_off x V rows, n_off counts, the ticket); a chunk [o_begin, o_end) of
 // the offsets, with pos ((o_end - o_begin), V) int32 scratch, partial
-// ((o_end - o_begin) * V, gather_conv_pair_stride(Cout)) fp32 scratch and,
+// (the chunk's live pairs, counts[o_begin] + ... + counts[o_end - 1],
+// gather_conv_pair_stride(Cout)) fp32 scratch and,
 // unless the chunk is all the offsets, carry (V, the same stride) fp32,
 // zero before the first chunk: read where o_begin > 0, written where
 // o_end < n_off (out then is not).
@@ -65,7 +70,8 @@
 // -> 32): at Cin 259 the mma.sync core copied the rows element by element
 // and its two-buffer stages sat behind a barrier each 32 channels, so the
 // bf16 stem ran slower than fp32 and lost to a gather and cuBLAS.  The
-// stems now reach K1 at an aligned pitch (264, zero past Cin) and run on
+// stems now reach K1 at an aligned pitch (264, zero past Cin; in fp32 260
+// and 264, so the fp32 core stages them in 16-byte copies too) and run on
 // the warpgroup core (wgmma_tile.cuh: 64-channel stages in a four-buffer
 // cp.async ring, wgmma.m64n32k16) in the pair-major form above (the items
 // and the pair-major buffer, Cin in stages).  An output-stationary form

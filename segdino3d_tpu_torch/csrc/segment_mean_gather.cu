@@ -58,8 +58,10 @@
 // kMaxSrc sources: a base pointer (row 0, its first column), the bytes
 // between rows, a column count and flags (dtype in bits 0-3: 0 fp32, 1
 // bf16, 2 fp16; kGathered, kRound, kVec: rows 16-byte aligned and at least
-// one 16-byte run); the output (S, ctot) fp32 holds the sources' columns
-// side by side in order.
+// one 16-byte run); the output (S, ld) fp32, ld >= ctot, holds the
+// sources' columns side by side in order and zeros in columns ctot .. ld - 1
+// (the backbone's fp32 stem rows at their 16-byte pitch, ops/narrow.py:
+// row_pitch, written here so that no second pass widens them).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -86,6 +88,7 @@ struct Sources {
   int unit0[kMaxSrc + 1];     // the sources' first units; unit0[n] = all
   int col0[kMaxSrc];          // the sources' first output columns
   int n, ctot;
+  int ld;                     // the output's row stride, columns: ctot or more
 };
 
 __host__ __device__ __forceinline__ int elt_bytes(int flags) {
@@ -184,7 +187,7 @@ __device__ __forceinline__ void finish(const Sources& src, const float* __restri
   const int lane = threadIdx.x & 31;
   const int64_t k0 = b0 / kChunk;
   const int n_chunks = (int)((e0 - 1) / kChunk - k0 + 1);
-  float* const row = out + (int64_t)s * src.ctot;
+  float* const row = out + (int64_t)s * src.ld;
   for (int c0 = 0; c0 < src.ctot; c0 += 32 * kCols) {
     float acc[kCols];
 #pragma unroll
@@ -213,6 +216,7 @@ __device__ __forceinline__ void finish(const Sources& src, const float* __restri
       if (col < src.ctot) row[col] = acc[c] / (float)(e0 - b0);
     }
   }
+  for (int c = src.ctot + lane; c < src.ld; c += 32) row[c] = 0.f;
   if (lane == 0) counters[s] = 0;
 }
 
@@ -245,8 +249,8 @@ segment_mean_kernel(const int64_t* __restrict__ offsets, const int64_t* __restri
     while (mask) {
       const int l = __ffs(mask) - 1;
       mask &= mask - 1;
-      float* const row = out + (s0 + l) * src.ctot;
-      for (int c = lane; c < src.ctot; c += 32) row[c] = 0.f;
+      float* const row = out + (s0 + l) * src.ld;
+      for (int c = lane; c < src.ld; c += 32) row[c] = 0.f;
     }
     return;
   }
@@ -317,7 +321,7 @@ segment_mean_kernel(const int64_t* __restrict__ offsets, const int64_t* __restri
         const int64_t b0 = __shfl_sync(0xffffffffu, ob, run);
         const int64_t e0 = __shfl_sync(0xffffffffu, oe, run);
         const bool whole = b0 >= base && e0 <= base + kChunk;
-        float* const dst = whole ? out + (int64_t)s * src.ctot
+        float* const dst = whole ? out + (int64_t)s * src.ld
                                  : partial + chunk_slot(item, e0) * src.ctot;
         const float div = whole ? (float)(e0 - b0) : 1.f;
 #pragma unroll
@@ -328,6 +332,9 @@ segment_mean_kernel(const int64_t* __restrict__ offsets, const int64_t* __restri
         }
         __syncwarp();
         for (int c = c_lo + lane; c < c_hi; c += 32) dst[c] = stage[c - c_lo] / div;
+        // the row's last pass: its pitch columns
+        if (whole && c_hi == src.ctot)
+          for (int c = c_hi + lane; c < src.ld; c += 32) dst[c] = 0.f;
         __syncwarp();
         run = m + 1;
       }
@@ -381,12 +388,14 @@ __global__ void csr_offsets_kernel(const int32_t* __restrict__ sorted, int n, in
 }  // namespace
 
 // ptrs, strides (bytes), cols, flags: n_src host arrays, one entry a
-// source; n the rows of members.  Returns the launch's cudaError_t, or
-// cudaErrorInvalidValue for too many sources.
+// source; out_ld the output's row stride in columns (at least the
+// sources' columns); n the rows of members.  Returns the launch's
+// cudaError_t, or cudaErrorInvalidValue for too many sources or too
+// narrow an output row.
 extern "C" int segment_mean_gather(const void* offsets, const void* members, const void* sorted,
                                    void* counters, void* partial, const void* gidx, int n_src,
                                    const void* const* ptrs, const long long* strides,
-                                   const int* cols, const int* flags, void* out,
+                                   const int* cols, const int* flags, void* out, int out_ld,
                                    int num_segments, int n, void* stream) {
   if (n_src < 1 || n_src > kMaxSrc) return static_cast<int>(cudaErrorInvalidValue);
   Sources src{};
@@ -404,6 +413,8 @@ extern "C" int segment_mean_gather(const void* offsets, const void* members, con
   }
   src.unit0[n_src] = units;
   src.ctot = col;
+  src.ld = out_ld;
+  if (out_ld < col) return static_cast<int>(cudaErrorInvalidValue);
   if (num_segments == 0 || col == 0) return 0;
   const int n_blocks = (n + kChunk - 1) / kChunk;
   const long long items = (long long)n_blocks + (num_segments + 31) / 32;

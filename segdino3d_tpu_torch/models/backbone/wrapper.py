@@ -17,9 +17,10 @@ SparseBackboneWrapper``:
    ``(p - p.min(0)) / voxel``;
 3. average point features into the plan's level-0 voxels (kernel K3),
    each element rounded to the compute dtype first, into rows at the
-   stem's aligned pitch (``ops.narrow.row_pitch``: in bf16 the 259 or 262
-   channels reach the stem's kernels as 264, zero past Cin; the stem pads
-   its weight to match);
+   stem's aligned pitch (``ops.narrow.row_pitch``: the 259 or 262 channels
+   reach the stem's kernels as 16-byte rows, bf16 264, fp32 260 or 264,
+   zero past Cin, which K3 writes in fp32 itself; the stem pads its weight
+   to match);
 4. run the sparse U-Net;
 5. unpool voxel -> point and pool point -> superpoint in one fused K3
    launch, together with the superpoint centroids of the quantized point

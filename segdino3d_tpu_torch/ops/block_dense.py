@@ -59,7 +59,8 @@ wide convs and halves wide inputs to bound its halo-padded buffer by
 ``SEGDINO_CONV_CHUNK_MB``; the port never materialises the halo, and the
 same budget bounds what it does materialise: the live-pair path's
 pair-major scratch runs in offset chunks that fit it
-(``sparse_conv.offset_chunks``), bit-equal to one chunk.
+(``sparse_conv.pair_major_chunks``, sized by the list's live pairs where
+the cap-sized ones would be many), bit-equal to one chunk.
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch in
 its ``launches`` attribute; for a CPU tensor it runs the plain PyTorch
@@ -82,7 +83,8 @@ from segdino3d_tpu_torch.ops import cuda_build
 from segdino3d_tpu_torch.ops import narrow as N
 from segdino3d_tpu_torch.ops.sparse_conv import (_gather_rows, _require_cuda,
                                                  _transposed, as_sum_type,
-                                                 offset_chunks, wgrad_splits)
+                                                 pair_major_chunks,
+                                                 wgrad_splits)
 
 # rows of the (26, B) shell-neighbour table: itertools.product(-1, 0, 1)^3
 # order with the centre skipped; face directions land at these rows
@@ -721,19 +723,22 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
     the list's pair capacity, the level's voxel cap, when not given: the
     autograd Function passes it by role and level; benchmarks and tests
     force one): ``narrow.PAIR_MAJOR``, each offset's pairs in items of 64,
-    their products into a pair-major (k^3 * pair cap, Cout rounded up to
-    the column tile) fp32 scratch allocated here, then each listed row's
-    products added in ascending offset order (two launches); or
+    their products into a pair-major fp32 scratch allocated here (at most
+    k^3 * pair cap rows, Cout rounded up to the column tile), then each
+    listed row's products added in ascending offset order (two launches);
+    or
     ``narrow.ROW_GROUPS``, one launch and no scratch: groups of consecutive
     listed rows, every offset's products of each group's pairs added into
     the group's rows in ascending offset order.  Pairs whose source is outside the
     list's source mask carry exact zeros and are skipped, so the result is
     the conv's (fp32: bit-equal to the row-tile path).  Where the
     pair-major scratch would outgrow the ``SEGDINO_CONV_CHUNK_MB`` budget
-    (``sparse_conv.offset_chunks``) that form runs the offsets in
-    consecutive chunks, each adding onto an fp32 carry of the listed rows'
-    sums in ascending offset order (bit-equal to one chunk).  On the CPU
-    that path's plain version runs."""
+    at the list's pair capacity (``sparse_conv.pair_major_chunks``) that
+    form runs the offsets in consecutive chunks, sized by the list's live
+    pairs (its counts read to the host once) where the cap-sized ones
+    would be many, each adding onto an fp32 carry of the listed rows' sums
+    in ascending offset order (bit-equal to one chunk).  On the CPU that
+    path's plain version runs."""
     n_off, cin, cout = weights.shape
     _check_layout("block_conv", feats, block_nbr, n_off, edge, cin)
     k = kernel_size(n_off)
@@ -780,9 +785,10 @@ def block_conv(feats: torch.Tensor, block_nbr: torch.Tensor,
                 live_list.rows.ws.data_ptr(), live_list.ws.data_ptr())
         if form == N.PAIR_MAJOR:
             stride = lib.block_conv_live_stride(cout, dtype)
-            chunks = offset_chunks(n_off, cap, stride)
-            most = max(o1 - o0 for o0, o1 in chunks)
-            partial = torch.empty(most * cap, stride, dtype=torch.float32,
+            chunks, most = pair_major_chunks(n_off, cap, stride,
+                                             live_list.counts,
+                                             block_conv.count_reads)
+            partial = torch.empty(most, stride, dtype=torch.float32,
                                   device=feats.device)
             carry = None if len(chunks) == 1 else torch.zeros(
                 row_cap, stride, dtype=torch.float32, device=feats.device)
@@ -857,6 +863,10 @@ block_conv.own_lists = 0     # calls that built their row list themselves
 # the offset chunks of the pair-major form's calls (one a call within the
 # budget)
 block_conv.chunks = types.SimpleNamespace(launches=0)
+# the live-pair lists whose per-offset counts its calls read to the host to
+# size their chunks (``sparse_conv.pair_major_chunks``: one host sync a
+# list)
+block_conv.count_reads = types.SimpleNamespace(launches=0)
 
 
 # ---------------------------------------------------------------------------

@@ -99,9 +99,9 @@ _SIGNATURES = {
     # dtype, stream
     "up_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # offsets, members, sorted, counters, partial, gidx, n_src, ptrs,
-    # strides, cols, flags, out, S, n, stream
+    # strides, cols, flags, out, out_ld, S, n, stream
     "segment_mean_gather": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                            _I, _I, _P],
+                            _I, _I, _I, _P],
     # seg, seg64, valid, n, S, keys, stream
     "segment_csr_keys": [_P, _I, _P, _I, _I, _P, _P],
     # sorted, n, S, offsets, counters, stream

@@ -230,7 +230,7 @@ def l0_dense_budget_bytes() -> int:
     read at each call, as the JAX package reads it
     (``host_plan.l0_dense_budget_bytes``).  The plans' level-0 crossover
     (``l0_dense_fits``) and the offset chunks of K1's and K10's pair-major
-    buffers (``sparse_conv.offset_chunks``) take it."""
+    buffers (``sparse_conv.pair_major_chunks``) take it."""
     return int(float(os.environ.get("SEGDINO_CONV_CHUNK_MB", "1024"))
                * 2 ** 20)
 

@@ -24,17 +24,19 @@ with ``wgrad=True``, which follows ``narrow_wgrad_path``.
 libraries' ``narrow_conv_smem`` and ``narrow_wgrad_smem`` on the card).
 Nothing here needs a card.
 
-bf16 rows: K1, K2, K4, K10 and K11 copy rows with 16-byte copies where a
+Stem rows: K1, K2, K4, K10 and K11 copy rows with 16-byte copies where a
 row's width (and its tensor's address) keeps 16-byte alignment, else
 element by element, which costs the stems several times their products.
-A bf16 row of the flagship's 259 or the v2 model's 262 channels breaks it,
-so the backbone wrapper gives the stem its input at ``row_pitch`` (264,
-zero columns past Cin) and the stem pads its weight to match
-(``models/backbone/res16unet.py:SubMConv``).  ``element_loads.calls``
-counts the bf16 kernel calls that still copy element by element
+A row of the flagship's 259 or the v2 model's 262 channels breaks it in
+either dtype, so the backbone wrapper gives the stem its input at
+``row_pitch`` (bf16 264 for both; fp32 260 and 264: Cin rounded up to 8
+or 4 elements, zero columns past Cin) and the stem pads its weight to match
+(``models/backbone/res16unet.py:SubMConv``).  A zero column adds +0 to
+each product's sum in the same order, so an fp32 stem at the pitch equals
+the same call at Cin value for value.  ``element_loads.calls`` counts the
+bf16 kernel calls that still copy element by element
 (``count_element_loads``); ``chip_smoke.py`` holds it at 0 on the bf16
-paths.  In fp32 the pitch stays Cin (the kernels copy 4 bytes at a time
-there), so fp32 results are unchanged.
+paths.
 """
 from __future__ import annotations
 
@@ -393,13 +395,14 @@ def wg_bn(cout: int) -> int:
 
 def row_pitch(cin: int, dtype) -> int:
     """The row width at which a stem's ``cin`` input channels reach the
-    kernels: Cin rounded up to 16 bytes in bf16, Cin itself in fp32 and
-    on the narrow path (Cin <= NARROW_MAX_CIN, whose kernels read a few
-    channels a row by design: padded, the Baseline's 3-channel stem would
-    leave that path)."""
-    if dtype != torch.bfloat16 or cin <= NARROW_MAX_CIN:
+    kernels: Cin rounded up to 16 bytes (8 bf16 or 4 fp32 elements), or
+    Cin itself on the narrow path (Cin <= NARROW_MAX_CIN, whose kernels
+    read a few channels a row by design: padded, the Baseline's 3-channel
+    stem would leave that path) or in another dtype."""
+    per = {torch.bfloat16: 8, torch.float32: 4}.get(dtype)
+    if per is None or cin <= NARROW_MAX_CIN:
         return cin
-    return -(-cin // 8) * 8
+    return -(-cin // per) * per
 
 
 element_loads = types.SimpleNamespace(calls=0)

@@ -32,6 +32,7 @@ import ctypes
 from typing import List, NamedTuple, Optional, Sequence, Union
 
 import torch
+import torch.nn.functional as F
 
 from segdino3d_tpu_torch.ops import cuda_build
 from segdino3d_tpu_torch.ops.sparse_conv import as_sum_type
@@ -172,17 +173,24 @@ def _source(t: torch.Tensor, rows: int, gathered: bool, round_bf16: bool
     return t.data_ptr(), row_bytes, t.shape[1], flags
 
 
+def _widened(out: torch.Tensor, width: int) -> torch.Tensor:
+    """``out`` with zero columns up to ``width``."""
+    return out if out.shape[1] == width else F.pad(
+        out, (0, width - out.shape[1]))
+
+
 def segment_mean_gather(seg_ids: torch.Tensor, num_segments: int,
                         valid: Optional[torch.Tensor] = None,
                         g: Optional[torch.Tensor] = None,
                         gather_idx: Optional[torch.Tensor] = None,
                         d: Optional[Columns] = None,
                         csr: Optional[SegmentCSR] = None,
-                        round_to: Optional[torch.dtype] = None
-                        ) -> torch.Tensor:
+                        round_to: Optional[torch.dtype] = None,
+                        width: Optional[int] = None) -> torch.Tensor:
     """Per-segment means of ``[g[gather_idx[p]] | d_0[p] | d_1[p] | ...]``
-    over the valid rows p of each segment, as (S, cg + cd) fp32; empty
-    segments give 0.
+    over the valid rows p of each segment, as (S, cg + cd) fp32, or with
+    ``width`` as (S, width) fp32 rows zero past the means (the kernel
+    writes them at that pitch); empty segments give 0.
 
     ``g`` (Vg, cg) is read through ``gather_idx`` (N,) int32 (-1 = zero
     row; the identity when absent).  ``d`` is one (N, c) tensor or a list
@@ -202,13 +210,20 @@ def segment_mean_gather(seg_ids: torch.Tensor, num_segments: int,
     if round_to not in (None, torch.float32, torch.bfloat16):
         raise TypeError(f"segment_mean_gather: round_to {round_to}")
     ref = g if g is not None else cols[0]
+    ctot = sum(t.shape[1] for t in ([] if g is None else [g]) + cols)
+    width = ctot if width is None else width
+    if width < ctot:
+        raise ValueError(f"segment_mean_gather: width {width} < {ctot} "
+                         "columns")
     if torch.compiler.is_exporting():
         from segdino3d_tpu_torch.ops import custom_ops
-        return custom_ops.segment_mean_gather(seg_ids, num_segments, valid, g,
-                                              gather_idx, cols, csr, round_to)
+        return _widened(custom_ops.segment_mean_gather(
+            seg_ids, num_segments, valid, g, gather_idx, cols, csr, round_to),
+            width)
     if ref.device.type == "cpu":
-        return segment_mean_gather_plain(seg_ids, num_segments, valid, g,
-                                         gather_idx, cols, round_to)
+        return _widened(segment_mean_gather_plain(
+            seg_ids, num_segments, valid, g, gather_idx, cols, round_to),
+            width)
     whole = [t for t in (seg_ids, valid, g, gather_idx) if t is not None]
     if any(t.device.type != "cuda" for t in whole + cols) \
             or not all(t.is_contiguous() for t in whole):
@@ -230,8 +245,7 @@ def segment_mean_gather(seg_ids: torch.Tensor, num_segments: int,
                                                    valid)
     if csr.members.shape[0] != n or csr.counters.shape[0] != num_segments:
         raise ValueError("segment_mean_gather: csr is not of these ids")
-    ctot = sum(s[2] for s in srcs)
-    out = torch.empty(num_segments, ctot, dtype=torch.float32,
+    out = torch.empty(num_segments, width, dtype=torch.float32,
                       device=ref.device)
     # two partial rows per 32-member block of the members: the run that
     # began before the block, the run that goes on past it
@@ -248,7 +262,7 @@ def segment_mean_gather(seg_ids: torch.Tensor, num_segments: int,
         (ctypes.c_longlong * k)(*[s[1] for s in srcs]),
         (ctypes.c_int * k)(*[s[2] for s in srcs]),
         (ctypes.c_int * k)(*[s[3] for s in srcs]),
-        out.data_ptr(), num_segments, n,
+        out.data_ptr(), width, num_segments, n,
         cuda_build.stream_ptr(ref)), "segment_mean_gather")
     segment_mean_gather.launches += 1
     return out
@@ -275,8 +289,12 @@ def segment_mean_columns(xs: Sequence[torch.Tensor], seg_ids: torch.Tensor,
     concatenation: each (N, c) block is read where it lies, in its own
     dtype, each element rounded to ``dtype`` before it is added.  With
     ``width`` the rows are that wide, zero past the columns of ``xs`` (the
-    stems' aligned pitch, ``narrow.row_pitch``): the cast to ``dtype``
-    writes into the wider rows, so no further copy is made."""
+    stems' aligned pitch, ``narrow.row_pitch``): in fp32 the kernel writes
+    the means at that pitch, in bf16 the cast writes into the wider rows,
+    so no further copy is made."""
+    if dtype == torch.float32:
+        return segment_mean_gather(seg_ids, num_segments, valid, d=xs,
+                                   csr=csr, round_to=dtype, width=width)
     means = segment_mean_gather(seg_ids, num_segments, valid, d=xs, csr=csr,
                                 round_to=dtype)
     c = means.shape[1]

@@ -109,21 +109,106 @@ def gather_conv_plain(feats: torch.Tensor, nbr: torch.Tensor,
     return torch.where(valid[:, None], acc, 0.0).to(feats.dtype)
 
 
-def offset_chunks(n_off: int, cap: int, stride: int) -> List[Tuple[int, int]]:
+def _pack(sizes: Sequence[int], most: int) -> List[Tuple[int, int]]:
+    """Consecutive offsets packed greedily into chunks of at most ``most``
+    bytes, an offset that alone outgrows it in a chunk of its own."""
+    chunks, begin, total = [], 0, 0
+    for o, size in enumerate(sizes):
+        if o > begin and total + size > most:
+            chunks.append((begin, o))
+            begin, total = o, 0
+        total += size
+    chunks.append((begin, len(sizes)))
+    return chunks
+
+
+@functools.lru_cache(maxsize=1024)
+def _even_chunks(sizes: Tuple[int, ...], budget: int
+                 ) -> Tuple[Tuple[int, int], ...]:
+    """The fewest consecutive chunks of offsets of ``sizes`` bytes each
+    within ``budget`` (``_pack``), cut with the least largest chunk: the
+    smallest bound that packs into as few chunks, by bisection."""
+    fewest = len(_pack(sizes, budget))
+    lo, hi = min(-(-sum(sizes) // fewest), budget), budget
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if len(_pack(sizes, mid)) <= fewest:
+            hi = mid
+        else:
+            lo = mid + 1
+    return tuple(_pack(sizes, lo))
+
+
+def offset_chunks(n_off: int, cap: int, stride: int,
+                  counts: Optional[Sequence[int]] = None, map_rows: int = 0
+                  ) -> List[Tuple[int, int]]:
     """The consecutive chunks ``[(o_begin, o_end), ...]`` in which K1 and
     K10 run the offsets of a pair-major conv: ``n_off`` offsets of at most
-    ``cap`` pairs each, ``stride`` fp32 columns a pair.  One chunk where
-    the whole buffer, ``n_off * cap * stride * 4`` bytes, fits the budget
+    ``cap`` pairs each, ``stride`` fp32 columns a pair, within the budget
     (``host_plan.l0_dense_budget_bytes()``: ``SEGDINO_CONV_CHUNK_MB``,
-    read at each call); else as few chunks of as even a size as fit it,
-    and a single offset a chunk where one offset alone outgrows it."""
+    read at each call).  Offset o's scratch is ``cap`` pairs' products,
+    or with ``counts`` (each offset's live pairs, on the host) its
+    ``counts[o]`` pairs' products and a ``map_rows`` entry index map (K1's
+    (offsets, V) map; K10 reads its list's).  One chunk where every
+    offset's scratch fits the budget; else as few chunks as fit it, a
+    single offset a chunk where one offset alone outgrows it, cut with the
+    least largest chunk (with every count at ``cap`` and no map: chunks of
+    an even number of offsets, the last one shorter)."""
     from segdino3d_tpu_torch.ops.host_plan import l0_dense_budget_bytes
 
-    budget = l0_dense_budget_bytes()
-    per = max(1, budget // max(1, cap * stride * 4))
-    n = -(-n_off // per)
-    size = -(-n_off // n)
-    return [(o, min(o + size, n_off)) for o in range(0, n_off, size)]
+    sizes = (cap * stride * 4,) * n_off if counts is None else tuple(
+        int(c) * stride * 4 + map_rows * 4 for c in counts)
+    if len(sizes) != n_off:
+        raise ValueError(f"offset_chunks: {len(sizes)} counts for {n_off} "
+                         "offsets")
+    return list(_even_chunks(sizes, l0_dense_budget_bytes()))
+
+
+# K1 and K10 size their pair-major chunks by the list's live pairs where
+# the cap-sized chunks (``offset_chunks`` without counts) would number at
+# least this many: the counts are read to the host then, one sync a list.
+# At the default budget the batch-1 convs past it (the stems, 1.47 GB, and
+# L0's dX 96->128, 1.27 GB) run in two cap-sized chunks, whose second cost
+# 0.05 ms (the stem's 2.2206 against 2.1686 ms in one, ``conv_bench
+# --chunks``, PERF.md section 5): they keep them and add no host sync to a
+# batch-1 forward or step.
+COUNT_READ_MIN_CHUNKS = 3
+
+# id(counts) -> (a weak reference to it, its values): the per-offset counts
+# of a pair list (K1's ``PairList``, K10's ``LivePairs``) read to the host
+# once per list while it lives (a list's counts are never written again)
+_HOST_COUNTS: Dict[int, Tuple[weakref.ref, Tuple[int, ...]]] = {}
+
+
+def host_counts(counts: torch.Tensor, counter) -> Tuple[int, ...]:
+    """A list's per-offset pair counts on the host: read from the card (one
+    host sync, counted in ``counter.launches``) the first time they are
+    asked for, then kept with the list."""
+    key = id(counts)
+    hit = _HOST_COUNTS.get(key)
+    if hit is not None and hit[0]() is counts:
+        return hit[1]
+    values = tuple(counts.tolist())
+    counter.launches += 1
+    _HOST_COUNTS[key] = (weakref.ref(
+        counts, lambda _, key=key: _HOST_COUNTS.pop(key, None)), values)
+    return values
+
+
+def pair_major_chunks(n_off: int, cap: int, stride: int,
+                      counts: torch.Tensor, counter, map_rows: int = 0
+                      ) -> Tuple[List[Tuple[int, int]], int]:
+    """(the offset chunks of a pair-major call, the pairs of its largest
+    chunk: the rows of its products' scratch).  The cap-sized chunks, or
+    where they would number ``COUNT_READ_MIN_CHUNKS`` or more, chunks sized
+    by the list's live pairs (``counts``, the card's per-offset counts,
+    read once per list by ``host_counts`` into ``counter``)."""
+    chunks = offset_chunks(n_off, cap, stride)
+    if len(chunks) < COUNT_READ_MIN_CHUNKS:
+        return chunks, max(o1 - o0 for o0, o1 in chunks) * cap
+    live = host_counts(counts, counter)
+    chunks = offset_chunks(n_off, cap, stride, live, map_rows)
+    return chunks, max(sum(live[o0:o1]) for o0, o1 in chunks)
 
 
 def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
@@ -141,13 +226,14 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
     role (``dx``: a k3 conv's input gradient) and the table's rows V (or
     ``form``, which benchmarks and tests force):
 
-    * ``narrow.PAIR_MAJOR``: the products into an (n_off * V, Cout rounded
-      up to its column tile) fp32 scratch, then each row adds its products
-      in ascending offset order.  Where the scratch would outgrow the
-      ``SEGDINO_CONV_CHUNK_MB`` budget (``offset_chunks``) the offsets run
-      in consecutive chunks, each into a scratch of its own offsets' rows,
-      adding onto an fp32 carry of the rows' sums in ascending offset
-      order: bit-equal to one chunk.  The bf16 wide stems
+    * ``narrow.PAIR_MAJOR``: the products into a pair-major fp32 scratch
+      (at most n_off * V rows, Cout rounded up to its column tile), then
+      each row adds its products in ascending offset order.  Where the scratch would outgrow the
+      ``SEGDINO_CONV_CHUNK_MB`` budget (``pair_major_chunks``) the offsets
+      run in consecutive chunks, sized by the list's live pairs where the
+      cap-sized ones would be many, each into a scratch of its own live
+      pairs, adding onto an fp32 carry of the rows' sums in ascending
+      offset order: bit-equal to one chunk.  The bf16 wide stems
       (``narrow.wide_stem``) run it on the warpgroup core;
     * ``narrow.ROW_GROUPS``: one launch over groups of consecutive rows
       (``narrow.GROUP_ROWS``), each offset's products of a group's pairs
@@ -209,10 +295,11 @@ def gather_conv(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor,
         gather_conv.row_groups.launches += 1
         return out
     stride = lib.gather_conv_pair_stride(cout)
-    chunks = offset_chunks(n_off, v, stride)
+    chunks, rows = pair_major_chunks(n_off, v, stride, pairs.counts,
+                                     gather_conv.count_reads, map_rows=v)
     most = max(o1 - o0 for o0, o1 in chunks)
     pos = torch.empty(most, v, dtype=torch.int32, device=dev)
-    partial = torch.empty(most * v, stride, dtype=torch.float32, device=dev)
+    partial = torch.empty(rows, stride, dtype=torch.float32, device=dev)
     carry = None if len(chunks) == 1 else torch.zeros(
         v, stride, dtype=torch.float32, device=dev)
     ptrs = (pairs.ws.data_ptr(), pos.data_ptr(), partial.data_ptr(),
@@ -239,6 +326,9 @@ gather_conv.wide_stem = types.SimpleNamespace(launches=0)
 # the offset chunks of the pair-major form's calls (one a call within the
 # budget)
 gather_conv.chunks = types.SimpleNamespace(launches=0)
+# the pair lists whose per-offset counts its calls read to the host to size
+# their chunks (``pair_major_chunks``: one host sync a list)
+gather_conv.count_reads = types.SimpleNamespace(launches=0)
 # of the wide path's calls, those in the row-group form (one launch each)
 gather_conv.row_groups = types.SimpleNamespace(launches=0)
 

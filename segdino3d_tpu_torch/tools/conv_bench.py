@@ -112,7 +112,7 @@ of its table's pair list (``gather_pairs``).
 
 times the convs whose pair-major buffer outgrows the budget at the
 headline scene's caps (``SEGDINO_CONV_CHUNK_MB``, 1024 MiB unset): K1 at
-the stem (fp32; bf16 at the 264 pitch), K10's dense stem and its k3 dX
+the stem and K10's dense stem (each at the stems' pitch), K10's k3 dX
 96 -> 128 at level 0 in the pair-major form, each in the budget's offset
 chunks and in one chunk (the budget lifted), held bit-equal to each other and
 to the plain version first, the two interleaved.
@@ -155,9 +155,15 @@ def cases(plan, gen):
     out = []
 
     def case(name, fwd, step, x_rows, nbr, valid, cin, cout):
-        x = torch.randn(x_rows, cin, generator=gen, device="cuda")
+        # the stem at its pitch (zero columns past Cin), as the backbone
+        # gives it
+        x = C.pitched(torch.randn(x_rows, cin, generator=gen, device="cuda"),
+                      1) if cin > 256 else torch.randn(
+            x_rows, cin, generator=gen, device="cuda")
         w = torch.randn(nbr.shape[0], cin, cout, generator=gen,
                         device="cuda") * (nbr.shape[0] * cin) ** -0.5
+        if cin > 256:
+            w = C.pitched(w, 1)
         pairs = int((nbr[:, valid] >= 0).sum())
         byts = sum(t.numel() * t.element_size() for t in (x, nbr, w, valid))
         out.append((name, fwd, step, lambda: SC.gather_conv(x, nbr, w, valid),
@@ -435,9 +441,9 @@ def chunk_cases(plan, hybrid, gen):
     """[(name, dtype, {path: call}, plain call, library call, ops, bytes)]
     of the pair-major convs whose buffer outgrows the budget
     (``SEGDINO_CONV_CHUNK_MB``, 1024 MiB unset) at the headline scene's
-    caps: K1 at the stem (fp32; bf16 at the 264 pitch), K10's dense stem
-    and its k3 dX 96->128 at L0 (fp32, the pair-major form), each in the
-    budget's offset chunks and in one chunk, held bit-equal first."""
+    caps: K1 at the stem and K10's dense stem (at the stems' pitch; bf16
+    K1 too), K10's k3 dX 96->128 at L0 (fp32, the pair-major form), each in
+    the budget's offset chunks and in one chunk, held bit-equal first."""
     import chip_smoke as C
     from segdino3d_tpu_torch.ops import block_dense as BD
     from segdino3d_tpu_torch.ops import narrow as N
@@ -476,15 +482,20 @@ def chunk_cases(plan, hybrid, gen):
             SC.gather_conv.chunks,
             C.nbytes(x, nbr, w, valid) + v0 * 32 * x.element_size())
     def k10(name, k, cin, cout, mask, rlist, lp):
+        # a stem at its pitch (zero columns past Cin), as the backbone
+        # gives it
         x = torch.where(occ[:, None], torch.randn(
             occ.shape[0], cin, generator=gen, device="cuda"), 0.0)
         w = torch.randn(k ** 3, cin, cout, generator=gen, device="cuda") \
             * (k ** 3 * cin) ** -0.5
-        wc = w.reshape(k, k, k, cin, cout).permute(4, 3, 0, 1, 2).contiguous()
+        if cin > 256:
+            x, w = C.pitched(x, 1), C.pitched(w, 1)
+        ci = x.shape[1]
+        wc = w.reshape(k, k, k, ci, cout).permute(4, 3, 0, 1, 2).contiguous()
 
         def lib():
             p = C.to_ncdhw(BD.halo_pad_plain(
-                x.reshape(t.num_blocks, e, e, e, cin), nb, (k - 1) // 2))
+                x.reshape(t.num_blocks, e, e, e, ci), nb, (k - 1) // 2))
             return torch.nn.functional.conv3d(p, wc)
 
         add(name, torch.float32, k, cin, cout,
@@ -495,8 +506,9 @@ def chunk_cases(plan, hybrid, gen):
             int(lp.counts.sum()), BD.block_conv.chunks,
             C.nbytes(x, w) + occ.shape[0] * cout * 4)
 
-    k10("K10 dense stem k5 259->32 L0, pair-major", 5, 259, 32, occ, rows,
-        BD.live_pairs(t, occ, 5))
+    k10(f"K10 dense stem k5 259->32 L0 (x at "
+        f"{N.row_pitch(259, torch.float32)}), pair-major", 5, 259, 32, occ,
+        rows, BD.live_pairs(t, occ, 5))
     k10("K10 k3 dX 96->128 L0 under the dilation, pair-major", 3, 96, 128,
         dil, drows, BD.dilation_pairs(t, occ, 3))
     return out

@@ -8,8 +8,9 @@ decoder's four up convs (K2 over each fine level's child table) and, in
 training, the four down convs' dX (K2 with transposed W); the voxel mean
 of the early-fused point features with fp32 and with fp16 2D features,
 timed as the kernel alone (its CSR built) and as the backbone wrapper
-runs it (from the points and the 2D features to the voxel features, the
-CSR apart); the fused devoxelize + superpoint pool; and each CSR build
+runs it (from the points and the 2D features to the voxel features at the
+stem's pitch, ``narrow.row_pitch``, the CSR apart); the fused devoxelize +
+superpoint pool; and each CSR build
 (``segment_csr``).  Each case is timed with CUDA events, ``reps``
 back-to-back calls a sample, the cases taken in turn ``rounds`` times.
 Prints the card's name and power limit, then per case the samples'
@@ -18,6 +19,13 @@ a gather and one cuBLAS GEMM for K2, ``scatter_reduce`` for K3), the
 bound (operations at the fp32 peak or bytes at the memory rate, the
 larger) and the calls per forward and per step; then K2's and K3's
 medians summed per forward and per step.
+
+    python -m segdino3d_tpu_torch.tools.pool_bench --scene headline batched \
+        stress
+
+times then the voxel mean alone (kernel and as the wrapper runs it) on
+``chip_smoke.py`` phase 12's plans: the batch of 8 headline scenes at its
+pinned caps, and the 400,000-point stress scene.
 
 It also runs against an older checkout of the port, whose K2 takes the
 fine rows' kpos-sorted order instead of the child table and whose K3
@@ -55,6 +63,7 @@ def cases(batch, gen):
     import chip_smoke as C
     from segdino3d_tpu_torch.models.backbone.wrapper import \
         superpoint_segment_ids
+    from segdino3d_tpu_torch.ops import narrow as N
     from segdino3d_tpu_torch.ops import scatter as SS
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 
@@ -89,8 +98,8 @@ def cases(batch, gen):
         up(f"K2 down dX {cout}->{cin} L{li + 1}->L{li}", 0, 1, lv[li],
            v[li + 1], cout, cin)
 
-    n = batch.points.shape[1]
     inverse = plan.inverse
+    n = inverse.shape[0]
     pvalid = inverse >= 0
     v0 = v[0]
     seg_vox = torch.where(inverse >= 0, inverse, v0).contiguous()
@@ -109,7 +118,8 @@ def cases(batch, gen):
                 seg_vox, v0, pvalid, d=srcs, csr=vox_csr,
                 round_to=torch.float32))
             wrapper = (lambda srcs=srcs: SS.segment_mean_columns(
-                srcs, seg_vox, v0, torch.float32, pvalid, vox_csr))
+                srcs, seg_vox, v0, torch.float32, pvalid, vox_csr,
+                width=N.row_pitch(259, torch.float32)))
         else:
             feats = torch.cat([pts[:, 3:], f2d.float()], 1).contiguous()
             alone = (lambda feats=feats: SS.segment_mean_gather(
@@ -158,6 +168,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--scene", choices=("headline", "batched", "stress"),
+                    nargs="+", default=["headline"],
+                    help="batched / stress: the voxel mean alone on "
+                    "chip_smoke.py phase 12's plans")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("pool_bench: no CUDA device", file=sys.stderr)
@@ -173,14 +187,64 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
-    records = C.make_records()
-    spec = PadSpec(C.SCENE["n_points"], C.SCENE["n_superpoints"], 64, 128,
-                   200)
-    batch = attach_host_plan(collate(records, spec, "cuda"), records, spec,
-                             voxel_size=0.02,
-                             level_cap_ratios=C.LEVEL_CAP_RATIOS)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    runs = cases(batch, gen)
+    for scene in args.scene:
+        if scene == "headline":
+            records = C.make_records()
+            spec = PadSpec(C.SCENE["n_points"], C.SCENE["n_superpoints"], 64,
+                           128, 200)
+            batch = attach_host_plan(collate(records, spec, "cuda"), records,
+                                     spec, voxel_size=0.02,
+                                     level_cap_ratios=C.LEVEL_CAP_RATIOS)
+            time_runs(cases(batch, gen), args)
+        else:
+            batch = scale_batch(scene)
+            time_runs([r for r in cases(batch, gen)
+                       if r[0].startswith("K3 voxel mean")], args, scene)
+        del batch
+        torch.cuda.empty_cache()
+    return 0
+
+
+def scale_batch(scene):
+    """``chip_smoke.py`` phase 12's batch: "batched", 8 headline scenes on
+    their hybrid host plan at the pinned caps, or "stress", the
+    400,000-point scene at its caps, under its ``SEGDINO_CONV_CHUNK_MB``."""
+    import chip_smoke as C
+    from segdino3d_tpu_torch.data.collate import (PadSpec, attach_host_plan,
+                                                  collate)
+    from segdino3d_tpu_torch.data.synthetic import synthetic_scene
+
+    os.environ["SEGDINO_CONV_CHUNK_MB"] = C.SCALE_CHUNK_MB
+    if scene == "stress":
+        records = [synthetic_scene(0, **C.STRESS_SCENE)]
+        spec = PadSpec(*C.STRESS_PAD)
+    else:
+        records = [synthetic_scene(s, **C.SCENE)
+                   for s in range(C.BATCH_SCENES)]
+        spec = PadSpec(C.SCENE["n_points"], C.SCENE["n_superpoints"], 64,
+                       128, 200)
+    for r in records:
+        r["points_2dfeats"] = r["points_2dfeats"].astype(np.float16)
+    args = C.plan_layout("hybrid")
+    level_caps, block_caps = C.probe_caps(
+        records, spec, args["block_edges"], len(records),
+        pin_blocks=scene == "batched")
+    batch = attach_host_plan(collate(records, spec, "cuda"), records, spec,
+                             level_caps=level_caps, block_caps=block_caps,
+                             **args)
+    print(f"{scene}: {batch.points.shape[0]} x {batch.points.shape[1]} "
+          f"points, V0 cap {batch.plan.levels[0].valid.shape[0]}",
+          flush=True)
+    return batch
+
+
+def time_runs(runs, args, prefix=""):
+    """Time ``runs`` (``cases``' tuples) in turn ``args.rounds`` times and
+    print each one's line and the sums."""
+    import chip_smoke as C
+
+    prefix = f"{prefix} " if prefix else ""
     samples = {i: [] for i in range(len(runs))}
     for _ in range(args.rounds):
         for i, run in enumerate(runs):
@@ -194,14 +258,13 @@ def main() -> int:
         key = name.split()[0]
         sums[key][0] += fwd * med
         sums[key][1] += step * med
-        print(f"{name}: min {t.min():.4f} ms, median {med:.4f} ms over "
+        print(f"{prefix}{name}: min {t.min():.4f} ms, median {med:.4f} ms over "
               f"{args.rounds} x {args.reps} calls; library {lib_text}; "
               f"bound {b_ms:.4f} ms ({b_by}); calls per forward {fwd}, per "
               f"step {step}", flush=True)
-    print("summed over their calls (medians), per gather forward / step: "
-          + ", ".join(f"{k} {f:.4f} / {s:.4f} ms"
-                      for k, (f, s) in sums.items()), flush=True)
-    return 0
+    print(f"{prefix}summed over their calls (medians), per gather forward "
+          "/ step: " + ", ".join(f"{k} {f:.4f} / {s:.4f} ms"
+                                 for k, (f, s) in sums.items()), flush=True)
 
 
 if __name__ == "__main__":

@@ -92,7 +92,7 @@ def conv_chunk_counts() -> dict:
     """{kernel: (pair-major calls, their offset chunks)} of K1
     (``gather_gemm_conv``) and K10 (``block_conv``) in this process so
     far: a call whose scratch fits ``SEGDINO_CONV_CHUNK_MB`` runs in one
-    chunk, one past it in more (``sparse_conv.offset_chunks``)."""
+    chunk, one past it in more (``sparse_conv.pair_major_chunks``)."""
     from segdino3d_tpu_torch.ops import block_dense as BD
     from segdino3d_tpu_torch.ops import sparse_conv as SC
 

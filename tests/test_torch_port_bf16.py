@@ -223,13 +223,13 @@ def test_bf16_unet_keeps_every_matrix_in_bf16(jax_backbone, layout):
 
 
 def test_row_pitch():
-    """bf16 rows round up to 16 bytes, fp32 rows and the narrow path's
-    few channels keep Cin."""
+    """Stem rows round up to 16 bytes (bf16 8 elements, fp32 4); the
+    narrow path's few channels keep Cin."""
     assert TN.row_pitch(259, torch.bfloat16) == 264
     assert TN.row_pitch(3, torch.bfloat16) == 3
     assert TN.row_pitch(262, torch.bfloat16) == 264
     assert TN.row_pitch(96, torch.bfloat16) == 96
-    assert TN.row_pitch(259, torch.float32) == 259
+    assert TN.row_pitch(259, torch.float32) == 260
     assert TN.wide_stem(264, 32, torch.bfloat16)
     assert not TN.wide_stem(264, 32, torch.float32)
     assert not TN.wide_stem(384, 256, torch.bfloat16)

@@ -16,6 +16,8 @@ hundreds of rows: its tolerance is ``1e-4`` of ``max |plain|``, as is the
 block conv's weight gradient (K11).  The plan engine's kernels (K6-K8) and
 the slot gather (K9) move values without arithmetic: they must be equal.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -1394,6 +1396,79 @@ def test_gather_conv_bf16_wide_stem(levels, cin, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1_k5_259", "k1_k3_262", "k10_k5_259"])
+def test_fp32_stem_at_the_pitch_equals_cin(levels, case):
+    """fp32: K1 at the flagship's k5 stem and the v2 model's k3 stem, and
+    K10's dense k5 stem on live pairs, at the 16-byte pitch
+    (``narrow.row_pitch``: 260 and 264, zero past Cin in the input and the
+    weight) equal the same calls at Cin value for value (a zero column
+    adds +0 to each sum in the same order)."""
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    lv = levels.levels
+    k, cin = {"k1_k5_259": (5, 259), "k1_k3_262": (3, 262),
+              "k10_k5_259": (5, 259)}[case]
+    pitch = TN.row_pitch(cin, torch.float32)
+    assert pitch % 4 == 0 and pitch > cin
+    if case.startswith("k1_"):
+        nbr = levels.stem_nbr if k == 5 else lv[0].nbr
+        rows_in = CAPS[0]
+
+        def call(x, w):
+            return TSC.gather_conv(x, nbr, w, lv[0].valid)
+    else:
+        t = _block_plan_on("cuda", [4] * 5).blocks[0]
+        t = TBD.BlockTables(t.vox_slot, t.block_nbr, t.slot_vox, t.edge)
+        occ = TBD.occupancy(t)
+        rows, lp = TBD.row_list(t, occ), TBD.live_pairs(t, occ, k)
+        rows_in = occ.shape[0]
+
+        def call(x, w):
+            return TBD.block_conv(x, t.block_nbr, w, occ, t.edge, rows,
+                                  zero_outside=True, live=True, live_list=lp)
+    x = torch.randn(rows_in, pitch, generator=gen, device="cuda")
+    x[:, cin:] = 0.0
+    if case.startswith("k10_"):
+        x = torch.where(occ[:, None], x, 0.0)
+    w = torch.randn(k ** 3, pitch, 32, generator=gen, device="cuda") \
+        * (k ** 3 * cin) ** -0.5
+    w[:, cin:] = 0.0
+    got = call(x, w)
+    want = call(x[:, :cin].contiguous(), w[:, :cin].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_mean_at_a_wider_pitch(levels, dtype):
+    """K3 writing its means into rows wider than its columns (``width``:
+    the fp32 stems' pitch, 259 -> 260) equals the means at their width,
+    then zero columns; two calls bit-equal; the wrapper's column mean at
+    the pitch in either dtype is the same values."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    n, s = 3000, 40
+    pts = torch.randn(n, 6, generator=gen, device="cuda")
+    f2d = torch.randn(n, 256, generator=gen, device="cuda").half()
+    seg = torch.randint(0, s + 3, (n,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    seg[torch.rand(n, generator=gen, device="cuda") < 0.5] = 3
+    seg[seg == 9] = -1
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.1
+    srcs = [pts[:, 3:], f2d]
+    width = TN.row_pitch(259, dt)
+    means = TS.segment_mean_gather(seg, s, valid, d=srcs, round_to=dt)
+    wide = [TS.segment_mean_gather(seg, s, valid, d=srcs, round_to=dt,
+                                   width=width) for _ in range(2)]
+    cols = TS.segment_mean_columns(srcs, seg, s, dt, valid, width=width)
+    torch.cuda.synchronize()
+    assert wide[0].shape == (s, width) and torch.equal(*wide)
+    assert torch.equal(wide[0][:, :259], means)
+    assert not wide[0][:, 259:].any()
+    assert cols.dtype == dt and torch.equal(cols, wide[0].to(dt))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("case", ["stem", "k3_cin1", "stem_cin8", "splits",
                                   "cout_38", "two_split_scratch",
                                   "no_source"])
@@ -1892,16 +1967,20 @@ def test_live_rows_overflow_raises(card):
     for d in ("float32", "bfloat16")
     if not (c == "k1_wide_stem" and d == "float32")])
 @pytest.mark.parametrize("chunk", ["one_offset", "two_offsets", "uneven"])
-def test_offset_chunks_bit_equal(monkeypatch, levels, case, chunk, dtype):
+@pytest.mark.parametrize("sizing", ["cap", "live"])
+def test_offset_chunks_bit_equal(monkeypatch, levels, case, chunk, dtype,
+                                 sizing):
     """K1's wide path (the k5 stem, a k3 conv, the bf16 wide stem at the
     264 pitch) and K10's pair-major form (the dense k5 stem, a k3 conv and
     its dX over the dilation's list) with a ``SEGDINO_CONV_CHUNK_MB``
-    budget that cuts the offsets
-    into chunks of one offset, of two, or into chunks whose last is
-    shorter: each chunk runs (the counter), and the output equals the
-    call in one chunk bit for bit (the same fp32 additions in the same
-    order, through the carry), and its plain version within the usual
-    tolerance (the wide stem is bf16 alone)."""
+    budget of one offset's cap-sized scratch, of two, or of four (cap-sized
+    chunks whose last is shorter), the chunks cap-sized
+    (``COUNT_READ_MIN_CHUNKS`` out of reach) or sized by the list's live
+    pairs (its counts read once: ``sparse_conv.pair_major_chunks``): each
+    chunk runs (the counter), and the output equals the call in one chunk
+    bit for bit (the same fp32 additions in the same order, through the
+    carry), and its plain version within the usual tolerance (the wide
+    stem is bf16 alone)."""
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(41)
     lib = TSC.cuda_build
@@ -1956,9 +2035,19 @@ def test_offset_chunks_bit_equal(monkeypatch, levels, case, chunk, dtype):
                            repr(cap * stride * 4 * n / 2 ** 20))
 
     offsets_fit(per)
-    chunks = TSC.offset_chunks(n_off, cap, stride)
-    if chunk == "uneven":
-        assert chunks[-1][1] - chunks[-1][0] < chunks[0][1] - chunks[0][0]
+    monkeypatch.setattr(TSC, "COUNT_READ_MIN_CHUNKS",
+                        n_off + 1 if sizing == "cap" else 1)
+    if sizing == "cap":
+        chunks = TSC.offset_chunks(n_off, cap, stride)
+        if chunk == "uneven":
+            assert chunks[-1][1] - chunks[-1][0] < \
+                chunks[0][1] - chunks[0][0]
+    else:
+        counts = (TSC.cached_pairs(None, nbr) if case.startswith("k1_")
+                  else lp).counts
+        chunks = TSC.offset_chunks(
+            n_off, cap, stride, counts.tolist(),
+            cap if case.startswith("k1_") else 0)
     assert len(chunks) > 1
     before = counter.launches
     offsets_fit(n_off)
@@ -2082,7 +2171,11 @@ def test_row_groups_bit_equal_to_pair_major(monkeypatch, levels, case,
     mib = {"one_chunk": 1 << 30, "384_mib": 384,
            "two_offsets": cap * stride * 4 * 2 / 2 ** 20}[budget]
     monkeypatch.setenv("SEGDINO_CONV_CHUNK_MB", repr(float(mib)))
-    n_chunks = len(TSC.offset_chunks(n_off, cap, stride))
+    counts = (TSC.cached_pairs(None, nbr) if case.startswith("k1_")
+              else lp).counts
+    n_chunks = len(TSC.pair_major_chunks(
+        n_off, cap, stride, counts, types.SimpleNamespace(launches=0),
+        cap if case.startswith("k1_") else 0)[0])
     assert (n_chunks > 1) == (budget == "two_offsets")
     before = counter.launches
     pm = call(TN.PAIR_MAJOR)

@@ -335,10 +335,15 @@ class _JaxIdentity(fnn.Module):
 
 
 class _PortIdentity(torch.nn.Module):
+    """The identity of the U-Net's 38 input channels: the wrapper gives the
+    stem its rows at their 16-byte pitch (``narrow.row_pitch``, 40 in
+    fp32), zero past Cin, which it drops as the stem's padded weight
+    does."""
     stem_kernel = 3
 
     def forward(self, feats, plan):
-        return feats
+        assert feats.shape[1] == 40 and not feats[:, 38:].any()
+        return feats[:, :38]
 
 
 def wrapper_records(case):
